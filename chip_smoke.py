@@ -23,11 +23,27 @@ Phases, each of which fails the run on any error:
 6. kernel at the serve shapes — the kernel against its plain version
    again, at each prefill shape phase 5 recorded (packed-qkv strided
    inputs, H=12, D=64, causal, f32 and bf16). These launches come after
-   the launch count was read, so they do not count.
+   the launch count was read, so they do not count;
+7. backward kernels — K1 with dropout, K2 (dQ) and K3 (dK/dV) against
+   their plain versions at B=8 and B=1 with S=1024 and at a ragged S=1000
+   (H=12, D=64, causal, f32 and bf16, dropout 0 and 0.1). The dropped
+   positions of all three are checked to be exactly the plain version's;
+   each kernel is timed beside its bound, its plain version and the SDPA
+   forward or backward (a yardstick only);
+8. gradients — every gradient of gpt2_small (f32, dropout 0, B=1, S=256)
+   on the card, through K1–K3, against the CPU plain path;
+9. train — ``bench.py``'s GPT arm on the port: gpt2_small in bf16 O2 under
+   ``TrainStep`` with ``AdamW(1e-4)`` on one batch of 8 x 1024 ids, 1
+   warmup and 10 timed steps (tokens/s, step ms, MFU, losses, launches
+   exactly 12 per step for each kernel, a profiler breakdown of 2 more
+   steps); then 3 steps at gpt2_small's default dropout (0.1), B=2, run
+   twice from one seed, which must agree bitwise.
 
-The line before the last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Without a CUDA device, or outside a
-checkout, the script prints no result and exits non-zero.
+The serve (5) and train (9) phases are the main path: the launch counts
+are set to 0 just before each and read just after. The line before the
+last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
+{...}}``. Without a CUDA device, or outside a checkout, the script prints
+no result and exits non-zero.
 
 f32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 """
@@ -44,6 +60,13 @@ import traceback
 import numpy as np
 
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 1e-3)}  # (O, lse)
+# backward (and forward with dropout) against the plain version: f32
+# absolute; bf16 absolute plus relative, since the outputs round once to
+# bf16, whose step is at most 2^-7 of the value
+BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 1e-2)}
+BWD_SHAPES = ((8, 1024), (1, 1024), (1, 1000))
+GRAD_REL_TOL = 1e-3  # card vs CPU gradients, relative to the tensor's max
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
 LOGITS_TOL = 1e-3
 NEAR_TIE = 1e-3  # top-2 logit gap under which argmax may flip on rounding
 LAYERS, HEADS, HEAD_DIM = 12, 12, 64  # GPT-2 small
@@ -82,18 +105,30 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, s, h, d, dtype: str, causal: bool):
-    """Least time (ms) the card could take for the forward: the larger of
-    the bytes it must move (q, k, v read once, o and lse written once)
-    over HBM bandwidth and its multiply-adds (2 matmuls over the (q, k)
-    pairs the mask keeps) over the peak rate for the input type."""
+def kernel_bound(b, s, h, d, dtype: str, causal: bool, matmuls: int,
+                 tensors: int, rows: int):
+    """Least time (ms) the card could take for one attention kernel: the
+    larger of the bytes it must move (``tensors`` [B, S, H, D] tensors and
+    ``rows`` [B, H, S] f32 rows, each read or written once) over HBM
+    bandwidth and its ``matmuls`` products over the (q, k) pairs the mask
+    keeps, at the peak rate for the input type."""
     elem = 4 if dtype == "float32" else 2
     pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4.0 * d * pairs * b * h
-    nbytes = 4 * b * s * h * d * elem + 4 * b * h * s
+    flops = 2.0 * d * matmuls * pairs * b * h
+    nbytes = tensors * b * s * h * d * elem + rows * 4 * b * h * s
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def attention_bound(b, s, h, d, dtype: str, causal: bool):
+    """K1: 2 matmuls; q, k, v read, o written, lse written."""
+    return kernel_bound(b, s, h, d, dtype, causal, 2, 4, 1)
+
+
+# K2: 3 matmuls; q, k, v, dO read, dq written; lse, delta read.
+# K3: 4 matmuls; q, k, v, dO read, dk, dv written; lse, delta read.
+BWD_BOUND = {"dq": (3, 5, 2), "dkv": (4, 6, 2)}
 
 
 def phase_card() -> None:
@@ -108,7 +143,7 @@ def phase_card() -> None:
 def phase_build() -> float:
     from paddle_tpu_torch.ops.cuda import _build, flash_attention
 
-    print("== build", flush=True)
+    print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
     flash_attention.build()
     seconds = time.perf_counter() - t0
@@ -119,8 +154,10 @@ def phase_build() -> float:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry, spill = m.group(1), "?"
-                t = re.search(r"I(13__nv_bfloat16|f)Li(\d+)E", entry)
-                entry = (f"{'bf16' if t.group(1) != 'f' else 'f32'}/D={t.group(2)}"
+                t = re.search(r"(fwd|dq|dkv)_kernelI(13__nv_bfloat16|f)"
+                              r"Li(\d+)E(Lb1)?", entry)
+                entry = (f"{t.group(1)} {'bf16' if t.group(2) != 'f' else 'f32'}"
+                         f"/D={t.group(3)}{' dropout' if t.group(4) else ''}"
                          if t else entry)
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and entry:
@@ -367,6 +404,396 @@ def phase_serve_shapes(torch, shapes) -> None:
                   f"lse err {err_l:.2e}", flush=True)
 
 
+def _close(torch, got, want, dtype) -> tuple:
+    """(max abs error, within BWD_TOL)."""
+    atol, rtol = BWD_TOL[dtype]
+    err = (got.float() - want.float()).abs()
+    ok = bool((err <= atol + rtol * want.float().abs()).all())
+    return float(err.max()), ok
+
+
+def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> dict:
+    """K1 (with dropout) and K2/K3 against their plain versions on the
+    same card tensors; K2/K3 are compared from the same (o, lse), so each
+    kernel is judged alone. Returns the max abs error per output."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale, dropout, seed)
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, seed, True, scale,
+                                   dropout)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, True, scale,
+                                                dropout, seed)
+    errs = {}
+    for name, got, want in (("o", o, ro), ("lse", lse, rlse)):
+        errs[name], ok = _close(torch, got, want, dtype)
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"K1 {name} vs plain at {tuple(q.shape)} {dtype} dropout "
+              f"{dropout}: err {errs[name]:.3g}")
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed, True,
+                                            scale, dropout)
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        check(float(ref.float().abs().max()) > 0, f"plain {name} is all 0")
+        errs[name], ok = _close(torch, got, ref, dtype)
+        check(ok and bool(torch.isfinite(got.float()).all()),
+              f"{name} vs plain at {tuple(q.shape)} {dtype} dropout "
+              f"{dropout}: err {errs[name]:.3g}")
+    return errs
+
+
+def check_dropout_positions(torch, fa, b, s, seed, dropout=0.1) -> int:
+    """The dropped (q, k) positions of K1, K2 and K3 are exactly the plain
+    version's, over the whole [B, H, S, S] mask, 64 columns at a time.
+    With q = 0 every allowed probability is 1/(row + 1); a one-hot
+    [B, S, H, D] operand over a window of 64 positions then reads one
+    mask column per output column: v for K1 (o), k for K2 (dq, with
+    dO·Vᵀ > 0 so a kept and a dropped position differ by at least the
+    probability), dO for K3 (dv). A flipped position changes an output
+    by at least 1/(0.9·S); the check allows 1e-2/S. Returns the number of
+    positions checked."""
+    h, d = HEADS, HEAD_DIM
+    dev = torch.device("cuda")
+    scale = 1.0 / math.sqrt(d)
+    zeros = torch.zeros(b, s, h, d, device=dev)
+    rs = np.random.RandomState(6)
+    tol = 1e-2 / s
+    vrow = torch.zeros(b, s, h, d, device=dev)
+    vrow[..., 0] = torch.from_numpy(rs.uniform(1, 2, (b, s, h)).astype(
+        np.float32)).to(dev)
+    e0 = torch.zeros(b, s, h, d, device=dev)
+    e0[..., 0] = 1.0
+
+    def window(w0):
+        basis = torch.zeros(b, s, h, d, device=dev)
+        idx = torch.arange(w0, min(w0 + d, s), device=dev)
+        basis[:, idx, :, idx - w0] = 1.0
+        return basis
+
+    for w0 in range(0, s, d):
+        basis = window(w0)
+        # K1: o[q, c] = keep(q, w0 + c) / (0.9 (q + 1))
+        o, _ = fa.flash_attention_fwd(zeros, zeros, basis, True, scale,
+                                      dropout, seed)
+        ro, rlse = fa.flash_attention_fwd_reference(zeros, zeros, basis,
+                                                    True, scale, dropout,
+                                                    seed)
+        check(torch.equal(o > 0, ro > 0)
+              and float((o - ro).abs().max()) <= tol,
+              f"K1 dropped positions differ from the plain version's "
+              f"(B={b} S={s}, columns {w0}..)")
+        # K2: dq[q, c] = scale * p * (keep * u / 0.9 - delta) at k = w0 + c
+        o2, lse2 = fa.flash_attention_fwd_reference(zeros, basis, vrow,
+                                                    True, scale, dropout,
+                                                    seed)
+        dq, _, _ = fa.flash_attention_bwd(zeros, basis, vrow, o2, lse2, e0,
+                                          seed, True, scale, dropout)
+        rdq, _, _ = fa.flash_attention_bwd_reference(
+            zeros, basis, vrow, o2, lse2, e0, seed, True, scale, dropout)
+        check(float((dq - rdq).abs().max()) <= tol * scale,
+              f"K2 dropped positions differ from the plain version's "
+              f"(B={b} S={s}, columns {w0}..)")
+        # K3: dv[k, c] = keep(w0 + c, k) / (0.9 (w0 + c + 1))
+        _, _, dv = fa.flash_attention_bwd(zeros, zeros, zeros, ro, rlse,
+                                          basis, seed, True, scale, dropout)
+        _, _, rdv = fa.flash_attention_bwd_reference(
+            zeros, zeros, zeros, ro, rlse, basis, seed, True, scale, dropout)
+        check(torch.equal(dv > 0, rdv > 0)
+              and float((dv - rdv).abs().max()) <= tol,
+              f"K3 dropped positions differ from the plain version's "
+              f"(B={b} S={s}, rows {w0}..)")
+    torch.cuda.synchronize()
+    return b * h * s * s
+
+
+def time_qkv_scatter(torch) -> float:
+    """Device ms of what autograd does with K2/K3's dq, dk, dv in the GPT
+    attention: back through ``qkv[..., i, :]`` into one packed qkv grad."""
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, HEADS, HEAD_DIM
+    qkv = torch.zeros(b, s, h, 3, d, device="cuda", dtype=torch.bfloat16,
+                      requires_grad=True)
+    views = (qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :])
+    grads = tuple(torch.randn(b, s, h, d, device="cuda",
+                              dtype=torch.bfloat16) for _ in range(3))
+    return cuda_time_ms(lambda: torch.autograd.grad(views, qkv, grads,
+                                                    retain_graph=True))
+
+
+def phase_backward(torch) -> dict:
+    """K1 with dropout, K2 and K3 against their plain versions; timings at
+    the training shape. Returns the record of each kernel at the main
+    path's shape (B=8, S=1024, bf16, dropout 0)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    import torch.nn.functional as TF
+
+    print("== backward kernels: K1 with dropout, K2 (dq), K3 (dk/dv) vs "
+          "plain vs SDPA (H=12 D=64 causal, packed qkv; ms by CUDA events)",
+          flush=True)
+    h, d = HEADS, HEAD_DIM
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(4)
+    seed = torch.tensor([20241016], dtype=torch.int32, device=dev)
+    records = {}
+    for b, s in BWD_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            q, k, v = packed_qkv(torch, rs, b, s, dtype)
+            do = torch.from_numpy(rs.randn(b, s, h, d).astype(
+                np.float32)).to(dev, getattr(torch, dtype))
+            scale = 1.0 / math.sqrt(d)
+            for dropout in (0.0, 0.1):
+                errs = compare_backward(torch, fa, q, k, v, do, seed, dtype,
+                                        dropout)
+                line = (f"B={b} S={s:4d} {dtype:8s} dropout={dropout}  err "
+                        + " ".join(f"{n} {e:.2e}" for n, e in errs.items()))
+                if (b, s) == (8, 1024):
+                    o, lse = fa.flash_attention_fwd(q, k, v, True, scale,
+                                                    dropout, seed)
+                    args, keep = fa.bwd_launch_args(q, k, v, o, lse, do,
+                                                    seed, True, scale,
+                                                    dropout)
+                    ms = {
+                        "fwd": cuda_time_ms(lambda: fa.flash_attention_fwd(
+                            q, k, v, True, scale, dropout, seed)),
+                        "dq": cuda_time_ms(lambda: fa.run_bwd_pass(
+                            "bwd_dq", args, dev)),
+                        "dkv": cuda_time_ms(lambda: fa.run_bwd_pass(
+                            "bwd_dkv", args, dev)),
+                    }
+                    plain = {
+                        "fwd": cuda_time_ms(
+                            lambda: fa.flash_attention_fwd_reference(
+                                q, k, v, True, scale, dropout, seed),
+                            iters=3),
+                        "bwd": cuda_time_ms(
+                            lambda: fa.flash_attention_bwd_reference(
+                                q, k, v, o, lse, do, seed, True, scale,
+                                dropout), iters=3),
+                    }
+                    qt, kt, vt = (t.transpose(1, 2).detach()
+                                  .requires_grad_(True) for t in (q, k, v))
+                    lib_fwd = cuda_time_ms(
+                        lambda: TF.scaled_dot_product_attention(
+                            qt, kt, vt, is_causal=True))
+                    out = TF.scaled_dot_product_attention(qt, kt, vt,
+                                                          is_causal=True)
+                    dot = do.transpose(1, 2)
+                    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+                        out, (qt, kt, vt), dot, retain_graph=True))
+                    del out, qt, kt, vt, keep
+                    bounds = {"fwd": attention_bound(b, s, h, d, dtype,
+                                                     True)}
+                    for name, (mm, tens, rows) in BWD_BOUND.items():
+                        bounds[name] = kernel_bound(b, s, h, d, dtype, True,
+                                                    mm, tens, rows)
+                    line += (f"\n    K1 {ms['fwd']:.4f} (bound "
+                             f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}, "
+                             f"plain {plain['fwd']:.4f}, sdpa fwd "
+                             f"{lib_fwd:.4f})  K2 {ms['dq']:.4f} (bound "
+                             f"{bounds['dq'][0]:.4f} {bounds['dq'][1]})  K3 "
+                             f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f} "
+                             f"{bounds['dkv'][1]})  plain bwd "
+                             f"{plain['bwd']:.4f}  sdpa bwd {lib_bwd:.4f}")
+                    shape = (f"B={b} S={s} H={h} D={d} {dtype} causal "
+                             f"dropout={dropout}")
+                    for name, err, plain_ms, lib_ms in (
+                            ("fwd", errs["o"], plain["fwd"], lib_fwd),
+                            ("dq", errs["dq"], plain["bwd"], lib_bwd),
+                            ("dkv", max(errs["dk"], errs["dv"]),
+                             plain["bwd"], lib_bwd)):
+                        records[(name, dtype, dropout)] = {
+                            "max_abs_err": err, "ms": ms[name],
+                            "plain_ms": plain_ms,
+                            "bound_ms": bounds[name][0],
+                            "bound_by": bounds[name][1],
+                            "library_ms": lib_ms, "shape": shape}
+                print(line, flush=True)
+    scatter_ms = time_qkv_scatter(torch)
+    print(f"qkv gradient scatter at B=8 S=1024 bf16 (dq, dk, dv back through "
+          f"the select views of the packed [B, S, H, 3, D] qkv): "
+          f"{scatter_ms:.4f} ms per layer, {LAYERS * scatter_ms:.3f} ms per "
+          f"step", flush=True)
+    for b, s in ((8, 1024), (1, 1000)):
+        n = check_dropout_positions(torch, fa, b, s, seed)
+        print(f"dropout 0.1 at B={b} S={s}: the dropped positions of K1, K2 "
+              f"and K3 equal the plain version's at all {n} (b, h, q, k)",
+              flush=True)
+    return records
+
+
+def grad_check(model, crit, ids) -> tuple:
+    """(loss, {name: grad}) of one forward and backward."""
+    loss = crit(model(ids), ids)
+    loss.backward()
+    return loss.item(), {n: p.grad.detach().float().cpu()
+                         for n, p in model.named_parameters()}
+
+
+def phase_gradients(torch, gpt) -> None:
+    """Every gpt2_small gradient on the card (K1–K3) against the CPU."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    print("== gradients: gpt2_small f32, dropout 0, B=1 S=256, card (K1-K3) "
+          "vs CPU (plain)", flush=True)
+    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    ids = np.random.RandomState(5).randint(0, cfg.vocab_size, (1, 256))
+    card = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    crit = gpt.GPTPretrainingCriterion(cfg)
+    loss_card, g_card = grad_check(card.train(), crit,
+                                   torch.from_numpy(ids).cuda())
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    del card
+    cpu = gpt.GPTForCausalLM(cfg, device="cpu",
+                             generator=torch.Generator().manual_seed(0))
+    loss_cpu, g_cpu = grad_check(cpu.train(), crit, torch.from_numpy(ids))
+    check(counts == (LAYERS, LAYERS, LAYERS),
+          f"K1/K2/K3 launches {counts}, want {LAYERS} each")
+    worst, worst_name = 0.0, None
+    for name, want in g_cpu.items():
+        got = g_card[name]
+        check(bool(torch.isfinite(got).all()), f"{name} grad not finite")
+        top = float(want.abs().max())
+        err = float((got - want).abs().max())
+        check(top > 0 and err <= GRAD_REL_TOL * top,
+              f"{name}: card vs CPU grad err {err:.3g} > {GRAD_REL_TOL} x "
+              f"max {top:.3g}")
+        if err / top > worst:
+            worst, worst_name = err / top, name
+    print(f"loss card {loss_card:.6f} CPU {loss_cpu:.6f}; {len(g_cpu)} "
+          f"gradients within {GRAD_REL_TOL} of their max; worst "
+          f"{worst:.2e} ({worst_name}); launches K1/K2/K3 {counts}",
+          flush=True)
+
+
+def megatron_flops(batch, seq, layers, hidden, vocab) -> float:
+    """Megatron-LM training-step FLOPs (fwd+bwd, no recompute), the
+    formula of ``bench.py``: 96·B·s·l·h²·(1 + s/(6h) + V/(16·l·h))."""
+    return (96.0 * batch * seq * layers * hidden * hidden
+            * (1.0 + seq / (6.0 * hidden) + vocab / (16.0 * layers * hidden)))
+
+
+def build_train_step(torch, gpt, cfg, dropout_seed=0):
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0),
+                               dropout_seed=dropout_seed).train()
+    crit = gpt.GPTPretrainingCriterion(cfg)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+
+    def loss_fn(ids):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(ids)
+        return crit(logits, ids)
+
+    return model, TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+
+
+def profile_steps(torch, step, ids, step_ms, steps=2) -> None:
+    """Device time by kernel over a few steps (torch.profiler), beside the
+    timed step's p50: their gap is the time the card idles."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(ids)
+        torch.cuda.synchronize()
+    # device-side rows only: a CPU op's row repeats its kernels' time
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    check(len(rows) > 0, "the profiler recorded no device time")
+    total = sum(r[1] for r in rows)
+    rows.sort(key=lambda r: -r[1])
+    ours = sum(r[1] for r in rows
+               if re.search(r"(fwd|dq|dkv)_kernel<", r[0]))
+    gemm = sum(r[1] for r in rows
+               if re.search(r"nvjet|gemm|cutlass|sm90_xmma", r[0]))
+    launches = sum(r[2] for r in rows)
+    print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
+          f"({total / step_ms:.1%} of the {step_ms:.3f} ms p50 step; idle "
+          f"{1 - total / step_ms:.1%}), {launches:.0f} kernel launches per "
+          f"step; K1+K2+K3 {ours:.3f} ms ({ours / total:.1%} of device "
+          f"time), cuBLAS GEMMs {gemm:.3f} ms ({gemm / total:.1%}), the "
+          f"rest {total - ours - gemm:.3f} ms", flush=True)
+    for key, ms, count in rows[:16]:
+        print(f"    {ms:8.3f} ms  x{count:<6.0f} {key[:100]}", flush=True)
+
+
+def phase_train(torch, gpt) -> dict:
+    """bench_gpt's accelerator arm on the port; returns the launches."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    print(f"== train: gpt2_small bf16 O2, TrainStep + AdamW(1e-4), "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ} fixed batch, dropout 0", flush=True)
+    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    model, step = build_train_step(torch, gpt, cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)).cuda()
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step(ids).float())  # warmup
+    torch.cuda.synchronize()
+    # the main path's run: counts from 0, read right after it
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    losses = [float(x.float()) for x in losses]
+    p50 = float(np.median(times))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
+                           cfg.hidden_size, cfg.vocab_size)
+    print(f"warmup loss {first:.4f}; losses " + " ".join(
+        f"{x:.4f}" for x in losses), flush=True)
+    print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); tokens/s {tokens / p50:.1f}; model "
+          f"TFLOP/s {flops / p50 / 1e12:.2f} (Megatron {flops / 1e12:.3f} "
+          f"TFLOP per step); MFU {flops / p50 / PEAK_FLOPS['bfloat16']:.2%} "
+          f"of 989 TFLOP/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    print(f"launches K1/K2/K3 {counts} over {TRAIN_STEPS} steps", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    want = LAYERS * TRAIN_STEPS
+    check(counts == (want, want, want),
+          f"launches {counts}, want {want} each ({LAYERS} per step)")
+    profile_steps(torch, step, ids, p50 * 1e3)
+    del model, step
+    torch.cuda.empty_cache()
+
+    print("== train with dropout: gpt2_small defaults (0.1), B=2 S=1024, 3 "
+          "steps, twice from one seed", flush=True)
+    cfg = gpt.gpt2_small()
+    runs = []
+    for _ in range(2):
+        model, step = build_train_step(torch, gpt, cfg, dropout_seed=7)
+        fa.dropout_launches.update(fwd=0, bwd_dq=0, bwd_dkv=0)
+        stream = [float(step(ids[:2]).float()) for _ in range(3)]
+        torch.cuda.synchronize()
+        runs.append((stream, dict(fa.dropout_launches),
+                     [p.detach().clone() for p in model.parameters()]))
+        del model, step
+    (a, launched, pa), (b, _, pb) = runs
+    same = all(torch.equal(x, y) for x, y in zip(pa, pb))
+    print(f"losses {a} and {b}; parameters after 3 steps bitwise equal: "
+          f"{same}; launches with dropout {launched}", flush=True)
+    check(a == b and same, "two dropout runs from one seed differ")
+    check(all(math.isfinite(x) for x in a), f"non-finite loss {a}")
+    check(launched == {"fwd": 3 * LAYERS, "bwd_dq": 3 * LAYERS,
+                       "bwd_dkv": 3 * LAYERS},
+          f"kernels did not run with dropout: {launched}")
+    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2]}
+
+
 def main() -> int:
     try:
         import torch
@@ -378,6 +805,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
+        from paddle_tpu_torch.models import gpt
         from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
@@ -388,23 +816,44 @@ def main() -> int:
     try:
         phase_card()
         phase_build()
-        record = phase_kernel(torch)
+        serve_record = phase_kernel(torch)
         model = phase_model(torch, GPTForCausalLM, gpt2_small)
         served = phase_serve(torch, model)
         phase_serve_shapes(torch, served["prefill_shapes"])
+        del model
+        torch.cuda.empty_cache()
+        records = phase_backward(torch)
+        phase_gradients(torch, gpt)
+        trained = phase_train(torch, gpt)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    kernel = {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "paddle_tpu_torch/ops/cuda/csrc/flash_attention_fwd.cu",
-        "replaces": "paddle_tpu/ops/pallas/flash_attention.py:266",
-        "launches": served["launches"],
-        **record,
-    }
-    print(json.dumps({"kernels": [kernel]}), flush=True)
+    source = "paddle_tpu_torch/ops/cuda/csrc/"
+    replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
+    kernels = []
+    for name, key, src, line in (
+            ("flash_attention_fwd", "fwd", "flash_attention_fwd.cu", 266),
+            ("flash_attention_bwd_dq", "dq", "flash_attention_bwd.cu", 310),
+            ("flash_attention_bwd_dkv", "dkv", "flash_attention_bwd.cu",
+             347)):
+        by_path = {"train": trained[key]}
+        if key == "fwd":
+            by_path["serve"] = served["launches"]
+        entry = {"name": name, "route": "cuda", "source": source + src,
+                 "replaces": replaces + str(line),
+                 "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 **records[(key, "bfloat16", 0.0)],
+                 "with_dropout": {k: records[(key, "bfloat16", 0.1)][k]
+                                  for k in ("ms", "max_abs_err")},
+                 "float32": {k: records[(key, "float32", 0.0)][k]
+                             for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms", "max_abs_err")}}
+        if key == "fwd":
+            entry["serve_shape"] = serve_record
+        kernels.append(entry)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

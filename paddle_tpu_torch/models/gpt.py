@@ -3,16 +3,21 @@
 Same config, presets, module tree and parameter names as the JAX model,
 so ``state_dict`` keys match name for name. Attention runs through
 ``nn.functional.scaled_dot_product_attention`` and so through the
-hand-written flash-attention forward kernel on the GPU; q, k and v reach
-it as strided slices of the packed ``qkv [B, S, H, 3, D]``, without a
-copy. The tensor, pipeline, sequence and context-parallel layouts of the
-JAX model are training layouts and raise here.
+hand-written flash-attention kernels on the GPU: K1 forward, K2/K3
+backward. q, k and v reach them as strided slices of the packed
+``qkv [B, S, H, 3, D]``, without a copy; their gradients flow back into
+``qkv`` through those views. ``Linear`` and ``LayerNorm`` follow the AMP
+state (``amp/``). The tensor, pipeline, sequence and context-parallel
+layouts of the JAX model raise here.
 
-Weights are random from an explicit ``torch.Generator`` (normal, std
-``initializer_range``, scaled by ``1/sqrt(2·layers)`` for ``out_proj``
-and ``fc2``), or carried over from a JAX model with
-:func:`load_jax_state`. ``torch.nn.Linear`` keeps its weight as
-``[out, in]``; the JAX ``Linear`` keeps ``[in, out]``.
+Randomness is explicit. Weights are random from a ``torch.Generator``
+(normal, std ``initializer_range``, scaled by ``1/sqrt(2·layers)`` for
+``out_proj`` and ``fc2``), or carried over from a JAX model with
+:func:`load_jax_state`. Dropout draws from the model's own generator on
+its device, seeded by ``dropout_seed``: the hidden-dropout masks and the
+per-call attention-dropout seed, never torch's global generator.
+``torch.nn.Linear`` keeps its weight as ``[out, in]``; the JAX ``Linear``
+keeps ``[in, out]``.
 """
 from __future__ import annotations
 
@@ -27,10 +32,12 @@ from torch import nn
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
+from ..nn.layer import LayerNorm, Linear
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
-           "GPTEmbeddings", "GPTModel", "GPTForCausalLM", "load_jax_state",
-           "gpt_tiny", "gpt2_small", "gpt2_medium", "gpt_1p3b"]
+           "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
+           "GPTPretrainingCriterion", "load_jax_state", "gpt_tiny",
+           "gpt2_small", "gpt2_medium", "gpt_1p3b"]
 
 
 @dataclass
@@ -77,14 +84,17 @@ def check_single_device(cfg: GPTConfig) -> None:
 
 class GPTAttention(nn.Module):
     """Causal self-attention: fused qkv projection → flash attention →
-    output projection."""
+    output projection. Attention dropout draws its seed from
+    ``generator``."""
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.generator = generator
         h = config.hidden_size
-        self.qkv_proj = nn.Linear(h, 3 * h)
-        self.out_proj = nn.Linear(h, h)
+        self.qkv_proj = Linear(h, 3 * h)
+        self.out_proj = Linear(h, h)
 
     def forward(self, x):
         cfg = self.config
@@ -94,42 +104,46 @@ class GPTAttention(nn.Module):
         q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=cfg.attention_dropout_prob,
-            training=self.training)
+            training=self.training, generator=self.generator)
         return self.out_proj(out.reshape(b, s, cfg.hidden_size))
 
 
 class GPTMLP(nn.Module):
     def __init__(self, config: GPTConfig):
         super().__init__()
-        self.fc1 = nn.Linear(config.hidden_size, config.intermediate_size)
-        self.fc2 = nn.Linear(config.intermediate_size, config.hidden_size)
+        self.fc1 = Linear(config.hidden_size, config.intermediate_size)
+        self.fc2 = Linear(config.intermediate_size, config.hidden_size)
 
     def forward(self, x):
         return self.fc2(TF.gelu(self.fc1(x), approximate="tanh"))
 
 
 class GPTDecoderLayer(nn.Module):
-    """Pre-LN transformer block."""
+    """Pre-LN transformer block; hidden dropout draws from ``generator``."""
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.generator = generator
         eps = config.layer_norm_epsilon
-        self.ln_1 = nn.LayerNorm(config.hidden_size, eps=eps)
-        self.attn = GPTAttention(config)
-        self.ln_2 = nn.LayerNorm(config.hidden_size, eps=eps)
+        self.ln_1 = LayerNorm(config.hidden_size, eps=eps)
+        self.attn = GPTAttention(config, generator)
+        self.ln_2 = LayerNorm(config.hidden_size, eps=eps)
         self.mlp = GPTMLP(config)
 
     def forward(self, x):
-        p = self.config.hidden_dropout_prob
-        x = x + TF.dropout(self.attn(self.ln_1(x)), p, self.training)
-        return x + TF.dropout(self.mlp(self.ln_2(x)), p, self.training)
+        p, gen = self.config.hidden_dropout_prob, self.generator
+        x = x + F.dropout(self.attn(self.ln_1(x)), p, self.training, gen)
+        return x + F.dropout(self.mlp(self.ln_2(x)), p, self.training, gen)
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
+        self.generator = generator
         self.word_embeddings = nn.Embedding(config.vocab_size,
                                             config.hidden_size)
         self.position_embeddings = nn.Embedding(
@@ -141,20 +155,23 @@ class GPTEmbeddings(nn.Module):
                                         device=input_ids.device)[None]
         x = self.word_embeddings(input_ids) + self.position_embeddings(
             position_ids)
-        return TF.dropout(x, self.config.hidden_dropout_prob, self.training)
+        return F.dropout(x, self.config.hidden_dropout_prob, self.training,
+                         self.generator)
 
 
 class GPTModel(nn.Module):
     """Transformer trunk: embeddings → N decoder blocks → final LN."""
 
-    def __init__(self, config: GPTConfig):
+    def __init__(self, config: GPTConfig,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
-        self.embeddings = GPTEmbeddings(config)
+        self.embeddings = GPTEmbeddings(config, generator)
         self.h = nn.ModuleList(
-            [GPTDecoderLayer(config) for _ in range(config.num_hidden_layers)])
-        self.ln_f = nn.LayerNorm(config.hidden_size,
-                                 eps=config.layer_norm_epsilon)
+            [GPTDecoderLayer(config, generator)
+             for _ in range(config.num_hidden_layers)])
+        self.ln_f = LayerNorm(config.hidden_size,
+                              eps=config.layer_norm_epsilon)
 
     def forward(self, input_ids, position_ids=None):
         x = self.embeddings(input_ids, position_ids)
@@ -168,21 +185,26 @@ class GPTForCausalLM(nn.Module):
     word-embedding matrix. Built on ``device`` (default CUDA; raises when
     CUDA is absent and the caller did not ask for the CPU) with weights
     drawn on the CPU from ``generator`` (default: a generator seeded 0),
-    so one seed gives the same weights on every device."""
+    so one seed gives the same weights on every device. Dropout draws from
+    ``dropout_generator``, a ``torch.Generator`` on ``device`` seeded with
+    ``dropout_seed``; the model stays on that device."""
 
     def __init__(self, config: GPTConfig, *, device=DEFAULT_DEVICE,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 dropout_seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
         check_single_device(config)
         self.config = config
+        self.dropout_generator = torch.Generator(device=dev).manual_seed(
+            int(dropout_seed))
         # built without storage, so torch's own initializers neither run
         # nor draw from the global generator
         with torch.device("meta"):
-            self.gpt = GPTModel(config)
+            self.gpt = GPTModel(config, self.dropout_generator)
             if not config.tie_word_embeddings:
-                self.lm_head = nn.Linear(config.hidden_size,
-                                         config.vocab_size, bias=False)
+                self.lm_head = Linear(config.hidden_size, config.vocab_size,
+                                      bias=False)
         self.to_empty(device="cpu")
         self._init_weights(generator if generator is not None
                            else torch.Generator().manual_seed(0))
@@ -206,8 +228,25 @@ class GPTForCausalLM(nn.Module):
     def forward(self, input_ids, position_ids=None):
         x = self.gpt(input_ids, position_ids)
         if self.config.tie_word_embeddings:
-            return TF.linear(x, self.gpt.embeddings.word_embeddings.weight)
+            return F.linear(x, self.gpt.embeddings.word_embeddings.weight)
         return self.lm_head(x)
+
+
+class GPTPretrainingCriterion(nn.Module):
+    """Next-token cross entropy: logits at position i are scored against
+    token i+1 (the shift happens here, so callers pass the raw ids as
+    labels), mean over the ``B·(S−1)`` positions."""
+
+    def __init__(self, config: GPTConfig):
+        super().__init__()
+        check_single_device(config)
+        self.config = config
+
+    def forward(self, logits, labels):
+        v = logits.shape[-1]
+        flat = logits[:, :-1, :].reshape(-1, v)
+        return F.cross_entropy(flat, labels[:, 1:].reshape(-1),
+                               reduction="mean")
 
 
 @torch.no_grad()

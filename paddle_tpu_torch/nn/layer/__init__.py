@@ -1,0 +1,4 @@
+"""Layers of the port that route through its AMP-aware functionals."""
+from .common import LayerNorm, Linear
+
+__all__ = ["LayerNorm", "Linear"]

@@ -3,9 +3,11 @@
 A ``csrc/<name>.cu`` compiles with ``nvcc`` for ``sm_90a`` into a shared
 library with a plain C interface, ``build/<name>-<digest>.so`` beside
 this file (``.gitignore`` lists the directory). The digest covers the
-source and the flags, so an edited source builds anew and a stale
-library is never loaded. :func:`load` builds on first use. Nothing here
-runs at import: the CPU test host has no ``nvcc``.
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited
+source builds anew and a stale library is never loaded. :func:`load`
+builds on first use; :func:`build_all` starts one ``nvcc`` per missing
+source, all at once, and waits for them. Nothing here runs at import: the
+CPU test host has no ``nvcc``.
 """
 from __future__ import annotations
 
@@ -16,9 +18,10 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Iterable
 
-__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "ptxas_report"]
+__all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all",
+           "ptxas_report"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -47,22 +50,56 @@ def _nvcc() -> str:
         "CUDA kernels are built from source at first use")
 
 
+def _source(name: str) -> Path:
+    src = CSRC_DIR / f"{name}.cu"
+    if not src.exists():
+        raise FileNotFoundError(f"no CUDA source {src}")
+    return src
+
+
 def _target(src: Path) -> Path:
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{src.stem}-{digest}.so"
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{src.stem}-{h.hexdigest()[:16]}.so"
 
 
-def _build(src: Path, out: Path) -> None:
+def _start(src: Path, out: Path):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True)
-    ptxas_report[src.stem] = proc.stdout
+    proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True)
+    return proc, tmp
+
+
+def _finish(src: Path, out: Path, proc, tmp: Path) -> None:
+    log, _ = proc.communicate()
+    ptxas_report[src.stem] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src.name}:\n{proc.stdout}")
+        raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
     os.replace(tmp, out)
+
+
+def build_all(names: Iterable[str]) -> None:
+    """Build every named source that is not built yet, one ``nvcc`` each,
+    all started together; raises ``RuntimeError`` naming each failure."""
+    with _lock:
+        jobs = []
+        for name in names:
+            src = _source(name)
+            out = _target(src)
+            if name not in _libs and not out.exists():
+                jobs.append((src, out, *_start(src, out)))
+        errors = []
+        for src, out, proc, tmp in jobs:
+            try:
+                _finish(src, out, proc, tmp)
+            except RuntimeError as e:
+                errors.append(str(e))
+        if errors:
+            raise RuntimeError("\n".join(errors))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -72,11 +109,9 @@ def load(name: str) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            src = CSRC_DIR / f"{name}.cu"
-            if not src.exists():
-                raise FileNotFoundError(f"no CUDA source {src}")
+            src = _source(name)
             out = _target(src)
             if not out.exists():
-                _build(src, out)
+                _finish(src, out, *_start(src, out))
             lib = _libs[name] = ctypes.CDLL(str(out))
         return lib

@@ -11,7 +11,14 @@
 //   - running max, running sum and accumulator are f32; O is written in the
 //     input dtype (f32 or bf16), lse = m + log(max(l, 1e-30)) in f32 as
 //     [B, H, 1, Sq];
-//   - any Sq, Sk: the ragged edge of the last tile is masked.
+//   - any Sq, Sk: the ragged edge of the last tile is masked;
+//   - dropout inside the kernel, by the Pallas _dropout_mask hash at each
+//     element's global position over the PALLAS tiles (flash_attention_common.cuh),
+//     so the mask is the one K2, K3 and the JAX package replay. As in the
+//     Pallas body, l sums the undropped probabilities and acc accumulates
+//     p * keep / (1 - p_drop). Dropout is a template parameter: the
+//     instantiation without it is the kernel as it was before dropout, so
+//     its output is bitwise unchanged.
 //
 // Design. One thread block per (64-row q tile, head, batch); 256 threads as a
 // 16 x 16 grid. Thread (ty, tx) owns q rows 4*ty..4*ty+3: in the score phase
@@ -29,34 +36,21 @@
 // cores, 3.35 TB/s HBM): at the GPT-2-small prefill shape B=1, S=1024, H=12,
 // D=64, causal, the work is 4*D*S*(S+1)/2*H = 1.61 GFLOP and q, k, v, o move
 // 12.6 MB in f32 or 6.3 MB in bf16. f32 is bound by operations on the CUDA
-// cores (about 24 us); bf16 by memory (about 1.9 us). This kernel does every
+// cores (about 24 us); bf16 by memory (about 1.9 us). At the training shape
+// B=8 the same holds eight times over: 0.19 ms f32, 0.015 ms bf16. Dropout
+// adds about ten integer multiplies of the hash per score element, against
+// the element's 2*D FMAs. This kernel does every
 // product as an f32 FMA on the CUDA cores, so it cannot reach the bf16 bound:
 // wgmma on the tensor cores and TMA loads are the way there. Its own limit is
 // the shared-memory loads of the score and output phases (8 scalar loads per
 // 16 FMAs). ptxas gives D = 64 238 registers, one block per SM; D = 128 hits
 // 255 and spills a few hundred bytes whatever the unrolling.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using namespace paddle_fa;
 
 struct Params {
   const void* q;
@@ -70,6 +64,7 @@ struct Params {
   long long v_sb, v_ss, v_sh;
   int causal;
   float scale;
+  DropoutArgs drop;
 };
 
 template <int D>
@@ -77,20 +72,7 @@ constexpr int smem_floats() {
   return kBlockQ * (D + 1) + kBlockK * (D + 1) + kBlockK * D + kBlockQ * (kBlockK + 1);
 }
 
-__device__ __forceinline__ float row_max16(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off, 16));
-  return x;
-}
-
-__device__ __forceinline__ float row_sum16(float x) {
-  // the xor butterfly leaves the same bits in all 16 lanes (a + b == b + a)
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off, 16);
-  return x;
-}
-
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   constexpr int DC = D / 16;  // accumulator columns per thread
   constexpr int QS = D + 1;   // padded row strides in shared memory
@@ -138,6 +120,20 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
     sQ[r * QS + c] = qi < p.Sq ? to_float(q[qi * p.q_ss + c]) : 0.f;
   }
 
+  // dropout: each row's key and its row inside its Pallas q tile
+  uint32_t rkey[4];
+  int rin[4];
+  if constexpr (kDropout) {
+    const uint32_t head = head_key(static_cast<uint32_t>(*p.drop.seed), b, h);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qp = q0 + ty * 4 + i;
+      const int iq = qp / p.drop.block_q;
+      rkey[i] = row_key(head, iq);
+      rin[i] = qp - iq * p.drop.block_q;
+    }
+  }
+
   float m_i[4], l_i[4], acc[4][DC];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -181,6 +177,17 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
         for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
+    // dropout: each column's Pallas k tile and its column inside it
+    int ik[4], cin[4];
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kp = k0 + tx + 16 * j;
+        ik[j] = kp / p.drop.block_k;
+        cin[j] = kp - ik[j] * p.drop.block_k;
+      }
+    }
+
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int qp = q0 + ty * 4 + i;
@@ -199,7 +206,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
       for (int j = 0; j < 4; ++j) {
         const float pj = ok[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += pj;
-        sP[(ty * 4 + i) * PS + tx + 16 * j] = pj;
+        if constexpr (kDropout) {
+          sP[(ty * 4 + i) * PS + tx + 16 * j] =
+              keep_bit(rkey[i], ik[j], rin[i], cin[j], p.drop.thresh) ? pj / p.drop.keep_prob : 0.f;
+        } else {
+          sP[(ty * 4 + i) * PS + tx + 16 * j] = pj;
+        }
       }
       rs = row_sum16(rs);
       const float alpha = expf(m_i[i] - m_new);
@@ -236,38 +248,46 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(const Params p) {
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kDropout>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int smem = smem_floats<D>() * static_cast<int>(sizeof(float));
-  cudaError_t err =
-      cudaFuncSetAttribute(fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<T, D, kDropout>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, p.B);
-  fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(p);
+  fwd_kernel<T, D, kDropout><<<grid, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool kDropout>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return launch<T, 16>(p, stream);
-    case 32: return launch<T, 32>(p, stream);
-    case 64: return launch<T, 64>(p, stream);
-    case 128: return launch<T, 128>(p, stream);
+    case 16: return launch<T, 16, kDropout>(p, stream);
+    case 32: return launch<T, 32, kDropout>(p, stream);
+    case 64: return launch<T, 64, kDropout>(p, stream);
+    case 128: return launch<T, 128, kDropout>(p, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+cudaError_t launch_t(const Params& p, int d, cudaStream_t stream) {
+  return p.drop.on ? launch_d<T, true>(p, d, stream) : launch_d<T, false>(p, d, stream);
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16. Strides are in elements. o is a
 // contiguous [B, Sq, H, D] tensor, lse a contiguous [B, H, 1, Sq] f32 tensor.
+// seed is a (1,) int32 device tensor, read only when dropout_on; keep_prob,
+// thresh, block_q and block_k describe the mask (flash_attention_common.cuh).
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int paddle_flash_attention_fwd(
-    const void* q, const void* k, const void* v, void* o, void* lse, int dtype, int B, int Sq,
-    int Sk, int H, int D, long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh, int causal,
-    float scale, void* stream) {
+    const void* q, const void* k, const void* v, void* o, void* lse, const void* seed, int dtype,
+    int B, int Sq, int Sk, int H, int D, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    int causal, float scale, int dropout_on, float keep_prob, uint32_t thresh, int block_q,
+    int block_k, void* stream) {
   Params p;
   p.q = q;
   p.k = k;
@@ -289,9 +309,16 @@ extern "C" int paddle_flash_attention_fwd(
   p.v_sh = v_sh;
   p.causal = causal;
   p.scale = scale;
+  p.drop.seed = static_cast<const int*>(seed);
+  p.drop.on = dropout_on;
+  p.drop.keep_prob = keep_prob;
+  p.drop.thresh = thresh;
+  p.drop.block_q = block_q;
+  p.drop.block_k = block_k;
+  if (dropout_on && (block_q < 1 || block_k < 1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? launch_d<float>(p, D, s)
-                    : dtype == 1 ? launch_d<__nv_bfloat16>(p, D, s)
+  cudaError_t err = dtype == 0   ? launch_t<float>(p, D, s)
+                    : dtype == 1 ? launch_t<__nv_bfloat16>(p, D, s)
                                  : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

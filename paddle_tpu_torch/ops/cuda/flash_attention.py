@@ -1,25 +1,38 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain version.
+"""Flash attention, forward and backward: the hand-written CUDA kernels and
+their plain versions.
 
-Port of ``paddle_tpu/ops/pallas/flash_attention.py`` (forward only). The
-kernel, ``csrc/flash_attention_fwd.cu``, replaces the Pallas
-``_fwd_kernel``; its source comment states the design and the bound.
+Port of ``paddle_tpu/ops/pallas/flash_attention.py``. Three kernels replace
+the three Pallas bodies; each source comment states its design and bound:
 
-- :func:`flash_attention_fwd` is the wrapper. For CUDA tensors it
-  launches the kernel or raises — no fallback. For CPU tensors it runs
-  :func:`flash_attention_fwd_reference`, the plain PyTorch version that
-  the CPU tests hold against the Pallas kernel in interpret mode and that
-  the on-card check holds the kernel against.
-- :data:`launches` counts kernel launches, and only those, so a run can
-  show its main path went through the kernel.
+- K1, ``csrc/flash_attention_fwd.cu``, replaces ``_fwd_kernel`` (launched
+  by ``_flash_fwd``): O and the row logsumexp, with in-kernel dropout;
+- K2 and K3, ``csrc/flash_attention_bwd.cu``, replace ``_bwd_dq_kernel``
+  and ``_bwd_dkv_kernel`` (both launched by ``_flash_bwd``): the dQ pass
+  and the dK/dV pass of the two-pass recompute backward.
+
+Each wrapper launches its kernel for CUDA tensors or raises — no
+fallback — and runs the plain PyTorch version for CPU tensors. The plain
+versions materialize the probabilities; the CPU tests hold them against
+the Pallas kernels in interpret mode and the on-card checks hold the
+kernels against them. :data:`launches` (K1), :data:`dq_launches` (K2) and
+:data:`dkv_launches` (K3) count kernel launches, and only those.
+
+Dropout is the Pallas ``_dropout_mask`` hash, bit for bit: a murmur3
+finalizer of ``(seed, b, h, iq, ik, row, col)`` in wrapping uint32, where
+``iq``/``ik`` are the Pallas tile ids and ``row``/``col`` the positions
+inside the tile. The tiles are the Pallas ones (:func:`blocks`), whatever
+tiles the CUDA kernels use, so the forward, the dQ pass and the dK/dV
+pass replay one mask, the one the JAX package draws for the same seed.
+The seed is a ``(1,)`` int32 tensor on the tensors' device; the kernels
+read it there, so no launch waits on the host.
 
 Layout is the JAX package's ``[batch, seq, heads, head_dim]``; causal is
-top-left (``q_pos >= k_pos``) as in the Pallas kernel. In-kernel dropout
-(the Pallas ``_dropout_mask`` hash) comes with the training slice.
+top-left (``q_pos >= k_pos``) as in the Pallas kernels.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,55 +40,232 @@ from ...device import DEFAULT_DEVICE, resolve_device
 from . import _build
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
-           "launches", "HEAD_DIMS", "NEG_INF"]
+           "flash_attention_bwd", "flash_attention_bwd_reference",
+           "flash_attention_value", "FlashAttentionFunction", "dropout_keep",
+           "blocks", "build", "bwd_launch_args", "run_bwd_pass", "launches",
+           "dq_launches", "dkv_launches", "dropout_launches",
+           "HEAD_DIMS", "NEG_INF", "BLOCK_Q", "BLOCK_K"]
 
 NEG_INF = -1e30
-#: head dims the kernel is instantiated for
+#: head dims the kernels are instantiated for
 HEAD_DIMS = (16, 32, 64, 128)
+#: the Pallas kernels' default tiles, on which the dropout mask depends
+BLOCK_Q, BLOCK_K = 256, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: kernel launches so far (plain-version calls are not counted)
+#: K1 launches so far (plain-version calls are not counted)
 launches = 0
+#: K2 (dQ pass) launches so far
+dq_launches = 0
+#: K3 (dK/dV pass) launches so far
+dkv_launches = 0
+#: launches with dropout on, by kernel (a subset of the three counts above)
+dropout_launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
 
-_fn = None
+_fns: Dict[str, object] = {}
+_zero_seeds: Dict[torch.device, torch.Tensor] = {}
+
+_U32 = 0xFFFFFFFF
+# the multipliers of the Pallas hash: b, h, iq, ik; then row and col reuse
+# the first two
+_MIX = (0x9E3779B9, 0x85EBCA6B, 0xC2B2AE35, 0x27D4EB2F)
+_FNV = 0x01000193
 
 
-def flash_attention_fwd_reference(q, k, v, causal: bool, scale: float
-                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version: ``(o [B,Sq,H,D] in q's dtype, lse [B,H,1,Sq]
-    f32)``, computed in f32 in one pass over the whole score matrix."""
+# ---------------------------------------------------------------- tiling
+
+
+def blocks(sq: int, sk: int, block_q: int = BLOCK_Q,
+           block_k: int = BLOCK_K) -> Tuple[int, int]:
+    """The Pallas tiling (``_blocks``): each block is halved until it
+    divides its sequence length."""
+    block_q = min(block_q, sq)
+    block_k = min(block_k, sk)
+    while sq % block_q:
+        block_q //= 2
+    while sk % block_k:
+        block_k //= 2
+    return max(block_q, 1), max(block_k, 1)
+
+
+def _threshold(p: float) -> int:
+    """Keep iff the hash is at most this; computed in Python doubles, as
+    the Pallas kernel computes it."""
+    return int((1.0 - p) * 0xFFFFFFFF)
+
+
+# ---------------------------------------------------------------- dropout
+
+
+def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
+    """``a * c mod 2**32`` for int64 ``a`` in [0, 2**32) and a constant
+    ``c``: the constant is split into 16-bit halves so that no product
+    leaves int64's range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _U32
+
+
+def dropout_keep(seed: torch.Tensor, b, h, rows: int, cols: int,
+                 block_q: int, block_k: int, p: float) -> torch.Tensor:
+    """The plain version of the Pallas ``_dropout_mask`` at global
+    positions: ``keep[..., r, c]`` (``r < rows``, ``c < cols``) is
+    ``hash(seed, b, h, r // block_q, c // block_k, r % block_q,
+    c % block_k) <= uint32((1 - p) * 0xFFFFFFFF)``.
+
+    ``seed`` is a ``(1,)`` int32 tensor. ``b`` and ``h`` are ints or int64
+    tensors that broadcast against ``[rows, cols]``: ``[B, 1, 1, 1]`` and
+    ``[1, H, 1, 1]`` give a ``[B, H, rows, cols]`` mask. Every step is
+    exact uint32 arithmetic carried in int64."""
+    dev = seed.device
+    key = seed.reshape(()).to(torch.int64) & _U32
+    for part, mult in ((b, _MIX[0]), (h, _MIX[1])):
+        part = torch.as_tensor(part, dtype=torch.int64, device=dev)
+        key = _mul32(key ^ _mul32(part, mult), _FNV)
+    r = torch.arange(rows, dtype=torch.int64, device=dev)[:, None]
+    c = torch.arange(cols, dtype=torch.int64, device=dev)[None, :]
+    key = _mul32(key ^ _mul32(r // block_q, _MIX[2]), _FNV)
+    key = _mul32(key ^ _mul32(c // block_k, _MIX[3]), _FNV)
+    x = _mul32(r % block_q, _MIX[0]) ^ _mul32(c % block_k, _MIX[1]) ^ key
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    x = x ^ (x >> 16)
+    return x <= _threshold(p)
+
+
+def _keep_bhqk(seed, b, h, sq, sk, block_q, block_k, p):
+    """``[B, H, Sq, Sk]`` keep mask over the Pallas tiles of (sq, sk)."""
+    bq, bk = blocks(sq, sk, block_q, block_k)
+    dev = seed.device
+    return dropout_keep(
+        seed, torch.arange(b, device=dev).view(b, 1, 1, 1),
+        torch.arange(h, device=dev).view(1, h, 1, 1), sq, sk, bq, bk, p)
+
+
+def _zero_seed(device: torch.device) -> torch.Tensor:
+    seed = _zero_seeds.get(device)
+    if seed is None:
+        # a normal tensor even when first made under inference_mode, so a
+        # later training step may save it for backward
+        with torch.inference_mode(False):
+            seed = _zero_seeds[device] = torch.zeros(1, dtype=torch.int32,
+                                                     device=device)
+    return seed
+
+
+# ---------------------------------------------------------- plain versions
+
+
+def _scores(q, k, causal, scale):
+    """f32 scores ``[B, H, Sq, Sk]`` and the causal mask (or None)."""
     sq, sk = q.shape[1], k.shape[1]
     s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
     mask = None
     if causal:
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
         s = torch.where(mask, s, NEG_INF)
+    return s, mask
+
+
+def flash_attention_fwd_reference(q, k, v, causal: bool, scale: float,
+                                  dropout: float = 0.0,
+                                  seed: Optional[torch.Tensor] = None, *,
+                                  block_q: int = BLOCK_Q,
+                                  block_k: int = BLOCK_K
+                                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K1: ``(o [B,Sq,H,D] in q's dtype, lse
+    [B,H,1,Sq] f32)``, computed in f32 over the whole score matrix. Under
+    dropout the normalizer sums the undropped probabilities and the kept
+    ones are scaled by ``1 / (1 - dropout)``, as in the Pallas kernel."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    s, mask = _scores(q, k, causal, scale)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.exp(s - m)
     if causal:
         p = torch.where(mask, p, 0.0)
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    if dropout > 0.0:
+        keep = _keep_bhqk(seed, b, h, sq, sk, block_q, block_k, dropout)
+        p = torch.where(keep, p / (1.0 - dropout), 0.0)
     o = torch.einsum("bhst,bthd->bshd", p, v.float())
     o = o / den.squeeze(-1).transpose(1, 2)[..., None]
     lse = (m + torch.log(den)).transpose(-1, -2)
     return o.to(q.dtype), lse
 
 
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = _build.load("flash_attention_fwd").paddle_flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-                       + [ctypes.c_longlong] * 9
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+def _delta(o, do):
+    """Δ = rowsum(dO∘O) in f32, ``[B, H, 1, Sq]`` like lse (the Pallas
+    wrapper computes it in XLA outside the kernels)."""
+    return (do.float() * o.float()).sum(-1).transpose(1, 2)[:, :, None, :] \
+        .contiguous()
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
+                                  scale: float, dropout: float = 0.0, *,
+                                  block_q: int = BLOCK_Q,
+                                  block_k: int = BLOCK_K
+                                  ) -> Tuple[torch.Tensor, torch.Tensor,
+                                             torch.Tensor]:
+    """The plain version of K2 and K3: ``(dq, dk, dv)`` in the dtypes of
+    q, k and v, with P = exp(s − lse) recomputed over the whole score
+    matrix in f32:
+
+    - dP′ = dO·Vᵀ, times keep/(1−p) under dropout; dS = P∘(dP′ − Δ);
+    - dQ = scale·dS·K, dK = scale·dSᵀ·Q, dV = (P∘keep/(1−p))ᵀ·dO."""
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    s, mask = _scores(q, k, causal, scale)
+    p = torch.exp(s - lse.transpose(-1, -2))
+    if causal:
+        p = torch.where(mask, p, 0.0)
+    dof = do.float()
+    dp = torch.einsum("bshd,bthd->bhst", dof, v.float())
+    p_av = p
+    if dropout > 0.0:
+        keep = _keep_bhqk(seed, b, h, sq, sk, block_q, block_k, dropout)
+        p_av = torch.where(keep, p / (1.0 - dropout), 0.0)
+        dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
+    ds = p * (dp - _delta(o, do).transpose(-1, -2))
+    dq = torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    dv = torch.einsum("bhst,bshd->bthd", p_av, dof)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# ---------------------------------------------------------------- kernels
+
+
+def _kernel(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        lib = _build.load("flash_attention_fwd" if name == "fwd"
+                          else "flash_attention_bwd")
+        ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_longlong, ctypes.c_float)
+        # causal scale dropout_on keep_prob thresh block_q block_k stream
+        tail = [i32, f32, i32, f32, ctypes.c_uint32, i32, i32, ptr]
+        if name == "fwd":
+            # q k v o lse seed | dtype B Sq Sk H D | 9 strides | tail
+            fn = lib.paddle_flash_attention_fwd
+            fn.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 9 + tail
+        else:
+            # q k v do lse delta seed dq dk dv | dtype B Sq Sk H D |
+            # 12 strides | tail
+            fn = getattr(lib, f"paddle_flash_attention_{name}")
+            fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 12 + tail
         fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+        _fns[name] = fn
+    return fn
 
 
 def build() -> None:
-    """Build and load the kernel now instead of at its first launch."""
-    _kernel()
+    """Build and load K1, K2 and K3 now (their two sources compile in
+    parallel) instead of at their first launch."""
+    _build.build_all(["flash_attention_fwd", "flash_attention_bwd"])
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        _kernel(name)
 
 
 def _check(q, k, v):
@@ -92,53 +282,231 @@ def _check(q, k, v):
         raise ValueError("q, k, v must lie on one device")
 
 
-def flash_attention_fwd(q, k, v, causal: bool, scale: float,
-                        dropout: float = 0.0, *, device=DEFAULT_DEVICE
-                        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward over ``[B, S, H, D]``: ``(o, lse)`` as the Pallas
-    ``_flash_fwd`` returns them. ``device`` is where the caller means to
-    run (default CUDA); the tensors must lie there. On CUDA the kernel
-    launches or this raises; on the CPU the plain version runs."""
+def _resolve(q, device, dropout, seed):
+    """The device the call runs on, after checking the tensors lie there
+    and that dropout has its seed."""
     dev = resolve_device(device)
-    if dropout > 0.0:
-        raise NotImplementedError(
-            "in-kernel attention dropout comes with the training slice "
-            "(ROADMAP.md, queue 1); call with dropout=0.0")
-    _check(q, k, v)
     if q.device.type != dev.type:
         raise ValueError(f"tensors lie on {q.device}, the call asked for "
                          f"{dev}")
+    if not 0.0 <= dropout < 1.0:
+        raise ValueError(f"dropout must be in [0, 1), got {dropout}")
+    if dropout > 0.0:
+        if seed is None:
+            raise ValueError("dropout > 0 needs a seed: a (1,) int32 tensor "
+                             "on the tensors' device")
+        if (seed.shape != (1,) or seed.dtype != torch.int32
+                or seed.device != q.device):
+            raise ValueError(f"seed must be a (1,) int32 tensor on "
+                             f"{q.device}, got {tuple(seed.shape)} "
+                             f"{seed.dtype} on {seed.device}")
+    return dev
+
+
+def _check_kernel_inputs(tensors, d):
+    if tensors[0].dtype not in _DTYPES:
+        raise TypeError(f"the kernels take float32 or bfloat16, got "
+                        f"{tensors[0].dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"the kernels take head_dim in {HEAD_DIMS}, got {d}")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError("the last dim of q, k, v (and dO) must be "
+                         "contiguous")
+
+
+def _strides(*tensors):
+    return [s for t in tensors for s in (t.stride(0), t.stride(1),
+                                         t.stride(2))]
+
+
+def _dropout_args(dropout, seed, sq, sk, block_q, block_k, device):
+    """(seed pointer, on, 1 - p, threshold, Pallas block_q, block_k)."""
+    bq, bk = blocks(sq, sk, block_q, block_k)
+    if dropout > 0.0:
+        return (seed.data_ptr(), 1, 1.0 - dropout, _threshold(dropout), bq,
+                bk)
+    return _zero_seed(device).data_ptr(), 0, 1.0, _U32, bq, bk
+
+
+def flash_attention_fwd(q, k, v, causal: bool, scale: float,
+                        dropout: float = 0.0,
+                        seed: Optional[torch.Tensor] = None, *,
+                        block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                        device=DEFAULT_DEVICE
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward over ``[B, S, H, D]``: ``(o, lse)`` as the Pallas
+    ``_flash_fwd`` returns them. ``dropout > 0`` needs ``seed``, a ``(1,)``
+    int32 tensor on the tensors' device; ``block_q``/``block_k`` are the
+    Pallas tiles the mask follows. ``device`` is where the caller means to
+    run (default CUDA); the tensors must lie there. On CUDA K1 launches or
+    this raises; on the CPU the plain version runs."""
+    _check(q, k, v)
+    dev = _resolve(q, device, dropout, seed)
     if dev.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, causal, scale)
-    return _launch(q, k, v, bool(causal), float(scale))
+        return flash_attention_fwd_reference(q, k, v, causal, scale, dropout,
+                                             seed, block_q=block_q,
+                                             block_k=block_k)
+    return _launch_fwd(q, k, v, bool(causal), float(scale), float(dropout),
+                       seed, block_q, block_k)
 
 
-def _launch(q, k, v, causal: bool, scale: float):
+def _check_shape(b, sq, sk, h):
+    if min(b, sq, sk, h) < 1 or h > 65535 or b > 65535:
+        raise ValueError(f"unsupported shape: B={b} Sq={sq} Sk={sk} H={h}")
+
+
+def _launch_fwd(q, k, v, causal, scale, dropout, seed, block_q, block_k):
     global launches
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"the kernel takes float32 or bfloat16, got {q.dtype}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"the kernel takes head_dim in {HEAD_DIMS}, got {d}")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("the last dim of q, k, v must be contiguous")
-    if min(b, sq, sk, h) < 1 or h > 65535 or b > 65535:
-        raise ValueError(f"unsupported shape q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
+    _check_kernel_inputs((q, k, v), d)
+    _check_shape(b, sq, sk, h)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, 1, sq), dtype=torch.float32, device=q.device)
-    fn = _kernel()
+    drop = _dropout_args(dropout, seed, sq, sk, block_q, block_k, q.device)
+    fn = _kernel("fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h, d,
-                 q.stride(0), q.stride(1), q.stride(2),
-                 k.stride(0), k.stride(1), k.stride(2),
-                 v.stride(0), v.stride(1), v.stride(2),
-                 int(causal), scale, stream)
+                 lse.data_ptr(), drop[0], _DTYPES[q.dtype], b, sq, sk, h, d,
+                 *_strides(q, k, v), int(causal), scale, *drop[1:], stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
                            f"cudaError {err}")
     launches += 1
+    if dropout > 0.0:
+        dropout_launches["fwd"] += 1
     return o, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, seed, causal: bool,
+                        scale: float, dropout: float = 0.0, *,
+                        block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                        device=DEFAULT_DEVICE
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Attention backward: ``(dq, dk, dv)`` as the Pallas ``_flash_bwd``
+    returns them, from the forward's ``o`` and ``lse`` and the output
+    gradient ``do``. Δ = rowsum(dO∘O) is plain torch; on CUDA K2 (dQ) and
+    K3 (dK, dV) launch or this raises; on the CPU the plain version
+    runs. ``seed`` and the tiles must be the forward's."""
+    _check(q, k, v)
+    if do.shape != o.shape or o.shape != q.shape:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)}")
+    dev = _resolve(q, device, dropout, seed)
+    if dev.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, seed,
+                                             causal, scale, dropout,
+                                             block_q=block_q,
+                                             block_k=block_k)
+    return _launch_bwd(q, k, v, o, lse, do, seed, bool(causal), float(scale),
+                       float(dropout), block_q, block_k)
+
+
+def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
+                    block_q=BLOCK_Q, block_k=BLOCK_K):
+    """Checks the backward's CUDA inputs and returns ``(args, (dq, dk,
+    dv))``: the argument list K2 and K3 share, Δ computed and the outputs
+    allocated. :func:`run_bwd_pass` launches one pass on it (for timing one
+    kernel alone); :func:`flash_attention_bwd` launches both."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    _check_kernel_inputs((q, k, v, do), d)
+    _check_shape(b, sq, sk, h)
+    if do.dtype != q.dtype:
+        raise TypeError(f"do must have q's dtype {q.dtype}, got {do.dtype}")
+    if (lse.shape != (b, h, 1, sq) or lse.dtype != torch.float32
+            or not lse.is_contiguous()):
+        raise ValueError("lse must be the forward's contiguous "
+                         "[B, H, 1, Sq] float32 tensor")
+    delta = _delta(o, do)
+    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
+    drop = _dropout_args(dropout, seed, sq, sk, block_q, block_k, q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), drop[0], dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h, d,
+            *_strides(q, k, v, do), int(causal), scale, *drop[1:])
+    # delta must outlive the launches: it rides along with the outputs
+    return args, (dq, dk, dv, delta)
+
+
+def run_bwd_pass(name: str, args, device) -> None:
+    """Launch K2 (``"bwd_dq"``) or K3 (``"bwd_dkv"``) on
+    :func:`bwd_launch_args`' arguments; raises if the launch fails. Not
+    counted: the counted path is :func:`flash_attention_bwd`."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = _kernel(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
+                           f"cudaError {err}")
+
+
+def _launch_bwd(q, k, v, o, lse, do, seed, causal, scale, dropout, block_q,
+                block_k):
+    global dq_launches, dkv_launches
+    args, (dq, dk, dv, _) = bwd_launch_args(q, k, v, o, lse, do, seed,
+                                            causal, scale, dropout, block_q,
+                                            block_k)
+    run_bwd_pass("bwd_dq", args, q.device)
+    dq_launches += 1
+    run_bwd_pass("bwd_dkv", args, q.device)
+    dkv_launches += 1
+    if dropout > 0.0:
+        dropout_launches["bwd_dq"] += 1
+        dropout_launches["bwd_dkv"] += 1
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------- autograd
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """Differentiable flash attention, the counterpart of the Pallas
+    ``_fa_value`` custom VJP: the forward runs K1 and saves ``(q, k, v, o,
+    lse, seed)``; the backward runs K2 and K3 on them (plain versions for
+    CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, dropout, seed, block_q,
+                block_k):
+        o, lse = flash_attention_fwd(q, k, v, causal, scale, dropout, seed,
+                                     block_q=block_q, block_k=block_k,
+                                     device=q.device)
+        ctx.save_for_backward(q, k, v, o, lse, seed)
+        ctx.args = (causal, scale, dropout, block_q, block_k)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse, seed = ctx.saved_tensors
+        causal, scale, dropout, block_q, block_k = ctx.args
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, seed, causal,
+                                         scale, dropout, block_q=block_q,
+                                         block_k=block_k, device=q.device)
+        return dq, dk, dv, None, None, None, None, None, None
+
+
+def flash_attention_value(q, k, v, causal: bool = False, scale: float = 1.0,
+                          dropout: float = 0.0,
+                          seed: Optional[torch.Tensor] = None, *,
+                          block_q: int = BLOCK_Q, block_k: int = BLOCK_K,
+                          device=DEFAULT_DEVICE) -> torch.Tensor:
+    """Differentiable fused attention with optional in-kernel dropout (the
+    Pallas ``flash_attention_value``). ``seed``: a ``(1,)`` int32 tensor
+    on the tensors' device, required when ``dropout > 0``; without one a
+    zero seed stands in, which only makes sense at ``dropout == 0``."""
+    _check(q, k, v)
+    _resolve(q, device, dropout, seed)
+    if seed is None:
+        seed = _zero_seed(q.device)
+    if not (torch.is_grad_enabled()
+            and any(t.requires_grad for t in (q, k, v))):
+        return flash_attention_fwd(q, k, v, causal, scale, dropout, seed,
+                                   block_q=block_q, block_k=block_k,
+                                   device=q.device)[0]
+    return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale),
+                                        float(dropout), seed, block_q,
+                                        block_k)

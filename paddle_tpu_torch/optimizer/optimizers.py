@@ -1,0 +1,78 @@
+"""Adam and AdamW (port of ``paddle_tpu/optimizer/optimizers.py``).
+
+The JAX package's update rule, step for step. Moments are f32. The update
+is computed in f32 from the parameter read in its own dtype and is stored
+back in the parameter's dtype: there is no separate f32 master copy, so a
+bf16 parameter rounds at every update (and AdamW's decoupled decay rounds
+it once more before the Adam step). ``torch.optim.AdamW`` keeps its
+moments in the parameter's dtype, which is not this rule.
+
+Not ported, each raising ``NotImplementedError``: ``amsgrad``,
+``lazy_mode``, ``lr_ratio`` and ``apply_decay_param_fun`` (ROADMAP.md,
+queue 1).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..device import DEFAULT_DEVICE
+from .optimizer import Optimizer
+
+__all__ = ["Adam", "AdamW"]
+
+
+def _unported(name: str):
+    return NotImplementedError(f"{name} is not ported yet (ROADMAP.md, "
+                               "queue 1)")
+
+
+class Adam(Optimizer):
+    _accum_names = ["moment1", "moment2"]
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=None,
+                 grad_clip=None, lazy_mode=False, amsgrad=False, *,
+                 device=DEFAULT_DEVICE):
+        if lazy_mode:
+            raise _unported("lazy_mode")
+        if amsgrad:
+            raise _unported("amsgrad")
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         device=device)
+        self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+
+    def _apply_one(self, index, p, g, lr, weight_decay):
+        gv = self._decayed_grad(p, g, weight_decay).float()
+        m = self._get_accumulator("moment1", index, p)
+        v = self._get_accumulator("moment2", index, p)
+        t = self._step_value()
+        m.mul_(self._beta1).add_((1 - self._beta1) * gv)
+        v.mul_(self._beta2).add_((1 - self._beta2) * gv * gv)
+        mhat = m / (1 - self._beta1 ** t)
+        vhat = v / (1 - self._beta2 ** t)
+        p.copy_((p.float() - lr * mhat / (vhat.sqrt() + self._eps))
+                .to(p.dtype))
+
+
+class AdamW(Adam):
+    """Adam with decoupled weight decay: ``p ← p·(1 − lr·decay)`` in f32,
+    stored in the parameter's dtype, then the Adam step. Decay applies to
+    every parameter, as in the JAX package when no
+    ``apply_decay_param_fun`` is given."""
+
+    def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
+                 epsilon=1e-8, parameters=None, weight_decay=0.01,
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, amsgrad=False, *, device=DEFAULT_DEVICE):
+        if lr_ratio is not None:
+            raise _unported("lr_ratio")
+        if apply_decay_param_fun is not None:
+            raise _unported("apply_decay_param_fun")
+        super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
+                         None, grad_clip, lazy_mode, amsgrad, device=device)
+        self._coeff = float(weight_decay)
+
+    def _apply_one(self, index, p, g, lr, weight_decay):
+        if self._coeff:
+            p.copy_((p.float() * (1 - lr * self._coeff)).to(p.dtype))
+        super()._apply_one(index, p, g, lr, None)

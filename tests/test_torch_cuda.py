@@ -6,9 +6,11 @@ installed:
 
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda.py
 
-The kernel is held against its plain PyTorch version on the same card,
-with the tolerances ``chip_smoke.py`` states.
+The forward kernel is held against its plain PyTorch version on the same
+card, with the tolerances ``chip_smoke.py`` states; the backward kernels
+are in ``tests/test_torch_cuda_backward.py``.
 """
+import hashlib
 import math
 
 import numpy as np
@@ -88,5 +90,48 @@ def test_rejects_what_the_kernel_does_not_take(card):
         fa.flash_attention_fwd(q.half(), k.half(), v.half(), True, 1.0)
     with pytest.raises(ValueError, match="asked for"):
         fa.flash_attention_fwd(q.cpu(), k.cpu(), v.cpu(), True, 1.0)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="needs a seed"):
         fa.flash_attention_fwd(q, k, v, True, 1.0, dropout=0.1)
+
+
+#: sha256 (first 16 hex digits) of O and lse from the forward kernel as it
+#: was before in-kernel dropout (commit 6d46396), on an H100, at the inputs
+#: of :func:`forward_digests`
+FORWARD_DIGESTS = {
+    "float32/D=16/causal=1": "f707ea07faa3d0ec",
+    "float32/D=16/causal=0": "3243ba35301de912",
+    "float32/D=64/causal=1": "7573477046ddcf79",
+    "float32/D=64/causal=0": "d646096308a2a661",
+    "float32/D=128/causal=1": "6ca4ee632ca7bd78",
+    "float32/D=128/causal=0": "3ffbd375e29c8a31",
+    "bfloat16/D=16/causal=1": "b268b337c726d81a",
+    "bfloat16/D=16/causal=0": "37d6bbabe4b7736c",
+    "bfloat16/D=64/causal=1": "755eb72972702e18",
+    "bfloat16/D=64/causal=0": "b475fad988ddfcae",
+    "bfloat16/D=128/causal=1": "5e1342846bc9f336",
+    "bfloat16/D=128/causal=0": "cbfcc6b8336f78f7",
+}
+
+
+def forward_digests(module, device):
+    """Digests of the forward's outputs at fixed inputs, by (dtype, D,
+    causal); ``module`` is the wrapper module to run."""
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for d in (16, 64, 128):
+            q, k, v = _packed_qkv(2, 130, 130, 3, d, dtype, device, seed=4)
+            for causal in (True, False):
+                o, lse = module.flash_attention_fwd(q, k, v, causal,
+                                                    1.0 / math.sqrt(d))
+                torch.cuda.synchronize()
+                h = hashlib.sha256(o.float().cpu().numpy().tobytes()
+                                   + lse.cpu().numpy().tobytes())
+                out[f"{str(dtype)[6:]}/D={d}/causal={int(causal)}"] = \
+                    h.hexdigest()[:16]
+    return out
+
+
+def test_forward_without_dropout_is_bitwise_unchanged(card):
+    """In-kernel dropout is a template parameter of the forward kernel; the
+    instantiation without it gives the same bits as the kernel before."""
+    assert forward_digests(fa, card) == FORWARD_DIGESTS

@@ -4,7 +4,8 @@ The plain PyTorch version (what the wrapper runs for CPU tensors) is held
 against ``_flash_fwd`` in interpret mode, for both O and lse, at the f32
 tolerance of ``tests/test_pallas_backward.py`` (2e-4). The CUDA kernel
 itself is held against the plain version on the card
-(``tests/test_torch_cuda.py``, ``chip_smoke.py``).
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); the backward and the
+dropout hash are in ``tests/test_torch_flash_backward.py``.
 """
 import math
 
@@ -54,8 +55,12 @@ def test_plain_matches_pallas_interpret(sq, sk, causal):
 def test_cpu_wrapper_counts_no_launch_and_rejects_dropout():
     q, k, v = (torch.from_numpy(a) for a in _qkv(1, 16, 16, 1, 16))
     fa.flash_attention_fwd(q, k, v, True, 0.25, device="cpu")
-    assert fa.launches == 0
-    with pytest.raises(NotImplementedError, match="training slice"):
+    # dropout runs on the CPU through the plain version, given its seed
+    seed = torch.tensor([3], dtype=torch.int32)
+    o, _ = fa.flash_attention_fwd(q, k, v, True, 0.25, dropout=0.5,
+                                  seed=seed, device="cpu")
+    assert bool(torch.isfinite(o).all()) and fa.launches == 0
+    with pytest.raises(ValueError, match="needs a seed"):
         fa.flash_attention_fwd(q, k, v, True, 0.25, dropout=0.1,
                                device="cpu")
     with pytest.raises(ValueError, match="asked for"):
@@ -78,7 +83,14 @@ def test_sdpa_matches_jax_functional():
         is_causal=True, training=False)
     np.testing.assert_allclose(out.numpy(), np.asarray(ref.numpy()),
                                rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        TF.scaled_dot_product_attention(
-            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-            dropout_p=0.1, is_causal=True, training=True)
+    # dropout applies only in training: in eval mode the JAX result holds
+    args = (torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v))
+    evaluated = TF.scaled_dot_product_attention(
+        *args, dropout_p=0.1, is_causal=True, training=False)
+    np.testing.assert_allclose(evaluated.numpy(), np.asarray(ref.numpy()),
+                               rtol=TOL, atol=TOL)
+    dropped = TF.scaled_dot_product_attention(
+        *args, dropout_p=0.1, is_causal=True, training=True,
+        generator=torch.Generator().manual_seed(0))
+    assert bool(torch.isfinite(dropped).all())
+    assert float((dropped - evaluated).abs().max()) > 1e-3

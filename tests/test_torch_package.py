@@ -81,7 +81,11 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         pytest.skip("checks the default device on a host without CUDA")
     from paddle_tpu_torch import resolve_device
     from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
-    from paddle_tpu_torch.ops.cuda.flash_attention import flash_attention_fwd
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda.flash_attention import (
+        flash_attention_fwd, flash_attention_value)
+    from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.serving import DecodeEngine, KVPagePool
 
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -96,5 +100,15 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     q = torch.zeros(1, 16, 1, 16)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_attention_fwd(q, q, q, True, 0.25)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flash_attention_value(q, q, q, True, 0.25)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        amp.decorate(model, level="O2", dtype="bfloat16")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        AdamW(parameters=model.parameters())
+    opt = AdamW(parameters=model.parameters(), device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainStep(model=model, optimizer=opt, loss_fn=lambda x: x)
+    TrainStep(model=model, optimizer=opt, loss_fn=lambda x: x, device="cpu")
     with pytest.raises(ValueError, match="use 'cuda' or 'cpu'"):
         resolve_device("meta")
