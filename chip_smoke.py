@@ -37,13 +37,33 @@ Phases, each of which fails the run on any error:
    warmup and 10 timed steps (tokens/s, step ms, MFU, losses, launches
    exactly 12 per step for each kernel, a profiler breakdown of 2 more
    steps); then 3 steps at gpt2_small's default dropout (0.1), B=2, run
-   twice from one seed, which must agree bitwise.
+   twice from one seed, which must agree bitwise;
+10. Llama kernel shapes — the RMSNorm kernel (K4) against its plain
+    version at rows x d = 8192 x 768 (the training shape), 4 x 768,
+    1000 x 768, 256 x 4096 (llama2_7b / llama3_8b's width) and 8 x 100 (odd
+    d), f32 and bf16, timed at the training shape beside its bound, its
+    plain version and ``torch.nn.functional.rms_norm`` (a yardstick only);
+    K1–K3 against their plain versions at the Llama training shape (B=4,
+    S=2048, H=12, D=64, bf16, causal, k and v expanded from 4 KV heads by
+    ``repeat_interleave``), timed there beside their bounds and SDPA, and
+    at D=128 (B=1, S=512, H=32, bf16 and f32, causal);
+11. Llama model — ``llama3_8b(num_hidden_layers=2)`` at full width (hidden
+    4096, 32 heads over 8 KV heads, D=128, vocab 128256) with seeded random
+    weights: f32 logits on the card (K1 at D=128, K4 at d=4096) against the
+    CPU; then every gradient of ``llama_124m_gqa`` (f32, B=1, S=256) on the
+    card (K1–K4) against the CPU;
+12. train Llama — ``bench.py``'s ``bench_llama`` accelerator arm on the
+    port: ``llama_124m_gqa`` in bf16 O2 under ``TrainStep`` with
+    ``AdamW(1e-4)`` on one batch of 4 x 2048 ids, 1 warmup and 10 timed
+    steps (tokens/s, step ms, MFU, peak memory, losses, launches exactly 12
+    per step for each of K1–K3 and 25 for K4), a profiler breakdown of 2
+    more steps with K4's own row.
 
-The serve (5) and train (9) phases are the main path: the launch counts
-are set to 0 just before each and read just after. The line before the
-last is ``{"kernels": [...]}``; the last is ``{"ok": true, "device":
-{...}}``. Without a CUDA device, or outside a checkout, the script prints
-no result and exits non-zero.
+The serve (5), train (9) and train Llama (12) phases are the main paths:
+the launch counts are set to 0 just before each and read just after. The
+line before the last is ``{"kernels": [...]}``; the last is ``{"ok":
+true, "device": {...}}``. Without a CUDA device, or outside a checkout,
+the script prints no result and exits non-zero.
 
 f32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 """
@@ -72,6 +92,12 @@ NEAR_TIE = 1e-3  # top-2 logit gap under which argmax may flip on rounding
 LAYERS, HEADS, HEAD_DIM = 12, 12, 64  # GPT-2 small
 PROMPT_LENS = (16, 37, 64, 120, 250, 300, 500, 900)
 NEW_TOKENS = 32
+LLAMA_BATCH, LLAMA_SEQ = 4, 2048  # bench_llama's accelerator arm
+# RMSNorm kernel against its plain version: f32 relative to the row's max;
+# bf16 within one bf16 step (2^-7 of the value) plus 1e-3
+RMS_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
+RMS_SHAPES = ((8192, 768), (4, 768), (1000, 768), (256, 4096), (8, 100))
+RMS_EPS = 1e-5  # LlamaConfig.rms_norm_eps
 # H100 SXM data-sheet peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -141,11 +167,14 @@ def phase_card() -> None:
 
 
 def phase_build() -> float:
-    from paddle_tpu_torch.ops.cuda import _build, flash_attention
+    from paddle_tpu_torch.ops.cuda import _build, flash_attention, rms_norm
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
+    _build.build_all(["flash_attention_fwd", "flash_attention_bwd",
+                      "rms_norm"])
     flash_attention.build()
+    rms_norm.build()
     seconds = time.perf_counter() - t0
     for name, log in sorted(_build.ptxas_report.items()):
         # one "entry function" line, then its spill and register lines
@@ -156,9 +185,18 @@ def phase_build() -> float:
                 entry, spill = m.group(1), "?"
                 t = re.search(r"(fwd|dq|dkv)_kernelI(13__nv_bfloat16|f)"
                               r"Li(\d+)E(Lb1)?", entry)
-                entry = (f"{t.group(1)} {'bf16' if t.group(2) != 'f' else 'f32'}"
-                         f"/D={t.group(3)}{' dropout' if t.group(4) else ''}"
-                         if t else entry)
+                r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
+                              r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", entry)
+                if t:
+                    entry = (f"{t.group(1)} "
+                             f"{'bf16' if t.group(2) != 'f' else 'f32'}"
+                             f"/D={t.group(3)}"
+                             f"{' dropout' if t.group(4) else ''}")
+                elif r:
+                    x, w = ("bf16" if g != "f" else "f32"
+                            for g in r.group(1, 2))
+                    entry = (f"rms_norm x {x} w {w} vec {r.group(3)} "
+                             f"threads/row {r.group(4)}")
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and entry:
                 spill = m.group(1)
@@ -517,12 +555,70 @@ def time_qkv_scatter(torch) -> float:
                                                     retain_graph=True))
 
 
+def time_attention(torch, fa, q, k, v, do, seed, dtype, dropout) -> dict:
+    """K1, K2 and K3 timed alone by CUDA events at the shape of q (k and v
+    as they reach the kernels), beside their bounds, their plain versions
+    and SDPA's forward and backward (a yardstick only)."""
+    import torch.nn.functional as TF
+
+    b, s, h, d = q.shape
+    dev = q.device
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale, dropout, seed)
+    args, keep = fa.bwd_launch_args(q, k, v, o, lse, do, seed, True, scale,
+                                    dropout)
+    ms = {
+        "fwd": cuda_time_ms(lambda: fa.flash_attention_fwd(
+            q, k, v, True, scale, dropout, seed)),
+        "dq": cuda_time_ms(lambda: fa.run_bwd_pass("bwd_dq", args, dev)),
+        "dkv": cuda_time_ms(lambda: fa.run_bwd_pass("bwd_dkv", args, dev)),
+    }
+    plain = {
+        "fwd": cuda_time_ms(lambda: fa.flash_attention_fwd_reference(
+            q, k, v, True, scale, dropout, seed), iters=3),
+        "bwd": cuda_time_ms(lambda: fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, seed, True, scale, dropout), iters=3),
+    }
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_fwd = cuda_time_ms(lambda: TF.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    out = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (qt, kt, vt), dot, retain_graph=True))
+    del out, qt, kt, vt, keep
+    bounds = {"fwd": attention_bound(b, s, h, d, dtype, True)}
+    for name, (mm, tens, rows) in BWD_BOUND.items():
+        bounds[name] = kernel_bound(b, s, h, d, dtype, True, mm, tens, rows)
+    line = (f"K1 {ms['fwd']:.4f} (bound {bounds['fwd'][0]:.4f} "
+            f"{bounds['fwd'][1]}, plain {plain['fwd']:.4f}, sdpa fwd "
+            f"{lib_fwd:.4f})  K2 {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f} "
+            f"{bounds['dq'][1]})  K3 {ms['dkv']:.4f} (bound "
+            f"{bounds['dkv'][0]:.4f} {bounds['dkv'][1]})  plain bwd "
+            f"{plain['bwd']:.4f}  sdpa bwd {lib_bwd:.4f}")
+    return {"ms": ms, "plain": plain, "lib_fwd": lib_fwd, "lib_bwd": lib_bwd,
+            "bounds": bounds, "line": line}
+
+
+def attention_records(t, errs) -> dict:
+    """K1–K3 records for the kernels line from :func:`time_attention`'s
+    timings and :func:`compare_backward`'s errors."""
+    return {name: {"max_abs_err": err, "ms": t["ms"][name],
+                   "plain_ms": plain_ms, "bound_ms": t["bounds"][name][0],
+                   "bound_by": t["bounds"][name][1], "library_ms": lib_ms}
+            for name, err, plain_ms, lib_ms in (
+                ("fwd", errs["o"], t["plain"]["fwd"], t["lib_fwd"]),
+                ("dq", errs["dq"], t["plain"]["bwd"], t["lib_bwd"]),
+                ("dkv", max(errs["dk"], errs["dv"]), t["plain"]["bwd"],
+                 t["lib_bwd"]))}
+
+
 def phase_backward(torch) -> dict:
     """K1 with dropout, K2 and K3 against their plain versions; timings at
     the training shape. Returns the record of each kernel at the main
     path's shape (B=8, S=1024, bf16, dropout 0)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
-    import torch.nn.functional as TF
 
     print("== backward kernels: K1 with dropout, K2 (dq), K3 (dk/dv) vs "
           "plain vs SDPA (H=12 D=64 causal, packed qkv; ms by CUDA events)",
@@ -537,73 +633,20 @@ def phase_backward(torch) -> dict:
             q, k, v = packed_qkv(torch, rs, b, s, dtype)
             do = torch.from_numpy(rs.randn(b, s, h, d).astype(
                 np.float32)).to(dev, getattr(torch, dtype))
-            scale = 1.0 / math.sqrt(d)
             for dropout in (0.0, 0.1):
                 errs = compare_backward(torch, fa, q, k, v, do, seed, dtype,
                                         dropout)
                 line = (f"B={b} S={s:4d} {dtype:8s} dropout={dropout}  err "
                         + " ".join(f"{n} {e:.2e}" for n, e in errs.items()))
                 if (b, s) == (8, 1024):
-                    o, lse = fa.flash_attention_fwd(q, k, v, True, scale,
-                                                    dropout, seed)
-                    args, keep = fa.bwd_launch_args(q, k, v, o, lse, do,
-                                                    seed, True, scale,
-                                                    dropout)
-                    ms = {
-                        "fwd": cuda_time_ms(lambda: fa.flash_attention_fwd(
-                            q, k, v, True, scale, dropout, seed)),
-                        "dq": cuda_time_ms(lambda: fa.run_bwd_pass(
-                            "bwd_dq", args, dev)),
-                        "dkv": cuda_time_ms(lambda: fa.run_bwd_pass(
-                            "bwd_dkv", args, dev)),
-                    }
-                    plain = {
-                        "fwd": cuda_time_ms(
-                            lambda: fa.flash_attention_fwd_reference(
-                                q, k, v, True, scale, dropout, seed),
-                            iters=3),
-                        "bwd": cuda_time_ms(
-                            lambda: fa.flash_attention_bwd_reference(
-                                q, k, v, o, lse, do, seed, True, scale,
-                                dropout), iters=3),
-                    }
-                    qt, kt, vt = (t.transpose(1, 2).detach()
-                                  .requires_grad_(True) for t in (q, k, v))
-                    lib_fwd = cuda_time_ms(
-                        lambda: TF.scaled_dot_product_attention(
-                            qt, kt, vt, is_causal=True))
-                    out = TF.scaled_dot_product_attention(qt, kt, vt,
-                                                          is_causal=True)
-                    dot = do.transpose(1, 2)
-                    lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
-                        out, (qt, kt, vt), dot, retain_graph=True))
-                    del out, qt, kt, vt, keep
-                    bounds = {"fwd": attention_bound(b, s, h, d, dtype,
-                                                     True)}
-                    for name, (mm, tens, rows) in BWD_BOUND.items():
-                        bounds[name] = kernel_bound(b, s, h, d, dtype, True,
-                                                    mm, tens, rows)
-                    line += (f"\n    K1 {ms['fwd']:.4f} (bound "
-                             f"{bounds['fwd'][0]:.4f} {bounds['fwd'][1]}, "
-                             f"plain {plain['fwd']:.4f}, sdpa fwd "
-                             f"{lib_fwd:.4f})  K2 {ms['dq']:.4f} (bound "
-                             f"{bounds['dq'][0]:.4f} {bounds['dq'][1]})  K3 "
-                             f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f} "
-                             f"{bounds['dkv'][1]})  plain bwd "
-                             f"{plain['bwd']:.4f}  sdpa bwd {lib_bwd:.4f}")
+                    t = time_attention(torch, fa, q, k, v, do, seed, dtype,
+                                       dropout)
+                    line += "\n    " + t["line"]
                     shape = (f"B={b} S={s} H={h} D={d} {dtype} causal "
                              f"dropout={dropout}")
-                    for name, err, plain_ms, lib_ms in (
-                            ("fwd", errs["o"], plain["fwd"], lib_fwd),
-                            ("dq", errs["dq"], plain["bwd"], lib_bwd),
-                            ("dkv", max(errs["dk"], errs["dv"]),
-                             plain["bwd"], lib_bwd)):
-                        records[(name, dtype, dropout)] = {
-                            "max_abs_err": err, "ms": ms[name],
-                            "plain_ms": plain_ms,
-                            "bound_ms": bounds[name][0],
-                            "bound_by": bounds[name][1],
-                            "library_ms": lib_ms, "shape": shape}
+                    for name, rec in attention_records(t, errs).items():
+                        records[(name, dtype, dropout)] = dict(rec,
+                                                               shape=shape)
                 print(line, flush=True)
     scatter_ms = time_qkv_scatter(torch)
     print(f"qkv gradient scatter at B=8 S=1024 bf16 (dq, dk, dv back through "
@@ -626,26 +669,24 @@ def grad_check(model, crit, ids) -> tuple:
                          for n, p in model.named_parameters()}
 
 
-def phase_gradients(torch, gpt) -> None:
-    """Every gpt2_small gradient on the card (K1–K3) against the CPU."""
+def compare_gradients(torch, model_cls, crit, cfg, ids) -> tuple:
+    """Every gradient of ``model_cls(cfg)`` (seeded weights, training mode)
+    on the card against the CPU plain path, within ``GRAD_REL_TOL`` of the
+    tensor's max. Returns the card run's launches of K1, K2, K3, K4 and a
+    summary line."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
-    print("== gradients: gpt2_small f32, dropout 0, B=1 S=256, card (K1-K3) "
-          "vs CPU (plain)", flush=True)
-    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
-    ids = np.random.RandomState(5).randint(0, cfg.vocab_size, (1, 256))
-    card = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0))
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    crit = gpt.GPTPretrainingCriterion(cfg)
+    card = model_cls(cfg, generator=torch.Generator().manual_seed(0))
+    fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
     loss_card, g_card = grad_check(card.train(), crit,
                                    torch.from_numpy(ids).cuda())
-    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches)
     del card
-    cpu = gpt.GPTForCausalLM(cfg, device="cpu",
-                             generator=torch.Generator().manual_seed(0))
+    torch.cuda.empty_cache()
+    cpu = model_cls(cfg, device="cpu",
+                    generator=torch.Generator().manual_seed(0))
     loss_cpu, g_cpu = grad_check(cpu.train(), crit, torch.from_numpy(ids))
-    check(counts == (LAYERS, LAYERS, LAYERS),
-          f"K1/K2/K3 launches {counts}, want {LAYERS} each")
     worst, worst_name = 0.0, None
     for name, want in g_cpu.items():
         got = g_card[name]
@@ -657,10 +698,24 @@ def phase_gradients(torch, gpt) -> None:
               f"max {top:.3g}")
         if err / top > worst:
             worst, worst_name = err / top, name
-    print(f"loss card {loss_card:.6f} CPU {loss_cpu:.6f}; {len(g_cpu)} "
-          f"gradients within {GRAD_REL_TOL} of their max; worst "
-          f"{worst:.2e} ({worst_name}); launches K1/K2/K3 {counts}",
-          flush=True)
+    return counts, (f"loss card {loss_card:.6f} CPU {loss_cpu:.6f}; "
+                    f"{len(g_cpu)} gradients within {GRAD_REL_TOL} of their "
+                    f"max; worst {worst:.2e} ({worst_name}); launches "
+                    f"K1/K2/K3/K4 {counts}")
+
+
+def phase_gradients(torch, gpt) -> None:
+    """Every gpt2_small gradient on the card (K1–K3) against the CPU."""
+    print("== gradients: gpt2_small f32, dropout 0, B=1 S=256, card (K1-K3) "
+          "vs CPU (plain)", flush=True)
+    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    ids = np.random.RandomState(5).randint(0, cfg.vocab_size, (1, 256))
+    counts, line = compare_gradients(torch, gpt.GPTForCausalLM,
+                                     gpt.GPTPretrainingCriterion(cfg), cfg,
+                                     ids)
+    check(counts == (LAYERS, LAYERS, LAYERS, 0),
+          f"K1/K2/K3/K4 launches {counts}, want {LAYERS} each of K1-K3")
+    print(line, flush=True)
 
 
 def megatron_flops(batch, seq, layers, hidden, vocab) -> float:
@@ -670,14 +725,16 @@ def megatron_flops(batch, seq, layers, hidden, vocab) -> float:
             * (1.0 + seq / (6.0 * hidden) + vocab / (16.0 * layers * hidden)))
 
 
-def build_train_step(torch, gpt, cfg, dropout_seed=0):
+def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0):
+    """The model in bf16 O2 under ``TrainStep`` with ``AdamW(1e-4)``, the
+    criterion outside ``auto_cast``, as ``bench.py`` builds its arms."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
 
-    model = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0),
-                               dropout_seed=dropout_seed).train()
-    crit = gpt.GPTPretrainingCriterion(cfg)
+    model = model_cls(cfg, generator=torch.Generator().manual_seed(0),
+                      dropout_seed=dropout_seed).train()
+    crit = crit_cls(cfg)
     amp.decorate(model, level="O2", dtype="bfloat16")
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
 
@@ -689,9 +746,60 @@ def build_train_step(torch, gpt, cfg, dropout_seed=0):
     return model, TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
 
 
-def profile_steps(torch, step, ids, step_ms, steps=2) -> None:
+def run_timed_steps(torch, step, ids) -> tuple:
+    """One warmup step, then ``TRAIN_STEPS`` timed ones (host clock around
+    each, ending in a synchronize), with every launch count set to 0 just
+    before them and read just after. Returns (warmup loss, losses, step
+    seconds, launches of K1, K2, K3, K4)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    torch.cuda.reset_peak_memory_stats()
+    first = float(step(ids).float())  # warmup
+    torch.cuda.synchronize()
+    # the main path's run: counts from 0, read right after it
+    fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
+    losses, times = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(loss)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches)
+    return first, [float(x.float()) for x in losses], times, counts
+
+
+def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
+    """Print the losses, step ms, tokens/s, model TFLOP/s and MFU (``flops``
+    per step by ``formula``) and peak memory; check the losses are finite
+    and fall. Returns the p50 step in seconds."""
+    p50 = float(np.median(times))
+    print(f"warmup loss {first:.4f}; losses " + " ".join(
+        f"{x:.4f}" for x in losses), flush=True)
+    print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); tokens/s {tokens / p50:.1f}; model "
+          f"TFLOP/s {flops / p50 / 1e12:.2f} ({formula} {flops / 1e12:.3f} "
+          f"TFLOP per step); MFU {flops / p50 / PEAK_FLOPS['bfloat16']:.2%} "
+          f"of 989 TFLOP/s; peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    return p50
+
+
+# the port's kernels by their exact names in the profiler's rows (the
+# demangled "void (anonymous namespace)::fwd_kernel<...>(...)"): K1–K3,
+# and K4 on its own, whatever else is named *_kernel
+ATTENTION_KERNELS = re.compile(r"(?:^|[\s:])(?:fwd|dq|dkv)_kernel<")
+RMS_NORM_KERNEL = re.compile(r"(?:^|[\s:])rms_norm_kernel<")
+
+
+def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     """Device time by kernel over a few steps (torch.profiler), beside the
-    timed step's p50: their gap is the time the card idles."""
+    timed step's p50: their gap is the time the card idles. Returns the ms
+    per step of K1–K3 together, of K4, and of all device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -708,19 +816,27 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> None:
     check(len(rows) > 0, "the profiler recorded no device time")
     total = sum(r[1] for r in rows)
     rows.sort(key=lambda r: -r[1])
-    ours = sum(r[1] for r in rows
-               if re.search(r"(fwd|dq|dkv)_kernel<", r[0]))
+    ours = sum(r[1] for r in rows if ATTENTION_KERNELS.search(r[0]))
+    k4 = [r for r in rows if RMS_NORM_KERNEL.search(r[0])]
+    k4_ms = sum(r[1] for r in k4)
     gemm = sum(r[1] for r in rows
                if re.search(r"nvjet|gemm|cutlass|sm90_xmma", r[0]))
     launches = sum(r[2] for r in rows)
+    rest = total - ours - k4_ms - gemm
     print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
           f"({total / step_ms:.1%} of the {step_ms:.3f} ms p50 step; idle "
           f"{1 - total / step_ms:.1%}), {launches:.0f} kernel launches per "
           f"step; K1+K2+K3 {ours:.3f} ms ({ours / total:.1%} of device "
-          f"time), cuBLAS GEMMs {gemm:.3f} ms ({gemm / total:.1%}), the "
-          f"rest {total - ours - gemm:.3f} ms", flush=True)
+          f"time), K4 {k4_ms:.3f} ms ({k4_ms / total:.1%}) in "
+          f"{sum(r[2] for r in k4):.0f} launches, cuBLAS GEMMs {gemm:.3f} "
+          f"ms ({gemm / total:.1%}), the rest {rest:.3f} ms", flush=True)
     for key, ms, count in rows[:16]:
         print(f"    {ms:8.3f} ms  x{count:<6.0f} {key[:100]}", flush=True)
+    for key, ms, count in k4:
+        print(f"    K4 row: {ms:8.3f} ms  x{count:<6.0f} {key[:100]}",
+              flush=True)
+    return {"attention_ms": ours, "rms_norm_ms": k4_ms,
+            "rms_norm_rows": len(k4), "device_ms": total}
 
 
 def phase_train(torch, gpt) -> dict:
@@ -730,42 +846,21 @@ def phase_train(torch, gpt) -> dict:
     print(f"== train: gpt2_small bf16 O2, TrainStep + AdamW(1e-4), "
           f"{TRAIN_BATCH}x{TRAIN_SEQ} fixed batch, dropout 0", flush=True)
     cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
-    model, step = build_train_step(torch, gpt, cfg)
+    model, step = build_train_step(torch, gpt.GPTForCausalLM,
+                                   gpt.GPTPretrainingCriterion, cfg)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)).cuda()
-    torch.cuda.reset_peak_memory_stats()
-    first = float(step(ids).float())  # warmup
-    torch.cuda.synchronize()
-    # the main path's run: counts from 0, read right after it
-    fa.launches = fa.dq_launches = fa.dkv_launches = 0
-    losses, times = [], []
-    for _ in range(TRAIN_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss = step(ids)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        losses.append(loss)
-    counts = (fa.launches, fa.dq_launches, fa.dkv_launches)
-    losses = [float(x.float()) for x in losses]
-    p50 = float(np.median(times))
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    first, losses, times, counts = run_timed_steps(torch, step, ids)
     flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
                            cfg.hidden_size, cfg.vocab_size)
-    print(f"warmup loss {first:.4f}; losses " + " ".join(
-        f"{x:.4f}" for x in losses), flush=True)
-    print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
-          f"{max(times) * 1e3:.3f}); tokens/s {tokens / p50:.1f}; model "
-          f"TFLOP/s {flops / p50 / 1e12:.2f} (Megatron {flops / 1e12:.3f} "
-          f"TFLOP per step); MFU {flops / p50 / PEAK_FLOPS['bfloat16']:.2%} "
-          f"of 989 TFLOP/s; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    print(f"launches K1/K2/K3 {counts} over {TRAIN_STEPS} steps", flush=True)
-    check(all(math.isfinite(x) for x in losses), f"non-finite loss {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    p50 = report_steps(torch, first, losses, times, TRAIN_BATCH * TRAIN_SEQ,
+                       flops, "Megatron")
+    print(f"launches K1/K2/K3/K4 {counts} over {TRAIN_STEPS} steps",
+          flush=True)
     want = LAYERS * TRAIN_STEPS
-    check(counts == (want, want, want),
-          f"launches {counts}, want {want} each ({LAYERS} per step)")
+    check(counts == (want, want, want, 0),
+          f"launches {counts}, want {want} each of K1-K3 ({LAYERS} per "
+          f"step)")
     profile_steps(torch, step, ids, p50 * 1e3)
     del model, step
     torch.cuda.empty_cache()
@@ -775,7 +870,9 @@ def phase_train(torch, gpt) -> dict:
     cfg = gpt.gpt2_small()
     runs = []
     for _ in range(2):
-        model, step = build_train_step(torch, gpt, cfg, dropout_seed=7)
+        model, step = build_train_step(torch, gpt.GPTForCausalLM,
+                                       gpt.GPTPretrainingCriterion, cfg,
+                                       dropout_seed=7)
         fa.dropout_launches.update(fwd=0, bwd_dq=0, bwd_dkv=0)
         stream = [float(step(ids[:2]).float()) for _ in range(3)]
         torch.cuda.synchronize()
@@ -794,6 +891,216 @@ def phase_train(torch, gpt) -> dict:
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2]}
 
 
+def device_time_ms(torch, fns, iters: int = 60) -> float:
+    """Mean device time of one call, for kernels shorter than their
+    wrapper's host time: a ~25 ms spin on the stream lets the host queue
+    all ``iters`` launches before the first runs, so the events time the
+    card alone. ``fns`` are called in turn, each on its own inputs, which
+    together exceed the 50 MB L2 cache, so every launch reads from HBM as
+    the training step's does."""
+    for fn in fns:
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    for i in range(iters):
+        fns[i % len(fns)]()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def rms_norm_bound(rows: int, d: int, dtype: str) -> tuple:
+    """Least time (ms) for one K4 launch: x read and y written once (w is
+    d elements) over HBM bandwidth, against its ~4 f32 operations per
+    element (square-add, two multiplies) on the CUDA cores."""
+    elem = 4 if dtype == "float32" else 2
+    nbytes = (2 * rows + 1) * d * elem
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    t_ops = 4.0 * rows * d / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def compare_rms_norm(torch, rms, x, w, dtype) -> float:
+    """K4 against its plain version on the same card tensors; fails past
+    ``RMS_TOL``. Returns the max abs error."""
+    got = rms.rms_norm_fwd(x, w, RMS_EPS)
+    want = rms.rms_norm_reference(x, w, RMS_EPS)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        limit = RMS_TOL[dtype] * want.float().abs().amax(-1, keepdim=True)
+    else:
+        rel, atol = RMS_TOL[dtype]
+        limit = rel * want.float().abs() + atol
+    check(got.shape == x.shape and got.dtype == x.dtype
+          and bool(torch.isfinite(got.float()).all())
+          and bool((err <= limit).all()),
+          f"K4 vs plain at {tuple(x.shape)} {dtype}: err "
+          f"{float(err.max()):.3g}")
+    return float(err.max())
+
+
+def llama_qkv(torch, rs, b, s, h, hkv, d, dtype):
+    """q, k, v as the Llama attention hands them to K1: k and v expanded
+    from ``hkv`` KV heads by ``repeat_interleave`` along the head axis."""
+    dev, dt = torch.device("cuda"), getattr(torch, dtype)
+
+    def randn(heads):
+        return torch.from_numpy(rs.randn(b, s, heads, d).astype(
+            np.float32)).to(dev, dt)
+
+    q = randn(h)
+    k, v = (randn(hkv).repeat_interleave(h // hkv, dim=2) for _ in range(2))
+    return q, k, v, randn(h)
+
+
+def phase_llama_kernels(torch) -> dict:
+    """K4 against its plain version at the Llama shapes, timed at the
+    training shape; K1–K3 against theirs at the Llama training shape
+    (timed) and at D=128. Returns the kernels' records."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+    import torch.nn.functional as TF
+
+    print("== Llama kernels: K4 (rms_norm) vs plain vs F.rms_norm; K1-K3 at "
+          "the Llama shapes (ms by CUDA events)", flush=True)
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(8)
+    records = {}
+    for rows, d in RMS_SHAPES:
+        for dtype in ("float32", "bfloat16"):
+            dt = getattr(torch, dtype)
+            x = torch.from_numpy(rs.randn(rows, d).astype(np.float32)
+                                 * 3).to(dev, dt)
+            w = torch.from_numpy(rs.uniform(0.5, 1.5, d).astype(
+                np.float32)).to(dev, dt)
+            err = compare_rms_norm(torch, rms, x, w, dtype)
+            line = f"K4 rows={rows:5d} d={d:4d} {dtype:8s} err {err:.2e}"
+            if (rows, d) == RMS_SHAPES[0]:
+                # inputs enough to exceed L2, one launch on each in turn
+                n = max(2, math.ceil(120e6 / x.numel() / x.element_size()))
+                xs = [x] + [torch.randn_like(x) for _ in range(n - 1)]
+                ms = device_time_ms(torch, [
+                    lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS) for t in xs])
+                plain_ms = device_time_ms(torch, [
+                    lambda t=t: rms.rms_norm_reference(t, w, RMS_EPS)
+                    for t in xs], iters=20)
+                lib_ms = device_time_ms(torch, [
+                    lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
+                    for t in xs])
+                bound_ms, bound_by = rms_norm_bound(rows, d, dtype)
+                line += (f"  kernel {ms:.4f}  plain {plain_ms:.4f}  "
+                         f"F.rms_norm {lib_ms:.4f}  bound {bound_ms:.4f} "
+                         f"({bound_by})")
+                records[("rms_norm", dtype)] = {
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": lib_ms,
+                    "shape": f"rows={rows} d={d} {dtype}"}
+                del xs
+            print(line, flush=True)
+
+    seed = torch.tensor([20241016], dtype=torch.int32, device=dev)
+    for b, s, h, hkv, d, dtypes in (
+            (LLAMA_BATCH, LLAMA_SEQ, 12, 4, 64, ("bfloat16",)),
+            (1, 512, 32, 32, 128, ("bfloat16", "float32"))):
+        for dtype in dtypes:
+            q, k, v, do = llama_qkv(torch, rs, b, s, h, hkv, d, dtype)
+            errs = compare_backward(torch, fa, q, k, v, do, seed, dtype, 0.0)
+            t = time_attention(torch, fa, q, k, v, do, seed, dtype, 0.0)
+            print(f"K1-K3 B={b} S={s} H={h} (from {hkv} KV heads) D={d} "
+                  f"{dtype} causal  err " + " ".join(
+                      f"{n} {e:.2e}" for n, e in errs.items())
+                  + "\n    " + t["line"], flush=True)
+            for name, rec in attention_records(t, errs).items():
+                records[(name, dtype, d)] = dict(
+                    rec, shape=f"B={b} S={s} H={h} D={d} {dtype} causal")
+            del q, k, v, do
+    torch.cuda.empty_cache()
+    return records
+
+
+def phase_llama_model(torch, llama) -> None:
+    """llama3_8b's width (2 layers) logits, card vs CPU; every
+    llama_124m_gqa gradient, card vs CPU."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    cfg = llama.llama3_8b(num_hidden_layers=2)
+    print(f"== Llama model: llama3_8b(num_hidden_layers=2) f32 logits, B=1 "
+          f"S=128, card (K1 at D={cfg.head_dim}, K4 at d={cfg.hidden_size}) "
+          f"vs CPU (plain)", flush=True)
+    ids = np.random.RandomState(7).randint(0, cfg.vocab_size, (1, 128))
+    card = llama.LlamaForCausalLM(
+        cfg, generator=torch.Generator().manual_seed(0)).eval()
+    fa.launches = rms.launches = 0
+    with torch.inference_mode():
+        got = card(torch.from_numpy(ids).cuda()).float().cpu()
+    counts = (fa.launches, rms.launches)
+    del card
+    torch.cuda.empty_cache()
+    cpu = llama.LlamaForCausalLM(
+        cfg, device="cpu", generator=torch.Generator().manual_seed(0)).eval()
+    with torch.inference_mode():
+        want = cpu(torch.from_numpy(ids))
+    del cpu
+    check(got.shape == (1, 128, cfg.vocab_size),
+          f"logits shape {tuple(got.shape)}")
+    check(bool(torch.isfinite(got).all()), "card logits not finite")
+    err = (got - want).abs().max().item()
+    layers = cfg.num_hidden_layers
+    print(f"logits max abs err {err:.3e} (tol {LOGITS_TOL}); logit std "
+          f"{want.std().item():.3f}; launches K1/K4 {counts}", flush=True)
+    check(err <= LOGITS_TOL, f"logits card vs CPU err {err} > {LOGITS_TOL}")
+    check(counts == (layers, 2 * layers + 1),
+          f"K1/K4 launches {counts}, want ({layers}, {2 * layers + 1})")
+
+    print("== Llama gradients: llama_124m_gqa f32, B=1 S=256, card (K1-K4) "
+          "vs CPU (plain)", flush=True)
+    cfg = llama.llama_124m_gqa()
+    ids = np.random.RandomState(9).randint(0, cfg.vocab_size, (1, 256))
+    counts, line = compare_gradients(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion(cfg),
+        cfg, ids)
+    n = cfg.num_hidden_layers
+    check(counts == (n, n, n, 2 * n + 1),
+          f"K1/K2/K3/K4 launches {counts}, want ({n}, {n}, {n}, "
+          f"{2 * n + 1})")
+    print(line, flush=True)
+
+
+def phase_train_llama(torch, llama) -> dict:
+    """bench_llama's accelerator arm on the port; returns the launches and
+    the profile's shares."""
+    cfg = llama.llama_124m_gqa()
+    print(f"== train Llama: llama_124m_gqa bf16 O2, TrainStep + AdamW(1e-4), "
+          f"{LLAMA_BATCH}x{LLAMA_SEQ} fixed batch", flush=True)
+    model, step = build_train_step(torch, llama.LlamaForCausalLM,
+                                   llama.LlamaPretrainingCriterion, cfg)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    first, losses, times, counts = run_timed_steps(torch, step, ids)
+    flops = llama.llama_flops_per_step(LLAMA_BATCH, LLAMA_SEQ, cfg)
+    p50 = report_steps(torch, first, losses, times, LLAMA_BATCH * LLAMA_SEQ,
+                       flops, "bench.py _llama_flops_per_step")
+    n = cfg.num_hidden_layers
+    print(f"launches K1/K2/K3/K4 {counts} over {TRAIN_STEPS} steps",
+          flush=True)
+    want = n * TRAIN_STEPS
+    check(counts == (want, want, want, (2 * n + 1) * TRAIN_STEPS),
+          f"launches {counts}, want {want} each of K1-K3 ({n} per step) "
+          f"and {(2 * n + 1) * TRAIN_STEPS} of K4 ({2 * n + 1} per step)")
+    prof = profile_steps(torch, step, ids, p50 * 1e3)
+    check(prof["rms_norm_rows"] > 0, "K4 has no row in the profile")
+    del model, step
+    torch.cuda.empty_cache()
+    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+            "rms_norm": counts[3]}
+
+
 def main() -> int:
     try:
         import torch
@@ -805,7 +1112,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.models import gpt
+        from paddle_tpu_torch.models import gpt, llama
         from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
@@ -825,6 +1132,9 @@ def main() -> int:
         records = phase_backward(torch)
         phase_gradients(torch, gpt)
         trained = phase_train(torch, gpt)
+        records.update(phase_llama_kernels(torch))
+        phase_llama_model(torch, llama)
+        trained_llama = phase_train_llama(torch, llama)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -837,7 +1147,7 @@ def main() -> int:
             ("flash_attention_bwd_dq", "dq", "flash_attention_bwd.cu", 310),
             ("flash_attention_bwd_dkv", "dkv", "flash_attention_bwd.cu",
              347)):
-        by_path = {"train": trained[key]}
+        by_path = {"train": trained[key], "train_llama": trained_llama[key]}
         if key == "fwd":
             by_path["serve"] = served["launches"]
         entry = {"name": name, "route": "cuda", "source": source + src,
@@ -852,7 +1162,20 @@ def main() -> int:
                                        "library_ms", "max_abs_err")}}
         if key == "fwd":
             entry["serve_shape"] = serve_record
+        entry["llama_shape"] = records[(key, "bfloat16", 64)]
+        entry["head_dim_128"] = {dtype: records[(key, dtype, 128)]
+                                 for dtype in ("bfloat16", "float32")}
         kernels.append(entry)
+    kernels.append({
+        "name": "rms_norm", "route": "cuda",
+        "source": source + "rms_norm.cu",
+        "replaces": "paddle_tpu/ops/pallas/rms_norm.py:46",
+        "launches": trained_llama["rms_norm"],
+        "launches_by_path": {"train_llama": trained_llama["rms_norm"]},
+        **records[("rms_norm", "bfloat16")],
+        "float32": {k: records[("rms_norm", "float32")][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                              "max_abs_err")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

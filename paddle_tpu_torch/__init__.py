@@ -8,7 +8,10 @@ every TPU kernel on the ported path is a hand-written Hopper kernel under
 ``ops/cuda/csrc`` with a plain PyTorch version beside it.
 
 Ported so far: GPT paged decode serving (``serving.DecodeEngine`` over
-``models.gpt.GPTForCausalLM``) with the flash-attention forward kernel.
+``models.gpt.GPTForCausalLM``) with the flash-attention forward kernel;
+the GPT and Llama training steps (``jit.TrainStep``, ``optimizer.AdamW``,
+``amp`` O2) with the flash-attention backward kernels and the RMSNorm
+kernel.
 """
 from .device import DEFAULT_DEVICE, resolve_device
 

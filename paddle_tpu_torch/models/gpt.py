@@ -73,13 +73,14 @@ class GPTConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-def check_single_device(cfg: GPTConfig) -> None:
+def check_single_device(cfg) -> None:
+    """Raise for a GPT or Llama config that asks for a parallel layout."""
     if (cfg.tensor_parallel or cfg.pipeline_parallel
             or cfg.sequence_parallel or cfg.context_parallel):
         raise ValueError(
-            "the port builds the single-device GPT; tensor/pipeline/"
+            "the port builds single-device models; tensor/pipeline/"
             "sequence/context-parallel configs are training layouts not "
-            "ported yet (ROADMAP.md, queue 1)")
+            "ported yet (ROADMAP.md, queue 7)")
 
 
 class GPTAttention(nn.Module):
@@ -250,10 +251,11 @@ class GPTPretrainingCriterion(nn.Module):
 
 
 @torch.no_grad()
-def load_jax_state(model: GPTForCausalLM,
-                   state: Mapping[str, np.ndarray]) -> GPTForCausalLM:
-    """Fill ``model`` from a JAX ``GPTForCausalLM.state_dict()`` given as
-    numpy arrays under the JAX names. The one place that knows both
+def load_jax_state(model: nn.Module,
+                   state: Mapping[str, np.ndarray]) -> nn.Module:
+    """Fill ``model`` (the port's GPT or Llama) from the JAX model's
+    ``state_dict()`` given as numpy arrays under the JAX names, which the
+    port's parameter names match name for name. The one place that knows both
     layouts: a JAX ``Linear`` weight is ``[in, out]`` and is transposed
     into torch's ``[out, in]``; every other tensor copies as it is. Every
     parameter must be given, and nothing else."""

@@ -1,4 +1,4 @@
 """Layers of the port that route through its AMP-aware functionals."""
-from .common import LayerNorm, Linear
+from .common import LayerNorm, Linear, RMSNorm
 
-__all__ = ["LayerNorm", "Linear"]
+__all__ = ["LayerNorm", "Linear", "RMSNorm"]

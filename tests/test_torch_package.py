@@ -54,6 +54,23 @@ def test_gpt_presets_match_jax():
     assert port_gpt.gpt2_small().head_dim == 64
 
 
+def test_llama_presets_match_jax():
+    from paddle_tpu.models import llama as jax_llama
+    from paddle_tpu_torch.models import llama as port_llama
+
+    for name in ("llama_tiny", "llama2_7b", "llama3_8b"):
+        want = getattr(jax_llama, name)()
+        got = getattr(port_llama, name)()
+        assert vars(got) == vars(want), name
+    # the port's own preset is bench.py's bench_llama accelerator config
+    want = jax_llama.LlamaConfig(
+        vocab_size=32000, hidden_size=768, num_hidden_layers=12,
+        num_attention_heads=12, num_key_value_heads=4,
+        intermediate_size=2048, max_position_embeddings=2048)
+    assert vars(port_llama.llama_124m_gqa()) == vars(want)
+    assert port_llama.llama3_8b().head_dim == 128
+
+
 def test_cpu_engine_runs_without_loading_jax():
     code = (
         "import sys\n"
@@ -85,6 +102,10 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_fwd, flash_attention_value)
+    from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm
+    from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
+    from paddle_tpu_torch.ops.cuda.rms_norm import (rms_norm_fwd,
+                                                    rms_norm_value)
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.serving import DecodeEngine, KVPagePool
 
@@ -102,6 +123,15 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         flash_attention_fwd(q, q, q, True, 0.25)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_attention_value(q, q, q, True, 0.25)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        LlamaForCausalLM(llama_tiny())
+    LlamaForCausalLM(llama_tiny(), device="cpu")
+    x, w = torch.ones(2, 8), torch.ones(8)
+    for fn in (rms_norm_fwd, rms_norm_value, fused_rms_norm):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(x, w)
+    out, residual = fused_rms_norm(x, w, residual=x, device="cpu")
+    assert torch.equal(residual, 2 * x) and out.shape == x.shape
     with pytest.raises(RuntimeError, match="no CUDA device"):
         amp.decorate(model, level="O2", dtype="bfloat16")
     with pytest.raises(RuntimeError, match="no CUDA device"):
