@@ -6,8 +6,8 @@
 Phases, each of which fails the run on any error:
 
 1. card   — ``nvidia-smi`` name and power limit;
-2. build  — compile the port's CUDA kernel from ``paddle_tpu_torch/ops/
-   cuda/csrc``;
+2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/ops/
+   cuda/csrc``, one ``nvcc`` per source, all at once;
 3. kernel — the flash-attention forward kernel against its plain PyTorch
    version on the card at the GPT-2-small serving shapes (B in {1, 4},
    S in {128, 1024}, H=12, D=64, f32 and bf16, causal and not), timed
@@ -57,13 +57,29 @@ Phases, each of which fails the run on any error:
     ``AdamW(1e-4)`` on one batch of 4 x 2048 ids, 1 warmup and 10 timed
     steps (tokens/s, step ms, MFU, peak memory, losses, launches exactly 12
     per step for each of K1–K3 and 25 for K4), a profiler breakdown of 2
-    more steps with K4's own row.
+    more steps with K4's own row;
+13. FlashMask kernels — K5 (forward), K6 (dQ) and K7 (dK/dV) against
+    their plain versions over the documented index layouts: causal
+    documents, causal share-question (ncol 2), causal with fully masked
+    rows (O and dQ exactly 0 there), bidirectional documents and sliding
+    windows (ncol 4), Hm = 1 and Hm = H, Sq != Sk, a ragged S; each at
+    D = 64 and 128, f32 and bf16;
+14. FlashMask path — ``flashmask_attention`` forward and autograd backward
+    at llama3_8b's attention width: B=1, S=8192, 32 heads (k and v
+    expanded from 8 KV heads by ``repeat_interleave``), D=128, causal
+    packed documents of 256–4096 tokens from ``np.random.RandomState(0)``,
+    bf16 then f32: exactly one launch each of K5–K7 and none of K1–K3,
+    outputs and gradients against the plain versions 4 heads at a time,
+    forward and forward+backward ms, TFLOP/s over the allowed pairs, peak
+    memory, each kernel beside its bound (counted over the allowed pairs),
+    its plain version and SDPA with the equivalent dense boolean mask (a
+    yardstick only).
 
-The serve (5), train (9) and train Llama (12) phases are the main paths:
-the launch counts are set to 0 just before each and read just after. The
-line before the last is ``{"kernels": [...]}``; the last is ``{"ok":
-true, "device": {...}}``. Without a CUDA device, or outside a checkout,
-the script prints no result and exits non-zero.
+The serve (5), train (9), train Llama (12) and FlashMask path (14) phases
+are the main paths: the launch counts are set to 0 just before each and
+read just after. The line before the last is ``{"kernels": [...]}``; the
+last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
+outside a checkout, the script prints no result and exits non-zero.
 
 f32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 """
@@ -113,12 +129,12 @@ def check(ok: bool, what: str) -> None:
         raise SmokeFailure(what)
 
 
-def cuda_time_ms(fn, iters: int = 20) -> float:
+def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls,
-    after a warmup, by CUDA events."""
+    after ``warmup`` calls, by CUDA events."""
     import torch
 
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -132,16 +148,19 @@ def cuda_time_ms(fn, iters: int = 20) -> float:
 
 
 def kernel_bound(b, s, h, d, dtype: str, causal: bool, matmuls: int,
-                 tensors: int, rows: int):
+                 tensors: int, rows: int, pairs=None, extra_bytes: int = 0):
     """Least time (ms) the card could take for one attention kernel: the
-    larger of the bytes it must move (``tensors`` [B, S, H, D] tensors and
-    ``rows`` [B, H, S] f32 rows, each read or written once) over HBM
-    bandwidth and its ``matmuls`` products over the (q, k) pairs the mask
-    keeps, at the peak rate for the input type."""
+    larger of the bytes it must move (``tensors`` [B, S, H, D] tensors,
+    ``rows`` [B, H, S] f32 rows and ``extra_bytes``, each read or written
+    once) over HBM bandwidth and its ``matmuls`` products over the (q, k)
+    pairs the mask keeps (``pairs`` per (batch, head), by default the
+    causal or full count), at the peak rate for the input type."""
     elem = 4 if dtype == "float32" else 2
-    pairs = s * (s + 1) // 2 if causal else s * s
+    if pairs is None:
+        pairs = s * (s + 1) // 2 if causal else s * s
     flops = 2.0 * d * matmuls * pairs * b * h
-    nbytes = tensors * b * s * h * d * elem + rows * 4 * b * h * s
+    nbytes = (tensors * b * s * h * d * elem + rows * 4 * b * h * s
+              + extra_bytes)
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
@@ -167,14 +186,16 @@ def phase_card() -> None:
 
 
 def phase_build() -> float:
-    from paddle_tpu_torch.ops.cuda import _build, flash_attention, rms_norm
+    from paddle_tpu_torch.ops.cuda import (_build, flash_attention, flashmask,
+                                           rms_norm)
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
     _build.build_all(["flash_attention_fwd", "flash_attention_bwd",
-                      "rms_norm"])
+                      "rms_norm", "flashmask"])
     flash_attention.build()
     rms_norm.build()
+    flashmask.build()
     seconds = time.perf_counter() - t0
     for name, log in sorted(_build.ptxas_report.items()):
         # one "entry function" line, then its spill and register lines
@@ -183,8 +204,8 @@ def phase_build() -> float:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry, spill = m.group(1), "?"
-                t = re.search(r"(fwd|dq|dkv)_kernelI(13__nv_bfloat16|f)"
-                              r"Li(\d+)E(Lb1)?", entry)
+                t = re.search(r"((?:flashmask_)?(?:fwd|dq|dkv))_kernelI"
+                              r"(13__nv_bfloat16|f)Li(\d+)E(Lb1)?", entry)
                 r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
                               r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", entry)
                 if t:
@@ -1101,6 +1122,332 @@ def phase_train_llama(torch, llama) -> dict:
             "rms_norm": counts[3]}
 
 
+def flashmask_indices(rs, kind, b, hm, sq, sk) -> np.ndarray:
+    """``startend_row_indices`` ``[b, hm, sk, ncol]`` int32 of one phase-13
+    layout (causal for the first three kinds, non-causal for the rest)."""
+    j = np.arange(sk)
+    if kind == "doc":  # [LTS]: random documents, each key hides later ones
+        idx = np.empty((b, hm, sk, 1), np.int32)
+        for i in range(b):
+            cuts = np.sort(rs.choice(np.arange(1, sk), 5, replace=False))
+            for start, end in zip(np.r_[0, cuts], np.r_[cuts, sk]):
+                idx[i, :, start:end, 0] = end
+        return idx
+    if kind == "share_question":
+        # [LTS, LTE], the DPO/RM packing of the FlashMask paper: a question,
+        # three answers, padding; an answer's keys are hidden from the later
+        # answers of its question
+        group = sk - sk // 8
+        bounds = np.linspace(sk // 4, group, 4).astype(int)
+        idx = np.full((b, hm, sk, 2), group, np.int32)
+        for start, end in zip(bounds[:-1], bounds[1:]):
+            idx[:, :, start:end, 0] = end
+        return idx
+    if kind == "masked_rows":
+        # [LTS, LTE] random per head; rows r0..r1 hidden from every key at
+        # or below them, so they see no key at all
+        lts = np.minimum(j + rs.randint(1, 200, (b, hm, sk)), sq)
+        lte = np.minimum(lts + rs.randint(0, 300, (b, hm, sk)), sq)
+        r0, r1 = sq // 3, sq // 3 + 40
+        cols = j <= r1
+        lts = np.where(cols, np.minimum(lts, np.maximum(r0, j)), lts)
+        lte = np.where(cols, np.maximum(lte, r1 + 1), lte)
+        return np.stack([lts, lte], -1).astype(np.int32)
+    if kind == "bidir_doc":
+        # [LTS, LTE, UTS, UTE] with Sq == Sk: a document's rows see all of
+        # its keys, before and after them, and no other document's
+        idx = np.empty((b, hm, sk, 4), np.int32)
+        for i in range(b):
+            cuts = np.sort(rs.choice(np.arange(1, sk), 4, replace=False))
+            for start, end in zip(np.r_[0, cuts], np.r_[cuts, sk]):
+                idx[i, :, start:end] = (end, sq, 0, start)
+        return idx
+    # "window", [LTS, LTE, UTS, UTE]: a sliding window of half-width 128,
+    # key positions mapped onto the rows when Sq != Sk
+    rows = j * sq // sk
+    one = np.stack([np.minimum(rows + 128, sq), np.full(sk, sq),
+                    np.zeros(sk, np.int64), np.maximum(rows - 127, 0)], -1)
+    return np.broadcast_to(one, (b, hm, sk, 4)).astype(np.int32)
+
+
+# name, kind, B, Sq, Sk, H, Hm: each at D = 64 and 128, f32 and bf16
+FLASHMASK_CASES = (
+    ("causal document, Hm=1", "doc", 2, 1024, 1024, 8, 1),
+    ("causal share-question", "share_question", 2, 1024, 1024, 8, 1),
+    ("causal, fully masked rows, Hm=H", "masked_rows", 1, 1024, 1024, 8, 8),
+    ("bidirectional document", "bidir_doc", 2, 1024, 1024, 8, 1),
+    ("sliding window, Hm=H", "window", 1, 1024, 1024, 8, 8),
+    ("sliding window, Sq != Sk", "window", 1, 640, 1024, 8, 1),
+    ("causal document, ragged S", "doc", 1, 1000, 1000, 8, 1),
+)
+FM_HEADS, FM_KV_HEADS, FM_HEAD_DIM = 32, 8, 128  # llama3_8b's attention
+FM_SEQ, FM_DOCS = 8192, (256, 4096)  # packed documents of 256-4096 tokens
+FM_HEAD_CHUNK = 4  # heads per plain-version call at the path shape
+FM_ITERS = 5
+
+
+def flashmask_errors(torch, fm, inputs, outputs, idx, causal, dtype, label,
+                     heads_per_call=None) -> dict:
+    """K5's (o, lse) and K6/K7's (dq, dk, dv) against the plain versions on
+    the same card tensors, the backward from the kernel's own (o, lse) so
+    each kernel is judged alone; ``heads_per_call`` heads at a time, to
+    bound the plain version's [B, H, Sq, Sk] buffers. Fails past TOL (O,
+    lse) or BWD_TOL (gradients), on a non-finite output, or where a fully
+    masked row's O or dQ is not exactly 0. Returns the max abs error per
+    output and the count of fully masked (row, head) pairs."""
+    q, k, v, do = inputs
+    o, lse, dq, dk, dv = outputs
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    tidx = fm.prepare_indices(idx, q, k, causal)
+    errs = dict.fromkeys(("o", "lse", "dq", "dk", "dv"), 0.0)
+    dead_rows = 0
+    step = heads_per_call or h
+    for h0 in range(0, h, step):
+        hs = slice(h0, min(h0 + step, h))
+        cidx = tidx if tidx.shape[1] == 1 else tidx[:, hs]
+        cq, ck, cv, cdo = (t[:, :, hs] for t in (q, k, v, do))
+        ro, rlse = fm.flashmask_fwd_reference(cq, ck, cv, cidx, causal,
+                                              scale)
+        want = fm.flashmask_bwd_reference(cq, ck, cv, o[:, :, hs],
+                                          lse[:, hs], cdo, cidx, causal,
+                                          scale)
+        tol_o, tol_l = TOL[dtype]
+        for name, got, ref, tol in (("o", o[:, :, hs], ro, tol_o),
+                                    ("lse", lse[:, hs], rlse, tol_l)):
+            err = float((got.float() - ref.float()).abs().max())
+            errs[name] = max(errs[name], err)
+            check(err <= tol and bool(torch.isfinite(got.float()).all()),
+                  f"K5 {name} vs plain, {label}: err {err:.3g} (tol {tol})")
+        for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+            check(float(ref.float().abs().max()) > 0,
+                  f"plain {name} is all 0, {label}")
+            err, ok = _close(torch, got[:, :, hs], ref, dtype)
+            errs[name] = max(errs[name], err)
+            check(ok and bool(torch.isfinite(got.float()).all()),
+                  f"{name} vs plain, {label}: err {err:.3g}")
+        dead = fm.disallowed(cidx, sq, sk, causal).expand(
+            b, hs.stop - h0, sq, sk).all(-1).transpose(1, 2)
+        dead_rows += int(dead.sum())
+        for name, got in (("O", o[:, :, hs]), ("dQ", dq[:, :, hs])):
+            check(float(got[dead].float().abs().sum()) == 0.0,
+                  f"{name} not exactly 0 on fully masked rows, {label}")
+    return dict(errs, dead_rows=dead_rows)
+
+
+def phase_flashmask_kernels(torch) -> None:
+    """K5, K6 and K7 against their plain versions over the documented
+    layouts, f32 and bf16, D = 64 and 128."""
+    from paddle_tpu_torch.ops.cuda import flashmask as fm
+
+    print("== FlashMask kernels: K5 (fwd), K6 (dq), K7 (dk/dv) vs plain",
+          flush=True)
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(11)
+    for name, kind, b, sq, sk, h, hm in FLASHMASK_CASES:
+        causal = kind in ("doc", "share_question", "masked_rows")
+        idx = torch.from_numpy(flashmask_indices(rs, kind, b, hm, sq, sk))
+        for d in (64, 128):
+            for dtype in ("float32", "bfloat16"):
+                dt = getattr(torch, dtype)
+                q, do = (torch.from_numpy(rs.randn(b, sq, h, d).astype(
+                    np.float32)).to(dev, dt) for _ in range(2))
+                k, v = (torch.from_numpy(rs.randn(b, sk, h, d).astype(
+                    np.float32)).to(dev, dt) for _ in range(2))
+                scale = 1.0 / math.sqrt(d)
+                o, lse = fm.flashmask_fwd(q, k, v, idx, causal, scale)
+                grads = fm.flashmask_bwd(q, k, v, o, lse, do, idx, causal,
+                                         scale)
+                torch.cuda.synchronize()
+                label = (f"{name}: B={b} Sq={sq} Sk={sk} H={h} Hm={hm} D={d} "
+                         f"{dtype}")
+                errs = flashmask_errors(torch, fm, (q, k, v, do),
+                                        (o, lse, *grads), idx, causal, dtype,
+                                        label)
+                check((kind == "masked_rows") == (errs["dead_rows"] > 0),
+                      f"{label}: {errs['dead_rows']} fully masked rows")
+                print(f"{label}  err " + " ".join(
+                    f"{n} {e:.2e}" for n, e in errs.items()
+                    if n != "dead_rows")
+                      + (f"  fully masked (row, head) pairs "
+                         f"{errs['dead_rows']}: O = dQ = 0"
+                         if errs["dead_rows"] else ""), flush=True)
+    torch.cuda.empty_cache()
+
+
+def document_lengths(seq, lo, hi, seed=0) -> list:
+    """Lengths in [lo, hi] drawn from ``np.random.RandomState(seed)`` that
+    sum to ``seq``: the last document takes what is left, and a draw that
+    would leave less than ``lo`` is cut to leave exactly ``lo``."""
+    rs = np.random.RandomState(seed)
+    lengths, left = [], seq
+    while left > 0:
+        n = int(rs.randint(lo, hi + 1))
+        if left <= hi and left - n < lo:
+            n = left
+        elif left - n < lo:
+            n = left - lo
+        lengths.append(n)
+        left -= n
+    return lengths
+
+
+def phase_flashmask_path(torch) -> dict:
+    """The FlashMask path at llama3_8b's attention width: forward and
+    autograd backward of ``flashmask_attention`` over packed documents,
+    counted, checked against the plain versions and timed beside the
+    kernels' bounds and SDPA with the equivalent dense mask (a yardstick
+    only). Returns the launches and the kernels' records."""
+    from paddle_tpu_torch.nn.functional import flashmask_attention
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import flashmask as fm
+    import torch.nn.functional as TF
+
+    b, s, h, hkv, d = 1, FM_SEQ, FM_HEADS, FM_KV_HEADS, FM_HEAD_DIM
+    lengths = document_lengths(s, *FM_DOCS)
+    ends = np.repeat(np.cumsum(lengths), lengths)
+    idx_np = ends.astype(np.int32).reshape(b, 1, s, 1)
+    pairs = sum(n * (n + 1) // 2 for n in lengths)  # per (batch, head)
+    print(f"== FlashMask path: flashmask_attention fwd + autograd bwd, B={b} "
+          f"S={s} H={h} (k, v from {hkv} KV heads by repeat_interleave) "
+          f"D={d}, causal documents {lengths} (Hm=1); {pairs} allowed "
+          f"pairs per head, {s * (s + 1) // 2 / pairs:.2f}x fewer than "
+          f"causal", flush=True)
+    dev = torch.device("cuda")
+    idx = torch.from_numpy(idx_np).to(dev)
+    rs = np.random.RandomState(12)
+    mask = ~fm.disallowed(idx, s, s, True)  # [1, 1, S, S], True = attend
+    check(bool(mask.any(-1).all()), "the path mask hides a whole row")
+    flops_fwd = 4.0 * d * pairs * b * h
+    records, launched, path = {}, None, {}
+    for dtype in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype)
+
+        def randn(heads):
+            return torch.from_numpy(rs.randn(b, s, heads, d).astype(
+                np.float32)).to(dev, dt)
+
+        q, k_kv, v_kv, do = randn(h), randn(hkv), randn(hkv), randn(h)
+        for t in (q, k_kv, v_kv):
+            t.requires_grad_(True)
+
+        def fwd_bwd():
+            k = k_kv.repeat_interleave(h // hkv, dim=2)
+            v = v_kv.repeat_interleave(h // hkv, dim=2)
+            k.retain_grad()
+            v.retain_grad()
+            out = flashmask_attention(q, k, v, idx)
+            out.backward(do)
+            return out, k, v
+
+        # the main path's run: counts from 0, read right after it
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fm.fwd_launches = fm.dq_launches = fm.dkv_launches = 0
+        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        out, k, v = fwd_bwd()
+        torch.cuda.synchronize()
+        counts = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                  fa.launches, fa.dq_launches, fa.dkv_launches)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(counts == (1, 1, 1, 0, 0, 0),
+              f"launches K5/K6/K7/K1/K2/K3 {counts}, want (1, 1, 1, 0, 0, "
+              f"0) per forward+backward")
+        if launched is None:
+            launched = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2]}
+        check(out.shape == q.shape and out.dtype == dt,
+              f"output {tuple(out.shape)} {out.dtype}")
+
+        # the expanded k and v, and their gradients: what K6/K7 wrote
+        grads = (q.grad, k.grad, v.grad)
+        qd, k, v, out = q.detach(), k.detach(), v.detach(), out.detach()
+        scale = 1.0 / math.sqrt(d)
+        o, lse = fm.flashmask_fwd(qd, k, v, idx, True, scale)
+        check(torch.equal(o, out), "K5 is not deterministic")
+        label = f"path B={b} S={s} H={h} D={d} {dtype}"
+        errs = flashmask_errors(torch, fm, (qd, k, v, do), (out, lse, *grads),
+                                idx, True, dtype, label, FM_HEAD_CHUNK)
+        del grads
+        with torch.no_grad():
+            fwd_ms = cuda_time_ms(lambda: flashmask_attention(qd, k, v, idx),
+                                  iters=FM_ITERS, warmup=1)
+        step_ms = cuda_time_ms(fwd_bwd, iters=FM_ITERS, warmup=1)
+        tidx = fm.prepare_indices(idx, qd, k, True)
+        args, keep = fm.bwd_launch_args(qd, k, v, o, lse, do, tidx, True,
+                                        scale)
+        ms = {"fwd": fwd_ms,
+              "dq": cuda_time_ms(lambda: fm.run_bwd_pass("bwd_dq", args,
+                                                         dev),
+                                 iters=FM_ITERS, warmup=1),
+              "dkv": cuda_time_ms(lambda: fm.run_bwd_pass("bwd_dkv", args,
+                                                          dev),
+                                  iters=FM_ITERS, warmup=1)}
+        del args, keep
+        chunks = [slice(h0, h0 + FM_HEAD_CHUNK)
+                  for h0 in range(0, h, FM_HEAD_CHUNK)]
+        plain = {
+            "fwd": cuda_time_ms(lambda: [fm.flashmask_fwd_reference(
+                qd[:, :, c], k[:, :, c], v[:, :, c], tidx, True, scale)
+                for c in chunks], iters=1, warmup=1),
+            "bwd": cuda_time_ms(lambda: [fm.flashmask_bwd_reference(
+                qd[:, :, c], k[:, :, c], v[:, :, c], o[:, :, c], lse[:, c],
+                do[:, :, c], tidx, True, scale) for c in chunks], iters=1,
+                warmup=1)}
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                      for t in (qd, k, v))
+        lib_fwd = cuda_time_ms(lambda: TF.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), iters=FM_ITERS, warmup=1)
+        ref = TF.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+        dot = do.transpose(1, 2)
+        lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
+            ref, (qt, kt, vt), dot, retain_graph=True), iters=FM_ITERS,
+            warmup=1)
+        lib_err = float((ref.detach().transpose(1, 2).float()
+                         - out.float()).abs().max())
+        del ref, qt, kt, vt
+        idx_bytes = idx.numel() * 4
+        bounds = {"fwd": kernel_bound(b, s, h, d, dtype, True, 2, 4, 1,
+                                      pairs, idx_bytes)}
+        for name, (mm, tens, rows) in BWD_BOUND.items():
+            bounds[name] = kernel_bound(b, s, h, d, dtype, True, mm, tens,
+                                        rows, pairs, idx_bytes)
+        print(f"{label}: launches K5/K6/K7/K1/K2/K3 {counts}; err "
+              + " ".join(f"{n} {e:.2e}" for n, e in errs.items()
+                         if n != "dead_rows")
+              + f"; SDPA vs kernel O {lib_err:.2e}\n"
+              f"    forward {fwd_ms:.4f} ms ({flops_fwd / fwd_ms / 1e9:.2f} "
+              f"TFLOP/s over the allowed pairs), forward+backward with the "
+              f"GQA expansion {step_ms:.4f} ms "
+              f"({3.5 * flops_fwd / step_ms / 1e9:.2f} TFLOP/s, backward "
+              f"counted 2.5x forward); peak memory {peak:.2f} GiB\n"
+              f"    K5 {ms['fwd']:.4f} (bound {bounds['fwd'][0]:.4f} "
+              f"{bounds['fwd'][1]}, plain {plain['fwd']:.4f}, SDPA+mask fwd "
+              f"{lib_fwd:.4f})  K6 {ms['dq']:.4f} (bound "
+              f"{bounds['dq'][0]:.4f} {bounds['dq'][1]})  K7 "
+              f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f} "
+              f"{bounds['dkv'][1]})  plain bwd {plain['bwd']:.4f}  "
+              f"SDPA+mask bwd {lib_bwd:.4f}", flush=True)
+        shape = (f"B={b} S={s} H={h} D={d} {dtype} causal documents, "
+                 f"{pairs} pairs per head")
+        for name, err, plain_ms, lib_ms in (
+                ("fwd", errs["o"], plain["fwd"], lib_fwd),
+                ("dq", errs["dq"], plain["bwd"], lib_bwd),
+                ("dkv", max(errs["dk"], errs["dv"]), plain["bwd"], lib_bwd)):
+            records[(name, dtype)] = {
+                "max_abs_err": err, "ms": ms[name], "plain_ms": plain_ms,
+                "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                "library_ms": lib_ms, "shape": shape}
+        path[dtype] = {"forward_ms": fwd_ms, "forward_backward_ms": step_ms,
+                       "forward_tflops": flops_fwd / fwd_ms / 1e9,
+                       "forward_backward_tflops":
+                           3.5 * flops_fwd / step_ms / 1e9,
+                       "peak_memory_gib": peak}
+        del q, k_kv, v_kv, do, out, k, v, o, lse
+        torch.cuda.empty_cache()
+    return {"launches": launched, "records": records, "path": path}
+
+
 def main() -> int:
     try:
         import torch
@@ -1135,6 +1482,8 @@ def main() -> int:
         records.update(phase_llama_kernels(torch))
         phase_llama_model(torch, llama)
         trained_llama = phase_train_llama(torch, llama)
+        phase_flashmask_kernels(torch)
+        flashmask_path = phase_flashmask_path(torch)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1176,6 +1525,22 @@ def main() -> int:
         "float32": {k: records[("rms_norm", "float32")][k]
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "max_abs_err")}})
+    fm_records = flashmask_path["records"]
+    for name, key, line in (("flashmask_fwd", "fwd", 209),
+                            ("flashmask_bwd_dq", "dq", 251),
+                            ("flashmask_bwd_dkv", "dkv", 286)):
+        count = flashmask_path["launches"][key]
+        entry = {"name": name, "route": "cuda",
+                 "source": source + "flashmask.cu",
+                 "replaces": f"paddle_tpu/ops/pallas/flashmask.py:{line}",
+                 "launches": count, "launches_by_path": {"flashmask": count},
+                 **fm_records[(key, "bfloat16")],
+                 "float32": {k: fm_records[(key, "float32")][k]
+                             for k in ("ms", "plain_ms", "bound_ms",
+                                       "library_ms", "max_abs_err")}}
+        if key == "fwd":
+            entry["path"] = flashmask_path["path"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

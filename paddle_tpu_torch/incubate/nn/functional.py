@@ -1,13 +1,18 @@
 """``paddle.incubate.nn.functional`` for the port (port of
-``paddle_tpu/incubate/nn/functional.py``, the Llama fusion subset):
-``fused_rms_norm`` and ``swiglu``."""
+``paddle_tpu/incubate/nn/functional.py``, the ported subset): the Llama
+fusions ``fused_rms_norm`` and ``swiglu``, and the re-exports of
+``flashmask_attention``, ``fused_softmax_mask`` and
+``fused_softmax_mask_upper_triangle``."""
 from __future__ import annotations
 
 from ...device import DEFAULT_DEVICE, resolve_device
 from ...nn import functional as F
+from ...nn.functional.flash_attention import (
+    flashmask_attention, fused_softmax_mask, fused_softmax_mask_upper_triangle)
 from ...ops.activation import swiglu
 
-__all__ = ["fused_rms_norm", "swiglu"]
+__all__ = ["flashmask_attention", "fused_rms_norm", "fused_softmax_mask",
+           "fused_softmax_mask_upper_triangle", "swiglu"]
 
 
 def fused_rms_norm(x, norm_weight, norm_bias=None, epsilon: float = 1e-6,

@@ -1,0 +1,132 @@
+"""On-card tests of the port's FlashMask kernels K5–K7 (marker ``cuda``).
+
+They need an NVIDIA Hopper GPU and ``nvcc``, and skip on hosts without a
+GPU. This file imports no JAX:
+
+    python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_flashmask.py
+
+K5, K6 and K7 are held against their plain PyTorch versions on the same
+card, from the same (o, lse) for the backward, at the tolerances of the
+K1–K3 card tests: f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus
+1e-2 of the value (the outputs round once to bf16). Fully masked rows give
+exactly 0 in O and dQ. ``flashmask_attention`` differentiates through them
+with exactly one launch of each and none of K1–K3.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from paddle_tpu_torch.nn.functional import flashmask_attention
+from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import flashmask as fm
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _close(got, want, dtype):
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        return float(err.max()) <= 1e-4
+    return bool((err <= 2e-2 + 1e-2 * want.float().abs()).all())
+
+
+def _indices(rs, kind, b, hm, sq, sk):
+    j = np.arange(sk)
+    if kind == "doc":  # causal [LTS]: documents of 37 tokens
+        ends = np.minimum(j // 37 * 37 + 37, sk)
+        return np.broadcast_to(ends[:, None], (b, hm, sk, 1)).copy()
+    if kind == "masked_rows":  # causal [LTS, LTE], rows 70..79 fully hidden
+        lts = np.minimum(j + rs.randint(1, 40, (b, hm, sk)), sq)
+        lte = np.minimum(lts + rs.randint(0, 50, (b, hm, sk)), sq)
+        cols = j <= 79
+        lts = np.where(cols, np.minimum(lts, np.maximum(70, j)), lts)
+        lte = np.where(cols, np.maximum(lte, 80), lte)
+        return np.stack([lts, lte], -1)
+    # non-causal [LTS, LTE, UTS, UTE]: a sliding window of half-width 20
+    rows = np.round(j * sq / sk).astype(np.int64)
+    one = np.stack([np.minimum(rows + 20, sq), np.full(sk, sq),
+                    np.zeros(sk, np.int64), np.maximum(rows - 19, 0)], -1)
+    return np.broadcast_to(one, (b, hm, sk, 4)).copy()
+
+
+CASES = [
+    # B, Sq, Sk, H, Hm, D, dtype, kind
+    (2, 200, 200, 3, 1, 64, torch.float32, "doc"),          # ragged S
+    (1, 256, 256, 2, 2, 128, torch.bfloat16, "doc"),
+    (1, 192, 192, 2, 2, 64, torch.float32, "masked_rows"),
+    (1, 128, 128, 2, 1, 128, torch.bfloat16, "masked_rows"),
+    (2, 130, 260, 2, 1, 64, torch.float32, "window"),      # Sq != Sk
+    (1, 256, 256, 4, 4, 128, torch.bfloat16, "window"),
+]
+
+
+def test_kernels_match_plain(card):
+    rs = np.random.RandomState(0)
+    for case in CASES:
+        b, sq, sk, h, hm, d, dtype, kind = case
+        causal = kind != "window"
+        idx = torch.from_numpy(_indices(rs, kind, b, hm, sq, sk)).to(card)
+        q, do = (torch.from_numpy(rs.randn(b, sq, h, d).astype(
+            np.float32)).to(card, dtype) for _ in range(2))
+        k, v = (torch.from_numpy(rs.randn(b, sk, h, d).astype(
+            np.float32)).to(card, dtype) for _ in range(2))
+        scale = 1.0 / math.sqrt(d)
+        counts = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches)
+        o, lse = fm.flashmask_fwd(q, k, v, idx, causal, scale)
+        grads = fm.flashmask_bwd(q, k, v, o, lse, do, idx, causal, scale)
+        torch.cuda.synchronize()
+        assert (fm.fwd_launches, fm.dq_launches, fm.dkv_launches) == tuple(
+            c + 1 for c in counts), case
+        tidx = fm.prepare_indices(idx, q, k, causal)
+        ro, rlse = fm.flashmask_fwd_reference(q, k, v, tidx, causal, scale)
+        assert _close(o, ro, dtype), case
+        assert float((lse - rlse).abs().max()) <= 1e-3, case
+        want = fm.flashmask_bwd_reference(q, k, v, o, lse, do, tidx, causal,
+                                          scale)
+        for name, got, ref, like in zip(("dq", "dk", "dv"), grads, want,
+                                        (q, k, v)):
+            assert got.dtype == dtype and got.shape == like.shape, (case,
+                                                                    name)
+            assert bool(torch.isfinite(got.float()).all()), (case, name)
+            assert _close(got, ref, dtype), (case, name)
+        dead = fm.disallowed(tidx, sq, sk, causal).expand(
+            b, h, sq, sk).all(-1).transpose(1, 2)
+        assert (kind == "masked_rows") == bool(dead.any()), case
+        assert float(o[dead].float().abs().sum()) == 0.0, case
+        assert float(grads[0][dead].float().abs().sum()) == 0.0, case
+
+
+def test_flashmask_attention_differentiates_through_k5_k7(card):
+    """Autograd through the entry point: one launch each of K5, K6 and K7,
+    none of K1–K3, gradients equal to the plain path's on the CPU."""
+    rs = np.random.RandomState(1)
+    b, s, h, d = 1, 300, 4, 64
+    arrays = [rs.randn(b, s, h, d).astype(np.float32) for _ in range(4)]
+    idx = _indices(rs, "doc", b, 1, s, s)
+    grads = {}
+    for dev in ("cpu", card):
+        q, k, v = (torch.from_numpy(a).to(dev).requires_grad_(True)
+                   for a in arrays[:3])
+        before = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                  fa.launches, fa.dq_launches, fa.dkv_launches)
+        out = flashmask_attention(q, k, v, torch.from_numpy(idx))
+        out.backward(torch.from_numpy(arrays[3]).to(dev))
+        after = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                 fa.launches, fa.dq_launches, fa.dkv_launches)
+        want = (1, 1, 1, 0, 0, 0) if dev is card else (0,) * 6
+        assert tuple(x - y for x, y in zip(after, before)) == want, dev
+        grads[str(dev)] = [out.detach().cpu()] + [t.grad.cpu()
+                                                  for t in (q, k, v)]
+    for got, ref in zip(grads[str(card)], grads["cpu"]):
+        assert float((got - ref).abs().max()) <= 1e-4

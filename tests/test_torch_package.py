@@ -35,6 +35,9 @@ def _forbidden(module: str) -> bool:
 def test_no_jax_or_jax_package_import_in_source():
     files = sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    for module in ("ops/cuda/flashmask.py", "nn/functional/flash_attention.py",
+                   "incubate/nn/functional.py"):
+        assert PACKAGE / module in files, module
     bad = [(str(f.relative_to(ROOT)), m) for f in files
            for m in _imported_modules(f) if _forbidden(m)]
     assert bad == []
@@ -83,6 +86,11 @@ def test_cpu_engine_runs_without_loading_jax():
         "out = eng.generate('t', [1, 2, 3, 4, 5], 4, timeout=60)\n"
         "eng.shutdown()\n"
         "assert out.shape == (4,), out\n"
+        "import torch\n"
+        "from paddle_tpu_torch.nn.functional import flashmask_attention\n"
+        "q = torch.randn(1, 8, 1, 16)\n"
+        "idx = torch.full((1, 1, 8, 1), 8, dtype=torch.int32)\n"
+        "assert flashmask_attention(q, q, q, idx).shape == q.shape\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print('LOADED', loaded)\n")
@@ -102,6 +110,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.ops.cuda.flash_attention import (
         flash_attention_fwd, flash_attention_value)
+    from paddle_tpu_torch.ops.cuda.flashmask import (
+        flashmask_bwd, flashmask_fwd, flashmask_value)
     from paddle_tpu_torch.incubate.nn.functional import fused_rms_norm
     from paddle_tpu_torch.models.llama import LlamaForCausalLM, llama_tiny
     from paddle_tpu_torch.ops.cuda.rms_norm import (rms_norm_fwd,
@@ -123,6 +133,14 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
         flash_attention_fwd(q, q, q, True, 0.25)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         flash_attention_value(q, q, q, True, 0.25)
+    idx = torch.full((1, 1, 16, 1), 16, dtype=torch.int32)
+    for fn in (flashmask_fwd, flashmask_value):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fn(q, q, q, idx, True, 0.25)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        flashmask_bwd(q, q, q, q, torch.zeros(1, 1, 1, 16), q, idx, True,
+                      0.25)
+    flashmask_value(q, q, q, idx, True, 0.25, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         LlamaForCausalLM(llama_tiny())
     LlamaForCausalLM(llama_tiny(), device="cpu")
