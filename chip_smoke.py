@@ -7,8 +7,12 @@ Phases, each of which fails the run on any error:
 
 1. card   — ``nvidia-smi`` name and power limit;
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/ops/
-   cuda/csrc``, one ``nvcc`` per source, all at once;
-3. kernel — the flash-attention forward kernel against its plain PyTorch
+   cuda/csrc``, one ``nvcc`` per source, all at once; print each kernel's
+   registers and spills, and check with ``cuobjdump -sass`` that every
+   tensor-core kernel (bf16 K1 and K2) holds wgmma (HGMMA) and TMA load
+   (UTMALDG) instructions;
+3. kernel — the flash-attention forward kernel (K1: the tensor-core kernel
+   for bf16, the CUDA-core one for f32) against its plain PyTorch
    version on the card at the GPT-2-small serving shapes (B in {1, 4},
    S in {128, 1024}, H=12, D=64, f32 and bf16, causal and not), timed
    beside the plain version and ``torch.nn.functional.
@@ -27,7 +31,8 @@ Phases, each of which fails the run on any error:
 7. backward kernels — K1 with dropout, K2 (dQ) and K3 (dK/dV) against
    their plain versions at B=8 and B=1 with S=1024 and at a ragged S=1000
    (H=12, D=64, causal, f32 and bf16, dropout 0 and 0.1). The dropped
-   positions of all three are checked to be exactly the plain version's;
+   positions of all three are checked to be exactly the plain version's,
+   in f32 and in bf16;
    each kernel is timed beside its bound, its plain version and the SDPA
    forward or backward (a yardstick only);
 8. gradients — every gradient of gpt2_small (f32, dropout 0, B=1, S=256)
@@ -77,7 +82,8 @@ Phases, each of which fails the run on any error:
 
 The serve (5), train (9), train Llama (12) and FlashMask path (14) phases
 are the main paths: the launch counts are set to 0 just before each and
-read just after. The line before the last is ``{"kernels": [...]}``; the
+read just after, and no operand may have been copied for TMA there
+(``tma_copies`` stays 0). The line before the last is ``{"kernels": [...]}``; the
 last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
 outside a checkout, the script prints no result and exits non-zero.
 
@@ -131,7 +137,10 @@ def check(ok: bool, what: str) -> None:
 
 def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of ``fn`` over ``iters`` back-to-back calls,
-    after ``warmup`` calls, by CUDA events."""
+    after ``warmup`` calls, by CUDA events. A ~25 ms spin on the stream
+    first lets the host queue the calls before the first one runs, so a
+    kernel shorter than its wrapper's host time (about 0.09 ms a call) is
+    timed on the card, not on the host."""
     import torch
 
     for _ in range(warmup):
@@ -139,6 +148,7 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -185,6 +195,36 @@ def phase_card() -> None:
     print(out.strip().splitlines()[0], flush=True)
 
 
+# the sources of the tensor-core kernels (bf16 K1 and K2), whose SASS must
+# hold wgmma (HGMMA) and TMA loads (UTMALDG)
+TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90")
+
+
+def check_tensor_core_sass(_build) -> None:
+    """``cuobjdump -sass`` of each tensor-core library: every kernel in it
+    holds HGMMA and UTMALDG instructions, so none compiled to scalar code."""
+    tool = _build.toolkit_binary("cuobjdump")
+    for name in TC_SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build.library_path(name))],
+                              capture_output=True, text=True, timeout=300,
+                              check=True).stdout
+        funcs = re.split(r"\n\s*Function : ", sass)[1:]
+        check(len(funcs) > 0, f"cuobjdump found no kernel in {name}")
+        rows = []
+        for body in funcs:
+            fn = body.split()[0]
+            mma, tma = body.count("HGMMA"), body.count("UTMALDG")
+            t = re.search(r"((?:fwd|dq)_sm90)_kernelILi(\d+)ELb([01])E", fn)
+            rows.append(f"{t.group(1)} D={t.group(2)}"
+                        f"{' dropout' if t.group(3) == '1' else ''}: "
+                        f"{mma} HGMMA, {tma} UTMALDG" if t else
+                        f"{fn}: {mma} HGMMA, {tma} UTMALDG")
+            check(mma > 0 and tma > 0,
+                  f"{fn} in {name} has {mma} HGMMA and {tma} UTMALDG "
+                  f"instructions: not on the tensor cores through TMA")
+        print(f"{name} (SASS): " + "; ".join(rows), flush=True)
+
+
 def phase_build() -> float:
     from paddle_tpu_torch.ops.cuda import (_build, flash_attention, flashmask,
                                            rms_norm)
@@ -192,7 +232,7 @@ def phase_build() -> float:
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
     _build.build_all(["flash_attention_fwd", "flash_attention_bwd",
-                      "rms_norm", "flashmask"])
+                      *TC_SOURCES, "rms_norm", "flashmask"])
     flash_attention.build()
     rms_norm.build()
     flashmask.build()
@@ -206,9 +246,14 @@ def phase_build() -> float:
                 entry, spill = m.group(1), "?"
                 t = re.search(r"((?:flashmask_)?(?:fwd|dq|dkv))_kernelI"
                               r"(13__nv_bfloat16|f)Li(\d+)E(Lb1)?", entry)
+                tc = re.search(r"((?:fwd|dq)_sm90)_kernelILi(\d+)ELb([01])E",
+                               entry)
                 r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
                               r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", entry)
-                if t:
+                if tc:
+                    entry = (f"{tc.group(1)} bf16/D={tc.group(2)}"
+                             f"{' dropout' if tc.group(3) == '1' else ''}")
+                elif t:
                     entry = (f"{t.group(1)} "
                              f"{'bf16' if t.group(2) != 'f' else 'f32'}"
                              f"/D={t.group(3)}"
@@ -227,6 +272,7 @@ def phase_build() -> float:
                 entry = None
         print(f"{name} (ptxas): " + "; ".join(rows), flush=True)
     print(f"built in {seconds:.1f} s", flush=True)
+    check_tensor_core_sass(_build)
     return seconds
 
 
@@ -362,7 +408,7 @@ def phase_serve(torch, model) -> dict:
     try:
         engine.warmup()
         # the main path's run: counts from 0, read right after it
-        fa.launches = 0
+        fa.launches = fa.tma_copies = 0
         t0 = time.perf_counter()
         futs = [engine.submit("alpha" if i % 2 else "beta", p,
                               max_new_tokens=NEW_TOKENS)
@@ -375,7 +421,7 @@ def phase_serve(torch, model) -> dict:
         solo = [engine.generate("alpha" if i % 2 else "beta", p, NEW_TOKENS,
                                 timeout=600) for i, p in enumerate(prompts)]
         wall_solo = time.perf_counter() - t0
-        launches = fa.launches
+        launches, copies = fa.launches, fa.tma_copies
         rep_solo = engine.serving_report()
         free_pages = engine.kv_pool.free_count()
         active = engine.active_requests()
@@ -443,6 +489,7 @@ def phase_serve(torch, model) -> dict:
           "not every request was answered")
     print(f"prefill shapes (batch, seq): {sorted(prefill_shapes)}",
           flush=True)
+    check(copies == 0, f"{copies} operands were copied for TMA")
     return {"launches": launches, "prefill_shapes": sorted(prefill_shapes)}
 
 
@@ -499,30 +546,36 @@ def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> dict:
     return errs
 
 
-def check_dropout_positions(torch, fa, b, s, seed, dropout=0.1) -> int:
+def check_dropout_positions(torch, fa, b, s, seed, dtype,
+                            dropout=0.1) -> int:
     """The dropped (q, k) positions of K1, K2 and K3 are exactly the plain
     version's, over the whole [B, H, S, S] mask, 64 columns at a time.
     With q = 0 every allowed probability is 1/(row + 1); a one-hot
     [B, S, H, D] operand over a window of 64 positions then reads one
     mask column per output column: v for K1 (o), k for K2 (dq, with
     dO·Vᵀ > 0 so a kept and a dropped position differ by at least the
-    probability), dO for K3 (dv). A flipped position changes an output
-    by at least 1/(0.9·S); the check allows 1e-2/S. Returns the number of
-    positions checked."""
+    probability), dO for K3 (dv). In float32 a flipped position changes an
+    output by at least 1/(0.9·S); the check allows 1e-2/S. In bfloat16,
+    where the tensor-core K1 and K2 round P and dS, the check is on the
+    positions alone: K2 then runs with O = 0, so Δ = 0 and dq is positive
+    exactly where a position is kept. Returns the number of positions
+    checked."""
     h, d = HEADS, HEAD_DIM
     dev = torch.device("cuda")
+    dt = getattr(torch, dtype)
+    exact = dtype == "float32"
     scale = 1.0 / math.sqrt(d)
-    zeros = torch.zeros(b, s, h, d, device=dev)
+    zeros = torch.zeros(b, s, h, d, device=dev, dtype=dt)
     rs = np.random.RandomState(6)
     tol = 1e-2 / s
-    vrow = torch.zeros(b, s, h, d, device=dev)
+    vrow = torch.zeros(b, s, h, d, device=dev, dtype=dt)
     vrow[..., 0] = torch.from_numpy(rs.uniform(1, 2, (b, s, h)).astype(
-        np.float32)).to(dev)
-    e0 = torch.zeros(b, s, h, d, device=dev)
+        np.float32)).to(dev, dt)
+    e0 = torch.zeros(b, s, h, d, device=dev, dtype=dt)
     e0[..., 0] = 1.0
 
     def window(w0):
-        basis = torch.zeros(b, s, h, d, device=dev)
+        basis = torch.zeros(b, s, h, d, device=dev, dtype=dt)
         idx = torch.arange(w0, min(w0 + d, s), device=dev)
         basis[:, idx, :, idx - w0] = 1.0
         return basis
@@ -536,29 +589,32 @@ def check_dropout_positions(torch, fa, b, s, seed, dropout=0.1) -> int:
                                                     True, scale, dropout,
                                                     seed)
         check(torch.equal(o > 0, ro > 0)
-              and float((o - ro).abs().max()) <= tol,
+              and (not exact or float((o - ro).abs().max()) <= tol),
               f"K1 dropped positions differ from the plain version's "
-              f"(B={b} S={s}, columns {w0}..)")
+              f"({dtype} B={b} S={s}, columns {w0}..)")
         # K2: dq[q, c] = scale * p * (keep * u / 0.9 - delta) at k = w0 + c
         o2, lse2 = fa.flash_attention_fwd_reference(zeros, basis, vrow,
                                                     True, scale, dropout,
                                                     seed)
+        if not exact:
+            o2 = zeros  # delta = 0: dq > 0 exactly where kept
         dq, _, _ = fa.flash_attention_bwd(zeros, basis, vrow, o2, lse2, e0,
                                           seed, True, scale, dropout)
         rdq, _, _ = fa.flash_attention_bwd_reference(
             zeros, basis, vrow, o2, lse2, e0, seed, True, scale, dropout)
-        check(float((dq - rdq).abs().max()) <= tol * scale,
+        check(float((dq - rdq).abs().max()) <= tol * scale if exact
+              else torch.equal(dq > 0, rdq > 0),
               f"K2 dropped positions differ from the plain version's "
-              f"(B={b} S={s}, columns {w0}..)")
+              f"({dtype} B={b} S={s}, columns {w0}..)")
         # K3: dv[k, c] = keep(w0 + c, k) / (0.9 (w0 + c + 1))
         _, _, dv = fa.flash_attention_bwd(zeros, zeros, zeros, ro, rlse,
                                           basis, seed, True, scale, dropout)
         _, _, rdv = fa.flash_attention_bwd_reference(
             zeros, zeros, zeros, ro, rlse, basis, seed, True, scale, dropout)
         check(torch.equal(dv > 0, rdv > 0)
-              and float((dv - rdv).abs().max()) <= tol,
+              and (not exact or float((dv - rdv).abs().max()) <= tol),
               f"K3 dropped positions differ from the plain version's "
-              f"(B={b} S={s}, rows {w0}..)")
+              f"({dtype} B={b} S={s}, rows {w0}..)")
     torch.cuda.synchronize()
     return b * h * s * s
 
@@ -675,10 +731,11 @@ def phase_backward(torch) -> dict:
           f"{scatter_ms:.4f} ms per layer, {LAYERS * scatter_ms:.3f} ms per "
           f"step", flush=True)
     for b, s in ((8, 1024), (1, 1000)):
-        n = check_dropout_positions(torch, fa, b, s, seed)
-        print(f"dropout 0.1 at B={b} S={s}: the dropped positions of K1, K2 "
-              f"and K3 equal the plain version's at all {n} (b, h, q, k)",
-              flush=True)
+        for dtype in ("float32", "bfloat16"):
+            n = check_dropout_positions(torch, fa, b, s, seed, dtype)
+            print(f"dropout 0.1 at B={b} S={s} {dtype}: the dropped "
+                  f"positions of K1, K2 and K3 equal the plain version's at "
+                  f"all {n} (b, h, q, k)", flush=True)
     return records
 
 
@@ -770,8 +827,9 @@ def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0):
 def run_timed_steps(torch, step, ids) -> tuple:
     """One warmup step, then ``TRAIN_STEPS`` timed ones (host clock around
     each, ending in a synchronize), with every launch count set to 0 just
-    before them and read just after. Returns (warmup loss, losses, step
-    seconds, launches of K1, K2, K3, K4)."""
+    before them and read just after; fails if an operand was copied for
+    TMA. Returns (warmup loss, losses, step seconds, launches of K1, K2, K3,
+    K4)."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
@@ -780,6 +838,7 @@ def run_timed_steps(torch, step, ids) -> tuple:
     torch.cuda.synchronize()
     # the main path's run: counts from 0, read right after it
     fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
+    fa.tma_copies = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -789,6 +848,9 @@ def run_timed_steps(torch, step, ids) -> tuple:
         times.append(time.perf_counter() - t0)
         losses.append(loss)
     counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches)
+    check(fa.tma_copies == 0, f"{fa.tma_copies} operands were copied for "
+          f"TMA on the training path")
+    print(f"operands copied for TMA: {fa.tma_copies}", flush=True)
     return first, [float(x.float()) for x in losses], times, counts
 
 
@@ -812,8 +874,9 @@ def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
 
 # the port's kernels by their exact names in the profiler's rows (the
 # demangled "void (anonymous namespace)::fwd_kernel<...>(...)"): K1–K3,
-# and K4 on its own, whatever else is named *_kernel
-ATTENTION_KERNELS = re.compile(r"(?:^|[\s:])(?:fwd|dq|dkv)_kernel<")
+# the tensor-core K1/K2 (fwd_sm90_kernel, dq_sm90_kernel), and K4 on its
+# own, whatever else is named *_kernel
+ATTENTION_KERNELS = re.compile(r"(?:^|[\s:])(?:fwd|dq|dkv)(?:_sm90)?_kernel<")
 RMS_NORM_KERNEL = re.compile(r"(?:^|[\s:])rms_norm_kernel<")
 
 
@@ -840,8 +903,11 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     ours = sum(r[1] for r in rows if ATTENTION_KERNELS.search(r[0]))
     k4 = [r for r in rows if RMS_NORM_KERNEL.search(r[0])]
     k4_ms = sum(r[1] for r in k4)
+    # cuBLAS's kernels by name; a row already counted as one of ours is not
     gemm = sum(r[1] for r in rows
-               if re.search(r"nvjet|gemm|cutlass|sm90_xmma", r[0]))
+               if re.search(r"nvjet|gemm|cutlass|sm90_xmma", r[0])
+               and not ATTENTION_KERNELS.search(r[0])
+               and not RMS_NORM_KERNEL.search(r[0]))
     launches = sum(r[2] for r in rows)
     rest = total - ours - k4_ms - gemm
     print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
@@ -1345,15 +1411,15 @@ def phase_flashmask_path(torch) -> dict:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         fm.fwd_launches = fm.dq_launches = fm.dkv_launches = 0
-        fa.launches = fa.dq_launches = fa.dkv_launches = 0
+        fa.launches = fa.dq_launches = fa.dkv_launches = fa.tma_copies = 0
         out, k, v = fwd_bwd()
         torch.cuda.synchronize()
         counts = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
                   fa.launches, fa.dq_launches, fa.dkv_launches)
         peak = torch.cuda.max_memory_allocated() / 2**30
-        check(counts == (1, 1, 1, 0, 0, 0),
+        check(counts == (1, 1, 1, 0, 0, 0) and fa.tma_copies == 0,
               f"launches K5/K6/K7/K1/K2/K3 {counts}, want (1, 1, 1, 0, 0, "
-              f"0) per forward+backward")
+              f"0) per forward+backward; TMA copies {fa.tma_copies}")
         if launched is None:
             launched = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2]}
         check(out.shape == q.shape and out.dtype == dt,
@@ -1491,14 +1557,19 @@ def main() -> int:
     source = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     kernels = []
-    for name, key, src, line in (
-            ("flash_attention_fwd", "fwd", "flash_attention_fwd.cu", 266),
-            ("flash_attention_bwd_dq", "dq", "flash_attention_bwd.cu", 310),
+    # K1 and K2 have a bf16 kernel (the training paths) and an f32 one (the
+    # f32 serving path); K3 serves both dtypes from one source
+    for name, key, src, src_f32, line in (
+            ("flash_attention_fwd", "fwd", "flash_attention_fwd_sm90.cu",
+             "flash_attention_fwd.cu", 266),
+            ("flash_attention_bwd_dq", "dq", "flash_attention_dq_sm90.cu",
+             "flash_attention_bwd.cu", 310),
             ("flash_attention_bwd_dkv", "dkv", "flash_attention_bwd.cu",
-             347)):
+             "flash_attention_bwd.cu", 347)):
         by_path = {"train": trained[key], "train_llama": trained_llama[key]}
-        if key == "fwd":
-            by_path["serve"] = served["launches"]
+        f32_by_path = {"serve": served["launches"]} if key == "fwd" else {}
+        if src == src_f32:
+            by_path.update(f32_by_path)
         entry = {"name": name, "route": "cuda", "source": source + src,
                  "replaces": replaces + str(line),
                  "launches": sum(by_path.values()),
@@ -1506,9 +1577,13 @@ def main() -> int:
                  **records[(key, "bfloat16", 0.0)],
                  "with_dropout": {k: records[(key, "bfloat16", 0.1)][k]
                                   for k in ("ms", "max_abs_err")},
-                 "float32": {k: records[(key, "float32", 0.0)][k]
-                             for k in ("ms", "plain_ms", "bound_ms",
-                                       "library_ms", "max_abs_err")}}
+                 "float32": {"source": source + src_f32,
+                             **{k: records[(key, "float32", 0.0)][k]
+                                for k in ("ms", "plain_ms", "bound_ms",
+                                          "library_ms", "max_abs_err")}}}
+        if src != src_f32:
+            entry["float32"].update(launches=sum(f32_by_path.values()),
+                                    launches_by_path=f32_by_path)
         if key == "fwd":
             entry["serve_shape"] = serve_record
         entry["llama_shape"] = records[(key, "bfloat16", 64)]

@@ -21,7 +21,7 @@ from pathlib import Path
 from typing import Dict, Iterable
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "load", "build_all",
-           "ptxas_report"]
+           "library_path", "toolkit_binary", "ptxas_report"]
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -48,6 +48,11 @@ def _nvcc() -> str:
     raise RuntimeError(
         "nvcc not found (set CUDA_HOME or put nvcc on PATH): the port's "
         "CUDA kernels are built from source at first use")
+
+
+def toolkit_binary(name: str) -> str:
+    """A CUDA toolkit program beside ``nvcc`` (``cuobjdump``, say)."""
+    return str(Path(_nvcc()).parent / name)
 
 
 def _source(name: str) -> Path:
@@ -100,6 +105,11 @@ def build_all(names: Iterable[str]) -> None:
                 errors.append(str(e))
         if errors:
             raise RuntimeError("\n".join(errors))
+
+
+def library_path(name: str) -> Path:
+    """Where the library built from ``csrc/<name>.cu`` is, or will be."""
+    return _target(_source(name))
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): the two-pass recompute
-// backward over [batch, seq, heads, head_dim] tensors.
+// backward over [batch, seq, heads, head_dim] tensors. K2 here serves
+// float32 inputs only (the bfloat16 dQ pass is flash_attention_dq_sm90.cu,
+// on the tensor cores); K3 serves both float32 and bfloat16.
 //
 // Replaces, in paddle_tpu/ops/pallas/flash_attention.py (both launched by
 // _flash_bwd):
@@ -423,13 +425,21 @@ cudaError_t launch_dkv(const Params& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename T, int D, bool kDq>
+cudaError_t launch_pass(const Params& p, cudaStream_t stream) {
+  if constexpr (kDq)
+    return launch_dq<T, D>(p, stream);
+  else
+    return launch_dkv<T, D>(p, stream);
+}
+
 template <typename T, bool kDq>
 cudaError_t launch_d(const Params& p, int d, cudaStream_t stream) {
   switch (d) {
-    case 16: return kDq ? launch_dq<T, 16>(p, stream) : launch_dkv<T, 16>(p, stream);
-    case 32: return kDq ? launch_dq<T, 32>(p, stream) : launch_dkv<T, 32>(p, stream);
-    case 64: return kDq ? launch_dq<T, 64>(p, stream) : launch_dkv<T, 64>(p, stream);
-    case 128: return kDq ? launch_dq<T, 128>(p, stream) : launch_dkv<T, 128>(p, stream);
+    case 16: return launch_pass<T, 16, kDq>(p, stream);
+    case 32: return launch_pass<T, 32, kDq>(p, stream);
+    case 64: return launch_pass<T, 64, kDq>(p, stream);
+    case 128: return launch_pass<T, 128, kDq>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -477,16 +487,21 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   p.drop.block_k = block_k;
   if (block_q < 1 || block_k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? launch_d<float, kDq>(p, D, s)
-                    : dtype == 1 ? launch_d<__nv_bfloat16, kDq>(p, D, s)
-                                 : cudaErrorInvalidValue;
+  // the bfloat16 dQ pass runs on the tensor cores (flash_attention_dq_sm90.cu)
+  cudaError_t err = cudaErrorInvalidValue;
+  if (dtype == 0) {
+    err = launch_d<float, kDq>(p, D, s);
+  } else if constexpr (!kDq) {
+    if (dtype == 1) err = launch_d<__nv_bfloat16, false>(p, D, s);
+  }
   return static_cast<int>(err);
 }
 
 }  // namespace
 
 // Both entry points take the same arguments. dtype: 0 = float32,
-// 1 = bfloat16. Strides are in elements (q, k, v, then dO). lse and delta
+// 1 = bfloat16 (K3 only: the bfloat16 dQ pass is paddle_flash_attention_
+// bwd_dq_sm90). Strides are in elements (q, k, v, then dO). lse and delta
 // are contiguous [B, H, 1, Sq] f32; dq is a contiguous [B, Sq, H, D] and
 // dk, dv contiguous [B, Sk, H, D] tensors in the input dtype. seed is a (1,)
 // int32 device tensor, read only when dropout_on; keep_prob, thresh,

@@ -1,5 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a): online-softmax attention over
 // [batch, seq, heads, head_dim] tensors, emitting O and the row logsumexp.
+// This is K1 for float32 inputs only, in full f32 on the CUDA cores (the
+// f32 serving path and the f32 gradient checks need full f32, which TF32
+// on the tensor cores would not give). K1 for bfloat16 is
+// flash_attention_fwd_sm90.cu, on the tensor cores.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (launched by
 // _flash_fwd). It computes the same function, not the same blocks:
@@ -8,8 +12,8 @@
 //     qkv [B, S, H, 3, D] without a copy;
 //   - causal is top-left, q_pos >= k_pos; k tiles wholly above the diagonal
 //     are skipped, masked scores are -1e30 and their probabilities exactly 0;
-//   - running max, running sum and accumulator are f32; O is written in the
-//     input dtype (f32 or bf16), lse = m + log(max(l, 1e-30)) in f32 as
+//   - running max, running sum and accumulator are f32; O is written in f32,
+//     lse = m + log(max(l, 1e-30)) in f32 as
 //     [B, H, 1, Sq];
 //   - any Sq, Sk: the ragged edge of the last tile is masked;
 //   - dropout inside the kernel, by the Pallas _dropout_mask hash at each
@@ -35,13 +39,11 @@
 // Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA
 // cores, 3.35 TB/s HBM): at the GPT-2-small prefill shape B=1, S=1024, H=12,
 // D=64, causal, the work is 4*D*S*(S+1)/2*H = 1.61 GFLOP and q, k, v, o move
-// 12.6 MB in f32 or 6.3 MB in bf16. f32 is bound by operations on the CUDA
-// cores (about 24 us); bf16 by memory (about 1.9 us). At the training shape
-// B=8 the same holds eight times over: 0.19 ms f32, 0.015 ms bf16. Dropout
+// 12.6 MB in f32. f32 is bound by operations on the CUDA cores (about
+// 24 us); at the training shape B=8 eight times that, 0.19 ms. Dropout
 // adds about ten integer multiplies of the hash per score element, against
-// the element's 2*D FMAs. This kernel does every
-// product as an f32 FMA on the CUDA cores, so it cannot reach the bf16 bound:
-// wgmma on the tensor cores and TMA loads are the way there. Its own limit is
+// the element's 2*D FMAs. This kernel does every product as an f32 FMA on
+// the CUDA cores. Its own limit is
 // the shared-memory loads of the score and output phases (8 scalar loads per
 // 16 FMAs). ptxas gives D = 64 238 registers, one block per SM; D = 128 hits
 // 255 and spills a few hundred bytes whatever the unrolling.
@@ -277,7 +279,7 @@ cudaError_t launch_t(const Params& p, int d, cudaStream_t stream) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. o is a
+// dtype must be 0 (float32). Strides are in elements. o is a
 // contiguous [B, Sq, H, D] tensor, lse a contiguous [B, H, 1, Sq] f32 tensor.
 // seed is a (1,) int32 device tensor, read only when dropout_on; keep_prob,
 // thresh, block_q and block_k describe the mask (flash_attention_common.cuh).
@@ -317,8 +319,7 @@ extern "C" int paddle_flash_attention_fwd(
   p.drop.block_k = block_k;
   if (dropout_on && (block_q < 1 || block_k < 1)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? launch_t<float>(p, D, s)
-                    : dtype == 1 ? launch_t<__nv_bfloat16>(p, D, s)
-                                 : cudaErrorInvalidValue;
+  // bfloat16 runs on the tensor cores (flash_attention_fwd_sm90.cu)
+  cudaError_t err = dtype == 0 ? launch_t<float>(p, D, s) : cudaErrorInvalidValue;
   return static_cast<int>(err);
 }

@@ -4,11 +4,21 @@ their plain versions.
 Port of ``paddle_tpu/ops/pallas/flash_attention.py``. Three kernels replace
 the three Pallas bodies; each source comment states its design and bound:
 
-- K1, ``csrc/flash_attention_fwd.cu``, replaces ``_fwd_kernel`` (launched
-  by ``_flash_fwd``): O and the row logsumexp, with in-kernel dropout;
-- K2 and K3, ``csrc/flash_attention_bwd.cu``, replace ``_bwd_dq_kernel``
-  and ``_bwd_dkv_kernel`` (both launched by ``_flash_bwd``): the dQ pass
-  and the dK/dV pass of the two-pass recompute backward.
+- K1 replaces ``_fwd_kernel`` (launched by ``_flash_fwd``): O and the row
+  logsumexp, with in-kernel dropout;
+- K2 and K3 replace ``_bwd_dq_kernel`` and ``_bwd_dkv_kernel`` (both
+  launched by ``_flash_bwd``): the dQ pass and the dK/dV pass of the
+  two-pass recompute backward.
+
+K1 and K2 have one kernel per dtype (:func:`kernel_for`): bfloat16 runs on
+the tensor cores with wgmma, fed by TMA (``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_dq_sm90.cu``); float32 runs in full f32 on the
+CUDA cores (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``),
+since TF32 would not keep the f32 path's precision. K3 is
+``csrc/flash_attention_bwd.cu`` for both. TMA reads a bfloat16 operand only
+from a 16-byte aligned base with strides that are multiples of 16 bytes
+(:func:`tma_aligned`); the wrapper gives the tensor-core kernels a
+contiguous copy of any other operand and counts it in :data:`tma_copies`.
 
 Each wrapper launches its kernel for CUDA tensors or raises — no
 fallback — and runs the plain PyTorch version for CPU tensors. The plain
@@ -43,7 +53,8 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_value", "FlashAttentionFunction", "dropout_keep",
            "blocks", "build", "bwd_launch_args", "run_bwd_pass", "launches",
-           "dq_launches", "dkv_launches", "dropout_launches",
+           "dq_launches", "dkv_launches", "dropout_launches", "tma_copies",
+           "kernel_for", "tma_aligned", "SOURCES",
            "HEAD_DIMS", "NEG_INF", "BLOCK_Q", "BLOCK_K"]
 
 NEG_INF = -1e30
@@ -52,6 +63,7 @@ HEAD_DIMS = (16, 32, 64, 128)
 #: the Pallas kernels' default tiles, on which the dropout mask depends
 BLOCK_Q, BLOCK_K = 256, 512
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_OF = {code: dtype for dtype, code in _DTYPES.items()}
 
 #: K1 launches so far (plain-version calls are not counted)
 launches = 0
@@ -61,6 +73,21 @@ dq_launches = 0
 dkv_launches = 0
 #: launches with dropout on, by kernel (a subset of the three counts above)
 dropout_launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
+#: bfloat16 operands copied because TMA could not read them in place
+tma_copies = 0
+
+#: kernel name -> (source in ``csrc/``, C entry point)
+SOURCES = {
+    "fwd": ("flash_attention_fwd", "paddle_flash_attention_fwd"),
+    "fwd_sm90": ("flash_attention_fwd_sm90",
+                 "paddle_flash_attention_fwd_sm90"),
+    "bwd_dq": ("flash_attention_bwd", "paddle_flash_attention_bwd_dq"),
+    "bwd_dq_sm90": ("flash_attention_dq_sm90",
+                    "paddle_flash_attention_bwd_dq_sm90"),
+    "bwd_dkv": ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv"),
+}
+# the C entry points' status when a TMA tensor map cannot be encoded
+_ERR_TENSOR_MAP = 9001
 
 _fns: Dict[str, object] = {}
 _zero_seeds: Dict[torch.device, torch.Tensor] = {}
@@ -237,23 +264,58 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
 # ---------------------------------------------------------------- kernels
 
 
+def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
+    """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
+    (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K1 and K2 on
+    the tensor cores for bfloat16, on the CUDA cores for float32; K3 on the
+    CUDA cores for both."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+    if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
+        raise ValueError(f"no pass {pass_name!r}")
+    if dtype == torch.bfloat16 and pass_name != "bwd_dkv":
+        return pass_name + "_sm90"
+    return pass_name
+
+
+def tma_aligned(shape, strides, address: int, dtype: torch.dtype) -> bool:
+    """Whether TMA can read a ``[B, S, H, D]`` operand in place: bfloat16,
+    the last dim contiguous, the first element's byte ``address`` (or its
+    offset from an aligned base) 16-byte aligned, and each of
+    the batch, seq and head strides of a dim longer than 1 a positive
+    multiple of 16 bytes below 2**40 (a dim of length 1 is never
+    stepped)."""
+    if dtype != torch.bfloat16 or strides[3] != 1 or address % 16:
+        return False
+    return all(n == 1 or (0 < st and (2 * st) % 16 == 0 and 2 * st < 2 ** 40)
+               for n, st in zip(shape[:3], strides[:3]))
+
+
+def _for_tma(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself when TMA can read it in place, else a contiguous copy
+    (counted in :data:`tma_copies`)."""
+    global tma_copies
+    if tma_aligned(t.shape, t.stride(), t.data_ptr(), t.dtype):
+        return t
+    tma_copies += 1
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        lib = _build.load("flash_attention_fwd" if name == "fwd"
-                          else "flash_attention_bwd")
+        source, symbol = SOURCES[name]
+        fn = getattr(_build.load(source), symbol)
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
         # causal scale dropout_on keep_prob thresh block_q block_k stream
         tail = [i32, f32, i32, f32, ctypes.c_uint32, i32, i32, ptr]
-        if name == "fwd":
+        if name.startswith("fwd"):
             # q k v o lse seed | dtype B Sq Sk H D | 9 strides | tail
-            fn = lib.paddle_flash_attention_fwd
             fn.argtypes = [ptr] * 6 + [i32] * 6 + [i64] * 9 + tail
         else:
             # q k v do lse delta seed dq dk dv | dtype B Sq Sk H D |
             # 12 strides | tail
-            fn = getattr(lib, f"paddle_flash_attention_{name}")
             fn.argtypes = [ptr] * 10 + [i32] * 6 + [i64] * 12 + tail
         fn.restype = ctypes.c_int
         _fns[name] = fn
@@ -261,11 +323,17 @@ def _kernel(name: str):
 
 
 def build() -> None:
-    """Build and load K1, K2 and K3 now (their two sources compile in
-    parallel) instead of at their first launch."""
-    _build.build_all(["flash_attention_fwd", "flash_attention_bwd"])
-    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+    """Build and load every K1–K3 kernel now (their four sources compile
+    in parallel) instead of at their first launch."""
+    _build.build_all(sorted({source for source, _ in SOURCES.values()}))
+    for name in SOURCES:
         _kernel(name)
+
+
+def _raise_launch(what: str, err: int) -> None:
+    if err == _ERR_TENSOR_MAP:
+        raise RuntimeError(f"{what}: a TMA tensor map could not be encoded")
+    raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
 def _check(q, k, v):
@@ -315,8 +383,15 @@ def _check_kernel_inputs(tensors, d):
 
 
 def _strides(*tensors):
-    return [s for t in tensors for s in (t.stride(0), t.stride(1),
-                                         t.stride(2))]
+    """Batch, seq and head strides of each tensor; a dim of length 1 is
+    never stepped, so it gets the contiguous stride, which TMA takes."""
+    out = []
+    for t in tensors:
+        d, h, s = t.shape[3], t.shape[2], t.shape[1]
+        natural = (s * h * d, h * d, d)
+        out += [t.stride(i) if t.shape[i] > 1 else natural[i]
+                for i in range(3)]
+    return out
 
 
 def _dropout_args(dropout, seed, sq, sk, block_q, block_k, device):
@@ -361,18 +436,20 @@ def _launch_fwd(q, k, v, causal, scale, dropout, seed, block_q, block_k):
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v), d)
     _check_shape(b, sq, sk, h)
+    name = kernel_for("fwd", q.dtype)
+    if name == "fwd_sm90":
+        q, k, v = (_for_tma(t) for t in (q, k, v))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, 1, sq), dtype=torch.float32, device=q.device)
     drop = _dropout_args(dropout, seed, sq, sk, block_q, block_k, q.device)
-    fn = _kernel("fwd")
+    fn = _kernel(name)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), drop[0], _DTYPES[q.dtype], b, sq, sk, h, d,
                  *_strides(q, k, v), int(causal), scale, *drop[1:], stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention_fwd kernel launch failed: "
-                           f"cudaError {err}")
+        _raise_launch("flash_attention_fwd", err)
     launches += 1
     if dropout > 0.0:
         dropout_launches["fwd"] += 1
@@ -405,10 +482,12 @@ def flash_attention_bwd(q, k, v, o, lse, do, seed, causal: bool,
 
 def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
                     block_q=BLOCK_Q, block_k=BLOCK_K):
-    """Checks the backward's CUDA inputs and returns ``(args, (dq, dk,
-    dv))``: the argument list K2 and K3 share, Δ computed and the outputs
-    allocated. :func:`run_bwd_pass` launches one pass on it (for timing one
-    kernel alone); :func:`flash_attention_bwd` launches both."""
+    """Checks the backward's CUDA inputs and returns ``(args, (dq, dk, dv,
+    *keep))``: the argument list K2 and K3 share, Δ computed and the outputs
+    allocated; ``keep`` holds what else the arguments point to, to be kept
+    alive until the launches. :func:`run_bwd_pass` launches one pass on it
+    (for timing one kernel alone); :func:`flash_attention_bwd` launches
+    both."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v, do), d)
@@ -420,6 +499,9 @@ def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
         raise ValueError("lse must be the forward's contiguous "
                          "[B, H, 1, Sq] float32 tensor")
     delta = _delta(o, do)
+    if kernel_for("bwd_dq", q.dtype) == "bwd_dq_sm90":
+        # K3 reads any strides, so it takes the same operands
+        q, k, v, do = (_for_tma(t) for t in (q, k, v, do))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
@@ -428,28 +510,30 @@ def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
             lse.data_ptr(), delta.data_ptr(), drop[0], dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h, d,
             *_strides(q, k, v, do), int(causal), scale, *drop[1:])
-    # delta must outlive the launches: it rides along with the outputs
-    return args, (dq, dk, dv, delta)
+    # delta and any TMA copies must outlive the launches: they ride along
+    # with the outputs
+    return args, (dq, dk, dv, delta, q, k, v, do)
 
 
 def run_bwd_pass(name: str, args, device) -> None:
     """Launch K2 (``"bwd_dq"``) or K3 (``"bwd_dkv"``) on
-    :func:`bwd_launch_args`' arguments; raises if the launch fails. Not
-    counted: the counted path is :func:`flash_attention_bwd`."""
+    :func:`bwd_launch_args`' arguments, the kernel for their dtype; raises
+    if the launch fails. Not counted: the counted path is
+    :func:`flash_attention_bwd`."""
+    fn = _kernel(kernel_for(name, _DTYPE_OF[args[10]]))  # args[10]: dtype
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
+        err = fn(*args, stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention {name} kernel launch failed: "
-                           f"cudaError {err}")
+        _raise_launch(f"flash_attention {name}", err)
 
 
 def _launch_bwd(q, k, v, o, lse, do, seed, causal, scale, dropout, block_q,
                 block_k):
     global dq_launches, dkv_launches
-    args, (dq, dk, dv, _) = bwd_launch_args(q, k, v, o, lse, do, seed,
-                                            causal, scale, dropout, block_q,
-                                            block_k)
+    args, (dq, dk, dv, *_) = bwd_launch_args(q, k, v, o, lse, do, seed,
+                                             causal, scale, dropout, block_q,
+                                             block_k)
     run_bwd_pass("bwd_dq", args, q.device)
     dq_launches += 1
     run_bwd_pass("bwd_dkv", args, q.device)

@@ -7,7 +7,9 @@ GPU. This file imports no JAX:
 
 K1 with dropout, K2 and K3 are held against their plain PyTorch versions on
 the same card, on q, k and v sliced from a packed ``[B, S, H, 3, D]``
-tensor as the GPT attention hands them over. Tolerances: f32 1e-4
+tensor as the GPT attention hands them over; bf16 K1 and K2 (the
+tensor-core kernels) also over every head dim, and on operands TMA cannot
+read in place, which the wrapper copies. Tolerances: f32 1e-4
 absolute; bf16 2e-2 absolute plus 1e-2 of the value (the outputs round
 once to bf16, whose step is at most 2⁻⁷ of the value).
 """
@@ -85,6 +87,75 @@ def test_kernels_match_plain_on_packed_qkv(card):
         if causal and sk > sq:
             assert float(dk[:, sq:].abs().max()) == 0.0
             assert float(dv[:, sq:].abs().max()) == 0.0
+
+
+def _bf16_case(b, sq, sk, h, d, causal, dropout, rs, card, seed):
+    """K1 and K2 (bf16, the tensor-core kernels) against their plain
+    versions on one case; returns the outputs."""
+    q, k, v, do = (torch.from_numpy(rs.randn(b, n, h, d).astype(np.float32))
+                   .to(card, torch.bfloat16) for n in (sq, sk, sk, sq))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, dropout, seed)
+    dq, _, _ = fa.flash_attention_bwd(q, k, v, o, lse, do, seed, causal,
+                                      scale, dropout)
+    torch.cuda.synchronize()
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal, scale,
+                                                dropout, seed)
+    rdq, _, _ = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed,
+                                                 causal, scale, dropout)
+    case = (b, sq, sk, h, d, causal, dropout)
+    assert _close(o, ro, torch.bfloat16), case
+    assert float((lse - rlse).abs().max()) <= 1e-3, case
+    assert _close(dq, rdq, torch.bfloat16), case
+    assert float(rdq.float().abs().max()) > 0, case
+    return q, k, v, do, o, lse, dq
+
+
+def test_tensor_core_kernels_match_plain_over_head_dims(card):
+    """bf16 K1 and K2 run on the tensor cores (wgmma fed by TMA) at every
+    head dim, with ragged S, Sq != Sk and dropout 0.1, within the bf16
+    tolerance of the plain versions, one launch each."""
+    rs = np.random.RandomState(5)
+    seed = torch.tensor([99], dtype=torch.int32, device=card)
+    for d in fa.HEAD_DIMS:
+        for b, sq, sk, causal, dropout in ((2, 200, 200, True, 0.1),
+                                           (1, 77, 130, False, 0.1),
+                                           (1, 130, 64, True, 0.0),
+                                           (1, 300, 300, False, 0.0)):
+            counts = (fa.launches, fa.dq_launches, fa.tma_copies)
+            _bf16_case(b, sq, sk, 2, d, causal, dropout, rs, card, seed)
+            assert (fa.launches, fa.dq_launches, fa.tma_copies) == (
+                counts[0] + 1, counts[1] + 1, counts[2])
+
+
+def test_misaligned_operands_are_copied_for_tma_not_routed_away(card):
+    """A bf16 view TMA cannot read in place (base 2 bytes off 16) is copied
+    contiguous and counted in ``tma_copies``; the tensor-core kernels still
+    run (one launch each) and agree with the plain versions."""
+    b, s, h, d = 1, 150, 2, 64
+    n = b * s * h * d
+    rs = np.random.RandomState(6)
+    seed = torch.tensor([7], dtype=torch.int32, device=card)
+    flats = [torch.from_numpy(rs.randn(n + 1).astype(np.float32)).to(
+        card, torch.bfloat16) for _ in range(4)]
+    q, k, v, do = (f[1:].view(b, s, h, d) for f in flats)
+    assert not fa.tma_aligned(q.shape, q.stride(), q.data_ptr(), q.dtype)
+    counts = (fa.launches, fa.dq_launches, fa.tma_copies)
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    dq, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, seed, True,
+                                        scale)
+    torch.cuda.synchronize()
+    # q, k, v for K1; q, k, v, dO for K2
+    assert (fa.launches, fa.dq_launches, fa.tma_copies) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 7)
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, True, scale)
+    assert _close(o, ro, torch.bfloat16)
+    assert float((lse - rlse).abs().max()) <= 1e-3
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed, True,
+                                            scale)
+    for got, ref in zip((dq, dk, dv), want):
+        assert _close(got, ref, torch.bfloat16)
 
 
 def _grads(model, ids):
