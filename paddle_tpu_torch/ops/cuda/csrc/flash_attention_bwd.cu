@@ -1,7 +1,7 @@
 // Flash-attention backward for Hopper (sm_90a): the two-pass recompute
-// backward over [batch, seq, heads, head_dim] tensors. K2 here serves
-// float32 inputs only (the bfloat16 dQ pass is flash_attention_dq_sm90.cu,
-// on the tensor cores); K3 serves both float32 and bfloat16.
+// backward over [batch, seq, heads, head_dim] tensors, for float32 inputs
+// only. The bfloat16 passes run on the tensor cores: the dQ pass in
+// flash_attention_dq_sm90.cu, the dK/dV pass in flash_attention_dkv_sm90.cu.
 //
 // Replaces, in paddle_tpu/ops/pallas/flash_attention.py (both launched by
 // _flash_bwd):
@@ -49,7 +49,7 @@
 // and dk, dv, 152 MB (77 MB). f32 is bound by operations on the CUDA cores
 // (0.29 and 0.39 ms); bf16 by operations on the tensor cores (0.020 and
 // 0.026 ms, bytes close behind), which these f32-FMA kernels do not use:
-// wgmma and TMA are the way there.
+// the bf16 passes take wgmma and TMA there (the *_sm90.cu files).
 
 #include "flash_attention_common.cuh"
 
@@ -487,21 +487,17 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   p.drop.block_k = block_k;
   if (block_q < 1 || block_k < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the bfloat16 dQ pass runs on the tensor cores (flash_attention_dq_sm90.cu)
-  cudaError_t err = cudaErrorInvalidValue;
-  if (dtype == 0) {
-    err = launch_d<float, kDq>(p, D, s);
-  } else if constexpr (!kDq) {
-    if (dtype == 1) err = launch_d<__nv_bfloat16, false>(p, D, s);
-  }
-  return static_cast<int>(err);
+  // bfloat16 runs on the tensor cores (flash_attention_dq_sm90.cu,
+  // flash_attention_dkv_sm90.cu)
+  if (dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(launch_d<float, kDq>(p, D, s));
 }
 
 }  // namespace
 
-// Both entry points take the same arguments. dtype: 0 = float32,
-// 1 = bfloat16 (K3 only: the bfloat16 dQ pass is paddle_flash_attention_
-// bwd_dq_sm90). Strides are in elements (q, k, v, then dO). lse and delta
+// Both entry points take the same arguments. dtype must be 0 (float32:
+// the bfloat16 passes are paddle_flash_attention_bwd_dq_sm90 and
+// paddle_flash_attention_bwd_dkv_sm90). Strides are in elements (q, k, v, then dO). lse and delta
 // are contiguous [B, H, 1, Sq] f32; dq is a contiguous [B, Sq, H, D] and
 // dk, dv contiguous [B, Sk, H, D] tensors in the input dtype. seed is a (1,)
 // int32 device tensor, read only when dropout_on; keep_prob, thresh,

@@ -1,6 +1,8 @@
 // FlashMask attention for Hopper (sm_90a): attention under a column-interval
 // mask over [batch, seq, heads, head_dim] tensors, forward and the two-pass
-// recompute backward.
+// recompute backward. The forward here serves float32 only: the bfloat16
+// forward runs on the tensor cores (flashmask_fwd_sm90.cu). The backward
+// serves both dtypes.
 //
 // Replaces, in paddle_tpu/ops/pallas/flashmask.py:
 //   K5  _fm_fwd_kernel     (launched by _fm_fwd)  -> flashmask_fwd_kernel: O, lse
@@ -626,15 +628,18 @@ int run(Params& p, int dtype, int D, void* stream) {
       (p.ncol != 1 && p.ncol != 2 && p.ncol != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == 0   ? launch_d<float, kPass>(p, D, s)
-                    : dtype == 1 ? launch_d<__nv_bfloat16, kPass>(p, D, s)
-                                 : cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (dtype == 0) return static_cast<int>(launch_d<float, kPass>(p, D, s));
+  // the bfloat16 forward is paddle_flashmask_fwd_sm90 (flashmask_fwd_sm90.cu)
+  if constexpr (kPass != kFwd) {
+    if (dtype == 1) return static_cast<int>(launch_d<__nv_bfloat16, kPass>(p, D, s));
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Strides are in elements. idx is the
+// dtype must be 0 (float32: the bfloat16 forward is paddle_flashmask_fwd_
+// sm90). Strides are in elements. idx is the
 // contiguous [B, Hm, Sk, ncol] int32 tensor of start/end rows (Hm in {1, H},
 // ncol in {1, 2, 4}). o is a contiguous [B, Sq, H, D] tensor in the input
 // dtype, lse a contiguous [B, H, 1, Sq] f32 tensor. Returns the cudaError_t

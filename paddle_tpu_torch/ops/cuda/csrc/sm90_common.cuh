@@ -1,11 +1,14 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the tensor-core
-// kernels (flash_attention_fwd_sm90.cu, flash_attention_dq_sm90.cu):
+// kernels (flash_attention_fwd_sm90.cu, flash_attention_dq_sm90.cu,
+// flash_attention_dkv_sm90.cu, flashmask_fwd_sm90.cu):
 //   - mbarriers: init, arrive, arrive with an expected transaction count,
 //     parity wait;
 //   - TMA: a 4-D tiled tensor map over a [B, S, H, D] bf16 tensor with its
 //     own strides, encoded on the host through cuTensorMapEncodeTiled
 //     (reached by cudaGetDriverEntryPoint, so the library needs no -lcuda),
 //     and the tile load that completes on an mbarrier;
+//   - cp.async: 4-byte copies into shared memory whose landing is an
+//     arrival on an mbarrier;
 //   - wgmma: the shared-memory matrix descriptor for the 128-byte swizzle,
 //     fence / commit / wait, the m64nNk16 bf16 products with f32
 //     accumulators (A and B from shared memory, or A from registers), and
@@ -91,6 +94,21 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// 4 bytes from global src into shared memory at dst, or 4 zero bytes when
+// !valid (nothing is read then, but src must be a valid address); lands
+// asynchronously, tracked by cp_async_mbar_arrive
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(reinterpret_cast<uint64_t>(src)), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+// an arrival on bar, one of its expected count (.noinc), made once this
+// thread's earlier cp.async copies have landed
+__device__ __forceinline__ void cp_async_mbar_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+
 // shared-memory matrix descriptor, 128-byte swizzle, atoms 1024-byte aligned
 __device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
@@ -127,6 +145,21 @@ __device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&x)[R], in
   for (int r = 0; r < 4; ++r) {
     __nv_bfloat162 v = __floats2bfloat162_rn(x[8 * k + 2 * r], x[8 * k + 2 * r + 1]);
     a[r] = *reinterpret_cast<uint32_t*>(&v);
+  }
+}
+
+// the A registers of k slice k of x in two bf16 parts, hi + lo = x to
+// about 16 significant bits: hi rounds x, lo rounds what hi left out
+template <int R>
+__device__ __forceinline__ void pack_a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
+                                             const float (&x)[R], int k) {
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    const float x0 = x[8 * k + 2 * r], x1 = x[8 * k + 2 * r + 1];
+    __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+    __nv_bfloat162 l = __floats2bfloat162_rn(x0 - __low2float(h), x1 - __high2float(h));
+    hi[r] = *reinterpret_cast<uint32_t*>(&h);
+    lo[r] = *reinterpret_cast<uint32_t*>(&l);
   }
 }
 
@@ -168,6 +201,27 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d[64 x 64] = A[64 x 16] . B[16 x 64], the first k slice of a product:
+// d's earlier values are neither read nor kept alive
+__device__ __forceinline__ void wgmma_m64n64k16_ss_set(float (&d)[32], uint64_t desc_a,
+                                                       uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]),
+        "=f"(d[6]), "=f"(d[7]), "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]), "=f"(d[16]), "=f"(d[17]),
+        "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]),
+        "=f"(d[30]), "=f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(0));
 }
 
 // d[64 x 64] += A[64 x 16] . B[16 x 64]: A in registers (four bf16x2 a

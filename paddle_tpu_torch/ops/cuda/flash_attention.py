@@ -10,14 +10,14 @@ the three Pallas bodies; each source comment states its design and bound:
   launched by ``_flash_bwd``): the dQ pass and the dK/dV pass of the
   two-pass recompute backward.
 
-K1 and K2 have one kernel per dtype (:func:`kernel_for`): bfloat16 runs on
-the tensor cores with wgmma, fed by TMA (``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_dq_sm90.cu``); float32 runs in full f32 on the
-CUDA cores (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``),
-since TF32 would not keep the f32 path's precision. K3 is
-``csrc/flash_attention_bwd.cu`` for both. TMA reads a bfloat16 operand only
-from a 16-byte aligned base with strides that are multiples of 16 bytes
-(:func:`tma_aligned`); the wrapper gives the tensor-core kernels a
+Each kernel has one version per dtype (:func:`kernel_for`): bfloat16 runs
+on the tensor cores with wgmma, fed by TMA
+(``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_dq_sm90.cu``,
+``csrc/flash_attention_dkv_sm90.cu``); float32 runs in full f32 on the CUDA
+cores (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``),
+since TF32 would not keep the f32 path's precision. TMA reads a bfloat16
+operand only from a 16-byte aligned base with strides that are multiples of
+16 bytes (:func:`tma_aligned`); the wrapper gives the tensor-core kernels a
 contiguous copy of any other operand and counts it in :data:`tma_copies`.
 
 Each wrapper launches its kernel for CUDA tensors or raises — no
@@ -85,6 +85,8 @@ SOURCES = {
     "bwd_dq_sm90": ("flash_attention_dq_sm90",
                     "paddle_flash_attention_bwd_dq_sm90"),
     "bwd_dkv": ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv"),
+    "bwd_dkv_sm90": ("flash_attention_dkv_sm90",
+                     "paddle_flash_attention_bwd_dkv_sm90"),
 }
 # the C entry points' status when a TMA tensor map cannot be encoded
 _ERR_TENSOR_MAP = 9001
@@ -266,14 +268,13 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
 
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
-    (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K1 and K2 on
-    the tensor cores for bfloat16, on the CUDA cores for float32; K3 on the
-    CUDA cores for both."""
+    (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: on the
+    tensor cores for bfloat16, on the CUDA cores for float32."""
     if dtype not in _DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
-    if dtype == torch.bfloat16 and pass_name != "bwd_dkv":
+    if dtype == torch.bfloat16:
         return pass_name + "_sm90"
     return pass_name
 
@@ -323,7 +324,7 @@ def _kernel(name: str):
 
 
 def build() -> None:
-    """Build and load every K1–K3 kernel now (their four sources compile
+    """Build and load every K1–K3 kernel now (their five sources compile
     in parallel) instead of at their first launch."""
     _build.build_all(sorted({source for source, _ in SOURCES.values()}))
     for name in SOURCES:
@@ -500,7 +501,7 @@ def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
                          "[B, H, 1, Sq] float32 tensor")
     delta = _delta(o, do)
     if kernel_for("bwd_dq", q.dtype) == "bwd_dq_sm90":
-        # K3 reads any strides, so it takes the same operands
+        # the bf16 K2 and K3 both read q, k, v and dO through TMA
         q, k, v, do = (_for_tma(t) for t in (q, k, v, do))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)

@@ -11,13 +11,18 @@ rows it hides. The documented layouts, and the only ones accepted:
 - non-causal, ncol 4: ``[LTS, LTE, UTS, UTE]`` — rows in [LTS, LTE) or in
   [UTS, UTE) hidden.
 
-Three kernels in ``csrc/flashmask.cu`` replace the three Pallas bodies;
-the source states their design and bound:
+Three kernels replace the three Pallas bodies; each source states its
+design and bound:
 
 - K5 replaces ``_fm_fwd_kernel`` (launched by ``_fm_fwd``): O and the row
-  logsumexp;
+  logsumexp. bfloat16 runs on the tensor cores with wgmma, fed by TMA
+  (``csrc/flashmask_fwd_sm90.cu``), float32 on the CUDA cores
+  (``csrc/flashmask.cu``), as :func:`kernel_for` routes them; TMA's
+  operand rule and copies are K1's (``flash_attention.tma_aligned``,
+  ``flash_attention.tma_copies``);
 - K6 and K7 replace ``_fm_bwd_dq_kernel`` and ``_fm_bwd_dkv_kernel``
-  (both launched by ``_fm_bwd``): the dQ pass and the dK/dV pass.
+  (both launched by ``_fm_bwd``): the dQ pass and the dK/dV pass, on the
+  CUDA cores for both dtypes (``csrc/flashmask.cu``).
 
 A fully masked row gives O = 0 and lse = -1e30 + log(1e-30), as the
 Pallas kernel does (the XLA route of the JAX entry point gives the mean of
@@ -38,12 +43,14 @@ import torch
 from ...device import DEFAULT_DEVICE
 from . import _build
 from .flash_attention import (_DTYPES, NEG_INF, _check, _check_kernel_inputs,
-                              _check_shape, _delta, _resolve, _strides)
+                              _check_shape, _delta, _for_tma, _raise_launch,
+                              _resolve, _strides)
 
 __all__ = ["flashmask_fwd", "flashmask_fwd_reference", "flashmask_bwd",
            "flashmask_bwd_reference", "flashmask_value", "FlashMaskFunction",
            "prepare_indices", "disallowed", "build", "bwd_launch_args",
-           "run_bwd_pass", "fwd_launches", "dq_launches", "dkv_launches"]
+           "run_bwd_pass", "fwd_tiles", "kernel_for", "SOURCES",
+           "fwd_launches", "dq_launches", "dkv_launches"]
 
 # the index layouts accepted, as the number of columns by ``causal``
 _LAYOUTS = {True: (1, 2), False: (4,)}
@@ -54,6 +61,14 @@ fwd_launches = 0
 dq_launches = 0
 #: K7 (dK/dV pass) launches so far
 dkv_launches = 0
+
+#: kernel name -> (source in ``csrc/``, C entry point)
+SOURCES = {
+    "fwd": ("flashmask", "paddle_flashmask_fwd"),
+    "fwd_sm90": ("flashmask_fwd_sm90", "paddle_flashmask_fwd_sm90"),
+    "bwd_dq": ("flashmask", "paddle_flashmask_bwd_dq"),
+    "bwd_dkv": ("flashmask", "paddle_flashmask_bwd_dkv"),
+}
 
 _fns: Dict[str, object] = {}
 
@@ -154,20 +169,36 @@ def flashmask_bwd_reference(q, k, v, o, lse, do, idx, causal: bool,
 # ---------------------------------------------------------------- kernels
 
 
+def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
+    """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
+    (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K5 on the
+    tensor cores for bfloat16, on the CUDA cores for float32; K6 and K7 on
+    the CUDA cores for both."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+    if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
+        raise ValueError(f"no pass {pass_name!r}")
+    if dtype == torch.bfloat16 and pass_name == "fwd":
+        return "fwd_sm90"
+    return pass_name
+
+
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        lib = _build.load("flashmask")
+        source, symbol = SOURCES[name]
+        fn = getattr(_build.load(source), symbol)
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
         # ... | dtype B Sq Sk H D Hm ncol | strides | causal scale stream
         if name == "fwd":
             # q k v idx o lse | 8 ints | 9 strides | tail
-            fn = lib.paddle_flashmask_fwd
             fn.argtypes = [ptr] * 6 + [i32] * 8 + [i64] * 9 + [i32, f32, ptr]
+        elif name == "fwd_sm90":
+            # q k v idx o lse tiles | 8 ints | 9 strides | tail
+            fn.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 9 + [i32, f32, ptr]
         else:
             # q k v do lse delta idx dq dk dv | 8 ints | 12 strides | tail
-            fn = getattr(lib, f"paddle_flashmask_{name}")
             fn.argtypes = [ptr] * 10 + [i32] * 8 + [i64] * 12 + [i32, f32,
                                                                    ptr]
         fn.restype = ctypes.c_int
@@ -176,9 +207,10 @@ def _kernel(name: str):
 
 
 def build() -> None:
-    """Build and load K5, K6 and K7 now instead of at their first
-    launch."""
-    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+    """Build and load K5, K6 and K7 now (their two sources compile in
+    parallel) instead of at their first launch."""
+    _build.build_all(sorted({source for source, _ in SOURCES.values()}))
+    for name in SOURCES:
         _kernel(name)
 
 
@@ -204,24 +236,53 @@ def flashmask_fwd(q, k, v, startend_row_indices, causal: bool, scale: float,
 
 def _launch_fwd(q, k, v, idx, causal, scale):
     global fwd_launches
+    o, lse = _run_fwd(q, k, v, idx, causal, scale)
+    fwd_launches += 1
+    return o, lse
+
+
+def _run_fwd(q, k, v, idx, causal, scale, tiles=None):
+    """One launch of K5 for ``q``'s dtype; ``tiles``, a zeroed int32 pair
+    on the device, takes the bfloat16 kernel's tile counts."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v), d)
     _check_shape(b, sq, sk, h)
+    name = kernel_for("fwd", q.dtype)
+    extra = ()
+    if name == "fwd_sm90":
+        q, k, v = (_for_tma(t) for t in (q, k, v))
+        extra = (None if tiles is None else tiles.data_ptr(),)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, 1, sq), dtype=torch.float32, device=q.device)
-    fn = _kernel("fwd")
+    fn = _kernel(name)
     idx_ptr, hm, ncol = _index_args(idx)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), idx_ptr,
-                 o.data_ptr(), lse.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h,
-                 d, hm, ncol, *_strides(q, k, v), int(causal), scale, stream)
+                 o.data_ptr(), lse.data_ptr(), *extra, _DTYPES[q.dtype], b,
+                 sq, sk, h, d, hm, ncol, *_strides(q, k, v), int(causal),
+                 scale, stream)
     if err != 0:
-        raise RuntimeError(f"flashmask_fwd kernel launch failed: cudaError "
-                           f"{err}")
-    fwd_launches += 1
+        _raise_launch("flashmask_fwd", err)
     return o, lse
+
+
+def fwd_tiles(q, k, v, startend_row_indices, causal: bool,
+              scale: float) -> Tuple[int, int]:
+    """``(live, bound)``: the k tiles the bfloat16 K5's blocks computed
+    and the k tiles within their causal bound, summed over the blocks, from
+    one launch on CUDA tensors with the kernel's tile counter on. Not
+    counted in :data:`fwd_launches`: the counted path is
+    :func:`flashmask_fwd`."""
+    _check(q, k, v)
+    if kernel_for("fwd", q.dtype) != "fwd_sm90" or q.device.type != "cuda":
+        raise ValueError("only the bfloat16 kernel on CUDA counts its tiles")
+    idx = prepare_indices(startend_row_indices, q, k, causal)
+    tiles = torch.zeros(2, dtype=torch.int32, device=q.device)
+    _run_fwd(q, k, v, idx, bool(causal), float(scale), tiles)
+    live, bound = tiles.tolist()
+    return live, bound
 
 
 def flashmask_bwd(q, k, v, o, lse, do, startend_row_indices, causal: bool,

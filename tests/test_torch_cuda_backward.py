@@ -7,7 +7,7 @@ GPU. This file imports no JAX:
 
 K1 with dropout, K2 and K3 are held against their plain PyTorch versions on
 the same card, on q, k and v sliced from a packed ``[B, S, H, 3, D]``
-tensor as the GPT attention hands them over; bf16 K1 and K2 (the
+tensor as the GPT attention hands them over; bf16 K1, K2 and K3 (the
 tensor-core kernels) also over every head dim, and on operands TMA cannot
 read in place, which the wrapper copies. Tolerances: f32 1e-4
 absolute; bf16 2e-2 absolute plus 1e-2 of the value (the outputs round
@@ -156,6 +156,47 @@ def test_misaligned_operands_are_copied_for_tma_not_routed_away(card):
                                             scale)
     for got, ref in zip((dq, dk, dv), want):
         assert _close(got, ref, torch.bfloat16)
+
+
+def test_tensor_core_dkv_matches_plain_over_head_dims(card):
+    """bf16 K3 runs on the tensor cores (wgmma fed by TMA) at every head
+    dim, with ragged S, Sq != Sk, keys no query sees (dK = dV = 0, written)
+    and dropout 0.1, within the bf16 tolerance of the plain version, one
+    launch each; GPT's packed-qkv slices are read in place."""
+    rs = np.random.RandomState(8)
+    seed = torch.tensor([41], dtype=torch.int32, device=card)
+    for d in fa.HEAD_DIMS:
+        for b, sq, sk, causal, dropout in ((2, 200, 200, True, 0.1),
+                                           (1, 77, 130, False, 0.1),
+                                           (1, 64, 200, True, 0.0),
+                                           (1, 130, 64, True, 0.0),
+                                           (1, 300, 300, False, 0.0)):
+            qp = torch.from_numpy(rs.randn(b, sq, 2, 3, d).astype(
+                np.float32)).to(card, torch.bfloat16)
+            kp = torch.from_numpy(rs.randn(b, sk, 2, 3, d).astype(
+                np.float32)).to(card, torch.bfloat16)
+            q, k, v = qp[..., 0, :], kp[..., 1, :], kp[..., 2, :]
+            do = torch.from_numpy(rs.randn(b, sq, 2, d).astype(
+                np.float32)).to(card, torch.bfloat16)
+            scale = 1.0 / math.sqrt(d)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, dropout,
+                                            seed)
+            counts = (fa.dkv_launches, fa.tma_copies)
+            _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, seed,
+                                               causal, scale, dropout)
+            torch.cuda.synchronize()
+            case = (d, b, sq, sk, causal, dropout)
+            assert (fa.dkv_launches, fa.tma_copies) == (counts[0] + 1,
+                                                        counts[1]), case
+            _, rdk, rdv = fa.flash_attention_bwd_reference(
+                q, k, v, o, lse, do, seed, causal, scale, dropout)
+            for got, ref in ((dk, rdk), (dv, rdv)):
+                assert got.dtype == torch.bfloat16 and got.shape == ref.shape
+                assert bool(torch.isfinite(got.float()).all()), case
+                assert _close(got, ref, torch.bfloat16), case
+            if causal and sk > sq:
+                assert float(dk[:, sq:].float().abs().max()) == 0.0, case
+                assert float(dv[:, sq:].float().abs().max()) == 0.0, case
 
 
 def _grads(model, ids):

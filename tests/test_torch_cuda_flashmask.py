@@ -6,8 +6,9 @@ GPU. This file imports no JAX:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_flashmask.py
 
 K5, K6 and K7 are held against their plain PyTorch versions on the same
-card, from the same (o, lse) for the backward, at the tolerances of the
-K1–K3 card tests: f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus
+card, from the same (o, lse) for the backward, the bf16 K5 (on the tensor
+cores) also over every layout and head dim, at the tolerances of the
+K1–K3 card tests (the bf16 K5's O within one bf16 step plus 2e-2): f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus
 1e-2 of the value (the outputs round once to bf16). Fully masked rows give
 exactly 0 in O and dQ. ``flashmask_attention`` differentiates through them
 with exactly one launch of each and none of K1–K3.
@@ -105,6 +106,52 @@ def test_kernels_match_plain(card):
         assert (kind == "masked_rows") == bool(dead.any()), case
         assert float(o[dead].float().abs().sum()) == 0.0, case
         assert float(grads[0][dead].float().abs().sum()) == 0.0, case
+
+
+def test_tensor_core_forward_over_layouts(card):
+    """bf16 K5 runs on the tensor cores (wgmma fed by TMA) over every
+    documented layout, Hm = 1 and Hm = H, at every head dim: O within
+    2e-2 plus one bf16 step (2^-7 of the value) of the plain version, lse
+    within 1e-3, O exactly 0 on fully masked rows, one launch and no TMA
+    copy each; its blocks skip k tiles of packed documents and compute no
+    more than the causal bound's."""
+    rs = np.random.RandomState(2)
+    for kind, causal in (("doc", True), ("share_question", True),
+                         ("masked_rows", True), ("window", False)):
+        for hm in (1, 2):
+            for d in fa.HEAD_DIMS:
+                b, s, h = 1, 192, 2
+                if kind == "share_question":  # [LTS, LTE]: three answers
+                    idx = np.full((b, hm, s, 2), s - 24, np.int32)
+                    for start, end in ((48, 96), (96, 140), (140, s - 24)):
+                        idx[:, :, start:end, 0] = end
+                else:
+                    idx = _indices(rs, kind, b, hm, s, s)
+                idx = torch.from_numpy(idx).to(card)
+                q, k, v = (torch.from_numpy(rs.randn(b, s, h, d).astype(
+                    np.float32)).to(card, torch.bfloat16) for _ in range(3))
+                scale = 1.0 / math.sqrt(d)
+                counts = (fm.fwd_launches, fa.tma_copies)
+                o, lse = fm.flashmask_fwd(q, k, v, idx, causal, scale)
+                torch.cuda.synchronize()
+                case = (kind, hm, d)
+                assert (fm.fwd_launches, fa.tma_copies) == (counts[0] + 1,
+                                                            counts[1]), case
+                tidx = fm.prepare_indices(idx, q, k, causal)
+                ro, rlse = fm.flashmask_fwd_reference(q, k, v, tidx, causal,
+                                                      scale)
+                err = (o.float() - ro.float()).abs()
+                assert bool((err <= 2e-2 + 2.0 ** -7 * ro.float().abs())
+                            .all()), case
+                assert float((lse - rlse).abs().max()) <= 1e-3, case
+                dead = fm.disallowed(tidx, s, s, causal).expand(
+                    b, h, s, s).all(-1).transpose(1, 2)
+                assert (kind == "masked_rows") == bool(dead.any()), case
+                assert float(o[dead].float().abs().sum()) == 0.0, case
+                live, bound = fm.fwd_tiles(q, k, v, idx, causal, scale)
+                assert 0 < live <= bound, case
+                if kind == "doc":
+                    assert live < bound, case
 
 
 def test_flashmask_attention_differentiates_through_k5_k7(card):

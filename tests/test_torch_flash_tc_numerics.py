@@ -1,17 +1,22 @@
-"""The numerics of the tensor-core K1 and K2 (bfloat16), emulated on the CPU.
+"""The numerics of the tensor-core K1, K2 and K3 (bfloat16), emulated on
+the CPU.
 
-``csrc/flash_attention_fwd_sm90.cu`` and ``csrc/flash_attention_dq_sm90.cu``
-take bf16 operands into wgmma with f32 sums, as the plain versions sum the
-same bf16 values in f32, but they round two things the plain versions keep
-in f32: P (after dropout's rescale) before P·V, and dS before dS·K. The
-forward also runs its online softmax over 64-key tiles in exp2. This file
-emulates exactly that in plain torch and holds the result, in f32 before
-the outputs' own rounding, against the Pallas kernels in interpret mode and
-against the port's plain versions (the on-card gate): the errors must sit
-at least 4x inside ``chip_smoke.py``'s bf16 tolerances, ``TOL`` on O and lse
-and ``BWD_TOL`` on dq. It also pins the wrapper's routing by dtype and the
-rule for which operands TMA reads in place, both pure functions of shape,
-strides, offset and dtype.
+``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_dq_sm90.cu``
+and ``csrc/flash_attention_dkv_sm90.cu`` take bf16 operands into wgmma with
+f32 sums, as the plain versions sum the same bf16 values in f32, but they
+round what the plain versions keep in f32: P (after dropout's rescale)
+before P·V, and dS before dS·K, once to bf16; Pᵀ before Pᵀ·dO and dSᵀ
+before dSᵀ·Q to two bf16 parts, hi + lo, each part a product of its own
+(a single rounding there would leave dK and dV less than 4x inside the
+gate, which this file also shows). The forward also runs its online
+softmax over 64-key tiles in exp2. This file emulates exactly
+that in plain torch and holds the result, in f32 before the outputs' own
+rounding, against the Pallas kernels in interpret mode and against the
+port's plain versions (the on-card gate): the errors must sit at least 4x
+inside ``chip_smoke.py``'s bf16 tolerances, ``TOL`` on O and lse and
+``BWD_TOL`` on dq, dk and dv. It also pins the wrappers' routing by dtype
+(flash attention and FlashMask) and the rule for which operands TMA reads
+in place, both pure functions of shape, strides, offset and dtype.
 """
 import math
 
@@ -22,9 +27,11 @@ import torch
 from paddle_tpu.ops.pallas.flash_attention import (
     _flash_fwd, flash_attention_grad_interpret_test)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
+from paddle_tpu_torch.ops.cuda import flashmask as fm
 
-# chip_smoke.py's bf16 gates, and the margin this design must keep
-TOL_O, TOL_LSE = 2e-2, 1e-3
+# chip_smoke.py's bf16 gates, and the margin this design must keep: O within
+# 2e-2 plus one bf16 step (2^-7 of the value), lse within 1e-3
+TOL_O, TOL_O_REL, TOL_LSE = 2e-2, 2.0 ** -7, 1e-3
 BWD_ATOL, BWD_RTOL = 2e-2, 1e-2
 MARGIN = 4.0
 TILE_K = 64  # keys per K/V tile of the tensor-core kernels
@@ -113,6 +120,38 @@ def emulate_dq(q, k, v, o, lse, do, causal, scale, dropout, seed):
     return torch.einsum("bhst,bthd->bshd", ds, k) * scale
 
 
+def _bf16_hi_lo(x):
+    """x as the sum of two bf16 values: x rounded, plus what it left out,
+    rounded."""
+    hi = _bf16(x)
+    return hi + _bf16(x - hi)
+
+
+def emulate_dkv(q, k, v, o, lse, do, causal, scale, dropout, seed,
+                split=True):
+    """K3 on the tensor cores: Pᵀ = exp2(Sᵀ·scale·log2 e − lse·log2 e),
+    Pᵀ (after dropout's rescale) and dSᵀ = Pᵀ∘(dP′ᵀ − Δ) in two bf16 parts
+    (``split``; else rounded once) before Pᵀ·dO and dSᵀ·Q, f32 sums; f32 dk
+    and dv."""
+    parts = _bf16_hi_lo if split else _bf16
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    s = torch.einsum("bshd,bthd->bhst", q, k) * (scale * LOG2E)
+    p = torch.exp2(s - lse.transpose(-1, -2) * LOG2E)
+    p = torch.where(_mask(sq, sk, causal), p, 0.0)
+    dp = torch.einsum("bshd,bthd->bhst", do, v)
+    p_av = p
+    if dropout > 0:
+        keep = _keep(seed, b, h, sq, sk, dropout)
+        p_av = torch.where(keep, p / (1.0 - dropout), 0.0)
+        dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]
+    ds = parts(p * (dp - delta))
+    dk = torch.einsum("bhst,bshd->bthd", ds, q) * scale
+    dv = torch.einsum("bhst,bshd->bthd", parts(p_av), do)
+    return dk, dv
+
+
 def _case_data(case, seed):
     b, sq, sk, h, d, causal, dropout = case
     q, k, v, do = _bf16_inputs(b, sq, sk, h, d, seed)
@@ -141,7 +180,7 @@ def test_forward_rounding_sits_4x_inside_the_gate():
             if dropout > 0:  # chip_smoke judges O with dropout by BWD_TOL
                 limit = (BWD_ATOL + BWD_RTOL * np.abs(want_o)) / MARGIN
             else:
-                limit = TOL_O / MARGIN
+                limit = (TOL_O + TOL_O_REL * np.abs(want_o)) / MARGIN
             assert (err_o <= limit).all(), (case, name, float(err_o.max()))
             assert err_l <= TOL_LSE / MARGIN, (case, name, err_l)
         # the rounding is there to be seen: not the f32 result bit for bit
@@ -173,23 +212,67 @@ def test_dq_rounding_sits_4x_inside_the_gate():
         assert float(dq_ref.abs().max()) > 0 and not torch.equal(dq, dq_ref)
 
 
+def test_dkv_rounding_sits_4x_inside_the_gate():
+    worst_single = 0.0  # of one bf16 rounding, as a share of the gate
+    for i, case in enumerate(CASES):
+        _, _, _, _, _, causal, dropout = case
+        q, k, v, do, tseed, scale = _case_data(case, 20 + i)
+        jseed = jnp.asarray(tseed.numpy())
+        _, (_, dk_pl, dv_pl) = flash_attention_grad_interpret_test(
+            *(jnp.asarray(a) for a in (q, k, v, do)), causal, dropout, jseed)
+        tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+        o, lse = fa.flash_attention_fwd(tq, tk, tv, causal, scale, dropout,
+                                        tseed, device="cpu")
+        dk, dv = emulate_dkv(tq, tk, tv, o, lse, tdo, causal, scale, dropout,
+                             tseed)
+        _, dk_ref, dv_ref = fa.flash_attention_bwd(
+            tq, tk, tv, o, lse, tdo, tseed, causal, scale, dropout,
+            device="cpu")
+        for name, got, want in (("dk pallas", dk, np.asarray(dk_pl)),
+                                ("dv pallas", dv, np.asarray(dv_pl)),
+                                ("dk plain", dk, dk_ref.numpy()),
+                                ("dv plain", dv, dv_ref.numpy())):
+            err = np.abs(got.numpy() - want)
+            limit = (BWD_ATOL + BWD_RTOL * np.abs(want)) / MARGIN
+            assert (err <= limit).all(), (case, name, float(err.max()))
+        for got, ref in ((dk, dk_ref), (dv, dv_ref)):
+            assert float(ref.abs().max()) > 0 and not torch.equal(got, ref)
+        for got, ref in zip(emulate_dkv(tq, tk, tv, o, lse, tdo, causal,
+                                        scale, dropout, tseed, split=False),
+                            (dk_ref, dv_ref)):
+            share = (got - ref).abs() / (BWD_ATOL + BWD_RTOL * ref.abs())
+            worst_single = max(worst_single, float(share.max()))
+    # why K3 splits: rounded once, Pᵀ or dSᵀ would leave dK or dV less than
+    # 4x inside the gate here
+    assert worst_single > 1.0 / MARGIN, worst_single
+
+
 def test_routing_and_the_tma_alignment_rule():
     bf16, f32 = torch.bfloat16, torch.float32
-    assert fa.kernel_for("fwd", bf16) == "fwd_sm90"
-    assert fa.kernel_for("bwd_dq", bf16) == "bwd_dq_sm90"
-    assert fa.kernel_for("bwd_dkv", bf16) == "bwd_dkv"
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert fa.kernel_for(name, bf16) == name + "_sm90"
         assert fa.kernel_for(name, f32) == name
     for bad in (torch.float16, torch.float64):
-        try:
-            fa.kernel_for("fwd", bad)
-        except TypeError:
-            pass
-        else:
-            raise AssertionError(f"{bad} was routed")
+        for mod in (fa, fm):
+            try:
+                mod.kernel_for("fwd", bad)
+            except TypeError:
+                pass
+            else:
+                raise AssertionError(f"{bad} was routed")
     sources = {src for src, _ in fa.SOURCES.values()}
     assert sources == {"flash_attention_fwd", "flash_attention_bwd",
-                       "flash_attention_fwd_sm90", "flash_attention_dq_sm90"}
+                       "flash_attention_fwd_sm90", "flash_attention_dq_sm90",
+                       "flash_attention_dkv_sm90"}
+    # FlashMask: K5 on the tensor cores for bf16; K6 and K7 on the CUDA
+    # cores for both dtypes
+    assert fm.kernel_for("fwd", bf16) == "fwd_sm90"
+    assert fm.kernel_for("fwd", f32) == "fwd"
+    for name in ("bwd_dq", "bwd_dkv"):
+        assert fm.kernel_for(name, bf16) == fm.kernel_for(name, f32) == name
+    assert {src for src, _ in fm.SOURCES.values()} == {"flashmask",
+                                                       "flashmask_fwd_sm90"}
+    assert set(fm.SOURCES) == {"fwd", "fwd_sm90", "bwd_dq", "bwd_dkv"}
 
     def aligned(t):
         return fa.tma_aligned(t.shape, t.stride(),
