@@ -9,9 +9,9 @@ Phases, each of which fails the run on any error:
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/ops/
    cuda/csrc``, one ``nvcc`` per source, all at once; print each kernel's
    registers and spills (none allowed in a tensor-core kernel at D = 64
-   without dropout), and check with ``cuobjdump -sass`` that every
-   tensor-core kernel (bf16 K1, K2, K3 and K5) holds wgmma (HGMMA) and TMA
-   load (UTMALDG) instructions;
+   without dropout, nor in a FlashMask one at D = 128), and check with
+   ``cuobjdump -sass`` that every tensor-core kernel (bf16 K1, K2, K3, K5,
+   K6 and K7) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
 3. kernel — the flash-attention forward kernel (K1: the tensor-core kernel
    for bf16, the CUDA-core one for f32) against its plain PyTorch
    version on the card at the GPT-2-small serving shapes (B in {1, 4},
@@ -72,13 +72,16 @@ Phases, each of which fails the run on any error:
     documents, causal share-question (ncol 2), causal with fully masked
     rows (O and dQ exactly 0 there), bidirectional documents and sliding
     windows (ncol 4), Hm = 1 and Hm = H, Sq != Sk, a ragged S; each at
-    D = 64 and 128, f32 and bf16, each kernel launched once;
+    D = 64 and 128, f32 and bf16, each kernel launched once; the f32 K6/K7
+    also against the plain backward computed in float64, their error
+    printed beside the f32 plain version's;
 14. FlashMask path — ``flashmask_attention`` forward and autograd backward
     at llama3_8b's attention width: B=1, S=8192, 32 heads (k and v
     expanded from 8 KV heads by ``repeat_interleave``), D=128, causal
     packed documents of 256–4096 tokens from ``np.random.RandomState(0)``,
     bf16 then f32: exactly one launch each of K5–K7 and none of K1–K3, the
-    k tiles the bf16 K5 computed beside those within the causal bound,
+    tiles the bf16 K5, K6 (k tiles) and K7 (q tiles) computed beside those
+    within the causal bound,
     outputs and gradients against the plain versions 4 heads at a time,
     forward and forward+backward ms, TFLOP/s over the allowed pairs, peak
     memory, each kernel beside its bound (counted over the allowed pairs),
@@ -203,10 +206,11 @@ def phase_card() -> None:
     print(out.strip().splitlines()[0], flush=True)
 
 
-# the sources of the tensor-core kernels (bf16 K1, K2, K3 and K5), whose
-# SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+# the sources of the tensor-core kernels (bf16 K1, K2, K3, K5, K6 and K7),
+# whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
-              "flash_attention_dkv_sm90", "flashmask_fwd_sm90")
+              "flash_attention_dkv_sm90", "flashmask_fwd_sm90",
+              "flashmask_dq_sm90", "flashmask_dkv_sm90")
 # a tensor-core kernel's mangled name: its kind, head dim and dropout flag
 TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_sm90)_kernelILi(\d+)E"
                        r"(?:Lb([01])E)?")
@@ -280,11 +284,13 @@ def phase_build() -> float:
             m = re.search(r"Used (\d+) registers", ln)
             if m and entry:
                 rows.append(f"{entry}: {m.group(1)} regs, {spill} B spilled")
-                # the training paths' tensor-core kernels (D = 64) keep
-                # every value in registers
-                check(not (tc and tc.group(2) == "64" and tc.group(3) != "1"
-                           and spill != "0"),
-                      f"{entry} spills {spill} B at D = 64")
+                # the training paths' tensor-core kernels (D = 64), and
+                # the FlashMask path's at D = 128 too, keep every value in
+                # registers
+                if tc and tc.group(3) != "1" and (
+                        tc.group(2) == "64"
+                        or tc.group(1).startswith("flashmask")):
+                    check(spill == "0", f"{entry} spills {spill} B")
                 entry = None
         print(f"{name} (ptxas): " + "; ".join(rows), flush=True)
     print(f"built in {seconds:.1f} s", flush=True)
@@ -1397,6 +1403,32 @@ def flashmask_errors(torch, fm, inputs, outputs, idx, causal, dtype, label,
                                (("dq", dq), ("dk", dk), ("dv", dv))))
 
 
+def float64_errors(torch, fm, inputs, outputs, idx, causal, label) -> str:
+    """The f32 K6/K7's (dq, dk, dv) and the f32 plain version's against
+    the plain backward computed in float64 from the same (o, lse): the
+    kernel fails past BWD_TOL["float32"] of it, so its gate does not rest
+    only on agreeing with an f32 version that may sum in its order.
+    Returns both errors per gradient as text."""
+    q, k, v, do = inputs
+    o, lse, dq, dk, dv = outputs
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    tidx = fm.prepare_indices(idx, q, k, causal)
+    exact = fm.flashmask_bwd_reference(
+        *(t.double() for t in (q, k, v, o, lse, do)), tidx, causal, scale)
+    plain = fm.flashmask_bwd_reference(q, k, v, o, lse, do, tidx, causal,
+                                       scale)
+    rows = []
+    for name, got, ref, want in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                                    exact):
+        err = float((got.double() - want).abs().max())
+        err_plain = float((ref.double() - want).abs().max())
+        check(err <= BWD_TOL["float32"][0],
+              f"f32 {name} vs the float64 plain version, {label}: err "
+              f"{err:.3g} (tol {BWD_TOL['float32'][0]})")
+        rows.append(f"{name} {err:.2e} (plain f32 {err_plain:.2e})")
+    return " ".join(rows)
+
+
 def phase_flashmask_kernels(torch) -> None:
     """K5, K6 and K7 against their plain versions over the documented
     layouts, f32 and bf16, D = 64 and 128."""
@@ -1433,10 +1465,15 @@ def phase_flashmask_kernels(torch) -> None:
                                         label)
                 check((kind == "masked_rows") == (errs["dead_rows"] > 0),
                       f"{label}: {errs['dead_rows']} fully masked rows")
+                exact = ""
+                if dtype == "float32":
+                    exact = "  vs float64 " + float64_errors(
+                        torch, fm, (q, k, v, do), (o, lse, *grads), idx,
+                        causal, label)
                 print(f"{label}  err " + " ".join(
                     f"{n} {e:.2e}" for n, e in errs.items()
                     if n not in ("dead_rows", "equal"))
-                      + f"  bitwise equal {errs['equal']}"
+                      + f"  bitwise equal {errs['equal']}" + exact
                       + (f"  fully masked (row, head) pairs "
                          f"{errs['dead_rows']}: O = dQ = 0"
                          if errs["dead_rows"] else ""), flush=True)
@@ -1530,7 +1567,7 @@ def phase_flashmask_path(torch) -> dict:
             # beside those within their causal bound (one uncounted launch)
             live, bound = fm.fwd_tiles(q.detach(), k.detach(), v.detach(),
                                        idx, True, 1.0 / math.sqrt(d))
-            k_tiles = {"computed": live, "causal": bound}
+            tiles = {"fwd": {"computed": live, "causal": bound}}
             print(f"K5 (bf16) k tiles computed {live} of the {bound} within "
                   f"the causal bound ({live / bound:.1%}); the mask allows "
                   f"{pairs / (s * (s + 1) // 2):.1%} of the causal pairs",
@@ -1542,6 +1579,16 @@ def phase_flashmask_path(torch) -> dict:
         scale = 1.0 / math.sqrt(d)
         o, lse = fm.flashmask_fwd(qd, k, v, idx, True, scale)
         check(torch.equal(o, out), "K5 is not deterministic")
+        if dtype == "bfloat16":
+            # the k tiles K6's 128-row blocks and the q tiles K7's 128-key
+            # blocks computed, beside those within their causal bounds (one
+            # uncounted launch each)
+            for name, (live, bound) in zip(("dq", "dkv"), fm.bwd_tiles(
+                    qd, k, v, o, lse, do, idx, True, scale)):
+                tiles[name] = {"computed": live, "causal": bound}
+                print(f"{'K6 (bf16) k' if name == 'dq' else 'K7 (bf16) q'} "
+                      f"tiles computed {live} of the {bound} within the "
+                      f"causal bound ({live / bound:.1%})", flush=True)
         label = f"path B={b} S={s} H={h} D={d} {dtype}"
         errs = flashmask_errors(torch, fm, (qd, k, v, do), (out, lse, *grads),
                                 idx, True, dtype, label, FM_HEAD_CHUNK)
@@ -1624,7 +1671,7 @@ def phase_flashmask_path(torch) -> dict:
         del q, k_kv, v_kv, do, out, k, v, o, lse
         torch.cuda.empty_cache()
     return {"launches": launched, "records": records, "path": path,
-            "k_tiles": k_tiles}
+            "tiles": tiles}
 
 
 def main() -> int:
@@ -1711,11 +1758,11 @@ def main() -> int:
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "max_abs_err")}})
     fm_records = flashmask_path["records"]
-    # K5 has a bf16 kernel and an f32 one; K6 and K7 serve both dtypes
+    # K5-K7 each have a bf16 kernel (the tensor cores) and an f32 one
     for name, key, src, line in (
             ("flashmask_fwd", "fwd", "flashmask_fwd_sm90.cu", 209),
-            ("flashmask_bwd_dq", "dq", "flashmask.cu", 251),
-            ("flashmask_bwd_dkv", "dkv", "flashmask.cu", 286)):
+            ("flashmask_bwd_dq", "dq", "flashmask_dq_sm90.cu", 251),
+            ("flashmask_bwd_dkv", "dkv", "flashmask_dkv_sm90.cu", 286)):
         count = flashmask_path["launches"][key]
         entry = {"name": name, "route": "cuda", "source": source + src,
                  "replaces": f"paddle_tpu/ops/pallas/flashmask.py:{line}",
@@ -1725,9 +1772,9 @@ def main() -> int:
                              **{k: fm_records[(key, "float32")][k]
                                 for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err")}}}
+        entry["tiles"] = flashmask_path["tiles"][key]
         if key == "fwd":
             entry["path"] = flashmask_path["path"]
-            entry["k_tiles"] = flashmask_path["k_tiles"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 // FlashMask attention for Hopper (sm_90a): attention under a column-interval
 // mask over [batch, seq, heads, head_dim] tensors, forward and the two-pass
-// recompute backward. The forward here serves float32 only: the bfloat16
-// forward runs on the tensor cores (flashmask_fwd_sm90.cu). The backward
-// serves both dtypes.
+// recompute backward, for float32 only: the bfloat16 kernels run on the
+// tensor cores (K5 flashmask_fwd_sm90.cu, K6 flashmask_dq_sm90.cu, K7
+// flashmask_dkv_sm90.cu).
 //
 // Replaces, in paddle_tpu/ops/pallas/flashmask.py:
 //   K5  _fm_fwd_kernel     (launched by _fm_fwd)  -> flashmask_fwd_kernel: O, lse
@@ -628,11 +628,9 @@ int run(Params& p, int dtype, int D, void* stream) {
       (p.ncol != 1 && p.ncol != 2 && p.ncol != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // the bfloat16 kernels are paddle_flashmask_fwd_sm90, paddle_flashmask_bwd_
+  // dq_sm90 and paddle_flashmask_bwd_dkv_sm90 (flashmask_*_sm90.cu)
   if (dtype == 0) return static_cast<int>(launch_d<float, kPass>(p, D, s));
-  // the bfloat16 forward is paddle_flashmask_fwd_sm90 (flashmask_fwd_sm90.cu)
-  if constexpr (kPass != kFwd) {
-    if (dtype == 1) return static_cast<int>(launch_d<__nv_bfloat16, kPass>(p, D, s));
-  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -677,10 +675,11 @@ extern "C" int paddle_flashmask_fwd(const void* q, const void* k, const void* v,
   return run<kFwd>(p, dtype, D, stream);
 }
 
-// Both backward entry points take the same arguments: the strides of q, k,
-// v, then dO; lse and delta contiguous [B, H, 1, Sq] f32; dq a contiguous
-// [B, Sq, H, D] and dk, dv contiguous [B, Sk, H, D] tensors in the input
-// dtype; idx as for the forward. Each returns the cudaError_t of its launch.
+// Both backward entry points take the same arguments: dtype 0 (float32),
+// the strides of q, k, v, then dO; lse and delta contiguous [B, H, 1, Sq]
+// f32; dq a contiguous [B, Sq, H, D] and dk, dv contiguous [B, Sk, H, D]
+// tensors in the input dtype; idx as for the forward. Each returns the
+// cudaError_t of its launch.
 #define PADDLE_FM_BWD_ARGS                                                                    \
   const void *q, const void *k, const void *v, const void *dout, const void *lse,             \
       const void *delta, const void *idx, void *dq, void *dk, void *dv, int dtype, int B,      \

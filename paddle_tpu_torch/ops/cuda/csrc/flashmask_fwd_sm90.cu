@@ -1,6 +1,6 @@
 // FlashMask forward on Hopper's tensor cores (sm_90a): K5 for bfloat16
-// inputs. The float32 forward, and K6/K7 in both dtypes, stay on
-// flashmask.cu.
+// inputs. The float32 forward stays on flashmask.cu; the bfloat16 K6 and
+// K7 are flashmask_dq_sm90.cu and flashmask_dkv_sm90.cu.
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_fwd_kernel (:52,
 // launched by _fm_fwd, :209, call :222): attention under the column-interval
@@ -28,7 +28,8 @@
 // in exp2 on the accumulator registers, P rounded to bf16 as the register
 // A operand) with FlashMask's mask:
 //   - before the loop, all 288 threads read the key columns' intervals up
-//     to the causal bound and decide, for each 64-key tile, whether any of
+//     to the causal bound (flashmask_sm90_common.cuh, shared with K6 and
+//     K7) and decide, for each 64-key tile, whether any of
 //     its columns lets a row of the block's [q0, q_last] through (a "live"
 //     tile: the first allowed row at or after q0, found by jumping past the
 //     causal bound and the two intervals, is at most q_last) and whether
@@ -52,10 +53,12 @@
 // visits more tiles at document edges than 64-row tiles would.
 
 #include "flash_attention_common.cuh"
+#include "flashmask_sm90_common.cuh"
 #include "sm90_common.cuh"
 
 namespace {
 
+using namespace fm90;
 using namespace paddle_fa;
 using namespace sm90;
 
@@ -65,9 +68,6 @@ constexpr int kStages = 4;  // K/V tiles in flight: TMA runs up to 3 tiles ahead
 constexpr int kConsumers = 256;
 constexpr int kThreadsTC = kConsumers + 32;  // and one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
-constexpr int kOpen = 0x7fffffff;      // the end of an interval open to the last row
-constexpr int kPartial = 1 << 30;      // list entry flag: the tile's intervals meet the block
-constexpr int kTile = kPartial - 1;
 
 struct Params {
   const int* idx;  // [B, Hm, Sk, ncol]
@@ -98,41 +98,6 @@ struct Layout {
   static constexpr int kFixed = kList + 16 + 1024;  // + alignment slack
   static int bytes(int n_kt) { return kFixed + 8 * n_kt; }
 };
-
-// key column kp's hidden rows as two [start, end) intervals; none past Sk
-// (the ragged edge is masked by position)
-__device__ __forceinline__ int4 column(const int* idx, int ncol, int kp, int Sk) {
-  if (kp >= Sk) return make_int4(0, 0, 0, 0);
-  const int* c = idx + static_cast<long long>(kp) * ncol;
-  if (ncol == 1) return make_int4(__ldg(c), kOpen, 0, 0);
-  if (ncol == 2) {
-    const int2 v = __ldg(reinterpret_cast<const int2*>(c));
-    return make_int4(v.x, v.y, 0, 0);
-  }
-  return __ldg(reinterpret_cast<const int4*>(c));
-}
-
-__device__ __forceinline__ bool hidden(const int4& iv, int r) {
-  return (r >= iv.x && r < iv.y) || (r >= iv.z && r < iv.w);
-}
-
-// the first row at or after q0 that key column kp lets through: past the
-// causal bound [0, kp) and the two hidden intervals. Each can be passed at
-// most once, as the row only grows, so three rounds reach the fixed point
-__device__ __forceinline__ int first_allowed(const int4& iv, int kp, int q0, int causal) {
-  int r = q0;
-#pragma unroll
-  for (int round = 0; round < 3; ++round) {
-    if (causal && r < kp) r = kp;
-    if (r >= iv.x && r < iv.y) r = iv.y;
-    if (r >= iv.z && r < iv.w) r = iv.w;
-  }
-  return r;
-}
-
-__device__ __forceinline__ bool meets(int start, int end, int q0, int q_last) {
-  return start < end && start <= q_last && end > q0;
-}
 
 template <int DP>
 __global__ void __launch_bounds__(kThreadsTC, 1)
@@ -175,36 +140,10 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   for (int t = tid; t < n_kt; t += kThreadsTC) flags[t] = 0;
   __syncthreads();
 
-  // the live and partial k tiles: a warp reads 32 columns of one tile at a
-  // time (32 divides 64 and 288), one vote each
-  for (int c0 = 32 * warp_id; c0 < n_kt * kN; c0 += kThreadsTC) {
-    const int kp = c0 + tid % 32;
-    const int4 iv = column(idx, p.ncol, kp, p.Sk);
-    const bool live = kp < p.Sk && first_allowed(iv, kp, q0, p.causal) <= q_last;
-    const bool part = meets(iv.x, iv.y, q0, q_last) || meets(iv.z, iv.w, q0, q_last);
-    const unsigned lv = __ballot_sync(0xffffffffu, live);
-    const unsigned pt = __ballot_sync(0xffffffffu, part);
-    if (tid % 32 == 0 && (lv | pt)) atomicOr(&flags[c0 / kN], (lv ? 1 : 0) | (pt ? 2 : 0));
-  }
+  // the live and partial k tiles (flashmask_sm90_common.cuh)
+  mark_k_tiles<kThreadsTC>(idx, p.ncol, p.Sk, q0, q_last, p.causal, n_kt, flags, tid);
   __syncthreads();
-  if (warp_id == 0) {  // compact the live tiles, in order, into the list
-    const int lane = tid;
-    int count = 0;
-    for (int t0 = 0; t0 < n_kt; t0 += 32) {
-      const int t = t0 + lane;
-      const int f = t < n_kt ? flags[t] : 0;
-      const unsigned live = __ballot_sync(0xffffffffu, f & 1);
-      if (f & 1) list[count + __popc(live & ((1u << lane) - 1u))] = t | (f & 2 ? kPartial : 0);
-      count += __popc(live);
-    }
-    if (lane == 0) {
-      *n_live = count;
-      if (p.tiles != nullptr) {
-        atomicAdd(p.tiles, count);
-        atomicAdd(p.tiles + 1, n_kt);
-      }
-    }
-  }
+  if (warp_id == 0) compact_live(flags, n_kt, 0, list, n_live, p.tiles, tid);
   __syncthreads();
   const int nl = *n_live;
 

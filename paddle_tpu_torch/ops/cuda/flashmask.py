@@ -21,8 +21,11 @@ design and bound:
   operand rule and copies are K1's (``flash_attention.tma_aligned``,
   ``flash_attention.tma_copies``);
 - K6 and K7 replace ``_fm_bwd_dq_kernel`` and ``_fm_bwd_dkv_kernel``
-  (both launched by ``_fm_bwd``): the dQ pass and the dK/dV pass, on the
-  CUDA cores for both dtypes (``csrc/flashmask.cu``).
+  (both launched by ``_fm_bwd``): the dQ pass and the dK/dV pass.
+  bfloat16 runs on the tensor cores with wgmma, fed by TMA, each walking a
+  list of the tiles the mask leaves live (``csrc/flashmask_dq_sm90.cu``,
+  ``csrc/flashmask_dkv_sm90.cu``), float32 on the CUDA cores
+  (``csrc/flashmask.cu``); TMA's operand rule and copies are K5's.
 
 A fully masked row gives O = 0 and lse = -1e30 + log(1e-30), as the
 Pallas kernel does (the XLA route of the JAX entry point gives the mean of
@@ -42,14 +45,14 @@ import torch
 
 from ...device import DEFAULT_DEVICE
 from . import _build
-from .flash_attention import (_DTYPES, NEG_INF, _check, _check_kernel_inputs,
-                              _check_shape, _delta, _for_tma, _raise_launch,
-                              _resolve, _strides)
+from .flash_attention import (_DTYPE_OF, _DTYPES, NEG_INF, _check,
+                              _check_kernel_inputs, _check_shape, _delta,
+                              _for_tma, _raise_launch, _resolve, _strides)
 
 __all__ = ["flashmask_fwd", "flashmask_fwd_reference", "flashmask_bwd",
            "flashmask_bwd_reference", "flashmask_value", "FlashMaskFunction",
            "prepare_indices", "disallowed", "build", "bwd_launch_args",
-           "run_bwd_pass", "fwd_tiles", "kernel_for", "SOURCES",
+           "run_bwd_pass", "fwd_tiles", "bwd_tiles", "kernel_for", "SOURCES",
            "fwd_launches", "dq_launches", "dkv_launches"]
 
 # the index layouts accepted, as the number of columns by ``causal``
@@ -67,7 +70,9 @@ SOURCES = {
     "fwd": ("flashmask", "paddle_flashmask_fwd"),
     "fwd_sm90": ("flashmask_fwd_sm90", "paddle_flashmask_fwd_sm90"),
     "bwd_dq": ("flashmask", "paddle_flashmask_bwd_dq"),
+    "bwd_dq_sm90": ("flashmask_dq_sm90", "paddle_flashmask_bwd_dq_sm90"),
     "bwd_dkv": ("flashmask", "paddle_flashmask_bwd_dkv"),
+    "bwd_dkv_sm90": ("flashmask_dkv_sm90", "paddle_flashmask_bwd_dkv_sm90"),
 }
 
 _fns: Dict[str, object] = {}
@@ -151,17 +156,19 @@ def flashmask_bwd_reference(q, k, v, o, lse, do, idx, causal: bool,
                             scale: float) -> Tuple[torch.Tensor, torch.Tensor,
                                                    torch.Tensor]:
     """The plain version of K6 and K7: ``(dq, dk, dv)`` in the dtypes of q,
-    k and v, with P = exp(s − lse) recomputed in f32 and zeroed where the
-    mask hides a pair; dS = P∘(dO·Vᵀ − Δ), dQ = scale·dS·K,
-    dK = scale·dSᵀ·Q, dV = Pᵀ·dO."""
+    k and v, with P = exp(s − lse) recomputed in f32 (in float64 for
+    float64 inputs) and zeroed where the mask hides a pair; dS = P∘(dO·Vᵀ − Δ), dQ = scale·dS·K, dK = scale·dSᵀ·Q,
+    dV = Pᵀ·dO."""
+    f = torch.promote_types(q.dtype, torch.float32)
     hide = disallowed(idx, q.shape[1], k.shape[1], causal)
-    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
-    p = torch.where(hide, 0.0, torch.exp(s - lse.transpose(-1, -2)))
-    dof = do.float()
-    dp = torch.einsum("bshd,bthd->bhst", dof, v.float())
-    ds = p * (dp - _delta(o, do).transpose(-1, -2))
-    dq = torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale
-    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    s = torch.einsum("bshd,bthd->bhst", q.to(f), k.to(f)) * scale
+    p = torch.where(hide, 0.0, torch.exp(s - lse.to(f).transpose(-1, -2)))
+    dof = do.to(f)
+    dp = torch.einsum("bshd,bthd->bhst", dof, v.to(f))
+    # Δ = rowsum(dO∘O) as _delta forms it, [B, H, Sq, 1]
+    ds = p * (dp - (dof * o.to(f)).sum(-1).transpose(1, 2)[..., None])
+    dq = torch.einsum("bhst,bthd->bshd", ds, k.to(f)) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.to(f)) * scale
     dv = torch.einsum("bhst,bshd->bthd", p, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -171,15 +178,14 @@ def flashmask_bwd_reference(q, k, v, o, lse, do, idx, causal: bool,
 
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
-    (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K5 on the
-    tensor cores for bfloat16, on the CUDA cores for float32; K6 and K7 on
-    the CUDA cores for both."""
+    (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K5, K6 and
+    K7 on the tensor cores for bfloat16, on the CUDA cores for float32."""
     if dtype not in _DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
-    if dtype == torch.bfloat16 and pass_name == "fwd":
-        return "fwd_sm90"
+    if dtype == torch.bfloat16:
+        return pass_name + "_sm90"
     return pass_name
 
 
@@ -198,16 +204,18 @@ def _kernel(name: str):
             # q k v idx o lse tiles | 8 ints | 9 strides | tail
             fn.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 9 + [i32, f32, ptr]
         else:
-            # q k v do lse delta idx dq dk dv | 8 ints | 12 strides | tail
-            fn.argtypes = [ptr] * 10 + [i32] * 8 + [i64] * 12 + [i32, f32,
-                                                                   ptr]
+            # q k v do lse delta idx dq dk dv (tiles) | 8 ints | 12 strides
+            # | tail
+            ptrs = 11 if name.endswith("_sm90") else 10
+            fn.argtypes = [ptr] * ptrs + [i32] * 8 + [i64] * 12 + [i32, f32,
+                                                                     ptr]
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
 def build() -> None:
-    """Build and load K5, K6 and K7 now (their two sources compile in
+    """Build and load K5, K6 and K7 now (their four sources compile in
     parallel) instead of at their first launch."""
     _build.build_all(sorted({source for source, _ in SOURCES.values()}))
     for name in SOURCES:
@@ -302,18 +310,19 @@ def flashmask_bwd(q, k, v, o, lse, do, startend_row_indices, causal: bool,
     if dev.type == "cpu":
         return flashmask_bwd_reference(q, k, v, o, lse, do, idx,
                                        bool(causal), float(scale))
-    args, (dq, dk, dv, _) = bwd_launch_args(q, k, v, o, lse, do, idx,
-                                            bool(causal), float(scale))
+    args, (dq, dk, dv, *_) = bwd_launch_args(q, k, v, o, lse, do, idx,
+                                             bool(causal), float(scale))
     _launch_bwd(args, q.device)
     return dq, dk, dv
 
 
 def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
     """Checks the backward's CUDA inputs (``idx`` from
-    :func:`prepare_indices`) and returns ``(args, (dq, dk, dv, delta))``:
+    :func:`prepare_indices`) and returns ``(args, (dq, dk, dv, *keep))``:
     the argument list K6 and K7 share, Δ computed and the outputs
-    allocated. :func:`run_bwd_pass` launches one pass on it (for timing one
-    kernel alone); :func:`flashmask_bwd` launches both."""
+    allocated; ``keep`` holds what else the arguments point to, to be kept
+    alive until the launches. :func:`run_bwd_pass` launches one pass on it
+    (for timing one kernel alone); :func:`flashmask_bwd` launches both."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v, do), d)
@@ -325,6 +334,9 @@ def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
         raise ValueError("lse must be the forward's contiguous "
                          "[B, H, 1, Sq] float32 tensor")
     delta = _delta(o, do)
+    if kernel_for("bwd_dq", q.dtype) == "bwd_dq_sm90":
+        # the bf16 K6 and K7 both read q, k, v and dO through TMA
+        q, k, v, do = (_for_tma(t) for t in (q, k, v, do))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
@@ -333,20 +345,51 @@ def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
             lse.data_ptr(), delta.data_ptr(), idx_ptr, dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h, d,
             hm, ncol, *_strides(q, k, v, do), int(causal), scale)
-    # delta must outlive the launches: it rides along with the outputs
-    return args, (dq, dk, dv, delta)
+    # delta and any TMA copies must outlive the launches: they ride along
+    # with the outputs
+    return args, (dq, dk, dv, delta, q, k, v, do)
 
 
-def run_bwd_pass(name: str, args, device) -> None:
+def run_bwd_pass(name: str, args, device, tiles=None) -> None:
     """Launch K6 (``"bwd_dq"``) or K7 (``"bwd_dkv"``) on
-    :func:`bwd_launch_args`' arguments; raises if the launch fails. Not
-    counted: the counted path is :func:`flashmask_bwd`."""
+    :func:`bwd_launch_args`' arguments, the kernel for their dtype; raises
+    if the launch fails. ``tiles``, a zeroed int32 pair on the device, takes
+    the bfloat16 kernel's tile counts. Not counted: the counted path is
+    :func:`flashmask_bwd`."""
+    kernel = kernel_for(name, _DTYPE_OF[args[10]])  # args[10]: dtype
+    if kernel.endswith("_sm90"):
+        args = (*args[:10], None if tiles is None else tiles.data_ptr(),
+                *args[10:])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(name)(*args, stream)
+        err = _kernel(kernel)(*args, stream)
     if err != 0:
-        raise RuntimeError(f"flashmask {name} kernel launch failed: "
-                           f"cudaError {err}")
+        _raise_launch(f"flashmask {name}", err)
+
+
+def bwd_tiles(q, k, v, o, lse, do, startend_row_indices, causal: bool,
+              scale: float) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``((live, bound), (live, bound))``: the k tiles the bfloat16 K6's
+    blocks computed and those within their causal bound, then the q tiles
+    the bfloat16 K7's blocks computed and those within theirs, summed over
+    the blocks, from one launch of each on CUDA tensors with the kernels'
+    tile counters on. Not counted in :data:`dq_launches` or
+    :data:`dkv_launches`: the counted path is :func:`flashmask_bwd`."""
+    _check(q, k, v)
+    if (kernel_for("bwd_dq", q.dtype) != "bwd_dq_sm90"
+            or q.device.type != "cuda"):
+        raise ValueError("only the bfloat16 kernels on CUDA count their "
+                         "tiles")
+    idx = prepare_indices(startend_row_indices, q, k, causal)
+    args, keep = bwd_launch_args(q, k, v, o, lse, do, idx, bool(causal),
+                                 float(scale))
+    counts = []
+    for name in ("bwd_dq", "bwd_dkv"):
+        tiles = torch.zeros(2, dtype=torch.int32, device=q.device)
+        run_bwd_pass(name, args, q.device, tiles)
+        counts.append(tuple(tiles.tolist()))
+    del keep  # tolist() waited for the launches that read it
+    return counts[0], counts[1]
 
 
 def _launch_bwd(args, device) -> None:

@@ -6,12 +6,15 @@ GPU. This file imports no JAX:
     python -m pytest -p no:cacheprovider --noconftest -m cuda tests/test_torch_cuda_flashmask.py
 
 K5, K6 and K7 are held against their plain PyTorch versions on the same
-card, from the same (o, lse) for the backward, the bf16 K5 (on the tensor
-cores) also over every layout and head dim, at the tolerances of the
-K1–K3 card tests (the bf16 K5's O within one bf16 step plus 2e-2): f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus
-1e-2 of the value (the outputs round once to bf16). Fully masked rows give
-exactly 0 in O and dQ. ``flashmask_attention`` differentiates through them
-with exactly one launch of each and none of K1–K3.
+card, from the same (o, lse) for the backward, the bf16 kernels (on the
+tensor cores) also over every layout and head dim, at the tolerances of
+the K1–K3 card tests (the bf16 K5's O within one bf16 step plus 2e-2):
+f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus 1e-2 of the value
+(the outputs round once to bf16). Fully masked rows give exactly 0 in O
+and dQ. ``flashmask_attention`` differentiates through them with exactly
+one launch of each and none of K1–K3, and copies no ``[B, S, H, D]``
+operand for TMA; an operand TMA cannot read in place is copied and
+counted, not refused.
 """
 import math
 
@@ -177,3 +180,96 @@ def test_flashmask_attention_differentiates_through_k5_k7(card):
                                                   for t in (q, k, v)]
     for got, ref in zip(grads[str(card)], grads["cpu"]):
         assert float((got - ref).abs().max()) <= 1e-4
+
+
+def _share_question(b, hm, s):
+    """Causal [LTS, LTE]: a question, three answers, padding."""
+    idx = np.full((b, hm, s, 2), s - 24, np.int32)
+    for start, end in ((48, 96), (96, 140), (140, s - 24)):
+        idx[:, :, start:end, 0] = end
+    return idx
+
+
+def test_tensor_core_backward_over_layouts(card):
+    """bf16 K6 and K7 run on the tensor cores (wgmma fed by TMA, a list of
+    live tiles) over every documented layout, Hm = 1 and Hm = H, at every
+    head dim: dq, dk and dv within 2e-2 plus 1e-2 of the value of the plain
+    version, finite, dQ exactly 0 on fully masked rows, one launch each and
+    no TMA copy; their blocks skip tiles of packed documents and compute no
+    more than their causal bounds'."""
+    rs = np.random.RandomState(3)
+    for kind, causal in (("doc", True), ("share_question", True),
+                         ("masked_rows", True), ("window", False)):
+        for hm in (1, 2):
+            for d in fa.HEAD_DIMS:
+                b, s, h = 1, 320, 2
+                idx = (_share_question(b, hm, s) if kind == "share_question"
+                       else _indices(rs, kind, b, hm, s, s))
+                idx = torch.from_numpy(idx).to(card)
+                q, k, v, do = (torch.from_numpy(rs.randn(b, s, h, d).astype(
+                    np.float32)).to(card, torch.bfloat16) for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                o, lse = fm.flashmask_fwd(q, k, v, idx, causal, scale)
+                counts = (fm.dq_launches, fm.dkv_launches, fa.tma_copies)
+                grads = fm.flashmask_bwd(q, k, v, o, lse, do, idx, causal,
+                                         scale)
+                torch.cuda.synchronize()
+                case = (kind, hm, d)
+                assert (fm.dq_launches, fm.dkv_launches, fa.tma_copies) == (
+                    counts[0] + 1, counts[1] + 1, counts[2]), case
+                tidx = fm.prepare_indices(idx, q, k, causal)
+                want = fm.flashmask_bwd_reference(q, k, v, o, lse, do, tidx,
+                                                  causal, scale)
+                for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                    assert bool(torch.isfinite(got.float()).all()), (case,
+                                                                     name)
+                    assert _close(got, ref, torch.bfloat16), (case, name)
+                dead = fm.disallowed(tidx, s, s, causal).expand(
+                    b, h, s, s).all(-1).transpose(1, 2)
+                assert (kind == "masked_rows") == bool(dead.any()), case
+                assert float(grads[0][dead].float().abs().sum()) == 0.0, case
+                for live, bound in fm.bwd_tiles(q, k, v, o, lse, do, idx,
+                                                causal, scale):
+                    assert 0 < live <= bound, case
+                    if kind == "doc":
+                        assert live < bound, case
+
+
+def test_tensor_core_backward_reads_bshd_in_place(card):
+    """Through ``flashmask_attention`` in bf16 the backward launches K6
+    and K7 once each, K1–K3 never, and copies nothing for TMA; an operand
+    whose head stride is not a multiple of 16 bytes is copied and counted,
+    and its gradients still match the plain version's."""
+    rs = np.random.RandomState(4)
+    b, s, h, d = 1, 384, 4, 128
+    idx = torch.from_numpy(_indices(rs, "doc", b, 1, s, s)).to(card)
+    q, k, v, do = (torch.from_numpy(rs.randn(b, s, h, d).astype(np.float32))
+                   .to(card, torch.bfloat16) for _ in range(4))
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    before = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches, fa.launches,
+              fa.dq_launches, fa.dkv_launches, fa.tma_copies)
+    flashmask_attention(q, k, v, idx).backward(do)
+    torch.cuda.synchronize()
+    after = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches, fa.launches,
+             fa.dq_launches, fa.dkv_launches, fa.tma_copies)
+    assert tuple(x - y for x, y in zip(after, before)) == (1, 1, 1, 0, 0, 0,
+                                                           0)
+    # a head stride of 132 elements (264 bytes) is not a multiple of 16
+    # bytes: TMA cannot read q in place
+    wide = torch.zeros(b, s, h, d + 4, dtype=torch.bfloat16, device=card)
+    wide[..., :d] = q.detach()
+    qs = wide[..., :d]
+    assert not fa.tma_aligned(qs.shape, qs.stride(), qs.data_ptr(), qs.dtype)
+    scale = 1.0 / math.sqrt(d)
+    kd, vd = k.detach(), v.detach()
+    o, lse = fm.flashmask_fwd(q.detach(), kd, vd, idx, True, scale)
+    copies = fa.tma_copies
+    grads = fm.flashmask_bwd(qs, kd, vd, o, lse, do, idx, True, scale)
+    torch.cuda.synchronize()
+    assert fa.tma_copies == copies + 1
+    tidx = fm.prepare_indices(idx, q, k, True)
+    want = fm.flashmask_bwd_reference(q.detach(), kd, vd, o, lse, do, tidx,
+                                      True, scale)
+    for got, ref in zip(grads, want):
+        assert _close(got, ref, torch.bfloat16)

@@ -264,15 +264,17 @@ def test_routing_and_the_tma_alignment_rule():
     assert sources == {"flash_attention_fwd", "flash_attention_bwd",
                        "flash_attention_fwd_sm90", "flash_attention_dq_sm90",
                        "flash_attention_dkv_sm90"}
-    # FlashMask: K5 on the tensor cores for bf16; K6 and K7 on the CUDA
-    # cores for both dtypes
-    assert fm.kernel_for("fwd", bf16) == "fwd_sm90"
-    assert fm.kernel_for("fwd", f32) == "fwd"
-    for name in ("bwd_dq", "bwd_dkv"):
-        assert fm.kernel_for(name, bf16) == fm.kernel_for(name, f32) == name
-    assert {src for src, _ in fm.SOURCES.values()} == {"flashmask",
-                                                       "flashmask_fwd_sm90"}
-    assert set(fm.SOURCES) == {"fwd", "fwd_sm90", "bwd_dq", "bwd_dkv"}
+    # FlashMask: K5, K6 and K7 on the tensor cores for bf16, on the CUDA
+    # cores (flashmask.cu) for f32
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert fm.kernel_for(name, bf16) == name + "_sm90"
+        assert fm.kernel_for(name, f32) == name
+        assert fm.SOURCES[name][0] == "flashmask"
+    assert {src for src, _ in fm.SOURCES.values()} == {
+        "flashmask", "flashmask_fwd_sm90", "flashmask_dq_sm90",
+        "flashmask_dkv_sm90"}
+    assert set(fm.SOURCES) == {"fwd", "fwd_sm90", "bwd_dq", "bwd_dq_sm90",
+                               "bwd_dkv", "bwd_dkv_sm90"}
 
     def aligned(t):
         return fa.tma_aligned(t.shape, t.stride(),
