@@ -9,16 +9,18 @@ Phases, each of which fails the run on any error:
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/ops/
    cuda/csrc``, one ``nvcc`` per source, all at once; print each kernel's
    registers and spills (none allowed in a tensor-core kernel at D = 64
-   without dropout, nor in a FlashMask one at D = 128), and check with
-   ``cuobjdump -sass`` that every tensor-core kernel (bf16 K1, K2, K3, K5,
-   K6 and K7) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
-3. kernel — the flash-attention forward kernel (K1: the tensor-core kernel
-   for bf16, the CUDA-core one for f32) against its plain PyTorch
-   version on the card at the GPT-2-small serving shapes (B in {1, 4},
-   S in {128, 1024}, H=12, D=64, f32 and bf16, causal and not), timed
-   beside the plain version and ``torch.nn.functional.
-   scaled_dot_product_attention`` (a yardstick only: the port never calls
-   it);
+   without dropout, nor in a FlashMask one or an f32 3×TF32 one at
+   D = 128), and check with ``cuobjdump -sass`` that every tensor-core
+   kernel (bf16 K1, K2, K3, K5, K6 and K7; f32 K1 and K2 in 3×TF32) holds
+   wgmma (HGMMA) and TMA load (UTMALDG) instructions;
+3. kernel — the flash-attention forward kernel (K1: bf16 and f32 3×TF32,
+   both on the tensor cores) against its plain PyTorch version on the card
+   at the GPT-2-small serving shapes (B in {1, 4}, S in {128, 1024}, H=12,
+   D=64, f32 and bf16, causal and not), the f32 kernel also against the
+   plain version computed in float64 (the f32 plain version's own error
+   printed beside it), timed beside the plain version and
+   ``torch.nn.functional.scaled_dot_product_attention`` (a yardstick only:
+   the port never calls it);
 4. model  — GPT-2-small with seeded random weights: logits on the card
    (kernel path) against the same weights on the CPU (plain path);
 5. serve  — ``DecodeEngine`` answers 8 requests from 2 tenants at once,
@@ -26,14 +28,17 @@ Phases, each of which fails the run on any error:
    tokens and the page pool are checked, and the (batch, seq) shape of
    every prefill call is recorded;
 6. kernel at the serve shapes — the kernel against its plain version
-   again, at each prefill shape phase 5 recorded (packed-qkv strided
-   inputs, H=12, D=64, causal, f32 and bf16). These launches come after
-   the launch count was read, so they do not count;
+   again (f32 also against float64), at each prefill shape phase 5
+   recorded (packed-qkv strided inputs, H=12, D=64, causal, f32 and bf16).
+   These launches come after the launch count was read, so they do not
+   count;
 7. backward kernels — K1 with dropout, K2 (dQ) and K3 (dK/dV) against
    their plain versions at B=8 and B=1 with S=1024 and at a ragged S=1000
    (H=12, D=64, causal, f32 and bf16, dropout 0 and 0.1; K2 and K3 must
    launch once each, and the count of gradient elements equal to the plain
-   version's bit for bit is printed). The dropped positions of all three
+   version's bit for bit is printed); in f32 all three also against the
+   plain versions computed in float64 from the same inputs (the f32 plain
+   version's own error printed beside). The dropped positions of all three
    are checked to be exactly the plain version's, in f32 and in bf16;
    each kernel is timed beside its bound, its plain version and the SDPA
    forward or backward (a yardstick only);
@@ -54,7 +59,8 @@ Phases, each of which fails the run on any error:
     K1–K3 against their plain versions at the Llama training shape (B=4,
     S=2048, H=12, D=64, bf16, causal, k and v expanded from 4 KV heads by
     ``repeat_interleave``), timed there beside their bounds and SDPA, and
-    at D=128 (B=1, S=512, H=32, bf16 and f32, causal);
+    at D=128 (B=1, S=512, H=32, bf16 and f32, causal; f32 also against the
+    float64 plain versions);
 11. Llama model — ``llama3_8b(num_hidden_layers=2)`` at full width (hidden
     4096, 32 heads over 8 KV heads, D=128, vocab 128256) with seeded random
     weights: f32 logits on the card (K1 at D=128, K4 at d=4096) against the
@@ -134,6 +140,11 @@ RMS_EPS = 1e-5  # LlamaConfig.rms_norm_eps
 # H100 SXM data-sheet peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# the f32 kernels on the tensor cores do each product as three TF32
+# products (495 TFLOP/s dense): f32 work at a third of that rate
+PEAK_TF32X3 = 495e12 / 3
+# the f32 passes that run in 3×TF32; f32 K3 runs on the CUDA cores
+TF32X3_PASSES = ("fwd", "dq")
 PEAK_BYTES = 3.35e12
 
 
@@ -169,27 +180,38 @@ def cuda_time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 
 
 def kernel_bound(b, s, h, d, dtype: str, causal: bool, matmuls: int,
-                 tensors: int, rows: int, pairs=None, extra_bytes: int = 0):
+                 tensors: int, rows: int, pairs=None, extra_bytes: int = 0,
+                 peak=None):
     """Least time (ms) the card could take for one attention kernel: the
     larger of the bytes it must move (``tensors`` [B, S, H, D] tensors,
     ``rows`` [B, H, S] f32 rows and ``extra_bytes``, each read or written
     once) over HBM bandwidth and its ``matmuls`` products over the (q, k)
     pairs the mask keeps (``pairs`` per (batch, head), by default the
-    causal or full count), at the peak rate for the input type."""
+    causal or full count), at ``peak`` FLOP/s (by default the peak rate
+    for the input type)."""
     elem = 4 if dtype == "float32" else 2
     if pairs is None:
         pairs = s * (s + 1) // 2 if causal else s * s
     flops = 2.0 * d * matmuls * pairs * b * h
     nbytes = (tensors * b * s * h * d * elem + rows * 4 * b * h * s
               + extra_bytes)
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / (peak or PEAK_FLOPS[dtype]) * 1e3
     t_mem = nbytes / PEAK_BYTES * 1e3
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
-def attention_bound(b, s, h, d, dtype: str, causal: bool):
+def pass_peak(name: str, dtype: str):
+    """The peak FLOP/s a K1–K3 pass (``"fwd"``, ``"dq"``, ``"dkv"``) is
+    bound by: 3×TF32 for the f32 tensor-core kernels, else the input
+    type's."""
+    return PEAK_TF32X3 if dtype == "float32" and name in TF32X3_PASSES \
+        else PEAK_FLOPS[dtype]
+
+
+def attention_bound(b, s, h, d, dtype: str, causal: bool, peak=None):
     """K1: 2 matmuls; q, k, v read, o written, lse written."""
-    return kernel_bound(b, s, h, d, dtype, causal, 2, 4, 1)
+    return kernel_bound(b, s, h, d, dtype, causal, 2, 4, 1,
+                        peak=peak or pass_peak("fwd", dtype))
 
 
 # K2: 3 matmuls; q, k, v, dO read, dq written; lse, delta read.
@@ -206,14 +228,17 @@ def phase_card() -> None:
     print(out.strip().splitlines()[0], flush=True)
 
 
-# the sources of the tensor-core kernels (bf16 K1, K2, K3, K5, K6 and K7),
-# whose SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
+# the sources of the tensor-core kernels (bf16 K1, K2, K3, K5, K6 and K7;
+# f32 K1 and K2 in 3×TF32), whose SASS must hold wgmma (HGMMA) and TMA
+# loads (UTMALDG)
 TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
               "flash_attention_dkv_sm90", "flashmask_fwd_sm90",
-              "flashmask_dq_sm90", "flashmask_dkv_sm90")
-# a tensor-core kernel's mangled name: its kind, head dim and dropout flag
-TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_sm90)_kernelILi(\d+)E"
-                       r"(?:Lb([01])E)?")
+              "flashmask_dq_sm90", "flashmask_dkv_sm90",
+              "flash_attention_fwd_tf32", "flash_attention_dq_tf32")
+# a tensor-core kernel's mangled name: its kind (its suffix names its
+# type: sm90 bf16, tf32 f32), head dim and dropout flag
+TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_(sm90|tf32))_kernelILi"
+                       r"(\d+)E(?:Lb([01])E)?")
 
 
 def check_tensor_core_sass(_build) -> None:
@@ -231,8 +256,8 @@ def check_tensor_core_sass(_build) -> None:
             fn = body.split()[0]
             mma, tma = body.count("HGMMA"), body.count("UTMALDG")
             t = TC_KERNEL.search(fn)
-            rows.append(f"{t.group(1)} D={t.group(2)}"
-                        f"{' dropout' if t.group(3) == '1' else ''}: "
+            rows.append(f"{t.group(1)} D={t.group(3)}"
+                        f"{' dropout' if t.group(4) == '1' else ''}: "
                         f"{mma} HGMMA, {tma} UTMALDG" if t else
                         f"{fn}: {mma} HGMMA, {tma} UTMALDG")
             check(mma > 0 and tma > 0,
@@ -247,8 +272,8 @@ def phase_build() -> float:
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["flash_attention_fwd", "flash_attention_bwd",
-                      *TC_SOURCES, "rms_norm", "flashmask"])
+    _build.build_all(["flash_attention_bwd", *TC_SOURCES, "rms_norm",
+                      "flashmask"])
     flash_attention.build()
     rms_norm.build()
     flashmask.build()
@@ -266,8 +291,9 @@ def phase_build() -> float:
                 r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
                               r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", entry)
                 if tc:
-                    entry = (f"{tc.group(1)} bf16/D={tc.group(2)}"
-                             f"{' dropout' if tc.group(3) == '1' else ''}")
+                    kind = "bf16" if tc.group(2) == "sm90" else "f32 3xTF32"
+                    entry = (f"{tc.group(1)} {kind}/D={tc.group(3)}"
+                             f"{' dropout' if tc.group(4) == '1' else ''}")
                 elif t:
                     entry = (f"{t.group(1)} "
                              f"{'bf16' if t.group(2) != 'f' else 'f32'}"
@@ -286,10 +312,11 @@ def phase_build() -> float:
                 rows.append(f"{entry}: {m.group(1)} regs, {spill} B spilled")
                 # the training paths' tensor-core kernels (D = 64), and
                 # the FlashMask path's at D = 128 too, keep every value in
-                # registers
-                if tc and tc.group(3) != "1" and (
-                        tc.group(2) == "64"
-                        or tc.group(1).startswith("flashmask")):
+                # registers without dropout; the f32 3xTF32 ones in every
+                # instantiation, dropout included
+                if tc and (tc.group(2) == "tf32" or tc.group(4) != "1" and (
+                        tc.group(3) == "64"
+                        or tc.group(1).startswith("flashmask"))):
                     check(spill == "0", f"{entry} spills {spill} B")
                 entry = None
         print(f"{name} (ptxas): " + "; ".join(rows), flush=True)
@@ -315,9 +342,34 @@ def o_close(got, want, dtype) -> tuple:
                                   .all())
 
 
+def float64_forward_errors(torch, fa, q, k, v, o, lse, causal, scale,
+                           dropout=0.0, seed=None) -> str:
+    """The f32 K1's (o, lse) and the f32 plain version's against the plain
+    version computed in float64 from the same inputs: the kernel fails
+    past the f32 gates (``TOL``: 1e-4 on O and lse), so its gate does not
+    rest only on agreeing with an f32 version that may round as it does.
+    Returns both errors per output as text."""
+    exact = fa.flash_attention_fwd_reference(
+        q.double(), k.double(), v.double(), causal, scale, dropout, seed)
+    plain = fa.flash_attention_fwd_reference(q, k, v, causal, scale,
+                                             dropout, seed)
+    rows = []
+    for name, got, ref, want, tol in zip(("o", "lse"), (o, lse), plain,
+                                         exact, TOL["float32"][::2]):
+        err = float((got.double() - want).abs().max())
+        err_plain = float((ref.double() - want).abs().max())
+        check(err <= tol, f"f32 K1 {name} vs the float64 plain version at "
+              f"{tuple(q.shape)} causal={causal} dropout={dropout}: err "
+              f"{err:.3g} (tol {tol})")
+        rows.append(f"{name} {err:.2e} (plain f32 {err_plain:.2e})")
+    return " ".join(rows)
+
+
 def compare_kernel(torch, fa, q, k, v, dtype, causal) -> tuple:
-    """Kernel against its plain version on the same card tensors; fails
-    past the stated tolerance. Returns (O error, lse error)."""
+    """Kernel against its plain version on the same card tensors, and in
+    f32 against the float64 plain version too; fails past the stated
+    tolerance. Returns (O error, lse error, the float64 errors as text or
+    "")."""
     b, s = q.shape[:2]
     scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
@@ -332,7 +384,11 @@ def compare_kernel(torch, fa, q, k, v, dtype, causal) -> tuple:
           f"kernel vs plain at B={b} S={s} {dtype} causal={causal}: O err "
           f"{err_o:.3g} (tol {TOL[dtype][:2]}), lse err {err_l:.3g} (tol "
           f"{tol_l})")
-    return err_o, err_l
+    exact = ""
+    if dtype == "float32":
+        exact = "  vs float64 " + float64_forward_errors(
+            torch, fa, q, k, v, o, lse, causal, scale)
+    return err_o, err_l, exact
 
 
 def phase_kernel(torch) -> dict:
@@ -353,8 +409,8 @@ def phase_kernel(torch) -> dict:
                 q, k, v = packed_qkv(torch, rs, b, s, dtype)
                 for causal in (True, False):
                     scale = 1.0 / math.sqrt(d)
-                    err_o, err_l = compare_kernel(torch, fa, q, k, v, dtype,
-                                                  causal)
+                    err_o, err_l, exact = compare_kernel(torch, fa, q, k, v,
+                                                         dtype, causal)
                     worst[dtype] = max(worst.get(dtype, 0.0), err_o)
                     ms = cuda_time_ms(
                         lambda: fa.flash_attention_fwd(q, k, v, causal,
@@ -368,11 +424,17 @@ def phase_kernel(torch) -> dict:
                             qt, kt, vt, is_causal=causal))
                     bound_ms, bound_by = attention_bound(b, s, h, d, dtype,
                                                          causal)
+                    bound = f"{bound_ms:.4f} ({bound_by})"
+                    if dtype == "float32":
+                        cores = attention_bound(b, s, h, d, dtype, causal,
+                                                PEAK_FLOPS["float32"])
+                        bound = (f"{bound} at 495/3 TFLOP/s, "
+                                 f"{cores[0]:.4f} at 67 TFLOP/s")
                     print(f"B={b} S={s:4d} H={h} D={d} {dtype:8s} "
                           f"causal={int(causal)}  O err {err_o:.2e}  lse "
                           f"err {err_l:.2e}  kernel {ms:.4f}  plain "
                           f"{plain_ms:.4f}  sdpa {lib_ms:.4f}  bound "
-                          f"{bound_ms:.4f} ({bound_by})", flush=True)
+                          f"{bound}{exact}", flush=True)
                     if (b, s, dtype, causal) == (1, 1024, "float32", True):
                         headline = {
                             "max_abs_err": err_o, "lse_max_abs_err": err_l,
@@ -536,9 +598,10 @@ def phase_serve_shapes(torch, shapes) -> None:
     for b, s in shapes:
         for dtype in ("float32", "bfloat16"):
             q, k, v = packed_qkv(torch, rs, b, s, dtype)
-            err_o, err_l = compare_kernel(torch, fa, q, k, v, dtype, True)
+            err_o, err_l, exact = compare_kernel(torch, fa, q, k, v, dtype,
+                                                 True)
             print(f"B={b} S={s:4d} {dtype:8s} causal=1  O err {err_o:.2e}  "
-                  f"lse err {err_l:.2e}", flush=True)
+                  f"lse err {err_l:.2e}{exact}", flush=True)
 
 
 def _close(torch, got, want, dtype) -> tuple:
@@ -555,12 +618,39 @@ def equal_count(got, want) -> str:
     return f"{int((got == want).sum())}/{got.numel()}"
 
 
+def float64_backward_errors(torch, fa, q, k, v, o, lse, do, seed, dropout,
+                            grads) -> str:
+    """The f32 K2/K3's (dq, dk, dv) and the f32 plain version's against
+    the plain backward computed in float64 from the same (o, lse); the
+    kernels fail past ``BWD_TOL["float32"]`` of it. Returns both errors
+    per gradient as text."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    exact = fa.flash_attention_bwd_reference(
+        *(t.double() for t in (q, k, v, o, lse, do)), seed, True, scale,
+        dropout)
+    plain = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed, True,
+                                             scale, dropout)
+    rows = []
+    for name, got, ref, want in zip(("dq", "dk", "dv"), grads, plain, exact):
+        err = float((got.double() - want).abs().max())
+        err_plain = float((ref.double() - want).abs().max())
+        check(err <= BWD_TOL["float32"][0],
+              f"f32 {name} vs the float64 plain version at {tuple(q.shape)} "
+              f"dropout={dropout}: err {err:.3g} (tol "
+              f"{BWD_TOL['float32'][0]})")
+        rows.append(f"{name} {err:.2e} (plain f32 {err_plain:.2e})")
+    del exact, plain
+    return " ".join(rows)
+
+
 def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> tuple:
     """K1 (with dropout) and K2/K3 against their plain versions on the
     same card tensors; K2/K3 are compared from the same (o, lse), so each
     kernel is judged alone, and each must have launched once, so no plain
-    version stands in for it. Returns the max abs error per output and, per
-    gradient, the count of elements equal to the plain version's."""
+    version stands in for it. In f32 all three are also held against the
+    plain versions computed in float64. Returns the max abs error per
+    output, per gradient the count of elements equal to the plain
+    version's, and the float64 errors as text (f32) or ""."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale, dropout, seed)
     before = (fa.dq_launches, fa.dkv_launches)
@@ -587,7 +677,15 @@ def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> tuple:
         check(ok and bool(torch.isfinite(got.float()).all()),
               f"{name} vs plain at {tuple(q.shape)} {dtype} dropout "
               f"{dropout}: err {errs[name]:.3g}")
-    return errs, equal
+    del want
+    exact = ""
+    if dtype == "float32":
+        exact = ("\n    vs float64 " + float64_forward_errors(
+            torch, fa, q, k, v, o, lse, True, scale, dropout, seed) + " "
+            + float64_backward_errors(torch, fa, q, k, v, o, lse, do, seed,
+                                      dropout, grads))
+        torch.cuda.empty_cache()
+    return errs, equal, exact
 
 
 def check_dropout_positions(torch, fa, b, s, seed, dtype,
@@ -709,17 +807,27 @@ def time_attention(torch, fa, q, k, v, do, seed, dtype, dropout) -> dict:
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
     del out, qt, kt, vt, keep
-    bounds = {"fwd": attention_bound(b, s, h, d, dtype, True)}
-    for name, (mm, tens, rows) in BWD_BOUND.items():
-        bounds[name] = kernel_bound(b, s, h, d, dtype, True, mm, tens, rows)
-    line = (f"K1 {ms['fwd']:.4f} (bound {bounds['fwd'][0]:.4f} "
-            f"{bounds['fwd'][1]}, plain {plain['fwd']:.4f}, sdpa fwd "
-            f"{lib_fwd:.4f})  K2 {ms['dq']:.4f} (bound {bounds['dq'][0]:.4f} "
-            f"{bounds['dq'][1]})  K3 {ms['dkv']:.4f} (bound "
-            f"{bounds['dkv'][0]:.4f} {bounds['dkv'][1]})  plain bwd "
+    shapes = {"fwd": (2, 4, 1), **BWD_BOUND}
+    bounds = {name: kernel_bound(b, s, h, d, dtype, True, *shape,
+                                 peak=pass_peak(name, dtype))
+              for name, shape in shapes.items()}
+    # the f32 tensor-core kernels' bounds at 495/3 TFLOP/s, with the
+    # 67 TFLOP/s CUDA-core figure beside them
+    cores = {name: kernel_bound(b, s, h, d, dtype, True, *shapes[name])[0]
+             for name in TF32X3_PASSES} if dtype == "float32" else {}
+
+    def bound(name):
+        text = f"bound {bounds[name][0]:.4f} {bounds[name][1]}"
+        if name in cores:
+            text += f" at 495/3 TFLOP/s, {cores[name]:.4f} at 67 TFLOP/s"
+        return text
+
+    line = (f"K1 {ms['fwd']:.4f} ({bound('fwd')}, plain {plain['fwd']:.4f}, "
+            f"sdpa fwd {lib_fwd:.4f})  K2 {ms['dq']:.4f} ({bound('dq')})  K3 "
+            f"{ms['dkv']:.4f} ({bound('dkv')})  plain bwd "
             f"{plain['bwd']:.4f}  sdpa bwd {lib_bwd:.4f}")
     return {"ms": ms, "plain": plain, "lib_fwd": lib_fwd, "lib_bwd": lib_bwd,
-            "bounds": bounds, "line": line}
+            "bounds": bounds, "cores": cores, "line": line}
 
 
 def attention_records(t, errs) -> dict:
@@ -755,12 +863,12 @@ def phase_backward(torch) -> dict:
             do = torch.from_numpy(rs.randn(b, s, h, d).astype(
                 np.float32)).to(dev, getattr(torch, dtype))
             for dropout in (0.0, 0.1):
-                errs, equal = compare_backward(torch, fa, q, k, v, do, seed,
-                                               dtype, dropout)
+                errs, equal, exact = compare_backward(
+                    torch, fa, q, k, v, do, seed, dtype, dropout)
                 line = (f"B={b} S={s:4d} {dtype:8s} dropout={dropout}  err "
                         + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
                         + "  bitwise equal " + " ".join(
-                            f"{n} {c}" for n, c in equal.items()))
+                            f"{n} {c}" for n, c in equal.items()) + exact)
                 if (b, s) == (8, 1024):
                     t = time_attention(torch, fa, q, k, v, do, seed, dtype,
                                        dropout)
@@ -919,17 +1027,18 @@ def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
 
 
 # the port's kernels by their exact names in the profiler's rows (the
-# demangled "void (anonymous namespace)::fwd_kernel<...>(...)"): K1, K2
-# and K3 in either dtype's kernel (fwd_kernel, fwd_sm90_kernel, ...) and K4,
-# whatever else is named *_kernel. K5's flashmask_fwd_sm90_kernel matches
-# none of them
+# demangled "void (anonymous namespace)::fwd_sm90_kernel<...>(...)"): K1,
+# K2 and K3 in either dtype's kernel (fwd_sm90_kernel, fwd_tf32_kernel,
+# dkv_kernel, ...) and K4, whatever else is named *_kernel. K5's
+# flashmask_fwd_sm90_kernel matches none of them
 PROFILED_KERNELS = {
-    "K1": re.compile(r"(?:^|[\s:])fwd(?:_sm90)?_kernel<"),
-    "K2": re.compile(r"(?:^|[\s:])dq(?:_sm90)?_kernel<"),
+    "K1": re.compile(r"(?:^|[\s:])fwd(?:_sm90|_tf32)?_kernel<"),
+    "K2": re.compile(r"(?:^|[\s:])dq(?:_sm90|_tf32)?_kernel<"),
     "K3": re.compile(r"(?:^|[\s:])dkv(?:_sm90)?_kernel<"),
     "K4": re.compile(r"(?:^|[\s:])rms_norm_kernel<"),
 }
-ATTENTION_KERNELS = re.compile(r"(?:^|[\s:])(?:fwd|dq|dkv)(?:_sm90)?_kernel<")
+ATTENTION_KERNELS = re.compile(
+    r"(?:^|[\s:])(?:fwd|dq|dkv)(?:_sm90|_tf32)?_kernel<")
 RMS_NORM_KERNEL = PROFILED_KERNELS["K4"]
 # The profiler keeps only the device events whose timestamps fall inside
 # its window, and the card's clock may read ahead of or behind the host's:
@@ -1187,14 +1296,14 @@ def phase_llama_kernels(torch) -> dict:
             (1, 512, 32, 32, 128, ("bfloat16", "float32"))):
         for dtype in dtypes:
             q, k, v, do = llama_qkv(torch, rs, b, s, h, hkv, d, dtype)
-            errs, equal = compare_backward(torch, fa, q, k, v, do, seed,
-                                           dtype, 0.0)
+            errs, equal, exact = compare_backward(torch, fa, q, k, v, do,
+                                                  seed, dtype, 0.0)
             t = time_attention(torch, fa, q, k, v, do, seed, dtype, 0.0)
             print(f"K1-K3 B={b} S={s} H={h} (from {hkv} KV heads) D={d} "
                   f"{dtype} causal  err " + " ".join(
                       f"{n} {e:.2e}" for n, e in errs.items())
                   + "  bitwise equal " + " ".join(
-                      f"{n} {c}" for n, c in equal.items())
+                      f"{n} {c}" for n, c in equal.items()) + exact
                   + "\n    " + t["line"], flush=True)
             for name, rec in attention_records(t, errs).items():
                 records[(name, dtype, d)] = dict(
@@ -1718,12 +1827,12 @@ def main() -> int:
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     kernels = []
     # K1-K3 each have a bf16 kernel (the training paths) and an f32 one (K1's
-    # on the f32 serving path)
+    # on the f32 serving path; K1 and K2 in 3xTF32)
     for name, key, src, src_f32, line in (
             ("flash_attention_fwd", "fwd", "flash_attention_fwd_sm90.cu",
-             "flash_attention_fwd.cu", 266),
+             "flash_attention_fwd_tf32.cu", 266),
             ("flash_attention_bwd_dq", "dq", "flash_attention_dq_sm90.cu",
-             "flash_attention_bwd.cu", 310),
+             "flash_attention_dq_tf32.cu", 310),
             ("flash_attention_bwd_dkv", "dkv", "flash_attention_dkv_sm90.cu",
              "flash_attention_bwd.cu", 347)):
         by_path = {"train": trained[key], "train_llama": trained_llama[key]}
@@ -1736,9 +1845,10 @@ def main() -> int:
                  "with_dropout": {k: records[(key, "bfloat16", 0.1)][k]
                                   for k in ("ms", "max_abs_err")},
                  "float32": {"source": source + src_f32,
-                             **{k: records[(key, "float32", 0.0)][k]
-                                for k in ("ms", "plain_ms", "bound_ms",
-                                          "library_ms", "max_abs_err")},
+                             **{k: v for k, v in
+                                records[(key, "float32", 0.0)].items()
+                                if k in ("ms", "plain_ms", "bound_ms",
+                                         "library_ms", "max_abs_err")},
                              "launches": sum(f32_by_path.values()),
                              "launches_by_path": f32_by_path}}
         if key == "fwd":

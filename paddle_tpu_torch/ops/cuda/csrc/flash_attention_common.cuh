@@ -1,4 +1,4 @@
-// Shared by flash_attention_fwd.cu (K1) and flash_attention_bwd.cu (K2, K3):
+// Shared by the flash-attention kernels K1-K3 and the FlashMask kernels:
 // tile sizes, type conversions, row reductions over 16 lanes, and the
 // dropout hash.
 #pragma once

@@ -1,13 +1,13 @@
 // Flash-attention dQ pass on Hopper's tensor cores (sm_90a): K2 for
-// bfloat16 inputs. The float32 dQ pass, and K3 (dK/dV) in both dtypes, stay
-// on flash_attention_bwd.cu.
+// bfloat16 inputs. The float32 dQ pass is flash_attention_dq_tf32.cu
+// (3xTF32).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_dq_kernel (:142,
 // launched by _flash_bwd, :310): dQ = scale * sum_k dS . K, with
 // P = exp(q.k^T * scale - lse) recomputed per tile from the forward's row
 // logsumexp, dP' = dO . V^T (times keep/(1-p) under dropout) and
 // dS = P o (dP' - Delta), Delta = rowsum(dO o O) computed by the wrapper in
-// f32 as [B, H, 1, Sq]. It keeps flash_attention_bwd.cu's contract: layout
+// f32 as [B, H, 1, Sq]. It keeps the f32 K2's contract: layout
 // [B, S, H, D] through per-tensor strides (here TMA tensor maps: a 16-byte
 // aligned base and strides that are multiples of 16 bytes, which the
 // wrapper guarantees by copying any other input); top-left causal, the
@@ -294,7 +294,7 @@ cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t
 
 }  // namespace
 
-// The arguments of paddle_flash_attention_bwd_dq (flash_attention_bwd.cu);
+// The arguments of paddle_flash_attention_bwd_dkv (flash_attention_bwd.cu);
 // dk and dv are not touched. dtype must be 1 (bfloat16), D one of 16, 32,
 // 64, 128, and every stride of q, k, v, dO a multiple of 8 elements with a
 // 16-byte aligned base (TMA). Returns the cudaError_t of the launch (0 on

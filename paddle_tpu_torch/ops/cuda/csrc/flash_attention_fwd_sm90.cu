@@ -1,8 +1,8 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): K1 for bfloat16
-// inputs. The float32 forward stays on flash_attention_fwd.cu.
+// inputs. The float32 forward is flash_attention_fwd_tf32.cu (3xTF32).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (:85,
-// launched by _flash_fwd, :266). It keeps flash_attention_fwd.cu's contract:
+// launched by _flash_fwd, :266). It keeps the f32 K1's contract:
 //   - layout [B, S, H, D] read through batch/seq/head strides, so q/k/v may
 //     be the strided slices of a packed qkv [B, S, H, 3, D]; here through TMA
 //     tensor maps, which need a 16-byte aligned base and strides that are
@@ -304,11 +304,11 @@ cudaError_t launch_d(const CUtensorMap& tq, const CUtensorMap& tk, const CUtenso
 
 }  // namespace
 
-// The arguments of paddle_flash_attention_fwd (flash_attention_fwd.cu);
-// dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and every stride a
-// multiple of 8 elements with a 16-byte aligned base (TMA). Returns the
-// cudaError_t of the launch (0 on success), or sm90::kErrTensorMap when a
-// tensor map cannot be encoded.
+// The arguments of paddle_flash_attention_fwd_tf32
+// (flash_attention_fwd_tf32.cu); dtype must be 1 (bfloat16), D one of 16,
+// 32, 64, 128, and every stride a multiple of 8 elements with a 16-byte
+// aligned base (TMA). Returns the cudaError_t of the launch (0 on success),
+// or sm90::kErrTensorMap when a tensor map cannot be encoded.
 extern "C" int paddle_flash_attention_fwd_sm90(
     const void* q, const void* k, const void* v, void* o, void* lse, const void* seed, int dtype,
     int B, int Sq, int Sk, int H, int D, long long q_sb, long long q_ss, long long q_sh,

@@ -46,7 +46,7 @@
 //   - every product is an f32 FMA, every sum f32; no dropout (the Pallas
 //     kernels have none).
 //
-// Design. The scheme of K1-K3 (flash_attention_fwd.cu, flash_attention_bwd.cu):
+// Design. The scheme of the CUDA-core K1-K3 (f32 K3 in flash_attention_bwd.cu):
 // 256 threads as a 16 x 16 grid, 64 x 64 tiles, operands in shared memory as
 // f32 with rows padded by one float against bank conflicts, the sequential
 // grid axis of the Pallas kernels as a loop inside the block.

@@ -1,6 +1,6 @@
 // Hopper (sm_90a) building blocks in raw PTX, shared by the tensor-core
-// kernels (flash_attention_fwd_sm90.cu, flash_attention_dq_sm90.cu,
-// flash_attention_dkv_sm90.cu, flashmask_fwd_sm90.cu):
+// kernels (the *_sm90.cu files, and the *_tf32.cu files through
+// sm90_tf32.cuh):
 //   - mbarriers: init, arrive, arrive with an expected transaction count,
 //     parity wait;
 //   - TMA: a 4-D tiled tensor map over a [B, S, H, D] bf16 tensor with its

@@ -10,15 +10,19 @@ the three Pallas bodies; each source comment states its design and bound:
   launched by ``_flash_bwd``): the dQ pass and the dK/dV pass of the
   two-pass recompute backward.
 
-Each kernel has one version per dtype (:func:`kernel_for`): bfloat16 runs
-on the tensor cores with wgmma, fed by TMA
-(``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_dq_sm90.cu``,
-``csrc/flash_attention_dkv_sm90.cu``); float32 runs in full f32 on the CUDA
-cores (``csrc/flash_attention_fwd.cu``, ``csrc/flash_attention_bwd.cu``),
-since TF32 would not keep the f32 path's precision. TMA reads a bfloat16
-operand only from a 16-byte aligned base with strides that are multiples of
-16 bytes (:func:`tma_aligned`); the wrapper gives the tensor-core kernels a
-contiguous copy of any other operand and counts it in :data:`tma_copies`.
+Each kernel has one version per dtype (:func:`kernel_for`), and every
+one but float32 K3 runs on the tensor cores with wgmma, fed by TMA:
+bfloat16 K1–K3 in ``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_dq_sm90.cu`` and ``csrc/flash_attention_dkv_sm90.cu``;
+float32 K1 and K2 in ``csrc/flash_attention_fwd_tf32.cu`` and
+``csrc/flash_attention_dq_tf32.cu``, in 3×TF32 (each product a·b as
+a_lo·b_hi + a_hi·b_lo + a_hi·b_hi of TF32 parts, summed in f32, which keeps
+the f32 path's precision where one TF32 product would not). Float32 K3 runs
+in full f32 on the CUDA cores (``csrc/flash_attention_bwd.cu``). TMA reads
+an operand only from a 16-byte aligned base with strides that are multiples
+of 16 bytes (:func:`tma_aligned`); the wrapper gives the kernels that read
+through TMA (:data:`TMA_KERNELS`) a contiguous copy of any other operand and
+counts it in :data:`tma_copies`.
 
 Each wrapper launches its kernel for CUDA tensors or raises — no
 fallback — and runs the plain PyTorch version for CPU tensors. The plain
@@ -54,7 +58,7 @@ __all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
            "flash_attention_value", "FlashAttentionFunction", "dropout_keep",
            "blocks", "build", "bwd_launch_args", "run_bwd_pass", "launches",
            "dq_launches", "dkv_launches", "dropout_launches", "tma_copies",
-           "kernel_for", "tma_aligned", "SOURCES",
+           "kernel_for", "tma_aligned", "SOURCES", "TMA_KERNELS",
            "HEAD_DIMS", "NEG_INF", "BLOCK_Q", "BLOCK_K"]
 
 NEG_INF = -1e30
@@ -73,21 +77,27 @@ dq_launches = 0
 dkv_launches = 0
 #: launches with dropout on, by kernel (a subset of the three counts above)
 dropout_launches = {"fwd": 0, "bwd_dq": 0, "bwd_dkv": 0}
-#: bfloat16 operands copied because TMA could not read them in place
+#: operands copied because TMA could not read them in place
 tma_copies = 0
 
-#: kernel name -> (source in ``csrc/``, C entry point)
+#: kernel name -> (source in ``csrc/``, C entry point, whether the kernel
+#: reads q, k, v and dO through TMA tensor maps)
 SOURCES = {
-    "fwd": ("flash_attention_fwd", "paddle_flash_attention_fwd"),
     "fwd_sm90": ("flash_attention_fwd_sm90",
-                 "paddle_flash_attention_fwd_sm90"),
-    "bwd_dq": ("flash_attention_bwd", "paddle_flash_attention_bwd_dq"),
+                 "paddle_flash_attention_fwd_sm90", True),
+    "fwd_tf32": ("flash_attention_fwd_tf32",
+                 "paddle_flash_attention_fwd_tf32", True),
     "bwd_dq_sm90": ("flash_attention_dq_sm90",
-                    "paddle_flash_attention_bwd_dq_sm90"),
-    "bwd_dkv": ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv"),
+                    "paddle_flash_attention_bwd_dq_sm90", True),
+    "bwd_dq_tf32": ("flash_attention_dq_tf32",
+                    "paddle_flash_attention_bwd_dq_tf32", True),
+    "bwd_dkv": ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv",
+                False),
     "bwd_dkv_sm90": ("flash_attention_dkv_sm90",
-                     "paddle_flash_attention_bwd_dkv_sm90"),
+                     "paddle_flash_attention_bwd_dkv_sm90", True),
 }
+#: the kernels that read q, k, v (and dO) through TMA tensor maps
+TMA_KERNELS = frozenset(name for name, (_, _, tma) in SOURCES.items() if tma)
 # the C entry points' status when a TMA tensor map cannot be encoded
 _ERR_TENSOR_MAP = 9001
 
@@ -186,10 +196,18 @@ def _zero_seed(device: torch.device) -> torch.Tensor:
 # ---------------------------------------------------------- plain versions
 
 
+def _compute_type(q) -> torch.dtype:
+    """The plain versions compute in f32, and in float64 for float64
+    inputs (the on-card checks' exact reference)."""
+    return torch.promote_types(q.dtype, torch.float32)
+
+
 def _scores(q, k, causal, scale):
-    """f32 scores ``[B, H, Sq, Sk]`` and the causal mask (or None)."""
+    """Scores ``[B, H, Sq, Sk]`` in the compute type and the causal mask
+    (or None)."""
     sq, sk = q.shape[1], k.shape[1]
-    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    f = _compute_type(q)
+    s = torch.einsum("bshd,bthd->bhst", q.to(f), k.to(f)) * scale
     mask = None
     if causal:
         mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
@@ -204,7 +222,8 @@ def flash_attention_fwd_reference(q, k, v, causal: bool, scale: float,
                                   block_k: int = BLOCK_K
                                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of K1: ``(o [B,Sq,H,D] in q's dtype, lse
-    [B,H,1,Sq] f32)``, computed in f32 over the whole score matrix. Under
+    [B,H,1,Sq] f32)``, computed in f32 over the whole score matrix (in
+    float64, lse too, for float64 inputs). Under
     dropout the normalizer sums the undropped probabilities and the kept
     ones are scaled by ``1 / (1 - dropout)``, as in the Pallas kernel."""
     b, sq, h, _ = q.shape
@@ -218,16 +237,18 @@ def flash_attention_fwd_reference(q, k, v, causal: bool, scale: float,
     if dropout > 0.0:
         keep = _keep_bhqk(seed, b, h, sq, sk, block_q, block_k, dropout)
         p = torch.where(keep, p / (1.0 - dropout), 0.0)
-    o = torch.einsum("bhst,bthd->bshd", p, v.float())
+    o = torch.einsum("bhst,bthd->bshd", p, v.to(p.dtype))
     o = o / den.squeeze(-1).transpose(1, 2)[..., None]
     lse = (m + torch.log(den)).transpose(-1, -2)
     return o.to(q.dtype), lse
 
 
 def _delta(o, do):
-    """Δ = rowsum(dO∘O) in f32, ``[B, H, 1, Sq]`` like lse (the Pallas
-    wrapper computes it in XLA outside the kernels)."""
-    return (do.float() * o.float()).sum(-1).transpose(1, 2)[:, :, None, :] \
+    """Δ = rowsum(dO∘O) in f32 (float64 for float64 inputs), ``[B, H, 1,
+    Sq]`` like lse (the Pallas wrapper computes it in XLA outside the
+    kernels)."""
+    f = _compute_type(do)
+    return (do.to(f) * o.to(f)).sum(-1).transpose(1, 2)[:, :, None, :] \
         .contiguous()
 
 
@@ -239,7 +260,7 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
                                              torch.Tensor]:
     """The plain version of K2 and K3: ``(dq, dk, dv)`` in the dtypes of
     q, k and v, with P = exp(s − lse) recomputed over the whole score
-    matrix in f32:
+    matrix in f32 (in float64 for float64 inputs):
 
     - dP′ = dO·Vᵀ, times keep/(1−p) under dropout; dS = P∘(dP′ − Δ);
     - dQ = scale·dS·K, dK = scale·dSᵀ·Q, dV = (P∘keep/(1−p))ᵀ·dO."""
@@ -249,16 +270,17 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
     p = torch.exp(s - lse.transpose(-1, -2))
     if causal:
         p = torch.where(mask, p, 0.0)
-    dof = do.float()
-    dp = torch.einsum("bshd,bthd->bhst", dof, v.float())
+    f = s.dtype
+    dof = do.to(f)
+    dp = torch.einsum("bshd,bthd->bhst", dof, v.to(f))
     p_av = p
     if dropout > 0.0:
         keep = _keep_bhqk(seed, b, h, sq, sk, block_q, block_k, dropout)
         p_av = torch.where(keep, p / (1.0 - dropout), 0.0)
         dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
     ds = p * (dp - _delta(o, do).transpose(-1, -2))
-    dq = torch.einsum("bhst,bthd->bshd", ds, k.float()) * scale
-    dk = torch.einsum("bhst,bshd->bthd", ds, q.float()) * scale
+    dq = torch.einsum("bhst,bthd->bshd", ds, k.to(f)) * scale
+    dk = torch.einsum("bhst,bshd->bthd", ds, q.to(f)) * scale
     dv = torch.einsum("bhst,bshd->bthd", p_av, dof)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
@@ -269,26 +291,29 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
     (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: on the
-    tensor cores for bfloat16, on the CUDA cores for float32."""
+    tensor cores in bf16 for bfloat16; for float32 K1 and K2 on the tensor
+    cores in 3×TF32, K3 on the CUDA cores."""
     if dtype not in _DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
     if dtype == torch.bfloat16:
         return pass_name + "_sm90"
-    return pass_name
+    return pass_name if pass_name == "bwd_dkv" else pass_name + "_tf32"
 
 
 def tma_aligned(shape, strides, address: int, dtype: torch.dtype) -> bool:
-    """Whether TMA can read a ``[B, S, H, D]`` operand in place: bfloat16,
-    the last dim contiguous, the first element's byte ``address`` (or its
-    offset from an aligned base) 16-byte aligned, and each of
-    the batch, seq and head strides of a dim longer than 1 a positive
-    multiple of 16 bytes below 2**40 (a dim of length 1 is never
+    """Whether TMA can read a ``[B, S, H, D]`` operand in place: bfloat16
+    or float32, the last dim contiguous, the first element's byte
+    ``address`` (or its offset from an aligned base) 16-byte aligned, and
+    each of the batch, seq and head strides of a dim longer than 1 a
+    positive multiple of 16 bytes below 2**40 (a dim of length 1 is never
     stepped)."""
-    if dtype != torch.bfloat16 or strides[3] != 1 or address % 16:
+    if dtype not in _DTYPES or strides[3] != 1 or address % 16:
         return False
-    return all(n == 1 or (0 < st and (2 * st) % 16 == 0 and 2 * st < 2 ** 40)
+    size = 2 if dtype == torch.bfloat16 else 4
+    return all(n == 1 or (0 < st and (size * st) % 16 == 0
+                          and size * st < 2 ** 40)
                for n, st in zip(shape[:3], strides[:3]))
 
 
@@ -305,7 +330,7 @@ def _for_tma(t: torch.Tensor) -> torch.Tensor:
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        source, symbol = SOURCES[name]
+        source, symbol, _ = SOURCES[name]
         fn = getattr(_build.load(source), symbol)
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
@@ -324,9 +349,9 @@ def _kernel(name: str):
 
 
 def build() -> None:
-    """Build and load every K1–K3 kernel now (their five sources compile
+    """Build and load every K1–K3 kernel now (their six sources compile
     in parallel) instead of at their first launch."""
-    _build.build_all(sorted({source for source, _ in SOURCES.values()}))
+    _build.build_all(sorted({source for source, _, _ in SOURCES.values()}))
     for name in SOURCES:
         _kernel(name)
 
@@ -438,7 +463,7 @@ def _launch_fwd(q, k, v, causal, scale, dropout, seed, block_q, block_k):
     _check_kernel_inputs((q, k, v), d)
     _check_shape(b, sq, sk, h)
     name = kernel_for("fwd", q.dtype)
-    if name == "fwd_sm90":
+    if name in TMA_KERNELS:
         q, k, v = (_for_tma(t) for t in (q, k, v))
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, 1, sq), dtype=torch.float32, device=q.device)
@@ -484,9 +509,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, seed, causal: bool,
 def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
                     block_q=BLOCK_Q, block_k=BLOCK_K):
     """Checks the backward's CUDA inputs and returns ``(args, (dq, dk, dv,
-    *keep))``: the argument list K2 and K3 share, Δ computed and the outputs
-    allocated; ``keep`` holds what else the arguments point to, to be kept
-    alive until the launches. :func:`run_bwd_pass` launches one pass on it
+    *keep))``: the argument list of each pass (``args["bwd_dq"]``,
+    ``args["bwd_dkv"]``), Δ computed and the outputs allocated; ``keep``
+    holds what else the arguments point to, to be kept alive until the
+    launches. :func:`run_bwd_pass` launches one pass on it
     (for timing one kernel alone); :func:`flash_attention_bwd` launches
     both."""
     b, sq, h, d = q.shape
@@ -500,20 +526,29 @@ def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
         raise ValueError("lse must be the forward's contiguous "
                          "[B, H, 1, Sq] float32 tensor")
     delta = _delta(o, do)
-    if kernel_for("bwd_dq", q.dtype) == "bwd_dq_sm90":
-        # the bf16 K2 and K3 both read q, k, v and dO through TMA
-        q, k, v, do = (_for_tma(t) for t in (q, k, v, do))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     drop = _dropout_args(dropout, seed, sq, sk, block_q, block_k, q.device)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), drop[0], dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h, d,
-            *_strides(q, k, v, do), int(causal), scale, *drop[1:])
+    # q, k, v and dO as each pass's kernel reads them: a kernel that reads
+    # through TMA gets copies of what TMA cannot read in place, made once
+    # and shared; the others read the tensors as they are
+    plain, tma, args = (q, k, v, do), None, {}
+    for name in ("bwd_dq", "bwd_dkv"):
+        ops = plain
+        if kernel_for(name, q.dtype) in TMA_KERNELS:
+            if tma is None:
+                tma = tuple(_for_tma(t) for t in plain)
+            ops = tma
+        args[name] = (ops[0].data_ptr(), ops[1].data_ptr(),
+                      ops[2].data_ptr(), ops[3].data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), drop[0], dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq,
+                      sk, h, d, *_strides(*ops), int(causal), scale,
+                      *drop[1:])
     # delta and any TMA copies must outlive the launches: they ride along
     # with the outputs
-    return args, (dq, dk, dv, delta, q, k, v, do)
+    return args, (dq, dk, dv, delta, *(tma or ()))
 
 
 def run_bwd_pass(name: str, args, device) -> None:
@@ -521,10 +556,12 @@ def run_bwd_pass(name: str, args, device) -> None:
     :func:`bwd_launch_args`' arguments, the kernel for their dtype; raises
     if the launch fails. Not counted: the counted path is
     :func:`flash_attention_bwd`."""
-    fn = _kernel(kernel_for(name, _DTYPE_OF[args[10]]))  # args[10]: dtype
+    pass_args = args[name]
+    # pass_args[10]: dtype
+    fn = _kernel(kernel_for(name, _DTYPE_OF[pass_args[10]]))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
+        err = fn(*pass_args, stream)
     if err != 0:
         _raise_launch(f"flash_attention {name}", err)
 

@@ -10,7 +10,6 @@ The forward kernel is held against its plain PyTorch version on the same
 card, with the tolerances ``chip_smoke.py`` states; the backward kernels
 are in ``tests/test_torch_cuda_backward.py``.
 """
-import hashlib
 import math
 
 import numpy as np
@@ -106,43 +105,21 @@ def test_rejects_what_the_kernel_does_not_take(card):
         fa.flash_attention_fwd(q, k, v, True, 1.0, dropout=0.1)
 
 
-#: sha256 (first 16 hex digits) of O and lse from the f32 forward kernel as
-#: it was before in-kernel dropout (commit 6d46396), on an H100, at the
-#: inputs of :func:`forward_digests`. The bf16 digests of that kernel are
-#: gone with its bf16 instantiation: bf16 runs on the tensor-core kernel,
-#: which rounds P to bf16 and so gives other bits.
-FORWARD_DIGESTS = {
-    "float32/D=16/causal=1": "f707ea07faa3d0ec",
-    "float32/D=16/causal=0": "3243ba35301de912",
-    "float32/D=64/causal=1": "7573477046ddcf79",
-    "float32/D=64/causal=0": "d646096308a2a661",
-    "float32/D=128/causal=1": "6ca4ee632ca7bd78",
-    "float32/D=128/causal=0": "3ffbd375e29c8a31",
-}
-
-
-def forward_digests(module, device):
-    """Digests of the f32 forward's outputs at fixed inputs, by (D,
-    causal); ``module`` is the wrapper module to run."""
-    out = {}
-    for dtype in (torch.float32,):
-        for d in (16, 64, 128):
-            q, k, v = _packed_qkv(2, 130, 130, 3, d, dtype, device, seed=4)
-            for causal in (True, False):
-                o, lse = module.flash_attention_fwd(q, k, v, causal,
-                                                    1.0 / math.sqrt(d))
-                torch.cuda.synchronize()
-                h = hashlib.sha256(o.float().cpu().numpy().tobytes()
-                                   + lse.cpu().numpy().tobytes())
-                out[f"{str(dtype)[6:]}/D={d}/causal={int(causal)}"] = \
-                    h.hexdigest()[:16]
-    return out
-
-
-def test_forward_without_dropout_is_bitwise_unchanged(card):
-    """In-kernel dropout is a template parameter of the f32 forward kernel;
-    the instantiation without it gives the same bits as the kernel before,
-    and so does the f32 kernel now that bf16 has a kernel of its own. The
-    six bf16 digests were dropped with the bf16 instantiation they pinned:
-    the tensor-core kernel that replaced it rounds P to bf16."""
-    assert forward_digests(fa, card) == FORWARD_DIGESTS
+def test_f32_forward_matches_float64_and_repeats_bitwise(card):
+    """The f32 forward kernel (3xTF32 on the tensor cores) holds O and lse
+    within the f32 gate (1e-4) of the plain version computed in float64 at
+    the same inputs, over D in {16, 64, 128}, causal and not, and a second
+    call gives the same bits."""
+    for d in (16, 64, 128):
+        q, k, v = _packed_qkv(2, 130, 130, 3, d, torch.float32, card, seed=4)
+        for causal in (True, False):
+            scale = 1.0 / math.sqrt(d)
+            o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+            o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, scale)
+            torch.cuda.synchronize()
+            assert torch.equal(o, o2) and torch.equal(lse, lse2), (d, causal)
+            ro, rlse = fa.flash_attention_fwd_reference(
+                q.double(), k.double(), v.double(), causal, scale)
+            assert float((o.double() - ro).abs().max()) <= 1e-4, (d, causal)
+            assert float((lse.double() - rlse).abs().max()) <= 1e-4, (
+                d, causal)

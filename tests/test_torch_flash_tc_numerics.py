@@ -16,7 +16,8 @@ port's plain versions (the on-card gate): the errors must sit at least 4x
 inside ``chip_smoke.py``'s bf16 tolerances, ``TOL`` on O and lse and
 ``BWD_TOL`` on dq, dk and dv. It also pins the wrappers' routing by dtype
 (flash attention and FlashMask) and the rule for which operands TMA reads
-in place, both pure functions of shape, strides, offset and dtype.
+in place (bfloat16 and float32), both pure functions of shape, strides,
+offset and dtype.
 """
 import math
 
@@ -251,7 +252,15 @@ def test_routing_and_the_tma_alignment_rule():
     bf16, f32 = torch.bfloat16, torch.float32
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fa.kernel_for(name, bf16) == name + "_sm90"
-        assert fa.kernel_for(name, f32) == name
+    # float32: K1 and K2 on the tensor cores in 3xTF32, K3 on the CUDA cores
+    assert fa.kernel_for("fwd", f32) == "fwd_tf32"
+    assert fa.kernel_for("bwd_dq", f32) == "bwd_dq_tf32"
+    assert fa.kernel_for("bwd_dkv", f32) == "bwd_dkv"
+    assert fa.SOURCES["bwd_dkv"][0] == "flash_attention_bwd"
+    # every kernel but float32 K3 reads q, k, v (and dO) through TMA
+    assert fa.TMA_KERNELS == {fa.kernel_for(name, dt)
+                              for name in ("fwd", "bwd_dq", "bwd_dkv")
+                              for dt in (bf16, f32)} - {"bwd_dkv"}
     for bad in (torch.float16, torch.float64):
         for mod in (fa, fm):
             try:
@@ -260,10 +269,12 @@ def test_routing_and_the_tma_alignment_rule():
                 pass
             else:
                 raise AssertionError(f"{bad} was routed")
-    sources = {src for src, _ in fa.SOURCES.values()}
-    assert sources == {"flash_attention_fwd", "flash_attention_bwd",
-                       "flash_attention_fwd_sm90", "flash_attention_dq_sm90",
-                       "flash_attention_dkv_sm90"}
+    sources = {src for src, _, _ in fa.SOURCES.values()}
+    assert sources == {"flash_attention_bwd", "flash_attention_fwd_sm90",
+                       "flash_attention_dq_sm90", "flash_attention_dkv_sm90",
+                       "flash_attention_fwd_tf32", "flash_attention_dq_tf32"}
+    assert set(fa.SOURCES) == {"fwd_sm90", "fwd_tf32", "bwd_dq_sm90",
+                               "bwd_dq_tf32", "bwd_dkv", "bwd_dkv_sm90"}
     # FlashMask: K5, K6 and K7 on the tensor cores for bf16, on the CUDA
     # cores (flashmask.cu) for f32
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
@@ -291,12 +302,24 @@ def test_routing_and_the_tma_alignment_rule():
         assert not aligned(flat[1:1 + 2 * 100 * 3 * d].view(2, 100, 3, d))
         assert not aligned(flat[2:2 + 2 * 100 * 3 * d].view(2, 100, 3, d))
         assert aligned(flat[8:8 + 2 * 100 * 3 * d].view(2, 100, 3, d))
-        # float32 never goes to TMA; the last dim must be contiguous
-        assert not aligned(torch.zeros(1, 4, 2, d))
+        # float32: the serve path's packed qkv slices (offsets of 0, D and
+        # 2D floats, a head stride of 3D floats) are read in place; an
+        # offset of one float is not 16-byte aligned, one of 4 floats is
+        fqkv = torch.zeros(1, 100, 12, 3, d)
+        assert all(aligned(fqkv[..., i, :]) for i in range(3)), d
+        fflat = torch.zeros(2 * 100 * 3 * d + 4)
+        assert not aligned(fflat[1:1 + 2 * 100 * 3 * d].view(2, 100, 3, d))
+        assert aligned(fflat[4:4 + 2 * 100 * 3 * d].view(2, 100, 3, d))
+        # other dtypes never go to TMA; the last dim must be contiguous
+        assert not aligned(torch.zeros(1, 4, 2, d, dtype=torch.float16))
         assert not aligned(torch.zeros(1, 4, d, 2, dtype=bf16).transpose(2, 3))
-    # a head stride of 68 elements (136 bytes) is not a multiple of 16 bytes
+        assert not aligned(torch.zeros(1, 4, d, 2).transpose(2, 3))
+    # a head stride of 68 elements (136 bytes) is not a multiple of 16 bytes;
+    # in float32 a stride of 66 floats (264 bytes) is not either
     rows = torch.zeros(2, 50, 4, 68, dtype=bf16)[..., :64]
     assert not aligned(rows)
+    assert aligned(torch.zeros(2, 50, 4, 68)[..., :64])
+    assert not aligned(torch.zeros(2, 50, 4, 66)[..., :64])
     # a dim of length 1 is never stepped: its stride does not matter, and
     # the wrapper hands the kernels the contiguous one
     one = torch.zeros(1, 8, 2, 64, dtype=bf16).as_strided((1, 8, 2, 64),
