@@ -9,10 +9,11 @@ Phases, each of which fails the run on any error:
 2. build  — compile the port's CUDA kernels from ``paddle_tpu_torch/ops/
    cuda/csrc``, one ``nvcc`` per source, all at once; print each kernel's
    registers and spills (none allowed in a tensor-core kernel at D = 64
-   without dropout, nor in a FlashMask one or an f32 3×TF32 one at
-   D = 128), and check with ``cuobjdump -sass`` that every tensor-core
-   kernel (bf16 K1, K2, K3, K5, K6 and K7; f32 K1 and K2 in 3×TF32) holds
-   wgmma (HGMMA) and TMA load (UTMALDG) instructions;
+   without dropout, nor in a FlashMask one at D = 128, nor in any
+   instantiation of an f32 3×TF32 one, dropout included), and check with
+   ``cuobjdump -sass`` that every tensor-core kernel (bf16 K1, K2, K3, K5,
+   K6 and K7; f32 K1, K2, K3 and K7 in 3×TF32) holds wgmma (HGMMA) and TMA
+   load (UTMALDG) instructions;
 3. kernel — the flash-attention forward kernel (K1: bf16 and f32 3×TF32,
    both on the tensor cores) against its plain PyTorch version on the card
    at the GPT-2-small serving shapes (B in {1, 4}, S in {128, 1024}, H=12,
@@ -40,8 +41,9 @@ Phases, each of which fails the run on any error:
    plain versions computed in float64 from the same inputs (the f32 plain
    version's own error printed beside). The dropped positions of all three
    are checked to be exactly the plain version's, in f32 and in bf16;
-   each kernel is timed beside its bound, its plain version and the SDPA
-   forward or backward (a yardstick only);
+   each kernel is timed beside its bound (f32 at 495/3 TFLOP/s, with the
+   67 TFLOP/s CUDA-core figure beside it in the text), its plain version
+   and the SDPA forward or backward (a yardstick only);
 8. gradients — every gradient of gpt2_small (f32, dropout 0, B=1, S=256)
    on the card, through K1–K3, against the CPU plain path;
 9. train — ``bench.py``'s GPT arm on the port: gpt2_small in bf16 O2 under
@@ -86,12 +88,13 @@ Phases, each of which fails the run on any error:
     expanded from 8 KV heads by ``repeat_interleave``), D=128, causal
     packed documents of 256–4096 tokens from ``np.random.RandomState(0)``,
     bf16 then f32: exactly one launch each of K5–K7 and none of K1–K3, the
-    tiles the bf16 K5, K6 (k tiles) and K7 (q tiles) computed beside those
-    within the causal bound,
+    tiles the bf16 K5, K6 (k tiles) and K7 (q tiles) and the f32 K7
+    computed beside those within the causal bound,
     outputs and gradients against the plain versions 4 heads at a time,
     forward and forward+backward ms, TFLOP/s over the allowed pairs, peak
-    memory, each kernel beside its bound (counted over the allowed pairs),
-    its plain version and SDPA with the equivalent dense boolean mask (a
+    memory, each kernel beside its bound (counted over the allowed pairs;
+    f32 K7 at 495/3 TFLOP/s with the 67 TFLOP/s figure beside it), its
+    plain version and SDPA with the equivalent dense boolean mask (a
     yardstick only).
 
 The serve (5), train (9), train Llama (12) and FlashMask path (14) phases
@@ -143,8 +146,8 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # the f32 kernels on the tensor cores do each product as three TF32
 # products (495 TFLOP/s dense): f32 work at a third of that rate
 PEAK_TF32X3 = 495e12 / 3
-# the f32 passes that run in 3×TF32; f32 K3 runs on the CUDA cores
-TF32X3_PASSES = ("fwd", "dq")
+# the f32 K1–K3 passes, all in 3×TF32
+TF32X3_PASSES = ("fwd", "dq", "dkv")
 PEAK_BYTES = 3.35e12
 
 
@@ -229,12 +232,13 @@ def phase_card() -> None:
 
 
 # the sources of the tensor-core kernels (bf16 K1, K2, K3, K5, K6 and K7;
-# f32 K1 and K2 in 3×TF32), whose SASS must hold wgmma (HGMMA) and TMA
-# loads (UTMALDG)
+# f32 K1, K2, K3 and K7 in 3×TF32), whose SASS must hold wgmma (HGMMA) and
+# TMA loads (UTMALDG)
 TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
               "flash_attention_dkv_sm90", "flashmask_fwd_sm90",
               "flashmask_dq_sm90", "flashmask_dkv_sm90",
-              "flash_attention_fwd_tf32", "flash_attention_dq_tf32")
+              "flash_attention_fwd_tf32", "flash_attention_dq_tf32",
+              "flash_attention_dkv_tf32", "flashmask_dkv_tf32")
 # a tensor-core kernel's mangled name: its kind (its suffix names its
 # type: sm90 bf16, tf32 f32), head dim and dropout flag
 TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_(sm90|tf32))_kernelILi"
@@ -272,8 +276,7 @@ def phase_build() -> float:
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["flash_attention_bwd", *TC_SOURCES, "rms_norm",
-                      "flashmask"])
+    _build.build_all([*TC_SOURCES, "rms_norm", "flashmask"])
     flash_attention.build()
     rms_norm.build()
     flashmask.build()
@@ -1029,12 +1032,12 @@ def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
 # the port's kernels by their exact names in the profiler's rows (the
 # demangled "void (anonymous namespace)::fwd_sm90_kernel<...>(...)"): K1,
 # K2 and K3 in either dtype's kernel (fwd_sm90_kernel, fwd_tf32_kernel,
-# dkv_kernel, ...) and K4, whatever else is named *_kernel. K5's
+# dkv_tf32_kernel, ...) and K4, whatever else is named *_kernel. K5's
 # flashmask_fwd_sm90_kernel matches none of them
 PROFILED_KERNELS = {
     "K1": re.compile(r"(?:^|[\s:])fwd(?:_sm90|_tf32)?_kernel<"),
     "K2": re.compile(r"(?:^|[\s:])dq(?:_sm90|_tf32)?_kernel<"),
-    "K3": re.compile(r"(?:^|[\s:])dkv(?:_sm90)?_kernel<"),
+    "K3": re.compile(r"(?:^|[\s:])dkv(?:_sm90|_tf32)?_kernel<"),
     "K4": re.compile(r"(?:^|[\s:])rms_norm_kernel<"),
 }
 ATTENTION_KERNELS = re.compile(
@@ -1688,16 +1691,23 @@ def phase_flashmask_path(torch) -> dict:
         scale = 1.0 / math.sqrt(d)
         o, lse = fm.flashmask_fwd(qd, k, v, idx, True, scale)
         check(torch.equal(o, out), "K5 is not deterministic")
-        if dtype == "bfloat16":
-            # the k tiles K6's 128-row blocks and the q tiles K7's 128-key
-            # blocks computed, beside those within their causal bounds (one
-            # uncounted launch each)
-            for name, (live, bound) in zip(("dq", "dkv"), fm.bwd_tiles(
-                    qd, k, v, o, lse, do, idx, True, scale)):
+        # the k tiles K6's blocks and the q tiles K7's blocks computed,
+        # beside those within their causal bounds (one uncounted launch of
+        # each kernel that counts: bf16 K6 and K7, f32 K7)
+        for name, counted in zip(("dq", "dkv"), fm.bwd_tiles(
+                qd, k, v, o, lse, do, idx, True, scale)):
+            if counted is None:
+                continue
+            live, bound = counted
+            kind = "bf16" if dtype == "bfloat16" else "f32"
+            if dtype == "bfloat16":
                 tiles[name] = {"computed": live, "causal": bound}
-                print(f"{'K6 (bf16) k' if name == 'dq' else 'K7 (bf16) q'} "
-                      f"tiles computed {live} of the {bound} within the "
-                      f"causal bound ({live / bound:.1%})", flush=True)
+            else:
+                tiles[name]["float32"] = {"computed": live, "causal": bound}
+            print(f"{'K6' if name == 'dq' else 'K7'} ({kind}) "
+                  f"{'k' if name == 'dq' else 'q'} tiles computed {live} of "
+                  f"the {bound} within the causal bound ({live / bound:.1%})",
+                  flush=True)
         label = f"path B={b} S={s} H={h} D={d} {dtype}"
         errs = flashmask_errors(torch, fm, (qd, k, v, do), (out, lse, *grads),
                                 idx, True, dtype, label, FM_HEAD_CHUNK)
@@ -1745,6 +1755,15 @@ def phase_flashmask_path(torch) -> dict:
         for name, (mm, tens, rows) in BWD_BOUND.items():
             bounds[name] = kernel_bound(b, s, h, d, dtype, True, mm, tens,
                                         rows, pairs, idx_bytes)
+        k7_bound = f"bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}"
+        if dtype == "float32":
+            # f32 K7 runs in 3xTF32; its CUDA-core figure beside
+            cores = bounds["dkv"][0]
+            bounds["dkv"] = kernel_bound(b, s, h, d, dtype, True,
+                                         *BWD_BOUND["dkv"], pairs, idx_bytes,
+                                         PEAK_TF32X3)
+            k7_bound = (f"bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]} "
+                        f"at 495/3 TFLOP/s, {cores:.4f} at 67 TFLOP/s")
         print(f"{label}: launches K5/K6/K7/K1/K2/K3 {counts}; err "
               + " ".join(f"{n} {e:.2e}" for n, e in errs.items()
                          if n not in ("dead_rows", "equal"))
@@ -1759,8 +1778,7 @@ def phase_flashmask_path(torch) -> dict:
               f"{bounds['fwd'][1]}, plain {plain['fwd']:.4f}, SDPA+mask fwd "
               f"{lib_fwd:.4f})  K6 {ms['dq']:.4f} (bound "
               f"{bounds['dq'][0]:.4f} {bounds['dq'][1]})  K7 "
-              f"{ms['dkv']:.4f} (bound {bounds['dkv'][0]:.4f} "
-              f"{bounds['dkv'][1]})  plain bwd {plain['bwd']:.4f}  "
+              f"{ms['dkv']:.4f} ({k7_bound})  plain bwd {plain['bwd']:.4f}  "
               f"SDPA+mask bwd {lib_bwd:.4f}", flush=True)
         shape = (f"B={b} S={s} H={h} D={d} {dtype} causal documents, "
                  f"{pairs} pairs per head")
@@ -1826,15 +1844,15 @@ def main() -> int:
     source = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     kernels = []
-    # K1-K3 each have a bf16 kernel (the training paths) and an f32 one (K1's
-    # on the f32 serving path; K1 and K2 in 3xTF32)
+    # K1-K3 each have a bf16 kernel (the training paths) and an f32 one in
+    # 3xTF32 (K1's on the f32 serving path)
     for name, key, src, src_f32, line in (
             ("flash_attention_fwd", "fwd", "flash_attention_fwd_sm90.cu",
              "flash_attention_fwd_tf32.cu", 266),
             ("flash_attention_bwd_dq", "dq", "flash_attention_dq_sm90.cu",
              "flash_attention_dq_tf32.cu", 310),
             ("flash_attention_bwd_dkv", "dkv", "flash_attention_dkv_sm90.cu",
-             "flash_attention_bwd.cu", 347)):
+             "flash_attention_dkv_tf32.cu", 347)):
         by_path = {"train": trained[key], "train_llama": trained_llama[key]}
         f32_by_path = {"serve": served["launches"]} if key == "fwd" else {}
         entry = {"name": name, "route": "cuda", "source": source + src,
@@ -1868,17 +1886,21 @@ def main() -> int:
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "max_abs_err")}})
     fm_records = flashmask_path["records"]
-    # K5-K7 each have a bf16 kernel (the tensor cores) and an f32 one
-    for name, key, src, line in (
-            ("flashmask_fwd", "fwd", "flashmask_fwd_sm90.cu", 209),
-            ("flashmask_bwd_dq", "dq", "flashmask_dq_sm90.cu", 251),
-            ("flashmask_bwd_dkv", "dkv", "flashmask_dkv_sm90.cu", 286)):
+    # K5-K7 each have a bf16 kernel (the tensor cores) and an f32 one (K7's
+    # on the tensor cores in 3xTF32)
+    for name, key, src, src_f32, line in (
+            ("flashmask_fwd", "fwd", "flashmask_fwd_sm90.cu", "flashmask.cu",
+             209),
+            ("flashmask_bwd_dq", "dq", "flashmask_dq_sm90.cu", "flashmask.cu",
+             251),
+            ("flashmask_bwd_dkv", "dkv", "flashmask_dkv_sm90.cu",
+             "flashmask_dkv_tf32.cu", 286)):
         count = flashmask_path["launches"][key]
         entry = {"name": name, "route": "cuda", "source": source + src,
                  "replaces": f"paddle_tpu/ops/pallas/flashmask.py:{line}",
                  "launches": count, "launches_by_path": {"flashmask": count},
                  **fm_records[(key, "bfloat16")],
-                 "float32": {"source": source + "flashmask.cu",
+                 "float32": {"source": source + src_f32,
                              **{k: fm_records[(key, "float32")][k]
                                 for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err")}}}

@@ -1,13 +1,13 @@
 // Flash-attention dK/dV pass on Hopper's tensor cores (sm_90a): K3 for
-// bfloat16 inputs. The float32 dK/dV pass stays on flash_attention_bwd.cu
-// (dkv_kernel).
+// bfloat16 inputs. The float32 dK/dV pass runs in 3xTF32
+// (flash_attention_dkv_tf32.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_dkv_kernel (:189,
 // launched by _flash_bwd, :347): dV = sum_q (P o keep/(1-p))^T . dO and
 // dK = scale * sum_q dS^T . Q, with P = exp(q.k^T * scale - lse) recomputed
 // per tile from the forward's row logsumexp, dP' = dO . V^T (times
 // keep/(1-p) under dropout) and dS = P o (dP' - Delta), Delta = rowsum(dO o O)
-// computed by the wrapper in f32 as [B, H, 1, Sq]. It keeps dkv_kernel's
+// computed by the wrapper in f32 as [B, H, 1, Sq]. It keeps the f32 K3's
 // contract: layout [B, S, H, D] through per-tensor strides (here TMA tensor
 // maps: a 16-byte aligned base and strides that are multiples of 16 bytes,
 // which the wrapper guarantees by copying any other input), so GPT's
@@ -32,8 +32,7 @@
 // alone take 128 registers a thread at D = 64; a block of 256 threads may
 // keep 255. Per Q/dO tile each warpgroup
 //   1. computes S^T = K.Q^T and dP^T = V.dO^T with wgmma (m64n64k16, all
-//      four operands K-major from shared memory): keys on rows, as in
-//      dkv_kernel;
+//      four operands K-major from shared memory): keys on rows;
 //   2. forms P^T = 2^(S^T * scale * log2(e) - lse * log2(e)) and
 //      dS^T = P^T o (dP'^T - Delta) in the accumulator registers, lse and
 //      Delta per column from the stage, the dropout hash keyed per column;
@@ -339,7 +338,8 @@ cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t
 
 }  // namespace
 
-// The arguments of paddle_flash_attention_bwd_dkv (flash_attention_bwd.cu);
+// The arguments of paddle_flash_attention_bwd_dkv_tf32
+// (flash_attention_dkv_tf32.cu);
 // dq is not touched. dtype must be 1 (bfloat16), D one of 16, 32, 64, 128,
 // and every stride of q, k, v, dO a multiple of 8 elements with a 16-byte
 // aligned base (TMA). Returns the cudaError_t of the launch (0 on success),

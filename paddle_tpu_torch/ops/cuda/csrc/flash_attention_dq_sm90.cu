@@ -294,7 +294,8 @@ cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t
 
 }  // namespace
 
-// The arguments of paddle_flash_attention_bwd_dkv (flash_attention_bwd.cu);
+// The arguments of paddle_flash_attention_bwd_dkv_tf32
+// (flash_attention_dkv_tf32.cu);
 // dk and dv are not touched. dtype must be 1 (bfloat16), D one of 16, 32,
 // 64, 128, and every stride of q, k, v, dO a multiple of 8 elements with a
 // 16-byte aligned base (TMA). Returns the cudaError_t of the launch (0 on

@@ -1,6 +1,6 @@
 // Flash-attention dQ pass on Hopper's tensor cores (sm_90a) in 3xTF32: K2
 // for float32 inputs. bfloat16 runs on flash_attention_dq_sm90.cu; K3
-// (dK/dV) in float32 stays on flash_attention_bwd.cu.
+// (dK/dV) in float32 on flash_attention_dkv_tf32.cu.
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_dq_kernel (:142,
 // launched by _flash_bwd, :310): dQ = scale * sum_k dS . K, with
@@ -372,7 +372,8 @@ cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t
 
 }  // namespace
 
-// The arguments of paddle_flash_attention_bwd_dkv (flash_attention_bwd.cu);
+// The arguments of paddle_flash_attention_bwd_dkv_tf32
+// (flash_attention_dkv_tf32.cu);
 // dk and dv are not touched. dtype must be 0 (float32), D one of 16, 32,
 // 64, 128, and every stride of q, k, v, dO a multiple of 4 elements with a
 // 16-byte aligned base (TMA). dq is a contiguous [B, Sq, H, D] f32 tensor.

@@ -1,16 +1,14 @@
 // FlashMask attention for Hopper (sm_90a): attention under a column-interval
-// mask over [batch, seq, heads, head_dim] tensors, forward and the two-pass
-// recompute backward, for float32 only: the bfloat16 kernels run on the
-// tensor cores (K5 flashmask_fwd_sm90.cu, K6 flashmask_dq_sm90.cu, K7
-// flashmask_dkv_sm90.cu).
+// mask over [batch, seq, heads, head_dim] tensors, the forward and the dQ
+// pass of the two-pass recompute backward, for float32 only, on the CUDA
+// cores. The bfloat16 kernels run on the tensor cores (K5
+// flashmask_fwd_sm90.cu, K6 flashmask_dq_sm90.cu, K7 flashmask_dkv_sm90.cu);
+// the float32 dK/dV pass (K7) runs on them in 3xTF32 (flashmask_dkv_tf32.cu).
 //
 // Replaces, in paddle_tpu/ops/pallas/flashmask.py:
 //   K5  _fm_fwd_kernel     (launched by _fm_fwd)  -> flashmask_fwd_kernel: O, lse
 //   K6  _fm_bwd_dq_kernel  (launched by _fm_bwd)  -> flashmask_dq_kernel:
 //                                                    dQ = scale * sum_k dS . K
-//   K7  _fm_bwd_dkv_kernel (launched by _fm_bwd)  -> flashmask_dkv_kernel:
-//                                                    dV = sum_q P^T . dO,
-//                                                    dK = scale * sum_q dS^T . Q
 // with P = exp(q.k^T * scale - lse) recomputed per tile from the forward's row
 // logsumexp, dP = dO . V^T and dS = P o (dP - Delta), Delta = rowsum(dO o O)
 // computed by the wrapper in f32 as [B, H, 1, Sq], beside lse.
@@ -35,47 +33,39 @@
 //     row gives O = 0, lse = -1e30 + log(1e-30), dQ = 0, as the Pallas
 //     kernels do (the denominator is clamped at 1e-30);
 //   - tiles are skipped only where that is exact: the causal bound stops
-//     K5/K6's k loop at the last k tile meeting the diagonal and starts K7's q
-//     loop at the first q tile meeting it; besides, a tile whose every key
-//     column hides every row of the q tile is skipped by a block-wide vote
-//     (__syncthreads_and) before its K/V (or Q/dO) loads. Its P is 0
+//     the k loop at the last k tile meeting the diagonal; besides, a k tile
+//     whose every key column hides every row of the q tile is skipped by a
+//     block-wide vote (__syncthreads_and) before its K/V loads. Its P is 0
 //     everywhere, so it adds nothing to any sum, and the online softmax state
 //     is unchanged by it (alpha = 1);
-//   - any Sq, Sk: the ragged edge is masked; keys no query sees get
-//     dK = dV = 0;
+//   - any Sq, Sk: the ragged edge is masked;
 //   - every product is an f32 FMA, every sum f32; no dropout (the Pallas
 //     kernels have none).
 //
-// Design. The scheme of the CUDA-core K1-K3 (f32 K3 in flash_attention_bwd.cu):
-// 256 threads as a 16 x 16 grid, 64 x 64 tiles, operands in shared memory as
-// f32 with rows padded by one float against bank conflicts, the sequential
-// grid axis of the Pallas kernels as a loop inside the block.
+// Design. 256 threads as a 16 x 16 grid, 64 x 64 tiles, operands in shared
+// memory as f32 with rows padded by one float against bank conflicts, the
+// sequential grid axis of the Pallas kernels as a loop inside the block.
 //   K5: one block per (64-row q tile, head, batch), the heaviest causal q
 //   tiles first; thread (ty, tx) owns rows 4ty..4ty+3, their scores against
 //   columns tx + 16j and their accumulator columns tx + 16c; the online
 //   softmax state stays in registers, reduced over 16 lanes by shuffles.
 //   K6: K5's blocks; Q and dO stay in shared memory, K/V tiles stream; dQ
-//   accumulates in registers.
-//   K7: one block per (64-key k tile, head, batch); K, V and the tile's
-//   intervals stay, Q/dO tiles stream; the transposed tiles put keys on rows,
-//   so P^T and dS^T land in shared memory as rows and dV, dK accumulate in
-//   registers. No atomics: every output element has one owner.
+//   accumulates in registers. No atomics: every output element has one
+//   owner.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 67 TFLOP/s f32 CUDA
-// cores, 3.35 TB/s HBM), counted over the (q, k) pairs the mask allows, N:
-// K5 does 2 matmuls (4 D N flops per head) and moves q, k, v, o, lse and the
-// indices once; K6 3 matmuls and q, k, v, dO, dq, lse, Delta; K7 4 matmuls and
-// q, k, v, dO, dk, dv, lse, Delta. At the long-context path shape of
+// Bound on an H100 SXM (67 TFLOP/s f32 CUDA cores, 3.35 TB/s HBM), counted
+// over the (q, k) pairs the mask allows, N: K5 does 2 matmuls (4 D N flops
+// per head) and moves q, k, v, o, lse and the indices once; K6 3 matmuls and
+// q, k, v, dO, dq, lse, Delta. At the long-context path shape of
 // chip_smoke.py phase 14 (B=1, S=8192, 32 heads, D=128, causal documents,
-// 10.5 M allowed pairs a head) all three are bound by operations: in bf16 on
-// the tensor cores 0.17, 0.26 and 0.35 ms, against 0.08-0.10 ms of bytes; in
-// f32 on the CUDA cores. The script computes each bound from the run's own
-// mask. These kernels do every product as an f32 FMA on the CUDA cores, so
-// their own limit is the shared-memory loads of the two matmul phases, as for
-// K1-K3; wgmma and TMA are the way to the bound. The interval skip visits
-// only the tiles with an allowed pair (a third of the causal tiles there), so
-// the time follows N rather than the causal pair count.
-// At D = 128 K5-K7 spill registers as K1-K3 do (chip_smoke.py prints ptxas).
+// 10.5 M allowed pairs a head) both are bound by operations. The script
+// computes each bound from the run's own mask. These kernels do every
+// product as an f32 FMA on the CUDA cores, so their own limit is the
+// shared-memory loads of the two matmul phases; wgmma and TMA are the way to
+// the bound. The interval skip visits only the tiles with an allowed pair (a
+// third of the causal tiles there), so the time follows N rather than the
+// causal pair count. At D = 128 K5 and K6 spill registers (chip_smoke.py
+// prints ptxas).
 
 #include "flash_attention_common.cuh"
 
@@ -96,9 +86,7 @@ struct Params {
   const float* delta;  // backward: [B, H, 1, Sq]
   void* o;             // forward outputs
   float* lse_out;
-  void* dq;            // backward outputs
-  void* dk;
-  void* dv;
+  void* dq;            // backward output
   int B, Sq, Sk, H, Hm, ncol;
   long long q_sb, q_ss, q_sh;
   long long k_sb, k_ss, k_sh;
@@ -108,7 +96,7 @@ struct Params {
   float scale;
 };
 
-// Blocks per SM the register allocation must allow, as for K2/K3: two at
+// Blocks per SM the register allocation of K6 must allow: two at
 // D <= 64, where two blocks' shared memory fits in the SM's 227 KB.
 template <int D>
 constexpr int min_blocks() {
@@ -123,11 +111,6 @@ constexpr int fwd_smem_bytes() {
 template <int D>
 constexpr int dq_smem_bytes() {
   return (4 * kBlockQ * (D + 1) + kBlockQ * PS) * 4 + 4 * kBlockK * 4;
-}
-
-template <int D>
-constexpr int dkv_smem_bytes() {
-  return (4 * kBlockQ * (D + 1) + 2 * kBlockK * PS + 2 * kBlockQ) * 4 + 4 * kBlockK * 4;
 }
 
 // rows [r0, r0 + 64) of a [S, D] slice with row stride ld into shared memory
@@ -450,144 +433,7 @@ __global__ void __launch_bounds__(kThreads, min_blocks<D>()) flashmask_dq_kernel
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads, min_blocks<D>()) flashmask_dkv_kernel(const Params p) {
-  constexpr int DC = D / 16;
-  constexpr int QS = D + 1;
-  extern __shared__ float smem[];
-  float* sK = smem;
-  float* sV = sK + kBlockK * QS;
-  float* sQ = sV + kBlockK * QS;
-  float* sO = sQ + kBlockQ * QS;  // dO
-  float* sP = sO + kBlockQ * QS;  // P^T, keys as rows
-  float* sS = sP + kBlockK * PS;  // dS^T
-  float* sL = sS + kBlockK * PS;  // lse of the q tile
-  float* sD = sL + kBlockQ;       // Delta of the q tile
-  int* sI = reinterpret_cast<int*>(sD + kBlockQ);
-
-  const int k0 = blockIdx.x * kBlockK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-
-  const T* q = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* k = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* v = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dout = static_cast<const T*>(p.dout) + b * p.o_sb + h * p.o_sh;
-  const long long row0 = (static_cast<long long>(b) * p.H + h) * p.Sq;
-
-  load_tile<T, D>(sK, k, p.k_ss, k0, p.Sk, tid);
-  load_tile<T, D>(sV, v, p.v_ss, k0, p.Sk, tid);
-  load_intervals(sI, head_indices(p, b, h), p.ncol, k0, p.Sk, tid);
-
-  float adk[4][DC], adv[4][DC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) adk[i][c] = adv[i][c] = 0.f;
-
-  const int n_qt = (p.Sq + kBlockQ - 1) / kBlockQ;
-  // top-left causal: the first q tile with a row at or below this k tile's
-  // first key
-  const int qt0 = p.causal ? k0 / kBlockQ : 0;
-
-  for (int qt = qt0; qt < n_qt; ++qt) {
-    const int q0 = qt * kBlockQ;
-    __syncthreads();  // the previous tile's sQ, sO, sP, sS reads are done
-    if (tile_hidden(p, sI, k0, q0, tid)) continue;
-    load_tile<T, D>(sQ, q, p.q_ss, q0, p.Sq, tid);
-    load_tile<T, D>(sO, dout, p.o_ss, q0, p.Sq, tid);
-    if (tid < kBlockQ) {
-      const int qp = q0 + tid;
-      sL[tid] = qp < p.Sq ? p.lse[row0 + qp] : 0.f;
-      sD[tid] = qp < p.Sq ? p.delta[row0 + qp] : 0.f;
-    }
-    __syncthreads();
-
-    // transposed tiles: st[i][j] = K[key 4ty+i] . Q[query tx+16j]
-    float st[4][4], dpt[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) st[i][j] = dpt[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(ty * 4 + i) * QS + d];
-        vv[i] = sV[(ty * 4 + i) * QS + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(tx + 16 * j) * QS + d];
-        ov[j] = sO[(tx + 16 * j) * QS + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          st[i][j] = fmaf(kv[i], qv[j], st[i][j]);
-          dpt[i][j] = fmaf(vv[i], ov[j], dpt[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qp = q0 + tx + 16 * j;
-      const float lse = sL[tx + 16 * j];
-      const float delta = sD[tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = ty * 4 + i;
-        const float pij = allowed(p, sI + 4 * r, qp, k0 + r) ? expf(st[i][j] * p.scale - lse) : 0.f;
-        sP[r * PS + tx + 16 * j] = pij;
-        sS[r * PS + tx + 16 * j] = pij * (dpt[i][j] - delta);
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < kBlockQ; ++qq) {
-      float pv[4], sv[4], ov[DC], qv[DC];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[(ty * 4 + i) * PS + qq];
-        sv[i] = sS[(ty * 4 + i) * PS + qq];
-      }
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        ov[c] = sO[qq * QS + tx + 16 * c];
-        qv[c] = sQ[qq * QS + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < DC; ++c) {
-          adv[i][c] = fmaf(pv[i], ov[c], adv[i][c]);
-          adk[i][c] = fmaf(sv[i], qv[c], adk[i][c]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
-    if (kp >= p.Sk) continue;
-    const long long off = ((static_cast<long long>(b) * p.Sk + kp) * p.H + h) * D;
-    T* krow = static_cast<T*>(p.dk) + off;
-    T* vrow = static_cast<T*>(p.dv) + off;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      krow[tx + 16 * c] = from_float<T>(adk[i][c] * p.scale);
-      vrow[tx + 16 * c] = from_float<T>(adv[i][c]);
-    }
-  }
-}
-
-enum Pass { kFwd, kDq, kDkv };
+enum Pass { kFwd, kDq };
 
 template <typename Kernel>
 cudaError_t start(Kernel kernel, dim3 grid, int smem, const Params& p, cudaStream_t stream) {
@@ -603,11 +449,8 @@ cudaError_t launch(const Params& p, cudaStream_t stream) {
   const dim3 q_grid((p.Sq + kBlockQ - 1) / kBlockQ, p.H, p.B);
   if constexpr (kPass == kFwd) {
     return start(flashmask_fwd_kernel<T, D>, q_grid, fwd_smem_bytes<D>(), p, stream);
-  } else if constexpr (kPass == kDq) {
-    return start(flashmask_dq_kernel<T, D>, q_grid, dq_smem_bytes<D>(), p, stream);
   } else {
-    const dim3 k_grid((p.Sk + kBlockK - 1) / kBlockK, p.H, p.B);
-    return start(flashmask_dkv_kernel<T, D>, k_grid, dkv_smem_bytes<D>(), p, stream);
+    return start(flashmask_dq_kernel<T, D>, q_grid, dq_smem_bytes<D>(), p, stream);
   }
 }
 
@@ -628,8 +471,8 @@ int run(Params& p, int dtype, int D, void* stream) {
       (p.ncol != 1 && p.ncol != 2 && p.ncol != 4))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the bfloat16 kernels are paddle_flashmask_fwd_sm90, paddle_flashmask_bwd_
-  // dq_sm90 and paddle_flashmask_bwd_dkv_sm90 (flashmask_*_sm90.cu)
+  // the bfloat16 kernels are paddle_flashmask_fwd_sm90 and
+  // paddle_flashmask_bwd_dq_sm90 (flashmask_*_sm90.cu)
   if (dtype == 0) return static_cast<int>(launch_d<float, kPass>(p, D, s));
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -675,22 +518,23 @@ extern "C" int paddle_flashmask_fwd(const void* q, const void* k, const void* v,
   return run<kFwd>(p, dtype, D, stream);
 }
 
-// Both backward entry points take the same arguments: dtype 0 (float32),
-// the strides of q, k, v, then dO; lse and delta contiguous [B, H, 1, Sq]
-// f32; dq a contiguous [B, Sq, H, D] and dk, dv contiguous [B, Sk, H, D]
-// tensors in the input dtype; idx as for the forward. Each returns the
+// The backward entry point takes the arguments of
+// paddle_flashmask_bwd_dkv_tf32 (flashmask_dkv_tf32.cu) but its tiles:
+// dtype 0 (float32), the strides of q, k, v, then dO; lse and delta
+// contiguous [B, H, 1, Sq] f32; dq a contiguous [B, Sq, H, D] f32 tensor
+// (dk and dv are not touched); idx as for the forward. Returns the
 // cudaError_t of its launch.
-#define PADDLE_FM_BWD_ARGS                                                                    \
-  const void *q, const void *k, const void *v, const void *dout, const void *lse,             \
-      const void *delta, const void *idx, void *dq, void *dk, void *dv, int dtype, int B,      \
-      int Sq, int Sk, int H, int D, int Hm, int ncol, long long q_sb, long long q_ss,         \
-      long long q_sh, long long k_sb, long long k_ss, long long k_sh, long long v_sb,         \
-      long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh,         \
-      int causal, float scale, void *stream
-
-namespace {
-
-Params bwd_params(PADDLE_FM_BWD_ARGS) {
+extern "C" int paddle_flashmask_bwd_dq(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* lse, const void* delta,
+                                       const void* idx, void* dq, void* dk, void* dv, int dtype,
+                                       int B, int Sq, int Sk, int H, int D, int Hm, int ncol,
+                                       long long q_sb, long long q_ss, long long q_sh,
+                                       long long k_sb, long long k_ss, long long k_sh,
+                                       long long v_sb, long long v_ss, long long v_sh,
+                                       long long o_sb, long long o_ss, long long o_sh, int causal,
+                                       float scale, void* stream) {
+  (void)dk;
+  (void)dv;
   Params p = {};
   p.q = q;
   p.k = k;
@@ -700,8 +544,6 @@ Params bwd_params(PADDLE_FM_BWD_ARGS) {
   p.delta = static_cast<const float*>(delta);
   p.idx = static_cast<const int*>(idx);
   p.dq = dq;
-  p.dk = dk;
-  p.dv = dv;
   p.B = B;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -722,24 +564,5 @@ Params bwd_params(PADDLE_FM_BWD_ARGS) {
   p.o_sh = o_sh;
   p.causal = causal;
   p.scale = scale;
-  (void)dtype;
-  (void)D;
-  (void)stream;
-  return p;
-}
-
-}  // namespace
-
-#define PADDLE_FM_BWD_PASS                                                                     \
-  q, k, v, dout, lse, delta, idx, dq, dk, dv, dtype, B, Sq, Sk, H, D, Hm, ncol, q_sb, q_ss,   \
-      q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, scale, stream
-
-extern "C" int paddle_flashmask_bwd_dq(PADDLE_FM_BWD_ARGS) {
-  Params p = bwd_params(PADDLE_FM_BWD_PASS);
   return run<kDq>(p, dtype, D, stream);
-}
-
-extern "C" int paddle_flashmask_bwd_dkv(PADDLE_FM_BWD_ARGS) {
-  Params p = bwd_params(PADDLE_FM_BWD_PASS);
-  return run<kDkv>(p, dtype, D, stream);
 }

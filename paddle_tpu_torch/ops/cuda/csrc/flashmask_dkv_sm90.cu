@@ -1,6 +1,6 @@
 // FlashMask dK/dV pass on Hopper's tensor cores (sm_90a): K7 for bfloat16
-// inputs. The float32 dK/dV pass stays on flashmask.cu
-// (flashmask_dkv_kernel).
+// inputs. The float32 dK/dV pass runs in 3xTF32
+// (flashmask_dkv_tf32.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_bwd_dkv_kernel (:145,
 // launched by _fm_bwd, :251, call :286): dV = sum_q P^T . dO and
@@ -8,8 +8,7 @@
 // recomputed per tile from the forward's row logsumexp and set to 0 where
 // the column-interval mask hides the pair (flashmask_sm90_common.cuh),
 // dP = dO . V^T and dS = P o (dP - Delta), Delta = rowsum(dO o O) computed
-// by the wrapper in f32 as [B, H, 1, Sq]. It keeps flashmask_dkv_kernel's
-// contract:
+// by the wrapper in f32 as [B, H, 1, Sq]. It keeps the f32 K7's contract:
 //   - layout [B, S, H, D] through per-tensor strides, here TMA tensor maps
 //     (a 16-byte aligned base and strides that are multiples of 16 bytes,
 //     which the wrapper guarantees by copying any other input);

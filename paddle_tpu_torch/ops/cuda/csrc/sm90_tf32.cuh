@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks for float32 attention on the tensor cores
-// in 3xTF32, shared by flash_attention_fwd_tf32.cu (K1) and
-// flash_attention_dq_tf32.cu (K2), on top of sm90_common.cuh:
+// in 3xTF32, shared by flash_attention_fwd_tf32.cu (K1),
+// flash_attention_dq_tf32.cu (K2) and, through dkv_tf32.cuh, the dK/dV
+// passes flash_attention_dkv_tf32.cu (K3) and flashmask_dkv_tf32.cu (K7),
+// on top of sm90_common.cuh:
 //   - the split of a float into two TF32 parts, hi = tf32(x) rounded to
 //     nearest (ties away from zero) and lo = tf32(x - hi); every product a.b
 //     runs as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in f32 accumulators, which
@@ -10,7 +12,8 @@
 //     shared memory (SS) or A from registers (RS);
 //   - the A registers of a k slice of an accumulator (pack_a_tf32) and the
 //     order of keys in a transposed tile that makes them line up;
-//   - the byte offset of an element in a 128-byte-swizzled tile, and the
+//   - the byte offset of an element in a 128- or 64-byte-swizzled tile,
+//     the shared-memory descriptor of a 64-byte-swizzled operand, and the
 //     passes that round a tile in place beside its lo tile and write a
 //     tile transposed;
 //   - a float32 encode_bshd (TMA tensor map).
@@ -28,7 +31,10 @@
 // within a box, 16-byte chunk c of row r sits at chunk c ^ (r % 8), the
 // 128-byte swizzle TMA writes and wgmma's SW128 layout reads. A k8 slice is
 // 32 bytes of a row, so a K-major operand steps 32 bytes per k slice
-// inside a box, as the bf16 products step per k16 slice.
+// inside a box, as the bf16 products step per k16 slice. A tile whose rows
+// hold 16 floats (64 bytes) uses the 64-byte swizzle instead: chunk c of
+// row r at chunk c ^ ((r / 2) % 4), 8-row atoms of 512 bytes, two k slices
+// a row.
 //
 // Key order of a transposed tile. The A fragment of an m64nNk8 tf32 product
 // holds (row l/4 + 8h, column l%4 + 4e) in register 2e + h (thread l of a
@@ -65,6 +71,19 @@ __device__ __forceinline__ uint32_t tile_offset(int row, int col, int rows) {
                                ((((col & 31) >> 2) ^ (row & 7)) << 4) + ((col & 3) << 2));
 }
 
+// byte offset of element (row, col < 16) of a tile of 64-byte rows
+__device__ __forceinline__ uint32_t tile_offset64(int row, int col) {
+  return static_cast<uint32_t>(row * 64 + ((((col & 15) >> 2) ^ ((row >> 1) & 3)) << 4) +
+                               ((col & 3) << 2));
+}
+
+// shared-memory matrix descriptor, 64-byte swizzle, atoms 512-byte aligned
+__device__ __forceinline__ uint64_t desc_sw64(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) | (2ull << 62);
+}
+
 // hi = tf32(x) in place and lo = tf32(x - hi) at the same offset of lo_buf,
 // over the first `bytes` bytes of buf (a multiple of 16), by `threads`
 // threads (tid one of them); the layout does not matter
@@ -89,12 +108,16 @@ __device__ __forceinline__ void store_split2(uint8_t* hi_buf, uint8_t* lo_buf, u
       make_float2(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y));
 }
 
-// Writes a block of 8 rows (keys 8g..8g + 7 of a K or V tile) x columns n0,
-// n0 + 1 (x[r] = the pair of row 8g + r) transposed, in hi and lo parts:
-// column n0 + w becomes row n0 + w of the transposed tiles, each of `rows`
-// rows, its keys in the order of the note above
+// Writes a block of 8 rows (keys 8g..8g + 7 of a K or V tile, or q rows of
+// a Q or dO tile) x columns n0, n0 + 1 (x[r] = the pair of row 8g + r)
+// transposed, in hi and lo parts: column n0 + w becomes row n0 + w of the
+// transposed tiles, each of `rows` rows of kRowBytes (128: 32-column boxes,
+// 128-byte swizzle; 64: 16 columns, 64-byte swizzle), its keys in the order
+// of the note above
+template <int kRowBytes = 128>
 __device__ __forceinline__ void store_transposed(uint8_t* hi_buf, uint8_t* lo_buf, int g, int n0,
                                                  const float2 (&x)[8], int rows) {
+  static_assert(kRowBytes == 128 || kRowBytes == 64, "128- or 64-byte rows");
 #pragma unroll
   for (int w = 0; w < 2; ++w)
 #pragma unroll
@@ -102,7 +125,8 @@ __device__ __forceinline__ void store_transposed(uint8_t* hi_buf, uint8_t* lo_bu
       const float a0 = w ? x[e].y : x[e].x, a1 = w ? x[2 + e].y : x[2 + e].x;
       const float a2 = w ? x[4 + e].y : x[4 + e].x, a3 = w ? x[6 + e].y : x[6 + e].x;
       const float4 hi = make_float4(tf32_rna(a0), tf32_rna(a1), tf32_rna(a2), tf32_rna(a3));
-      const uint32_t off = tile_offset(n0 + w, 8 * g + 4 * e, rows);
+      const uint32_t off = kRowBytes == 128 ? tile_offset(n0 + w, 8 * g + 4 * e, rows)
+                                            : tile_offset64(n0 + w, 8 * g + 4 * e);
       *reinterpret_cast<float4*>(hi_buf + off) = hi;
       *reinterpret_cast<float4*>(lo_buf + off) = make_float4(
           tf32_rna(a0 - hi.x), tf32_rna(a1 - hi.y), tf32_rna(a2 - hi.z), tf32_rna(a3 - hi.w));
@@ -149,6 +173,19 @@ __device__ __forceinline__ void pack_a_tf32(uint32_t (&hi)[4], uint32_t (&lo)[4]
       "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),              \
       "+f"(d[62]), "+f"(d[63])
 
+// d[64 x 16] (+)= A[64 x 8] . B[8 x 16], tf32, A and B K-major in shared
+// memory (descriptors); accumulate = 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[8], uint64_t desc_a, uint64_t desc_b,
+                                              int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // d[64 x 32] (+)= A[64 x 8] . B[8 x 32], tf32, A and B K-major in shared
 // memory (descriptors); accumulate = 0 overwrites d
 __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b,
@@ -172,16 +209,17 @@ __device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// d[64 x 64] += A[64 x 8] . B[8 x 64], tf32: A in registers (four tf32 a
-// thread, see pack_a_tf32), B K-major in shared memory
+// d[64 x 64] (+)= A[64 x 8] . B[8 x 64], tf32: A in registers (four tf32 a
+// thread, see pack_a_tf32), B K-major in shared memory; accumulate = 0
+// overwrites d
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
+                                              uint64_t desc_b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " SM90_TF32_D32
       ", {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
       : SM90_OUT32(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 // d[64 x 128] += A[64 x 8] . B[8 x 128], as above

@@ -11,15 +11,14 @@ the three Pallas bodies; each source comment states its design and bound:
   two-pass recompute backward.
 
 Each kernel has one version per dtype (:func:`kernel_for`), and every
-one but float32 K3 runs on the tensor cores with wgmma, fed by TMA:
-bfloat16 K1–K3 in ``csrc/flash_attention_fwd_sm90.cu``,
-``csrc/flash_attention_dq_sm90.cu`` and ``csrc/flash_attention_dkv_sm90.cu``;
-float32 K1 and K2 in ``csrc/flash_attention_fwd_tf32.cu`` and
-``csrc/flash_attention_dq_tf32.cu``, in 3×TF32 (each product a·b as
+one runs on the tensor cores with wgmma, fed by TMA: bfloat16 K1–K3 in
+``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_dq_sm90.cu``
+and ``csrc/flash_attention_dkv_sm90.cu``; float32 K1–K3 in
+``csrc/flash_attention_fwd_tf32.cu``, ``csrc/flash_attention_dq_tf32.cu``
+and ``csrc/flash_attention_dkv_tf32.cu``, in 3×TF32 (each product a·b as
 a_lo·b_hi + a_hi·b_lo + a_hi·b_hi of TF32 parts, summed in f32, which keeps
-the f32 path's precision where one TF32 product would not). Float32 K3 runs
-in full f32 on the CUDA cores (``csrc/flash_attention_bwd.cu``). TMA reads
-an operand only from a 16-byte aligned base with strides that are multiples
+the f32 path's precision where one TF32 product would not). TMA reads an
+operand only from a 16-byte aligned base with strides that are multiples
 of 16 bytes (:func:`tma_aligned`); the wrapper gives the kernels that read
 through TMA (:data:`TMA_KERNELS`) a contiguous copy of any other operand and
 counts it in :data:`tma_copies`.
@@ -91,10 +90,10 @@ SOURCES = {
                     "paddle_flash_attention_bwd_dq_sm90", True),
     "bwd_dq_tf32": ("flash_attention_dq_tf32",
                     "paddle_flash_attention_bwd_dq_tf32", True),
-    "bwd_dkv": ("flash_attention_bwd", "paddle_flash_attention_bwd_dkv",
-                False),
     "bwd_dkv_sm90": ("flash_attention_dkv_sm90",
                      "paddle_flash_attention_bwd_dkv_sm90", True),
+    "bwd_dkv_tf32": ("flash_attention_dkv_tf32",
+                     "paddle_flash_attention_bwd_dkv_tf32", True),
 }
 #: the kernels that read q, k, v (and dO) through TMA tensor maps
 TMA_KERNELS = frozenset(name for name, (_, _, tma) in SOURCES.items() if tma)
@@ -291,15 +290,12 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
     (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: on the
-    tensor cores in bf16 for bfloat16; for float32 K1 and K2 on the tensor
-    cores in 3×TF32, K3 on the CUDA cores."""
+    tensor cores in bf16 for bfloat16, in 3×TF32 for float32."""
     if dtype not in _DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
-    if dtype == torch.bfloat16:
-        return pass_name + "_sm90"
-    return pass_name if pass_name == "bwd_dkv" else pass_name + "_tf32"
+    return pass_name + ("_sm90" if dtype == torch.bfloat16 else "_tf32")
 
 
 def tma_aligned(shape, strides, address: int, dtype: torch.dtype) -> bool:

@@ -17,15 +17,20 @@ design and bound:
 - K5 replaces ``_fm_fwd_kernel`` (launched by ``_fm_fwd``): O and the row
   logsumexp. bfloat16 runs on the tensor cores with wgmma, fed by TMA
   (``csrc/flashmask_fwd_sm90.cu``), float32 on the CUDA cores
-  (``csrc/flashmask.cu``), as :func:`kernel_for` routes them; TMA's
-  operand rule and copies are K1's (``flash_attention.tma_aligned``,
-  ``flash_attention.tma_copies``);
+  (``csrc/flashmask.cu``), as :func:`kernel_for` routes them;
 - K6 and K7 replace ``_fm_bwd_dq_kernel`` and ``_fm_bwd_dkv_kernel``
   (both launched by ``_fm_bwd``): the dQ pass and the dK/dV pass.
   bfloat16 runs on the tensor cores with wgmma, fed by TMA, each walking a
   list of the tiles the mask leaves live (``csrc/flashmask_dq_sm90.cu``,
-  ``csrc/flashmask_dkv_sm90.cu``), float32 on the CUDA cores
-  (``csrc/flashmask.cu``); TMA's operand rule and copies are K5's.
+  ``csrc/flashmask_dkv_sm90.cu``); float32 K6 on the CUDA cores
+  (``csrc/flashmask.cu``), float32 K7 on the tensor cores in 3×TF32 with
+  the bf16 K7's list (``csrc/flashmask_dkv_tf32.cu``).
+
+The tensor-core kernels (the third field of :data:`SOURCES`) read q, k, v
+(and dO) through TMA, with K1's operand rule and copies
+(``flash_attention.tma_aligned``, ``flash_attention.tma_copies``), and
+count the tiles they compute when given a counter (:func:`fwd_tiles`,
+:func:`bwd_tiles`).
 
 A fully masked row gives O = 0 and lse = -1e30 + log(1e-30), as the
 Pallas kernel does (the XLA route of the JAX entry point gives the mean of
@@ -39,7 +44,7 @@ causal is top-left (``q_pos >= k_pos``) as in the Pallas kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -65,14 +70,19 @@ dq_launches = 0
 #: K7 (dK/dV pass) launches so far
 dkv_launches = 0
 
-#: kernel name -> (source in ``csrc/``, C entry point)
+#: kernel name -> (source in ``csrc/``, C entry point, whether the kernel
+#: runs on the tensor cores: reads q, k, v and dO through TMA tensor maps
+#: and takes a tile counter)
 SOURCES = {
-    "fwd": ("flashmask", "paddle_flashmask_fwd"),
-    "fwd_sm90": ("flashmask_fwd_sm90", "paddle_flashmask_fwd_sm90"),
-    "bwd_dq": ("flashmask", "paddle_flashmask_bwd_dq"),
-    "bwd_dq_sm90": ("flashmask_dq_sm90", "paddle_flashmask_bwd_dq_sm90"),
-    "bwd_dkv": ("flashmask", "paddle_flashmask_bwd_dkv"),
-    "bwd_dkv_sm90": ("flashmask_dkv_sm90", "paddle_flashmask_bwd_dkv_sm90"),
+    "fwd": ("flashmask", "paddle_flashmask_fwd", False),
+    "fwd_sm90": ("flashmask_fwd_sm90", "paddle_flashmask_fwd_sm90", True),
+    "bwd_dq": ("flashmask", "paddle_flashmask_bwd_dq", False),
+    "bwd_dq_sm90": ("flashmask_dq_sm90", "paddle_flashmask_bwd_dq_sm90",
+                    True),
+    "bwd_dkv_sm90": ("flashmask_dkv_sm90", "paddle_flashmask_bwd_dkv_sm90",
+                     True),
+    "bwd_dkv_tf32": ("flashmask_dkv_tf32", "paddle_flashmask_bwd_dkv_tf32",
+                     True),
 }
 
 _fns: Dict[str, object] = {}
@@ -179,45 +189,44 @@ def flashmask_bwd_reference(q, k, v, o, lse, do, idx, causal: bool,
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
     (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K5, K6 and
-    K7 on the tensor cores for bfloat16, on the CUDA cores for float32."""
+    K7 on the tensor cores for bfloat16; for float32 K5 and K6 on the CUDA
+    cores, K7 on the tensor cores in 3×TF32."""
     if dtype not in _DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
     if dtype == torch.bfloat16:
         return pass_name + "_sm90"
-    return pass_name
+    return "bwd_dkv_tf32" if pass_name == "bwd_dkv" else pass_name
 
 
 def _kernel(name: str):
     fn = _fns.get(name)
     if fn is None:
-        source, symbol = SOURCES[name]
+        source, symbol, tensor_cores = SOURCES[name]
         fn = getattr(_build.load(source), symbol)
         ptr, i32, i64, f32 = (ctypes.c_void_p, ctypes.c_int,
                               ctypes.c_longlong, ctypes.c_float)
         # ... | dtype B Sq Sk H D Hm ncol | strides | causal scale stream
-        if name == "fwd":
-            # q k v idx o lse | 8 ints | 9 strides | tail
-            fn.argtypes = [ptr] * 6 + [i32] * 8 + [i64] * 9 + [i32, f32, ptr]
-        elif name == "fwd_sm90":
-            # q k v idx o lse tiles | 8 ints | 9 strides | tail
-            fn.argtypes = [ptr] * 7 + [i32] * 8 + [i64] * 9 + [i32, f32, ptr]
+        # a tensor-core kernel takes a tiles pointer after its outputs
+        if name.startswith("fwd"):
+            # q k v idx o lse (tiles) | 8 ints | 9 strides | tail
+            fn.argtypes = ([ptr] * (6 + tensor_cores) + [i32] * 8 + [i64] * 9
+                           + [i32, f32, ptr])
         else:
             # q k v do lse delta idx dq dk dv (tiles) | 8 ints | 12 strides
             # | tail
-            ptrs = 11 if name.endswith("_sm90") else 10
-            fn.argtypes = [ptr] * ptrs + [i32] * 8 + [i64] * 12 + [i32, f32,
-                                                                     ptr]
+            fn.argtypes = ([ptr] * (10 + tensor_cores) + [i32] * 8
+                           + [i64] * 12 + [i32, f32, ptr])
         fn.restype = ctypes.c_int
         _fns[name] = fn
     return fn
 
 
 def build() -> None:
-    """Build and load K5, K6 and K7 now (their four sources compile in
+    """Build and load K5, K6 and K7 now (their five sources compile in
     parallel) instead of at their first launch."""
-    _build.build_all(sorted({source for source, _ in SOURCES.values()}))
+    _build.build_all(sorted({source for source, _, _ in SOURCES.values()}))
     for name in SOURCES:
         _kernel(name)
 
@@ -258,7 +267,7 @@ def _run_fwd(q, k, v, idx, causal, scale, tiles=None):
     _check_shape(b, sq, sk, h)
     name = kernel_for("fwd", q.dtype)
     extra = ()
-    if name == "fwd_sm90":
+    if SOURCES[name][2]:
         q, k, v = (_for_tma(t) for t in (q, k, v))
         extra = (None if tiles is None else tiles.data_ptr(),)
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
@@ -284,7 +293,7 @@ def fwd_tiles(q, k, v, startend_row_indices, causal: bool,
     counted in :data:`fwd_launches`: the counted path is
     :func:`flashmask_fwd`."""
     _check(q, k, v)
-    if kernel_for("fwd", q.dtype) != "fwd_sm90" or q.device.type != "cuda":
+    if not SOURCES[kernel_for("fwd", q.dtype)][2] or q.device.type != "cuda":
         raise ValueError("only the bfloat16 kernel on CUDA counts its tiles")
     idx = prepare_indices(startend_row_indices, q, k, causal)
     tiles = torch.zeros(2, dtype=torch.int32, device=q.device)
@@ -319,10 +328,11 @@ def flashmask_bwd(q, k, v, o, lse, do, startend_row_indices, causal: bool,
 def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
     """Checks the backward's CUDA inputs (``idx`` from
     :func:`prepare_indices`) and returns ``(args, (dq, dk, dv, *keep))``:
-    the argument list K6 and K7 share, Δ computed and the outputs
-    allocated; ``keep`` holds what else the arguments point to, to be kept
-    alive until the launches. :func:`run_bwd_pass` launches one pass on it
-    (for timing one kernel alone); :func:`flashmask_bwd` launches both."""
+    the argument list of each pass (``args["bwd_dq"]``,
+    ``args["bwd_dkv"]``), Δ computed and the outputs allocated; ``keep``
+    holds what else the arguments point to, to be kept alive until the
+    launches. :func:`run_bwd_pass` launches one pass on it (for timing one
+    kernel alone); :func:`flashmask_bwd` launches both."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v, do), d)
@@ -334,62 +344,77 @@ def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
         raise ValueError("lse must be the forward's contiguous "
                          "[B, H, 1, Sq] float32 tensor")
     delta = _delta(o, do)
-    if kernel_for("bwd_dq", q.dtype) == "bwd_dq_sm90":
-        # the bf16 K6 and K7 both read q, k, v and dO through TMA
-        q, k, v, do = (_for_tma(t) for t in (q, k, v, do))
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, sk, h, d), dtype=k.dtype, device=q.device)
     dv = torch.empty((b, sk, h, d), dtype=v.dtype, device=q.device)
     idx_ptr, hm, ncol = _index_args(idx)
-    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), idx_ptr, dq.data_ptr(),
-            dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq, sk, h, d,
-            hm, ncol, *_strides(q, k, v, do), int(causal), scale)
+    # q, k, v and dO as each pass's kernel reads them: a tensor-core kernel
+    # gets copies of what TMA cannot read in place, made once and shared;
+    # the others read the tensors as they are
+    plain, tma, args = (q, k, v, do), None, {}
+    for name in ("bwd_dq", "bwd_dkv"):
+        ops = plain
+        if SOURCES[kernel_for(name, q.dtype)][2]:
+            if tma is None:
+                tma = tuple(_for_tma(t) for t in plain)
+            ops = tma
+        args[name] = (ops[0].data_ptr(), ops[1].data_ptr(),
+                      ops[2].data_ptr(), ops[3].data_ptr(), lse.data_ptr(),
+                      delta.data_ptr(), idx_ptr, dq.data_ptr(),
+                      dk.data_ptr(), dv.data_ptr(), _DTYPES[q.dtype], b, sq,
+                      sk, h, d, hm, ncol, *_strides(*ops), int(causal),
+                      scale)
     # delta and any TMA copies must outlive the launches: they ride along
     # with the outputs
-    return args, (dq, dk, dv, delta, q, k, v, do)
+    return args, (dq, dk, dv, delta, *(tma or ()))
 
 
 def run_bwd_pass(name: str, args, device, tiles=None) -> None:
     """Launch K6 (``"bwd_dq"``) or K7 (``"bwd_dkv"``) on
     :func:`bwd_launch_args`' arguments, the kernel for their dtype; raises
     if the launch fails. ``tiles``, a zeroed int32 pair on the device, takes
-    the bfloat16 kernel's tile counts. Not counted: the counted path is
+    a tensor-core kernel's tile counts. Not counted: the counted path is
     :func:`flashmask_bwd`."""
-    kernel = kernel_for(name, _DTYPE_OF[args[10]])  # args[10]: dtype
-    if kernel.endswith("_sm90"):
-        args = (*args[:10], None if tiles is None else tiles.data_ptr(),
-                *args[10:])
+    pass_args = args[name]
+    kernel = kernel_for(name, _DTYPE_OF[pass_args[10]])  # [10]: dtype
+    if SOURCES[kernel][2]:
+        pass_args = (*pass_args[:10],
+                     None if tiles is None else tiles.data_ptr(),
+                     *pass_args[10:])
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _kernel(kernel)(*args, stream)
+        err = _kernel(kernel)(*pass_args, stream)
     if err != 0:
         _raise_launch(f"flashmask {name}", err)
 
 
 def bwd_tiles(q, k, v, o, lse, do, startend_row_indices, causal: bool,
-              scale: float) -> Tuple[Tuple[int, int], Tuple[int, int]]:
-    """``((live, bound), (live, bound))``: the k tiles the bfloat16 K6's
-    blocks computed and those within their causal bound, then the q tiles
-    the bfloat16 K7's blocks computed and those within theirs, summed over
-    the blocks, from one launch of each on CUDA tensors with the kernels'
-    tile counters on. Not counted in :data:`dq_launches` or
+              scale: float) -> Tuple[Optional[Tuple[int, int]],
+                                     Optional[Tuple[int, int]]]:
+    """``(dq_tiles, dkv_tiles)``, each ``(live, bound)`` or None: the k
+    tiles K6's blocks computed and those within their causal bound, then
+    the q tiles K7's blocks computed and those within theirs, summed over
+    the blocks, from one launch of each tensor-core kernel on CUDA tensors
+    with its tile counter on (None for a pass whose kernel keeps no count:
+    float32 K6). Not counted in :data:`dq_launches` or
     :data:`dkv_launches`: the counted path is :func:`flashmask_bwd`."""
     _check(q, k, v)
-    if (kernel_for("bwd_dq", q.dtype) != "bwd_dq_sm90"
-            or q.device.type != "cuda"):
-        raise ValueError("only the bfloat16 kernels on CUDA count their "
+    names = [name for name in ("bwd_dq", "bwd_dkv")
+             if SOURCES[kernel_for(name, q.dtype)][2]]
+    if not names or q.device.type != "cuda":
+        raise ValueError("only the tensor-core kernels on CUDA count their "
                          "tiles")
     idx = prepare_indices(startend_row_indices, q, k, causal)
     args, keep = bwd_launch_args(q, k, v, o, lse, do, idx, bool(causal),
                                  float(scale))
-    counts = []
-    for name in ("bwd_dq", "bwd_dkv"):
+    counts = {}
+    for name in names:
         tiles = torch.zeros(2, dtype=torch.int32, device=q.device)
         run_bwd_pass(name, args, q.device, tiles)
-        counts.append(tuple(tiles.tolist()))
+        live, bound = tiles.tolist()
+        counts[name] = (live, bound)
     del keep  # tolist() waited for the launches that read it
-    return counts[0], counts[1]
+    return counts.get("bwd_dq"), counts.get("bwd_dkv")
 
 
 def _launch_bwd(args, device) -> None:

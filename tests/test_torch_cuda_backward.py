@@ -199,6 +199,62 @@ def test_tensor_core_dkv_matches_plain_over_head_dims(card):
                 assert float(dv[:, sq:].float().abs().max()) == 0.0, case
 
 
+def test_f32_dkv_matches_float64_over_head_dims(card):
+    """f32 K3 runs on the tensor cores in 3xTF32 (wgmma fed by TMA) at every
+    head dim, with ragged S, Sq != Sk, keys no query sees (dK = dV = 0,
+    written) and dropout 0.1, one launch each, reading GPT's packed-qkv
+    slices in place: dk and dv within 1e-4 of the plain version and of the
+    plain version computed in float64. A view TMA cannot read in place
+    (base 4 bytes off 16) is copied once for K2 and K3 and counted."""
+    rs = np.random.RandomState(9)
+    seed = torch.tensor([43], dtype=torch.int32, device=card)
+
+    def check(q, k, v, do, causal, dropout, copies, case):
+        scale = 1.0 / math.sqrt(q.shape[-1])
+        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, dropout, seed)
+        counts = (fa.dkv_launches, fa.tma_copies)
+        _, dk, dv = fa.flash_attention_bwd(q, k, v, o, lse, do, seed, causal,
+                                           scale, dropout)
+        torch.cuda.synchronize()
+        assert (fa.dkv_launches, fa.tma_copies) == (counts[0] + 1,
+                                                    counts[1] + copies), case
+        _, rdk, rdv = fa.flash_attention_bwd_reference(
+            q, k, v, o, lse, do, seed, causal, scale, dropout)
+        _, xdk, xdv = fa.flash_attention_bwd_reference(
+            *(t.double() for t in (q, k, v, o, lse, do)), seed, causal, scale,
+            dropout)
+        for got, ref, exact in ((dk, rdk, xdk), (dv, rdv, xdv)):
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            assert bool(torch.isfinite(got).all()), case
+            assert _close(got, ref, torch.float32), case
+            assert float((got.double() - exact).abs().max()) <= 1e-4, case
+        sq, sk = q.shape[1], k.shape[1]
+        if causal and sk > sq:
+            assert float(dk[:, sq:].abs().max()) == 0.0, case
+            assert float(dv[:, sq:].abs().max()) == 0.0, case
+
+    for d in fa.HEAD_DIMS:
+        for b, sq, sk, causal, dropout in ((2, 200, 200, True, 0.1),
+                                           (1, 77, 130, False, 0.1),
+                                           (1, 64, 200, True, 0.0),
+                                           (1, 130, 64, True, 0.0),
+                                           (1, 300, 300, False, 0.0)):
+            qp = torch.from_numpy(rs.randn(b, sq, 2, 3, d).astype(
+                np.float32)).to(card)
+            kp = torch.from_numpy(rs.randn(b, sk, 2, 3, d).astype(
+                np.float32)).to(card)
+            do = torch.from_numpy(rs.randn(b, sq, 2, d).astype(
+                np.float32)).to(card)
+            check(qp[..., 0, :], kp[..., 1, :], kp[..., 2, :], do, causal,
+                  dropout, 0, (d, b, sq, sk, causal, dropout))
+    b, s, h, d = 1, 150, 2, 64
+    flats = [torch.from_numpy(rs.randn(b * s * h * d + 1).astype(
+        np.float32)).to(card) for _ in range(4)]
+    q, k, v, do = (f[1:].view(b, s, h, d) for f in flats)
+    assert not fa.tma_aligned(q.shape, q.stride(), q.data_ptr(), q.dtype)
+    check(q, k, v, do, True, 0.0, 4, "misaligned")
+
+
 def _grads(model, ids):
     loss = GPTPretrainingCriterion(model.config)(model(ids), ids)
     loss.backward()

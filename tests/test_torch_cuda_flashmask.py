@@ -273,3 +273,40 @@ def test_tensor_core_backward_reads_bshd_in_place(card):
                                       True, scale)
     for got, ref in zip(grads, want):
         assert _close(got, ref, torch.bfloat16)
+
+
+def test_f32_dkv_lists_a_long_sequence_in_rounds(card):
+    """f32 K7 (3xTF32) lists at most as many q tiles at once as its shared
+    memory holds (4534 16-row tiles at D = 128), so a block with more walks
+    them in rounds. At S = 80000 in documents of 1000 tokens the first
+    key blocks take two rounds: each document's dk and dv (and dq) match
+    the plain backward run on that document alone, within 1e-4."""
+    rs = np.random.RandomState(5)
+    s, n, d = 80000, 1000, 128
+    idx = torch.from_numpy(_indices_docs(s, n)).to(card)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, s, 1, d).astype(np.float32))
+                   .to(card) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    o, lse = fm.flashmask_fwd(q, k, v, idx, True, scale)
+    counts = fm.dkv_launches
+    grads = fm.flashmask_bwd(q, k, v, o, lse, do, idx, True, scale)
+    torch.cuda.synchronize()
+    assert fm.dkv_launches == counts + 1
+    assert fm.kernel_for("bwd_dkv", torch.float32) == "bwd_dkv_tf32"
+    one = torch.from_numpy(_indices_docs(n, n)).to(card)
+    for doc in (0, 3, s // n - 1):
+        rows = slice(doc * n, (doc + 1) * n)
+        want = fm.flashmask_bwd_reference(
+            q[:, rows], k[:, rows], v[:, rows], o[:, rows],
+            lse[..., rows].contiguous(), do[:, rows], one, True, scale)
+        for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+            assert bool(torch.isfinite(got[:, rows]).all()), (doc, name)
+            assert _close(got[:, rows], ref, torch.float32), (doc, name)
+    _, (live, bound) = fm.bwd_tiles(q, k, v, o, lse, do, idx, True, scale)
+    assert 0 < live < bound
+
+
+def _indices_docs(s, n):
+    """Causal [1, 1, s, 1]: documents of n tokens."""
+    ends = np.minimum(np.arange(s) // n * n + n, s)
+    return ends.reshape(1, 1, s, 1).astype(np.int32)

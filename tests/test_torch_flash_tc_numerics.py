@@ -252,15 +252,14 @@ def test_routing_and_the_tma_alignment_rule():
     bf16, f32 = torch.bfloat16, torch.float32
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fa.kernel_for(name, bf16) == name + "_sm90"
-    # float32: K1 and K2 on the tensor cores in 3xTF32, K3 on the CUDA cores
-    assert fa.kernel_for("fwd", f32) == "fwd_tf32"
-    assert fa.kernel_for("bwd_dq", f32) == "bwd_dq_tf32"
-    assert fa.kernel_for("bwd_dkv", f32) == "bwd_dkv"
-    assert fa.SOURCES["bwd_dkv"][0] == "flash_attention_bwd"
-    # every kernel but float32 K3 reads q, k, v (and dO) through TMA
+    # float32: K1, K2 and K3 on the tensor cores in 3xTF32
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        assert fa.kernel_for(name, f32) == name + "_tf32"
+    assert fa.SOURCES["bwd_dkv_tf32"][0] == "flash_attention_dkv_tf32"
+    # every kernel reads q, k, v (and dO) through TMA
     assert fa.TMA_KERNELS == {fa.kernel_for(name, dt)
                               for name in ("fwd", "bwd_dq", "bwd_dkv")
-                              for dt in (bf16, f32)} - {"bwd_dkv"}
+                              for dt in (bf16, f32)} == set(fa.SOURCES)
     for bad in (torch.float16, torch.float64):
         for mod in (fa, fm):
             try:
@@ -270,22 +269,29 @@ def test_routing_and_the_tma_alignment_rule():
             else:
                 raise AssertionError(f"{bad} was routed")
     sources = {src for src, _, _ in fa.SOURCES.values()}
-    assert sources == {"flash_attention_bwd", "flash_attention_fwd_sm90",
-                       "flash_attention_dq_sm90", "flash_attention_dkv_sm90",
-                       "flash_attention_fwd_tf32", "flash_attention_dq_tf32"}
+    assert sources == {"flash_attention_fwd_sm90", "flash_attention_dq_sm90",
+                       "flash_attention_dkv_sm90", "flash_attention_fwd_tf32",
+                       "flash_attention_dq_tf32", "flash_attention_dkv_tf32"}
     assert set(fa.SOURCES) == {"fwd_sm90", "fwd_tf32", "bwd_dq_sm90",
-                               "bwd_dq_tf32", "bwd_dkv", "bwd_dkv_sm90"}
-    # FlashMask: K5, K6 and K7 on the tensor cores for bf16, on the CUDA
-    # cores (flashmask.cu) for f32
+                               "bwd_dq_tf32", "bwd_dkv_sm90", "bwd_dkv_tf32"}
+    # FlashMask: K5, K6 and K7 on the tensor cores for bf16; for f32 K5 and
+    # K6 on the CUDA cores (flashmask.cu), K7 on the tensor cores in 3xTF32
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fm.kernel_for(name, bf16) == name + "_sm90"
+    for name in ("fwd", "bwd_dq"):
         assert fm.kernel_for(name, f32) == name
         assert fm.SOURCES[name][0] == "flashmask"
-    assert {src for src, _ in fm.SOURCES.values()} == {
+    assert fm.kernel_for("bwd_dkv", f32) == "bwd_dkv_tf32"
+    assert fm.SOURCES["bwd_dkv_tf32"][0] == "flashmask_dkv_tf32"
+    assert {src for src, _, _ in fm.SOURCES.values()} == {
         "flashmask", "flashmask_fwd_sm90", "flashmask_dq_sm90",
-        "flashmask_dkv_sm90"}
+        "flashmask_dkv_sm90", "flashmask_dkv_tf32"}
     assert set(fm.SOURCES) == {"fwd", "fwd_sm90", "bwd_dq", "bwd_dq_sm90",
-                               "bwd_dkv", "bwd_dkv_sm90"}
+                               "bwd_dkv_sm90", "bwd_dkv_tf32"}
+    # the tensor-core kernels read through TMA and count their tiles; the
+    # CUDA-core ones neither
+    assert {name for name, (_, _, tc) in fm.SOURCES.items() if tc} == {
+        "fwd_sm90", "bwd_dq_sm90", "bwd_dkv_sm90", "bwd_dkv_tf32"}
 
     def aligned(t):
         return fa.tma_aligned(t.shape, t.stride(),

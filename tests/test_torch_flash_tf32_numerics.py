@@ -1,22 +1,28 @@
-"""The numerics of the float32 K1 and K2 on the tensor cores (3xTF32),
+"""The numerics of the float32 K1, K2 and K3 on the tensor cores (3xTF32),
 emulated on the CPU.
 
-``csrc/flash_attention_fwd_tf32.cu`` (K1) and ``csrc/flash_attention_dq_tf32.cu``
-(K2) run every product a·b of float32 operands as three TF32 products,
-a_lo·b_hi + a_hi·b_lo + a_hi·b_hi, summed in f32, where hi = tf32(x)
-rounded to nearest with ties away from zero (``cvt.rna.tf32.f32``) and
-lo = tf32(x − hi): S = Q·Kᵀ and P·V in K1 (P split after dropout's
-rescale), S, dP = dO·Vᵀ and dS·K in K2. K1 runs its online softmax in
-exp2 over 64-key tiles (32-key tiles at D = 128); K2 recomputes
-P = 2^(S·scale·log2 e − lse·log2 e). This file emulates exactly that in
-plain torch, TF32 rounding by int32 bit operations, and holds O, lse and
-dq against the Pallas kernels in interpret mode and against the port's
-plain versions (the on-card gate): at least 4x inside ``chip_smoke.py``'s
-f32 gates (``TOL`` and ``BWD_TOL``: 1e-4). It prints the single-TF32
-emulation's error (one product a_hi·b_hi) beside the 3xTF32 one and shows
-that one product would leave the gate itself. It also pins the TF32
-rounding on known bit patterns.
+``csrc/flash_attention_fwd_tf32.cu`` (K1), ``csrc/flash_attention_dq_tf32.cu``
+(K2) and ``csrc/flash_attention_dkv_tf32.cu`` (K3) run every product a·b of
+float32 operands as three TF32 products, a_lo·b_hi + a_hi·b_lo + a_hi·b_hi,
+summed in f32, where hi = tf32(x) rounded to nearest with ties away from
+zero (``cvt.rna.tf32.f32``) and lo = tf32(x − hi): S = Q·Kᵀ and P·V in K1
+(P split after dropout's rescale), S, dP = dO·Vᵀ and dS·K in K2, Sᵀ = K·Qᵀ,
+dPᵀ = V·dOᵀ, Pᵀ·dO and dSᵀ·Q in K3. K1 runs its online softmax in exp2
+over 64-key tiles (32-key tiles at D = 128); K2 and K3 recompute
+P = 2^(S·scale·log2 e − lse·log2 e). K3 sums each q tile's Pᵀ·dO and
+dSᵀ·Q (32-row tiles, 16-row at D = 128) before adding it to dV and dK, and
+reads Qᵀ and dOᵀ with each 8-row group's q in the order 0, 2, 4, 6, 1, 3,
+5, 7 (the order of its accumulator registers), the same sum in another
+order. This file emulates exactly that in plain torch, TF32 rounding by
+int32 bit operations, and holds O, lse, dq, dk and dv against the Pallas
+kernels in interpret mode and against the port's plain versions (the
+on-card gate): at least 4x inside ``chip_smoke.py``'s f32 gates (``TOL``
+and ``BWD_TOL``: 1e-4). It prints the single-TF32 emulation's error (one
+product a_hi·b_hi) beside the 3xTF32 one and shows that one product would
+leave the gate itself. It also pins the TF32 rounding on known bit
+patterns.
 """
+import functools
 import math
 
 import jax.numpy as jnp
@@ -131,6 +137,46 @@ def emulate_dq(q, k, v, o, lse, do, causal, scale, dropout, seed,
     return product("bhst,bthd->bshd", ds, k, single) * scale
 
 
+def _q_order(n):
+    """K3's q order in a transposed tile: position 8g + c + 4e holds q row
+    8g + 2c + e; a partial last group keeps its rows in place."""
+    order = np.arange(n)
+    for g0 in range(0, n - n % 8, 8):
+        order[g0:g0 + 8] = g0 + np.array([0, 2, 4, 6, 1, 3, 5, 7])
+    return torch.from_numpy(order)
+
+
+def emulate_dkv(q, k, v, o, lse, do, causal, scale, dropout, seed,
+                single=False):
+    """f32 K3: Sᵀ and dPᵀ in 3xTF32 (or ``single``),
+    P = exp2(S·scale·log2 e − lse·log2 e), dS = P∘(dP′ − Δ); per q tile,
+    Pᵀ (times keep / (1 − p)) and dSᵀ against dO and Q in 3xTF32 over the
+    tile's rows in the kernel's q order, the tile's sum then added in f32.
+    Returns f32 ``(dk, dv)``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    tile = 32 if d <= 64 else 16
+    s = product("bshd,bthd->bhst", q, k, single) * (scale * LOG2E)
+    p = torch.exp2(s - lse.transpose(-1, -2) * LOG2E)
+    p = torch.where(_mask(sq, sk, causal), p, 0.0)
+    dp = product("bshd,bthd->bhst", do, v, single)
+    p_av = p
+    if dropout > 0:
+        keep = _keep(seed, b, h, sq, sk, dropout)
+        p_av = torch.where(keep, p / (1.0 - dropout), 0.0)
+        dp = torch.where(keep, dp / (1.0 - dropout), 0.0)
+    delta = (do * o).sum(-1).transpose(1, 2)[..., None]
+    ds = p * (dp - delta)
+    dk = torch.zeros(b, sk, h, d)
+    dv = torch.zeros(b, sk, h, d)
+    for q0 in range(0, sq, tile):
+        rows = q0 + _q_order(min(tile, sq - q0))
+        dv += product("bhst,bshd->bthd", p_av[:, :, rows], do[:, rows],
+                      single)
+        dk += product("bhst,bshd->bthd", ds[:, :, rows], q[:, rows], single)
+    return dk * scale, dv
+
+
 def _case_data(case, seed):
     b, sq, sk, h, d, _, _ = case
     rs = np.random.RandomState(seed)
@@ -206,28 +252,33 @@ def test_forward_3xtf32_sits_4x_inside_the_gate():
     assert worst_single > 1.0, worst_single
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_case(i):
+    """CASES[i]'s inputs as torch tensors, the plain forward's (o, lse),
+    and (dq, dk, dv) from the Pallas forward and backward in interpret mode
+    (at the scale 1/sqrt(D) of _case_data) and from the plain version."""
+    case = CASES[i]
+    _, _, _, _, _, causal, dropout = case
+    q, k, v, do, tseed, scale = _case_data(case, 10 + i)
+    _, pallas = flash_attention_grad_interpret_test(
+        *(jnp.asarray(a) for a in (q, k, v, do)), causal, dropout,
+        jnp.asarray(tseed.numpy()))
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    o, lse = fa.flash_attention_fwd(tq, tk, tv, causal, scale, dropout,
+                                    tseed, device="cpu")
+    plain = fa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, tseed, causal,
+                                   scale, dropout, device="cpu")
+    return ((tq, tk, tv, o, lse, tdo, causal, scale, dropout, tseed),
+            [np.asarray(g) for g in pallas], plain)
+
+
 def test_dq_3xtf32_sits_4x_inside_the_gate():
     worst, worst_single = 0.0, 0.0
     for i, case in enumerate(CASES):
-        _, _, _, _, _, causal, dropout = case
-        q, k, v, do, tseed, scale = _case_data(case, 10 + i)
-        jseed = jnp.asarray(tseed.numpy())
-        # the Pallas forward and backward in interpret mode, at the scale
-        # 1/sqrt(D) of _case_data
-        _, (dq_pl, _, _) = flash_attention_grad_interpret_test(
-            *(jnp.asarray(a) for a in (q, k, v, do)), causal, dropout, jseed)
-        tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
-        o, lse = fa.flash_attention_fwd(tq, tk, tv, causal, scale, dropout,
-                                        tseed, device="cpu")
-        dq = emulate_dq(tq, tk, tv, o, lse, tdo, causal, scale, dropout,
-                        tseed)
-        dq1 = emulate_dq(tq, tk, tv, o, lse, tdo, causal, scale, dropout,
-                         tseed, single=True)
-        dq_ref, _, _ = fa.flash_attention_bwd(tq, tk, tv, o, lse, tdo, tseed,
-                                              causal, scale, dropout,
-                                              device="cpu")
-        for name, want in (("pallas", np.asarray(dq_pl)),
-                           ("plain", dq_ref.numpy())):
+        args, (dq_pl, _, _), (dq_ref, _, _) = _backward_case(i)
+        dq = emulate_dq(*args)
+        dq1 = emulate_dq(*args, single=True)
+        for name, want in (("pallas", dq_pl), ("plain", dq_ref.numpy())):
             share = _share(dq.numpy(), want)
             assert share <= 1.0 / MARGIN, (case, name, share)
             worst = max(worst, share)
@@ -235,4 +286,26 @@ def test_dq_3xtf32_sits_4x_inside_the_gate():
         assert float(dq_ref.abs().max()) > 0 and not torch.equal(dq, dq_ref)
     print(f"K2 dq, worst share of the 1e-4 gate: 3xTF32 {worst:.3f}, one "
           f"TF32 product {worst_single:.3f}")
+    assert worst_single > 1.0, worst_single
+
+
+def test_dkv_3xtf32_sits_4x_inside_the_gate():
+    worst, worst_single = 0.0, 0.0
+    for i, case in enumerate(CASES):
+        args, pallas, plain = _backward_case(i)
+        got = emulate_dkv(*args)
+        got1 = emulate_dkv(*args, single=True)
+        for g, g1, want_pl, want in zip(got, got1, pallas[1:], plain[1:]):
+            for name, ref in (("pallas", want_pl), ("plain", want.numpy())):
+                share = _share(g.numpy(), ref)
+                assert share <= 1.0 / MARGIN, (case, name, share)
+                worst = max(worst, share)
+                worst_single = max(worst_single, _share(g1.numpy(), ref))
+            assert float(want.abs().max()) > 0 and not torch.equal(g, want)
+        # the kernel's q order and tile sums are the plain sum in another
+        # order: the permutation drops or repeats no row
+        for n in (1, 8, 13, 16, 32):
+            assert sorted(_q_order(n).tolist()) == list(range(n))
+    print(f"K3 dk and dv, worst share of the 1e-4 gate: 3xTF32 "
+          f"{worst:.3f}, one TF32 product {worst_single:.3f}")
     assert worst_single > 1.0, worst_single
