@@ -11,9 +11,9 @@ Phases, each of which fails the run on any error:
    registers and spills (none allowed in a tensor-core kernel at D = 64
    without dropout, nor in a FlashMask one at D = 128, nor in any
    instantiation of an f32 3×TF32 one, dropout included), and check with
-   ``cuobjdump -sass`` that every tensor-core kernel (bf16 K1, K2, K3, K5,
-   K6 and K7; f32 K1, K2, K3 and K7 in 3×TF32) holds wgmma (HGMMA) and TMA
-   load (UTMALDG) instructions;
+   ``cuobjdump -sass`` that every attention kernel (bf16 K1, K2, K3, K5,
+   K6 and K7; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all on the tensor
+   cores) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
 3. kernel — the flash-attention forward kernel (K1: bf16 and f32 3×TF32,
    both on the tensor cores) against its plain PyTorch version on the card
    at the GPT-2-small serving shapes (B in {1, 4}, S in {128, 1024}, H=12,
@@ -80,22 +80,24 @@ Phases, each of which fails the run on any error:
     documents, causal share-question (ncol 2), causal with fully masked
     rows (O and dQ exactly 0 there), bidirectional documents and sliding
     windows (ncol 4), Hm = 1 and Hm = H, Sq != Sk, a ragged S; each at
-    D = 64 and 128, f32 and bf16, each kernel launched once; the f32 K6/K7
-    also against the plain backward computed in float64, their error
-    printed beside the f32 plain version's;
+    D = 64 and 128, f32 and bf16, each kernel launched once; the f32 K5's
+    O and lse and K6/K7's gradients also against the plain versions
+    computed in float64, their error printed beside the f32 plain
+    version's;
 14. FlashMask path — ``flashmask_attention`` forward and autograd backward
     at llama3_8b's attention width: B=1, S=8192, 32 heads (k and v
     expanded from 8 KV heads by ``repeat_interleave``), D=128, causal
     packed documents of 256–4096 tokens from ``np.random.RandomState(0)``,
     bf16 then f32: exactly one launch each of K5–K7 and none of K1–K3, the
-    tiles the bf16 K5, K6 (k tiles) and K7 (q tiles) and the f32 K7
-    computed beside those within the causal bound,
-    outputs and gradients against the plain versions 4 heads at a time,
-    forward and forward+backward ms, TFLOP/s over the allowed pairs, peak
-    memory, each kernel beside its bound (counted over the allowed pairs;
-    f32 K7 at 495/3 TFLOP/s with the 67 TFLOP/s figure beside it), its
-    plain version and SDPA with the equivalent dense boolean mask (a
-    yardstick only).
+    tiles K5, K6 (k tiles) and K7 (q tiles) computed in each dtype beside
+    those within the causal bound, outputs and gradients against the
+    plain versions 4 heads at a time (f32 also against the plain versions
+    computed in float64 on the first 4 heads, within 1e-4), forward and
+    forward+backward ms, TFLOP/s over the allowed pairs, peak memory, each
+    kernel beside its bound (counted over the allowed pairs; the f32 ones
+    at 495/3 TFLOP/s with the 67 TFLOP/s figure beside it), its plain
+    version and SDPA with the equivalent dense boolean mask (a yardstick
+    only).
 
 The serve (5), train (9), train Llama (12) and FlashMask path (14) phases
 are the main paths: the launch counts are set to 0 just before each and
@@ -232,13 +234,14 @@ def phase_card() -> None:
 
 
 # the sources of the tensor-core kernels (bf16 K1, K2, K3, K5, K6 and K7;
-# f32 K1, K2, K3 and K7 in 3×TF32), whose SASS must hold wgmma (HGMMA) and
-# TMA loads (UTMALDG)
+# f32 K1, K2, K3, K5, K6 and K7 in 3×TF32): every attention kernel. Their
+# SASS must hold wgmma (HGMMA) and TMA loads (UTMALDG)
 TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
               "flash_attention_dkv_sm90", "flashmask_fwd_sm90",
               "flashmask_dq_sm90", "flashmask_dkv_sm90",
               "flash_attention_fwd_tf32", "flash_attention_dq_tf32",
-              "flash_attention_dkv_tf32", "flashmask_dkv_tf32")
+              "flash_attention_dkv_tf32", "flashmask_fwd_tf32",
+              "flashmask_dq_tf32", "flashmask_dkv_tf32")
 # a tensor-core kernel's mangled name: its kind (its suffix names its
 # type: sm90 bf16, tf32 f32), head dim and dropout flag
 TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_(sm90|tf32))_kernelILi"
@@ -276,7 +279,7 @@ def phase_build() -> float:
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
-    _build.build_all([*TC_SOURCES, "rms_norm", "flashmask"])
+    _build.build_all([*TC_SOURCES, "rms_norm"])
     flash_attention.build()
     rms_norm.build()
     flashmask.build()
@@ -288,8 +291,6 @@ def phase_build() -> float:
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry, spill = m.group(1), "?"
-                t = re.search(r"((?:flashmask_)?(?:fwd|dq|dkv))_kernelI"
-                              r"(13__nv_bfloat16|f)Li(\d+)E(Lb1)?", entry)
                 tc = TC_KERNEL.search(entry)
                 r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
                               r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", entry)
@@ -297,11 +298,6 @@ def phase_build() -> float:
                     kind = "bf16" if tc.group(2) == "sm90" else "f32 3xTF32"
                     entry = (f"{tc.group(1)} {kind}/D={tc.group(3)}"
                              f"{' dropout' if tc.group(4) == '1' else ''}")
-                elif t:
-                    entry = (f"{t.group(1)} "
-                             f"{'bf16' if t.group(2) != 'f' else 'f32'}"
-                             f"/D={t.group(3)}"
-                             f"{' dropout' if t.group(4) else ''}")
                 elif r:
                     x, w = ("bf16" if g != "f" else "f32"
                             for g in r.group(1, 2))
@@ -1515,23 +1511,40 @@ def flashmask_errors(torch, fm, inputs, outputs, idx, causal, dtype, label,
                                (("dq", dq), ("dk", dk), ("dv", dv))))
 
 
-def float64_errors(torch, fm, inputs, outputs, idx, causal, label) -> str:
-    """The f32 K6/K7's (dq, dk, dv) and the f32 plain version's against
-    the plain backward computed in float64 from the same (o, lse): the
-    kernel fails past BWD_TOL["float32"] of it, so its gate does not rest
-    only on agreeing with an f32 version that may sum in its order.
-    Returns both errors per gradient as text."""
-    q, k, v, do = inputs
+def float64_errors(torch, fm, inputs, outputs, idx, causal, label,
+                   heads=None) -> str:
+    """The f32 K5's (o, lse), K6/K7's (dq, dk, dv) and the f32 plain
+    versions' against the plain versions computed in float64 from the same
+    inputs (the backward from the kernel's own o and lse), over the heads
+    ``heads`` (a slice; all by default): the kernels fail past TOL and
+    BWD_TOL["float32"] (1e-4) of them, so their gates do not rest only on
+    agreeing with an f32 version that may round or sum as they do. lse is
+    compared on the rows that see a key; on a fully masked row it must
+    equal the f32 plain version's -1e30 + log(1e-30) exactly (float64
+    holds -1e30 apart from float32's nearest value). Returns both errors
+    per output as text."""
+    hs = heads or slice(None)
+    q, k, v, do = (t[:, :, hs] for t in inputs)
     o, lse, dq, dk, dv = outputs
+    outputs = (o[:, :, hs], lse[:, hs], dq[:, :, hs], dk[:, :, hs],
+               dv[:, :, hs])
     scale = 1.0 / math.sqrt(q.shape[-1])
-    tidx = fm.prepare_indices(idx, q, k, causal)
-    exact = fm.flashmask_bwd_reference(
-        *(t.double() for t in (q, k, v, o, lse, do)), tidx, causal, scale)
-    plain = fm.flashmask_bwd_reference(q, k, v, o, lse, do, tidx, causal,
-                                       scale)
+    tidx = fm.prepare_indices(idx if idx.shape[1] == 1 else idx[:, hs], q,
+                              k, causal)
+    f64 = [t.double() for t in (q, k, v, outputs[0], outputs[1], do)]
+    exact = (*fm.flashmask_fwd_reference(*f64[:3], tidx, causal, scale),
+             *fm.flashmask_bwd_reference(*f64, tidx, causal, scale))
+    plain = (*fm.flashmask_fwd_reference(q, k, v, tidx, causal, scale),
+             *fm.flashmask_bwd_reference(q, k, v, *outputs[:2], do, tidx,
+                                         causal, scale))
     rows = []
-    for name, got, ref, want in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
-                                    exact):
+    for name, got, ref, want in zip(("o", "lse", "dq", "dk", "dv"), outputs,
+                                    plain, exact):
+        if name == "lse":
+            seen = want > -1e29
+            check(torch.equal(got[~seen], ref[~seen]),
+                  f"f32 lse of the fully masked rows, {label}")
+            got, ref, want = got[seen], ref[seen], want[seen]
         err = float((got.double() - want).abs().max())
         err_plain = float((ref.double() - want).abs().max())
         check(err <= BWD_TOL["float32"][0],
@@ -1636,7 +1649,7 @@ def phase_flashmask_path(torch) -> dict:
     mask = ~fm.disallowed(idx, s, s, True)  # [1, 1, S, S], True = attend
     check(bool(mask.any(-1).all()), "the path mask hides a whole row")
     flops_fwd = 4.0 * d * pairs * b * h
-    records, launched, path = {}, None, {}
+    records, launched, path, tiles = {}, None, {}, {}
     for dtype in ("bfloat16", "float32"):
         dt = getattr(torch, dtype)
 
@@ -1674,43 +1687,38 @@ def phase_flashmask_path(torch) -> dict:
             launched = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2]}
         check(out.shape == q.shape and out.dtype == dt,
               f"output {tuple(out.shape)} {out.dtype}")
-        if dtype == "bfloat16":
-            # the k tiles the tensor-core K5's 128-row blocks computed,
-            # beside those within their causal bound (one uncounted launch)
-            live, bound = fm.fwd_tiles(q.detach(), k.detach(), v.detach(),
-                                       idx, True, 1.0 / math.sqrt(d))
-            tiles = {"fwd": {"computed": live, "causal": bound}}
-            print(f"K5 (bf16) k tiles computed {live} of the {bound} within "
-                  f"the causal bound ({live / bound:.1%}); the mask allows "
-                  f"{pairs / (s * (s + 1) // 2):.1%} of the causal pairs",
-                  flush=True)
-
         # the expanded k and v, and their gradients: what K6/K7 wrote
         grads = (q.grad, k.grad, v.grad)
         qd, k, v, out = q.detach(), k.detach(), v.detach(), out.detach()
         scale = 1.0 / math.sqrt(d)
         o, lse = fm.flashmask_fwd(qd, k, v, idx, True, scale)
         check(torch.equal(o, out), "K5 is not deterministic")
-        # the k tiles K6's blocks and the q tiles K7's blocks computed,
-        # beside those within their causal bounds (one uncounted launch of
-        # each kernel that counts: bf16 K6 and K7, f32 K7)
-        for name, counted in zip(("dq", "dkv"), fm.bwd_tiles(
-                qd, k, v, o, lse, do, idx, True, scale)):
-            if counted is None:
-                continue
-            live, bound = counted
-            kind = "bf16" if dtype == "bfloat16" else "f32"
+        # the k tiles K5's and K6's blocks and the q tiles K7's blocks
+        # computed, beside those within their causal bounds (one uncounted
+        # launch of each kernel)
+        kind = "bf16" if dtype == "bfloat16" else "f32"
+        for name, (live, bound) in zip(("fwd", "dq", "dkv"), (
+                fm.fwd_tiles(qd, k, v, idx, True, scale),
+                *fm.bwd_tiles(qd, k, v, o, lse, do, idx, True, scale))):
             if dtype == "bfloat16":
                 tiles[name] = {"computed": live, "causal": bound}
             else:
                 tiles[name]["float32"] = {"computed": live, "causal": bound}
-            print(f"{'K6' if name == 'dq' else 'K7'} ({kind}) "
-                  f"{'k' if name == 'dq' else 'q'} tiles computed {live} of "
-                  f"the {bound} within the causal bound ({live / bound:.1%})",
+            print(f"{dict(fwd='K5', dq='K6', dkv='K7')[name]} ({kind}) "
+                  f"{'q' if name == 'dkv' else 'k'} tiles computed {live} of "
+                  f"the {bound} within the causal bound ({live / bound:.1%})"
+                  + (f"; the mask allows {pairs / (s * (s + 1) // 2):.1%} of "
+                     f"the causal pairs" if name == "fwd" else ""),
                   flush=True)
         label = f"path B={b} S={s} H={h} D={d} {dtype}"
         errs = flashmask_errors(torch, fm, (qd, k, v, do), (out, lse, *grads),
                                 idx, True, dtype, label, FM_HEAD_CHUNK)
+        exact = ""
+        if dtype == "float32":
+            # the 3xTF32 kernels' sums over 8k tokens, against float64
+            exact = "; vs float64 (heads 0-3) " + float64_errors(
+                torch, fm, (qd, k, v, do), (out, lse, *grads), idx, True,
+                label, slice(0, FM_HEAD_CHUNK))
         del grads
         with torch.no_grad():
             fwd_ms = cuda_time_ms(lambda: flashmask_attention(qd, k, v, idx),
@@ -1755,31 +1763,32 @@ def phase_flashmask_path(torch) -> dict:
         for name, (mm, tens, rows) in BWD_BOUND.items():
             bounds[name] = kernel_bound(b, s, h, d, dtype, True, mm, tens,
                                         rows, pairs, idx_bytes)
-        k7_bound = f"bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]}"
+        text = {n: f"bound {t:.4f} {by}" for n, (t, by) in bounds.items()}
         if dtype == "float32":
-            # f32 K7 runs in 3xTF32; its CUDA-core figure beside
-            cores = bounds["dkv"][0]
-            bounds["dkv"] = kernel_bound(b, s, h, d, dtype, True,
-                                         *BWD_BOUND["dkv"], pairs, idx_bytes,
-                                         PEAK_TF32X3)
-            k7_bound = (f"bound {bounds['dkv'][0]:.4f} {bounds['dkv'][1]} "
-                        f"at 495/3 TFLOP/s, {cores:.4f} at 67 TFLOP/s")
+            # the f32 kernels run in 3xTF32; the CUDA-core figure beside
+            shapes = {"fwd": (2, 4, 1), **BWD_BOUND}
+            for name, (t, _) in list(bounds.items()):
+                bounds[name] = kernel_bound(b, s, h, d, dtype, True,
+                                            *shapes[name], pairs, idx_bytes,
+                                            PEAK_TF32X3)
+                text[name] = (f"bound {bounds[name][0]:.4f} "
+                              f"{bounds[name][1]} at 495/3 TFLOP/s, "
+                              f"{t:.4f} at 67 TFLOP/s")
         print(f"{label}: launches K5/K6/K7/K1/K2/K3 {counts}; err "
               + " ".join(f"{n} {e:.2e}" for n, e in errs.items()
                          if n not in ("dead_rows", "equal"))
-              + f"; bitwise equal {errs['equal']}"
+              + f"; bitwise equal {errs['equal']}" + exact
               + f"; SDPA vs kernel O {lib_err:.2e}\n"
               f"    forward {fwd_ms:.4f} ms ({flops_fwd / fwd_ms / 1e9:.2f} "
               f"TFLOP/s over the allowed pairs), forward+backward with the "
               f"GQA expansion {step_ms:.4f} ms "
               f"({3.5 * flops_fwd / step_ms / 1e9:.2f} TFLOP/s, backward "
               f"counted 2.5x forward); peak memory {peak:.2f} GiB\n"
-              f"    K5 {ms['fwd']:.4f} (bound {bounds['fwd'][0]:.4f} "
-              f"{bounds['fwd'][1]}, plain {plain['fwd']:.4f}, SDPA+mask fwd "
-              f"{lib_fwd:.4f})  K6 {ms['dq']:.4f} (bound "
-              f"{bounds['dq'][0]:.4f} {bounds['dq'][1]})  K7 "
-              f"{ms['dkv']:.4f} ({k7_bound})  plain bwd {plain['bwd']:.4f}  "
-              f"SDPA+mask bwd {lib_bwd:.4f}", flush=True)
+              f"    K5 {ms['fwd']:.4f} ({text['fwd']}, plain "
+              f"{plain['fwd']:.4f}, SDPA+mask fwd {lib_fwd:.4f})  K6 "
+              f"{ms['dq']:.4f} ({text['dq']})  K7 {ms['dkv']:.4f} "
+              f"({text['dkv']})  plain bwd {plain['bwd']:.4f}  SDPA+mask bwd "
+              f"{lib_bwd:.4f}", flush=True)
         shape = (f"B={b} S={s} H={h} D={d} {dtype} causal documents, "
                  f"{pairs} pairs per head")
         for name, err, plain_ms, lib_ms in (
@@ -1886,13 +1895,13 @@ def main() -> int:
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "max_abs_err")}})
     fm_records = flashmask_path["records"]
-    # K5-K7 each have a bf16 kernel (the tensor cores) and an f32 one (K7's
-    # on the tensor cores in 3xTF32)
+    # K5-K7 each have a bf16 kernel and an f32 one in 3xTF32, all on the
+    # tensor cores
     for name, key, src, src_f32, line in (
-            ("flashmask_fwd", "fwd", "flashmask_fwd_sm90.cu", "flashmask.cu",
-             209),
-            ("flashmask_bwd_dq", "dq", "flashmask_dq_sm90.cu", "flashmask.cu",
-             251),
+            ("flashmask_fwd", "fwd", "flashmask_fwd_sm90.cu",
+             "flashmask_fwd_tf32.cu", 209),
+            ("flashmask_bwd_dq", "dq", "flashmask_dq_sm90.cu",
+             "flashmask_dq_tf32.cu", 251),
             ("flashmask_bwd_dkv", "dkv", "flashmask_dkv_sm90.cu",
              "flashmask_dkv_tf32.cu", 286)):
         count = flashmask_path["launches"][key]

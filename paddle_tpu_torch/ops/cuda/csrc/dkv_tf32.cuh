@@ -107,14 +107,6 @@ __device__ __forceinline__ int wg_col(int wg) {
   return Layout<DP>::kSplitD ? 64 * wg : 0;
 }
 
-// x, which the compiler may no longer treat as known: the descriptors
-// derived from it are computed where they are used, once a tile, rather
-// than hoisted out of the loop into dozens of registers
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
-}
-
 template <int DP>
 __device__ __forceinline__ uint32_t bar_full(uint32_t base, int s) {
   return base + Layout<DP>::kBar + 8 * (1 + s);

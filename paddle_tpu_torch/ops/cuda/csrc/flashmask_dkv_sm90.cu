@@ -360,13 +360,14 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t s
 
 }  // namespace
 
-// The arguments of paddle_flashmask_bwd_dkv (flashmask.cu), and tiles after
-// dv: null, or a zeroed int32 pair on the device to which each block adds
-// its live q tiles and its q tiles within the causal bound; dq is not
-// touched. dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and every
-// stride of q, k, v, dO a multiple of 8 elements with a 16-byte aligned
-// base (TMA). Returns the cudaError_t of the launch (0 on success), or
-// sm90::kErrTensorMap when a tensor map cannot be encoded.
+// The arguments of paddle_flashmask_bwd_dq_sm90 (flashmask_dq_sm90.cu),
+// with dk and dv contiguous [B, Sk, H, D] bf16 tensors (dq is not touched);
+// tiles null, or a zeroed int32 pair on the device to which each block adds
+// its live q tiles and its q tiles within the causal bound. dtype must be
+// 1 (bfloat16), D one of 16, 32, 64, 128, and every stride of q, k, v, dO a
+// multiple of 8 elements with a 16-byte aligned base (TMA). Returns the
+// cudaError_t of the launch (0 on success), or sm90::kErrTensorMap when a
+// tensor map cannot be encoded.
 extern "C" int paddle_flashmask_bwd_dkv_sm90(
     const void* q, const void* k, const void* v, const void* dout, const void* lse,
     const void* delta, const void* idx, void* dq, void* dk, void* dv, void* tiles, int dtype,

@@ -1,5 +1,5 @@
 // FlashMask dQ pass on Hopper's tensor cores (sm_90a): K6 for bfloat16
-// inputs. The float32 dQ pass stays on flashmask.cu (flashmask_dq_kernel).
+// inputs. The float32 K6 is flashmask_dq_tf32.cu.
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_bwd_dq_kernel (:103,
 // launched by _fm_bwd, :251, call :269): dQ = scale * sum_k dS . K, with
@@ -7,7 +7,7 @@
 // logsumexp and set to 0 where the column-interval mask hides the pair
 // (flashmask_sm90_common.cuh), dP = dO . V^T and dS = P o (dP - Delta),
 // Delta = rowsum(dO o O) computed by the wrapper in f32 as [B, H, 1, Sq].
-// It keeps flashmask_dq_kernel's contract:
+// Its contract:
 //   - layout [B, S, H, D] through per-tensor strides, here TMA tensor maps
 //     (a 16-byte aligned base and strides that are multiples of 16 bytes,
 //     which the wrapper guarantees by copying any other input);
@@ -346,10 +346,12 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t s
 
 }  // namespace
 
-// The arguments of paddle_flashmask_bwd_dq (flashmask.cu), and tiles after
-// dv: null, or a zeroed int32 pair on the device to which each block adds
-// its live k tiles and its k tiles within the causal bound; dk and dv are
-// not touched. dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and
+// Strides are in elements, those of q, k, v, then dO; lse and delta are
+// contiguous [B, H, 1, Sq] f32 tensors, dq a contiguous [B, Sq, H, D] bf16
+// tensor (dk and dv are not touched), idx as for
+// paddle_flashmask_fwd_sm90; tiles null, or a zeroed int32 pair on the
+// device to which each block adds its live k tiles and its k tiles within
+// the causal bound. dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and
 // every stride of q, k, v, dO a multiple of 8 elements with a 16-byte
 // aligned base (TMA). Returns the cudaError_t of the launch (0 on
 // success), or sm90::kErrTensorMap when a tensor map cannot be encoded.

@@ -1,6 +1,6 @@
 // FlashMask forward on Hopper's tensor cores (sm_90a): K5 for bfloat16
-// inputs. The float32 forward stays on flashmask.cu; the bfloat16 K6 and
-// K7 are flashmask_dq_sm90.cu and flashmask_dkv_sm90.cu.
+// inputs. The float32 K5 is flashmask_fwd_tf32.cu; the bfloat16 K6 and K7
+// are flashmask_dq_sm90.cu and flashmask_dkv_sm90.cu.
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_fwd_kernel (:52,
 // launched by _fm_fwd, :209, call :222): attention under the column-interval
@@ -8,7 +8,7 @@
 // broadcast over the heads), in the layouts of _tile_mask (:32): causal
 // ncol 1, rows >= LTS hidden; causal ncol 2, rows in [LTS, LTE) hidden;
 // non-causal ncol 4, rows in [LTS, LTE) or [UTS, UTE) hidden; causal adds
-// rows < column (top-left). It keeps flashmask_fwd_kernel's contract:
+// rows < column (top-left). Its contract:
 //   - layout [B, S, H, D] through per-tensor strides, here TMA tensor maps
 //     (a 16-byte aligned base and strides that are multiples of 16 bytes,
 //     which the wrapper guarantees by copying any other input);
@@ -308,13 +308,15 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 
 }  // namespace
 
-// The arguments of paddle_flashmask_fwd (flashmask.cu), and tiles: null, or
-// a zeroed int32 pair on the device to which each block adds its live k
-// tiles and its k tiles within the causal bound. dtype must be 1
-// (bfloat16), D one of 16, 32, 64, 128, and every stride of q, k, v a
-// multiple of 8 elements with a 16-byte aligned base (TMA). Returns the
-// cudaError_t of the launch (0 on success), or sm90::kErrTensorMap when a
-// tensor map cannot be encoded.
+// Strides are in elements. idx is the contiguous [B, Hm, Sk, ncol] int32
+// tensor of start/end rows (Hm in {1, H}, ncol in {1, 2, 4}); o a
+// contiguous [B, Sq, H, D] bf16 tensor, lse a contiguous [B, H, 1, Sq] f32
+// tensor; tiles null, or a zeroed int32 pair on the device to which each
+// block adds its live k tiles and its k tiles within the causal bound.
+// dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and every stride
+// of q, k, v a multiple of 8 elements with a 16-byte aligned base (TMA).
+// Returns the cudaError_t of the launch (0 on success), or
+// sm90::kErrTensorMap when a tensor map cannot be encoded.
 extern "C" int paddle_flashmask_fwd_sm90(const void* q, const void* k, const void* v,
                                          const void* idx, void* o, void* lse, void* tiles,
                                          int dtype, int B, int Sq, int Sk, int H, int D, int Hm,

@@ -1,6 +1,7 @@
 // FlashMask's mask on Hopper, shared by the tensor-core kernels K5
-// (flashmask_fwd_sm90.cu), K6 (flashmask_dq_sm90.cu) and K7
-// (flashmask_dkv_sm90.cu).
+// (flashmask_fwd_sm90.cu, flashmask_fwd_tf32.cu), K6 (flashmask_dq_sm90.cu,
+// flashmask_dq_tf32.cu) and K7 (flashmask_dkv_sm90.cu,
+// flashmask_dkv_tf32.cu).
 //
 // startend_row_indices [B, Hm, Sk, ncol] int32 gives each key column the
 // query rows it hides, read here as two [start, end) intervals: ncol 1
@@ -66,22 +67,25 @@ __device__ __forceinline__ bool meets(const int4& iv, int q0, int q_last) {
 }
 
 // K5 and K6, blocks of rows [q0, q_last]: OR into flags[t] bit 0 where
-// 64-key tile t (t < n_kt) is live for the rows and bit 1 where it is
-// partial. flags must be zeroed, and visible to every thread, first. A
-// warp reads 32 columns of one tile at a time (32 divides 64 and
-// kThreads), one vote each
-template <int kThreads>
+// kTileN-key tile first + t (t < n_kt) is live for the rows and bit 1
+// where it is partial. flags must be zeroed, and visible to every thread,
+// first. A warp reads 32 columns of one tile at a time (32 divides kTileN
+// and kThreads), one vote each. The bf16 kernels take 64-key tiles from
+// the first; the f32 ones also 32-key tiles, in rounds
+template <int kThreads, int kTileN = 64>
 __device__ __forceinline__ void mark_k_tiles(const int* idx, int ncol, int Sk, int q0,
                                              int q_last, int causal, int n_kt, int* flags,
-                                             int tid) {
-  for (int c0 = 32 * (tid / 32); c0 < n_kt * 64; c0 += kThreads) {
-    const int kp = c0 + tid % 32;
+                                             int tid, int first = 0) {
+  static_assert(kTileN % 32 == 0 && kThreads % 32 == 0, "a warp votes inside one tile");
+  for (int c0 = 32 * (tid / 32); c0 < n_kt * kTileN; c0 += kThreads) {
+    const int kp = first * kTileN + c0 + tid % 32;
     const int4 iv = column(idx, ncol, kp, Sk);
     const bool live = kp < Sk && first_allowed(iv, kp, q0, causal) <= q_last;
     const bool part = meets(iv, q0, q_last);
     const unsigned lv = __ballot_sync(0xffffffffu, live);
     const unsigned pt = __ballot_sync(0xffffffffu, part);
-    if (tid % 32 == 0 && (lv | pt)) atomicOr(&flags[c0 / 64], (lv ? 1 : 0) | (pt ? 2 : 0));
+    if (tid % 32 == 0 && (lv | pt))
+      atomicOr(&flags[c0 / kTileN], (lv ? 1 : 0) | (pt ? 2 : 0));
   }
 }
 

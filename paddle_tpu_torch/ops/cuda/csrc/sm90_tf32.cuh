@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks for float32 attention on the tensor cores
 // in 3xTF32, shared by flash_attention_fwd_tf32.cu (K1),
-// flash_attention_dq_tf32.cu (K2) and, through dkv_tf32.cuh, the dK/dV
-// passes flash_attention_dkv_tf32.cu (K3) and flashmask_dkv_tf32.cu (K7),
-// on top of sm90_common.cuh:
+// flash_attention_dq_tf32.cu (K2), flashmask_fwd_tf32.cu (K5),
+// flashmask_dq_tf32.cu (K6) and, through dkv_tf32.cuh, the dK/dV passes
+// flash_attention_dkv_tf32.cu (K3) and flashmask_dkv_tf32.cu (K7), on top
+// of sm90_common.cuh:
 //   - the split of a float into two TF32 parts, hi = tf32(x) rounded to
 //     nearest (ties away from zero) and lo = tf32(x - hi); every product a.b
 //     runs as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi in f32 accumulators, which
@@ -50,6 +51,14 @@
 namespace sm90 {
 
 // ------------------------------------------------------------------ device
+
+// x, which the compiler may no longer treat as known: the descriptors
+// derived from it are computed where they are used, once a tile, rather
+// than hoisted out of the loop into dozens of registers
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
 
 // x rounded to TF32 (10 mantissa bits), to nearest with ties away from
 // zero; the 13 low bits of the result are 0
@@ -222,15 +231,15 @@ __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[32], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
-// d[64 x 128] += A[64 x 8] . B[8 x 128], as above
+// d[64 x 128] (+)= A[64 x 8] . B[8 x 128], as above
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t desc_b) {
+                                              uint64_t desc_b, int accumulate = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 " SM90_TF32_D64
       ", {%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
       : SM90_OUT64(d)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
 }
 
 #undef SM90_TF32_D16

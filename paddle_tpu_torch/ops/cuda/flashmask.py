@@ -11,20 +11,19 @@ rows it hides. The documented layouts, and the only ones accepted:
 - non-causal, ncol 4: ``[LTS, LTE, UTS, UTE]`` — rows in [LTS, LTE) or in
   [UTS, UTE) hidden.
 
-Three kernels replace the three Pallas bodies; each source states its
-design and bound:
+Three kernels replace the three Pallas bodies, each in two sources that
+:func:`kernel_for` picks by dtype; each source states its design and
+bound. All six run on the tensor cores with wgmma, fed by TMA, and walk a
+list of the tiles the mask leaves live, built by each block before its
+loop (``csrc/flashmask_sm90_common.cuh``); bfloat16 goes in as it is,
+float32 in 3×TF32 (each product as three TF32 products, f32 accuracy):
 
 - K5 replaces ``_fm_fwd_kernel`` (launched by ``_fm_fwd``): O and the row
-  logsumexp. bfloat16 runs on the tensor cores with wgmma, fed by TMA
-  (``csrc/flashmask_fwd_sm90.cu``), float32 on the CUDA cores
-  (``csrc/flashmask.cu``), as :func:`kernel_for` routes them;
+  logsumexp (``csrc/flashmask_fwd_sm90.cu``, ``csrc/flashmask_fwd_tf32.cu``);
 - K6 and K7 replace ``_fm_bwd_dq_kernel`` and ``_fm_bwd_dkv_kernel``
-  (both launched by ``_fm_bwd``): the dQ pass and the dK/dV pass.
-  bfloat16 runs on the tensor cores with wgmma, fed by TMA, each walking a
-  list of the tiles the mask leaves live (``csrc/flashmask_dq_sm90.cu``,
-  ``csrc/flashmask_dkv_sm90.cu``); float32 K6 on the CUDA cores
-  (``csrc/flashmask.cu``), float32 K7 on the tensor cores in 3×TF32 with
-  the bf16 K7's list (``csrc/flashmask_dkv_tf32.cu``).
+  (both launched by ``_fm_bwd``): the dQ pass
+  (``csrc/flashmask_dq_sm90.cu``, ``csrc/flashmask_dq_tf32.cu``) and the
+  dK/dV pass (``csrc/flashmask_dkv_sm90.cu``, ``csrc/flashmask_dkv_tf32.cu``).
 
 The tensor-core kernels (the third field of :data:`SOURCES`) read q, k, v
 (and dO) through TMA, with K1's operand rule and copies
@@ -44,7 +43,7 @@ causal is top-left (``q_pos >= k_pos``) as in the Pallas kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -74,10 +73,11 @@ dkv_launches = 0
 #: runs on the tensor cores: reads q, k, v and dO through TMA tensor maps
 #: and takes a tile counter)
 SOURCES = {
-    "fwd": ("flashmask", "paddle_flashmask_fwd", False),
     "fwd_sm90": ("flashmask_fwd_sm90", "paddle_flashmask_fwd_sm90", True),
-    "bwd_dq": ("flashmask", "paddle_flashmask_bwd_dq", False),
+    "fwd_tf32": ("flashmask_fwd_tf32", "paddle_flashmask_fwd_tf32", True),
     "bwd_dq_sm90": ("flashmask_dq_sm90", "paddle_flashmask_bwd_dq_sm90",
+                    True),
+    "bwd_dq_tf32": ("flashmask_dq_tf32", "paddle_flashmask_bwd_dq_tf32",
                     True),
     "bwd_dkv_sm90": ("flashmask_dkv_sm90", "paddle_flashmask_bwd_dkv_sm90",
                      True),
@@ -146,17 +146,19 @@ def flashmask_fwd_reference(q, k, v, idx, causal: bool,
                             scale: float) -> Tuple[torch.Tensor,
                                                    torch.Tensor]:
     """The plain version of K5: ``(o [B,Sq,H,D] in q's dtype, lse [B,H,1,Sq]
-    f32)``, in f32 over the whole score matrix. P is zeroed where the mask
-    hides a pair (not where its value underflows), and the denominator is
-    clamped at 1e-30, so a fully masked row gives O = 0 and lse = -1e30 +
-    log(1e-30), as the Pallas kernel does."""
+    f32)``, in f32 over the whole score matrix (in float64 for float64
+    inputs, lse too). P is zeroed where the mask hides a pair (not where
+    its value underflows), and the denominator is clamped at 1e-30, so a
+    fully masked row gives O = 0 and lse = -1e30 + log(1e-30), as the
+    Pallas kernel does."""
+    f = torch.promote_types(q.dtype, torch.float32)
     hide = disallowed(idx, q.shape[1], k.shape[1], causal)
-    s = torch.einsum("bshd,bthd->bhst", q.float(), k.float()) * scale
+    s = torch.einsum("bshd,bthd->bhst", q.to(f), k.to(f)) * scale
     s = torch.where(hide, NEG_INF, s)
     m = s.amax(dim=-1, keepdim=True)
     p = torch.where(hide, 0.0, torch.exp(s - m))
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
-    o = torch.einsum("bhst,bthd->bshd", p, v.float())
+    o = torch.einsum("bhst,bthd->bshd", p, v.to(f))
     o = o / den.squeeze(-1).transpose(1, 2)[..., None]
     lse = (m + torch.log(den)).transpose(-1, -2)
     return o.to(q.dtype), lse
@@ -189,15 +191,13 @@ def flashmask_bwd_reference(q, k, v, o, lse, do, idx, causal: bool,
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
     (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K5, K6 and
-    K7 on the tensor cores for bfloat16; for float32 K5 and K6 on the CUDA
-    cores, K7 on the tensor cores in 3×TF32."""
+    K7 on the tensor cores, in bfloat16 (``*_sm90``) or in 3×TF32 for
+    float32 (``*_tf32``)."""
     if dtype not in _DTYPES:
         raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
-    if dtype == torch.bfloat16:
-        return pass_name + "_sm90"
-    return "bwd_dkv_tf32" if pass_name == "bwd_dkv" else pass_name
+    return pass_name + ("_sm90" if dtype == torch.bfloat16 else "_tf32")
 
 
 def _kernel(name: str):
@@ -224,7 +224,7 @@ def _kernel(name: str):
 
 
 def build() -> None:
-    """Build and load K5, K6 and K7 now (their five sources compile in
+    """Build and load K5, K6 and K7 now (their six sources compile in
     parallel) instead of at their first launch."""
     _build.build_all(sorted({source for source, _, _ in SOURCES.values()}))
     for name in SOURCES:
@@ -260,7 +260,7 @@ def _launch_fwd(q, k, v, idx, causal, scale):
 
 def _run_fwd(q, k, v, idx, causal, scale, tiles=None):
     """One launch of K5 for ``q``'s dtype; ``tiles``, a zeroed int32 pair
-    on the device, takes the bfloat16 kernel's tile counts."""
+    on the device, takes the kernel's tile counts."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v), d)
@@ -287,14 +287,14 @@ def _run_fwd(q, k, v, idx, causal, scale, tiles=None):
 
 def fwd_tiles(q, k, v, startend_row_indices, causal: bool,
               scale: float) -> Tuple[int, int]:
-    """``(live, bound)``: the k tiles the bfloat16 K5's blocks computed
-    and the k tiles within their causal bound, summed over the blocks, from
-    one launch on CUDA tensors with the kernel's tile counter on. Not
-    counted in :data:`fwd_launches`: the counted path is
-    :func:`flashmask_fwd`."""
+    """``(live, bound)``: the k tiles K5's blocks computed and the k tiles
+    within their causal bound, summed over the blocks (64-key tiles, or
+    32-key ones for float32 at D = 128), from one launch on CUDA tensors
+    with the kernel's tile counter on. Not counted in
+    :data:`fwd_launches`: the counted path is :func:`flashmask_fwd`."""
     _check(q, k, v)
-    if not SOURCES[kernel_for("fwd", q.dtype)][2] or q.device.type != "cuda":
-        raise ValueError("only the bfloat16 kernel on CUDA counts its tiles")
+    if q.device.type != "cuda":
+        raise ValueError("only the kernel on CUDA counts its tiles")
     idx = prepare_indices(startend_row_indices, q, k, causal)
     tiles = torch.zeros(2, dtype=torch.int32, device=q.device)
     _run_fwd(q, k, v, idx, bool(causal), float(scale), tiles)
@@ -389,32 +389,27 @@ def run_bwd_pass(name: str, args, device, tiles=None) -> None:
 
 
 def bwd_tiles(q, k, v, o, lse, do, startend_row_indices, causal: bool,
-              scale: float) -> Tuple[Optional[Tuple[int, int]],
-                                     Optional[Tuple[int, int]]]:
-    """``(dq_tiles, dkv_tiles)``, each ``(live, bound)`` or None: the k
-    tiles K6's blocks computed and those within their causal bound, then
-    the q tiles K7's blocks computed and those within theirs, summed over
-    the blocks, from one launch of each tensor-core kernel on CUDA tensors
-    with its tile counter on (None for a pass whose kernel keeps no count:
-    float32 K6). Not counted in :data:`dq_launches` or
-    :data:`dkv_launches`: the counted path is :func:`flashmask_bwd`."""
+              scale: float) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """``(dq_tiles, dkv_tiles)``, each ``(live, bound)``: the k tiles K6's
+    blocks computed and those within their causal bound, then the q tiles
+    K7's blocks computed and those within theirs, summed over the blocks,
+    from one launch of each kernel on CUDA tensors with its tile counter
+    on. Not counted in :data:`dq_launches` or :data:`dkv_launches`: the
+    counted path is :func:`flashmask_bwd`."""
     _check(q, k, v)
-    names = [name for name in ("bwd_dq", "bwd_dkv")
-             if SOURCES[kernel_for(name, q.dtype)][2]]
-    if not names or q.device.type != "cuda":
-        raise ValueError("only the tensor-core kernels on CUDA count their "
-                         "tiles")
+    if q.device.type != "cuda":
+        raise ValueError("only the kernels on CUDA count their tiles")
     idx = prepare_indices(startend_row_indices, q, k, causal)
     args, keep = bwd_launch_args(q, k, v, o, lse, do, idx, bool(causal),
                                  float(scale))
-    counts = {}
-    for name in names:
+    counts = []
+    for name in ("bwd_dq", "bwd_dkv"):
         tiles = torch.zeros(2, dtype=torch.int32, device=q.device)
         run_bwd_pass(name, args, q.device, tiles)
         live, bound = tiles.tolist()
-        counts[name] = (live, bound)
+        counts.append((live, bound))
     del keep  # tolist() waited for the launches that read it
-    return counts.get("bwd_dq"), counts.get("bwd_dkv")
+    return counts[0], counts[1]
 
 
 def _launch_bwd(args, device) -> None:

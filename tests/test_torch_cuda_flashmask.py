@@ -10,8 +10,10 @@ card, from the same (o, lse) for the backward, the bf16 kernels (on the
 tensor cores) also over every layout and head dim, at the tolerances of
 the K1–K3 card tests (the bf16 K5's O within one bf16 step plus 2e-2):
 f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus 1e-2 of the value
-(the outputs round once to bf16). Fully masked rows give exactly 0 in O
-and dQ. ``flashmask_attention`` differentiates through them with exactly
+(the outputs round once to bf16). The f32 kernels (3xTF32 on the tensor
+cores) are also held within 1e-4 of the plain versions computed in
+float64, over every layout and at a long sequence whose blocks list their
+tiles in rounds. Fully masked rows give exactly 0 in O and dQ. ``flashmask_attention`` differentiates through them with exactly
 one launch of each and none of K1–K3, and copies no ``[B, S, H, D]``
 operand for TMA; an operand TMA cannot read in place is copied and
 counted, not refused.
@@ -310,3 +312,114 @@ def _indices_docs(s, n):
     """Causal [1, 1, s, 1]: documents of n tokens."""
     ends = np.minimum(np.arange(s) // n * n + n, s)
     return ends.reshape(1, 1, s, 1).astype(np.int32)
+
+
+def _float64_forward_backward(q, k, v, o, lse, do, tidx, causal, scale):
+    """The plain forward and backward computed in float64: ``(o, lse, dq,
+    dk, dv)``, the backward from the kernel's own (o, lse)."""
+    f64 = [t.double() for t in (q, k, v, o, lse, do)]
+    ro, rlse = fm.flashmask_fwd_reference(*f64[:3], tidx, causal, scale)
+    return (ro, rlse, *fm.flashmask_bwd_reference(*f64, tidx, causal, scale))
+
+
+def test_f32_tensor_core_kernels_over_layouts(card):
+    """f32 K5 and K6 run on the tensor cores in 3xTF32 (wgmma fed by TMA, a
+    list of live k tiles) over every documented layout, Hm = 1 and Hm = H,
+    at every head dim: O, lse and dq within 1e-4 of the plain versions
+    computed in float64 (and dk, dv of f32 K7), finite, O and dQ exactly 0
+    on fully masked rows, one launch each and no TMA copy; their blocks
+    skip k tiles of packed documents and compute no more than their causal
+    bounds'."""
+    rs = np.random.RandomState(6)
+    for kind, causal in (("doc", True), ("share_question", True),
+                         ("masked_rows", True), ("window", False)):
+        for hm in (1, 2):
+            for d in fa.HEAD_DIMS:
+                b, s, h = 1, 320, 2
+                idx = (_share_question(b, hm, s) if kind == "share_question"
+                       else _indices(rs, kind, b, hm, s, s))
+                idx = torch.from_numpy(idx).to(card)
+                q, k, v, do = (torch.from_numpy(rs.randn(b, s, h, d).astype(
+                    np.float32)).to(card) for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                counts = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                          fa.tma_copies)
+                o, lse = fm.flashmask_fwd(q, k, v, idx, causal, scale)
+                grads = fm.flashmask_bwd(q, k, v, o, lse, do, idx, causal,
+                                         scale)
+                torch.cuda.synchronize()
+                case = (kind, hm, d)
+                assert (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                        fa.tma_copies) == (counts[0] + 1, counts[1] + 1,
+                                           counts[2] + 1, counts[3]), case
+                tidx = fm.prepare_indices(idx, q, k, causal)
+                want = _float64_forward_backward(q, k, v, o, lse, do, tidx,
+                                                 causal, scale)
+                for name, got, ref in zip(("o", "lse", "dq", "dk", "dv"),
+                                          (o, lse, *grads), want):
+                    assert got.dtype == torch.float32, (case, name)
+                    assert bool(torch.isfinite(got).all()), (case, name)
+                    if name == "lse":
+                        # a fully masked row's -1e30 + log(1e-30), which
+                        # float64 holds apart from float32's nearest value
+                        seen = ref > -1e29
+                        assert bool((got[~seen] <= -1e29).all()), case
+                        got, ref = got[seen], ref[seen]
+                    err = float((got.double() - ref).abs().max())
+                    assert err <= 1e-4, (case, name, err)
+                dead = fm.disallowed(tidx, s, s, causal).expand(
+                    b, h, s, s).all(-1).transpose(1, 2)
+                assert (kind == "masked_rows") == bool(dead.any()), case
+                assert float(o[dead].abs().sum()) == 0.0, case
+                assert float(grads[0][dead].abs().sum()) == 0.0, case
+                counted = [fm.fwd_tiles(q, k, v, idx, causal, scale),
+                           *fm.bwd_tiles(q, k, v, o, lse, do, idx, causal,
+                                         scale)]
+                for live, bound in counted:
+                    assert 0 < live <= bound, case
+                    if kind == "doc":
+                        assert live < bound, case
+
+
+def test_f32_fwd_and_dq_list_a_long_sequence_in_rounds(card):
+    """f32 K5 and K6 list at most as many k tiles at once as their shared
+    memory holds (about 500: 32000 keys for K5 at D = 64, 16000 for K6 and
+    for K5 at D = 128), so a block with more votes, lists and walks them in
+    rounds, the TMA ring going on across rounds. At S = 40000 in two
+    documents of 20000 tokens, the second document's last blocks take
+    rounds with no live tile and rounds with many: each document's O, lse
+    and dq match the float64 plain versions run on that document alone,
+    within 1e-4."""
+    rs = np.random.RandomState(7)
+    s, n = 40000, 20000
+    idx = torch.from_numpy(_indices_docs(s, n)).to(card)
+    one = torch.from_numpy(_indices_docs(n, n)).to(card)
+    for d in (64, 128):
+        q, k, v, do = (torch.from_numpy(rs.randn(1, s, 1, d).astype(
+            np.float32)).to(card) for _ in range(4))
+        scale = 1.0 / math.sqrt(d)
+        counts = (fm.fwd_launches, fm.dq_launches)
+        o, lse = fm.flashmask_fwd(q, k, v, idx, True, scale)
+        dq = fm.flashmask_bwd(q, k, v, o, lse, do, idx, True, scale)[0]
+        torch.cuda.synchronize()
+        assert (fm.fwd_launches, fm.dq_launches) == (counts[0] + 1,
+                                                     counts[1] + 1)
+        for doc in range(s // n):
+            rows = slice(doc * n, (doc + 1) * n)
+            part = [t[:, rows] for t in (q, k, v, o)]
+            want = _float64_forward_backward(
+                *part, lse[..., rows].contiguous(), do[:, rows], one, True,
+                scale)
+            for name, got, ref in zip(("o", "lse", "dq"),
+                                      (o[:, rows], lse[..., rows],
+                                       dq[:, rows]), want):
+                assert bool(torch.isfinite(got).all()), (d, doc, name)
+                err = float((got.double() - ref).abs().max())
+                assert err <= 1e-4, (d, doc, name, err)
+            del want
+            torch.cuda.empty_cache()
+        live, bound = fm.fwd_tiles(q, k, v, idx, True, scale)
+        assert 0 < live < bound, d
+        (live, bound), _ = fm.bwd_tiles(q, k, v, o, lse, do, idx, True,
+                                        scale)
+        assert 0 < live < bound, d

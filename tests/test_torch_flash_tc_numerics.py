@@ -274,24 +274,26 @@ def test_routing_and_the_tma_alignment_rule():
                        "flash_attention_dq_tf32", "flash_attention_dkv_tf32"}
     assert set(fa.SOURCES) == {"fwd_sm90", "fwd_tf32", "bwd_dq_sm90",
                                "bwd_dq_tf32", "bwd_dkv_sm90", "bwd_dkv_tf32"}
-    # FlashMask: K5, K6 and K7 on the tensor cores for bf16; for f32 K5 and
-    # K6 on the CUDA cores (flashmask.cu), K7 on the tensor cores in 3xTF32
+    # FlashMask: K5, K6 and K7 on the tensor cores for bf16, and for f32 in
+    # 3xTF32 (flashmask_fwd_tf32.cu, flashmask_dq_tf32.cu,
+    # flashmask_dkv_tf32.cu)
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fm.kernel_for(name, bf16) == name + "_sm90"
-    for name in ("fwd", "bwd_dq"):
-        assert fm.kernel_for(name, f32) == name
-        assert fm.SOURCES[name][0] == "flashmask"
-    assert fm.kernel_for("bwd_dkv", f32) == "bwd_dkv_tf32"
+        assert fm.kernel_for(name, f32) == name + "_tf32"
+    assert fm.SOURCES["fwd_tf32"][:2] == ("flashmask_fwd_tf32",
+                                          "paddle_flashmask_fwd_tf32")
+    assert fm.SOURCES["bwd_dq_tf32"][:2] == ("flashmask_dq_tf32",
+                                             "paddle_flashmask_bwd_dq_tf32")
     assert fm.SOURCES["bwd_dkv_tf32"][0] == "flashmask_dkv_tf32"
     assert {src for src, _, _ in fm.SOURCES.values()} == {
-        "flashmask", "flashmask_fwd_sm90", "flashmask_dq_sm90",
-        "flashmask_dkv_sm90", "flashmask_dkv_tf32"}
-    assert set(fm.SOURCES) == {"fwd", "fwd_sm90", "bwd_dq", "bwd_dq_sm90",
-                               "bwd_dkv_sm90", "bwd_dkv_tf32"}
-    # the tensor-core kernels read through TMA and count their tiles; the
-    # CUDA-core ones neither
+        "flashmask_fwd_sm90", "flashmask_dq_sm90", "flashmask_dkv_sm90",
+        "flashmask_fwd_tf32", "flashmask_dq_tf32", "flashmask_dkv_tf32"}
+    assert set(fm.SOURCES) == {"fwd_sm90", "fwd_tf32", "bwd_dq_sm90",
+                               "bwd_dq_tf32", "bwd_dkv_sm90", "bwd_dkv_tf32"}
+    # every kernel reads through TMA and counts its tiles
     assert {name for name, (_, _, tc) in fm.SOURCES.items() if tc} == {
-        "fwd_sm90", "bwd_dq_sm90", "bwd_dkv_sm90", "bwd_dkv_tf32"}
+        fm.kernel_for(name, dt) for name in ("fwd", "bwd_dq", "bwd_dkv")
+        for dt in (bf16, f32)} == set(fm.SOURCES)
 
     def aligned(t):
         return fa.tma_aligned(t.shape, t.stride(),
