@@ -10,7 +10,8 @@ Phases, each of which fails the run on any error:
    cuda/csrc``, one ``nvcc`` per source, all at once; print each kernel's
    registers and spills (none allowed in a tensor-core kernel at D = 64
    without dropout, nor in a FlashMask one at D = 128, nor in any
-   instantiation of an f32 3×TF32 one, dropout included), and check with
+   instantiation of an f32 3×TF32 one, dropout included, nor in the AdamW
+   kernel, which must keep no stack frame either), and check with
    ``cuobjdump -sass`` that every attention kernel (bf16 K1, K2, K3, K5,
    K6 and K7; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all on the tensor
    cores) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
@@ -47,17 +48,25 @@ Phases, each of which fails the run on any error:
 8. gradients — every gradient of gpt2_small (f32, dropout 0, B=1, S=256)
    on the card, through K1–K3, against the CPU plain path;
 9. train — ``bench.py``'s GPT arm on the port: gpt2_small in bf16 O2 under
-   ``TrainStep`` with ``AdamW(1e-4)`` on one batch of 8 x 1024 ids, 1
-   warmup and 10 timed steps (tokens/s, step ms, MFU, losses, launches
-   exactly 12 per step for each kernel, a profiler breakdown of 2 more
-   steps after a warmup step, the card idle 0.25 s inside each end of the
-   window, whose launches of K1-K4 must equal the launch counters'); then 3 steps at gpt2_small's default dropout (0.1), B=2, run
-   twice from one seed, which must agree bitwise;
+   ``TrainStep`` with ``AdamW(1e-4)`` on one batch of 8 x 1024 ids. The
+   same 12 steps first run eagerly by hand (loss, backward, step,
+   clear_grad) as the reference; then the ``TrainStep`` takes 2 warmup
+   steps (the eager call, then the CUDA-graph capture and its first
+   replay) and 10 timed ones, every one a replay (``stats``), and its 12
+   losses and final parameters must equal the reference's bit for bit
+   (tokens/s, step ms, MFU, losses, launches exactly 12 per step for each
+   kernel and one AdamW launch per 64 parameters, counted through the
+   replays, a profiler breakdown of 2 more steps after a warmup step, the
+   card idle 0.25 s inside each end of the window, whose launches of
+   K1-K4 and AdamW must equal the launch counters'); then 4 graphed steps
+   at gpt2_small's default dropout (0.1), B=2, run twice from one seed,
+   which must agree bitwise with each other and with the eager sequence;
 10. Llama kernel shapes — the RMSNorm kernel (K4) against its plain
     version at rows x d = 8192 x 768 (the training shape), 4 x 768,
     1000 x 768, 256 x 4096 (llama2_7b / llama3_8b's width) and 8 x 100 (odd
     d), f32 and bf16, timed at the training shape beside its bound, its
-    plain version and ``torch.nn.functional.rms_norm`` (a yardstick only);
+    plain version and ``torch.nn.functional.rms_norm`` (a yardstick only;
+    K4 and it in turns, the least of 5 trials each with their spread);
     K1–K3 against their plain versions at the Llama training shape (B=4,
     S=2048, H=12, D=64, bf16, causal, k and v expanded from 4 KV heads by
     ``repeat_interleave``), timed there beside their bounds and SDPA, and
@@ -70,11 +79,12 @@ Phases, each of which fails the run on any error:
     card (K1–K4) against the CPU;
 12. train Llama — ``bench.py``'s ``bench_llama`` accelerator arm on the
     port: ``llama_124m_gqa`` in bf16 O2 under ``TrainStep`` with
-    ``AdamW(1e-4)`` on one batch of 4 x 2048 ids, 1 warmup and 10 timed
-    steps (tokens/s, step ms, MFU, peak memory, losses, launches exactly 12
-    per step for each of K1–K3 and 25 for K4), a profiler breakdown of 2
-    more steps after a warmup step (launches checked as in phase 9) with
-    K3's share and K4's own row;
+    ``AdamW(1e-4)`` on one batch of 4 x 2048 ids, graphed and held bit for
+    bit to the eager sequence as in phase 9 (tokens/s, step ms, MFU, peak
+    memory, losses, launches exactly 12 per step for each of K1–K3, 25
+    for K4 and one AdamW launch per 64 parameters), a profiler breakdown
+    of 2 more steps after a warmup step (launches checked as in phase 9)
+    with K3's share and K4's own row;
 13. FlashMask kernels — K5 (forward), K6 (dQ) and K7 (dK/dV) against
     their plain versions over the documented index layouts: causal
     documents, causal share-question (ncol 2), causal with fully masked
@@ -97,14 +107,22 @@ Phases, each of which fails the run on any error:
     kernel beside its bound (counted over the allowed pairs; the f32 ones
     at 495/3 TFLOP/s with the 67 TFLOP/s figure beside it), its plain
     version and SDPA with the equivalent dense boolean mask (a yardstick
-    only).
+    only);
+15. AdamW kernel — the multi-tensor AdamW kernel (no Pallas counterpart:
+    XLA fuses the JAX update) against its plain version, bit for bit, on
+    every gpt2_small parameter in bf16 with seeded gradients and moments,
+    timed beside its bound, the plain chain and
+    ``torch.optim.AdamW(fused=True)`` (a yardstick only: its moments are
+    bf16).
 
 The serve (5), train (9), train Llama (12) and FlashMask path (14) phases
 are the main paths: the launch counts are set to 0 just before each and
 read just after, and no operand may have been copied for TMA there
-(``tma_copies`` stays 0). The line before the last is ``{"kernels": [...]}``; the
-last is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-outside a checkout, the script prints no result and exits non-zero.
+(``tma_copies`` stays 0). The training paths run as CUDA-graph replays,
+and the counters count the replays' kernels. The line before the last is
+``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or outside a checkout, the script prints no result
+and exits non-zero.
 
 f32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 """
@@ -142,6 +160,7 @@ LLAMA_BATCH, LLAMA_SEQ = 4, 2048  # bench_llama's accelerator arm
 RMS_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
 RMS_SHAPES = ((8192, 768), (4, 768), (1000, 768), (256, 4096), (8, 100))
 RMS_EPS = 1e-5  # LlamaConfig.rms_norm_eps
+RETIME_TRIALS = 5  # K4 and F.rms_norm, timed in turns at the training shape
 # H100 SXM data-sheet peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -274,38 +293,49 @@ def check_tensor_core_sass(_build) -> None:
 
 
 def phase_build() -> float:
-    from paddle_tpu_torch.ops.cuda import (_build, flash_attention, flashmask,
-                                           rms_norm)
+    from paddle_tpu_torch.ops.cuda import (_build, adamw, flash_attention,
+                                           flashmask, rms_norm)
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
-    _build.build_all([*TC_SOURCES, "rms_norm"])
+    _build.build_all([*TC_SOURCES, "rms_norm", "adamw"])
     flash_attention.build()
     rms_norm.build()
     flashmask.build()
+    adamw.build()
     seconds = time.perf_counter() - t0
     for name, log in sorted(_build.ptxas_report.items()):
         # one "entry function" line, then its spill and register lines
-        rows, entry, tc = [], None, None
+        rows, entry, tc, opt = [], None, None, None
         for ln in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
-                entry, spill = m.group(1), "?"
+                entry, spill, stack = m.group(1), "?", "?"
                 tc = TC_KERNEL.search(entry)
+                # S1_: the mangler's back-reference to the first type
                 r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
-                              r"(13__nv_bfloat16|f)Li(\d+)ELi(\d+)E", entry)
+                              r"(13__nv_bfloat16|f|S1_)Li(\d+)ELi(\d+)E",
+                              entry)
+                opt = re.search(r"adamw_kernelI(13__nv_bfloat16|f)E", entry)
                 if tc:
                     kind = "bf16" if tc.group(2) == "sm90" else "f32 3xTF32"
                     entry = (f"{tc.group(1)} {kind}/D={tc.group(3)}"
                              f"{' dropout' if tc.group(4) == '1' else ''}")
                 elif r:
-                    x, w = ("bf16" if g != "f" else "f32"
-                            for g in r.group(1, 2))
+                    x, w = ("bf16" if g != "f" else "f32" for g in (
+                        r.group(1), r.group(1) if r.group(2) == "S1_"
+                        else r.group(2)))
                     entry = (f"rms_norm x {x} w {w} vec {r.group(3)} "
                              f"threads/row {r.group(4)}")
+                elif opt:
+                    entry = ("adamw " + ("f32" if opt.group(1) == "f"
+                                         else "bf16"))
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and entry:
                 spill = m.group(1)
+            m = re.search(r"(\d+) bytes stack frame", ln)
+            if m and entry:
+                stack = m.group(1)
             m = re.search(r"Used (\d+) registers", ln)
             if m and entry:
                 rows.append(f"{entry}: {m.group(1)} regs, {spill} B spilled")
@@ -317,6 +347,12 @@ def phase_build() -> float:
                         tc.group(3) == "64"
                         or tc.group(1).startswith("flashmask"))):
                     check(spill == "0", f"{entry} spills {spill} B")
+                # the AdamW kernel indexes its __grid_constant__ tensor
+                # list in the parameter space: no copy to a stack frame
+                if opt:
+                    rows[-1] += f", {stack} B stack"
+                    check(spill == "0" and stack == "0",
+                          f"{entry}: {spill} B spilled, {stack} B of stack")
                 entry = None
         print(f"{name} (ptxas): " + "; ".join(rows), flush=True)
     print(f"built in {seconds:.1f} s", flush=True)
@@ -958,7 +994,10 @@ def megatron_flops(batch, seq, layers, hidden, vocab) -> float:
 
 def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0):
     """The model in bf16 O2 under ``TrainStep`` with ``AdamW(1e-4)``, the
-    criterion outside ``auto_cast``, as ``bench.py`` builds its arms."""
+    criterion outside ``auto_cast``, as ``bench.py`` builds its arms.
+    Returns the model, the step, and the eager step by hand: ``loss_fn``,
+    ``backward``, ``step``, ``clear_grad`` on the same model and
+    optimizer."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
@@ -974,24 +1013,79 @@ def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0):
             logits = model(ids)
         return crit(logits, ids)
 
-    return model, TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    def eager_step(ids):
+        loss = loss_fn(ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    return (model, TrainStep(model=model, optimizer=opt, loss_fn=loss_fn),
+            eager_step)
+
+
+def eager_reference(torch, model_cls, crit_cls, cfg, ids, steps,
+                    dropout_seed=0) -> tuple:
+    """The graphed step's reference: ``steps`` eager steps by hand from the
+    same seeds. Returns the losses and the parameters after them."""
+    model, _, eager_step = build_train_step(torch, model_cls, crit_cls, cfg,
+                                            dropout_seed)
+    losses = [eager_step(ids) for _ in range(steps)]
+    torch.cuda.synchronize()
+    out = ([float(x) for x in losses],
+           [p.detach().clone() for p in model.parameters()])
+    del model, eager_step
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_against_eager(torch, what, losses, params, reference) -> None:
+    """The graphed run's losses and parameters bit for bit the eager
+    sequence's."""
+    want_losses, want_params = reference
+    same = [torch.equal(a, b) for a, b in zip(params, want_params)]
+    print(f"{what}: {len(losses)} losses and {len(params)} parameters "
+          f"against the eager sequence by hand: losses bitwise equal "
+          f"{losses == want_losses}, parameters bitwise equal "
+          f"{sum(same)}/{len(same)}", flush=True)
+    check(losses == want_losses and all(same) and len(same) == len(
+        want_params), f"{what}: the graphed steps differ from the eager "
+        f"sequence (losses {losses} against {want_losses})")
+
+
+def adamw_launches_per_step(model) -> int:
+    """AdamW kernel launches one step makes: one per ``MAX_TENSORS``
+    parameters of one dtype."""
+    from paddle_tpu_torch.ops.cuda import adamw
+
+    by_dtype = {}
+    for p in model.parameters():
+        by_dtype[p.dtype] = by_dtype.get(p.dtype, 0) + 1
+    return sum(math.ceil(n / adamw.MAX_TENSORS) for n in by_dtype.values())
+
+
+# eager first call, then the capture and its first replay
+GRAPH_WARMUP = 2
 
 
 def run_timed_steps(torch, step, ids) -> tuple:
-    """One warmup step, then ``TRAIN_STEPS`` timed ones (host clock around
-    each, ending in a synchronize), with every launch count set to 0 just
-    before them and read just after; fails if an operand was copied for
-    TMA. Returns (warmup loss, losses, step seconds, launches of K1, K2, K3,
-    K4)."""
+    """``GRAPH_WARMUP`` warmup steps (the eager call, then the capture),
+    then ``TRAIN_STEPS`` timed ones (host clock around each, ending in a
+    synchronize), every one a graph replay, with every launch count set to
+    0 just before them and read just after; fails if an operand was
+    copied for TMA or a timed step did not replay. Returns (warmup losses,
+    losses, step seconds, launches of K1, K2, K3, K4, AdamW)."""
+    from paddle_tpu_torch.ops.cuda import adamw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
     torch.cuda.reset_peak_memory_stats()
-    first = float(step(ids).float())  # warmup
+    first = [float(step(ids).float()) for _ in range(GRAPH_WARMUP)]
     torch.cuda.synchronize()
+    stats = dict(step.stats)
     # the main path's run: counts from 0, read right after it
     fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
-    fa.tma_copies = 0
+    fa.tma_copies = adamw.launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1000,10 +1094,20 @@ def run_timed_steps(torch, step, ids) -> tuple:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
-    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches,
+              adamw.launches)
     check(fa.tma_copies == 0, f"{fa.tma_copies} operands were copied for "
           f"TMA on the training path")
     print(f"operands copied for TMA: {fa.tma_copies}", flush=True)
+    ran = {k: step.stats[k] - stats[k] for k in stats}
+    report = step.audit_report()
+    print(f"TrainStep: timed steps {ran}; captures "
+          f"{report['total_captures']} over {report['n_cache_keys']} cache "
+          f"key(s); all steps {report['stats']}", flush=True)
+    check(ran == {"compiled_steps": TRAIN_STEPS, "eager_steps": 0},
+          f"timed steps {ran}: not every timed step ran as a graph replay")
+    check(report["total_captures"] == 1, f"{report['total_captures']} "
+          f"captures of one signature")
     return first, [float(x.float()) for x in losses], times, counts
 
 
@@ -1012,8 +1116,8 @@ def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
     per step by ``formula``) and peak memory; check the losses are finite
     and fall. Returns the p50 step in seconds."""
     p50 = float(np.median(times))
-    print(f"warmup loss {first:.4f}; losses " + " ".join(
-        f"{x:.4f}" for x in losses), flush=True)
+    print("warmup losses " + " ".join(f"{x:.4f}" for x in first)
+          + "; losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
     print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}); tokens/s {tokens / p50:.1f}; model "
           f"TFLOP/s {flops / p50 / 1e12:.2f} ({formula} {flops / 1e12:.3f} "
@@ -1028,13 +1132,14 @@ def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
 # the port's kernels by their exact names in the profiler's rows (the
 # demangled "void (anonymous namespace)::fwd_sm90_kernel<...>(...)"): K1,
 # K2 and K3 in either dtype's kernel (fwd_sm90_kernel, fwd_tf32_kernel,
-# dkv_tf32_kernel, ...) and K4, whatever else is named *_kernel. K5's
-# flashmask_fwd_sm90_kernel matches none of them
+# dkv_tf32_kernel, ...), K4 and the AdamW kernel, whatever else is named
+# *_kernel. K5's flashmask_fwd_sm90_kernel matches none of them
 PROFILED_KERNELS = {
     "K1": re.compile(r"(?:^|[\s:])fwd(?:_sm90|_tf32)?_kernel<"),
     "K2": re.compile(r"(?:^|[\s:])dq(?:_sm90|_tf32)?_kernel<"),
     "K3": re.compile(r"(?:^|[\s:])dkv(?:_sm90|_tf32)?_kernel<"),
     "K4": re.compile(r"(?:^|[\s:])rms_norm_kernel<"),
+    "AdamW": re.compile(r"(?:^|[\s:])adamw_kernel<"),
 }
 ATTENTION_KERNELS = re.compile(
     r"(?:^|[\s:])(?:fwd|dq|dkv)(?:_sm90|_tf32)?_kernel<")
@@ -1052,17 +1157,20 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     starts the tracer before the window, and the card idles
     ``PROFILE_PAD_S`` inside each end of the window, so that no kernel at
     its edges falls outside it; the profile's launches of K1–K4 per step
-    must equal the launch counters over the same steps. Returns the ms per
-    step of K1–K3 together, of K4, and of all device work."""
+    must equal the launch counters over the same steps, and so must the
+    AdamW kernel's. Returns the ms per step of K1–K3 together, of K4, and
+    of all device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
+    from paddle_tpu_torch.ops.cuda import adamw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
     def counters():
         return {"K1": fa.launches, "K2": fa.dq_launches,
-                "K3": fa.dkv_launches, "K4": rms.launches}
+                "K3": fa.dkv_launches, "K4": rms.launches,
+                "AdamW": adamw.launches}
 
     k5 = "void (anonymous namespace)::flashmask_fwd_sm90_kernel<128>(...)"
     check(not any(rx.search(k5) for rx in PROFILED_KERNELS.values()),
@@ -1100,13 +1208,15 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     ours = sum(r[1] for r in rows if ATTENTION_KERNELS.search(r[0]))
     k4 = [r for r in rows if RMS_NORM_KERNEL.search(r[0])]
     k4_ms = sum(r[1] for r in k4)
+    adamw_ms = sum(r[1] for r in rows
+                   if PROFILED_KERNELS["AdamW"].search(r[0]))
     # cuBLAS's kernels by name; a row already counted as one of ours is not
     gemm = sum(r[1] for r in rows
                if re.search(r"nvjet|gemm|cutlass|sm90_xmma", r[0])
-               and not ATTENTION_KERNELS.search(r[0])
-               and not RMS_NORM_KERNEL.search(r[0]))
+               and not any(rx.search(r[0])
+                           for rx in PROFILED_KERNELS.values()))
     launches = sum(r[2] for r in rows)
-    rest = total - ours - k4_ms - gemm
+    rest = total - ours - k4_ms - adamw_ms - gemm
     k3_ms = sum(r[1] for r in rows if PROFILED_KERNELS["K3"].search(r[0]))
     print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
           f"({total / step_ms:.1%} of the {step_ms:.3f} ms p50 step; idle "
@@ -1114,8 +1224,9 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
           f"step; K1+K2+K3 {ours:.3f} ms ({ours / total:.1%} of device "
           f"time; K3 {k3_ms:.3f} ms, {k3_ms / total:.1%}), K4 {k4_ms:.3f} "
           f"ms ({k4_ms / total:.1%}) in {sum(r[2] for r in k4):.0f} "
-          f"launches, cuBLAS GEMMs {gemm:.3f} ms ({gemm / total:.1%}), the "
-          f"rest {rest:.3f} ms", flush=True)
+          f"launches, AdamW {adamw_ms:.3f} ms ({adamw_ms / total:.1%}) in "
+          f"{profiled['AdamW']:.0f} launches, cuBLAS GEMMs {gemm:.3f} ms "
+          f"({gemm / total:.1%}), the rest {rest:.3f} ms", flush=True)
     for key, ms, count in rows[:16]:
         print(f"    {ms:8.3f} ms  x{count:<6.0f} {key[:100]}", flush=True)
     for key, ms, count in k4:
@@ -1126,55 +1237,76 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
 
 
 def phase_train(torch, gpt) -> dict:
-    """bench_gpt's accelerator arm on the port; returns the launches."""
+    """bench_gpt's accelerator arm on the port, graphed, held bit for bit
+    to the eager sequence; returns the launches and the profile."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-    print(f"== train: gpt2_small bf16 O2, TrainStep + AdamW(1e-4), "
-          f"{TRAIN_BATCH}x{TRAIN_SEQ} fixed batch, dropout 0", flush=True)
+    print(f"== train: gpt2_small bf16 O2, TrainStep (CUDA graph) + "
+          f"AdamW(1e-4), {TRAIN_BATCH}x{TRAIN_SEQ} fixed batch, dropout 0",
+          flush=True)
     cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
-    model, step = build_train_step(torch, gpt.GPTForCausalLM,
-                                   gpt.GPTPretrainingCriterion, cfg)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)).cuda()
+    reference = eager_reference(torch, gpt.GPTForCausalLM,
+                                gpt.GPTPretrainingCriterion, cfg, ids,
+                                GRAPH_WARMUP + TRAIN_STEPS)
+    model, step, _ = build_train_step(torch, gpt.GPTForCausalLM,
+                                      gpt.GPTPretrainingCriterion, cfg)
     first, losses, times, counts = run_timed_steps(torch, step, ids)
+    check_against_eager(torch, "train", first + losses,
+                        [p.detach() for p in model.parameters()], reference)
+    del reference
     flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
                            cfg.hidden_size, cfg.vocab_size)
     p50 = report_steps(torch, first, losses, times, TRAIN_BATCH * TRAIN_SEQ,
                        flops, "Megatron")
-    print(f"launches K1/K2/K3/K4 {counts} over {TRAIN_STEPS} steps",
+    per_step = adamw_launches_per_step(model)
+    print(f"launches K1/K2/K3/K4/AdamW {counts} over {TRAIN_STEPS} steps",
           flush=True)
     want = LAYERS * TRAIN_STEPS
-    check(counts == (want, want, want, 0),
+    check(counts == (want, want, want, 0, per_step * TRAIN_STEPS),
           f"launches {counts}, want {want} each of K1-K3 ({LAYERS} per "
+          f"step) and {per_step * TRAIN_STEPS} of AdamW ({per_step} per "
           f"step)")
     profile_steps(torch, step, ids, p50 * 1e3)
     del model, step
     torch.cuda.empty_cache()
 
-    print("== train with dropout: gpt2_small defaults (0.1), B=2 S=1024, 3 "
-          "steps, twice from one seed", flush=True)
+    steps = 4
+    print(f"== train with dropout: gpt2_small defaults (0.1), B=2 S=1024, "
+          f"{steps} steps graphed (eager, capture, replays), twice from one "
+          f"seed, against the eager sequence", flush=True)
     cfg = gpt.gpt2_small()
+    reference = eager_reference(torch, gpt.GPTForCausalLM,
+                                gpt.GPTPretrainingCriterion, cfg, ids[:2],
+                                steps, dropout_seed=7)
     runs = []
     for _ in range(2):
-        model, step = build_train_step(torch, gpt.GPTForCausalLM,
-                                       gpt.GPTPretrainingCriterion, cfg,
-                                       dropout_seed=7)
+        model, step, _ = build_train_step(torch, gpt.GPTForCausalLM,
+                                          gpt.GPTPretrainingCriterion, cfg,
+                                          dropout_seed=7)
         fa.dropout_launches.update(fwd=0, bwd_dq=0, bwd_dkv=0)
-        stream = [float(step(ids[:2]).float()) for _ in range(3)]
+        stream = [float(step(ids[:2]).float()) for _ in range(steps)]
         torch.cuda.synchronize()
         runs.append((stream, dict(fa.dropout_launches),
-                     [p.detach().clone() for p in model.parameters()]))
+                     [p.detach().clone() for p in model.parameters()],
+                     dict(step.stats)))
         del model, step
-    (a, launched, pa), (b, _, pb) = runs
+    (a, launched, pa, stats), (b, _, pb, _) = runs
     same = all(torch.equal(x, y) for x, y in zip(pa, pb))
-    print(f"losses {a} and {b}; parameters after 3 steps bitwise equal: "
-          f"{same}; launches with dropout {launched}", flush=True)
+    print(f"losses {a} and {b}; parameters after {steps} steps bitwise "
+          f"equal: {same}; launches with dropout {launched}; steps {stats}",
+          flush=True)
     check(a == b and same, "two dropout runs from one seed differ")
+    check_against_eager(torch, "train with dropout", a, pa, reference)
+    check(stats == {"compiled_steps": steps - 1, "eager_steps": 1},
+          f"dropout steps {stats}: not graphed after the first")
     check(all(math.isfinite(x) for x in a), f"non-finite loss {a}")
-    check(launched == {"fwd": 3 * LAYERS, "bwd_dq": 3 * LAYERS,
-                       "bwd_dkv": 3 * LAYERS},
+    check(launched == {"fwd": steps * LAYERS, "bwd_dq": steps * LAYERS,
+                       "bwd_dkv": steps * LAYERS},
           f"kernels did not run with dropout: {launched}")
-    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2]}
+    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+            "adamw": counts[4]}
 
 
 def device_time_ms(torch, fns, iters: int = 60) -> float:
@@ -1269,22 +1401,37 @@ def phase_llama_kernels(torch) -> dict:
                 # inputs enough to exceed L2, one launch on each in turn
                 n = max(2, math.ceil(120e6 / x.numel() / x.element_size()))
                 xs = [x] + [torch.randn_like(x) for _ in range(n - 1)]
-                ms = device_time_ms(torch, [
-                    lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS) for t in xs])
+                kernel_fns = [lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS)
+                              for t in xs]
+                lib_fns = [lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
+                           for t in xs]
+                # K4 and F.rms_norm in turns, RETIME_TRIALS times each: the
+                # least time of each and its spread (largest - least)
+                trials = {"kernel": [], "library": []}
+                for _ in range(RETIME_TRIALS):
+                    trials["kernel"].append(device_time_ms(torch, kernel_fns))
+                    trials["library"].append(device_time_ms(torch, lib_fns))
+                ms, lib_ms = min(trials["kernel"]), min(trials["library"])
+                spread = {k: max(v) - min(v) for k, v in trials.items()}
                 plain_ms = device_time_ms(torch, [
                     lambda t=t: rms.rms_norm_reference(t, w, RMS_EPS)
                     for t in xs], iters=20)
-                lib_ms = device_time_ms(torch, [
-                    lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
-                    for t in xs])
                 bound_ms, bound_by = rms_norm_bound(rows, d, dtype)
-                line += (f"  kernel {ms:.4f}  plain {plain_ms:.4f}  "
-                         f"F.rms_norm {lib_ms:.4f}  bound {bound_ms:.4f} "
-                         f"({bound_by})")
+                gap = ms - lib_ms
+                line += (f"  kernel {ms:.4f} (spread {spread['kernel']:.4f}"
+                         f")  plain {plain_ms:.4f}  F.rms_norm {lib_ms:.4f} "
+                         f"(spread {spread['library']:.4f}), least of "
+                         f"{RETIME_TRIALS} trials each  bound {bound_ms:.4f} "
+                         f"({bound_by})\n    K4 {dtype} against "
+                         f"F.rms_norm: {gap:+.4f} ms, "
+                         + ("loses by more than the spread"
+                            if gap > max(spread.values()) else
+                            "level within the spread"))
                 records[("rms_norm", dtype)] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms,
+                    "library_ms": lib_ms, "ms_spread": spread["kernel"],
+                    "library_spread": spread["library"],
                     "shape": f"rows={rows} d={d} {dtype}"}
                 del xs
             print(line, flush=True)
@@ -1362,32 +1509,41 @@ def phase_llama_model(torch, llama) -> None:
 
 
 def phase_train_llama(torch, llama) -> dict:
-    """bench_llama's accelerator arm on the port; returns the launches and
-    the profile's shares."""
+    """bench_llama's accelerator arm on the port, graphed, held bit for
+    bit to the eager sequence; returns the launches and the profile."""
     cfg = llama.llama_124m_gqa()
-    print(f"== train Llama: llama_124m_gqa bf16 O2, TrainStep + AdamW(1e-4), "
-          f"{LLAMA_BATCH}x{LLAMA_SEQ} fixed batch", flush=True)
-    model, step = build_train_step(torch, llama.LlamaForCausalLM,
-                                   llama.LlamaPretrainingCriterion, cfg)
+    print(f"== train Llama: llama_124m_gqa bf16 O2, TrainStep (CUDA graph) + "
+          f"AdamW(1e-4), {LLAMA_BATCH}x{LLAMA_SEQ} fixed batch", flush=True)
     ids = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    reference = eager_reference(torch, llama.LlamaForCausalLM,
+                                llama.LlamaPretrainingCriterion, cfg, ids,
+                                GRAPH_WARMUP + TRAIN_STEPS)
+    model, step, _ = build_train_step(torch, llama.LlamaForCausalLM,
+                                      llama.LlamaPretrainingCriterion, cfg)
     first, losses, times, counts = run_timed_steps(torch, step, ids)
+    check_against_eager(torch, "train Llama", first + losses,
+                        [p.detach() for p in model.parameters()], reference)
+    del reference
     flops = llama.llama_flops_per_step(LLAMA_BATCH, LLAMA_SEQ, cfg)
     p50 = report_steps(torch, first, losses, times, LLAMA_BATCH * LLAMA_SEQ,
                        flops, "bench.py _llama_flops_per_step")
     n = cfg.num_hidden_layers
-    print(f"launches K1/K2/K3/K4 {counts} over {TRAIN_STEPS} steps",
+    per_step = adamw_launches_per_step(model)
+    print(f"launches K1/K2/K3/K4/AdamW {counts} over {TRAIN_STEPS} steps",
           flush=True)
     want = n * TRAIN_STEPS
-    check(counts == (want, want, want, (2 * n + 1) * TRAIN_STEPS),
-          f"launches {counts}, want {want} each of K1-K3 ({n} per step) "
-          f"and {(2 * n + 1) * TRAIN_STEPS} of K4 ({2 * n + 1} per step)")
+    check(counts == (want, want, want, (2 * n + 1) * TRAIN_STEPS,
+                     per_step * TRAIN_STEPS),
+          f"launches {counts}, want {want} each of K1-K3 ({n} per step), "
+          f"{(2 * n + 1) * TRAIN_STEPS} of K4 ({2 * n + 1} per step) and "
+          f"{per_step * TRAIN_STEPS} of AdamW ({per_step} per step)")
     prof = profile_steps(torch, step, ids, p50 * 1e3)
     check(prof["rms_norm_rows"] > 0, "K4 has no row in the profile")
     del model, step
     torch.cuda.empty_cache()
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
-            "rms_norm": counts[3]}
+            "rms_norm": counts[3], "adamw": counts[4]}
 
 
 def flashmask_indices(rs, kind, b, hm, sq, sk) -> np.ndarray:
@@ -1810,6 +1966,92 @@ def phase_flashmask_path(torch) -> dict:
             "tiles": tiles}
 
 
+# AdamW(1e-4) as the training phases run it (decoupled decay 0.01), at
+# step 3 so both bias corrections are live
+ADAMW_ARGS = dict(beta1=0.9, beta2=0.999, eps=1e-8, coeff=0.01)
+# f32 operations per element: decay 1, m 3, v 4, the bias-corrected step 7
+ADAMW_OPS = 15
+
+
+def adamw_bound(numel: int, elem: int) -> tuple:
+    """Least time (ms) for one AdamW pass: p read and written in its own
+    type (``elem`` bytes), g read, f32 m and v read and written, over HBM
+    bandwidth, against ``ADAMW_OPS`` f32 operations per element."""
+    t_mem = numel * (3 * elem + 16) / PEAK_BYTES * 1e3
+    t_ops = numel * ADAMW_OPS / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def phase_adamw(torch, gpt) -> dict:
+    """The multi-tensor AdamW kernel against its plain version, bit for
+    bit, on every gpt2_small parameter in bf16 (as O2 trains them), with
+    seeded gradients and moments; timed beside the plain chain and
+    ``torch.optim.AdamW(fused=True)`` (a yardstick only: it keeps its
+    moments in the parameters' dtype, which is not the port's rule)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.cuda import adamw
+
+    print("== AdamW kernel: every gpt2_small parameter, bf16 (O2), kernel vs "
+          "plain bitwise; ms by CUDA events", flush=True)
+    dev = torch.device("cuda")
+    model = gpt.GPTForCausalLM(gpt.gpt2_small(),
+                               generator=torch.Generator().manual_seed(0))
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    params = [p.detach() for p in model.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(11)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in params]
+    m0 = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+          for p in params]
+    v0 = [torch.rand(p.shape, generator=gen, device=dev) * 1e-4
+          for p in params]
+    lr = torch.tensor(1e-4, device=dev)
+    step = torch.tensor(3, dtype=torch.int32, device=dev)
+    got, want = ([[t.clone() for t in ts] for ts in (params, m0, v0)]
+                 for _ in range(2))
+    del m0, v0
+    adamw.launches = 0
+    adamw.adamw_update(got[0], grads, got[1], got[2], lr, step, **ADAMW_ARGS)
+    launched = adamw.launches
+    adamw.adamw_reference(want[0], grads, want[1], want[2], lr, step,
+                          **ADAMW_ARGS)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for ga, gb in zip(got, want) for a, b in zip(ga, gb)]
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    numel = sum(p.numel() for p in params)
+    per_step = math.ceil(len(params) / adamw.MAX_TENSORS)
+    print(f"{len(params)} parameters, {numel} elements; p, m, v bitwise "
+          f"equal to the plain version: {equal}/{len(pairs)} (max abs err "
+          f"{err:.3g}); {launched} launches", flush=True)
+    check(equal == len(pairs), f"the AdamW kernel differs from its plain "
+          f"version in {len(pairs) - equal} tensors (max abs err {err})")
+    check(launched == per_step, f"{launched} AdamW launches, want {per_step}")
+    ms = cuda_time_ms(lambda: adamw.adamw_update(
+        got[0], grads, got[1], got[2], lr, step, **ADAMW_ARGS), iters=20)
+    plain_ms = cuda_time_ms(lambda: adamw.adamw_reference(
+        want[0], grads, want[1], want[2], lr, step, **ADAMW_ARGS),
+        iters=5, warmup=1)
+    del got, want
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    fused = torch.optim.AdamW(lib_params, lr=1e-4, weight_decay=0.01,
+                              fused=True)
+    lib_ms = cuda_time_ms(fused.step, iters=20)
+    bound_ms, bound_by = adamw_bound(numel, 2)
+    print(f"kernel {ms:.4f} ms ({numel * 22 / ms / 1e6:.1f} GB/s of 22 B "
+          f"an element)  plain {plain_ms:.4f}  torch.optim.AdamW(fused=True) "
+          f"{lib_ms:.4f} (bf16 moments)  bound {bound_ms:.4f} ({bound_by})",
+          flush=True)
+    shape = f"gpt2_small, {len(params)} bf16 tensors, {numel} elements"
+    del model, params, grads, lib_params, fused
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "shape": shape}
+
+
 def main() -> int:
     try:
         import torch
@@ -1846,6 +2088,7 @@ def main() -> int:
         trained_llama = phase_train_llama(torch, llama)
         phase_flashmask_kernels(torch)
         flashmask_path = phase_flashmask_path(torch)
+        adamw_record = phase_adamw(torch, gpt)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1917,6 +2160,14 @@ def main() -> int:
         if key == "fwd":
             entry["path"] = flashmask_path["path"]
         kernels.append(entry)
+    # no Pallas counterpart: the jnp AdamW update that XLA fuses
+    by_path = {"train": trained["adamw"], "train_llama": trained_llama["adamw"]}
+    kernels.append({
+        "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
+        "replaces": "paddle_tpu/optimizer/optimizers.py:90",
+        "pallas_counterpart": False,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **adamw_record})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

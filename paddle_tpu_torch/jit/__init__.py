@@ -1,4 +1,6 @@
-"""``paddle.jit`` for the port: the eager ``TrainStep`` and shape bucketing."""
+"""``paddle.jit`` for the port: ``TrainStep``, the ``CompiledFunction``
+graph cache it runs on, and shape bucketing."""
 from .api import TrainStep
+from .functionalize import CompiledFunction
 
-__all__ = ["TrainStep"]
+__all__ = ["CompiledFunction", "TrainStep"]

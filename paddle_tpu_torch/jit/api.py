@@ -1,12 +1,23 @@
-"""``TrainStep``, eager (port of ``paddle_tpu/jit/api.py``).
+"""``TrainStep`` (port of ``paddle_tpu/jit/api.py``).
 
 The JAX ``TrainStep`` compiles forward, backward and the optimizer update
-into one XLA program. Here a call runs them eagerly, in the same order:
-``loss = loss_fn(*batch)``, ``loss.backward()``, ``optimizer.step()``,
-``optimizer.clear_grad()``, and returns the loss. The learning rate rides
-in the optimizer's device scalar, rewritten only when ``get_lr()``
-changes, as the JAX step's LR cell is. A CUDA graph or ``torch.compile``
-of the step is later work (ROADMAP.md, queue 1).
+into one donated XLA program. Here the step function runs them in the
+same order: ``loss = loss_fn(*batch)``, ``loss.backward()``,
+``optimizer.step()``, ``optimizer.clear_grad()``, and returns the loss;
+a :class:`~.functionalize.CompiledFunction` runs it. On CUDA the first
+call of each signature runs eagerly, the second captures the whole step as
+one CUDA graph, and every call from then on is one replay of it, the
+optimizer's update inside it one multi-tensor AdamW kernel. There is no
+knob: the device decides, as the JAX package always compiles. On the CPU
+every call runs eagerly.
+
+The learning rate rides in the optimizer's device scalar, rewritten
+outside the graph before a call, only when ``get_lr()`` changes, as the
+JAX step's LR cell is; the step count is a device scalar that the graph
+advances. ``clear_grad`` sets every ``.grad`` to None, so the captured
+backward allocates the gradients from the graph's pool, at the same
+addresses on every replay. The model's CUDA generators (dropout) are
+registered with the graph, so a replay draws what an eager step would.
 
 Not ported, each raising ``NotImplementedError``: gradient accumulation
 (``grad_accum_steps != 1``), shape bucketing (``bucket_axes``) and
@@ -14,9 +25,12 @@ Not ported, each raising ``NotImplementedError``: gradient accumulation
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, List, Optional
+
+import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from .functionalize import CompiledFunction
 
 __all__ = ["TrainStep"]
 
@@ -52,10 +66,47 @@ class TrainStep:
         self.model = model
         self.optimizer = optimizer
         self.loss_fn = loss_fn
+        base_key = ((lambda: "train" if model.training else "eval")
+                    if model is not None else (lambda: "fn"))
+
+        # a closure over the arguments, not over self: the cache holds the
+        # function, and a cycle back to the step would keep the graphs'
+        # memory alive until the garbage collector ran
+        def step_fn(*batch):
+            loss = loss_fn(*batch)
+            loss.backward()
+            optimizer.step()
+            optimizer.clear_grad()
+            return loss.detach()
+
+        self._compiled = CompiledFunction(
+            step_fn, static_key_fn=base_key, name="train_step", device=dev,
+            generators=_cuda_generators(model))
 
     def __call__(self, *batch):
-        loss = self.loss_fn(*batch)
-        loss.backward()
-        self.optimizer.step()
-        self.optimizer.clear_grad()
-        return loss.detach()
+        # refresh the LR cell before the graph, only when it changed: a
+        # refresh captured into the graph would replay a stale LR
+        self.optimizer._device_lr()
+        return self._compiled(*batch)
+
+    @property
+    def stats(self) -> dict:
+        """Steps run as graph replays and steps run eagerly."""
+        return self._compiled.stats
+
+    def audit_report(self) -> dict:
+        """Captures and replays per cache key, and the run accounting."""
+        return self._compiled.audit_report()
+
+
+def _cuda_generators(model) -> List[torch.Generator]:
+    """The distinct CUDA generators the model's modules hold (dropout)."""
+    if model is None:
+        return []
+    found = {}
+    for mod in model.modules():
+        for value in vars(mod).values():
+            if isinstance(value, torch.Generator) \
+                    and value.device.type == "cuda":
+                found[id(value)] = value
+    return list(found.values())

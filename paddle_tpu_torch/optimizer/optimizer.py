@@ -1,11 +1,13 @@
 """Optimizer base (port of ``paddle_tpu/optimizer/optimizer.py``).
 
-Plain tensor code over the parameters' own storage, updated in place under
+The update runs over the parameters' own storage, in place under
 ``no_grad``. Accumulators are f32 whatever the parameter's dtype, as
 ``_get_accumulator`` makes them. The learning rate and the step count live
 in device scalars: the LR scalar is refreshed only when ``get_lr()``
 changes, so a constant-LR step sends nothing from the host, and the bias
-correction reads the step count on the device.
+correction reads the step count on the device. A step inside a CUDA graph
+capture must find the LR scalar current (``TrainStep`` refreshes it before
+each call): a refresh captured into the graph would replay a stale LR.
 
 Not ported, each raising ``NotImplementedError``: learning-rate scheduler
 objects (``optimizer/lr.py``), ``grad_clip`` and parameter groups
@@ -65,9 +67,15 @@ class Optimizer:
         self._learning_rate = float(value)
 
     def _device_lr(self) -> torch.Tensor:
-        """The LR as an f32 device scalar, written only when it changed."""
+        """The LR as an f32 device scalar, written only when it changed;
+        raises if it changed while a CUDA graph is being captured."""
         lr = self.get_lr()
         if lr != self._lr_host:
+            if self._lr_cell.is_cuda and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "the learning rate changed inside a CUDA graph capture: "
+                    "refresh it before the capture (TrainStep does)")
             self._lr_cell.fill_(lr)
             self._lr_host = lr
         return self._lr_cell
@@ -86,29 +94,19 @@ class Optimizer:
     def step(self) -> None:
         self._step_tensor += 1
         lr = self._device_lr()
-        for i, p in enumerate(self._parameter_list):
-            if p.grad is None or not p.requires_grad:
-                continue
-            self._apply_one(i, p, p.grad, lr, self._weight_decay)
+        live = [(i, p) for i, p in enumerate(self._parameter_list)
+                if p.grad is not None and p.requires_grad]
+        if live:
+            self._update(live, lr)
 
-    def _apply_one(self, index, p, g, lr, weight_decay):
+    def _update(self, live, lr) -> None:
+        """Update every ``(index, parameter)`` of ``live`` from its
+        ``.grad``."""
         raise NotImplementedError
-
-    def _step_value(self) -> torch.Tensor:
-        """The step count as an f32 device scalar, for bias corrections."""
-        return self._step_tensor.float()
 
     def clear_grad(self) -> None:
         for p in self._parameter_list:
             p.grad = None
-
-    @staticmethod
-    def _decayed_grad(p, g, weight_decay):
-        """L2Decay-style regularization folded into the gradient, in the
-        parameter's dtype as the JAX package computes it."""
-        if weight_decay is None:
-            return g
-        return g + float(weight_decay) * p
 
     # ------------------------------------------------ state dict
     def state_dict(self) -> dict:

@@ -5,7 +5,9 @@ is computed in f32 from the parameter read in its own dtype and is stored
 back in the parameter's dtype: there is no separate f32 master copy, so a
 bf16 parameter rounds at every update (and AdamW's decoupled decay rounds
 it once more before the Adam step). ``torch.optim.AdamW`` keeps its
-moments in the parameter's dtype, which is not this rule.
+moments in the parameter's dtype, which is not this rule. A step updates
+all parameters at once through ``ops/cuda/adamw.py``: the multi-tensor
+kernel for CUDA parameters, its plain per-tensor version for CPU ones.
 
 Not ported, each raising ``NotImplementedError``: ``amsgrad``,
 ``lazy_mode``, ``lr_ratio`` and ``apply_decay_param_fun`` (ROADMAP.md,
@@ -13,9 +15,8 @@ queue 1).
 """
 from __future__ import annotations
 
-import torch
-
 from ..device import DEFAULT_DEVICE
+from ..ops.cuda import adamw
 from .optimizer import Optimizer
 
 __all__ = ["Adam", "AdamW"]
@@ -40,18 +41,17 @@ class Adam(Optimizer):
         super().__init__(learning_rate, parameters, weight_decay, grad_clip,
                          device=device)
         self._beta1, self._beta2, self._eps = beta1, beta2, epsilon
+        self._coeff = 0.0
 
-    def _apply_one(self, index, p, g, lr, weight_decay):
-        gv = self._decayed_grad(p, g, weight_decay).float()
-        m = self._get_accumulator("moment1", index, p)
-        v = self._get_accumulator("moment2", index, p)
-        t = self._step_value()
-        m.mul_(self._beta1).add_((1 - self._beta1) * gv)
-        v.mul_(self._beta2).add_((1 - self._beta2) * gv * gv)
-        mhat = m / (1 - self._beta1 ** t)
-        vhat = v / (1 - self._beta2 ** t)
-        p.copy_((p.float() - lr * mhat / (vhat.sqrt() + self._eps))
-                .to(p.dtype))
+    def _update(self, live, lr):
+        params = [p for _, p in live]
+        adamw.adamw_update(
+            params, [p.grad for p in params],
+            [self._get_accumulator("moment1", i, p) for i, p in live],
+            [self._get_accumulator("moment2", i, p) for i, p in live],
+            lr, self._step_tensor, beta1=self._beta1, beta2=self._beta2,
+            eps=self._eps, coeff=self._coeff,
+            weight_decay=self._weight_decay, device=self._device)
 
 
 class AdamW(Adam):
@@ -71,8 +71,3 @@ class AdamW(Adam):
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
                          None, grad_clip, lazy_mode, amsgrad, device=device)
         self._coeff = float(weight_decay)
-
-    def _apply_one(self, index, p, g, lr, weight_decay):
-        if self._coeff:
-            p.copy_((p.float() * (1 - lr * self._coeff)).to(p.dtype))
-        super()._apply_one(index, p, g, lr, None)
