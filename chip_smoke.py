@@ -10,8 +10,9 @@ Phases, each of which fails the run on any error:
    cuda/csrc``, one ``nvcc`` per source, all at once; print each kernel's
    registers and spills (none allowed in a tensor-core kernel at D = 64
    without dropout, nor in a FlashMask one at D = 128, nor in any
-   instantiation of an f32 3×TF32 one, dropout included, nor in the AdamW
-   kernel, which must keep no stack frame either), and check with
+   instantiation of an f32 3×TF32 one, dropout included, nor in any
+   instantiation of the RMSNorm forward (K4) and backward kernels, nor in
+   the AdamW kernel, which must keep no stack frame either), and check with
    ``cuobjdump -sass`` that every attention kernel (bf16 K1, K2, K3, K5,
    K6 and K7; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all on the tensor
    cores) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
@@ -65,8 +66,17 @@ Phases, each of which fails the run on any error:
     version at rows x d = 8192 x 768 (the training shape), 4 x 768,
     1000 x 768, 256 x 4096 (llama2_7b / llama3_8b's width) and 8 x 100 (odd
     d), f32 and bf16, timed at the training shape beside its bound, its
-    plain version and ``torch.nn.functional.rms_norm`` (a yardstick only;
-    K4 and it in turns, the least of 5 trials each with their spread);
+    plain version, ``torch.nn.functional.rms_norm`` (a yardstick only;
+    K4 and it in turns, the least of 5 trials each with their spread) and a
+    bare copy of x (``clone``, the card's practical rate for the same
+    bytes); the
+    RMSNorm backward kernel (no Pallas counterpart: XLA fuses the jnp
+    ``_bwd``) against its plain version at the same shapes (dx and dw; f32
+    also against the plain version computed in float64, the f32 plain
+    version's own error printed beside it), two calls bitwise equal, timed
+    at the training shape beside its bound, the plain chain and the
+    autograd backward of ``torch.nn.functional.rms_norm`` (a yardstick
+    only; kernel and it in turns, least of 5 trials each with spreads);
     K1–K3 against their plain versions at the Llama training shape (B=4,
     S=2048, H=12, D=64, bf16, causal, k and v expanded from 4 KV heads by
     ``repeat_interleave``), timed there beside their bounds and SDPA, and
@@ -76,15 +86,18 @@ Phases, each of which fails the run on any error:
     4096, 32 heads over 8 KV heads, D=128, vocab 128256) with seeded random
     weights: f32 logits on the card (K1 at D=128, K4 at d=4096) against the
     CPU; then every gradient of ``llama_124m_gqa`` (f32, B=1, S=256) on the
-    card (K1–K4) against the CPU;
+    card (K1–K4 and the RMSNorm backward kernel, two launches a call)
+    against the CPU;
 12. train Llama — ``bench.py``'s ``bench_llama`` accelerator arm on the
     port: ``llama_124m_gqa`` in bf16 O2 under ``TrainStep`` with
     ``AdamW(1e-4)`` on one batch of 4 x 2048 ids, graphed and held bit for
     bit to the eager sequence as in phase 9 (tokens/s, step ms, MFU, peak
     memory, losses, launches exactly 12 per step for each of K1–K3, 25
-    for K4 and one AdamW launch per 64 parameters), a profiler breakdown
-    of 2 more steps after a warmup step (launches checked as in phase 9)
-    with K3's share and K4's own row;
+    for K4, 25 calls of the RMSNorm backward (50 launches) and one AdamW
+    launch per 64 parameters), a profiler breakdown of 2 more steps after
+    a warmup step (launches checked as in phase 9, the backward's two
+    kernels included) with K3's share and the rows of K4 and of the
+    backward;
 13. FlashMask kernels — K5 (forward), K6 (dQ) and K7 (dK/dV) against
     their plain versions over the documented index layouts: causal
     documents, causal share-question (ncol 2), causal with fully masked
@@ -161,6 +174,10 @@ RMS_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
 RMS_SHAPES = ((8192, 768), (4, 768), (1000, 768), (256, 4096), (8, 100))
 RMS_EPS = 1e-5  # LlamaConfig.rms_norm_eps
 RETIME_TRIALS = 5  # K4 and F.rms_norm, timed in turns at the training shape
+# RMSNorm backward kernel against its plain version: f32 dx and dw within
+# 1e-5 of the gradient's max (and of the float64 plain version); bf16
+# within one bf16 step (2^-7 of the value) plus 1e-3
+RMS_BWD_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
 # H100 SXM data-sheet peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -306,16 +323,21 @@ def phase_build() -> float:
     seconds = time.perf_counter() - t0
     for name, log in sorted(_build.ptxas_report.items()):
         # one "entry function" line, then its spill and register lines
-        rows, entry, tc, opt = [], None, None, None
+        rows, entry, tc, opt, norm = [], None, None, None, None
         for ln in log.splitlines():
             m = re.search(r"Compiling entry function '(\S+)'", ln)
             if m:
                 entry, spill, stack = m.group(1), "?", "?"
                 tc = TC_KERNEL.search(entry)
-                # S1_: the mangler's back-reference to the first type
-                r = re.search(r"rms_norm_kernelI(13__nv_bfloat16|f)"
-                              r"(13__nv_bfloat16|f|S1_)Li(\d+)ELi(\d+)E",
-                              entry)
+                # the RMSNorm forward (K4) and backward kernels' <TX, TW,
+                # VEC, TPR, NV>; S<n>_: the mangler's back-reference to the
+                # first type
+                r = re.search(r"rms_norm_(bwd_)?kernelI(13__nv_bfloat16|f)"
+                              r"(13__nv_bfloat16|f|S\d*_)Li(\d+)ELi(\d+)E"
+                              r"Li(\d+)E", entry)
+                dw = re.search(r"rms_norm_dw_kernelI(13__nv_bfloat16|f)E",
+                               entry)
+                norm = "rms_norm" in entry
                 opt = re.search(r"adamw_kernelI(13__nv_bfloat16|f)E", entry)
                 if tc:
                     kind = "bf16" if tc.group(2) == "sm90" else "f32 3xTF32"
@@ -323,10 +345,17 @@ def phase_build() -> float:
                              f"{' dropout' if tc.group(4) == '1' else ''}")
                 elif r:
                     x, w = ("bf16" if g != "f" else "f32" for g in (
-                        r.group(1), r.group(1) if r.group(2) == "S1_"
-                        else r.group(2)))
-                    entry = (f"rms_norm x {x} w {w} vec {r.group(3)} "
-                             f"threads/row {r.group(4)}")
+                        r.group(2), r.group(2) if r.group(3).startswith("S")
+                        else r.group(3)))
+                    nv = r.group(6)
+                    entry = (f"rms_norm{' bwd' if r.group(1) else ''} x {x} "
+                             f"w {w} vec {r.group(4)} threads/row "
+                             f"{r.group(5)} "
+                             + (f"vectors/thread {nv}" if nv != "0"
+                                else "loop"))
+                elif dw:
+                    entry = ("rms_norm dw " + ("f32" if dw.group(1) == "f"
+                                               else "bf16"))
                 elif opt:
                     entry = ("adamw " + ("f32" if opt.group(1) == "f"
                                          else "bf16"))
@@ -346,6 +375,11 @@ def phase_build() -> float:
                 if tc and (tc.group(2) == "tf32" or tc.group(4) != "1" and (
                         tc.group(3) == "64"
                         or tc.group(1).startswith("flashmask"))):
+                    check(spill == "0", f"{entry} spills {spill} B")
+                # every RMSNorm instantiation holds its row in registers
+                # (or loops) without spilling
+                if norm:
+                    rows[-1] += f", {stack} B stack"
                     check(spill == "0", f"{entry} spills {spill} B")
                 # the AdamW kernel indexes its __grid_constant__ tensor
                 # list in the parameter space: no copy to a stack frame
@@ -939,16 +973,18 @@ def grad_check(model, crit, ids) -> tuple:
 def compare_gradients(torch, model_cls, crit, cfg, ids) -> tuple:
     """Every gradient of ``model_cls(cfg)`` (seeded weights, training mode)
     on the card against the CPU plain path, within ``GRAD_REL_TOL`` of the
-    tensor's max. Returns the card run's launches of K1, K2, K3, K4 and a
-    summary line."""
+    tensor's max. Returns the card run's launches of K1, K2, K3, K4 and the
+    RMSNorm backward kernel, and a summary line."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
     card = model_cls(cfg, generator=torch.Generator().manual_seed(0))
     fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
+    rms.bwd_launches = 0
     loss_card, g_card = grad_check(card.train(), crit,
                                    torch.from_numpy(ids).cuda())
-    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches,
+              rms.bwd_launches)
     del card
     torch.cuda.empty_cache()
     cpu = model_cls(cfg, device="cpu",
@@ -968,7 +1004,7 @@ def compare_gradients(torch, model_cls, crit, cfg, ids) -> tuple:
     return counts, (f"loss card {loss_card:.6f} CPU {loss_cpu:.6f}; "
                     f"{len(g_cpu)} gradients within {GRAD_REL_TOL} of their "
                     f"max; worst {worst:.2e} ({worst_name}); launches "
-                    f"K1/K2/K3/K4 {counts}")
+                    f"K1/K2/K3/K4/K4-bwd {counts}")
 
 
 def phase_gradients(torch, gpt) -> None:
@@ -980,8 +1016,9 @@ def phase_gradients(torch, gpt) -> None:
     counts, line = compare_gradients(torch, gpt.GPTForCausalLM,
                                      gpt.GPTPretrainingCriterion(cfg), cfg,
                                      ids)
-    check(counts == (LAYERS, LAYERS, LAYERS, 0),
-          f"K1/K2/K3/K4 launches {counts}, want {LAYERS} each of K1-K3")
+    check(counts == (LAYERS, LAYERS, LAYERS, 0, 0),
+          f"K1/K2/K3/K4/K4-bwd launches {counts}, want {LAYERS} each of "
+          f"K1-K3")
     print(line, flush=True)
 
 
@@ -1074,7 +1111,8 @@ def run_timed_steps(torch, step, ids) -> tuple:
     synchronize), every one a graph replay, with every launch count set to
     0 just before them and read just after; fails if an operand was
     copied for TMA or a timed step did not replay. Returns (warmup losses,
-    losses, step seconds, launches of K1, K2, K3, K4, AdamW)."""
+    losses, step seconds, launches of K1, K2, K3, K4, AdamW, the RMSNorm
+    backward)."""
     from paddle_tpu_torch.ops.cuda import adamw
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
@@ -1085,7 +1123,7 @@ def run_timed_steps(torch, step, ids) -> tuple:
     stats = dict(step.stats)
     # the main path's run: counts from 0, read right after it
     fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
-    fa.tma_copies = adamw.launches = 0
+    fa.tma_copies = adamw.launches = rms.bwd_launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -1095,7 +1133,7 @@ def run_timed_steps(torch, step, ids) -> tuple:
         times.append(time.perf_counter() - t0)
         losses.append(loss)
     counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches,
-              adamw.launches)
+              adamw.launches, rms.bwd_launches)
     check(fa.tma_copies == 0, f"{fa.tma_copies} operands were copied for "
           f"TMA on the training path")
     print(f"operands copied for TMA: {fa.tma_copies}", flush=True)
@@ -1132,18 +1170,22 @@ def report_steps(torch, first, losses, times, tokens, flops, formula) -> float:
 # the port's kernels by their exact names in the profiler's rows (the
 # demangled "void (anonymous namespace)::fwd_sm90_kernel<...>(...)"): K1,
 # K2 and K3 in either dtype's kernel (fwd_sm90_kernel, fwd_tf32_kernel,
-# dkv_tf32_kernel, ...), K4 and the AdamW kernel, whatever else is named
-# *_kernel. K5's flashmask_fwd_sm90_kernel matches none of them
+# dkv_tf32_kernel, ...), K4, the RMSNorm backward's two kernels and the
+# AdamW kernel, whatever else is named *_kernel. K5's
+# flashmask_fwd_sm90_kernel matches none of them, and K4's pattern none of
+# the backward's
 PROFILED_KERNELS = {
     "K1": re.compile(r"(?:^|[\s:])fwd(?:_sm90|_tf32)?_kernel<"),
     "K2": re.compile(r"(?:^|[\s:])dq(?:_sm90|_tf32)?_kernel<"),
     "K3": re.compile(r"(?:^|[\s:])dkv(?:_sm90|_tf32)?_kernel<"),
     "K4": re.compile(r"(?:^|[\s:])rms_norm_kernel<"),
+    "K4 bwd": re.compile(r"(?:^|[\s:])rms_norm_(?:bwd|dw)_kernel<"),
     "AdamW": re.compile(r"(?:^|[\s:])adamw_kernel<"),
 }
 ATTENTION_KERNELS = re.compile(
     r"(?:^|[\s:])(?:fwd|dq|dkv)(?:_sm90|_tf32)?_kernel<")
 RMS_NORM_KERNEL = PROFILED_KERNELS["K4"]
+RMS_NORM_BWD_KERNEL = PROFILED_KERNELS["K4 bwd"]
 # The profiler keeps only the device events whose timestamps fall inside
 # its window, and the card's clock may read ahead of or behind the host's:
 # a kernel launched just after the window opened was lost there (K1 and
@@ -1158,8 +1200,9 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     ``PROFILE_PAD_S`` inside each end of the window, so that no kernel at
     its edges falls outside it; the profile's launches of K1–K4 per step
     must equal the launch counters over the same steps, and so must the
-    AdamW kernel's. Returns the ms per step of K1–K3 together, of K4, and
-    of all device work."""
+    RMSNorm backward's and the AdamW kernel's. Returns the ms per step of
+    K1–K3 together, of K4, of the RMSNorm backward, of the element-wise
+    rest, and of all device work."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1170,11 +1213,16 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     def counters():
         return {"K1": fa.launches, "K2": fa.dq_launches,
                 "K3": fa.dkv_launches, "K4": rms.launches,
-                "AdamW": adamw.launches}
+                "K4 bwd": rms.bwd_launches, "AdamW": adamw.launches}
 
     k5 = "void (anonymous namespace)::flashmask_fwd_sm90_kernel<128>(...)"
     check(not any(rx.search(k5) for rx in PROFILED_KERNELS.values()),
           "the profile would count K5 as one of K1-K4")
+    for name in ("rms_norm_bwd_kernel", "rms_norm_dw_kernel"):
+        row = f"void (anonymous namespace)::{name}<float, float, 4, 32, 6>(...)"
+        check(not RMS_NORM_KERNEL.search(row)
+              and RMS_NORM_BWD_KERNEL.search(row),
+              f"the profile would count {name} as K4")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=0, warmup=1, active=steps,
                                    repeat=1)) as prof:
@@ -1208,6 +1256,8 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
     ours = sum(r[1] for r in rows if ATTENTION_KERNELS.search(r[0]))
     k4 = [r for r in rows if RMS_NORM_KERNEL.search(r[0])]
     k4_ms = sum(r[1] for r in k4)
+    k4_bwd = [r for r in rows if RMS_NORM_BWD_KERNEL.search(r[0])]
+    k4_bwd_ms = sum(r[1] for r in k4_bwd)
     adamw_ms = sum(r[1] for r in rows
                    if PROFILED_KERNELS["AdamW"].search(r[0]))
     # cuBLAS's kernels by name; a row already counted as one of ours is not
@@ -1216,7 +1266,7 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
                and not any(rx.search(r[0])
                            for rx in PROFILED_KERNELS.values()))
     launches = sum(r[2] for r in rows)
-    rest = total - ours - k4_ms - adamw_ms - gemm
+    rest = total - ours - k4_ms - k4_bwd_ms - adamw_ms - gemm
     k3_ms = sum(r[1] for r in rows if PROFILED_KERNELS["K3"].search(r[0]))
     print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
           f"({total / step_ms:.1%} of the {step_ms:.3f} ms p50 step; idle "
@@ -1224,16 +1274,21 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
           f"step; K1+K2+K3 {ours:.3f} ms ({ours / total:.1%} of device "
           f"time; K3 {k3_ms:.3f} ms, {k3_ms / total:.1%}), K4 {k4_ms:.3f} "
           f"ms ({k4_ms / total:.1%}) in {sum(r[2] for r in k4):.0f} "
-          f"launches, AdamW {adamw_ms:.3f} ms ({adamw_ms / total:.1%}) in "
+          f"launches, K4's backward {k4_bwd_ms:.3f} ms "
+          f"({k4_bwd_ms / total:.1%}) in {profiled['K4 bwd']:.0f} launches, "
+          f"AdamW {adamw_ms:.3f} ms ({adamw_ms / total:.1%}) in "
           f"{profiled['AdamW']:.0f} launches, cuBLAS GEMMs {gemm:.3f} ms "
           f"({gemm / total:.1%}), the rest {rest:.3f} ms", flush=True)
     for key, ms, count in rows[:16]:
         print(f"    {ms:8.3f} ms  x{count:<6.0f} {key[:100]}", flush=True)
-    for key, ms, count in k4:
-        print(f"    K4 row: {ms:8.3f} ms  x{count:<6.0f} {key[:100]}",
-              flush=True)
+    for label, group in (("K4", k4), ("K4 bwd", k4_bwd)):
+        for key, ms, count in group:
+            print(f"    {label} row: {ms:8.3f} ms  x{count:<6.0f} "
+                  f"{key[:100]}", flush=True)
     return {"attention_ms": ours, "rms_norm_ms": k4_ms,
-            "rms_norm_rows": len(k4), "device_ms": total}
+            "rms_norm_rows": len(k4), "rms_norm_bwd_ms": k4_bwd_ms,
+            "rms_norm_bwd_rows": len(k4_bwd), "rest_ms": rest,
+            "device_ms": total}
 
 
 def phase_train(torch, gpt) -> dict:
@@ -1261,10 +1316,10 @@ def phase_train(torch, gpt) -> dict:
     p50 = report_steps(torch, first, losses, times, TRAIN_BATCH * TRAIN_SEQ,
                        flops, "Megatron")
     per_step = adamw_launches_per_step(model)
-    print(f"launches K1/K2/K3/K4/AdamW {counts} over {TRAIN_STEPS} steps",
-          flush=True)
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts} over {TRAIN_STEPS} "
+          f"steps", flush=True)
     want = LAYERS * TRAIN_STEPS
-    check(counts == (want, want, want, 0, per_step * TRAIN_STEPS),
+    check(counts == (want, want, want, 0, per_step * TRAIN_STEPS, 0),
           f"launches {counts}, want {want} each of K1-K3 ({LAYERS} per "
           f"step) and {per_step * TRAIN_STEPS} of AdamW ({per_step} per "
           f"step)")
@@ -1341,6 +1396,79 @@ def rms_norm_bound(rows: int, d: int, dtype: str) -> tuple:
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
+# f32 operations per element of the RMSNorm backward: x² and g·w·x into
+# the row sums (fma, mul, fma), xn, g·xn into dw (fma), dx (mul, fma, mul)
+RMS_BWD_OPS = 11
+
+
+def rms_norm_bwd_bound(rows: int, d: int, dtype: str) -> tuple:
+    """Least time (ms) for one backward call: x and g read and dx written
+    once, w read and dw written once (d elements each), over HBM
+    bandwidth, against its ``RMS_BWD_OPS`` f32 operations per element on
+    the CUDA cores. The blocks' dw partials are the kernel's own scratch
+    and are not counted."""
+    elem = 4 if dtype == "float32" else 2
+    nbytes = (3 * rows + 2) * d * elem
+    t_mem = nbytes / PEAK_BYTES * 1e3
+    t_ops = RMS_BWD_OPS * rows * d / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def _rms_bwd_within(torch, got, want, dtype) -> bool:
+    err = (got.float() - want.float()).abs()
+    if dtype == "float32":
+        return bool((err <= RMS_BWD_TOL[dtype]
+                     * want.float().abs().max()).all())
+    rel, atol = RMS_BWD_TOL[dtype]
+    return bool((err <= rel * want.float().abs() + atol).all())
+
+
+def compare_rms_norm_bwd(torch, rms, x, w, g, dtype) -> dict:
+    """The RMSNorm backward kernel against its plain version on the same
+    card tensors (f32 also against the plain version computed in float64,
+    beside the f32 plain version's own error there); two calls must give
+    the same bits. Fails past ``RMS_BWD_TOL``. Returns the max abs errors
+    of dx and dw (and, in f32, against float64)."""
+    got = rms.rms_norm_bwd(x, w, g, RMS_EPS)
+    again = rms.rms_norm_bwd(x, w, g, RMS_EPS)
+    want = rms.rms_norm_bwd_reference(x, w, g, RMS_EPS)
+    torch.cuda.synchronize()
+    where = f"K4's backward vs plain at {tuple(x.shape)} {dtype}"
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{where}: two calls on the same inputs differ")
+    errs = {}
+    for name, a, b in zip(("dx", "dw"), got, want):
+        check(a.shape == b.shape and a.dtype == b.dtype
+              and bool(torch.isfinite(a.float()).all()),
+              f"{where}: {name} {tuple(a.shape)} {a.dtype}, not finite or "
+              f"not {tuple(b.shape)} {b.dtype}")
+        errs[name] = float((a.float() - b.float()).abs().max())
+        check(_rms_bwd_within(torch, a, b, dtype),
+              f"{where}: {name} err {errs[name]:.3g}")
+    if dtype == "float32":
+        exact = rms.rms_norm_bwd_reference(x.double(), w.double(),
+                                           g.double(), RMS_EPS)
+        for name, a, plain, b in zip(("dx", "dw"), got, want, exact):
+            errs[name + "_f64"] = float((a.double() - b).abs().max())
+            errs[name + "_plain_f64"] = float((plain.double() - b).abs().max())
+            check(_rms_bwd_within(torch, a, b, dtype),
+                  f"{where}: {name} err {errs[name + '_f64']:.3g} against "
+                  f"float64")
+    return errs
+
+
+def time_in_turns(torch, kernel_fns, lib_fns) -> tuple:
+    """``RETIME_TRIALS`` trials each of the kernel's and the library's
+    calls, in turns: the least time of each and its spread (largest -
+    least)."""
+    trials = {"kernel": [], "library": []}
+    for _ in range(RETIME_TRIALS):
+        trials["kernel"].append(device_time_ms(torch, kernel_fns))
+        trials["library"].append(device_time_ms(torch, lib_fns))
+    spread = {k: max(v) - min(v) for k, v in trials.items()}
+    return min(trials["kernel"]), min(trials["library"]), spread
+
+
 def compare_rms_norm(torch, rms, x, w, dtype) -> float:
     """K4 against its plain version on the same card tensors; fails past
     ``RMS_TOL``. Returns the max abs error."""
@@ -1383,8 +1511,9 @@ def phase_llama_kernels(torch) -> dict:
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
     import torch.nn.functional as TF
 
-    print("== Llama kernels: K4 (rms_norm) vs plain vs F.rms_norm; K1-K3 at "
-          "the Llama shapes (ms by CUDA events)", flush=True)
+    print("== Llama kernels: K4 (rms_norm) and its backward vs plain vs "
+          "F.rms_norm; K1-K3 at the Llama shapes (ms by CUDA events)",
+          flush=True)
     dev = torch.device("cuda")
     rs = np.random.RandomState(8)
     records = {}
@@ -1395,45 +1524,87 @@ def phase_llama_kernels(torch) -> dict:
                                  * 3).to(dev, dt)
             w = torch.from_numpy(rs.uniform(0.5, 1.5, d).astype(
                 np.float32)).to(dev, dt)
+            g = torch.from_numpy(rs.randn(rows, d).astype(np.float32)).to(
+                dev, dt)
             err = compare_rms_norm(torch, rms, x, w, dtype)
-            line = f"K4 rows={rows:5d} d={d:4d} {dtype:8s} err {err:.2e}"
+            berrs = compare_rms_norm_bwd(torch, rms, x, w, g, dtype)
+            line = (f"K4 rows={rows:5d} d={d:4d} {dtype:8s} err {err:.2e}; "
+                    f"backward err dx {berrs['dx']:.2e} dw {berrs['dw']:.2e}"
+                    + (f" (float64: dx {berrs['dx_f64']:.2e}, plain "
+                       f"{berrs['dx_plain_f64']:.2e}; dw {berrs['dw_f64']:.2e}"
+                       f", plain {berrs['dw_plain_f64']:.2e})"
+                       if dtype == "float32" else "")
+                    + ", two calls bitwise equal")
             if (rows, d) == RMS_SHAPES[0]:
                 # inputs enough to exceed L2, one launch on each in turn
                 n = max(2, math.ceil(120e6 / x.numel() / x.element_size()))
                 xs = [x] + [torch.randn_like(x) for _ in range(n - 1)]
-                kernel_fns = [lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS)
-                              for t in xs]
-                lib_fns = [lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
-                           for t in xs]
-                # K4 and F.rms_norm in turns, RETIME_TRIALS times each: the
-                # least time of each and its spread (largest - least)
-                trials = {"kernel": [], "library": []}
-                for _ in range(RETIME_TRIALS):
-                    trials["kernel"].append(device_time_ms(torch, kernel_fns))
-                    trials["library"].append(device_time_ms(torch, lib_fns))
-                ms, lib_ms = min(trials["kernel"]), min(trials["library"])
-                spread = {k: max(v) - min(v) for k, v in trials.items()}
+                gs = [g] + [torch.randn_like(g) for _ in range(n - 1)]
+                # K4 and F.rms_norm in turns
+                ms, lib_ms, spread = time_in_turns(
+                    torch, [lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS)
+                            for t in xs],
+                    [lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
+                     for t in xs])
                 plain_ms = device_time_ms(torch, [
                     lambda t=t: rms.rms_norm_reference(t, w, RMS_EPS)
                     for t in xs], iters=20)
+                # the card's practical rate for these bytes: a bare copy
+                # of x, its output allocated per call as K4's is
+                copy_ms = device_time_ms(torch, [lambda t=t: t.clone()
+                                                 for t in xs])
                 bound_ms, bound_by = rms_norm_bound(rows, d, dtype)
                 gap = ms - lib_ms
-                line += (f"  kernel {ms:.4f} (spread {spread['kernel']:.4f}"
-                         f")  plain {plain_ms:.4f}  F.rms_norm {lib_ms:.4f} "
-                         f"(spread {spread['library']:.4f}), least of "
+                line += (f"\n    K4: kernel {ms:.4f} (spread "
+                         f"{spread['kernel']:.4f})  plain {plain_ms:.4f}  "
+                         f"F.rms_norm {lib_ms:.4f} (spread "
+                         f"{spread['library']:.4f}), least of "
                          f"{RETIME_TRIALS} trials each  bound {bound_ms:.4f} "
-                         f"({bound_by})\n    K4 {dtype} against "
-                         f"F.rms_norm: {gap:+.4f} ms, "
+                         f"({bound_by}, {bound_ms / ms:.0%} of it)  x.clone() "
+                         f"{copy_ms:.4f}\n    K4 "
+                         f"{dtype} against F.rms_norm: {gap:+.4f} ms, "
                          + ("loses by more than the spread"
                             if gap > max(spread.values()) else
-                            "level within the spread"))
+                            "level within the spread" if gap > 0 else
+                            "faster"))
                 records[("rms_norm", dtype)] = {
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound_ms, "bound_by": bound_by,
                     "library_ms": lib_ms, "ms_spread": spread["kernel"],
+                    "library_spread": spread["library"], "copy_ms": copy_ms,
+                    "shape": f"rows={rows} d={d} {dtype}"}
+                # the backward kernel and F.rms_norm's autograd backward
+                # (its graph kept, so each call runs the backward alone)
+                lib_bwd = []
+                for t, u in zip(xs, gs):
+                    tx, tw = (a.detach().requires_grad_(True) for a in (t, w))
+                    y = TF.rms_norm(tx, (d,), tw, RMS_EPS)
+                    lib_bwd.append(lambda y=y, tx=tx, tw=tw, u=u:
+                                   torch.autograd.grad(y, (tx, tw), u,
+                                                       retain_graph=True))
+                ms, lib_ms, spread = time_in_turns(
+                    torch, [lambda t=t, u=u: rms.rms_norm_bwd(
+                        t, w, u, RMS_EPS) for t, u in zip(xs, gs)], lib_bwd)
+                plain_ms = device_time_ms(torch, [
+                    lambda t=t, u=u: rms.rms_norm_bwd_reference(
+                        t, w, u, RMS_EPS) for t, u in zip(xs, gs)], iters=20)
+                bound_ms, bound_by = rms_norm_bwd_bound(rows, d, dtype)
+                line += (f"\n    K4's backward ({rms.BWD_LAUNCHES_PER_CALL} "
+                         f"launches): kernel {ms:.4f} (spread "
+                         f"{spread['kernel']:.4f})  plain chain "
+                         f"{plain_ms:.4f}  F.rms_norm's autograd backward "
+                         f"{lib_ms:.4f} (spread {spread['library']:.4f}), "
+                         f"least of {RETIME_TRIALS} trials each  bound "
+                         f"{bound_ms:.4f} ({bound_by}, {bound_ms / ms:.0%} "
+                         f"of it)")
+                records[("rms_norm_bwd", dtype)] = {
+                    "max_abs_err": max(berrs["dx"], berrs["dw"]), "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": lib_ms,
+                    "ms_spread": spread["kernel"],
                     "library_spread": spread["library"],
                     "shape": f"rows={rows} d={d} {dtype}"}
-                del xs
+                del xs, gs, lib_bwd
             print(line, flush=True)
 
     seed = torch.tensor([20241016], dtype=torch.int32, device=dev)
@@ -1494,23 +1665,26 @@ def phase_llama_model(torch, llama) -> None:
     check(counts == (layers, 2 * layers + 1),
           f"K1/K4 launches {counts}, want ({layers}, {2 * layers + 1})")
 
-    print("== Llama gradients: llama_124m_gqa f32, B=1 S=256, card (K1-K4) "
-          "vs CPU (plain)", flush=True)
+    print("== Llama gradients: llama_124m_gqa f32, B=1 S=256, card (K1-K4, "
+          "K4's backward) vs CPU (plain)", flush=True)
     cfg = llama.llama_124m_gqa()
     ids = np.random.RandomState(9).randint(0, cfg.vocab_size, (1, 256))
     counts, line = compare_gradients(
         torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion(cfg),
         cfg, ids)
     n = cfg.num_hidden_layers
-    check(counts == (n, n, n, 2 * n + 1),
-          f"K1/K2/K3/K4 launches {counts}, want ({n}, {n}, {n}, "
-          f"{2 * n + 1})")
+    calls = 2 * n + 1  # two RMSNorms a layer and the final one
+    want = (n, n, n, calls, calls * rms.BWD_LAUNCHES_PER_CALL)
+    check(counts == want, f"K1/K2/K3/K4/K4-bwd launches {counts}, want "
+          f"{want}")
     print(line, flush=True)
 
 
 def phase_train_llama(torch, llama) -> dict:
     """bench_llama's accelerator arm on the port, graphed, held bit for
     bit to the eager sequence; returns the launches and the profile."""
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
     cfg = llama.llama_124m_gqa()
     print(f"== train Llama: llama_124m_gqa bf16 O2, TrainStep (CUDA graph) + "
           f"AdamW(1e-4), {LLAMA_BATCH}x{LLAMA_SEQ} fixed batch", flush=True)
@@ -1530,20 +1704,27 @@ def phase_train_llama(torch, llama) -> dict:
                        flops, "bench.py _llama_flops_per_step")
     n = cfg.num_hidden_layers
     per_step = adamw_launches_per_step(model)
-    print(f"launches K1/K2/K3/K4/AdamW {counts} over {TRAIN_STEPS} steps",
-          flush=True)
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts} over {TRAIN_STEPS} "
+          f"steps", flush=True)
     want = n * TRAIN_STEPS
-    check(counts == (want, want, want, (2 * n + 1) * TRAIN_STEPS,
-                     per_step * TRAIN_STEPS),
+    calls = (2 * n + 1) * TRAIN_STEPS  # RMSNorm calls: 2 a layer + final
+    check(counts == (want, want, want, calls, per_step * TRAIN_STEPS,
+                     calls * rms.BWD_LAUNCHES_PER_CALL),
           f"launches {counts}, want {want} each of K1-K3 ({n} per step), "
-          f"{(2 * n + 1) * TRAIN_STEPS} of K4 ({2 * n + 1} per step) and "
-          f"{per_step * TRAIN_STEPS} of AdamW ({per_step} per step)")
+          f"{calls} of K4 ({2 * n + 1} per step), "
+          f"{per_step * TRAIN_STEPS} of AdamW ({per_step} per step) and "
+          f"{calls * rms.BWD_LAUNCHES_PER_CALL} of K4's backward "
+          f"({2 * n + 1} calls per step, {rms.BWD_LAUNCHES_PER_CALL} "
+          f"launches a call)")
     prof = profile_steps(torch, step, ids, p50 * 1e3)
     check(prof["rms_norm_rows"] > 0, "K4 has no row in the profile")
+    check(prof["rms_norm_bwd_rows"] > 0,
+          "K4's backward has no row in the profile")
     del model, step
     torch.cuda.empty_cache()
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
-            "rms_norm": counts[3], "adamw": counts[4]}
+            "rms_norm": counts[3], "adamw": counts[4],
+            "rms_norm_bwd": counts[5]}
 
 
 def flashmask_indices(rs, kind, b, hm, sq, sk) -> np.ndarray:
@@ -2135,6 +2316,18 @@ def main() -> int:
         "launches_by_path": {"train_llama": trained_llama["rms_norm"]},
         **records[("rms_norm", "bfloat16")],
         "float32": {k: records[("rms_norm", "float32")][k]
+                    for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                              "max_abs_err")}})
+    # no Pallas counterpart: the jnp _bwd of the custom VJP, which XLA fuses
+    kernels.append({
+        "name": "rms_norm_bwd", "route": "cuda",
+        "source": source + "rms_norm.cu",
+        "replaces": "paddle_tpu/ops/pallas/rms_norm.py:84",
+        "pallas_counterpart": False,
+        "launches": trained_llama["rms_norm_bwd"],
+        "launches_by_path": {"train_llama": trained_llama["rms_norm_bwd"]},
+        **records[("rms_norm_bwd", "bfloat16")],
+        "float32": {k: records[("rms_norm_bwd", "float32")][k]
                     for k in ("ms", "plain_ms", "bound_ms", "library_ms",
                               "max_abs_err")}})
     fm_records = flashmask_path["records"]

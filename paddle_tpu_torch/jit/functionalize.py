@@ -48,8 +48,9 @@ _COUNTERS = ((flash_attention, "launches"), (flash_attention, "dq_launches"),
              (flash_attention, "dkv_launches"),
              (flash_attention, "dropout_launches"),
              (flash_attention, "tma_copies"), (rms_norm, "launches"),
-             (flashmask, "fwd_launches"), (flashmask, "dq_launches"),
-             (flashmask, "dkv_launches"), (adamw, "launches"))
+             (rms_norm, "bwd_launches"), (flashmask, "fwd_launches"),
+             (flashmask, "dq_launches"), (flashmask, "dkv_launches"),
+             (adamw, "launches"))
 
 
 def launch_counters() -> Dict[tuple, int]:

@@ -6,7 +6,8 @@ so ``state_dict`` keys match name for name and :func:`load_jax_state`
 carries JAX weights across. No layer has a bias.
 
 - RMSNorm (``nn.layer.RMSNorm``) runs ``F.rms_norm`` with its weight, so
-  the hand-written K4 on the GPU (``ops/cuda/csrc/rms_norm.cu``);
+  on the GPU the hand-written K4 forward and backward kernels
+  (``ops/cuda/csrc/rms_norm.cu``);
 - attention: one packed ``[q | k | v]`` projection (column blocks, not
   GPT's ``[H, 3, D]``), RoPE on q and k (``ops.fused_ops``), the KV heads
   repeated ``group`` times along the head axis (``repeat_interleave``, a

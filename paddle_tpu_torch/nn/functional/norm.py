@@ -23,8 +23,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None,
 
 def rms_norm(x, weight=None, epsilon: float = 1e-6):
     """RMSNorm over the last axis. With a weight it takes the route the JAX
-    package takes on the TPU: the fused kernel (K4 for CUDA tensors, its
-    plain version for CPU tensors, differentiable) under op
+    package takes on the TPU: the fused kernel (for CUDA tensors K4 and
+    the backward kernel, for CPU tensors their plain versions) under op
     ``pallas_rms_norm``, white-listed, so under AMP O2 x and w enter in
     bf16 and the result is bf16. Without a weight it is the JAX fallback
     in plain torch under op ``rms_norm``, black-listed: f32 under O2."""
