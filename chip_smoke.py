@@ -26,10 +26,35 @@ Phases, each of which fails the run on any error:
    the port never calls it);
 4. model  — GPT-2-small with seeded random weights: logits on the card
    (kernel path) against the same weights on the CPU (plain path);
-5. serve  — ``DecodeEngine`` answers 8 requests from 2 tenants at once,
-   then each alone; the kernel's launch count, the streams, the first
-   tokens and the page pool are checked, and the (batch, seq) shape of
-   every prefill call is recorded;
+5. serve  — ``DecodeEngine`` (gpt2_small f32, paged: 8 lanes,
+   ``max_seq`` 1024, 16-token pages, prefill batch <= 4). Warmup runs every
+   rung once eagerly and captures it as a CUDA graph (rungs, captures,
+   warmup seconds and peak memory printed). 8 requests from 2 tenants
+   answered together, then each alone, greedy; then at temperature 0.8,
+   top-k 50, top-p 0.95 with seeds 0-7, together, alone and alone again.
+   Checked: no signature, capture or eager call after warmup and every
+   program call a replay; the kernel's launch count (12 a prefill call,
+   through the replays); greedy streams equal together and alone, and
+   first tokens equal the forward argmax, except near-ties (top-2 logit
+   margin under ``NEAR_TIE``); sampled streams equal together and alone
+   except near-ties of the draw (the margin of the filtered logits plus
+   the key's Gumbel noise), and bit for bit alone twice; the page pool;
+   a replayed prefill and decode call bit for bit the program run eagerly
+   on the same inputs and pool state; the card's threefry bits for an
+   [8, 50304] draw bit for bit a numpy threefry's. Timed: a decode call
+   at rung (8, 64) replayed and eager (host ms, device kernels and device
+   ms from ``torch.profiler``) and the draw alone. The (batch, seq) shape
+   of every prefill call of the traffic is recorded;
+5b. serve modes — the slot engine (``kv_mode="slots"``), the speculating
+   engine (``speculate_k=4``, 6 draft layers, acceptance floor 0) and the
+   bf16-KV engine, each warmed and checked as in phase 5 (each engine shut
+   down before the next warms): slot streams equal the paged engine's,
+   speculating streams (greedy and sampled, together and alone) equal the
+   plain engine's, except near-ties, with speculation rounds in place of
+   every plain decode step and a draft and a verify replay bit for bit
+   their eager programs; the bf16 pool holds exactly half the f32 pool's
+   bytes, its first tokens alone equal the f32 engine's bit for bit
+   (prefill reads no pool) and its streams are well formed;
 6. kernel at the serve shapes — the kernel against its plain version
    again (f32 also against float64), at each prefill shape phase 5
    recorded (packed-qkv strided inputs, H=12, D=64, causal, f32 and bf16).
@@ -128,11 +153,12 @@ Phases, each of which fails the run on any error:
     ``torch.optim.AdamW(fused=True)`` (a yardstick only: its moments are
     bf16).
 
-The serve (5), train (9), train Llama (12) and FlashMask path (14) phases
-are the main paths: the launch counts are set to 0 just before each and
-read just after, and no operand may have been copied for TMA there
-(``tma_copies`` stays 0). The training paths run as CUDA-graph replays,
-and the counters count the replays' kernels. The line before the last is
+The serve (5, 5b), train (9), train Llama (12) and FlashMask path (14)
+phases are the main paths: the launch counts are set to 0 just before each
+serving engine's traffic and each of the other paths and read just after,
+and no operand may have been copied for TMA there (``tma_copies`` stays
+0). The serving and training paths run as CUDA-graph replays, and the
+counters count the replays' kernels. The line before the last is
 ``{"kernels": [...]}``; the last is ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or outside a checkout, the script prints no result
 and exits non-zero.
@@ -141,6 +167,7 @@ f32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 """
 from __future__ import annotations
 
+import gc
 import json
 import math
 import re
@@ -539,120 +566,568 @@ def phase_model(torch, model_cls, cfg_fn) -> object:
     return model
 
 
-def _top2_gap(torch, model, context) -> tuple:
+# the serving engines of phases 5 and 5b: gpt2_small f32, 8 lanes,
+# max_seq 1024, 16-token pages (605 MB of KV), prefill batch <= 4
+SERVE_ENGINE = dict(max_slots=8, max_seq=1024, page_size=16,
+                    prefill_max_batch=4)
+SAMPLED = dict(temperature=0.8, top_k=50, top_p=0.95)
+SPEC = dict(speculate_k=4, spec_draft_layers=6, spec_min_accept=0.0)
+# the decode rung (batch, table pages) that phase 5 times and profiles:
+# every lane, the whole 1024-token table
+STEP_RUNG = (8, 64)
+# the prefill rung (batch, seq) whose replay phase 5 holds to the eager
+# program
+PREFILL_RUNG = (4, 256)
+
+
+def serve_prompts(vocab) -> list:
+    rs = np.random.RandomState(2)
+    return [rs.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
+
+
+def numpy_threefry_bits(keys, n: int) -> np.ndarray:
+    """``jax.random.bits(key, (n,), uint32)`` for each raw ``[B, 2]``
+    uint32 key, in numpy: threefry-2x32 (20 rounds) of the counters ``(0,
+    i)``, the two words xored. Written apart from the port's torch
+    version, which the card's draw is held to."""
+    k1 = keys[:, :1].astype(np.uint32)
+    k2 = keys[:, 1:].astype(np.uint32)
+    ks = (k1, k2, k1 ^ k2 ^ np.uint32(0x1BD11BDA))
+    x1 = np.zeros((1, n), np.uint32) + ks[0]
+    x2 = np.arange(n, dtype=np.uint32)[None] + ks[1]
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x1 = x1 + x2
+            x2 = ((x2 << np.uint32(r)) | (x2 >> np.uint32(32 - r))) ^ x1
+        x1 = x1 + ks[(i + 1) % 3]
+        x2 = x2 + ks[(i + 2) % 3] + np.uint32(i + 1)
+    return x1 ^ x2
+
+
+def draw_margin(torch, model, context, draw=None) -> tuple:
+    """The choice at the end of ``context`` and its top-2 margin: of the
+    logits (greedy), or for a draw ``(sampling kwargs, seed, token
+    index)`` of the filtered logits plus the key's Gumbel noise."""
+    from paddle_tpu_torch.serving import sampling
+
     with torch.inference_mode():
         logits = model(torch.as_tensor(np.asarray(context, np.int64)
                                        [None]).cuda())[0, -1].float()
-    top = torch.topk(logits, 2).values
+        if draw is not None:
+            kw, seed, index = draw
+            dev = logits.device
+            logits = (sampling.filtered_logits(
+                logits[None],
+                torch.tensor([kw["temperature"]], device=dev),
+                torch.tensor([kw["top_k"]], device=dev),
+                torch.tensor([kw["top_p"]], device=dev))
+                + sampling.gumbel(torch.tensor([[seed, index]], device=dev),
+                                  logits.shape[-1]))[0]
+        top = torch.topk(logits, 2).values
     return int(logits.argmax().item()), float(top[0] - top[1])
 
 
-def phase_serve(torch, model) -> dict:
-    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+def hold_streams(torch, model, prompts, got, want, what,
+                 sample=None) -> list:
+    """``got`` must equal ``want`` request by request, except where the
+    two first part at a near-tie: the top-2 margin of the choice there
+    (of the logits, or of a draw's filtered logits plus its Gumbel noise)
+    under ``NEAR_TIE``. Returns the near-ties."""
+    vocab = model.config.vocab_size
+    near, same = [], 0
+    for i, (p, g, w) in enumerate(zip(prompts, got, want)):
+        for out in (g, w):
+            check(out.shape == (NEW_TOKENS,) and out.dtype == np.int32
+                  and 0 <= int(out.min()) and int(out.max()) < vocab,
+                  f"{what}: malformed stream {out}")
+        if np.array_equal(g, w):
+            same += 1
+            continue
+        at = int(np.argmax(g != w))
+        draw = None if sample is None else (sample, i, at)
+        _, gap = draw_margin(torch, model, np.concatenate([p, w[:at]]), draw)
+        check(gap < NEAR_TIE, f"{what}: request {i} differs at token {at} "
+              f"with a top-2 margin of {gap:.3g} >= {NEAR_TIE}")
+        near.append((i, at, round(gap, 6)))
+    print(f"{what}: {same}/{len(prompts)} streams equal; near-ties "
+          f"(top-2 margin < {NEAR_TIE}): {len(near)} {near}", flush=True)
+    return near
+
+
+def warm_engine(torch, model, label, **kw):
+    """A ``DecodeEngine`` over ``model`` at ``SERVE_ENGINE``, warmed: every
+    rung run once eagerly and captured as a CUDA graph, and nothing else.
+    Prints the rungs, the captures, the warmup seconds and the peak
+    memory; returns the engine and its graph report after warmup."""
     from paddle_tpu_torch.serving import DecodeEngine
 
-    print("== serve: DecodeEngine(gpt2_small), 8 requests from 2 tenants, "
-          "then each alone", flush=True)
-    vocab = model.config.vocab_size
-    rs = np.random.RandomState(2)
-    prompts = [rs.randint(0, vocab, n).astype(np.int32) for n in PROMPT_LENS]
-    engine = DecodeEngine(model, max_slots=8, max_seq=1024, page_size=16,
-                          prefill_max_batch=4)
-    # record the (batch, seq) rung of every prefill call, warmup's too
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    engine = DecodeEngine(model, **SERVE_ENGINE, **kw)
+    t0 = time.perf_counter()
+    engine.warmup()
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    report = engine.programs.graph_report()
+    rungs = engine.programs.rungs
+    captures = sum(r["captures"] for r in report.values())
+    by_family = {f: r["captures"] for f, r in report.items() if r["captures"]}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{label}: warmup {warm_s:.2f} s, {len(rungs)} rungs, {captures} "
+          f"CUDA graphs captured {by_family}, KV pool "
+          f"{engine.kv_pool.device_bytes() / 2 ** 20:.1f} MiB, peak memory "
+          f"{peak / 2 ** 30:.2f} GiB ({(peak - before) / 2 ** 30:.2f} GiB "
+          f"over the model), after warmup "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB", flush=True)
+    check(captures == len(rungs) == engine.compile_count,
+          f"{label}: {captures} captures, {engine.compile_count} signatures "
+          f"for {len(rungs)} rungs")
+    for family, row in report.items():
+        n = sum(1 for key in rungs if key[0] == family)
+        check(row["captures"] == row["signatures"] == row["eager"] == n,
+              f"{label}: {family} warmed {row}, not once per rung ({n})")
+    return engine, report
+
+
+def serve(engine, prompts, together: bool, **kw) -> tuple:
+    """The requests at once (``together``) or one after another, request
+    i with seed i; returns the streams, the serving report and the wall
+    seconds. The engine's stats start from 0."""
+    engine.stats.reset()
+    t0 = time.perf_counter()
+    if together:
+        futs = [engine.submit("alpha" if i % 2 else "beta", p,
+                              max_new_tokens=NEW_TOKENS, seed=i, **kw)
+                for i, p in enumerate(prompts)]
+        outs = [f.result(600) for f in futs]
+    else:
+        outs = [engine.submit("alpha" if i % 2 else "beta", p,
+                              max_new_tokens=NEW_TOKENS, seed=i,
+                              **kw).result(600)
+                for i, p in enumerate(prompts)]
+    return outs, engine.serving_report(), time.perf_counter() - t0
+
+
+def print_serving(name, rep, wall) -> None:
+    dec = rep["decode"]
+    line = (f"{name}: wall {wall:.3f} s, prefill calls "
+            f"{dec['prefill_steps']} taking {dec['prefill_s']:.4f} s (p50 "
+            f"{dec['prefill_p50_ms']:.3f} ms)")
+    if dec["decode_steps"]:
+        line += (f", decode steps {dec['decode_steps']} (p50 "
+                 f"{dec['decode_p50_ms']:.3f} ms, p99 "
+                 f"{dec['decode_p99_ms']:.3f} ms), decode tokens/s "
+                 f"{dec['decode_tokens_per_sec']:.1f}")
+    if dec.get("spec_rounds"):
+        line += (f", speculation rounds {dec['spec_rounds']} (draft p50 "
+                 f"{dec['draft_p50_ms']:.3f} ms, verify p50 "
+                 f"{dec['verify_p50_ms']:.3f} ms), acceptance "
+                 f"{dec['spec_accept_rate']:.4f}, "
+                 f"{dec['spec_net_tokens_per_full_pass']:.3f} tokens per "
+                 f"verify, round tokens/s {dec['spec_tokens_per_sec']:.1f}")
+    print(line + f", all tokens/s {dec['tokens_per_sec']:.1f}, request p50 "
+          f"{rep['p50_ms']:.1f} ms p99 {rep['p99_ms']:.1f} ms", flush=True)
+
+
+def program_calls(reports) -> int:
+    return sum(rep["decode"].get(f"{kind}_steps", 0) for rep in reports
+               for kind in ("prefill", "decode", "draft", "verify"))
+
+
+def check_replays(engine, label, warm, reports) -> None:
+    """After traffic: no new signature, no new capture, no eager call;
+    every program call was a replay."""
+    now = engine.programs.graph_report()
+    replays = sum(now[f]["replays"] - warm[f]["replays"] for f in now)
+    calls = program_calls(reports)
+    print(f"{label}: compiles after warmup "
+          f"{engine.compiles_after_warmup}, {calls} program calls, "
+          f"{replays} graph replays", flush=True)
+    check(engine.compiles_after_warmup == 0,
+          f"{label}: {engine.compiles_after_warmup} compiles after warmup")
+    for family in now:
+        check(now[family]["captures"] == warm[family]["captures"]
+              and now[family]["eager"] == warm[family]["eager"],
+              f"{label}: {family} captured or ran eagerly after warmup")
+    check(calls > 0 and replays == calls,
+          f"{label}: {replays} replays for {calls} program calls")
+
+
+def check_prefill_launches(label, launches, copies, reports) -> None:
+    calls = sum(rep["decode"]["prefill_steps"] for rep in reports)
+    print(f"{label}: kernel launches {launches} over {calls} prefill calls "
+          f"({LAYERS} layers each)", flush=True)
+    check(calls > 0 and launches == LAYERS * calls,
+          f"{label}: launches {launches} != {LAYERS} x {calls} prefill calls")
+    check(copies == 0, f"{label}: {copies} operands were copied for TMA")
+
+
+def call_inputs(engine, family, b, width, rs) -> tuple:
+    """Host arrays for one call of ``family`` at rung ``(b, width)`` (seq
+    rung for prefill, table pages otherwise) naming distinct pages that
+    hold served K/V, half the lanes greedy and half sampled."""
+    programs, pool = engine.programs, engine.kv_pool
+    t = programs.prefill_table_cols(width) if family == "prefill" else width
+    tables = rs.permutation(np.arange(1, pool.num_pages + 1))[:b * t]
+    tables = tables.reshape(b, t)
+    lanes = np.arange(b) % 2
+    sample = (np.where(lanes, SAMPLED["temperature"], 0.0).astype(np.float32),
+              np.where(lanes, SAMPLED["top_k"], 0).astype(np.int64),
+              np.where(lanes, SAMPLED["top_p"], 1.0).astype(np.float32),
+              rs.randint(0, 2 ** 31, (b, 2)).astype(np.int64))
+    vocab = programs.params["wte"].shape[0]
+    if family == "prefill":
+        return (rs.randint(0, vocab, (b, width)),
+                rs.randint(width // 2, width + 1, b), tables, *sample)
+    k = programs.speculate_k
+    positions = rs.randint(0, t * pool.page_size - k - 1, b)
+    shape = (b, k + 1) if family == "verify" else b
+    return (rs.randint(0, vocab, shape), tables, positions, *sample)
+
+
+def check_replay_is_eager(torch, engine, label, family, args) -> None:
+    """A replayed call of ``family`` against the same program run eagerly
+    on the same inputs from the same pool state: tokens and pool bit for
+    bit."""
+    pool = engine.kv_pool
+    k0, v0 = pool.k.clone(), pool.v.clone()
+    replays = engine.programs.graph_report()[family]["replays"]
+    got = getattr(engine.programs, family)(*args)
+    check(engine.programs.graph_report()[family]["replays"] == replays + 1,
+          f"{label}: the {family} call was not a replay")
+    k1, v1 = pool.k.clone(), pool.v.clone()
+    pool.k.copy_(k0)
+    pool.v.copy_(v0)
+    want = engine.programs.run_eager(family, *args)
+    same_pool = torch.equal(k1, pool.k) and torch.equal(v1, pool.v)
+    rung = np.shape(args[0 if family == "prefill" else 1])
+    print(f"{label}: {family} replay at {rung} vs the eager program: tokens "
+          f"equal {np.array_equal(got, want)}, pool equal {same_pool}",
+          flush=True)
+    check(np.array_equal(got, want) and same_pool,
+          f"{label}: the {family} replay differs from the eager program")
+
+
+def profile_calls(torch, fn, calls: int = 3) -> tuple:
+    """Device kernels and device ms a call of ``fn`` (torch.profiler over
+    ``calls`` calls after one warmup call, the card idle
+    ``PROFILE_PAD_S`` inside each end of the window), and the rows (name,
+    ms a call, count a call), longest first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=calls,
+                                   repeat=1)) as prof:
+        for i in range(calls + 1):
+            if i == 1:
+                time.sleep(PROFILE_PAD_S)
+            fn()
+            torch.cuda.synchronize()
+            if i == calls:
+                time.sleep(PROFILE_PAD_S)
+            prof.step()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / calls,
+                    e.count / calls)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0
+                   and not e.key.startswith("ProfilerStep")),
+                  key=lambda r: -r[1])
+    check(len(rows) > 0, "the profiler recorded no device time")
+    return sum(r[2] for r in rows), sum(r[1] for r in rows), rows
+
+
+def time_decode_step(torch, engine) -> dict:
+    """One decode call at ``STEP_RUNG`` (half the lanes sampled): host ms
+    a call (arguments in, tokens out), replayed and eager in turns, the
+    device kernels and device ms a call of each, and the draw's own
+    (``sampling.choose_tokens`` at ``[8, vocab]``). Trashes the pages it
+    names."""
+    from paddle_tpu_torch.serving import sampling
+
+    programs = engine.programs
+    args = call_inputs(engine, "decode", *STEP_RUNG, np.random.RandomState(9))
+    fns = {"graphed": lambda: programs.decode(*args),
+           "eager": lambda: programs.run_eager("decode", *args)}
+    host = {name: [] for name in fns}
+    for name in ("eager", "graphed", "graphed", "eager"):
+        fns[name]()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            fns[name]()
+        host[name].append((time.perf_counter() - t0) / 10 * 1e3)
+    out = {}
+    for name, fn in fns.items():
+        kernels, dev_ms, rows = profile_calls(torch, fn)
+        out[name] = {"host_ms": min(host[name]), "kernels": kernels,
+                     "device_ms": dev_ms, "rows": rows}
+    b, vocab = STEP_RUNG[0], programs.params["wte"].shape[0]
+    rs = np.random.RandomState(10)
+    head = torch.from_numpy(rs.randn(b, vocab).astype(np.float32)).cuda()
+    dev_args = [torch.from_numpy(a).cuda() for a in call_inputs(
+        engine, "decode", *STEP_RUNG, rs)[3:]]
+
+    def draw():
+        with torch.inference_mode():
+            return sampling.choose_tokens(head, *dev_args)
+
+    kernels, dev_ms, _ = profile_calls(torch, draw)
+    out["draw"] = {"kernels": kernels, "device_ms": dev_ms}
+    print(f"decode call at rung {STEP_RUNG} ({b // 2} lanes sampled): graphed "
+          f"{out['graphed']['host_ms']:.3f} ms host, "
+          f"{out['graphed']['kernels']:.0f} kernels, "
+          f"{out['graphed']['device_ms']:.3f} ms on the card; eager "
+          f"{out['eager']['host_ms']:.3f} ms host, "
+          f"{out['eager']['kernels']:.0f} kernels, "
+          f"{out['eager']['device_ms']:.3f} ms on the card; the draw "
+          f"(choose_tokens at [{b}, {vocab}]) {out['draw']['kernels']:.0f} "
+          f"kernels, {out['draw']['device_ms']:.4f} ms on the card",
+          flush=True)
+    for key, ms, count in out["graphed"]["rows"][:10]:
+        print(f"    {ms:8.4f} ms  x{count:<5.0f} {key[:100]}", flush=True)
+    # a replay also copies each argument into its static buffer and clones
+    # the output
+    check(out["graphed"]["kernels"] == out["eager"]["kernels"] + len(args)
+          + 1, "the replay ran another set of kernels than the eager call")
+    return out
+
+
+def check_threefry_on_card(torch) -> None:
+    """The card's threefry bits for an [8, vocab] draw against numpy's."""
+    from paddle_tpu_torch.serving import sampling
+
+    keys = np.random.RandomState(4).randint(0, 2 ** 32, (8, 2),
+                                            dtype=np.uint64)
+    keys[0] = (0, 0)
+    keys[1] = (0xFFFFFFFF, 0xFFFFFFFF)
+    vocab = 50304
+    want = numpy_threefry_bits(keys.astype(np.uint32), vocab)
+    got = sampling.random_bits(torch.from_numpy(keys.astype(np.int64))
+                               .cuda(), vocab).cpu().numpy()
+    equal = int((got.astype(np.uint32) == want).sum())
+    print(f"threefry bits on the card, [8, {vocab}]: {equal}/{want.size} "
+          f"equal numpy's", flush=True)
+    check(got.min() >= 0 and got.max() < 2 ** 32 and equal == want.size,
+          "the card's threefry bits differ from numpy's")
+
+
+def phase_serve(torch, model) -> dict:
+    """Phase 5: the paged f32 engine, greedy then sampled, every call a
+    graph replay."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    print("== serve: DecodeEngine(gpt2_small f32, paged), every rung a CUDA "
+          "graph; 8 requests from 2 tenants together, then each alone; "
+          "greedy, then sampled", flush=True)
+    prompts = serve_prompts(model.config.vocab_size)
+    engine, warm = warm_engine(torch, model, "paged f32")
+    # record the (batch, seq) rung of every prefill call of the traffic
     prefill_shapes = set()
     prefill = engine.programs.prefill
 
-    def recording_prefill(tokens, lengths, tables):
-        prefill_shapes.add(tuple(np.shape(tokens)))
-        return prefill(tokens, lengths, tables)
+    def recording_prefill(*args):
+        prefill_shapes.add(tuple(np.shape(args[0])))
+        return prefill(*args)
 
     engine.programs.prefill = recording_prefill
     try:
-        engine.warmup()
         # the main path's run: counts from 0, read right after it
         fa.launches = fa.tma_copies = 0
-        t0 = time.perf_counter()
-        futs = [engine.submit("alpha" if i % 2 else "beta", p,
-                              max_new_tokens=NEW_TOKENS)
-                for i, p in enumerate(prompts)]
-        batched = [f.result(600) for f in futs]
-        wall_batched = time.perf_counter() - t0
-        rep_batched = engine.serving_report()
-        engine.stats.reset()
-        t0 = time.perf_counter()
-        solo = [engine.generate("alpha" if i % 2 else "beta", p, NEW_TOKENS,
-                                timeout=600) for i, p in enumerate(prompts)]
-        wall_solo = time.perf_counter() - t0
+        batched, rep_batched, wall_batched = serve(engine, prompts, True)
+        solo, rep_solo, wall_solo = serve(engine, prompts, False)
+        sampled, rep_sampled, wall_sampled = serve(engine, prompts, True,
+                                                   **SAMPLED)
+        sampled_solo, rep_ss, wall_ss = serve(engine, prompts, False,
+                                              **SAMPLED)
+        again, rep_again, _ = serve(engine, prompts, False, **SAMPLED)
         launches, copies = fa.launches, fa.tma_copies
-        rep_solo = engine.serving_report()
+        reports = [rep_batched, rep_solo, rep_sampled, rep_ss, rep_again]
+        check_replays(engine, "paged f32", warm, reports)
         free_pages = engine.kv_pool.free_count()
         active = engine.active_requests()
     finally:
         engine.shutdown(drain=False)
+        engine.programs.prefill = prefill
+    for name, rep, wall in (
+            ("greedy together", rep_batched, wall_batched),
+            ("greedy alone", rep_solo, wall_solo),
+            ("sampled together", rep_sampled, wall_sampled),
+            ("sampled alone", rep_ss, wall_ss)):
+        print_serving(name, rep, wall)
+    check_prefill_launches("paged f32", launches, copies, reports)
 
-    for name, rep, wall in (("together", rep_batched, wall_batched),
-                            ("alone", rep_solo, wall_solo)):
-        dec = rep["decode"]
-        print(f"{name}: wall {wall:.3f} s, prefill calls "
-              f"{dec['prefill_steps']} taking {dec['prefill_s']:.4f} s "
-              f"(p50 {dec['prefill_p50_ms']:.3f} ms), decode steps "
-              f"{dec['decode_steps']} (p50 {dec['decode_p50_ms']:.3f} ms, "
-              f"p99 {dec['decode_p99_ms']:.3f} ms), decode tokens/s "
-              f"{dec['decode_tokens_per_sec']:.1f}, all tokens/s "
-              f"{dec['tokens_per_sec']:.1f}, request p50 "
-              f"{rep['p50_ms']:.1f} ms p99 {rep['p99_ms']:.1f} ms",
-              flush=True)
-    prefill_calls = (rep_batched["decode"]["prefill_steps"]
-                     + rep_solo["decode"]["prefill_steps"])
-    print(f"kernel launches {launches} over {prefill_calls} prefill calls "
-          f"({LAYERS} layers each)", flush=True)
-    check(prefill_calls > 0 and launches == LAYERS * prefill_calls,
-          f"launches {launches} != {LAYERS} x {prefill_calls} prefill calls")
-
-    for out in batched + solo:
-        check(out.shape == (NEW_TOKENS,) and out.dtype == np.int32
-              and int(out.min()) >= 0 and int(out.max()) < vocab,
-              f"malformed stream {out}")
-
-    near_ties = []
-    matching = 0
+    hold_streams(torch, model, prompts, batched, solo,
+                 "greedy, together vs alone")
+    first_ties = []
     for i, (p, together, alone) in enumerate(zip(prompts, batched, solo)):
-        if np.array_equal(together, alone):
-            matching += 1
-        else:
-            at = int(np.argmax(together != alone))
-            _, gap = _top2_gap(torch, model,
-                               np.concatenate([p, alone[:at]]))
-            check(gap < NEAR_TIE,
-                  f"request {i}: stream alone and together differ at token "
-                  f"{at} with a top-2 logit gap of {gap:.3g} >= {NEAR_TIE}")
-            near_ties.append(("stream", i, at, gap))
-        want, gap = _top2_gap(torch, model, p)
+        want, gap = draw_margin(torch, model, p)
         for label, out in (("together", together), ("alone", alone)):
             if int(out[0]) != want:
                 check(gap < NEAR_TIE,
                       f"request {i} ({label}): first token {int(out[0])} "
                       f"!= forward argmax {want}, top-2 gap {gap:.3g}")
-                near_ties.append(("first", i, label, gap))
-    print(f"streams equal alone and together: {matching}/{len(prompts)}; "
-          f"first tokens equal the forward argmax except near-ties; "
-          f"near-ties (top-2 gap < {NEAR_TIE}): {len(near_ties)} "
-          f"{near_ties}", flush=True)
+                first_ties.append((i, label, gap))
+    print(f"first tokens equal the forward argmax except near-ties: "
+          f"{first_ties}", flush=True)
+    hold_streams(torch, model, prompts, sampled, sampled_solo,
+                 "sampled, together vs alone", sample=SAMPLED)
+    check(all(np.array_equal(a, b) for a, b in zip(again, sampled_solo)),
+          "sampled: the same seeds alone twice gave different streams")
+    check(sum(not np.array_equal(a, b) for a, b in zip(sampled, batched))
+          >= len(prompts) // 2, "sampled streams look greedy")
+    print("sampled: the same seeds alone twice gave equal streams",
+          flush=True)
 
-    pool_pages = rep_solo["kv_pages"]
-    print(f"pages: {rep_solo['kv_pages_in_use']} in use, {free_pages}/"
+    pool_pages = rep_again["kv_pages"]
+    print(f"pages: {rep_again['kv_pages_in_use']} in use, {free_pages}/"
           f"{pool_pages} free after retire, active requests {active}, "
-          f"pool bytes {rep_solo['kv_pool_bytes']} constant "
-          f"{rep_solo['kv_pool_bytes_constant']}", flush=True)
-    check(rep_solo["kv_pages_in_use"] == 0 and free_pages == pool_pages
+          f"pool bytes {rep_again['kv_pool_bytes']} constant "
+          f"{rep_again['kv_pool_bytes_constant']}", flush=True)
+    check(rep_again["kv_pages_in_use"] == 0 and free_pages == pool_pages
           and active == 0, "pages were not all returned after retire")
-    check(rep_batched["requests"] == len(prompts)
-          and rep_solo["requests"] == len(prompts),
+    check(all(rep["requests"] == len(prompts) for rep in reports),
           "not every request was answered")
+
+    rs = np.random.RandomState(5)
+    for family, b, width in (("prefill", *PREFILL_RUNG),
+                             ("decode", *STEP_RUNG)):
+        check_replay_is_eager(torch, engine, "paged f32", family,
+                              call_inputs(engine, family, b, width, rs))
+    check_threefry_on_card(torch)
+    step = time_decode_step(torch, engine)
     print(f"prefill shapes (batch, seq): {sorted(prefill_shapes)}",
           flush=True)
-    check(copies == 0, f"{copies} operands were copied for TMA")
-    return {"launches": launches, "prefill_shapes": sorted(prefill_shapes)}
+    streams = {"greedy": (batched, solo), "sampled": (sampled, sampled_solo)}
+    del engine, prefill, recording_prefill
+    release_memory(torch)
+    return {"launches": launches, "prefill_shapes": sorted(prefill_shapes),
+            "streams": streams, "step": step}
+
+
+def phase_serve_modes(torch, model, paged) -> int:
+    """Phase 5b: the slot engine, the speculating engine and the bf16-KV
+    engine against the paged f32 engine's streams of phase 5. Returns the
+    flash-attention launches of their traffic."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    print("== serve modes: slot pool, self-speculation (k=4, 6 draft "
+          "layers), bf16 KV pool; held to phase 5's streams", flush=True)
+    prompts = serve_prompts(model.config.vocab_size)
+    greedy, greedy_solo = paged["streams"]["greedy"]
+    sampled, sampled_solo = paged["streams"]["sampled"]
+    total = 0
+
+    engine, warm = warm_engine(torch, model, "slots f32", kv_mode="slots")
+    try:
+        fa.launches = fa.tma_copies = 0
+        together, rep_t, wall_t = serve(engine, prompts, True)
+        alone, rep_a, _ = serve(engine, prompts, False)
+        launches, copies = fa.launches, fa.tma_copies
+        check_replays(engine, "slots f32", warm, [rep_t, rep_a])
+        in_use = engine.kv_pool.in_use()
+    finally:
+        engine.shutdown(drain=False)
+    del engine
+    release_memory(torch)
+    total += launches
+    print_serving("slots, greedy together", rep_t, wall_t)
+    check_prefill_launches("slots f32", launches, copies, [rep_t, rep_a])
+    check(in_use == 0, f"slots: {in_use} slots still held after retire")
+    hold_streams(torch, model, prompts, together, greedy,
+                 "slots vs paged, together")
+    hold_streams(torch, model, prompts, alone, greedy_solo,
+                 "slots vs paged, alone")
+
+    engine, warm = warm_engine(torch, model, "paged f32 speculating", **SPEC)
+    try:
+        fa.launches = fa.tma_copies = 0
+        runs = [serve(engine, prompts, together, **kw)
+                for kw in ({}, SAMPLED) for together in (True, False)]
+        launches, copies = fa.launches, fa.tma_copies
+        reports = [rep for _, rep, _ in runs]
+        check_replays(engine, "speculating", warm, reports)
+        in_use = engine.kv_pool.in_use()
+    finally:
+        engine.shutdown(drain=False)
+    rs = np.random.RandomState(6)
+    for family in ("draft", "verify"):
+        check_replay_is_eager(torch, engine, "speculating", family,
+                              call_inputs(engine, family, *STEP_RUNG, rs))
+    del engine
+    release_memory(torch)
+    total += launches
+    names = ("greedy together", "greedy alone", "sampled together",
+             "sampled alone")
+    for (_, rep, wall), name in zip(runs, names):
+        print_serving(f"speculating, {name}", rep, wall)
+        dec = rep["decode"]
+        check(dec.get("spec_rounds", 0) > 0 and dec["decode_steps"] == 0,
+              f"speculating, {name}: {dec.get('spec_rounds', 0)} "
+              f"speculation rounds, {dec['decode_steps']} plain steps")
+    check_prefill_launches("speculating", launches, copies, reports)
+    check(in_use == 0, f"speculating: {in_use} pages held after retire")
+    for (outs, _, _), want, name, sample in zip(
+            runs, (greedy, greedy_solo, sampled, sampled_solo), names,
+            (None, None, SAMPLED, SAMPLED)):
+        hold_streams(torch, model, prompts, outs, want,
+                     f"speculating vs plain, {name}", sample=sample)
+
+    engine, warm = warm_engine(torch, model, "paged bf16 KV",
+                               kv_dtype="bfloat16")
+    try:
+        fa.launches = fa.tma_copies = 0
+        together, rep_t, wall_t = serve(engine, prompts, True)
+        alone, rep_a, _ = serve(engine, prompts, False)
+        launches, copies = fa.launches, fa.tma_copies
+        check_replays(engine, "bf16 KV", warm, [rep_t, rep_a])
+        half_bytes = engine.kv_pool.device_bytes()
+    finally:
+        engine.shutdown(drain=False)
+    del engine
+    release_memory(torch)
+    total += launches
+    print_serving("bf16 KV, greedy together", rep_t, wall_t)
+    check_prefill_launches("bf16 KV", launches, copies, [rep_t, rep_a])
+    f32_bytes = paged_pool_bytes(model)
+    print(f"bf16 KV pool {half_bytes} bytes, f32 pool {f32_bytes} bytes",
+          flush=True)
+    check(2 * half_bytes == f32_bytes,
+          "the bf16 pool is not half the f32 pool")
+    check([int(s[0]) for s in alone] == [int(s[0]) for s in greedy_solo],
+          "bf16 KV: the first tokens (prefill reads no pool) differ from "
+          "the f32 engine's")
+    for out in together + alone:
+        check(out.shape == (NEW_TOKENS,) and out.dtype == np.int32
+              and 0 <= int(out.min())
+              and int(out.max()) < model.config.vocab_size,
+              f"bf16 KV: malformed stream {out}")
+    agree = sum(np.array_equal(a, b) for a, b in zip(alone, greedy_solo))
+    print(f"bf16 KV: first tokens equal the f32 engine's alone; "
+          f"{agree}/{len(prompts)} whole streams equal", flush=True)
+    return total
+
+
+def release_memory(torch) -> None:
+    """Collect reference cycles, then return cached blocks to the card: a
+    shut-down engine's programs hold themselves (and their graphs, pools
+    and the model's weights) in a cycle, since each family's program
+    closes over them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def paged_pool_bytes(model) -> int:
+    """The bytes of the f32 page pool at ``SERVE_ENGINE``: two buffers of
+    [layers, pages + 1, page size, heads, head dim]."""
+    cfg = model.config
+    pages = -(-SERVE_ENGINE["max_slots"] * SERVE_ENGINE["max_seq"]
+              // SERVE_ENGINE["page_size"])
+    return (2 * cfg.num_hidden_layers * (pages + 1)
+            * SERVE_ENGINE["page_size"] * cfg.num_attention_heads
+            * cfg.head_dim * 4)
 
 
 def phase_serve_shapes(torch, shapes) -> None:
@@ -2258,9 +2733,10 @@ def main() -> int:
         serve_record = phase_kernel(torch)
         model = phase_model(torch, GPTForCausalLM, gpt2_small)
         served = phase_serve(torch, model)
+        served["launches"] += phase_serve_modes(torch, model, served)
         phase_serve_shapes(torch, served["prefill_shapes"])
         del model
-        torch.cuda.empty_cache()
+        release_memory(torch)
         records = phase_backward(torch)
         phase_gradients(torch, gpt)
         trained = phase_train(torch, gpt)

@@ -88,3 +88,18 @@ define_flag("serving_pool_pages", 0,
             "decode serving: total pages the paged KV pool holds on the "
             "device (allocated once); 0 sizes it to max_slots * max_seq "
             "tokens")
+define_flag("serving_spec_k", 0,
+            "decode serving: draft tokens proposed per self-speculation "
+            "round — one truncated-layer draft program proposes k tokens, "
+            "one full-model verify pass scores all k+1 positions; 0 "
+            "disables speculation and the draft/verify program families")
+define_flag("serving_spec_draft_layers", 1,
+            "decode serving: transformer layers in the truncated-layer "
+            "draft prefix of self-speculative decoding (clamped to the "
+            "model's layer count; the draft shares the serving weights, "
+            "no copy)")
+define_flag("serving_spec_min_accept", 0.3,
+            "decode serving: rolling draft-acceptance floor — a "
+            "speculating request whose acceptance rate drops below this "
+            "fraction turns its own speculation off (the batch decodes "
+            "plainly once every lane has)")

@@ -19,10 +19,22 @@ The key is built as the JAX ``_cache_key`` builds it: the tree of
 arguments, each tensor's shape, dtype and device, the other arguments'
 values, and ``static_key_fn()`` (train or eval for ``TrainStep``).
 
+A capture runs in the thread-local error mode, so other threads may use
+the card meanwhile (a serving engine keeps serving while another warms),
+and with Python's collector off, so no collection frees another owner's
+graphs mid-capture.
+
 The kernel wrappers count launches on the host, so under a graph they
 would tick only at the capture. Each entry records every counter's change
 during its capture, takes it back (the capture ran nothing), and adds it
 at every replay: a counter keeps meaning kernel executions.
+
+Captures may share one memory pool (``pool``, a
+``torch.cuda.graph_pool_handle()``) and one side stream (``stream``): the
+serving programs capture one graph per rung, run one rung at a time and
+clone its outputs before the next, so one pool serves them all instead of
+one private pool a graph, and one stream holds one cuBLAS workspace (32
+MiB on Hopper, kept for the process's life) instead of one a family.
 
 CUDA generators the function draws from are registered with each graph,
 so every replay draws new numbers, the same stream as eager calls from the
@@ -33,6 +45,7 @@ the CPU's path, not a fallback.
 """
 from __future__ import annotations
 
+import gc
 from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import torch
@@ -117,18 +130,22 @@ class CompiledFunction:
     """``fn`` with a per-signature cache of captured CUDA graphs; eager on
     the CPU. ``device`` is where the calls run (default CUDA);
     ``generators`` are the CUDA ``torch.Generator`` s that ``fn`` draws
-    from besides the default one."""
+    from besides the default one; ``pool`` is a graph memory pool handle
+    the captures share (default: a private pool each), ``stream`` the side
+    stream they run on (default: one of its own)."""
 
     def __init__(self, fn: Callable, static_key_fn: Optional[Callable] = None,
                  name: Optional[str] = None, *, device=DEFAULT_DEVICE,
-                 generators: Iterable[torch.Generator] = ()):
+                 generators: Iterable[torch.Generator] = (), pool=None,
+                 stream: Optional["torch.cuda.Stream"] = None):
         self.fn = fn
         self.static_key_fn = static_key_fn
         self.name = name or getattr(fn, "__name__", "fn")
         self.device = resolve_device(device)
         self.generators = list(generators)
+        self.pool = pool
         self._cache: Dict[Any, dict] = {}
-        self._stream: Optional[torch.cuda.Stream] = None
+        self._stream: Optional[torch.cuda.Stream] = stream
         # steps run as graph replays, and steps run eagerly (the first call
         # of each key on CUDA, every call on the CPU)
         self.stats = {"compiled_steps": 0, "eager_steps": 0}
@@ -162,13 +179,25 @@ class CompiledFunction:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         before = launch_counters()
+        # Python's collector stays off while this thread captures: a
+        # collection here could free a dropped owner's graphs, whose memory
+        # pool goes back to the card (cudaFree), which invalidates the
+        # capture
+        collecting = gc.isenabled()
+        gc.disable()
         try:
-            with torch.cuda.graph(graph, stream=self._stream):
+            # thread_local: what other threads do on the card meanwhile (a
+            # serving engine's scheduler replaying, copying tokens out) does
+            # not invalidate this capture; this thread is still held to it
+            with torch.cuda.graph(graph, pool=self.pool, stream=self._stream,
+                                  capture_error_mode="thread_local"):
                 out = self.fn(*args, **kwargs)
         except Exception as e:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed: "
                                f"{type(e).__name__}: {e}") from e
         finally:
+            if collecting:
+                gc.enable()
             # the capture ran nothing: take back what the wrappers counted
             after = launch_counters()
             delta = {k: after[k] - before.get(k, 0) for k in after

@@ -2,10 +2,11 @@
 ``paddle_tpu/profiler/pipeline.py``).
 
 Every completed request reports its enqueue → admit → dispatch →
-complete timestamps and every decode-tier step its kind, seconds and
-emitted tokens. ``summary()["decode"]`` is what the serving report
-reads: prefill and decode step latency (total seconds, p50/p99) and
-decode tokens per second. Times are host ``perf_counter`` seconds around
+complete timestamps and every decode-tier program call its kind
+(prefill, decode, or a speculation round's draft and verify), seconds
+and emitted tokens. ``summary()["decode"]`` is what the serving report
+reads: step latency by kind (total seconds, p50/p99), decode tokens per
+second and, once a speculation round ran, its acceptance. Times are host ``perf_counter`` seconds around
 steps that end in a device-to-host read of the chosen tokens, so a step's
 time covers its device work.
 """
@@ -39,6 +40,14 @@ class ServingStats:
                 "prefill_s": 0.0, "decode_s": 0.0,
                 "prefill_ms": [], "decode_ms": [],   # bounded rings
                 "prefill_tokens": 0, "decode_tokens": 0,
+                # self-speculation: draft/verify calls keyed like the
+                # other kinds, plus per-round acceptance
+                "draft_steps": 0, "verify_steps": 0,
+                "draft_s": 0.0, "verify_s": 0.0,
+                "draft_ms": [], "verify_ms": [],
+                "draft_tokens": 0, "verify_tokens": 0,
+                "spec_rounds": 0, "spec_proposed": 0,
+                "spec_accepted": 0, "spec_committed": 0,
                 "t_first": None, "t_last": None,
                 "occ_sum": 0, "occ_samples": 0, "occ_peak": 0, "slots": 0,
             }
@@ -83,9 +92,11 @@ class ServingStats:
 
     def record_decode_step(self, kind: str, seconds: float, n_lanes: int,
                            n_tokens: int):
-        """One decode-tier step: ``kind`` is ``"prefill"`` or
-        ``"decode"``; ``n_tokens`` real tokens were emitted by ``n_lanes``
-        real lanes (pad lanes excluded)."""
+        """One decode-tier program call: ``kind`` is ``"prefill"``,
+        ``"decode"``, ``"draft"`` or ``"verify"``; ``n_tokens`` real
+        tokens were emitted by ``n_lanes`` real lanes (pad lanes excluded;
+        a draft call emits 0, its round's committed tokens land on the
+        verify call)."""
         now = time.perf_counter()
         with self._lock:
             cell = self._decode
@@ -96,6 +107,19 @@ class ServingStats:
             cell[f"{kind}_s"] += float(seconds)
             self._ring_append(cell[f"{kind}_ms"], float(seconds) * 1e3)
             cell[f"{kind}_tokens"] += int(n_tokens)
+
+    def record_spec_round(self, proposed: int, accepted: int,
+                          committed: int):
+        """One self-speculation round across its lanes: ``proposed`` draft
+        tokens, ``accepted`` of them matched by the verify pass,
+        ``committed`` tokens entered streams (accepted plus the verify
+        pass's own token a lane, clipped by EOS and the length limits)."""
+        with self._lock:
+            cell = self._decode
+            cell["spec_rounds"] += 1
+            cell["spec_proposed"] += int(proposed)
+            cell["spec_accepted"] += int(accepted)
+            cell["spec_committed"] += int(committed)
 
     def record_slot_occupancy(self, in_use: int, capacity: int):
         with self._lock:
@@ -141,9 +165,10 @@ class ServingStats:
             return None
         prefill = sorted(cell["prefill_ms"])
         decode = sorted(cell["decode_ms"])
-        tokens = cell["prefill_tokens"] + cell["decode_tokens"]
+        tokens = (cell["prefill_tokens"] + cell["decode_tokens"]
+                  + cell["verify_tokens"])
         window = cell["t_last"] - cell["t_first"]
-        return {
+        out = {
             "prefill_steps": cell["prefill_steps"],
             "decode_steps": cell["decode_steps"],
             "prefill_s": cell["prefill_s"],
@@ -163,3 +188,29 @@ class ServingStats:
             "slot_occupancy_peak": cell["occ_peak"],
             "slots": cell["slots"],
         }
+        if cell["spec_rounds"]:
+            draft = sorted(cell["draft_ms"])
+            verify = sorted(cell["verify_ms"])
+            spec_s = cell["draft_s"] + cell["verify_s"]
+            out.update(
+                spec_rounds=cell["spec_rounds"],
+                spec_tokens_proposed=cell["spec_proposed"],
+                spec_tokens_accepted=cell["spec_accepted"],
+                spec_tokens_committed=cell["spec_committed"],
+                spec_accept_rate=(cell["spec_accepted"]
+                                  / max(cell["spec_proposed"], 1)),
+                # tokens committed per full-model call (verify), against
+                # the 1 of a plain decode step
+                spec_net_tokens_per_full_pass=(
+                    cell["spec_committed"] / max(cell["spec_rounds"], 1)),
+                draft_steps=cell["draft_steps"],
+                verify_steps=cell["verify_steps"],
+                draft_s=cell["draft_s"],
+                verify_s=cell["verify_s"],
+                draft_p50_ms=self._pct(draft, 0.50),
+                verify_p50_ms=self._pct(verify, 0.50),
+                # committed tokens over the time spent in the rounds
+                spec_tokens_per_sec=(cell["verify_tokens"] / spec_s
+                                     if spec_s > 0 else None),
+            )
+        return out

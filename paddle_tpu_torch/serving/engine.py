@@ -2,9 +2,10 @@
 ``paddle_tpu/serving/engine.py``).
 
 Queue with admission control, a tenant registry with live add/drop and
-priority tiers, and the start/shutdown lifecycle of the scheduler
-thread. The JAX package's telemetry exporter and circuit breakers are
-left out of this slice.
+priority tiers, the start/shutdown lifecycle of the scheduler thread,
+and the zero-recompile proof (``compiles_after_warmup``). The JAX
+package's telemetry exporter and circuit breakers are left out of this
+slice.
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ __all__ = ["EngineBase"]
 
 class EngineBase:
     """Subclasses set ``_scheduler`` (an object with ``start``/``alive``/
-    ``join``) and provide their own ``warmup``/``submit``; ``warmup``
-    ends in :meth:`_start_serving`."""
+    ``join``), provide their own ``warmup``/``submit`` and
+    ``compile_count``; ``warmup`` ends in :meth:`_start_serving`."""
 
     def __init__(self, *, max_queue: Optional[int] = None,
                  tenant_quota: Optional[int] = None,
@@ -32,11 +33,15 @@ class EngineBase:
         self.queue = RequestQueue(AdmissionController(
             max_queue=max_queue, tenant_quota=tenant_quota,
             request_ttl_ms=request_ttl_ms), stats=self.stats)
+        self._compiles_at_warmup: Optional[int] = None
         self._started = False
         self._scheduler = None
 
     # ------------------------------------------------------------ lifecycle
     def _start_serving(self) -> None:
+        """Snapshot the compile count, start the scheduler thread: the
+        tail of every subclass's ``warmup()``."""
+        self._compiles_at_warmup = self.compile_count
         if not self._started:
             self._scheduler.start()
             self._started = True
@@ -84,3 +89,16 @@ class EngineBase:
         """Pin a tenant's admission priority: ``"interactive"`` (default)
         or ``"bulk"``."""
         self.queue.admission.set_tier(name, tier)
+
+    # ---------------------------------------------------------- accounting
+    @property
+    def compile_count(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def compiles_after_warmup(self) -> Optional[int]:
+        """Program signatures met since warmup (None before warmup). Every
+        rung is armed at warmup, so traffic must hold this at 0."""
+        if self._compiles_at_warmup is None:
+            return None
+        return self.compile_count - self._compiles_at_warmup

@@ -93,14 +93,31 @@ class Request:
 
 
 class DecodeRequest(Request):
-    """One greedy generation request: a token prompt that holds KV pages
-    from admission to retirement. The future resolves to the generated
-    token ids (``np.int32``, up to ``max_new_tokens`` or the engine's
-    EOS). ``n`` is 1: admission counts requests for the decode tier."""
+    """One generation request: a token prompt that holds KV state (a slot
+    or pages) from admission to retirement. The future resolves to the
+    generated token ids (``np.int32``, up to ``max_new_tokens`` or the
+    engine's EOS). ``n`` is 1: admission counts requests for the decode
+    tier.
 
-    __slots__ = ("prompt", "max_new_tokens", "generated", "seq_rung", "pages")
+    - Sampling: ``temperature == 0`` decodes greedily; a positive one
+      samples after the ``top_k``/``top_p`` filters, with the key
+      ``[seed, len(generated)]``, so the stream depends on the seed and
+      never on the batch.
+    - Speculation: ``speculate`` opts the request in; ``spec_live`` drops
+      to False when its acceptance (``spec_accepted / spec_proposed``)
+      falls under the engine's floor. The stream is the same either way.
+    - ``slot`` (slot pools) or ``pages`` (the block table, paged pools)
+      name its KV state.
+    """
 
-    def __init__(self, tenant: str, prompt, max_new_tokens: int):
+    __slots__ = ("prompt", "max_new_tokens", "generated", "slot", "seq_rung",
+                 "pages", "temperature", "top_k", "top_p", "seed",
+                 "speculate", "spec_live", "spec_proposed", "spec_accepted")
+
+    def __init__(self, tenant: str, prompt, max_new_tokens: int,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, seed: int = 0,
+                 speculate: bool = False):
         prompt = np.asarray(prompt, dtype=np.int32).reshape(-1)
         if prompt.size == 0:
             raise ValueError("decode request needs a non-empty prompt")
@@ -108,8 +125,17 @@ class DecodeRequest(Request):
         self.prompt = prompt
         self.max_new_tokens = max(int(max_new_tokens), 1)
         self.generated: List[int] = []
+        self.slot = None            # KV slot (slot pools, scheduler set)
         self.seq_rung = None        # prefill seq-ladder rung (scheduler set)
-        self.pages: List[int] = []  # block table
+        self.pages: List[int] = []  # block table (paged pools)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
+        self.seed = int(seed)
+        self.speculate = bool(speculate)
+        self.spec_live = bool(speculate)
+        self.spec_proposed = 0
+        self.spec_accepted = 0
 
     @property
     def position(self) -> int:
