@@ -55,6 +55,34 @@ Phases, each of which fails the run on any error:
    their eager programs; the bf16 pool holds exactly half the f32 pool's
    bytes, its first tokens alone equal the f32 engine's bit for bit
    (prefill reads no pool) and its streams are well formed;
+5c. operate — the paged f32 engine of phase 5 with its telemetry exporter
+   on an ephemeral port (``serve_telemetry_port=0``), the span tracer on
+   and 6 retry attempts, every rung captured at warmup: (a) the model's
+   parameters negated in place after warmup leave the streams (phase 5's
+   prompts, greedy, each alone) bit for bit phase 5's; (b) two client
+   threads stream requests while the main thread swaps A -> B from a
+   sharded checkpoint that ``save_sharded(jax_state_dict(model_b))`` wrote
+   for a second gpt2_small (seed 1), then B -> A from the live model: no
+   request fails, no signature or capture after warmup, every call a
+   replay; the streams of requests admitted after the first swap returned
+   (and done before the second) equal a cold engine's warmed on B, except
+   near-ties; after the swap back the streams alone are bit for bit phase
+   5's; the swap's wall ms and bytes, the steady p99 and the p99 of the
+   requests completed inside each swap window are printed; (c) ``/healthz``,
+   ``/metrics`` (the serving counters, the weight swaps under
+   ``paddle_serving_weight_swaps_total``), ``/snapshot.json`` and
+   ``/trace.json`` (``serving.decode`` spans) fetched over HTTP, each
+   fetch's ms printed; (d) transient faults at rate 0.3 on
+   ``serving.decode_step`` (seed 5) retried with the streams bit for bit
+   phase 5's, fatal ones at rate 0.3 losing no request and leaving no page
+   in use, and a breaker of threshold 2 on a victim tenant: ``/healthz``
+   reads ``degraded`` and lists it, its submits are refused with
+   ``reason="circuit"``, a healthy tenant is served. Then a prefill and a
+   decode replay after a swap to B equal the programs run eagerly on B bit
+   for bit. The first swap again on the speculating engine (k = 4, 6
+   draft layers) under two clients' traffic: no request fails, the draft
+   view shares the swapped storage, and a draft and a verify replay equal
+   their eager programs on B bit for bit;
 6. kernel at the serve shapes — the kernel against its plain version
    again (f32 also against float64), at each prefill shape phase 5
    recorded (packed-qkv strided inputs, H=12, D=64, causal, f32 and bf16).
@@ -153,7 +181,7 @@ Phases, each of which fails the run on any error:
     ``torch.optim.AdamW(fused=True)`` (a yardstick only: its moments are
     bf16).
 
-The serve (5, 5b), train (9), train Llama (12) and FlashMask path (14)
+The serve (5, 5b, 5c), train (9), train Llama (12) and FlashMask path (14)
 phases are the main paths: the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
@@ -170,9 +198,13 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 import traceback
 
@@ -1108,6 +1140,414 @@ def phase_serve_modes(torch, model, paged) -> int:
     print(f"bf16 KV: first tokens equal the f32 engine's alone; "
           f"{agree}/{len(prompts)} whole streams equal", flush=True)
     return total
+
+
+# phase 5c: the operational tier, on the paged f32 engine of phase 5
+FAULT_RATE = 0.3
+# the transient schedule's seed: over the 256 program calls of the 8
+# requests served alone (1 prefill + 31 decode calls each) it fires 92
+# times, at most 3 in a row, inside the 6 attempts the engine is given
+TRANSIENT_SEED = 5
+FATAL_SEED = 0
+RETRY_ATTEMPTS = 6
+
+
+def fetch(url: str) -> tuple:
+    """GET ``url`` (the engine's exporter on 127.0.0.1): status, body and
+    milliseconds."""
+    import urllib.error
+    import urllib.request
+
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            status, body = resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        status, body = e.code, e.read().decode()
+    return status, body, (time.perf_counter() - t0) * 1e3
+
+
+def serve_alone(engine, prompts, tenant=None) -> list:
+    """Greedy streams, one request after another (each call's rung is
+    fixed by its request alone, so two runs on one card are bitwise
+    equal); the engine's stats keep counting."""
+    return [engine.submit(tenant or ("alpha" if i % 2 else "beta"), p,
+                          max_new_tokens=NEW_TOKENS).result(600)
+            for i, p in enumerate(prompts)]
+
+
+def param_bytes(params) -> int:
+    """The bytes of a decode engine's own weights."""
+    tensors = [t for k, t in params.items() if k != "blocks"]
+    tensors += [t for blk in params["blocks"] for t in blk.values()]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def p99_line(latencies) -> str:
+    if not latencies:
+        return "none"
+    return (f"p99 {np.percentile(latencies, 99) * 1e3:.1f} ms over "
+            f"{len(latencies)}")
+
+
+def swap_traffic(engine, prompts, sources) -> tuple:
+    """Two client threads stream greedy requests (client c walks prompts
+    c, c+2, ...) while the main thread swaps to each of ``sources`` in
+    turn, after 4 completions and then 6 more after each swap. Returns
+    the completed ``(prompt index, request)`` pairs, each swap's (start,
+    end) perf_counter window and report."""
+    done, failures = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(c):
+        i = c
+        while not stop.is_set():
+            idx = i % len(prompts)
+            try:
+                req = engine.submit(f"client{c}", prompts[idx],
+                                    max_new_tokens=NEW_TOKENS)
+                req.result(600)
+            except Exception as e:  # noqa: BLE001 — the zero-drop gate
+                with lock:
+                    failures.append(repr(e))
+                return
+            with lock:
+                done.append((idx, req))
+            i += 2
+
+    def wait_for(n):
+        deadline = time.perf_counter() + 600
+        while len(done) < n and not failures:
+            check(time.perf_counter() < deadline, "swap traffic stalled")
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in (0, 1)]
+    for t in threads:
+        t.start()
+    windows, reports = [], []
+    try:
+        wait_for(4)
+        for source in sources:
+            t0 = time.perf_counter()
+            reports.append(engine.swap_weights(source))
+            windows.append((t0, time.perf_counter()))
+            wait_for(len(done) + 6)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(600)
+    check(failures == [], f"requests failed under the swaps: {failures[:3]}")
+    check(not any(t.is_alive() for t in threads), "a client hung")
+    return done, windows, reports
+
+
+def check_health(url, what, **want) -> dict:
+    status, body, ms = fetch(url + "/healthz")
+    health = json.loads(body)
+    print(f"{what}: GET /healthz {status} in {ms:.2f} ms: ok {health['ok']}, "
+          f"health {health['health']}, open circuits "
+          f"{health['open_circuits']}, worker alive "
+          f"{health['worker_alive']}, compiles after warmup "
+          f"{health['compiles_after_warmup']}, pages in use "
+          f"{health['kv_pages_in_use']}/{health['kv_pages']}", flush=True)
+    check(status == 200 and health["ok"] and health["worker_alive"]
+          and health["compiles_after_warmup"] == 0, f"{what}: {health}")
+    for key, value in want.items():
+        check(health[key] == value, f"{what}: {key} {health[key]} != {value}")
+    return health
+
+
+def check_telemetry(url) -> None:
+    """(c) Each endpoint of the running engine's exporter over HTTP."""
+    check_health(url, "telemetry", kv_pages_in_use=0, health="ok")
+    status, body, ms = fetch(url + "/metrics")
+    lines = body.splitlines()
+    samples = {ln.rsplit(" ", 1)[0]: float(ln.rsplit(" ", 1)[1])
+               for ln in lines if ln and not ln.startswith("#")}
+    swaps = samples.get("paddle_serving_weight_swaps_total", 0)
+    print(f"telemetry: GET /metrics {status} in {ms:.2f} ms, {len(lines)} "
+          f"lines, {len(body)} bytes; weight swaps {swaps}, admitted "
+          f"{sum(v for k, v in samples.items() if k.startswith('paddle_serving_admitted_total'))}",
+          flush=True)
+    check(status == 200 and swaps >= 2, "/metrics lacks the weight swaps")
+    for name in ("paddle_serving_admitted_total",
+                 "paddle_serving_kv_pages_in_use", "paddle_serving_requests",
+                 "paddle_serving_decode_decode_steps", "paddle_process_info"):
+        check(any(k.startswith(name) for k in samples),
+              f"/metrics lacks {name}")
+    status, body, ms = fetch(url + "/snapshot.json")
+    snap = json.loads(body)
+    print(f"telemetry: GET /snapshot.json {status} in {ms:.2f} ms, "
+          f"{len(snap['metrics'])} metrics, {len(body)} bytes", flush=True)
+    check(status == 200 and "serving.weight_swaps" in snap["metrics"],
+          "/snapshot.json lacks the weight swaps")
+    status, body, ms = fetch(url + "/trace.json")
+    events = json.loads(body)["traceEvents"]
+    spans = [e for e in events if e["name"] == "serving.decode"]
+    kinds = sorted({e["args"]["kind"] for e in spans})
+    print(f"telemetry: GET /trace.json {status} in {ms:.2f} ms, "
+          f"{len(events)} events, {len(spans)} serving.decode spans {kinds}, "
+          f"{len(body)} bytes", flush=True)
+    check(status == 200 and {"prefill", "decode"} <= set(kinds),
+          "/trace.json lacks serving.decode spans")
+
+
+def check_faults(torch, engine, prompts, solo) -> None:
+    """(d) Transient faults absorbed with equal streams, fatal ones losing
+    no request and no page, a breaker shedding its tenant."""
+    from paddle_tpu_torch import reliability as rel
+    from paddle_tpu_torch.serving import AdmissionError
+
+    url = engine.telemetry_url
+    inj = rel.arm(rel.FaultInjector(seed=TRANSIENT_SEED).plan(
+        "serving.decode_step", rate=FAULT_RATE))
+    t0 = time.perf_counter()
+    try:
+        got = serve_alone(engine, prompts)
+    finally:
+        rel.disarm()
+    fired = inj.summary()["total_injected"]
+    same = sum(np.array_equal(a, b) for a, b in zip(got, solo))
+    print(f"transient faults (rate {FAULT_RATE}, seed {TRANSIENT_SEED}, "
+          f"{RETRY_ATTEMPTS} attempts): {fired} fired and retried in "
+          f"{time.perf_counter() - t0:.2f} s; {same}/{len(prompts)} streams "
+          "bit for bit phase 5's alone", flush=True)
+    check(fired > 0 and same == len(prompts),
+          "transient faults changed the streams")
+
+    inj = rel.arm(rel.FaultInjector(seed=FATAL_SEED).plan(
+        "serving.decode_step", rate=FAULT_RATE, transient=False))
+    resolved = failed = 0
+    try:
+        futs = [engine.submit("chaos", p, max_new_tokens=NEW_TOKENS)
+                for p in prompts]
+        for f in futs:
+            try:
+                f.result(600)
+                resolved += 1
+            except rel.FaultInjection:
+                failed += 1
+    finally:
+        rel.disarm()
+    in_use, active = engine.kv_pool.in_use(), engine.active_requests()
+    print(f"fatal faults (rate {FAULT_RATE}, seed {FATAL_SEED}): "
+          f"{inj.summary()['total_injected']} fired; {resolved} resolved + "
+          f"{failed} failed of {len(prompts)} submitted; pages in use "
+          f"{in_use}, active requests {active}", flush=True)
+    check(failed > 0 and resolved + failed == len(prompts),
+          "fatal faults lost a request")
+    check(in_use == 0 and active == 0, "fatal faults leaked pages")
+
+    victim = engine.breakers.breaker("victim")
+    victim.failure_threshold, victim.cooldown_s = 2, 600.0
+    inj = rel.arm(rel.FaultInjector(seed=0).plan(
+        "serving.decode_step", rate=1.0, transient=False))
+    try:
+        for _ in range(2):
+            try:
+                engine.submit("victim", prompts[0], max_new_tokens=4
+                              ).result(600)
+                check(False, "a victim request was served through a fault")
+            except rel.FaultInjection:
+                pass
+    finally:
+        rel.disarm()
+    health = check_health(url, "breaker (threshold 2)", health="degraded")
+    check("victim" in health["open_circuits"], "the victim is not listed")
+    try:
+        engine.submit("victim", prompts[0], max_new_tokens=4)
+        refused = None
+    except AdmissionError as e:
+        refused = e.reason
+    out = engine.submit("healthy", prompts[0], max_new_tokens=4).result(600)
+    print(f"breaker: the victim's submit refused with reason {refused!r}; "
+          f"a healthy tenant served {out.tolist()}", flush=True)
+    check(refused == "circuit", f"the victim was not shed ({refused})")
+    check(out.shape == (4,), "the healthy tenant was not served")
+
+
+def operate_engine(torch, model, ckpt, prompts, solo) -> dict:
+    """Phase 5c's paged f32 engine over ``model`` (A), its exporter on an
+    ephemeral port and the span tracer on: (a) A changed in place after
+    warmup, (b) swaps A -> B (``ckpt``) -> A (the live model) under two
+    clients' traffic, (c) telemetry, (d) faults, then the counts and a
+    replay of each of prefill and decode against the eager program on B.
+    Returns the main path's kernel launches and the post-swap streams."""
+    from paddle_tpu_torch.base.flags import set_flags
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    set_flags({"retry_max_attempts": RETRY_ATTEMPTS, "telemetry_trace": True})
+    try:
+        engine, warm = warm_engine(torch, model, "operate f32",
+                                   serve_telemetry_port=0)
+    finally:
+        set_flags({"retry_max_attempts": 3})
+    try:
+        print(f"telemetry exporter at {engine.telemetry_url}; weights "
+              f"{param_bytes(engine.programs.params)} bytes, the engine's "
+              "own copy", flush=True)
+        engine.stats.reset()
+        fa.launches = fa.tma_copies = 0
+        with torch.no_grad():
+            for p in model.parameters():
+                p.neg_()
+        try:
+            owned = serve_alone(engine, prompts)
+        finally:
+            with torch.no_grad():
+                for p in model.parameters():
+                    p.neg_()
+        same = sum(np.array_equal(a, b) for a, b in zip(owned, solo))
+        print(f"(a) the model negated in place after warmup: {same}/"
+              f"{len(prompts)} streams bit for bit phase 5's alone",
+              flush=True)
+        check(same == len(prompts), "the engine served the model's change")
+
+        done, windows, reports = swap_traffic(engine, prompts,
+                                              (ckpt, model))
+        nbytes = param_bytes(engine.programs.params)
+        for (t0, t1), rep, name in zip(windows, reports,
+                                       ("A -> B (checkpoint)",
+                                        "B -> A (live model)")):
+            inside = [r.t_complete - r.t_enqueue for _, r in done
+                      if t0 <= r.t_complete <= t1]
+            print(f"(b) swap {name}: {(t1 - t0) * 1e3:.1f} ms wall "
+                  f"(report {rep['seconds'] * 1e3:.1f} ms), {nbytes} bytes, "
+                  f"{rep['n_leaves']} tensors, {rep['kv_slots_in_use']} "
+                  f"pages in use; requests completed inside: "
+                  f"{p99_line(inside)}", flush=True)
+            check(rep["compiles_after_warmup"] == 0,
+                  f"swap {name}: {rep['compiles_after_warmup']} compiles")
+        steady = [r.t_complete - r.t_enqueue for _, r in done
+                  if all(r.t_complete < t0 or r.t_enqueue > t1
+                         for t0, t1 in windows)]
+        post = [(idx, r.result(0)) for idx, r in done
+                if r.t_admit > windows[0][1]
+                and r.t_complete < windows[1][0]]
+        print(f"(b) {len(done)} requests served, none failed; steady "
+              f"{p99_line(steady)}; {len(post)} admitted after the first "
+              "swap returned and done before the second", flush=True)
+        check(len(post) >= 2, "too few requests between the swaps")
+        back = serve_alone(engine, prompts)
+        same = sum(np.array_equal(a, b) for a, b in zip(back, solo))
+        print(f"(b) after the swap back: {same}/{len(prompts)} streams bit "
+              "for bit phase 5's alone", flush=True)
+        check(same == len(prompts), "the swap back changed the streams")
+
+        check_telemetry(engine.telemetry_url)
+        check_faults(torch, engine, prompts, solo)
+
+        launches, copies = fa.launches, fa.tma_copies
+        report = engine.serving_report()
+        check_replays(engine, "operate f32", warm, [report])
+        check_prefill_launches("operate f32", launches, copies, [report])
+        engine.swap_weights(ckpt)
+        rs = np.random.RandomState(11)
+        for family, b, width in (("prefill", *PREFILL_RUNG),
+                                 ("decode", *STEP_RUNG)):
+            check_replay_is_eager(torch, engine, "operate f32 on B", family,
+                                  call_inputs(engine, family, b, width, rs))
+        engine.swap_weights(model)
+    finally:
+        engine.shutdown(drain=False)
+        set_flags({"telemetry_trace": False})
+    del engine
+    release_memory(torch)
+    return {"launches": launches, "post": post}
+
+
+def operate_speculating(torch, model, ckpt, prompts) -> int:
+    """The first swap again, on the speculating engine under two clients'
+    traffic; then a draft and a verify replay against their eager
+    programs on the new weights. Returns the kernel launches of its
+    traffic."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    engine, warm = warm_engine(torch, model, "operate f32 speculating",
+                               **SPEC)
+    try:
+        engine.stats.reset()
+        fa.launches = fa.tma_copies = 0
+        done, windows, reports = swap_traffic(engine, prompts, (ckpt,))
+        launches, copies = fa.launches, fa.tma_copies
+        report = engine.serving_report()
+        progs = engine.programs
+        shared = all(progs.draft_params["blocks"][i][k]
+                     is progs.params["blocks"][i][k]
+                     for i in range(progs.draft_layers)
+                     for k in progs.params["blocks"][i])
+        (t0, t1), rep = windows[0], reports[0]
+        print(f"speculating: swap A -> B (checkpoint) {(t1 - t0) * 1e3:.1f} "
+              f"ms wall with {rep['kv_slots_in_use']} pages in use, "
+              f"{len(done)} requests served, none failed, "
+              f"{report['decode']['spec_rounds']} speculation rounds, "
+              f"compiles after warmup {rep['compiles_after_warmup']}, the "
+              f"draft view shares the swapped storage {shared}", flush=True)
+        check(rep["compiles_after_warmup"] == 0 and shared,
+              "speculating swap")
+        check_replays(engine, "speculating swap", warm, [report])
+        check_prefill_launches("speculating swap", launches, copies,
+                               [report])
+    finally:
+        engine.shutdown(drain=False)
+    rs = np.random.RandomState(12)
+    for family in ("draft", "verify"):
+        check_replay_is_eager(torch, engine, "speculating on B", family,
+                              call_inputs(engine, family, *STEP_RUNG, rs))
+    del engine
+    release_memory(torch)
+    return launches
+
+
+def phase_operate(torch, model, paged) -> int:
+    """Phase 5c: the operational tier on the paged f32 engine. Returns the
+    flash-attention launches of its main-path traffic."""
+    from paddle_tpu_torch.distributed.checkpoint.sharded import save_sharded
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt2_small,
+                                             jax_state_dict)
+
+    print("== operate: the engine owns its weights; hot swaps A -> B -> A "
+          "under traffic; telemetry over HTTP; faults, retries, a breaker",
+          flush=True)
+    prompts = serve_prompts(model.config.vocab_size)
+    solo = paged["streams"]["greedy"][1]
+    model_b = GPTForCausalLM(gpt2_small(),
+                             generator=torch.Generator().manual_seed(1))
+    model_b.eval()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        ckpt = os.path.join(tmp, "gpt2_small_b")
+        t0 = time.perf_counter()
+        rep = save_sharded(jax_state_dict(model_b), ckpt)
+        print(f"GPT B (seed 1) saved as a sharded checkpoint in the "
+              f"reference's layout: {rep['n_tensors']} tensors, "
+              f"{rep['bytes']} bytes, {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        operated = operate_engine(torch, model, ckpt, prompts, solo)
+        launches = operated["launches"]
+        cold, _ = warm_engine(torch, model_b, "cold f32 on B")
+        try:
+            want = [cold.submit("alpha", prompts[idx],
+                                max_new_tokens=NEW_TOKENS).result(600)
+                    for idx, _ in operated["post"]]
+        finally:
+            cold.shutdown(drain=False)
+        del cold
+        release_memory(torch)
+        idxs = [idx for idx, _ in operated["post"]]
+        hold_streams(torch, model_b, [prompts[i] for i in idxs],
+                     [out for _, out in operated["post"]], want,
+                     "served after the swap A -> B vs a cold engine on B")
+        check(any(not np.array_equal(out, solo[i])
+                  for i, out in operated["post"]),
+              "the streams after the swap are A's")
+        launches += operate_speculating(torch, model, ckpt, prompts)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del model_b
+    release_memory(torch)
+    return launches
 
 
 def release_memory(torch) -> None:
@@ -2734,6 +3174,7 @@ def main() -> int:
         model = phase_model(torch, GPTForCausalLM, gpt2_small)
         served = phase_serve(torch, model)
         served["launches"] += phase_serve_modes(torch, model, served)
+        served["launches"] += phase_operate(torch, model, served)
         phase_serve_shapes(torch, served["prefill_shapes"])
         del model
         release_memory(torch)

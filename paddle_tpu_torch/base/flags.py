@@ -1,19 +1,25 @@
 """Process-level flags the serving path reads.
 
-The port's copy of ``paddle_tpu/base/flags.py``, cut to the serving
-flags of the decode path: same names, same defaults, each overridable by
-a ``FLAGS_<name>`` environment variable.
+The port's copy of ``paddle_tpu/base/flags.py``, cut to the flags of the
+decode path and its operational tier (telemetry, fault injection, retries,
+circuit breakers, the lock witness): same names, same defaults, each
+overridable by a ``FLAGS_<name>`` environment variable and at run time by
+:func:`set_flags`, whose changes reach the hooks registered with
+:func:`on_flag_change`.
 """
 from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict
+from typing import Any, Dict, Mapping
 
-__all__ = ["define_flag", "get_flag"]
+__all__ = ["define_flag", "get_flag", "on_flag_change", "set_flags"]
 
 _lock = threading.Lock()
 _registry: Dict[str, "_Flag"] = {}
+# flag name -> callbacks fired after set_flags changes it (the tracer's
+# `enabled`, the fault injector, the lock witness mirror their flag)
+_on_change: Dict[str, list] = {}
 
 
 class _Flag:
@@ -50,6 +56,30 @@ def get_flag(name: str) -> Any:
     if f is None:
         raise KeyError(f"flag '{name}' is not defined")
     return f.value
+
+
+def set_flags(flags: Mapping[str, Any]) -> None:
+    """Set flags (a string parses as the flag's type), then fire each
+    changed flag's :func:`on_flag_change` hooks."""
+    with _lock:
+        for name, value in flags.items():
+            f = _registry.get(name)
+            if f is None:
+                raise KeyError(f"flag '{name}' is not defined")
+            f.value = (_parse(value, f.type)
+                       if isinstance(value, str) and f.type is not str
+                       else f.type(value))
+    for name in flags:
+        for fn in _on_change.get(name, ()):
+            fn(_registry[name].value)
+
+
+def on_flag_change(name: str, fn) -> None:
+    """Register ``fn(new_value)`` to fire after :func:`set_flags` changes
+    ``name``. The flag must already be defined."""
+    if name not in _registry:
+        raise KeyError(f"flag '{name}' is not defined")
+    _on_change.setdefault(name, []).append(fn)
 
 
 define_flag("serving_max_queue", 1024,
@@ -103,3 +133,49 @@ define_flag("serving_spec_min_accept", 0.3,
             "speculating request whose acceptance rate drops below this "
             "fraction turns its own speculation off (the batch decodes "
             "plainly once every lane has)")
+define_flag("telemetry_trace", False,
+            "observability: record host spans (serving program calls) into "
+            "the process span tracer for chrome://tracing / Perfetto export; "
+            "off = one attribute read per instrumented site")
+define_flag("telemetry_trace_max_events", 65536,
+            "observability: span-tracer ring capacity — the trace keeps the "
+            "most recent N events")
+define_flag("telemetry_port", 0,
+            "observability egress: default port of the serving engine's "
+            "telemetry HTTP exporter (/metrics, /healthz, /snapshot.json, "
+            "/trace.json) on 127.0.0.1; 0 disables it (an explicit "
+            "serve_telemetry_port=0 still means 'pick an ephemeral port')")
+define_flag("fault_inject", "",
+            "reliability fault injection: 'site:rate:kind[:delay_ms][,...]' "
+            "arms the process FaultInjector at that seeded schedule (kinds: "
+            "raise, latency, corrupt; seed from FLAGS_fault_seed); empty "
+            "disarms — the production default")
+define_flag("fault_seed", 0,
+            "reliability fault injection: seed of the per-site "
+            "deterministic RNG streams — the same (seed, spec) pair replays "
+            "the same fault schedule exactly")
+define_flag("retry_max_attempts", 3,
+            "reliability RetryPolicy default: bounded attempts per wrapped "
+            "call (transient failures only; fatal errors propagate on the "
+            "first attempt)")
+define_flag("retry_deadline_s", 30.0,
+            "reliability RetryPolicy default: wall-clock budget across all "
+            "attempts of one wrapped call — no retry starts past it")
+define_flag("retry_base_delay_ms", 20.0,
+            "reliability RetryPolicy default: first backoff delay; doubles "
+            "per attempt (deterministic, no jitter)")
+define_flag("circuit_failure_threshold", 5,
+            "reliability CircuitBreaker default: consecutive failures "
+            "before a key (tenant) flips open and admission sheds its load "
+            "(AdmissionError reason='circuit')")
+define_flag("circuit_cooldown_s", 30.0,
+            "reliability CircuitBreaker default: how long an open breaker "
+            "sheds before half-opening for probe traffic")
+define_flag("concurrency_witness", False,
+            "record every named-lock acquire into the process lock-order "
+            "witness (held stacks, acquire/contended/hold-time counters, "
+            "order-graph edges; a cycle-closing edge is an inversion); off "
+            "= one bool read per acquire")
+define_flag("concurrency_max_hold_ms", 0.0,
+            "lock witness: a lit-mode hold longer than this records a "
+            "hold violation; <=0 disables the hold-time watcher")

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Mapping, Optional
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -36,7 +36,8 @@ from ..nn.layer import LayerNorm, Linear
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
-           "GPTPretrainingCriterion", "load_jax_state", "gpt_tiny",
+           "GPTPretrainingCriterion", "jax_state_dict", "load_jax_state",
+           "port_state_from_jax", "gpt_tiny",
            "gpt2_small", "gpt2_medium", "gpt_1p3b"]
 
 
@@ -250,33 +251,65 @@ class GPTPretrainingCriterion(nn.Module):
                                reduction="mean")
 
 
-@torch.no_grad()
-def load_jax_state(model: nn.Module,
-                   state: Mapping[str, np.ndarray]) -> nn.Module:
-    """Fill ``model`` (the port's GPT or Llama) from the JAX model's
-    ``state_dict()`` given as numpy arrays under the JAX names, which the
-    port's parameter names match name for name. The one place that knows both
-    layouts: a JAX ``Linear`` weight is ``[in, out]`` and is transposed
-    into torch's ``[out, in]``; every other tensor copies as it is. Every
-    parameter must be given, and nothing else."""
-    linear = {f"{name}.weight" for name, mod in model.named_modules()
-              if isinstance(mod, nn.Linear)}
+def _linear_weights(model: nn.Module) -> set:
+    return {f"{name}.weight" for name, mod in model.named_modules()
+            if isinstance(mod, nn.Linear)}
+
+
+def port_state_from_jax(model: nn.Module,
+                        state: Mapping[str, object]) -> Dict[str, torch.Tensor]:
+    """``state`` (the JAX model's ``state_dict()`` under the JAX names, as
+    numpy arrays or tensors) in the port's layout for ``model``: each JAX
+    ``Linear`` weight ``[in, out]`` transposed into torch's ``[out, in]``
+    (a view), every other tensor as it is. Every parameter must be given,
+    and nothing else, each at the parameter's shape; ``model`` is not
+    touched."""
+    linear = _linear_weights(model)
     params = dict(model.named_parameters())
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
     if missing or unexpected:
         raise KeyError(f"load_jax_state: missing {missing}, "
                        f"unexpected {unexpected}")
+    out = {}
     for name, param in params.items():
-        value = torch.tensor(np.asarray(state[name]))
+        value = state[name]
+        if not isinstance(value, torch.Tensor):
+            value = torch.tensor(np.asarray(value))
         if name in linear:
             value = value.t()
         if tuple(value.shape) != tuple(param.shape):
             raise ValueError(f"load_jax_state: {name} is "
                              f"{tuple(value.shape)}, the port expects "
                              f"{tuple(param.shape)}")
-        param.copy_(value)
+        out[name] = value
+    return out
+
+
+@torch.no_grad()
+def load_jax_state(model: nn.Module,
+                   state: Mapping[str, object]) -> nn.Module:
+    """Fill ``model`` (the port's GPT or Llama) from the JAX model's
+    ``state_dict()`` given under the JAX names, which the port's parameter
+    names match name for name. With :func:`jax_state_dict`, the one place
+    that knows both layouts: a JAX ``Linear`` weight is ``[in, out]`` and
+    is transposed into torch's ``[out, in]``; every other tensor copies as
+    it is. Every parameter must be given, and nothing else."""
+    params = dict(model.named_parameters())
+    for name, value in port_state_from_jax(model, state).items():
+        params[name].copy_(value)
     return model
+
+
+def jax_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`load_jax_state`: ``model``'s parameters under
+    the JAX names in the JAX layout, each ``Linear`` weight as ``[in,
+    out]``. The tensors are views of the model's storage (no copy); a
+    checkpoint written from them (``save_sharded``) is in the reference's
+    layout, whichever package wrote it."""
+    linear = _linear_weights(model)
+    return {name: p.detach().t() if name in linear else p.detach()
+            for name, p in model.named_parameters()}
 
 
 # ---------------------------------------------------------------- presets

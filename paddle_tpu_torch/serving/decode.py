@@ -1,10 +1,10 @@
 """Continuous-batching GPT decode (port of ``paddle_tpu/serving/decode.py``).
 
 - :class:`DecodePrograms` — the slot family: prefill and decode-step
-  programs written straight over a ``models.gpt.GPTForCausalLM``'s
-  parameters (shared, no copy) against a :class:`~.kv_cache.KVSlotPool`,
-  one full ``max_seq`` row per request. Greedy only: the oracle the paged
-  family is held against.
+  programs written straight over the engine's own copy of a
+  ``models.gpt.GPTForCausalLM``'s parameters against a
+  :class:`~.kv_cache.KVSlotPool`, one full ``max_seq`` row per request.
+  Greedy only: the oracle the paged family is held against.
 - :class:`PagedDecodePrograms` — the same programs over a
   :class:`~.kv_cache.KVPagePool` through per-request block tables, with
   sampled decoding (temperature, top-k, top-p, a per-request seed; drawn
@@ -14,7 +14,9 @@
   a ``verify`` program scores all ``k + 1`` positions with the full
   model, and the committed tokens always come from ``verify``.
 - :class:`DecodeEngine` — the serving front door: admission control,
-  tenants, and a scheduler thread running the join/leave loop.
+  tenants, circuit breakers, the telemetry exporter, retries, weight
+  hot-swap (:meth:`DecodeEngine.swap_weights`), and a scheduler thread
+  running the join/leave loop.
 
 Each program family is a ``jit.functionalize.CompiledFunction`` whose
 signatures are the rungs: ``("prefill", b, s)``, ``("decode", b)`` or
@@ -27,6 +29,17 @@ programs close over the weights and the pool; only the small per-call
 tensors (tokens, lengths, slots or tables, positions, sampling
 arguments) are arguments, and the pool is updated in place inside the
 graph. On the CPU every call runs eagerly.
+
+The engine owns its weights. :class:`DecodePrograms` copies the model's
+parameters once, at construction, onto the pool's device, and every
+family and every graph runs on that copy, as the JAX engine keeps the
+immutable arrays it extracted: what the model's owner later does to the
+model (an optimizer step, ``load_jax_state``) never reaches the engine.
+The graphs hold the copy's addresses, so ``self.params`` and its tensors
+are never rebound: a weight swap copies new values into that storage,
+under the programs lock that every call holds from launch to its tokens'
+copy to the host, on the stream the replays use, and waits for the copy
+before the next call: it lands between two calls.
 
 Prefill attention goes through ``nn.functional.scaled_dot_product_attention``
 and so through the hand-written flash-attention forward kernel, one
@@ -43,6 +56,8 @@ from __future__ import annotations
 
 import contextlib
 import math
+import os
+import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -51,11 +66,16 @@ import torch.nn.functional as TF
 
 from ..base.flags import get_flag
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..distributed.checkpoint.sharded import load_sharded_like
 from ..jit.bucketing import powers_of_two_buckets, table_ladder
 from ..jit.functionalize import CompiledFunction
-from ..models.gpt import check_single_device
+from ..models.gpt import (check_single_device, jax_state_dict,
+                          port_state_from_jax)
 from ..nn.functional import scaled_dot_product_attention
+from ..observability.locks import named_lock
+from ..observability.metrics import registry
 from ..ops.cuda import flash_attention
+from ..reliability.policy import RetryPolicy
 from . import kv_cache as kvc
 from . import sampling
 from .engine import EngineBase
@@ -68,37 +88,68 @@ __all__ = ["DecodeEngine", "DecodePrograms", "PagedDecodePrograms"]
 _MASK32 = 0xFFFFFFFF
 
 
-def _extract_gpt(model):
-    """The model's parameters as a plain dict of tensors (the model's own
-    storage, no copy) plus its config. Linear weights stay ``[out, in]``
-    for ``F.linear``. Only the single-device GPT serves here."""
-    cfg = model.config
-    check_single_device(cfg)
-
-    def val(p):
-        return p.detach()
-
+def _param_tree(cfg, get) -> dict:
+    """The programs' parameter dict for a GPT of config ``cfg``, each
+    tensor ``get(name)`` under the port's parameter name. Linear weights
+    are ``[out, in]`` for ``F.linear``."""
     blocks = []
-    for blk in model.gpt.h:
-        a, m = blk.attn, blk.mlp
+    for i in range(cfg.num_hidden_layers):
+        p = f"gpt.h.{i}."
         blocks.append({
-            "ln1_w": val(blk.ln_1.weight), "ln1_b": val(blk.ln_1.bias),
-            "qkv_w": val(a.qkv_proj.weight), "qkv_b": val(a.qkv_proj.bias),
-            "out_w": val(a.out_proj.weight), "out_b": val(a.out_proj.bias),
-            "ln2_w": val(blk.ln_2.weight), "ln2_b": val(blk.ln_2.bias),
-            "fc1_w": val(m.fc1.weight), "fc1_b": val(m.fc1.bias),
-            "fc2_w": val(m.fc2.weight), "fc2_b": val(m.fc2.bias),
+            "ln1_w": get(p + "ln_1.weight"), "ln1_b": get(p + "ln_1.bias"),
+            "qkv_w": get(p + "attn.qkv_proj.weight"),
+            "qkv_b": get(p + "attn.qkv_proj.bias"),
+            "out_w": get(p + "attn.out_proj.weight"),
+            "out_b": get(p + "attn.out_proj.bias"),
+            "ln2_w": get(p + "ln_2.weight"), "ln2_b": get(p + "ln_2.bias"),
+            "fc1_w": get(p + "mlp.fc1.weight"),
+            "fc1_b": get(p + "mlp.fc1.bias"),
+            "fc2_w": get(p + "mlp.fc2.weight"),
+            "fc2_b": get(p + "mlp.fc2.bias"),
         })
     params = {
-        "wte": val(model.gpt.embeddings.word_embeddings.weight),
-        "wpe": val(model.gpt.embeddings.position_embeddings.weight),
-        "lnf_w": val(model.gpt.ln_f.weight),
-        "lnf_b": val(model.gpt.ln_f.bias),
+        "wte": get("gpt.embeddings.word_embeddings.weight"),
+        "wpe": get("gpt.embeddings.position_embeddings.weight"),
+        "lnf_w": get("gpt.ln_f.weight"),
+        "lnf_b": get("gpt.ln_f.bias"),
         "blocks": blocks,
     }
     if not cfg.tie_word_embeddings:
-        params["head_w"] = val(model.lm_head.weight)
-    return params, cfg
+        params["head_w"] = get("lm_head.weight")
+    return params
+
+
+def _extract_gpt(model):
+    """The model's parameters as the programs' dict (views of the model's
+    own storage, no copy) plus its config. Only the single-device GPT
+    serves here."""
+    cfg = model.config
+    check_single_device(cfg)
+    named = dict(model.named_parameters())
+    return _param_tree(cfg, lambda name: named[name].detach()), cfg
+
+
+def _map_tree(fn, params: dict) -> dict:
+    """``params`` with ``fn`` applied to each tensor."""
+    out = {k: fn(v) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = [{k: fn(v) for k, v in b.items()}
+                     for b in params["blocks"]]
+    return out
+
+
+def _flatten(params: dict):
+    """The tensors of a parameter dict in a fixed order, and its structure
+    (keys and block count)."""
+    leaves, spec = [], []
+    for key in sorted(params):
+        if key == "blocks":
+            blocks = params[key]
+            spec.append((key, tuple(tuple(sorted(b)) for b in blocks)))
+            leaves += [b[k] for b in blocks for k in sorted(b)]
+        else:
+            spec.append(key)
+            leaves.append(params[key])
+    return leaves, tuple(spec)
 
 
 def _ln(x, w, b, eps):
@@ -119,6 +170,10 @@ class DecodePrograms:
     integer arrays padded to their rungs and return the chosen tokens as
     a host array. ``traces`` counts the signatures the program families
     met; on CUDA each is captured as a CUDA graph at warmup.
+
+    ``params`` is the programs' own copy of the model's parameters, made
+    at construction on the pool's device; :meth:`swap_params` copies new
+    values into it between two calls.
     """
 
     FAMILIES = ("prefill", "decode")
@@ -128,9 +183,12 @@ class DecodePrograms:
                  prefill_batch_rungs: Sequence[int],
                  decode_rungs: Sequence[int]):
         params, cfg = _extract_gpt(model)
-        self.params = params
         self.pool = pool
         self.device = pool.device
+        # the engine's own weights: one copy, never rebound (the graphs
+        # hold its addresses; a swap copies into it)
+        self.params = self._stage(params, copy=True)
+        self._lock = named_lock("serving.decode.programs")
         # a slot's rows; the paged family sets its own after this
         self.max_seq = getattr(pool, "max_seq", None)
         self.seq_ladder = sorted(int(s) for s in seq_ladder)
@@ -150,6 +208,9 @@ class DecodePrograms:
         cuda = self.device.type == "cuda"
         self.graph_pool = torch.cuda.graph_pool_handle() if cuda else None
         stream = torch.cuda.Stream(self.device) if cuda else None
+        # the stream every call replays (and every swap copies) on
+        self.replay_stream = (torch.cuda.default_stream(self.device)
+                              if cuda else None)
         self._compiled = {
             family: CompiledFunction(self._program(family),
                                      name=f"serving.{family}",
@@ -310,11 +371,19 @@ class DecodePrograms:
         return torch.as_tensor(a.astype(dtype, copy=False),
                                device=self.device)
 
+    @contextlib.contextmanager
     def _guard(self):
-        # the scheduler thread launches on the pool's card
-        if self.device.type == "cuda":
-            return torch.cuda.device(self.device)
-        return contextlib.nullcontext()
+        """The programs lock and, on CUDA, the pool's card and the replay
+        stream: every call holds it from its launch to its tokens' copy to
+        the host, and every swap from its first copy to the stream's
+        synchronize, so a swap lands between two calls."""
+        with self._lock:
+            if self.device.type != "cuda":
+                yield
+                return
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.replay_stream):
+                yield
 
     @torch.inference_mode()
     def _call(self, family: str, *arrays) -> np.ndarray:
@@ -331,6 +400,62 @@ class DecodePrograms:
                 self._call_params(family),
                 *(self._tensor(a) for a in arrays))
             return out.cpu().numpy()
+
+    # ------------------------------------------------------------ hot swap
+    def _stage(self, params: dict, copy: bool) -> dict:
+        """``params`` on the pool's device (copied when ``copy``, else
+        moved only where it lies elsewhere): the host or card work of a
+        swap, finished before the programs lock is taken."""
+        out = _map_tree(lambda t: t.detach().to(self.device, copy=copy),
+                        params)
+        if self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def _flip_params(self, staged: dict) -> None:
+        """The copy a hot swap commits: ``staged`` (on the pool's device)
+        into the programs' own weights, under the programs lock, on the
+        replay stream, which is synchronized before the lock is released.
+        ``self.params`` is never rebound (the graphs hold its addresses),
+        and the draft view shares its tensors, so every family, the
+        draft's included, runs with the new weights from the next call
+        on."""
+        with torch.no_grad(), self._guard():
+            for dst, src in zip(_flatten(self.params)[0],
+                                _flatten(staged)[0]):
+                dst.copy_(src)
+            if self.device.type == "cuda":
+                self.replay_stream.synchronize()
+
+    def _swap_tree(self, params: dict, copy: bool = True) -> int:
+        """Hot-swap ``params`` (the programs' dict of a twin model) into
+        the programs between two calls; returns the number of tensors
+        swapped. The structure, each shape and each dtype must be the
+        serving ones (``ValueError``), so every captured graph keeps
+        replaying. ``params`` is staged on the card first, outside the
+        lock (a copy when ``copy``), then :meth:`_flip_params` copies it
+        in."""
+        old_leaves, old_spec = _flatten(self.params)
+        new_leaves, new_spec = _flatten(params)
+        if old_spec != new_spec:
+            raise ValueError(
+                "swap_params: the new model's parameter tree differs "
+                "structurally from the serving one — a decode hot swap "
+                "must carry the same architecture")
+        for i, (o, n) in enumerate(zip(old_leaves, new_leaves)):
+            if tuple(o.shape) != tuple(n.shape) or o.dtype != n.dtype:
+                raise ValueError(
+                    f"swap_params: leaf {i} is {tuple(n.shape)}/{n.dtype}, "
+                    f"decode programs expect {tuple(o.shape)}/{o.dtype}")
+        self._flip_params(self._stage(params, copy))
+        return len(new_leaves)
+
+    def swap_params(self, model) -> int:
+        """Hot-swap ``model``'s weights (a live twin of the serving model,
+        on any device) into the programs between two calls; ``model`` is
+        read, never changed. Returns the number of tensors swapped."""
+        params, _cfg = _extract_gpt(model)
+        return self._swap_tree(params, copy=True)
 
     def prefill(self, tokens, lengths, slot_ids) -> np.ndarray:
         return self._call("prefill", tokens, lengths, slot_ids)
@@ -385,9 +510,10 @@ class PagedDecodePrograms(DecodePrograms):
     def _draft_view(self, params: dict) -> dict:
         """The draft's parameter view: the first ``draft_layers`` blocks
         and the shared embedding, final LayerNorm and head (the same
-        tensors, no copy). Truncation drops the top of the stack, so the
-        draft's K/V of those layers is what the full model computes, and
-        verify overwrites it in place."""
+        tensors, no copy, so a swap into ``params`` flips the draft too).
+        Truncation drops the top of the stack, so the draft's K/V of those
+        layers is what the full model computes, and verify overwrites it
+        in place."""
         view = {k: v for k, v in params.items() if k != "blocks"}
         view["blocks"] = list(params["blocks"][:self.draft_layers])
         return view
@@ -606,8 +732,14 @@ class DecodeEngine(EngineBase):
       row per request; greedy only, the oracle the paged mode is held
       against.
 
-    ``serve_telemetry_port`` raises ``NotImplementedError``: the telemetry
-    server is not ported yet (ROADMAP.md, queue 1).
+    The operational tier is the JAX engine's: ``serve_telemetry_port``
+    (or ``FLAGS_telemetry_port``) starts a telemetry exporter at warmup
+    (``/metrics``, ``/healthz`` with :meth:`telemetry_health`,
+    ``/snapshot.json``, ``/trace.json``); each program call is retried on
+    a transient fault (``RetryPolicy("serving.decode_step")``); each
+    tenant has a circuit breaker (``self.breakers``) that sheds it at
+    admission once its calls keep failing; :meth:`swap_weights` rolls new
+    weights in between two steps.
     """
 
     def __init__(self, model, *,
@@ -633,17 +765,15 @@ class DecodeEngine(EngineBase):
         if kv_mode not in ("paged", "slots"):
             raise ValueError(f"kv_mode must be 'paged' or 'slots', "
                              f"got {kv_mode!r}")
-        if serve_telemetry_port is not None:
-            raise NotImplementedError(
-                "the engine's telemetry server is not ported yet "
-                "(ROADMAP.md, queue 1)")
         weights_on = next(model.parameters()).device
         if weights_on.type != dev.type or (
                 dev.type == "cuda" and weights_on != dev):
             raise ValueError(f"the model's weights lie on {weights_on}, "
                              f"the engine was asked to serve on {dev}")
         super().__init__(max_queue=max_queue, tenant_quota=tenant_quota,
-                         request_ttl_ms=request_ttl_ms, stats=stats)
+                         request_ttl_ms=request_ttl_ms,
+                         serve_telemetry_port=serve_telemetry_port,
+                         stats=stats)
         cfg = model.config
         max_slots = int(get_flag("serving_max_slots")
                         if max_slots is None else max_slots)
@@ -677,6 +807,8 @@ class DecodeEngine(EngineBase):
         self.eos_id = eos_id
         self.speculate_k = spec_k
         self.device = dev
+        self._model = model  # the weight source a checkpoint swap reads
+        retry = RetryPolicy("serving.decode_step")
         batch_rungs = dict(
             seq_ladder=seq_buckets,
             prefill_batch_rungs=powers_of_two_buckets(1, prefill_max),
@@ -691,7 +823,7 @@ class DecodeEngine(EngineBase):
             self._scheduler = DecodeScheduler(
                 self.queue, self.programs, self.kv_pool,
                 prefill_max_batch=prefill_max, eos_id=eos_id,
-                stats=self.stats)
+                stats=self.stats, retry=retry, breakers=self.breakers)
         else:
             ps = int(get_flag("serving_page_size")
                      if page_size is None else page_size)
@@ -709,7 +841,8 @@ class DecodeEngine(EngineBase):
             self._scheduler = PagedDecodeScheduler(
                 self.queue, self.programs, self.kv_pool,
                 max_lanes=max_slots, prefill_max_batch=prefill_max,
-                eos_id=eos_id, stats=self.stats, speculate_k=spec_k,
+                eos_id=eos_id, stats=self.stats, retry=retry,
+                breakers=self.breakers, speculate_k=spec_k,
                 spec_min_accept=spec_min_accept)
 
     # ------------------------------------------------------------ lifecycle
@@ -788,10 +921,65 @@ class DecodeEngine(EngineBase):
         self._scheduler.spec_enabled = bool(enabled)
         return prev
 
+    # ------------------------------------------------------------ hot swap
+    def swap_weights(self, source) -> dict:
+        """Roll new weights into the live decode loop between two steps:
+        KV state intact, no new signature, no dropped request. ``source``
+        is a sharded checkpoint directory in the reference's layout
+        (``save_sharded(jax_state_dict(model))``, or a JAX package's save
+        of its GPT; its tensor names must be the serving model's, a
+        missing one raises ``KeyError``, a shape ``ValueError``; floats
+        cast to the serving dtype) or a live ``GPTForCausalLM`` twin of
+        the serving model (a structure, shape or dtype mismatch raises
+        ``ValueError``).
+
+        Running lanes keep their KV state: tokens already cached attend
+        unchanged, and every call after the swap runs with the new
+        weights, the draft's included. Neither the source nor the model
+        handed to the constructor is changed; a live-model source becomes
+        the engine's weight source for later checkpoint swaps. Returns
+        ``{"n_leaves", "seconds", "compiles_after_warmup",
+        "kv_slots_in_use"}`` and ticks ``serving.weight_swaps``."""
+        t0 = time.perf_counter()
+        if isinstance(source, (str, os.PathLike)):
+            model = self._model
+            new = load_sharded_like(str(source), jax_state_dict(model))
+            state = port_state_from_jax(model, new)
+            n_leaves = self.programs._swap_tree(
+                _param_tree(model.config, state.__getitem__), copy=False)
+        else:
+            n_leaves = self.programs.swap_params(source)
+            self._model = source
+        registry.counter(
+            "serving.weight_swaps",
+            "weight hot-swaps committed into live serving engines").inc()
+        return {
+            "n_leaves": n_leaves,
+            "seconds": round(time.perf_counter() - t0, 4),
+            "compiles_after_warmup": self.compiles_after_warmup,
+            "kv_slots_in_use": self.kv_pool.in_use(),
+        }
+
     # ---------------------------------------------------------- accounting
     @property
     def compile_count(self) -> int:
         return self.programs.traces
+
+    def telemetry_health(self) -> dict:
+        """The ``/healthz`` payload: the chassis's, plus the lanes, the
+        active requests and the KV pool's occupancy."""
+        health = super().telemetry_health()
+        health.update(kv_slots=self.max_slots,
+                      active_requests=self.active_requests())
+        if self.kv_mode == "paged":
+            health.update(kv_mode="paged",
+                          kv_pages=self.kv_pool.num_pages,
+                          kv_page_size=self.kv_pool.page_size,
+                          kv_pages_in_use=self.kv_pool.in_use())
+        else:
+            health.update(kv_mode="slots",
+                          kv_slots_in_use=self.kv_pool.in_use())
+        return health
 
     def serving_report(self) -> dict:
         """Stats summary plus the pool's accounting and the warmup proof."""

@@ -20,17 +20,23 @@ buffers so XLA aliases the new ones onto them, the port updates the
 buffers in place: the write functions below mutate ``cache`` and return
 it. Every index is a tensor, so the writes run inside a CUDA graph.
 Host-side bookkeeping (free lists, lengths, utilization) lives in the
-pool classes.
+pool classes, under the ``named_lock("serving.kv_pool")``; the pools set
+the ``serving.kv_slots_in_use``, ``serving.kv_pages_in_use`` and
+``serving.kv_page_utilization`` gauges, and carry the fault points
+``kv.page_alloc`` (:meth:`KVPagePool.alloc`) and ``kv.commit``
+(``commit``, a program call's commit point).
 """
 from __future__ import annotations
 
-import threading
 from typing import Iterable, List, Optional
 
 import numpy as np
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..observability.locks import named_lock
+from ..observability.metrics import registry
+from ..reliability.faults import fault_point
 
 __all__ = ["KVSlotPool", "KVPagePool", "KV_DTYPES", "write_prompt",
            "write_prompt_batch", "append_token", "write_prompt_pages",
@@ -137,10 +143,12 @@ class KVSlotPool:
         self.lengths = np.zeros(self.max_slots, np.int32)  # host-side
         # low slot ids hand out first: pop() from the tail
         self._free: List[int] = list(range(self.max_slots - 1, -1, -1))
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.kv_pool")
         self.bytes_at_warmup: Optional[int] = None
         self.occupancy = 0
         self.occupancy_peak = 0
+        with self._lock:
+            self._gauge_locked()
 
     @property
     def pad_slot(self) -> int:
@@ -150,6 +158,10 @@ class KVSlotPool:
     def _gauge_locked(self) -> None:
         self.occupancy = self.max_slots - len(self._free)
         self.occupancy_peak = max(self.occupancy_peak, self.occupancy)
+        registry.gauge(
+            "serving.kv_slots_in_use",
+            "KV cache slots currently allocated to live decode sequences "
+            "(capacity = the engine's max_slots)").set(self.occupancy)
 
     def alloc(self) -> int:
         """Borrow a free slot (its length resets to 0); raises
@@ -185,6 +197,17 @@ class KVSlotPool:
     def free_count(self) -> int:
         with self._lock:
             return len(self._free)
+
+    def commit(self) -> None:
+        """A program call's commit point. The programs write the pool in
+        place, so there is nothing to install (the JAX pool's ``commit``
+        takes the functional outputs); an injected ``kv.commit`` fault
+        fails the step here, after its call and before its tokens are
+        absorbed. The decode fault wall then fails the step's lanes and
+        releases their KV state: the rows the call wrote belong to those
+        lanes or the pad, and a later owner writes them before it reads
+        them."""
+        fault_point("kv.commit")
 
     def device_bytes(self) -> int:
         return (self.k.numel() * self.k.element_size()
@@ -225,22 +248,28 @@ class KVPagePool:
         self.v = torch.zeros(shape, dtype=dt, device=self.device)
         # low page ids hand out first: pop() from the tail
         self._free: List[int] = list(range(self.num_pages, 0, -1))
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.kv_pool")
         self.bytes_at_warmup: Optional[int] = None
         self._util_sum = 0.0
         self._util_min = 1.0
         self._util_samples = 0
+        self._gauge_occupancy()
 
     def alloc(self, n: int = 1) -> List[int]:
         """Borrow ``n`` free pages; raises ``RuntimeError`` when the pool
-        cannot cover the request (the scheduler sheds that one request)."""
+        cannot cover the request (the scheduler sheds that one request).
+        The ``kv.page_alloc`` fault point fires first, before the free
+        list is touched."""
+        fault_point("kv.page_alloc")
         with self._lock:
             if len(self._free) < n:
                 raise RuntimeError(
                     f"KV page pool exhausted ({self.num_pages - len(self._free)}"
                     f"/{self.num_pages} pages in use, {n} requested); "
                     "admission must wait for a retirement")
-            return [self._free.pop() for _ in range(n)]
+            pages = [self._free.pop() for _ in range(n)]
+        self._gauge_occupancy()
+        return pages
 
     def release(self, pages: Iterable[int]) -> None:
         """Return a request's pages to the free list (idempotence and
@@ -253,6 +282,7 @@ class KVPagePool:
                 if page in self._free:
                     raise ValueError(f"page {page} is already free")
                 self._free.append(page)
+        self._gauge_occupancy()
 
     def in_use(self) -> int:
         with self._lock:
@@ -261,6 +291,16 @@ class KVPagePool:
     def free_count(self) -> int:
         with self._lock:
             return len(self._free)
+
+    def _gauge_occupancy(self) -> None:
+        registry.gauge(
+            "serving.kv_pages_in_use",
+            "KV cache pages currently allocated to live decode sequences "
+            "(capacity = the pool's num_pages)").set(self.in_use())
+
+    def commit(self) -> None:
+        """A program call's commit point (see :meth:`KVSlotPool.commit`)."""
+        fault_point("kv.commit")
 
     def device_bytes(self) -> int:
         return (self.k.numel() * self.k.element_size()
@@ -281,6 +321,10 @@ class KVPagePool:
         self._util_sum += util
         self._util_min = min(self._util_min, util)
         self._util_samples += 1
+        registry.gauge(
+            "serving.kv_page_utilization",
+            "live tokens / token capacity of in-use KV pages (low values "
+            "mean fragmentation)").set(util)
 
     def utilization_report(self) -> dict:
         n = self._util_samples

@@ -3,9 +3,11 @@
 
 Client threads :meth:`RequestQueue.submit` requests; the decode scheduler
 thread takes them in (priority tier, FIFO) order. Admission is decided at
-submit: a full queue or an over-quota tenant is told now, with an
-:class:`AdmissionError` naming the gate that refused. The JAX package's
-circuit-breaker gate is left out of this slice.
+submit: a full queue, an over-quota tenant or a tenant whose circuit
+breaker is open is told now, with an :class:`AdmissionError` naming the
+gate that refused. Admissions, refusals and expiries tick the
+``serving.admitted``, ``serving.refused`` and ``serving.expired``
+counters of ``observability.registry``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,8 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..base.flags import get_flag
+from ..observability.locks import named_condition, named_lock
+from ..observability.metrics import registry
 
 __all__ = ["AdmissionError", "RejectedError", "Request", "DecodeRequest",
            "AdmissionController", "RequestQueue"]
@@ -27,8 +31,11 @@ class AdmissionError(RuntimeError):
     """A submit the admission controller refused: ``reason`` is
     ``"queue"`` (global sample cap), ``"tenant"`` (per-tenant in-flight
     quota), ``"priority"`` (bulk tier refused to protect interactive
-    headroom), ``"ttl"`` (expired in queue) or ``"kv_pages"`` (shed by
-    the scheduler: a KV page allocation failed)."""
+    headroom), ``"circuit"`` (the tenant's circuit breaker is open: its
+    recent program calls kept failing, so its load is shed at the door
+    until the breaker's cooldown probe succeeds), ``"ttl"`` (expired in
+    queue) or ``"kv_pages"`` (shed by the scheduler: a KV page
+    allocation failed)."""
 
     def __init__(self, reason: str, message: str):
         super().__init__(message)
@@ -46,7 +53,9 @@ _req_ids = itertools.count()
 class Request:
     """One request of ``n`` samples. The submitting thread blocks in
     :meth:`result`; the scheduler thread completes it. Resolution is
-    first-result-wins: a later completion or failure is dropped."""
+    first-result-wins: a later completion or failure (a retry or a
+    shutdown racing a drain) is dropped and counted in
+    ``serving.duplicate_resolution``, which must stay 0."""
 
     __slots__ = ("id", "tenant", "inputs", "n", "seq", "t_enqueue", "t_admit",
                  "t_dispatch", "t_complete", "_event", "_outputs", "_error")
@@ -77,15 +86,25 @@ class Request:
             raise self._error
         return self._outputs
 
+    def _resolved_already(self) -> bool:
+        if not self._event.is_set():
+            return False
+        registry.counter(
+            "serving.duplicate_resolution",
+            "attempts to complete/fail an already-resolved request future "
+            "(must stay 0: nonzero means a retry or shutdown path "
+            "double-delivered)").inc()
+        return True
+
     def _complete(self, outputs) -> None:
-        if self._event.is_set():
+        if self._resolved_already():
             return
         self.t_complete = time.perf_counter()
         self._outputs = outputs
         self._event.set()
 
     def _fail(self, error: BaseException) -> None:
-        if self._event.is_set():
+        if self._resolved_already():
             return
         self.t_complete = time.perf_counter()
         self._error = error
@@ -147,27 +166,32 @@ class DecodeRequest(Request):
 
 class AdmissionController:
     """Admission gates, all in samples: a global queued-sample cap, a
-    per-tenant in-flight cap, and a priority gate — tenants marked
-    ``bulk`` (:meth:`set_tier`) may fill only
-    ``FLAGS_serving_bulk_queue_share`` of the global cap. In-flight means
-    admitted and not yet completed. The controller also owns the request
-    TTL (``FLAGS_serving_request_ttl_ms`` / ``request_ttl_ms``)."""
+    per-tenant in-flight cap, a priority gate — tenants marked ``bulk``
+    (:meth:`set_tier`) may fill only ``FLAGS_serving_bulk_queue_share`` of
+    the global cap — and, with a ``breaker_board``
+    (``reliability.BreakerBoard``), the circuit gate: a tenant whose
+    breaker is open is refused here instead of queueing work a broken path
+    would fail late. In-flight means admitted and not yet completed. The
+    controller also owns the request TTL (``FLAGS_serving_request_ttl_ms``
+    / ``request_ttl_ms``)."""
 
     #: named priority tiers (lower = more urgent); ints also accepted
     TIERS = {"interactive": 0, "bulk": 1}
 
     def __init__(self, max_queue: Optional[int] = None,
                  tenant_quota: Optional[int] = None,
-                 request_ttl_ms: Optional[float] = None):
+                 request_ttl_ms: Optional[float] = None,
+                 breaker_board=None):
         self.max_queue = int(get_flag("serving_max_queue")
                              if max_queue is None else max_queue)
         self.tenant_quota = int(get_flag("serving_tenant_quota")
                                 if tenant_quota is None else tenant_quota)
         self._ttl_ms = request_ttl_ms  # None defers to the flag, live
+        self.breaker_board = breaker_board
         self._tiers: Dict[str, int] = {}
         self._queued = 0
         self._inflight: Dict[str, int] = {}
-        self._lock = threading.Lock()
+        self._lock = named_lock("serving.admission")
 
     def set_tier(self, tenant: str, tier) -> None:
         with self._lock:
@@ -187,6 +211,11 @@ class AdmissionController:
 
     def try_admit(self, tenant: str, n: int) -> Optional[str]:
         """None = admitted (state charged); else the refusing gate."""
+        # consulted outside self._lock: the board has its own lock, and an
+        # open breaker's cooldown probe must not serialize admissions
+        if (self.breaker_board is not None
+                and self.breaker_board.is_open(tenant)):
+            return "circuit"
         with self._lock:
             if self.max_queue > 0 and self._queued + n > self.max_queue:
                 return "queue"
@@ -230,7 +259,7 @@ class RequestQueue:
 
     def __init__(self, admission: AdmissionController, stats):
         self._dq: deque = deque()
-        self._cond = threading.Condition()
+        self._cond = named_condition("serving.queue")
         self.admission = admission
         self.closed = False
         self.stats = stats
@@ -238,6 +267,10 @@ class RequestQueue:
     def __len__(self) -> int:
         with self._cond:
             return len(self._dq)
+
+    def depth_samples(self) -> int:
+        with self._cond:
+            return sum(r.n for r in self._dq)
 
     def submit(self, request: Request) -> Request:
         """Admit and enqueue, or raise :class:`AdmissionError` /
@@ -250,7 +283,17 @@ class RequestQueue:
                 request.t_admit = time.perf_counter()
                 self._dq.append(request)
                 self._cond.notify()
-                return request
+        if gate is None:
+            registry.counter(
+                "serving.admitted",
+                "requests admitted into the serving queue, by tenant"
+            ).inc(tenant=request.tenant)
+            return request
+        registry.counter(
+            "serving.refused",
+            "submits refused at admission, by tenant and refusing gate "
+            "(queue, tenant, priority, circuit)").inc(
+                tenant=request.tenant, reason=gate)
         self.stats.record_rejected(tenant=request.tenant)
         raise AdmissionError(
             gate, f"request of {request.n} samples refused by the '{gate}' "
@@ -270,6 +313,11 @@ class RequestQueue:
             self.admission.on_dispatch(r.tenant, r.n)
             self.admission.on_complete(r.tenant, r.n)
             self.stats.record_expired(tenant=r.tenant)
+            registry.counter(
+                "serving.expired",
+                "requests expired in queue past FLAGS_serving_request_ttl_ms "
+                "(failed with AdmissionError reason='ttl', never executed)"
+            ).inc(tenant=r.tenant)
             r._fail(AdmissionError(
                 "ttl", f"request {r.id} expired after "
                        f"{(now - r.t_enqueue) * 1e3:.1f}ms in queue (> "

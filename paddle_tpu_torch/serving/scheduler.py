@@ -4,9 +4,16 @@ and ``PagedDecodeScheduler`` from ``paddle_tpu/serving/scheduler.py``).
 One executor thread runs one program call per beat — prefill or decode,
 or a speculation round's draft and verify — and between any two calls
 requests join (queued → slot or pages allocated) and leave (finished →
-KV state released, future resolved). The JAX package's retry policy,
-fault points and circuit breakers are left out of this slice; the
-batch-scoped fault wall stays.
+KV state released, future resolved).
+
+Each program call passes the fault point ``serving.decode_step`` and runs
+under the engine's :class:`~..reliability.RetryPolicy`
+(:meth:`DecodeScheduler._program_call`), then the pool's commit point
+(``kv.commit``), inside a ``serving.decode`` span of the
+``serving.scheduler`` track. A call that still fails reaches the
+batch-scoped fault wall, which fails exactly the lanes that rode it and
+feeds each of their tenants' circuit breakers a failure; a call that
+succeeds feeds its tenants a success.
 """
 from __future__ import annotations
 
@@ -18,6 +25,9 @@ import numpy as np
 
 from ..base.flags import get_flag
 from ..jit.bucketing import bucket_for
+from ..observability.metrics import registry
+from ..observability.tracing import tracer
+from ..reliability.faults import FaultInjection, fault_point
 from .request_queue import AdmissionError, RequestQueue
 
 __all__ = ["DecodeScheduler", "PagedDecodeScheduler"]
@@ -31,18 +41,23 @@ class DecodeScheduler:
     next boundary (its call also emits its first token), then decode
     steps serve every active lane at once. Prefill groups share one seq
     rung, anchored at the oldest waiting request, and hold at most
-    ``prefill_max_batch`` lanes. A crash in a program call fails only the
-    lanes that rode it; the loop survives."""
+    ``prefill_max_batch`` lanes. ``retry`` (a ``reliability.RetryPolicy``)
+    replays a program call that failed transiently; ``breakers`` (a
+    ``reliability.BreakerBoard``) is fed each served tenant's success or
+    failure. A crash in a program call that retry does not absorb fails
+    only the lanes that rode it; the loop survives."""
 
     def __init__(self, queue: RequestQueue, programs, pool, *,
                  prefill_max_batch: int, eos_id: Optional[int] = None,
-                 stats=None):
+                 stats=None, retry=None, breakers=None):
         self.queue = queue
         self.programs = programs
         self.pool = pool
         self.prefill_max_batch = max(int(prefill_max_batch), 1)
         self.eos_id = eos_id
         self.stats = stats
+        self.retry = retry        # replays a transient program call
+        self.breakers = breakers  # per-tenant degraded accounting
         self.max_seq = int(programs.max_seq)
         self._active: Dict[int, object] = {}    # slot (or id) -> request
         self._pending: List[object] = []        # KV held, prefill due
@@ -109,16 +124,55 @@ class DecodeScheduler:
 
     def _guarded(self, step) -> None:
         """Batch-scoped fault wall: a crashed program call fails exactly
-        the lanes it carried and frees their KV state; pending prefills
-        and active lanes that did not ride the call keep serving."""
+        the lanes it carried, frees their KV state and counts a failure on
+        each of their tenants' breakers; pending prefills and active lanes
+        that did not ride the call keep serving. Transient faults are
+        absorbed by the retry inside the step (around the program call
+        only); only a give-up reaches this wall."""
         try:
             step()
         except Exception as e:  # noqa: BLE001 — batch-scoped fault wall
             involved, self._step_lanes = self._step_lanes, []
+            if self.breakers is not None:
+                for tenant in {r.tenant for r in involved}:
+                    self.breakers.record_failure(tenant)
             for r in involved:
                 self._free_lane(r)
                 self.queue.admission.on_complete(r.tenant, r.n)
                 r._fail(e)
+
+    def _program_call(self, fn):
+        """One program call through the fault point
+        ``serving.decode_step`` and the retry policy, then the pool's
+        commit point. Only the call replays: admission and absorb
+        bookkeeping never do.
+
+        The JAX engine skips retry when its programs donate the pool. The
+        port's programs write the pool in place, even inside a graph,
+        which is like donation, and retry all the same, because a replay
+        is safe: each program's pool writes are a function of its
+        arguments alone (the same rows get the same values; the tokens
+        come from the same logits and the same keys for the draw), and
+        every row it reads is either untouched by the call or written by
+        it before the read. A second run on the same arguments leaves the
+        same pool and returns the same tokens
+        (``tests/test_torch_cuda_serving.py`` runs one twice on the card).
+        The fault point fires before the launch."""
+        def attempt():
+            fault_point("serving.decode_step")
+            return fn()
+
+        out = self.retry.run(attempt) if self.retry is not None else attempt()
+        self.pool.commit()
+        return out
+
+    def _succeeded(self, lanes) -> None:
+        """The call succeeded: nothing to fail, and each of its tenants'
+        breakers counts a success."""
+        self._step_lanes = []
+        if self.breakers is not None:
+            for tenant in {r.tenant for r in lanes}:
+                self.breakers.record_success(tenant)
 
     def _free_lane(self, r) -> None:
         """Detach one request from its KV state: the one cleanup path the
@@ -154,7 +208,11 @@ class DecodeScheduler:
             lengths[i] = L
             slots[i] = r.slot
         t0 = time.perf_counter()
-        toks = self.programs.prefill(tokens, lengths, slots)
+        with tracer.span("serving.decode", track="serving.scheduler",
+                         kind="prefill", rung=(b_rung, rung),
+                         lanes=len(group)):
+            toks = self._program_call(lambda: self.programs.prefill(
+                tokens, lengths, slots))
         self._absorb(group, toks, kind="prefill",
                      seconds=time.perf_counter() - t0)
 
@@ -171,7 +229,10 @@ class DecodeScheduler:
             slots[i] = r.slot
             positions[i] = r.position
         t0 = time.perf_counter()
-        toks = self.programs.decode(tokens, slots, positions)
+        with tracer.span("serving.decode", track="serving.scheduler",
+                         kind="decode", rung=b_rung, lanes=len(lanes)):
+            toks = self._program_call(lambda: self.programs.decode(
+                tokens, slots, positions))
         self._absorb(lanes, toks, kind="decode",
                      seconds=time.perf_counter() - t0)
 
@@ -185,7 +246,7 @@ class DecodeScheduler:
         """Scatter one step's tokens back to their requests, retire the
         finished ones (slot released, future resolved), keep the rest
         active for the next step."""
-        self._step_lanes = []  # the call succeeded: nothing to fail
+        self._succeeded(lanes)
         for i, r in enumerate(lanes):
             tok = int(toks[i])
             r.generated.append(tok)
@@ -229,12 +290,13 @@ class PagedDecodeScheduler(DecodeScheduler):
 
     def __init__(self, queue: RequestQueue, programs, pool, *,
                  max_lanes: int, prefill_max_batch: int,
-                 eos_id: Optional[int] = None, stats=None,
-                 speculate_k: int = 0,
+                 eos_id: Optional[int] = None, stats=None, retry=None,
+                 breakers=None, speculate_k: int = 0,
                  spec_min_accept: Optional[float] = None):
         super().__init__(queue, programs, pool,
                          prefill_max_batch=prefill_max_batch,
-                         eos_id=eos_id, stats=stats)
+                         eos_id=eos_id, stats=stats, retry=retry,
+                         breakers=breakers)
         self.max_lanes = max(int(max_lanes), 1)
         self.speculate_k = max(int(speculate_k), 0)
         self.spec_min_accept = float(
@@ -287,10 +349,17 @@ class PagedDecodeScheduler(DecodeScheduler):
     def _shed(self, r, cause) -> None:
         """A page-allocation failure sheds one request: its pages return
         to the pool, its future fails with ``AdmissionError(reason=
-        "kv_pages")``, every other lane keeps decoding."""
+        "kv_pages")``, its tenant's breaker counts a failure, every other
+        lane keeps decoding."""
         self._free_lane(r)
         self.queue.admission.on_complete(r.tenant, r.n)
+        if self.breakers is not None:
+            self.breakers.record_failure(r.tenant)
         self.shed_count += 1
+        registry.counter(
+            "serving.kv_page_shed",
+            "decode requests shed because a KV page allocation failed "
+            "(pool pressure or an injected kv.page_alloc fault)").inc()
         r._fail(AdmissionError(
             "kv_pages",
             f"request {r.id} shed: KV page allocation failed ({cause})"))
@@ -304,10 +373,11 @@ class PagedDecodeScheduler(DecodeScheduler):
     def _ensure_pages(self, lanes, lookahead: int = 0):
         """Grow each lane's block table to cover its next write position
         plus ``lookahead`` speculative ones (capped at the last legal
-        position: past it the programs write to the pad page). A lane the
-        pool cannot grow sits this step out and keeps its pages; only when
-        every active lane is starved (no retirement can come) is the
-        youngest starved lane shed. Returns the lanes ready to step."""
+        position: past it the programs write to the pad page). An injected
+        ``kv.page_alloc`` fault sheds its lane. A lane the pool cannot grow
+        sits this step out and keeps its pages; only when every active
+        lane is starved (no retirement can come) is the youngest starved
+        lane shed. Returns the lanes ready to step."""
         ready, starved = [], []
         for r in lanes:
             last = min(int(r.position) + lookahead, self.max_seq - 1)
@@ -315,6 +385,9 @@ class PagedDecodeScheduler(DecodeScheduler):
             try:
                 while len(r.pages) < need:
                     r.pages.extend(self.pool.alloc(1))
+            except FaultInjection as e:
+                self._shed(r, e)
+                continue
             except RuntimeError:
                 starved.append(r)
                 continue
@@ -357,9 +430,13 @@ class PagedDecodeScheduler(DecodeScheduler):
             tokens[i, :L] = r.prompt
             lengths[i] = L
             tables[i, :len(r.pages)] = r.pages
+        sample = self._sample_args(group, b_rung)
         t0 = time.perf_counter()
-        toks = self.programs.prefill(tokens, lengths, tables,
-                                     *self._sample_args(group, b_rung))
+        with tracer.span("serving.decode", track="serving.scheduler",
+                         kind="prefill", rung=(b_rung, rung),
+                         lanes=len(group)):
+            toks = self._program_call(lambda: self.programs.prefill(
+                tokens, lengths, tables, *sample))
         self._absorb(group, toks, kind="prefill",
                      seconds=time.perf_counter() - t0)
 
@@ -389,9 +466,13 @@ class PagedDecodeScheduler(DecodeScheduler):
             return
         self._step_lanes = list(lanes)  # the fault wall's blast radius
         b_rung, tokens, tables, positions = self._step_inputs(lanes)
+        sample = self._sample_args(lanes, b_rung)
         t0 = time.perf_counter()
-        toks = self.programs.decode(tokens, tables, positions,
-                                    *self._sample_args(lanes, b_rung))
+        with tracer.span("serving.decode", track="serving.scheduler",
+                         kind="decode", rung=tables.shape,
+                         lanes=len(lanes)):
+            toks = self._program_call(lambda: self.programs.decode(
+                tokens, tables, positions, *sample))
         self._absorb(lanes, toks, kind="decode",
                      seconds=time.perf_counter() - t0)
 
@@ -411,15 +492,20 @@ class PagedDecodeScheduler(DecodeScheduler):
         self._step_lanes = list(lanes)  # the fault wall's blast radius
         b_rung, tokens, tables, positions = self._step_inputs(lanes)
         sample = self._sample_args(lanes, b_rung)
-        t0 = time.perf_counter()
-        drafts = self.programs.draft(tokens, tables, positions, *sample)
-        t_draft = time.perf_counter() - t0
-        vin = np.zeros((b_rung, k + 1), np.int64)
-        vin[:, 0] = tokens                # last committed token at p
-        vin[:, 1:] = drafts               # proposals at p+1..p+k
-        t1 = time.perf_counter()
-        vtoks = self.programs.verify(vin, tables, positions, *sample)
-        t_verify = time.perf_counter() - t1
+        with tracer.span("serving.decode", track="serving.scheduler",
+                         kind="speculate", rung=tables.shape,
+                         lanes=len(lanes), k=k):
+            t0 = time.perf_counter()
+            drafts = self._program_call(lambda: self.programs.draft(
+                tokens, tables, positions, *sample))
+            t_draft = time.perf_counter() - t0
+            vin = np.zeros((b_rung, k + 1), np.int64)
+            vin[:, 0] = tokens                # last committed token at p
+            vin[:, 1:] = drafts               # proposals at p+1..p+k
+            t1 = time.perf_counter()
+            vtoks = self._program_call(lambda: self.programs.verify(
+                vin, tables, positions, *sample))
+            t_verify = time.perf_counter() - t1
         self._absorb_spec(lanes, drafts, vtoks, t_draft=t_draft,
                           t_verify=t_verify)
 
@@ -431,7 +517,7 @@ class PagedDecodeScheduler(DecodeScheduler):
         or the length limits as :meth:`_absorb` does. Block-table pages
         past the new write position (grown for the speculative suffix)
         go back to the free list."""
-        self._step_lanes = []  # the calls succeeded: nothing to fail
+        self._succeeded(lanes)
         k = self.speculate_k
         proposed = accepted = committed = 0
         for i, r in enumerate(lanes):
@@ -473,6 +559,17 @@ class PagedDecodeScheduler(DecodeScheduler):
             self.stats.record_spec_round(proposed, accepted, committed)
             self.stats.record_slot_occupancy(self.active_count(),
                                              self.max_lanes)
+        registry.counter(
+            "serving.spec_rounds",
+            "self-speculation rounds (one draft + one verify call each) run "
+            "by the decode scheduler").inc()
+        registry.counter(
+            "serving.spec_tokens_proposed",
+            "draft tokens proposed by self-speculation rounds").inc(proposed)
+        registry.counter(
+            "serving.spec_tokens_accepted",
+            "draft tokens the full-model verify pass accepted (the rest "
+            "rolled back)").inc(accepted)
 
     def _note_pool(self) -> None:
         live_tokens = sum(int(r.prompt.size) + len(r.generated)
@@ -482,7 +579,7 @@ class PagedDecodeScheduler(DecodeScheduler):
     def _absorb(self, lanes, toks, *, kind: str, seconds: float) -> None:
         """Scatter one step's tokens back to their requests, retire the
         finished ones, keep the rest active for the next step."""
-        self._step_lanes = []  # the call succeeded: nothing to fail
+        self._succeeded(lanes)
         for i, r in enumerate(lanes):
             tok = int(toks[i])
             r.generated.append(tok)

@@ -21,7 +21,14 @@ On ``gpt_tiny`` (2 layers, hidden 64, 4 heads of 16, vocab 512), f32:
   the same streams, and one warms while another serves (captures run in
   the thread-local mode, with Python's collector off);
 - the card's threefry bits equal the CPU's, and a bf16 pool holds half
-  the f32 pool's bytes with the same first tokens.
+  the f32 pool's bytes with the same first tokens;
+- the engine owns its weights: a swap while the scheduler serves (from a
+  live twin, then from a sharded checkpoint) copies into the captured
+  storage, takes no capture and fails no request, and later replays of
+  every family equal ``run_eager`` on the new weights bit for bit, the
+  draft's included; the constructor's model does not change;
+- a program call replayed on the same arguments (what the retry around a
+  transiently failed call does) leaves the same pool and tokens.
 """
 import gc
 import threading
@@ -30,8 +37,10 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.distributed.checkpoint.sharded import save_sharded
 from paddle_tpu_torch.jit import CompiledFunction
-from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt_tiny
+from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_tiny,
+                                         jax_state_dict)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.serving import DecodeEngine, sampling
 
@@ -283,3 +292,87 @@ def test_bf16_pool_is_half_with_the_same_first_tokens(model):
     # prefill reads no pool: the first tokens are the f32 engine's
     assert [s[0] for s in streams["bfloat16"]] == [
         s[0] for s in streams["float32"]]
+
+
+def test_swap_while_serving_replays_the_new_weights(model, tmp_path):
+    twin = GPTForCausalLM(gpt_tiny(),
+                          generator=torch.Generator().manual_seed(1)).eval()
+    save_sharded(jax_state_dict(twin), str(tmp_path / "b"))
+    keep = {k: v.clone() for k, v in model.state_dict().items()}
+    eng = DecodeEngine(model, **ENGINE, **SPEC).warmup()
+    try:
+        progs = eng.programs
+        warm = progs.graph_report()
+        ptrs = [t.data_ptr() for t in progs.params["blocks"][0].values()]
+        stop = threading.Event()
+        failures, served = [], [0]
+
+        def client():
+            rs = np.random.RandomState(8)
+            while not stop.is_set():
+                try:
+                    eng.submit("c", rs.randint(0, 512, 40), 12,
+                               **SAMPLED).result(300)
+                    served[0] += 1
+                except Exception as e:  # the zero-drop gate
+                    failures.append(repr(e))
+
+        worker = threading.Thread(target=client)
+        worker.start()
+        try:
+            while served[0] < 2:
+                threading.Event().wait(0.01)
+            report = eng.swap_weights(twin)
+            while served[0] < 4:
+                threading.Event().wait(0.01)
+            eng.swap_weights(str(tmp_path / "b"))
+            while served[0] < 6:
+                threading.Event().wait(0.01)
+        finally:
+            stop.set()
+            worker.join(300)
+        assert failures == [] and report["compiles_after_warmup"] == 0
+        assert set(report) == {"n_leaves", "seconds",
+                               "compiles_after_warmup", "kv_slots_in_use"}
+        # never rebound: the graphs' addresses hold the new weights
+        assert [t.data_ptr() for t in progs.params["blocks"][0].values()] \
+            == ptrs
+        assert torch.equal(progs.params["wte"],
+                           twin.gpt.embeddings.word_embeddings.weight)
+        assert progs.draft_params["blocks"][0]["qkv_w"] is \
+            progs.params["blocks"][0]["qkv_w"]
+        rs = np.random.RandomState(3)
+        for family, b, width in (("prefill", 2, 64), ("decode", 4, 8),
+                                 ("draft", 2, 4), ("verify", 4, 8)):
+            got, want, pool_equal = _replay_vs_eager(
+                eng, family, _inputs(eng, family, b, width, rs))
+            np.testing.assert_array_equal(got, want)
+            assert pool_equal, family
+        now = progs.graph_report()
+        for family in warm:
+            assert now[family]["captures"] == warm[family]["captures"]
+            assert now[family]["eager"] == warm[family]["eager"]
+    finally:
+        eng.shutdown(drain=True)
+    for k, v in model.state_dict().items():
+        assert torch.equal(v, keep[k]), k
+
+
+@pytest.mark.parametrize("family", ["prefill", "decode", "draft", "verify"])
+def test_program_replayed_on_the_same_arguments_is_the_same(model, family):
+    """The retry around a failed call replays the program: a second call on
+    the same arguments must leave the pool and the tokens as the first."""
+    eng = DecodeEngine(model, **ENGINE, **SPEC).warmup()
+    try:
+        _serve(eng)  # the pages hold real K/V
+        width = {"prefill": 64, "decode": 8, "draft": 4, "verify": 8}[family]
+        args = _inputs(eng, family, 2, width, np.random.RandomState(4))
+        call = getattr(eng.programs, family)
+        pool = eng.kv_pool
+        first = call(*args)
+        k1, v1 = pool.k.clone(), pool.v.clone()
+        second = call(*args)
+        np.testing.assert_array_equal(second, first)
+        assert torch.equal(pool.k, k1) and torch.equal(pool.v, v1)
+    finally:
+        eng.shutdown(drain=True)

@@ -111,10 +111,9 @@ def test_full_queue_raises_admission_error(models):
 
 
 def test_unported_features_raise(models, engine):
-    # the telemetry server is all the constructor still refuses; slots,
-    # speculation, bf16 KV and sampling are held against JAX in
-    # test_torch_serving_modes.py and test_torch_sampling.py
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DecodeEngine(models[1], device="cpu", serve_telemetry_port=0)
+    # slots, speculation, bf16 KV and sampling are held against JAX in
+    # test_torch_serving_modes.py and test_torch_sampling.py; the
+    # telemetry server, retries, breakers and weight swaps in
+    # test_torch_serving_ops.py and test_torch_telemetry.py
     with pytest.raises(ValueError, match="seq bucket"):
         engine.submit("a", np.zeros(513, np.int32))
