@@ -83,6 +83,30 @@ Phases, each of which fails the run on any error:
    draft layers) under two clients' traffic: no request fails, the draft
    view shares the swapped storage, and a draft and a verify replay equal
    their eager programs on B bit for bit;
+5d. batch serve — the batch serving tier on the model of phase 4:
+   ``jit.save`` with ``InputSpec([None, None], "int64")`` (a
+   ``torch.export`` program whose attention is 12 nodes of the registered
+   K1 operator ``paddle_tpu_torch::flash_attention_fwd``, no plain
+   attention), loaded on the card by ``inference.Predictor``, served by
+   ``serving.ServingEngine`` from the [1, 2, 4, 8] x [128, 256, 512,
+   1024] grid, a CUDA graph a rung captured at warmup. 3 tenant threads
+   send 16 requests each, blocking, rows cycling (1, 2, 4), (2, 3, 8) and
+   (1, 5, 7) (``bench.py:532``), lengths 16-1024 from
+   ``RandomState(tenant)``. Checked: 16 rungs at warmup and no rung,
+   capture or eager call after it, every batch a replay, K1 12 launches a
+   call through the replays (and in the profile), every request's rows
+   bit for bit its batch replayed again at the same rung and within
+   ``LOGITS_TOL`` of the program run alone (argmax equal except
+   near-ties), two requests within ``LOGITS_TOL`` of a CPU ``Predictor``
+   loaded from the same files; a swap A -> B from a sharded checkpoint of
+   a seed-1 gpt2_small and back from a dict under two clients fails no
+   request, captures nothing, serves B's logits, and restores the first
+   bits; ``serving.execute`` faults at rate 0.3 retried (6 attempts) to
+   the fault-free bits. Printed: save, load and warmup seconds,
+   requests/s, samples/s, latency p50/p99, batches and fill, peak memory,
+   a replayed call at rung (8, 1024) (host ms, device ms, kernels, K1's
+   share), the swaps' ms and bytes and the p99 of requests done inside
+   the swap windows against outside;
 6. kernel at the serve shapes — the kernel against its plain version
    again (f32 also against float64), at each prefill shape phase 5
    recorded (packed-qkv strided inputs, H=12, D=64, causal, f32 and bf16).
@@ -181,8 +205,8 @@ Phases, each of which fails the run on any error:
     ``torch.optim.AdamW(fused=True)`` (a yardstick only: its moments are
     bf16).
 
-The serve (5, 5b, 5c), train (9), train Llama (12) and FlashMask path (14)
-phases are the main paths: the launch counts are set to 0 just before each
+The serve (5, 5b, 5c, 5d), train (9), train Llama (12) and FlashMask path
+(14) phases are the main paths: the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
 0). The serving and training paths run as CUDA-graph replays, and the
@@ -1550,6 +1574,418 @@ def phase_operate(torch, model, paged) -> int:
     return launches
 
 
+# phase 5d: the batch serving tier, ServingEngine over a jit.save export
+BATCH_LADDER = (1, 2, 4, 8)
+SEQ_LADDER = (128, 256, 512, 1024)
+BATCH_REQUESTS = 16  # a tenant, 3 tenants
+# each tenant's request row counts, in turn (bench.py:532)
+BATCH_ROWS = ((1, 2, 4), (2, 3, 8), (1, 5, 7))
+BATCH_SEQ = (16, 1024)  # request lengths, inclusive
+# the rung whose replayed call is timed and profiled
+BATCH_RUNG = (8, 1024)
+# the fault schedule's seed: over its first 300 visits of serving.execute
+# at rate 0.3 it never fires 6 times in a row, so RETRY_ATTEMPTS absorb it
+BATCH_FAULT_SEED = 0
+BATCH_FAULT_REQUESTS = 8
+
+
+def batch_requests(vocab) -> list:
+    """Each tenant's requests: ``(tenant, ids [rows, seq])``, rows cycling
+    through the tenant's counts, seq lengths from ``RandomState(tenant)``
+    in ``BATCH_SEQ``, token ids uniform over the vocabulary."""
+    out = []
+    for t, rows in enumerate(BATCH_ROWS):
+        rs = np.random.RandomState(t)
+        for i in range(BATCH_REQUESTS):
+            seq = int(rs.randint(BATCH_SEQ[0], BATCH_SEQ[1] + 1))
+            out.append((f"tenant{t}", rs.randint(
+                0, vocab, (rows[i % len(rows)], seq)).astype(np.int64)))
+    return out
+
+
+def run_tenants(engine, requests) -> tuple:
+    """One client thread a tenant, each submitting its requests one after
+    another and waiting for each; returns the outputs in request order
+    and the wall seconds."""
+    outs, failures = [None] * len(requests), []
+
+    def client(tenant):
+        for i, (t, ids) in enumerate(requests):
+            if t != tenant:
+                continue
+            try:
+                outs[i] = engine.run(t, ids, timeout=600)[0]
+            except Exception as e:  # noqa: BLE001 — the zero-drop gate
+                failures.append(repr(e))
+                return
+
+    tenants = sorted({t for t, _ in requests})
+    threads = [threading.Thread(target=client, args=(t,)) for t in tenants]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    wall = time.perf_counter() - t0
+    check(failures == [], f"batch requests failed: {failures[:3]}")
+    check(all(o is not None for o in outs), "a batch request went unserved")
+    return outs, wall
+
+
+def hold_batch_rows(torch, layer, vocab, requests, outs) -> tuple:
+    """Every request's rows against the program run alone on them (eager,
+    at the exact shape): within ``LOGITS_TOL`` and argmax equal except at
+    near-ties (top-2 margin of the alone run under ``NEAR_TIE``). Returns
+    the largest error and the near-ties."""
+    worst, near = 0.0, 0
+    with torch.inference_mode():
+        for (_, ids), out in zip(requests, outs):
+            check(out.shape == ids.shape + (vocab,)
+                  and out.dtype == np.float32,
+                  f"batch output shape {out.shape} for ids {ids.shape}")
+            want = layer.module(torch.from_numpy(ids).cuda())
+            got = torch.from_numpy(out).cuda()
+            check(bool(torch.isfinite(got).all()), "batch logits not finite")
+            worst = max(worst, (got - want).abs().max().item())
+            off = got.argmax(-1) != want.argmax(-1)
+            if bool(off.any()):
+                top = torch.topk(want[off], 2, dim=-1).values
+                gaps = (top[:, 0] - top[:, 1])
+                check(bool((gaps < NEAR_TIE).all()),
+                      f"batch argmax differs with a top-2 margin of "
+                      f"{gaps.max().item():.3g} >= {NEAR_TIE}")
+                near += int(off.sum())
+            del want, got
+    check(worst <= LOGITS_TOL, f"batch rows vs alone err {worst} > "
+          f"{LOGITS_TOL}")
+    return worst, near
+
+
+def replay_batches(torch, engine, batches) -> int:
+    """Each recorded batch replayed again at its rung: every request's
+    rows bit for bit what it was served. Returns the batches replayed."""
+    from paddle_tpu_torch.serving import stack_requests
+
+    prog = engine.predictor._ensure_batch_program()
+    for reqs, bucket, seq_bucket in batches:
+        stacked = stack_requests(reqs, bucket, engine._dynamic_axes,
+                                 engine._n_inputs, seq_axes=engine._seq_axes,
+                                 seq_bucket=seq_bucket)
+        out = prog(stacked, (bucket, seq_bucket))[0]
+        off = 0
+        for r in reqs:
+            served = torch.from_numpy(r.result(0)[0]).cuda()
+            check(torch.equal(out[off:off + r.n, :r.seq], served),
+                  f"request {r.id} differs from its batch replayed at "
+                  f"rung {(bucket, seq_bucket)}")
+            off += r.n
+        del out
+    return len(batches)
+
+
+def batch_swap_traffic(engine, probe, sources) -> tuple:
+    """Two client threads stream small requests while the main thread
+    swaps to each of ``sources`` in turn, after 4 completions and then 6
+    more after each swap; the probe is served before the first swap and
+    after each. Returns each completed request's (end, latency), each
+    swap's window, report and probe output."""
+    done, failures = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(c):
+        rs = np.random.RandomState(20 + c)
+        while not stop.is_set():
+            ids = rs.randint(0, 50304, (1 + c, int(rs.randint(64, 257))))
+            try:
+                req = engine.submit(f"swap{c}", ids.astype(np.int64))
+                req.result(600)
+            except Exception as e:  # noqa: BLE001 — the zero-drop gate
+                with lock:
+                    failures.append(repr(e))
+                return
+            with lock:
+                done.append((req.t_complete, req.t_complete - req.t_enqueue))
+
+    def wait_for(n):
+        deadline = time.perf_counter() + 600
+        while len(done) < n and not failures:
+            check(time.perf_counter() < deadline, "swap traffic stalled")
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in (0, 1)]
+    for th in threads:
+        th.start()
+    windows, reports, probes = [], [], [engine.run("probe", probe)[0]]
+    try:
+        wait_for(4)
+        for source in sources:
+            t0 = time.perf_counter()
+            reports.append(engine.swap_weights(source))
+            windows.append((t0, time.perf_counter()))
+            probes.append(engine.run("probe", probe)[0])
+            wait_for(len(done) + 6)
+    finally:
+        stop.set()
+        for th in threads:
+            th.join(600)
+    check(failures == [], f"requests failed under the swaps: {failures[:3]}")
+    return done, windows, reports, probes
+
+
+def phase_batch_serve(torch, model) -> dict:
+    """Phase 5d: the batch serving tier. Returns K1's launches in the
+    main-path traffic and the (batch, seq) rungs the phase ran (warmup
+    runs every rung of the grid)."""
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.base.flags import set_flags
+    from paddle_tpu_torch.distributed.checkpoint.sharded import save_sharded
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.jit.bucketing import bucket_for
+    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.profiler.pipeline import ServingStats
+    from paddle_tpu_torch import reliability as rel
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.static import InputSpec
+
+    print("== batch serve: jit.save(gpt2_small f32) -> torch.export -> "
+          "Predictor on the card -> ServingEngine, a CUDA graph a (batch, "
+          "seq) rung of [1, 2, 4, 8] x [128, 256, 512, 1024]; 3 tenants x "
+          "16 requests", flush=True)
+    layers = model.config.num_hidden_layers
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_batch_")
+    engine = None
+    try:
+        prefix = os.path.join(tmp, "gpt2_small")
+        t0 = time.perf_counter()
+        jit.save(model, prefix, input_spec=[InputSpec([None, None], "int64")])
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pred = Predictor(Config(prefix))
+        load_s = time.perf_counter() - t0
+        layer = pred._layer
+        ops = [str(n.target) for n in layer._exported.graph.nodes
+               if n.op == "call_function"]
+        n_op = sum("paddle_tpu_torch.flash_attention_fwd" in t for t in ops)
+        plain = [t for t in ops if "tril" in t or "einsum" in t]
+        print(f"saved in {save_s:.2f} s (.pdmodel "
+              f"{os.path.getsize(prefix + '.pdmodel')} bytes), loaded on "
+              f"the card in {load_s:.2f} s; exported graph: {len(ops)} "
+              f"calls, {n_op} paddle_tpu_torch::flash_attention_fwd, "
+              f"{len(plain)} tril/einsum; ranges "
+              f"{sorted(str(r) for r in layer._exported.range_constraints.values())}",
+              flush=True)
+        check(n_op == layers and not plain,
+              f"the export holds {n_op} K1 nodes (want {layers}) and "
+              f"{len(plain)} plain-attention calls")
+        check(not any(t.device.type == "cpu" for t in layer._params.values()),
+              "a loaded parameter stayed on the CPU")
+        set_flags({"retry_max_attempts": RETRY_ATTEMPTS,
+                   "retry_base_delay_ms": 1.0})
+        try:
+            engine = ServingEngine(pred, buckets=BATCH_LADDER,
+                                   seq_buckets=SEQ_LADDER,
+                                   stats=ServingStats())
+        finally:
+            set_flags({"retry_max_attempts": 3, "retry_base_delay_ms": 20.0})
+        prog = pred._ensure_batch_program()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        engine.warmup()
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm = prog.graph_report()
+        rungs = len(BATCH_LADDER) * len(SEQ_LADDER)
+        print(f"warmup {warm_s:.2f} s: {warm}; peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        check(engine.compile_count == rungs and warm["captures"] == rungs,
+              f"warmup armed {warm}, want {rungs} rungs captured")
+        rungs_run = prog.rungs
+
+        # record each batch the scheduler runs, to replay it afterwards
+        batches, execute = [], engine._scheduler.execute
+
+        def recording(reqs, bucket):
+            seq_bucket = bucket_for(max(r.seq for r in reqs), prog.seq_ladder)
+            batches.append((list(reqs), bucket, seq_bucket))
+            return execute(reqs, bucket)
+
+        engine._scheduler.execute = recording
+        requests = batch_requests(model.config.vocab_size)
+        # the main path's run, traced for the card's busy time: counts
+        # from 0, read right after it
+        fa.launches = fa.tma_copies = 0
+        (outs, wall), kernel_ms, copy_ms = trace_window(
+            torch, lambda: run_tenants(engine, requests))
+        launches, copies = fa.launches, fa.tma_copies
+        engine._scheduler.execute = execute
+        rep = engine.serving_report()
+        now = prog.graph_report()
+        calls = rep["batches"]
+        print(f"traffic: {rep['requests']} requests, {rep['samples']} "
+              f"samples in {wall:.3f} s: {rep['requests_per_sec']:.2f} "
+              f"requests/s, {rep['samples_per_sec']:.2f} samples/s; "
+              f"latency p50 {rep['p50_ms']:.1f} ms p99 {rep['p99_ms']:.1f} "
+              f"ms (queue wait p50 {rep['queue_wait_p50_ms']:.1f} ms); "
+              f"{calls} batches, row fill {rep['batch_fill']:.4f} "
+              f"({rep['padded_slots']} of {rep['batch_slots']} rows "
+              f"padding), token fill {rep['token_fill']:.4f} "
+              f"({rep['padded_tokens']} of {rep['token_slots']} token "
+              f"slots padding); in the window (torch.profiler over it) "
+              f"kernels ran {kernel_ms:.1f} ms (SMs idle at least "
+              f"{1 - kernel_ms / 1e3 / wall:.1%}) and copies "
+              f"{copy_ms:.1f} ms (the card doing neither at least "
+              f"{1 - (kernel_ms + copy_ms) / 1e3 / wall:.1%}); rungs run "
+              f"{sorted({(b, s) for _, b, s in batches})}; compiles "
+              f"after warmup "
+              f"{engine.compiles_after_warmup}; {now}; K1 launches "
+              f"{launches}; memory peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, in use "
+              f"after {torch.cuda.memory_allocated() / 2**30:.2f} GiB",
+              flush=True)
+        check(engine.compiles_after_warmup == 0
+              and now["captures"] == warm["captures"]
+              and now["eager"] == warm["eager"]
+              and now["replays"] - warm["replays"] == calls,
+              f"after warmup: {now} for {calls} batches (warmup {warm})")
+        check(launches == layers * calls and copies == 0,
+              f"K1 launched {launches} times in {calls} batch calls (want "
+              f"{layers} a call), {copies} TMA copies")
+        worst, near = hold_batch_rows(torch, layer, model.config.vocab_size,
+                                      requests, outs)
+        replayed = replay_batches(torch, engine, batches)
+        print(f"every request's rows bit for bit its batch replayed at the "
+              f"same rung ({replayed} batches); vs the program alone at the "
+              f"exact shape max abs err {worst:.3e} (tol {LOGITS_TOL}), "
+              f"argmax off at {near} near-tied positions", flush=True)
+        order = sorted(range(len(requests)),
+                       key=lambda i: requests[i][1].size)
+        cpu = Predictor(Config(prefix, device="cpu"))
+        for i in order[:2]:
+            err = float(np.abs(cpu.run([requests[i][1]])[0] - outs[i]).max())
+            print(f"CPU Predictor from the same files, request "
+                  f"{requests[i][1].shape}: max abs err {err:.3e}",
+                  flush=True)
+            check(err <= LOGITS_TOL, f"card vs CPU Predictor err {err}")
+        del cpu, outs
+        gc.collect()
+
+        # a replayed call at the largest rung, timed and profiled
+        ids = np.random.RandomState(30).randint(
+            0, model.config.vocab_size, BATCH_RUNG).astype(np.int64)
+
+        def call():
+            return prog([ids], BATCH_RUNG)
+
+        host = []
+        for _ in range(3):
+            call()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                call()
+                torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) / 5 * 1e3)
+        kernels, dev_ms, rows = profile_calls(torch, call)
+        k1 = [r for r in rows if PROFILED_KERNELS["K1"].search(r[0])]
+        k1_ms, k1_count = sum(r[1] for r in k1), sum(r[2] for r in k1)
+        print(f"replayed call at rung {BATCH_RUNG}: {min(host):.3f} ms host "
+              f"(inputs in, logits cloned on the card), {kernels:.0f} "
+              f"kernels, {dev_ms:.3f} ms on the card; K1 {k1_count:.0f} "
+              f"launches, {k1_ms:.3f} ms ({k1_ms / dev_ms:.1%})", flush=True)
+        for key, ms, count in rows[:8]:
+            print(f"    {ms:8.4f} ms  x{count:<5.0f} {key[:100]}", flush=True)
+        check(k1_count == layers, f"the profile counts {k1_count} K1 "
+              f"launches a call, the counters {layers}")
+
+        # hot swaps under two clients: A -> B (checkpoint) -> A (dict)
+        model_b = GPTForCausalLM(gpt2_small(),
+                                 generator=torch.Generator().manual_seed(1))
+        model_b.eval()
+        ckpt = os.path.join(tmp, "gpt2_small_b")
+        save_sharded(dict(model_b.state_dict()), ckpt)
+        probe = np.random.RandomState(31).randint(
+            0, model.config.vocab_size, (2, 300)).astype(np.int64)
+        before = prog.graph_report()
+        done, windows, reports, probes = batch_swap_traffic(
+            engine, probe, [ckpt, dict(model.state_dict())])
+        after = prog.graph_report()
+        inside = [lat for end, lat in done
+                  if any(a <= end <= b for a, b in windows)]
+        outside = [lat for end, lat in done
+                   if not any(a <= end <= b for a, b in windows)]
+        with torch.inference_mode():
+            want_b = model_b(torch.from_numpy(probe).cuda()).cpu().numpy()
+        err_b = float(np.abs(probes[1] - want_b).max())
+        print(f"swaps under 2 clients, {len(done)} requests: A -> B from "
+              f"the checkpoint {reports[0]['seconds'] * 1e3:.1f} ms, "
+              f"{reports[0]['bytes']} bytes; B -> A from a dict "
+              f"{reports[1]['seconds'] * 1e3:.1f} ms; requests done "
+              f"inside the windows {p99_line(inside)}, outside "
+              f"{p99_line(outside)}; probe on B vs gpt2_small B "
+              f"max abs err {err_b:.3e}; graphs {after}", flush=True)
+        check(after["captures"] == before["captures"]
+              and after["eager"] == before["eager"]
+              and engine.compiles_after_warmup == 0,
+              f"the swaps captured: {before} -> {after}")
+        check(err_b <= LOGITS_TOL and not np.array_equal(probes[0], probes[1]),
+              "after the swap to B the probe is not B's")
+        check(np.array_equal(probes[2], probes[0]),
+              "after the swap back the probe differs from before the swaps")
+        del model_b
+
+        # transient faults at serving.execute, retried to the same bits
+        small = [requests[i] for i in order[:BATCH_FAULT_REQUESTS]]
+        base = [engine.run(t, ids, timeout=600)[0] for t, ids in small]
+        inj = rel.arm(rel.FaultInjector(seed=BATCH_FAULT_SEED).plan(
+            "serving.execute", rate=FAULT_RATE))
+        try:
+            got = [engine.run(t, ids, timeout=600)[0] for t, ids in small]
+        finally:
+            rel.disarm()
+        fired = inj.summary()["total_injected"]
+        print(f"serving.execute faults at rate {FAULT_RATE} (seed "
+              f"{BATCH_FAULT_SEED}, {RETRY_ATTEMPTS} attempts): {fired} "
+              f"fired and retried over {len(small)} requests, each alone",
+              flush=True)
+        check(fired > 0, "no fault fired")
+        check(all(np.array_equal(a, b) for a, b in zip(got, base)),
+              "a retried request differs from its fault-free output")
+        check(engine.compiles_after_warmup == 0, "the faults recompiled")
+        del base, got
+    finally:
+        if engine is not None:
+            engine.shutdown(drain=False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    del engine
+    release_memory(torch)
+    return {"launches": launches, "rungs": [tuple(r) for r in rungs_run]}
+
+
+def trace_window(torch, fn) -> tuple:
+    """``fn()`` under torch.profiler; returns its result, the device ms
+    of kernels and the device ms of copies and sets the trace holds (each
+    summed: an overlap counts twice, so an idle share they give is a lower
+    bound)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    rows = [(e.key, e.self_device_time_total / 1e3)
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    copies = sum(ms for key, ms in rows
+                 if key.startswith(("Memcpy", "Memset")))
+    kernels = sum(ms for _, ms in rows) - copies
+    check(kernels > 0, "the trace of the window holds no kernel")
+    return out, kernels, copies
+
+
 def release_memory(torch) -> None:
     """Collect reference cycles, then return cached blocks to the card: a
     shut-down engine's programs hold themselves (and their graphs, pools
@@ -1572,12 +2008,14 @@ def paged_pool_bytes(model) -> int:
 
 def phase_serve_shapes(torch, shapes) -> None:
     """The kernel against its plain version at every prefill shape the
-    serve phase ran, as the model gives it its inputs."""
+    decode serve phase ran and every (batch, seq) rung the batch serve
+    phase ran, as the model gives it its inputs."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
-    print("== kernel at the serve phase's prefill shapes: flash_attention_fwd "
-          "vs plain (H=12 D=64 causal, packed qkv)", flush=True)
-    check(len(shapes) > 0, "the serve phase recorded no prefill shape")
+    print("== kernel at the serve phases' shapes (decode prefills, batch "
+          "rungs): flash_attention_fwd vs plain (H=12 D=64 causal, packed "
+          "qkv)", flush=True)
+    check(len(shapes) > 0, "the serve phases recorded no shape")
     rs = np.random.RandomState(3)
     for b, s in shapes:
         for dtype in ("float32", "bfloat16"):
@@ -3175,7 +3613,9 @@ def main() -> int:
         served = phase_serve(torch, model)
         served["launches"] += phase_serve_modes(torch, model, served)
         served["launches"] += phase_operate(torch, model, served)
-        phase_serve_shapes(torch, served["prefill_shapes"])
+        batch = phase_batch_serve(torch, model)
+        phase_serve_shapes(torch, sorted(set(served["prefill_shapes"])
+                                         | set(batch["rungs"])))
         del model
         release_memory(torch)
         records = phase_backward(torch)
@@ -3204,7 +3644,9 @@ def main() -> int:
             ("flash_attention_bwd_dkv", "dkv", "flash_attention_dkv_sm90.cu",
              "flash_attention_dkv_tf32.cu", 347)):
         by_path = {"train": trained[key], "train_llama": trained_llama[key]}
-        f32_by_path = {"serve": served["launches"]} if key == "fwd" else {}
+        f32_by_path = ({"serve": served["launches"],
+                        "batch_serve": batch["launches"]}
+                       if key == "fwd" else {})
         entry = {"name": name, "route": "cuda", "source": source + src,
                  "replaces": replaces + str(line),
                  "launches": sum(by_path.values()),

@@ -11,8 +11,12 @@ Ported so far: GPT paged decode serving (``serving.DecodeEngine`` over
 ``models.gpt.GPTForCausalLM``) with the flash-attention forward kernel;
 the GPT and Llama training steps (``jit.TrainStep``, ``optimizer.AdamW``,
 ``amp`` O2) with the flash-attention backward kernels and the RMSNorm
-kernel.
+kernel; the batch serving tier: ``jit.save``/``jit.load`` over
+``torch.export``, ``inference.Predictor`` with one CUDA graph a
+(batch, seq) rung, and ``serving.ServingEngine``.
 """
+from . import framework, inference, jit, serving, static
 from .device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device"]
+__all__ = ["DEFAULT_DEVICE", "framework", "inference", "jit",
+           "resolve_device", "serving", "static"]

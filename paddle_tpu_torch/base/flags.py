@@ -82,6 +82,17 @@ def on_flag_change(name: str, fn) -> None:
     _on_change.setdefault(name, []).append(fn)
 
 
+define_flag("serving_max_batch", 64,
+            "serving tier: largest batch bucket — the batch ladder is the "
+            "powers-of-two rungs up to this; one CUDA graph per rung "
+            "(paddle_tpu_torch.serving.ServingEngine)")
+define_flag("serving_batch_timeout_ms", 2.0,
+            "serving tier: how long the scheduler waits for more requests "
+            "before dispatching a partially filled batch (continuous "
+            "batching window)")
+define_flag("serving_slo_ms", 50.0,
+            "serving tier: the latency SLO the stats report requests/sec "
+            "against (enqueue->complete, per request)")
 define_flag("serving_max_queue", 1024,
             "serving tier: global admission cap on queued samples across "
             "tenants; a submit beyond it is rejected (AdmissionError)")

@@ -12,7 +12,8 @@
   dp-sharded pieces of a JAX save across 8 devices, and cast as JAX's
   ``_cast`` casts: float to float, a matching dtype passes through, and a
   non-float change is left alone by a blanket converting load and refused
-  by a target-derived one.
+  by a target-derived one. :func:`values_like` holds an in-memory source
+  (a dict of tensors or arrays) to the same checks and casts.
 - A torn, truncated or corrupt piece, or an incomplete piece set, raises
   naming the piece or the tensor. There are no partial loads.
 
@@ -41,7 +42,8 @@ from ....observability.metrics import registry
 from ....reliability.faults import fault_point
 from . import manifest as mf
 
-__all__ = ["save_sharded", "load_sharded", "load_sharded_like"]
+__all__ = ["save_sharded", "load_sharded", "load_sharded_like",
+           "values_like"]
 
 
 def _tick(name: str, value: float = 1.0) -> None:
@@ -79,7 +81,8 @@ def _flatten_state(state, prefix: str = "") -> Dict[str, torch.Tensor]:
 
 
 def _cast(t: torch.Tensor, target: Optional[torch.dtype], tensor_name: str,
-          strict: bool = False) -> torch.Tensor:
+          strict: bool = False,
+          where: str = "sharded checkpoint") -> torch.Tensor:
     """JAX's dtype policy: float casts float to float; a matching dtype
     passes through. A blanket converting load (``strict=False``) leaves
     non-float tensors as they are; a target-derived dtype (``strict=True``,
@@ -91,7 +94,7 @@ def _cast(t: torch.Tensor, target: Optional[torch.dtype], tensor_name: str,
     if not strict:
         return t
     raise ValueError(
-        f"sharded checkpoint: refusing to convert {tensor_name!r} from "
+        f"{where}: refusing to convert {tensor_name!r} from "
         f"{mf.dtype_name(t.dtype)} to {mf.dtype_name(target)} — only "
         "float→float conversion is supported (load with dtype=None to keep "
         "the saved dtype)")
@@ -300,6 +303,21 @@ def load_sharded(directory: str, *, dtype=None, names=None,
     return out
 
 
+def _require_all(where: str, targets, available) -> None:
+    missing = [k for k in targets if k not in available]
+    if missing:
+        raise KeyError(
+            f"{where} is missing {len(missing)} of the target's tensors "
+            f"(first: {missing[:5]}) — it does not checkpoint this model")
+
+
+def _check_shape(where: str, name: str, shape, target: torch.Tensor) -> None:
+    if [int(d) for d in shape] != [int(d) for d in target.shape]:
+        raise ValueError(
+            f"{where}: {name!r} has shape {list(shape)}, target expects "
+            f"{list(target.shape)}")
+
+
 def load_sharded_like(directory: str, targets: Dict[str, torch.Tensor], *,
                       require_all: bool = True,
                       verify: bool = True) -> Dict[str, torch.Tensor]:
@@ -308,25 +326,39 @@ def load_sharded_like(directory: str, targets: Dict[str, torch.Tensor], *,
     Nothing in ``targets`` is touched. Missing checkpoint entries raise
     ``KeyError`` (``require_all``); a shape mismatch always raises
     ``ValueError``."""
+    where = f"sharded checkpoint {directory!r}"
     man = mf.read_manifest(str(directory))
     entries = man["entries"]
-    missing = [k for k in targets if k not in entries]
-    if missing and require_all:
-        raise KeyError(
-            f"sharded checkpoint {directory!r} is missing "
-            f"{len(missing)} of the target's tensors (first: "
-            f"{missing[:5]}) — it does not checkpoint this model")
+    if require_all:
+        _require_all(where, targets, entries)
     reader = _PieceReader(str(directory), verify=verify)
     out = {}
     for name, t in targets.items():
         if name not in entries:
             continue
         entry = entries[name]
-        if [int(d) for d in entry["shape"]] != [int(d) for d in t.shape]:
-            raise ValueError(
-                f"sharded checkpoint {directory!r}: {name!r} has shape "
-                f"{entry['shape']}, target expects {list(t.shape)}")
+        _check_shape(where, name, entry["shape"], t)
         out[name] = _assemble(reader, name, entry, t.dtype,
                               strict=True).to(t.device)
     _tick("loads")
+    return out
+
+
+def values_like(values: Dict[str, object],
+                targets: Dict[str, torch.Tensor], *,
+                where: str = "swap source") -> Dict[str, torch.Tensor]:
+    """:func:`load_sharded_like` for an in-memory source: the entry of
+    ``values`` (a tensor or an array) under each name of ``targets``,
+    shape-checked and cast as that function checks and casts, on the
+    target's device. A missing name raises ``KeyError``; entries that
+    name no target are left out."""
+    _require_all(where, targets, values)
+    out = {}
+    for name, t in targets.items():
+        v = values[name]
+        v = (v.detach() if isinstance(v, torch.Tensor)
+             else torch.as_tensor(np.asarray(v)))
+        _check_shape(where, name, v.shape, t)
+        out[name] = _cast(v, t.dtype, name, strict=True,
+                          where=where).to(t.device)
     return out

@@ -39,21 +39,29 @@ MiB on Hopper, kept for the process's life) instead of one a family.
 CUDA generators the function draws from are registered with each graph,
 so every replay draws new numbers, the same stream as eager calls from the
 same seed. A capture that fails raises, naming the function and the
-error. The JAX eager fallback on data-dependent values is not carried
+error, and leaves the calling thread on the stream it was on. The JAX
+eager fallback on data-dependent values is not carried
 over: it would hide the graph. On the CPU every call runs eagerly; that is
 the CPU's path, not a fallback.
+
+``ProgramSet`` holds the programs of one server (the decode tier's
+families, the batch tier's ladder) over one set of live tensors: the
+shared pool and capture stream, the replay stream, the lock that orders
+calls and hot swaps, and the swap's commit (:meth:`ProgramSet.flip`).
 """
 from __future__ import annotations
 
+import contextlib
 import gc
-from typing import Any, Callable, Dict, Iterable, List, Optional
+from typing import Any, Callable, Dict, Iterable, List, Mapping, Optional
 
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..observability.locks import named_lock
 from ..ops.cuda import adamw, flash_attention, flashmask, rms_norm
 
-__all__ = ["CompiledFunction", "launch_counters"]
+__all__ = ["CompiledFunction", "ProgramSet", "launch_counters"]
 
 # the kernel wrappers' launch counters, (module, attribute); a dict
 # attribute counts by key
@@ -109,21 +117,23 @@ def _flatten(tree, leaves: List[torch.Tensor]):
     return ("value", type(tree), tree)
 
 
+def _build(spec, it):
+    kind = spec[0]
+    if kind == _TENSOR:
+        return next(it)
+    if kind in (tuple, list):
+        return kind(_build(x, it) for x in spec[1])
+    if kind is dict:
+        return {k: _build(x, it) for k, x in spec[1]}
+    return spec[2]
+
+
 def _unflatten(spec, tensors: Iterable[torch.Tensor]):
-    """``spec`` rebuilt with the tensors of ``tensors`` in order."""
-    it = iter(tensors)
-
-    def build(s):
-        kind = s[0]
-        if kind == _TENSOR:
-            return next(it)
-        if kind in (tuple, list):
-            return kind(build(x) for x in s[1])
-        if kind is dict:
-            return {k: build(x) for k, x in s[1]}
-        return s[2]
-
-    return build(spec)
+    """``spec`` rebuilt with the tensors of ``tensors`` in order. A
+    module-level recursion: a closure that calls itself is a reference
+    cycle, which would keep the tensors (a replay's output clones) alive
+    until Python's collector ran."""
+    return _build(spec, iter(tensors))
 
 
 class CompiledFunction:
@@ -179,6 +189,7 @@ class CompiledFunction:
         if self._stream is None:
             self._stream = torch.cuda.Stream(self.device)
         before = launch_counters()
+        caller = torch.cuda.current_stream(self.device)
         # Python's collector stays off while this thread captures: a
         # collection here could free a dropped owner's graphs, whose memory
         # pool goes back to the card (cudaFree), which invalidates the
@@ -196,6 +207,10 @@ class CompiledFunction:
             raise RuntimeError(f"CUDA graph capture of {self.name} failed: "
                                f"{type(e).__name__}: {e}") from e
         finally:
+            # torch.cuda.graph skips its stream context's exit when the
+            # capture's end raises, which would leave this thread on the
+            # capture stream: later work would then race the replay stream
+            torch.cuda.set_stream(caller)
             if collecting:
                 gc.enable()
             # the capture ran nothing: take back what the wrappers counted
@@ -218,6 +233,14 @@ class CompiledFunction:
         return _unflatten(entry["out_spec"],
                           [t.clone() for t in entry["outputs"]])
 
+    def graph_counts(self) -> dict:
+        """Signatures met, graphs captured, calls replayed and calls run
+        eagerly (pure reads)."""
+        return {"signatures": len(self._cache),
+                "captures": sum(e["captures"] for e in self._cache.values()),
+                "replays": self.stats["compiled_steps"],
+                "eager": self.stats["eager_steps"]}
+
     def audit_report(self) -> dict:
         """Per-cache-key captures and replays and the run accounting: pure
         reads of counters, never a capture."""
@@ -229,3 +252,80 @@ class CompiledFunction:
                 "total_captures": sum(e["captures"]
                                       for e in self._cache.values()),
                 "keys": keys, "stats": dict(self.stats)}
+
+
+class ProgramSet:
+    """The programs a server captures over one set of live tensors (its
+    weights), which a hot swap rewrites in place.
+
+    - :meth:`compile` makes a :class:`CompiledFunction` in the set's one
+      graph memory pool and on its one capture stream: one rung runs at a
+      time and its outputs are cloned before the next.
+    - :meth:`guard` holds the set's lock and, on CUDA, the card and the
+      replay stream: a call holds it from its inputs' copy to its outputs'
+      clone, a swap from its first copy to the stream's synchronize, so a
+      swap lands between two calls.
+    - :meth:`flip` is the swap's commit: new values copied into the live
+      tensors, whose addresses every captured graph holds; rebinding them
+      would leave the graphs reading the old weights."""
+
+    def __init__(self, name: str, device=DEFAULT_DEVICE):
+        self.name = name
+        self.device = resolve_device(device)
+        self._lock = named_lock(name)
+        cuda = self.device.type == "cuda"
+        self.pool = torch.cuda.graph_pool_handle() if cuda else None
+        self.stream = torch.cuda.Stream(self.device) if cuda else None
+        # the stream every call replays (and every swap copies) on
+        self.replay_stream = (torch.cuda.default_stream(self.device)
+                              if cuda else None)
+
+    def compile(self, fn: Callable, name: str) -> CompiledFunction:
+        return CompiledFunction(fn, name=name, device=self.device,
+                                pool=self.pool, stream=self.stream)
+
+    @contextlib.contextmanager
+    def guard(self):
+        with self._lock:
+            if self.device.type != "cuda":
+                yield
+                return
+            with torch.cuda.device(self.device), \
+                    torch.cuda.stream(self.replay_stream):
+                yield
+
+    @staticmethod
+    def check(live: Mapping[Any, torch.Tensor],
+              new: Mapping[Any, torch.Tensor]) -> None:
+        """``new`` must name every tensor of ``live`` and nothing else,
+        each with its shape and dtype (``ValueError``): the contract that
+        keeps every captured graph replaying."""
+        if set(new) != set(live):
+            raise ValueError(
+                "swap_params: the new parameter tree differs structurally "
+                "from the serving one (names "
+                f"{sorted(map(str, set(new) ^ set(live)))[:5]}) — a hot "
+                "swap must carry the same model")
+        for name, old in live.items():
+            n = new[name]
+            if tuple(n.shape) != tuple(old.shape) or n.dtype != old.dtype:
+                raise ValueError(
+                    f"swap_params: leaf {name!r} is {tuple(n.shape)}/"
+                    f"{n.dtype}, the serving graphs expect "
+                    f"{tuple(old.shape)}/{old.dtype} — same shapes and "
+                    "dtypes are the "
+                    "zero-recapture contract; convert the checkpoint first")
+
+    def flip(self, live: Mapping[Any, torch.Tensor],
+             new: Mapping[Any, torch.Tensor]) -> int:
+        """Copy ``new`` (on the set's device) into ``live``, checked first
+        (:meth:`check`), under :meth:`guard`; on CUDA the replay stream is
+        synchronized before the lock is released, so each call runs
+        entirely on one weight set. Returns the number of tensors."""
+        self.check(live, new)
+        with torch.no_grad(), self.guard():
+            for name, dst in live.items():
+                dst.copy_(new[name])
+            if self.device.type == "cuda":
+                self.replay_stream.synchronize()
+        return len(live)

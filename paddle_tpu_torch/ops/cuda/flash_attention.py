@@ -24,7 +24,12 @@ through TMA (:data:`TMA_KERNELS`) a contiguous copy of any other operand and
 counts it in :data:`tma_copies`.
 
 Each wrapper launches its kernel for CUDA tensors or raises — no
-fallback — and runs the plain PyTorch version for CPU tensors. The plain
+fallback — and runs the plain PyTorch version for CPU tensors. K1's
+forward is the registered operator ``paddle_tpu_torch::flash_attention_fwd``
+(:func:`flash_attention_fwd_op`: CUDA runs the kernel, the CPU the plain
+version, and a fake version gives the shapes), so ``torch.export`` keeps it
+as one node of an exported graph (``jit.save``) instead of tracing the
+plain version. The plain
 versions materialize the probabilities; the CPU tests hold them against
 the Pallas kernels in interpret mode and the on-card checks hold the
 kernels against them. :data:`launches` (K1), :data:`dq_launches` (K2) and
@@ -52,7 +57,8 @@ import torch
 from ...device import DEFAULT_DEVICE, resolve_device
 from . import _build
 
-__all__ = ["flash_attention_fwd", "flash_attention_fwd_reference",
+__all__ = ["flash_attention_fwd", "flash_attention_fwd_op",
+           "flash_attention_fwd_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_value", "FlashAttentionFunction", "dropout_keep",
            "blocks", "build", "bwd_launch_args", "run_bwd_pass", "launches",
@@ -438,13 +444,41 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
     run (default CUDA); the tensors must lie there. On CUDA K1 launches or
     this raises; on the CPU the plain version runs."""
     _check(q, k, v)
-    dev = _resolve(q, device, dropout, seed)
-    if dev.type == "cpu":
-        return flash_attention_fwd_reference(q, k, v, causal, scale, dropout,
-                                             seed, block_q=block_q,
-                                             block_k=block_k)
-    return _launch_fwd(q, k, v, bool(causal), float(scale), float(dropout),
-                       seed, block_q, block_k)
+    _resolve(q, device, dropout, seed)
+    return flash_attention_fwd_op(q, k, v, seed, bool(causal), float(scale),
+                                  float(dropout), int(block_q), int(block_k))
+
+
+@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
+                         mutates_args=(), device_types="cuda")
+def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, seed: Optional[torch.Tensor],
+                           causal: bool, scale: float, dropout: float,
+                           block_q: int, block_k: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a registered operator, ``paddle_tpu_torch::flash_attention_fwd``,
+    so that ``torch.export`` keeps it as one node of the exported graph
+    (its fake version gives the shapes) instead of tracing into the plain
+    version; an exported program then launches K1 on the card. For CUDA
+    tensors K1 launches or this raises; for CPU tensors the plain version
+    runs. ``seed`` may be None when ``dropout == 0``."""
+    return _launch_fwd(q, k, v, causal, scale, dropout, seed, block_q,
+                       block_k)
+
+
+@flash_attention_fwd_op.register_kernel("cpu")
+def _fwd_op_cpu(q, k, v, seed, causal, scale, dropout, block_q, block_k):
+    o, lse = flash_attention_fwd_reference(q, k, v, causal, scale, dropout,
+                                           seed, block_q=block_q,
+                                           block_k=block_k)
+    return o.contiguous(), lse.contiguous()
+
+
+@flash_attention_fwd_op.register_fake
+def _fwd_op_fake(q, k, v, seed, causal, scale, dropout, block_q, block_k):
+    b, sq, h, d = q.shape
+    return (q.new_empty((b, sq, h, d)),
+            q.new_empty((b, h, 1, sq), dtype=_compute_type(q)))
 
 
 def _check_shape(b, sq, sk, h):
@@ -618,13 +652,13 @@ def flash_attention_value(q, k, v, causal: bool = False, scale: float = 1.0,
     zero seed stands in, which only makes sense at ``dropout == 0``."""
     _check(q, k, v)
     _resolve(q, device, dropout, seed)
-    if seed is None:
-        seed = _zero_seed(q.device)
     if not (torch.is_grad_enabled()
             and any(t.requires_grad for t in (q, k, v))):
         return flash_attention_fwd(q, k, v, causal, scale, dropout, seed,
                                    block_q=block_q, block_k=block_k,
                                    device=q.device)[0]
+    if seed is None:
+        seed = _zero_seed(q.device)
     return FlashAttentionFunction.apply(q, k, v, bool(causal), float(scale),
                                         float(dropout), seed, block_q,
                                         block_k)

@@ -1,19 +1,25 @@
-"""Serving statistics (port of the decode part of ``ServingStats`` in
+"""Serving statistics (port of ``ServingStats`` from
 ``paddle_tpu/profiler/pipeline.py``).
 
 Every completed request reports its enqueue → admit → dispatch →
-complete timestamps and every decode-tier program call its kind
-(prefill, decode, or a speculation round's draft and verify), seconds
-and emitted tokens. ``summary()["decode"]`` is what the serving report
-reads: step latency by kind (total seconds, p50/p99), decode tokens per
-second and, once a speculation round ran, its acceptance. Times are host ``perf_counter`` seconds around
-steps that end in a device-to-host read of the chosen tokens, so a step's
-time covers its device work.
+complete timestamps; the batch tier's scheduler reports each dispatched
+batch (real rows against the rung's slots, and on a (batch × seq) grid
+real tokens against the rung's token slots) and the queue depth it left;
+every decode-tier program call reports its kind (prefill, decode, or a
+speculation round's draft and verify), seconds and emitted tokens.
+``summary()`` gives request latency p50/p99, requests and samples per
+second over the window from the first enqueue to the last completion,
+the share of requests inside ``FLAGS_serving_slo_ms``, the batches' row
+fill (``batch_fill``) and token fill (``token_fill``) and the queue
+depth; ``summary()["decode"]`` the decode tier's step latency by kind,
+tokens per second and, once a speculation round ran, its acceptance. Times are host ``perf_counter`` seconds around calls that
+end in a device-to-host read, so they cover the device work.
 """
 from __future__ import annotations
 
 import threading
 import time
+from typing import Optional
 
 __all__ = ["ServingStats"]
 
@@ -31,8 +37,19 @@ class ServingStats:
     def reset(self):
         with self._lock:
             self.requests = 0
+            self.samples = 0
             self.rejected = 0
             self.expired = 0
+            self.batches = 0
+            self.batch_slots = 0
+            self.padded_slots = 0
+            self.token_slots = 0
+            self.padded_tokens = 0
+            self.depth_samples = 0
+            self.queue_depth_sum = 0
+            self.queue_depth_peak = 0
+            self._t_first = None  # first enqueue, last completion
+            self._t_last = None
             self._lat = []        # (total, queue_wait, exec) seconds, ring
             self._tenants = {}    # tenant -> {"requests", "rejected", "expired"}
             self._decode = {
@@ -68,11 +85,37 @@ class ServingStats:
                        tenant: str = None):
         with self._lock:
             self.requests += 1
+            self.samples += int(n)
             self._ring_append(self._lat, (t_complete - t_enqueue,
                                           t_dispatch - t_admit,
                                           t_complete - t_dispatch))
             if tenant is not None:
                 self._tenant_cell(tenant)["requests"] += 1
+            if self._t_first is None:
+                self._t_first = t_enqueue
+            self._t_last = max(self._t_last or t_complete, t_complete)
+
+    def record_batch(self, n_samples: int, bucket: int,
+                     tokens: Optional[int] = None,
+                     token_slots: Optional[int] = None):
+        """One dispatched batch: ``n_samples`` real rows padded to
+        ``bucket`` slots; on a (batch × seq) grid also ``tokens`` real
+        tokens in the rung's ``token_slots`` (bucket × seq bucket), so the
+        sequence padding shows as well as the row padding."""
+        with self._lock:
+            self.batches += 1
+            self.batch_slots += int(bucket)
+            self.padded_slots += int(bucket) - int(n_samples)
+            if token_slots is not None:
+                self.token_slots += int(token_slots)
+                self.padded_tokens += int(token_slots) - int(tokens)
+
+    def record_queue_depth(self, depth: int):
+        """The queued samples left behind a dispatched batch."""
+        with self._lock:
+            self.depth_samples += 1
+            self.queue_depth_sum += int(depth)
+            self.queue_depth_peak = max(self.queue_depth_peak, int(depth))
 
     def record_rejected(self, n: int = 1, tenant: str = None):
         with self._lock:
@@ -137,22 +180,52 @@ class ServingStats:
         idx = min(int(q * (len(sorted_vals) - 1) + 0.5), len(sorted_vals) - 1)
         return sorted_vals[idx]
 
-    def summary(self) -> dict:
+    def summary(self, slo_ms: float = None) -> dict:
+        if slo_ms is None:
+            from ..base.flags import get_flag
+
+            slo_ms = float(get_flag("serving_slo_ms"))
         with self._lock:
             total = sorted(t for t, _, _ in self._lat)
             queue_w = sorted(q for _, q, _ in self._lat)
+            window = (self._t_last - self._t_first
+                      if self._t_first is not None else 0.0)
+            in_slo = sum(1 for t in total if t * 1e3 <= slo_ms)
 
             def ms(vals, q):
                 v = self._pct(vals, q)
                 return v * 1e3 if v is not None else None
 
+            def rate(count):
+                return count / window if window > 0 else None
+
             return {
                 "requests": self.requests,
+                "samples": self.samples,
                 "rejected": self.rejected,
                 "expired": self.expired,
                 "p50_ms": ms(total, 0.50),
                 "p99_ms": ms(total, 0.99),
                 "queue_wait_p50_ms": ms(queue_w, 0.50),
+                "requests_per_sec": rate(self.requests),
+                "samples_per_sec": rate(self.samples),
+                "slo_ms": slo_ms,
+                "in_slo_fraction": in_slo / len(total) if total else None,
+                "requests_per_sec_in_slo": (
+                    rate(self.requests * in_slo / len(total))
+                    if total else None),
+                "batches": self.batches,
+                "batch_slots": self.batch_slots,
+                "padded_slots": self.padded_slots,
+                "batch_fill": (1.0 - self.padded_slots / self.batch_slots
+                               if self.batch_slots else None),
+                "token_slots": self.token_slots,
+                "padded_tokens": self.padded_tokens,
+                "token_fill": (1.0 - self.padded_tokens / self.token_slots
+                               if self.token_slots else None),
+                "queue_depth_mean": (self.queue_depth_sum / self.depth_samples
+                                     if self.depth_samples else None),
+                "queue_depth_peak": self.queue_depth_peak,
                 "tenants": {k: dict(v) for k, v in sorted(self._tenants.items())},
                 "decode": self._decode_summary(),
             }

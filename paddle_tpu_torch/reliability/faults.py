@@ -45,6 +45,11 @@ __all__ = ["FaultInjection", "FaultInjector", "FaultPlan", "SITES",
 
 #: The port's injection sites and what cleans up after a fault there.
 SITES: Dict[str, str] = {
+    "serving.execute": (
+        "batch scheduler fault wall: a transient fault is retried first "
+        "(the batch program is a pure function of its inputs); one that "
+        "persists fails exactly the assembled batch's requests, their "
+        "admission quota releases, the loop keeps serving"),
     "serving.decode_step": (
         "decode fault wall: the step's lanes fail, their KV slots or pages "
         "release, pending prefills survive; a transient fault is retried "

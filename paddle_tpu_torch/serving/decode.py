@@ -54,7 +54,6 @@ width.
 """
 from __future__ import annotations
 
-import contextlib
 import math
 import os
 import time
@@ -68,11 +67,10 @@ from ..base.flags import get_flag
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..distributed.checkpoint.sharded import load_sharded_like
 from ..jit.bucketing import powers_of_two_buckets, table_ladder
-from ..jit.functionalize import CompiledFunction
+from ..jit.functionalize import ProgramSet
 from ..models.gpt import (check_single_device, jax_state_dict,
                           port_state_from_jax)
 from ..nn.functional import scaled_dot_product_attention
-from ..observability.locks import named_lock
 from ..observability.metrics import registry
 from ..ops.cuda import flash_attention
 from ..reliability.policy import RetryPolicy
@@ -137,19 +135,13 @@ def _map_tree(fn, params: dict) -> dict:
     return out
 
 
-def _flatten(params: dict):
-    """The tensors of a parameter dict in a fixed order, and its structure
-    (keys and block count)."""
-    leaves, spec = [], []
-    for key in sorted(params):
-        if key == "blocks":
-            blocks = params[key]
-            spec.append((key, tuple(tuple(sorted(b)) for b in blocks)))
-            leaves += [b[k] for b in blocks for k in sorted(b)]
-        else:
-            spec.append(key)
-            leaves.append(params[key])
-    return leaves, tuple(spec)
+def _named(params: dict) -> dict:
+    """The tensors of a parameter dict by dotted name
+    (``blocks.3.qkv_w``)."""
+    out = {k: v for k, v in params.items() if k != "blocks"}
+    for i, b in enumerate(params["blocks"]):
+        out.update({f"blocks.{i}.{k}": v for k, v in b.items()})
+    return out
 
 
 def _ln(x, w, b, eps):
@@ -188,7 +180,11 @@ class DecodePrograms:
         # the engine's own weights: one copy, never rebound (the graphs
         # hold its addresses; a swap copies into it)
         self.params = self._stage(params, copy=True)
-        self._lock = named_lock("serving.decode.programs")
+        # one memory pool and one capture stream for every graph of the
+        # engine, the replay stream, and the lock of calls and swaps
+        self._set = ProgramSet("serving.decode.programs", self.device)
+        self.graph_pool = self._set.pool
+        self.replay_stream = self._set.replay_stream
         # a slot's rows; the paged family sets its own after this
         self.max_seq = getattr(pool, "max_seq", None)
         self.seq_ladder = sorted(int(s) for s in seq_ladder)
@@ -202,20 +198,9 @@ class DecodePrograms:
         self._tied = bool(cfg.tie_word_embeddings)
         self._scale = 1.0 / math.sqrt(cfg.head_dim)
         self.warmed: List[tuple] = []
-        # one memory pool and one capture stream for every graph of the
-        # engine: one rung runs at a time and its outputs are cloned before
-        # the next
-        cuda = self.device.type == "cuda"
-        self.graph_pool = torch.cuda.graph_pool_handle() if cuda else None
-        stream = torch.cuda.Stream(self.device) if cuda else None
-        # the stream every call replays (and every swap copies) on
-        self.replay_stream = (torch.cuda.default_stream(self.device)
-                              if cuda else None)
         self._compiled = {
-            family: CompiledFunction(self._program(family),
-                                     name=f"serving.{family}",
-                                     device=self.device,
-                                     pool=self.graph_pool, stream=stream)
+            family: self._set.compile(self._program(family),
+                                      f"serving.{family}")
             for family in self.FAMILIES}
 
     def _program(self, family: str):
@@ -349,14 +334,8 @@ class DecodePrograms:
     def graph_report(self) -> dict:
         """Per family: signatures met, graphs captured, calls replayed and
         calls run eagerly (pure reads)."""
-        out = {}
-        for family, fn in self._compiled.items():
-            audit = fn.audit_report()
-            out[family] = {"signatures": audit["n_cache_keys"],
-                           "captures": audit["total_captures"],
-                           "replays": audit["stats"]["compiled_steps"],
-                           "eager": audit["stats"]["eager_steps"]}
-        return out
+        return {family: fn.graph_counts()
+                for family, fn in self._compiled.items()}
 
     @property
     def traces(self) -> int:
@@ -371,19 +350,11 @@ class DecodePrograms:
         return torch.as_tensor(a.astype(dtype, copy=False),
                                device=self.device)
 
-    @contextlib.contextmanager
     def _guard(self):
         """The programs lock and, on CUDA, the pool's card and the replay
-        stream: every call holds it from its launch to its tokens' copy to
-        the host, and every swap from its first copy to the stream's
-        synchronize, so a swap lands between two calls."""
-        with self._lock:
-            if self.device.type != "cuda":
-                yield
-                return
-            with torch.cuda.device(self.device), \
-                    torch.cuda.stream(self.replay_stream):
-                yield
+        stream (``ProgramSet.guard``): every call holds it from its launch
+        to its tokens' copy to the host."""
+        return self._set.guard()
 
     @torch.inference_mode()
     def _call(self, family: str, *arrays) -> np.ndarray:
@@ -412,43 +383,20 @@ class DecodePrograms:
             torch.cuda.current_stream(self.device).synchronize()
         return out
 
-    def _flip_params(self, staged: dict) -> None:
-        """The copy a hot swap commits: ``staged`` (on the pool's device)
-        into the programs' own weights, under the programs lock, on the
-        replay stream, which is synchronized before the lock is released.
-        ``self.params`` is never rebound (the graphs hold its addresses),
-        and the draft view shares its tensors, so every family, the
-        draft's included, runs with the new weights from the next call
-        on."""
-        with torch.no_grad(), self._guard():
-            for dst, src in zip(_flatten(self.params)[0],
-                                _flatten(staged)[0]):
-                dst.copy_(src)
-            if self.device.type == "cuda":
-                self.replay_stream.synchronize()
-
     def _swap_tree(self, params: dict, copy: bool = True) -> int:
         """Hot-swap ``params`` (the programs' dict of a twin model) into
         the programs between two calls; returns the number of tensors
-        swapped. The structure, each shape and each dtype must be the
-        serving ones (``ValueError``), so every captured graph keeps
-        replaying. ``params`` is staged on the card first, outside the
-        lock (a copy when ``copy``), then :meth:`_flip_params` copies it
-        in."""
-        old_leaves, old_spec = _flatten(self.params)
-        new_leaves, new_spec = _flatten(params)
-        if old_spec != new_spec:
-            raise ValueError(
-                "swap_params: the new model's parameter tree differs "
-                "structurally from the serving one — a decode hot swap "
-                "must carry the same architecture")
-        for i, (o, n) in enumerate(zip(old_leaves, new_leaves)):
-            if tuple(o.shape) != tuple(n.shape) or o.dtype != n.dtype:
-                raise ValueError(
-                    f"swap_params: leaf {i} is {tuple(n.shape)}/{n.dtype}, "
-                    f"decode programs expect {tuple(o.shape)}/{o.dtype}")
-        self._flip_params(self._stage(params, copy))
-        return len(new_leaves)
+        swapped. Every name, shape and dtype must be the serving ones
+        (``ValueError``), so every captured graph keeps replaying.
+        ``params`` is staged on the card first, outside the lock (a copy
+        when ``copy``), then ``ProgramSet.flip`` copies it into
+        ``self.params`` under the lock. ``self.params`` is never rebound
+        (the graphs hold its addresses), and the draft view shares its
+        tensors, so every family, the draft's included, runs with the new
+        weights from the next call on."""
+        live = _named(self.params)
+        self._set.check(live, _named(params))
+        return self._set.flip(live, _named(self._stage(params, copy)))
 
     def swap_params(self, model) -> int:
         """Hot-swap ``model``'s weights (a live twin of the serving model,

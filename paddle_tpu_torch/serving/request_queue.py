@@ -1,8 +1,10 @@
 """Thread-safe request queue with per-tenant admission control (port of
-``paddle_tpu/serving/request_queue.py``, the decode tier's part).
+``paddle_tpu/serving/request_queue.py``).
 
 Client threads :meth:`RequestQueue.submit` requests; the decode scheduler
-thread takes them in (priority tier, FIFO) order. Admission is decided at
+thread takes them in (priority tier, FIFO) order
+(:meth:`RequestQueue.take_slots`), the batch scheduler thread in FIFO
+prefixes sized by the bucket ladder (:meth:`RequestQueue.take_batch`). Admission is decided at
 submit: a full queue, an over-quota tenant or a tenant whose circuit
 breaker is open is told now, with an :class:`AdmissionError` naming the
 gate that refused. Admissions, refusals and expiries tick the
@@ -20,6 +22,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 
 from ..base.flags import get_flag
+from ..jit.bucketing import assemble_bucket
 from ..observability.locks import named_condition, named_lock
 from ..observability.metrics import registry
 
@@ -365,6 +368,62 @@ class RequestQueue:
             for r in taken:
                 self.admission.on_dispatch(r.tenant, r.n)
             return taken
+
+    def take_batch(self, buckets, timeout: Optional[float] = None,
+                   linger: float = 0.0):
+        """The batch scheduler's take: block until requests are pending
+        (or ``timeout``), then pop the FIFO prefix
+        :func:`~..jit.bucketing.assemble_bucket` selects. Returns
+        ``(requests, bucket)``, or ``([], None)`` on timeout or when
+        closed and empty.
+
+        ``buckets`` is a ladder or a zero-argument callable returning one,
+        resolved after the wait, at assembly time; a batch holds at most
+        the top rung's samples. ``linger``: once a request is pending, wait
+        up to that long for the rung to fill before dispatching. TTL-overdue
+        requests expire first; a head too large for the ladder fails
+        alone."""
+        deadline = (time.perf_counter() + timeout) if timeout else None
+
+        def ladder_and_cap():
+            ladder = list(buckets()) if callable(buckets) else list(buckets)
+            return ladder, int(ladder[-1])
+
+        with self._cond:
+            self._expire_locked(time.perf_counter())
+            while not self._dq:
+                if self.closed:
+                    return [], None
+                rest = (deadline - time.perf_counter()) if deadline else None
+                if rest is not None and rest <= 0:
+                    return [], None
+                self._cond.wait(rest if rest is not None else 0.1)
+                self._expire_locked(time.perf_counter())
+            ladder, cap = ladder_and_cap()
+            if linger > 0 and not self.closed:
+                until = time.perf_counter() + linger
+                while sum(r.n for r in self._dq) < cap and not self.closed:
+                    rest = until - time.perf_counter()
+                    if rest <= 0:
+                        break
+                    self._cond.wait(rest)
+                ladder, cap = ladder_and_cap()
+                self._expire_locked(time.perf_counter())
+                if not self._dq:
+                    return [], None
+            try:
+                k, bucket = assemble_bucket([r.n for r in self._dq], ladder,
+                                            cap)
+            except ValueError as e:
+                bad = self._dq.popleft()
+                self.admission.on_dispatch(bad.tenant, bad.n)
+                self.admission.on_complete(bad.tenant, bad.n)
+                bad._fail(e)
+                return [], None
+            taken = [self._dq.popleft() for _ in range(k)]
+            for r in taken:
+                self.admission.on_dispatch(r.tenant, r.n)
+            return taken, bucket
 
     def close(self) -> None:
         with self._cond:

@@ -1,13 +1,26 @@
-"""The decode tier's continuous-batching loop (port of ``DecodeScheduler``
-and ``PagedDecodeScheduler`` from ``paddle_tpu/serving/scheduler.py``).
+"""The serving tiers' executor loops (port of
+``paddle_tpu/serving/scheduler.py``).
 
-One executor thread runs one program call per beat — prefill or decode,
-or a speculation round's draft and verify — and between any two calls
-requests join (queued → slot or pages allocated) and leave (finished →
-KV state released, future resolved).
+**Batch tier.** :class:`Scheduler` drains the queue into bucketed
+batches: a FIFO prefix of mixed-size requests (:meth:`RequestQueue.
+take_batch`), stacked along the batch axis and padded to the rung
+(:func:`stack_requests`), one program call, one device-to-host round
+(:func:`fetch_outputs`), and the rows scattered back to their requests
+(:func:`scatter_outputs`). Assembly happens again between every pair of
+calls, so requests that arrived during a call ride the next one. Each
+batch runs under the engine's :class:`~..reliability.RetryPolicy` inside
+a ``serving.batch`` span; a batch that still fails fails exactly its own
+requests, and each served tenant's circuit breaker is fed a success or a
+failure.
 
-Each program call passes the fault point ``serving.decode_step`` and runs
-under the engine's :class:`~..reliability.RetryPolicy`
+**Decode tier.** :class:`DecodeScheduler` and
+:class:`PagedDecodeScheduler` run one program call per beat — prefill or
+decode, or a speculation round's draft and verify — and between any two
+calls requests join (queued → slot or pages allocated) and leave
+(finished → KV state released, future resolved).
+
+Each decode program call passes the fault point ``serving.decode_step``
+and runs under the engine's :class:`~..reliability.RetryPolicy`
 (:meth:`DecodeScheduler._program_call`), then the pool's commit point
 (``kv.commit``), inside a ``serving.decode`` span of the
 ``serving.scheduler`` track. A call that still fails reaches the
@@ -19,7 +32,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -30,7 +43,187 @@ from ..observability.tracing import tracer
 from ..reliability.faults import FaultInjection, fault_point
 from .request_queue import AdmissionError, RequestQueue
 
-__all__ = ["DecodeScheduler", "PagedDecodeScheduler"]
+__all__ = ["Scheduler", "stack_requests", "fetch_outputs",
+           "scatter_outputs", "DecodeScheduler", "PagedDecodeScheduler"]
+
+
+# ------------------------------------------------------------ batch tier
+def stack_requests(requests: Sequence, bucket: int,
+                   dynamic_axes: Dict[int, int], n_inputs: int,
+                   seq_axes: Optional[Dict[int, int]] = None,
+                   seq_bucket: Optional[int] = None) -> List[np.ndarray]:
+    """Each input concatenated across ``requests`` along its batch axis
+    and zero-padded up to ``bucket``; on a two-axis export each request's
+    seq axis (``seq_axes``: {input: axis}) is first right-padded to
+    ``seq_bucket``. An input without a dynamic axis is per batch: every
+    request must carry the same value, bit for bit, or this raises
+    (another request's side input would leak across tenants)."""
+    stacked = []
+    axes = dynamic_axes or {i: 0 for i in range(n_inputs)}
+    seq_axes = seq_axes or {}
+    for i in range(n_inputs):
+        if i not in axes:
+            head = np.asarray(requests[0].inputs[i])
+            for r in requests[1:]:
+                if not np.array_equal(head, np.asarray(r.inputs[i])):
+                    raise ValueError(
+                        f"static input {i} differs across the assembled "
+                        "batch (per-batch side inputs must match bit-wise "
+                        "to share one program call)")
+            stacked.append(head)
+            continue
+        ax = axes[i]
+        parts = []
+        for r in requests:
+            a = np.asarray(r.inputs[i])
+            sax = seq_axes.get(i)
+            if (sax is not None and seq_bucket is not None
+                    and a.shape[sax] < seq_bucket):
+                widths = [(0, 0)] * a.ndim
+                widths[sax] = (0, seq_bucket - a.shape[sax])
+                a = np.pad(a, widths)
+            parts.append(a)
+        cat = parts[0] if len(parts) == 1 else np.concatenate(parts, axis=ax)
+        short = bucket - cat.shape[ax]
+        if short > 0:
+            widths = [(0, 0)] * cat.ndim
+            widths[ax] = (0, short)
+            cat = np.pad(cat, widths)
+        stacked.append(cat)
+    return stacked
+
+
+def fetch_outputs(outputs: Sequence, rows: Optional[int] = None,
+                  seq: Optional[int] = None,
+                  out_seq_axes: Optional[Dict[int, int]] = None
+                  ) -> List[np.ndarray]:
+    """The outputs of one batch on the host: one device-to-host round a
+    batch, counted in ``serving.d2h_fetches``. ``rows`` (the batch's real
+    rows) and ``seq`` (its longest request, on the ``out_seq_axes``) cut
+    the pad off on the device first, so the pad never crosses to the
+    host."""
+    arrays = []
+    for idx, t in enumerate(outputs):
+        if rows is not None:
+            t = t[:rows]
+        ax = (out_seq_axes or {}).get(idx)
+        if ax is not None and seq is not None:
+            t = t.narrow(ax, 0, min(seq, t.shape[ax]))
+        arrays.append(t.cpu().numpy())
+    registry.counter(
+        "serving.d2h_fetches",
+        "device-to-host readback rounds of the batch scheduler (one per "
+        "assembled batch, not one per output)").inc()
+    return arrays
+
+
+def scatter_outputs(outputs: Sequence[np.ndarray], requests: Sequence,
+                    seq_bucket: Optional[int] = None,
+                    out_seq_axes: Optional[Dict[int, int]] = None
+                    ) -> List[List[np.ndarray]]:
+    """Each output's leading axis split back into per-request row blocks
+    (the pad rows dropped); on a two-axis export each block's seq pad is
+    sliced back to the request's own length on the axes the export marks
+    (``out_seq_axes``: {output: axis}), never by shape coincidence. The
+    blocks are views of the batch's arrays, not copies."""
+    per_request: List[List[np.ndarray]] = [[] for _ in requests]
+    offsets, pos = [], 0
+    for r in requests:
+        offsets.append(pos)
+        pos += r.n
+    for idx, out in enumerate(outputs):
+        arr = np.asarray(out)
+        ax = (out_seq_axes or {}).get(idx)
+        for j, r in enumerate(requests):
+            rows = arr[offsets[j]: offsets[j] + r.n]
+            if (ax is not None and seq_bucket is not None
+                    and r.seq is not None and r.seq < seq_bucket
+                    and rows.shape[ax] == seq_bucket):
+                rows = rows[(slice(None),) * ax + (slice(0, r.seq),)]
+            per_request[j].append(rows)
+    return per_request
+
+
+class Scheduler:
+    """The batch tier's executor thread: drains the queue into bucketed
+    batches and hands each to ``execute(requests, bucket)`` (the engine's
+    program call). ``buckets`` is a ladder or a zero-argument callable
+    returning the live one. ``retry`` (a ``reliability.RetryPolicy``)
+    replays a transiently failed batch; a batch that still fails fails
+    exactly its requests (the loop survives), and ``breakers`` (a
+    ``reliability.BreakerBoard``) is fed each served tenant's outcome.
+    ``on_batch(n_samples, bucket, depth, requests)`` taps every
+    dispatch."""
+
+    def __init__(self, queue: RequestQueue, execute: Callable, buckets, *,
+                 linger_s: float = 0.0, on_batch: Optional[Callable] = None,
+                 retry=None, breakers=None):
+        self.queue = queue
+        self.execute = execute
+        self.buckets = buckets
+        self.linger_s = float(linger_s)
+        self.on_batch = on_batch
+        self.retry = retry
+        self.breakers = breakers
+        self._thread: Optional[threading.Thread] = None
+
+    def start(self) -> "Scheduler":
+        if self._thread is not None:
+            raise RuntimeError("scheduler already started")
+        self._thread = threading.Thread(target=self._loop,
+                                        name="paddle-torch-serving-batch",
+                                        daemon=True)
+        self._thread.start()
+        return self
+
+    def alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def join(self, timeout: Optional[float] = None) -> bool:
+        if self._thread is None:
+            return True
+        self._thread.join(timeout)
+        return not self._thread.is_alive()
+
+    def _record(self, requests, ok: bool) -> None:
+        if self.breakers is None:
+            return
+        for tenant in {r.tenant for r in requests}:
+            (self.breakers.record_success if ok
+             else self.breakers.record_failure)(tenant)
+
+    def _loop(self) -> None:
+        while True:
+            requests, bucket = self.queue.take_batch(
+                self.buckets, timeout=0.05, linger=self.linger_s)
+            if not requests:
+                if self.queue.closed and len(self.queue) == 0:
+                    break
+                continue
+            now = time.perf_counter()
+            for r in requests:
+                r.t_dispatch = now
+            n_samples = sum(r.n for r in requests)
+            if self.on_batch is not None:
+                self.on_batch(n_samples, bucket, self.queue.depth_samples(),
+                              requests)
+            try:
+                with tracer.span("serving.batch", track="serving.scheduler",
+                                 bucket=bucket, n_samples=n_samples,
+                                 n_requests=len(requests)):
+                    if self.retry is not None:
+                        self.retry.run(self.execute, requests, bucket)
+                    else:
+                        self.execute(requests, bucket)
+                self._record(requests, ok=True)
+            except Exception as e:  # noqa: BLE001 — batch-scoped fault wall
+                self._record(requests, ok=False)
+                for r in requests:
+                    self.queue.admission.on_complete(r.tenant, r.n)
+                    r._fail(e)
+
+
+# ----------------------------------------------------------- decode tier
 
 
 class DecodeScheduler:

@@ -23,7 +23,7 @@ All comparisons are bit for bit (tolerance 0):
   element is not 16-byte aligned.
 
 Last, a capture that cannot run (a host sync inside) raises, naming the
-function.
+function, and leaves the calling thread on the stream it was on.
 """
 import numpy as np
 import pytest
@@ -189,3 +189,16 @@ def test_capture_that_cannot_run_raises(card):
     with pytest.raises(RuntimeError, match="capture of sync_inside failed"):
         fn(x)
     assert fn.stats == {"compiled_steps": 0, "eager_steps": 1}
+
+
+def test_a_failed_capture_leaves_the_thread_on_its_stream(card):
+    """A capture that cannot run (a host sync) raises; the calling thread
+    must be back on the stream it was on, or its later copies race the
+    replay stream (a batch's logits read before their clone finished)."""
+    fn = CompiledFunction(lambda x: x * float(x.sum()), name="sync_inside")
+    x = torch.ones(4, device=card)
+    fn(x)
+    before = torch.cuda.current_stream()
+    with pytest.raises(RuntimeError, match="capture of sync_inside failed"):
+        fn(x)
+    assert torch.cuda.current_stream() == before

@@ -91,6 +91,18 @@ def test_cpu_engine_runs_without_loading_jax():
         "q = torch.randn(1, 8, 1, 16)\n"
         "idx = torch.full((1, 1, 8, 1), 8, dtype=torch.int32)\n"
         "assert flashmask_attention(q, q, q, idx).shape == q.shape\n"
+        "import tempfile, numpy as np\n"
+        "from paddle_tpu_torch import jit\n"
+        "from paddle_tpu_torch.serving import ServingEngine\n"
+        "from paddle_tpu_torch.static import InputSpec\n"
+        "prefix = tempfile.mkdtemp() + '/gpt'\n"
+        "jit.save(model, prefix, input_spec=[InputSpec([None, None], 'int64')])\n"
+        "assert jit.load(prefix, device='cpu')(np.ones((1, 3))).shape[1] == 3\n"
+        "srv = ServingEngine(prefix, device='cpu', buckets=[1, 2],\n"
+        "                    seq_buckets=[8]).warmup()\n"
+        "logits, = srv.run('t', np.arange(10).reshape(2, 5), timeout=60)\n"
+        "srv.shutdown()\n"
+        "assert logits.shape == (2, 5, 512), logits.shape\n"
         "loaded = sorted(m for m in sys.modules\n"
         "                if m.split('.')[0] in ('jax', 'jaxlib', 'paddle_tpu'))\n"
         "print('LOADED', loaded)\n")
@@ -101,7 +113,7 @@ def test_cpu_engine_runs_without_loading_jax():
     assert "LOADED []" in proc.stdout, proc.stdout
 
 
-def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("checks the default device on a host without CUDA")
     from paddle_tpu_torch import resolve_device
@@ -160,3 +172,20 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu():
     TrainStep(model=model, optimizer=opt, loss_fn=lambda x: x, device="cpu")
     with pytest.raises(ValueError, match="use 'cuda' or 'cpu'"):
         resolve_device("meta")
+    from paddle_tpu_torch import jit
+    from paddle_tpu_torch.inference import Config, Predictor
+    from paddle_tpu_torch.serving import ServingEngine
+    from paddle_tpu_torch.static import InputSpec
+
+    prefix = str(tmp_path / "gpt")
+    jit.save(model, prefix, input_spec=[InputSpec([None, None], "int64")])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        jit.load(prefix)
+    assert Config(prefix).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Predictor(Config(prefix))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(prefix)
+    jit.load(prefix, device="cpu")
+    Predictor(Config(prefix, device="cpu"))
+    ServingEngine(prefix, device="cpu", buckets=[1], seq_buckets=[8])

@@ -148,8 +148,9 @@ class TestFaultInjector:
         assert rel.fault_point("kv.page_alloc") is None
 
     def test_every_port_site_has_a_cleanup_story(self):
-        assert set(rel.SITES) == {"serving.decode_step", "kv.commit",
-                                  "kv.page_alloc", "ckpt.write"}
+        assert set(rel.SITES) == {"serving.execute", "serving.decode_step",
+                                  "kv.commit", "kv.page_alloc",
+                                  "ckpt.write"}
         for site in rel.SITES:
             assert site in jax_rel.SITES
 
