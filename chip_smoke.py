@@ -14,7 +14,8 @@ Phases, each of which fails the run on any error:
    instantiation of the RMSNorm forward (K4) and backward kernels, nor in
    the AdamW kernel, which must keep no stack frame either), and check with
    ``cuobjdump -sass`` that every attention kernel (bf16 K1, K2, K3, K5,
-   K6 and K7; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all on the tensor
+   K6 and K7; fp16 K1, K2 and K3, the same sources instantiated for
+   __half; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all on the tensor
    cores) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
 3. kernel — the flash-attention forward kernel (K1: bf16 and f32 3×TF32,
    both on the tensor cores) against its plain PyTorch version on the card
@@ -99,7 +100,9 @@ Phases, each of which fails the run on any error:
    ``LOGITS_TOL`` of the program run alone (argmax equal except
    near-ties), two requests within ``LOGITS_TOL`` of a CPU ``Predictor``
    loaded from the same files; a swap A -> B from a sharded checkpoint of
-   a seed-1 gpt2_small and back from a dict under two clients fails no
+   a seed-1 gpt2_small, written in the reference's layout
+   (``save_sharded(jax_state_dict(model_b))``, as phase 5c writes it), and
+   back from a dict under two clients fails no
    request, captures nothing, serves B's logits, and restores the first
    bits; ``serving.execute`` faults at rate 0.3 retried (6 attempts) to
    the fault-free bits. Printed: save, load and warmup seconds,
@@ -122,7 +125,13 @@ Phases, each of which fails the run on any error:
    are checked to be exactly the plain version's, in f32 and in bf16;
    each kernel is timed beside its bound (f32 at 495/3 TFLOP/s, with the
    67 TFLOP/s CUDA-core figure beside it in the text), its plain version
-   and the SDPA forward or backward (a yardstick only);
+   and the SDPA forward or backward (a yardstick only). Then fp16 K1–K3
+   against their plain versions (``TOL``/``BWD_TOL`` float16) at the GPT
+   (8, 1024, 12, 64), Llama (4, 2048, 12, 64, k and v from 4 KV heads)
+   and D=128 (1, 512, 32, 128) shapes, causal and not, dropout 0 and 0.1,
+   each output also against the plain version computed in float64 (the
+   fp16 plain version's own error beside it), timed causal beside their
+   bounds (989 TFLOP/s dense fp16) and SDPA's fp16 forward and backward;
 8. gradients — every gradient of gpt2_small (f32, dropout 0, B=1, S=256)
    on the card, through K1–K3, against the CPU plain path;
 9. train — ``bench.py``'s GPT arm on the port: gpt2_small in bf16 O2 under
@@ -203,10 +212,40 @@ Phases, each of which fails the run on any error:
     every gpt2_small parameter in bf16 with seeded gradients and moments,
     timed beside its bound, the plain chain and
     ``torch.optim.AdamW(fused=True)`` (a yardstick only: its moments are
-    bf16).
+    bf16); then bit for bit in the modes the training-step API uses:
+    per-tensor LR factors (two groups, ``lr_ratio``) and a decay mask,
+    ``found_inf`` unset and set (set: nothing changes), ``amsgrad``, with
+    bf16, fp16 and f32 parameters and f32 gradients beside bf16 and fp16
+    ones, one launch per 64 tensors of one dtype pair;
+16. trainer — the training-step API on gpt2_small at full width and depth
+    (dropout 0), every run held bit for bit to eager steps on a twin from
+    the same seed: (a) a pretraining recipe in bf16 O2 at 8 x 1024:
+    ``LinearWarmup(CosineAnnealingDecay(6e-4, T_max=12, eta_min=6e-5),
+    warmup_steps=4)`` stepped after every step, AdamW(beta2=0.95,
+    weight_decay=0.1) with no decay on biases, LayerNorm weights and
+    embeddings, the embeddings a group at half the LR,
+    ``ClipGradByGlobalNorm(1.0)``; 12 ``TrainStep`` steps (every one after
+    the capture a replay), the pre-clip global norms printed (the clip
+    must engage), launches counted through the replays and in a profile
+    beside phase 9's, step p50, tokens/s, MFU and the idle share; (b)
+    fp16 O1 with dynamic loss scaling (f32 parameters, 8 x 1024,
+    ``AdamW(1e-4)``, ``GradScaler(init 2^26, incr every 2, decr every
+    1)``): 12 eager steps under ``torch.cuda.set_sync_debug_mode("error")``
+    (no host read in the scaler or the optimizer), every skipped step
+    leaving parameters, moments and the step count bit for bit, the scale
+    stream equal to a host replay of JAX's ``update_loss_scaling`` rule;
+    the kernels' and the plain versions' K2/K3 overflow on the same inputs
+    at the largest scale without overflow, the least with, and the first;
+    the same step function captured by ``jit.functionalize.
+    CompiledFunction`` bit for bit the eager steps, fp16 K1–K3 launches
+    counted through the replays and in the profile; (c) SGD, Momentum
+    (Nesterov), Adagrad, RMSProp (centered, momentum 0.9), Adadelta,
+    Adamax, Lamb and AdamW (``amsgrad``, ``lr_ratio``) in bf16 O2 at 2 x
+    1024 (the batch cut for time), 3 eager then 3 ``TrainStep`` steps each,
+    each graph freed before the next.
 
-The serve (5, 5b, 5c, 5d), train (9), train Llama (12) and FlashMask path
-(14) phases are the main paths: the launch counts are set to 0 just before each
+The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
+(14) and trainer (16) phases are the main paths: the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
 0). The serving and training paths run as CUDA-graph replays, and the
@@ -237,11 +276,15 @@ import numpy as np
 # forward against the plain version: (O absolute, O relative, lse). bf16
 # O rounds once to bf16, whose step is 2^-7 of the value, so its gate has
 # that relative part beside the absolute one; the lse gate is absolute
-TOL = {"float32": (1e-4, 0.0, 1e-4), "bfloat16": (2e-2, 2.0 ** -7, 1e-3)}
+TOL = {"float32": (1e-4, 0.0, 1e-4), "bfloat16": (2e-2, 2.0 ** -7, 1e-3),
+       # float16's step is 2^-10 of the value, 8x finer than bf16's: its
+       # gates are bf16's scaled by that 8, the lse gate (f32) the same
+       "float16": (2.5e-3, 2.0 ** -10, 1e-3)}
 # backward (and forward with dropout) against the plain version: f32
 # absolute; bf16 absolute plus relative, since the outputs round once to
 # bf16, whose step is at most 2^-7 of the value
-BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 1e-2)}
+BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 1e-2),
+           "float16": (2.5e-3, 1.25e-3)}
 BWD_SHAPES = ((8, 1024), (1, 1024), (1, 1000))
 GRAD_REL_TOL = 1e-3  # card vs CPU gradients, relative to the tensor's max
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 1024, 10
@@ -263,7 +306,7 @@ RETIME_TRIALS = 5  # K4 and F.rms_norm, timed in turns at the training shape
 RMS_BWD_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
 # H100 SXM data-sheet peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
 # the f32 kernels on the tensor cores do each product as three TF32
 # products (495 TFLOP/s dense): f32 work at a third of that rate
 PEAK_TF32X3 = 495e12 / 3
@@ -362,9 +405,11 @@ TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
               "flash_attention_dkv_tf32", "flashmask_fwd_tf32",
               "flashmask_dq_tf32", "flashmask_dkv_tf32")
 # a tensor-core kernel's mangled name: its kind (its suffix names its
-# type: sm90 bf16, tf32 f32), head dim and dropout flag
-TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_(sm90|tf32))_kernelILi"
-                       r"(\d+)E(?:Lb([01])E)?")
+# type: sm90 16-bit, tf32 f32), the element type of K1-K3's sm90 kernels
+# (bf16 or fp16; K5-K7's are bf16 only), head dim and dropout flag
+TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_(sm90|tf32))_kernelI"
+                       r"(13__nv_bfloat16|6__half)?Li(\d+)E(?:Lb([01])E)?")
+TC_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "fp16", None: "bf16"}
 
 
 def check_tensor_core_sass(_build) -> None:
@@ -382,8 +427,9 @@ def check_tensor_core_sass(_build) -> None:
             fn = body.split()[0]
             mma, tma = body.count("HGMMA"), body.count("UTMALDG")
             t = TC_KERNEL.search(fn)
-            rows.append(f"{t.group(1)} D={t.group(3)}"
-                        f"{' dropout' if t.group(4) == '1' else ''}: "
+            rows.append(f"{t.group(1)} {TC_TYPES[t.group(3)]} "
+                        f"D={t.group(4)}"
+                        f"{' dropout' if t.group(5) == '1' else ''}: "
                         f"{mma} HGMMA, {tma} UTMALDG" if t else
                         f"{fn}: {mma} HGMMA, {tma} UTMALDG")
             check(mma > 0 and tma > 0,
@@ -421,11 +467,14 @@ def phase_build() -> float:
                 dw = re.search(r"rms_norm_dw_kernelI(13__nv_bfloat16|f)E",
                                entry)
                 norm = "rms_norm" in entry
-                opt = re.search(r"adamw_kernelI(13__nv_bfloat16|f)E", entry)
+                # AdamW's <parameter type, gradient type>; S1_: the first
+                opt = re.search(r"adamw_kernelI(13__nv_bfloat16|6__half|f)"
+                                r"(f|S\d*_)E", entry)
                 if tc:
-                    kind = "bf16" if tc.group(2) == "sm90" else "f32 3xTF32"
-                    entry = (f"{tc.group(1)} {kind}/D={tc.group(3)}"
-                             f"{' dropout' if tc.group(4) == '1' else ''}")
+                    kind = (TC_TYPES[tc.group(3)] if tc.group(2) == "sm90"
+                            else "f32 3xTF32")
+                    entry = (f"{tc.group(1)} {kind}/D={tc.group(4)}"
+                             f"{' dropout' if tc.group(5) == '1' else ''}")
                 elif r:
                     x, w = ("bf16" if g != "f" else "f32" for g in (
                         r.group(2), r.group(2) if r.group(3).startswith("S")
@@ -440,8 +489,11 @@ def phase_build() -> float:
                     entry = ("rms_norm dw " + ("f32" if dw.group(1) == "f"
                                                else "bf16"))
                 elif opt:
-                    entry = ("adamw " + ("f32" if opt.group(1) == "f"
-                                         else "bf16"))
+                    names = {"f": "f32", "13__nv_bfloat16": "bf16",
+                             "6__half": "fp16"}
+                    pt = names[opt.group(1)]
+                    entry = (f"adamw p {pt} g "
+                             f"{pt if opt.group(2) != 'f' else 'f32'}")
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and entry:
                 spill = m.group(1)
@@ -455,8 +507,8 @@ def phase_build() -> float:
                 # the FlashMask path's at D = 128 too, keep every value in
                 # registers without dropout; the f32 3xTF32 ones in every
                 # instantiation, dropout included
-                if tc and (tc.group(2) == "tf32" or tc.group(4) != "1" and (
-                        tc.group(3) == "64"
+                if tc and (tc.group(2) == "tf32" or tc.group(5) != "1" and (
+                        tc.group(4) == "64"
                         or tc.group(1).startswith("flashmask"))):
                     check(spill == "0", f"{entry} spills {spill} B")
                 # every RMSNorm instantiation holds its row in registers
@@ -1742,7 +1794,8 @@ def phase_batch_serve(torch, model) -> dict:
     from paddle_tpu_torch.distributed.checkpoint.sharded import save_sharded
     from paddle_tpu_torch.inference import Config, Predictor
     from paddle_tpu_torch.jit.bucketing import bucket_for
-    from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+    from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt2_small,
+                                             jax_state_dict)
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.profiler.pipeline import ServingStats
     from paddle_tpu_torch import reliability as rel
@@ -1906,7 +1959,8 @@ def phase_batch_serve(torch, model) -> dict:
                                  generator=torch.Generator().manual_seed(1))
         model_b.eval()
         ckpt = os.path.join(tmp, "gpt2_small_b")
-        save_sharded(dict(model_b.state_dict()), ckpt)
+        # the reference's layout, as phase 5c writes it for the decode tier
+        save_sharded(jax_state_dict(model_b), ckpt)
         probe = np.random.RandomState(31).randint(
             0, model.config.vocab_size, (2, 300)).astype(np.int64)
         before = prog.graph_report()
@@ -2065,7 +2119,8 @@ def float64_backward_errors(torch, fa, q, k, v, o, lse, do, seed, dropout,
     return " ".join(rows)
 
 
-def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> tuple:
+def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout,
+                     causal=True) -> tuple:
     """K1 (with dropout) and K2/K3 against their plain versions on the
     same card tensors; K2/K3 are compared from the same (o, lse), so each
     kernel is judged alone, and each must have launched once, so no plain
@@ -2074,14 +2129,14 @@ def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> tuple:
     output, per gradient the count of elements equal to the plain
     version's, and the float64 errors as text (f32) or ""."""
     scale = 1.0 / math.sqrt(q.shape[-1])
-    o, lse = fa.flash_attention_fwd(q, k, v, True, scale, dropout, seed)
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, dropout, seed)
     before = (fa.dq_launches, fa.dkv_launches)
-    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, seed, True, scale,
+    grads = fa.flash_attention_bwd(q, k, v, o, lse, do, seed, causal, scale,
                                    dropout)
     torch.cuda.synchronize()
     check((fa.dq_launches, fa.dkv_launches) == (before[0] + 1, before[1] + 1),
           f"K2/K3 did not launch once each at {tuple(q.shape)} {dtype}")
-    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, True, scale,
+    ro, rlse = fa.flash_attention_fwd_reference(q, k, v, causal, scale,
                                                 dropout, seed)
     errs = {}
     for name, got, want in (("o", o, ro), ("lse", lse, rlse)):
@@ -2089,8 +2144,8 @@ def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout) -> tuple:
         check(ok and bool(torch.isfinite(got.float()).all()),
               f"K1 {name} vs plain at {tuple(q.shape)} {dtype} dropout "
               f"{dropout}: err {errs[name]:.3g}")
-    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed, True,
-                                            scale, dropout)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed,
+                                            causal, scale, dropout)
     equal = {}
     for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
         check(float(ref.float().abs().max()) > 0, f"plain {name} is all 0")
@@ -2638,7 +2693,7 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
         for key, ms, count in group:
             print(f"    {label} row: {ms:8.3f} ms  x{count:<6.0f} "
                   f"{key[:100]}", flush=True)
-    return {"attention_ms": ours, "rms_norm_ms": k4_ms,
+    return {"launches": launches, "attention_ms": ours, "rms_norm_ms": k4_ms,
             "rms_norm_rows": len(k4), "rms_norm_bwd_ms": k4_bwd_ms,
             "rms_norm_bwd_rows": len(k4_bwd), "rest_ms": rest,
             "device_ms": total}
@@ -2676,7 +2731,7 @@ def phase_train(torch, gpt) -> dict:
           f"launches {counts}, want {want} each of K1-K3 ({LAYERS} per "
           f"step) and {per_step * TRAIN_STEPS} of AdamW ({per_step} per "
           f"step)")
-    profile_steps(torch, step, ids, p50 * 1e3)
+    prof = profile_steps(torch, step, ids, p50 * 1e3)
     del model, step
     torch.cuda.empty_cache()
 
@@ -2714,7 +2769,7 @@ def phase_train(torch, gpt) -> dict:
                        "bwd_dkv": steps * LAYERS},
           f"kernels did not run with dropout: {launched}")
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
-            "adamw": counts[4]}
+            "adamw": counts[4], "launches_per_step": prof["launches"]}
 
 
 def device_time_ms(torch, fns, iters: int = 60) -> float:
@@ -3586,6 +3641,633 @@ def phase_adamw(torch, gpt) -> dict:
             "shape": shape}
 
 
+# ---------------------------------------------------------------- float16
+# fp16 K1-K3 at the GPT training shape, the Llama shape (k, v expanded from
+# 4 KV heads) and D = 128
+FP16_SHAPES = (("GPT", 8, 1024, 12, 64, None), ("Llama", 4, 2048, 12, 64, 4),
+               ("D=128", 1, 512, 32, 128, None))
+
+
+def float64_report(torch, fa, q, k, v, do, seed, causal, dropout, outs) -> str:
+    """The fp16 kernels' (o, lse, dq, dk, dv) and the fp16 plain
+    versions' against the plain versions computed in float64 from the
+    same inputs, as text (``TOL`` gates the kernels against the fp16
+    plain versions; this prints how far both sit from the exact)."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    exact = fa.flash_attention_fwd_reference(q.double(), k.double(),
+                                             v.double(), causal, scale,
+                                             dropout, seed)
+    plain = fa.flash_attention_fwd_reference(q, k, v, causal, scale, dropout,
+                                             seed)
+    e_o, e_lse = exact
+    exact_b = fa.flash_attention_bwd_reference(
+        q.double(), k.double(), v.double(), e_o, e_lse, do.double(), seed,
+        causal, scale, dropout)
+    plain_b = fa.flash_attention_bwd_reference(q, k, v, *plain, do, seed,
+                                               causal, scale, dropout)
+    rows = []
+    for name, got, ref, want in zip(("o", "lse", "dq", "dk", "dv"), outs,
+                                    (*plain, *plain_b), (*exact, *exact_b)):
+        err = float((got.double() - want).abs().max())
+        err_plain = float((ref.double() - want).abs().max())
+        rows.append(f"{name} {err:.2e} (plain fp16 {err_plain:.2e})")
+    del exact, plain, exact_b, plain_b
+    torch.cuda.empty_cache()
+    return " ".join(rows)
+
+
+def phase_fp16_attention(torch) -> dict:
+    """fp16 K1-K3 (the bf16 tensor-core kernels instantiated for __half)
+    against their plain versions at the GPT, Llama and D=128 shapes,
+    causal and not, with dropout 0 and 0.1 (``TOL``/``BWD_TOL`` float16),
+    each output also against float64; timed (CUDA events) beside their
+    bounds (989 TFLOP/s dense fp16), plain versions and SDPA's fp16
+    forward and backward. Returns the GPT-shape records."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    print("== fp16 K1-K3: against the plain versions (and float64), timed "
+          "beside bounds and SDPA fp16 (ms by CUDA events)", flush=True)
+    dev = torch.device("cuda")
+    seed = torch.tensor([20261017], dtype=torch.int32, device=dev)
+    rs = np.random.RandomState(16)
+    records = {}
+    for label, b, s, h, d, hkv in FP16_SHAPES:
+        if hkv:
+            q, k, v, do = llama_qkv(torch, rs, b, s, h, hkv, d, "float16")
+        else:
+            qkv = torch.from_numpy(rs.randn(b, s, h, 3, d).astype(
+                np.float32)).to(dev, torch.float16)
+            q, k, v = qkv[..., 0, :], qkv[..., 1, :], qkv[..., 2, :]
+            do = torch.from_numpy(rs.randn(b, s, h, d).astype(
+                np.float32)).to(dev, torch.float16)
+        for causal in (True, False):
+            for dropout in (0.0, 0.1):
+                fa.tma_copies = 0
+                errs, equal, _ = compare_backward(
+                    torch, fa, q, k, v, do, seed, "float16", dropout,
+                    causal=causal)
+                check(fa.tma_copies == 0, f"fp16 {label}: an operand was "
+                      f"copied for TMA")
+                scale = 1.0 / math.sqrt(d)
+                o, lse = fa.flash_attention_fwd(q, k, v, causal, scale,
+                                                dropout, seed)
+                grads = fa.flash_attention_bwd(q, k, v, o, lse, do, seed,
+                                               causal, scale, dropout)
+                exact = float64_report(torch, fa, q, k, v, do, seed, causal,
+                                       dropout, (o, lse, *grads))
+                del o, lse, grads
+                print(f"fp16 {label} B={b} S={s} H={h} D={d} causal="
+                      f"{int(causal)} dropout={dropout}  err "
+                      + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                      + "  bitwise equal " + " ".join(
+                          f"{n} {c}" for n, c in equal.items())
+                      + f"\n    vs float64 {exact}", flush=True)
+                if causal and dropout == 0.0:
+                    t = time_attention(torch, fa, q, k, v, do, seed,
+                                       "float16", 0.0)
+                    print("    " + t["line"], flush=True)
+                    shape = (f"B={b} S={s} H={h} D={d} float16 causal "
+                             f"dropout=0.0")
+                    recs = attention_records(t, errs)
+                    records[label] = {name: dict(rec, shape=shape)
+                                      for name, rec in recs.items()}
+                    records[label]["bwd_ms"] = t["ms"]["dq"] + t["ms"]["dkv"]
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    return records
+
+
+# ------------------------------------------------------ AdamW, every mode
+def phase_adamw_modes(torch, gpt) -> None:
+    """The AdamW kernel against its plain version, bit for bit, in the
+    modes this slice added, on every gpt2_small parameter: two parameter
+    groups (embeddings at half the LR) with ``lr_ratio`` and no decay on
+    biases and norms, ``found_inf`` unset and set (set: nothing changes),
+    ``amsgrad``, and bf16, fp16 and f32 parameters (bf16 and fp16 also
+    with the f32 gradients a GradScaler hands over). One launch per 64
+    tensors of one parameter and gradient dtype."""
+    from paddle_tpu_torch.ops.cuda import adamw
+
+    print("== AdamW kernel modes: groups + lr_ratio + decay mask, found_inf, "
+          "amsgrad, bf16/fp16/f32 parameters, f32 gradients; kernel vs "
+          "plain bitwise", flush=True)
+    dev = torch.device("cuda")
+    model = gpt.GPTForCausalLM(gpt.gpt2_small(),
+                               generator=torch.Generator().manual_seed(0))
+    named = list(model.named_parameters())
+    factors = [((0.5,) if "embeddings" in n else ())
+               + ((0.8,) if p.dim() == 1 else ()) for n, p in named]
+    coeffs = [0.1 if n.endswith(".weight") and "ln_" not in n else 0.0
+              for n, _ in named]
+    gen = torch.Generator(device=dev).manual_seed(12)
+    lr = torch.tensor(3e-4, device=dev)
+    step = torch.tensor(5, dtype=torch.int32, device=dev)
+    for pdt, gdt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.float16, torch.float16),
+                     (torch.float32, torch.float32),
+                     (torch.bfloat16, torch.float32),
+                     (torch.float16, torch.float32)):
+        params = [p.detach().to(pdt) for _, p in named]
+        grads = [torch.randn(p.shape, generator=gen, device=dev).to(gdt)
+                 for p in params]
+        m0 = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+              for p in params]
+        v0 = [torch.rand(p.shape, generator=gen, device=dev) * 1e-4
+              for p in params]
+        x0 = [torch.rand(p.shape, generator=gen, device=dev) * 2e-4
+              for p in params]
+        for found in (None, False, True):
+            for ams in (False, True):
+                flag = (None if found is None
+                        else torch.tensor(found, device=dev))
+                runs = [[[t.clone() for t in ts] for ts in (params, m0, v0,
+                                                            x0)]
+                        for _ in range(2)]
+                kw = dict(beta1=0.9, beta2=0.95, eps=1e-8, coeff=coeffs,
+                          lr_factors=factors, found_inf=flag)
+                adamw.launches = 0
+                got, want = runs
+                adamw.adamw_update(got[0], grads, got[1], got[2], lr, step,
+                                   max_exp_avg_sqs=got[3] if ams else None,
+                                   **kw)
+                launched = adamw.launches
+                adamw.adamw_reference(want[0], grads, want[1], want[2], lr,
+                                      step, max_exp_avg_sqs=want[3]
+                                      if ams else None, **kw)
+                torch.cuda.synchronize()
+                pairs = [(a, b) for ga, gb in zip(got, want)
+                         for a, b in zip(ga, gb)]
+                equal = sum(torch.equal(a, b) for a, b in pairs)
+                same = (all(torch.equal(a, b) for a, b in zip(got[0], params))
+                        if found else None)
+                per = math.ceil(len(params) / adamw.MAX_TENSORS)
+                print(f"p {str(pdt)[6:]} g {str(gdt)[6:]} found_inf {found} "
+                      f"amsgrad {ams}: {equal}/{len(pairs)} tensors bitwise "
+                      f"equal, {launched} launches"
+                      + ("" if same is None else
+                         f", parameters unchanged {same}"), flush=True)
+                check(equal == len(pairs) and launched == per
+                      and same in (None, True),
+                      f"AdamW kernel mode p {pdt} g {gdt} found {found} "
+                      f"amsgrad {ams}: {equal}/{len(pairs)} equal, "
+                      f"{launched} launches (want {per}), unchanged {same}")
+                del runs, got, want, pairs
+        del params, grads, m0, v0, x0
+        torch.cuda.empty_cache()
+    del model
+
+
+# ------------------------------------------------------- phase 16, trainer
+RECIPE_STEPS = 12
+FP16_STEPS = 12
+# 2^26: the first steps overflow fp16 (a weight gradient of the first
+# layers passes 65504 near 2^22), halving each time, and growing again
+# every 2 good steps
+FP16_INIT_SCALE = 2.0 ** 26
+OPTIMIZER_STEPS = 3
+OPTIMIZER_BATCH = 2
+
+
+def recipe_decays(name) -> bool:
+    """No decay on biases, LayerNorm weights and embeddings."""
+    return (name.endswith(".weight") and ".ln_" not in name
+            and "embeddings" not in name)
+
+
+def recipe_twin(torch, gpt, cfg):
+    """gpt2_small bf16 O2 under the pretraining recipe: warmup then
+    cosine LR, the embeddings a group at half the LR, global-norm clip
+    1.0, AdamW(beta2=0.95, weight_decay=0.1) with no decay on biases,
+    norms and embeddings. Returns (model, optimizer, scheduler, clip,
+    loss_fn)."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    model = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        0)).train()
+    crit = gpt.GPTPretrainingCriterion(cfg)
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    sched = lr.LinearWarmup(
+        lr.CosineAnnealingDecay(6e-4, T_max=RECIPE_STEPS, eta_min=6e-5),
+        warmup_steps=4, start_lr=0.0, end_lr=6e-4)
+    named = list(model.named_parameters())
+    groups = [{"params": [p for n, p in named if "embeddings" not in n]},
+              {"params": [p for n, p in named if "embeddings" in n],
+               "learning_rate": 0.5}]
+    clip = nn.ClipGradByGlobalNorm(1.0)
+    opt = AdamW(learning_rate=sched, parameters=groups, beta2=0.95,
+                weight_decay=0.1, apply_decay_param_fun=recipe_decays,
+                grad_clip=clip)
+
+    def loss_fn(ids):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(ids)
+        return crit(logits, ids)
+
+    return model, opt, sched, clip, loss_fn
+
+
+def trainer_recipe(torch, gpt, ids, launches_9) -> dict:
+    """(a) The recipe, eager then graphed on a twin: losses, parameters
+    and the clip's norms bit for bit; the LR moves every step and every
+    step after the capture is a replay."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    print(f"-- (a) recipe: gpt2_small bf16 O2, {TRAIN_BATCH}x{TRAIN_SEQ}, "
+          f"LinearWarmup(4) -> CosineAnnealingDecay(6e-4, T_max=12, "
+          f"eta_min=6e-5), AdamW(beta2=0.95, wd 0.1, no decay on biases/"
+          f"norms/embeddings), embeddings at LR x0.5, "
+          f"ClipGradByGlobalNorm(1.0); {RECIPE_STEPS} eager steps, then "
+          f"{RECIPE_STEPS} TrainStep steps", flush=True)
+    model, opt, sched, clip, loss_fn = recipe_twin(torch, gpt, cfg)
+    want_losses, want_norms, lrs = [], [], []
+    for _ in range(RECIPE_STEPS):
+        lrs.append(opt.get_lr())
+        loss = loss_fn(ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        sched.step()
+        want_losses.append(loss.detach())
+        want_norms.append(clip.last_norm)
+    torch.cuda.synchronize()
+    want_losses = [float(x) for x in want_losses]
+    want_norms = [float(x) for x in want_norms]
+    want_params = [p.detach().clone() for p in model.parameters()]
+    del model, opt, loss_fn
+    torch.cuda.empty_cache()
+
+    model, opt, sched, clip, loss_fn = recipe_twin(torch, gpt, cfg)
+    step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    losses, norms, times = [], [], []
+    for i in range(RECIPE_STEPS):
+        if i == GRAPH_WARMUP:
+            stats = dict(step.stats)
+            fa.launches = fa.dq_launches = fa.dkv_launches = 0
+            fa.tma_copies = adamw.launches = rms.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        norms.append(float(clip.last_norm))
+        sched.step()
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches,
+              adamw.launches)
+    ran = {k: step.stats[k] - stats[k] for k in stats}
+    replays = RECIPE_STEPS - GRAPH_WARMUP
+    print(f"LR per step {[f'{x:.4g}' for x in lrs]}", flush=True)
+    print(f"pre-clip global norm: step 0 {norms[0]:.6f}; per step "
+          + " ".join(f"{x:.4f}" for x in norms), flush=True)
+    check(len(set(lrs)) == RECIPE_STEPS, f"the LR did not move every step: "
+          f"{lrs}")
+    check(any(x > 1.0 for x in norms), f"the clip never engaged: norms "
+          f"{norms}")
+    check(norms == want_norms, f"graphed norms {norms} differ from eager "
+          f"{want_norms}")
+    check_against_eager(torch, "recipe", losses,
+                        [p.detach() for p in model.parameters()],
+                        (want_losses, want_params))
+    check(ran == {"compiled_steps": replays, "eager_steps": 0},
+          f"recipe steps {ran}: not every step after the capture replayed")
+    per_step = adamw_launches_per_step(model)
+    want = (LAYERS * replays,) * 3 + (0, per_step * replays)
+    print(f"launches K1/K2/K3/K4/AdamW over {replays} replays {counts}; "
+          f"operands copied for TMA {fa.tma_copies}", flush=True)
+    check(counts == want and fa.tma_copies == 0,
+          f"recipe launches {counts}, want {want}")
+    times = times[GRAPH_WARMUP:]
+    p50 = float(np.median(times))
+    flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
+                           cfg.hidden_size, cfg.vocab_size)
+    prof = profile_steps(torch, step, ids, p50 * 1e3)
+    print(f"recipe: step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}"
+          f", max {max(times) * 1e3:.3f}); tokens/s "
+          f"{TRAIN_BATCH * TRAIN_SEQ / p50:.1f}; MFU "
+          f"{flops / p50 / PEAK_FLOPS['bfloat16']:.2%}; idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; launches per step "
+          f"{prof['launches']:.0f} (phase 9: {launches_9:.0f})", flush=True)
+    out = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+           "adamw": counts[4], "p50_ms": p50 * 1e3}
+    del model, opt, step, loss_fn, want_params
+    release_memory(torch)
+    return out
+
+
+def host_loss_scaling(flags, init, incr_every, decr_every, incr_ratio=2.0,
+                      decr_ratio=0.5) -> list:
+    """The scale after each step, by the JAX package's update_loss_scaling
+    rule (paddle_tpu/amp/grad_scaler.py:171-195), over the found_inf
+    flags, on the host."""
+    scale, good, bad, out = init, 0, 0, []
+    for found in flags:
+        bad_n = bad + 1 if found else 0
+        good_n = 0 if found else good + 1
+        scale_n = (max(scale * decr_ratio, 1.0)
+                   if found and bad_n >= decr_every else scale)
+        bad_n = 0 if bad_n >= decr_every else bad_n
+        scale_n = (scale_n * incr_ratio
+                   if not found and good_n >= incr_every else scale_n)
+        good_n = 0 if good_n >= incr_every else good_n
+        scale, good, bad = scale_n, good_n, bad_n
+        out.append(scale)
+    return out
+
+
+def fp16_twin(torch, gpt, cfg):
+    """gpt2_small with f32 parameters, AdamW(1e-4), a GradScaler, and the
+    step function of an fp16 O1 loop: the loss under
+    ``auto_cast(level="O1", dtype="float16")``, then ``scale(loss)
+    .backward()``, ``step``, ``update``, ``clear_grad``."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(
+        0)).train()
+    crit = gpt.GPTPretrainingCriterion(cfg)
+    opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+    scaler = amp.GradScaler(init_loss_scaling=FP16_INIT_SCALE,
+                            incr_every_n_steps=2, decr_every_n_nan_or_inf=1)
+
+    def step_fn(ids):
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = crit(model(ids), ids)
+        scaler.scale(loss).backward()
+        scaler.step(opt)
+        scaler.update()
+        opt.clear_grad()
+        return loss.detach()
+
+    return model, opt, scaler, crit, step_fn
+
+
+def optimizer_cells(torch, model, opt) -> list:
+    """Copies of every parameter, accumulator and the step count."""
+    cells = [p.detach().clone() for p in model.parameters()]
+    cells += [t.clone() for t in opt._state_cells()]
+    return cells + [opt._step_tensor.clone()]
+
+
+def attention_overflow_flags(torch, fa, model, crit, ids, scale) -> tuple:
+    """One fp16 O1 forward and backward of ``model`` at loss scale
+    ``scale``: for each K2/K3 call, whether the kernels' dq, dk, dv hold a
+    non-finite value and whether the plain versions' do, on the same
+    inputs; and whether any parameter's gradient does."""
+    from paddle_tpu_torch import amp
+
+    kernel_bwd, flags = fa.flash_attention_bwd, []
+
+    def both(q, k, v, o, lse, do, seed, causal, scale_, dropout=0.0, **kw):
+        got = kernel_bwd(q, k, v, o, lse, do, seed, causal, scale_, dropout,
+                         **kw)
+        kw.pop("device", None)
+        ref = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed,
+                                               causal, scale_, dropout, **kw)
+        flags.append((not all(bool(torch.isfinite(g).all()) for g in got),
+                      not all(bool(torch.isfinite(g).all()) for g in ref)))
+        del ref
+        return got
+
+    fa.flash_attention_bwd = both
+    try:
+        with amp.auto_cast(level="O1", dtype="float16"):
+            loss = crit(model(ids), ids)
+        (loss * scale).backward()
+    finally:
+        fa.flash_attention_bwd = kernel_bwd
+    overflow = not all(bool(torch.isfinite(p.grad).all())
+                       for p in model.parameters())
+    model.zero_grad(set_to_none=True)
+    return flags, overflow
+
+
+def trainer_fp16(torch, gpt, ids) -> dict:
+    """(b) fp16 O1 with dynamic loss scaling: the eager loop under
+    ``set_sync_debug_mode("error")``, each skipped step leaving every
+    parameter, moment and the step count bit for bit, the scales equal to
+    the host replay of JAX's rule; the same step function captured by
+    ``CompiledFunction`` bit for bit the eager steps; fp16 K1-K3 launches
+    through the replays equal the counters and the profile; the kernels'
+    and the plain versions' overflow flags on the same inputs at the
+    largest scale without overflow and the first that overflows."""
+    from paddle_tpu_torch.jit.api import _cuda_generators
+    from paddle_tpu_torch.jit.functionalize import CompiledFunction
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    print(f"-- (b) fp16 O1: gpt2_small f32 parameters, "
+          f"{TRAIN_BATCH}x{TRAIN_SEQ}, AdamW(1e-4), GradScaler(init "
+          f"{FP16_INIT_SCALE:.0f}, incr every 2, decr every 1); "
+          f"{FP16_STEPS} eager steps under set_sync_debug_mode('error'), "
+          f"then {FP16_STEPS} CompiledFunction steps", flush=True)
+    model, opt, scaler, crit, step_fn = fp16_twin(torch, gpt, cfg)
+    flags, scales, used, want_losses, skipped = [], [], [], [], 0
+    for i in range(FP16_STEPS):
+        before = optimizer_cells(torch, model, opt)
+        used.append(float(scaler.get_loss_scaling()))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = step_fn(ids)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        found = bool(scaler._found_inf)
+        flags.append(found)
+        scales.append(float(scaler._scale))
+        want_losses.append(float(loss))
+        if found:
+            skipped += 1
+            after = optimizer_cells(torch, model, opt)
+            # accumulators the skipped step made are zeros
+            fresh = after[len(before) - 1:-1] if len(after) > len(before) \
+                else []
+            same = (all(torch.equal(a, b) for a, b in
+                        zip(before[:-1], after[:len(before) - 1]))
+                    and torch.equal(before[-1], after[-1])
+                    and all(not t.any() for t in fresh))
+            check(same, f"fp16 step {i} overflowed but changed a parameter, "
+                  f"moment or the step count")
+        del before
+    want_params = [p.detach().clone() for p in model.parameters()]
+    rule = host_loss_scaling(flags, FP16_INIT_SCALE, 2, 1)
+    print(f"scale used per step {used}", flush=True)
+    print(f"found_inf per step {flags}; scale after each {scales}; JAX's "
+          f"rule on the host {rule}; skipped {skipped}", flush=True)
+    check(skipped >= 1 and not all(flags), f"the stream has {skipped} "
+          f"skipped steps of {FP16_STEPS}: choose another initial scale")
+    check(scales == rule, "the scale stream differs from JAX's "
+          "update_loss_scaling rule")
+    # the kernels' and the plain versions' overflow on the same inputs
+    good = max(s for s, f in zip(used, flags) if not f)
+    bad = min(s for s, f in zip(used, flags) if f)
+    for label, s in (("largest without overflow", good),
+                     ("least that overflows", bad),
+                     ("initial", FP16_INIT_SCALE)):
+        pairs, overflow = attention_overflow_flags(torch, fa, model, crit,
+                                                   ids, s)
+        kern = [a for a, _ in pairs]
+        plain = [b for _, b in pairs]
+        print(f"scale {s:.0f} ({label} in the stream), on the last "
+              f"parameters: a gradient non-finite {overflow}; K2/K3 "
+              f"non-finite per layer {[int(x) for x in kern]}, plain "
+              f"versions {[int(x) for x in plain]}", flush=True)
+        check(kern == plain, f"at scale {s} the kernels' overflow "
+              f"{kern} differs from the plain versions' {plain}")
+    del model, opt, scaler, step_fn
+    release_memory(torch)
+
+    model, opt, scaler, crit, step_fn = fp16_twin(torch, gpt, cfg)
+    compiled = CompiledFunction(step_fn, name="fp16_step", device="cuda",
+                                generators=_cuda_generators(model))
+    losses, got_scales, times = [], [], []
+    for i in range(FP16_STEPS):
+        if i == GRAPH_WARMUP:
+            fa.launches = fa.dq_launches = fa.dkv_launches = 0
+            adamw.launches = 0
+            stats = dict(compiled.stats)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = compiled(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(loss))
+        got_scales.append(float(scaler._scale))
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, adamw.launches)
+    replays = FP16_STEPS - GRAPH_WARMUP
+    ran = {k: compiled.stats[k] - stats[k] for k in stats}
+    check(ran == {"compiled_steps": replays, "eager_steps": 0},
+          f"fp16 steps {ran}: not every step after the capture replayed")
+    check(got_scales == scales, f"graphed scales {got_scales} differ from "
+          f"eager {scales}")
+    check_against_eager(torch, "fp16 O1", losses,
+                        [p.detach() for p in model.parameters()],
+                        (want_losses, want_params))
+    per_step = adamw_launches_per_step(model)
+    print(f"fp16 K1/K2/K3, AdamW (f32) launches over {replays} replays "
+          f"{counts}", flush=True)
+    check(counts == (LAYERS * replays,) * 3 + (per_step * replays,),
+          f"fp16 launches {counts}")
+    times = times[GRAPH_WARMUP:]
+    p50 = float(np.median(times))
+    prof = profile_steps(torch, compiled, ids, p50 * 1e3)
+    flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
+                           cfg.hidden_size, cfg.vocab_size)
+    print(f"fp16 O1: step ms p50 {p50 * 1e3:.3f} (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}); tokens/s "
+          f"{TRAIN_BATCH * TRAIN_SEQ / p50:.1f}; MFU "
+          f"{flops / p50 / PEAK_FLOPS['float16']:.2%}; idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; launches per step "
+          f"{prof['launches']:.0f}", flush=True)
+    out = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+           "adamw": counts[3], "p50_ms": p50 * 1e3, "skipped": skipped}
+    del model, opt, scaler, step_fn, compiled, want_params
+    release_memory(torch)
+    return out
+
+
+def optimizer_cases():
+    """(c)'s optimizers: every one but Adam/AdamW's plain mode (phase 9)
+    and LBFGS (no TrainStep)."""
+    def ratio(p):
+        return 0.5 if p.dim() == 1 else 1.0
+    return (("SGD", dict(learning_rate=1e-3)),
+            ("Momentum", dict(learning_rate=1e-3, momentum=0.9,
+                              use_nesterov=True)),
+            ("Adagrad", dict(learning_rate=1e-3)),
+            ("RMSProp", dict(learning_rate=1e-4, centered=True,
+                             momentum=0.9)),
+            ("Adadelta", dict(learning_rate=1.0)),
+            ("Adamax", dict(learning_rate=1e-3)),
+            ("Lamb", dict(learning_rate=1e-3)),
+            ("AdamW", dict(learning_rate=1e-4, amsgrad=True,
+                           lr_ratio=ratio)))
+
+
+def trainer_optimizers(torch, gpt, ids) -> dict:
+    """(c) Every other optimizer on gpt2_small bf16 O2 at B=2:
+    ``OPTIMIZER_STEPS`` eager steps, then as many ``TrainStep`` steps on a
+    twin (eager, capture, replay), bit for bit; each graph freed before
+    the next optimizer."""
+    from paddle_tpu_torch import amp, optimizer
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
+    batch = ids[:OPTIMIZER_BATCH]
+    print(f"-- (c) every other optimizer: gpt2_small bf16 O2, "
+          f"{OPTIMIZER_BATCH}x{TRAIN_SEQ} (batch cut for time), "
+          f"{OPTIMIZER_STEPS} eager then {OPTIMIZER_STEPS} TrainStep steps "
+          f"each", flush=True)
+    launched = {"fwd": 0, "dq": 0, "dkv": 0, "adamw": 0}
+    for name, kw in optimizer_cases():
+        def twin():
+            model = gpt.GPTForCausalLM(
+                cfg, generator=torch.Generator().manual_seed(0)).train()
+            crit = gpt.GPTPretrainingCriterion(cfg)
+            amp.decorate(model, level="O2", dtype="bfloat16")
+            opt = getattr(optimizer, name)(parameters=model.parameters(),
+                                           **kw)
+
+            def loss_fn(x):
+                with amp.auto_cast(level="O2", dtype="bfloat16"):
+                    logits = model(x)
+                return crit(logits, x)
+            return model, opt, loss_fn
+
+        model, opt, loss_fn = twin()
+        want = []
+        for _ in range(OPTIMIZER_STEPS):
+            loss = loss_fn(batch)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            want.append(loss.detach())
+        want = ([float(x) for x in want],
+                [p.detach().clone() for p in model.parameters()])
+        del model, opt, loss_fn
+        model, opt, loss_fn = twin()
+        step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+        before = (fa.launches, fa.dq_launches, fa.dkv_launches,
+                  adamw.launches)
+        got = [float(step(batch)) for _ in range(OPTIMIZER_STEPS)]
+        after = (fa.launches, fa.dq_launches, fa.dkv_launches,
+                 adamw.launches)
+        for key, a, b in zip(launched, after, before):
+            launched[key] += a - b
+        check(step.stats == {"compiled_steps": OPTIMIZER_STEPS - 1,
+                             "eager_steps": 1},
+              f"{name}: steps {step.stats}")
+        check_against_eager(torch, f"{name}", got,
+                            [p.detach() for p in model.parameters()], want)
+        del model, opt, loss_fn, step, want
+        release_memory(torch)
+    print(f"(c) launches K1/K2/K3/AdamW {launched}", flush=True)
+    return launched
+
+
+def phase_trainer(torch, gpt, launches_9) -> dict:
+    """Phase 16: the training-step API on gpt2_small at full width and
+    depth: (a) the pretraining recipe, (b) fp16 O1 with loss scaling, (c)
+    every other optimizer. Returns the launches and times."""
+    print("== trainer: LR schedulers, parameter groups, gradient clipping, "
+          "the other optimizers, AMP O1 float16 with GradScaler; every run "
+          "graphed and held bit for bit to eager steps on a twin",
+          flush=True)
+    cfg = gpt.gpt2_small()
+    ids = torch.from_numpy(np.random.RandomState(16).randint(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ)).astype(np.int64)).cuda()
+    return {"recipe": trainer_recipe(torch, gpt, ids, launches_9),
+            "fp16": trainer_fp16(torch, gpt, ids),
+            "optimizers": trainer_optimizers(torch, gpt, ids)}
+
+
 def main() -> int:
     try:
         import torch
@@ -3619,6 +4301,7 @@ def main() -> int:
         del model
         release_memory(torch)
         records = phase_backward(torch)
+        fp16_records = phase_fp16_attention(torch)
         phase_gradients(torch, gpt)
         trained = phase_train(torch, gpt)
         records.update(phase_llama_kernels(torch))
@@ -3627,6 +4310,8 @@ def main() -> int:
         phase_flashmask_kernels(torch)
         flashmask_path = phase_flashmask_path(torch)
         adamw_record = phase_adamw(torch, gpt)
+        phase_adamw_modes(torch, gpt)
+        trainer = phase_trainer(torch, gpt, trained["launches_per_step"])
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3643,7 +4328,9 @@ def main() -> int:
              "flash_attention_dq_tf32.cu", 310),
             ("flash_attention_bwd_dkv", "dkv", "flash_attention_dkv_sm90.cu",
              "flash_attention_dkv_tf32.cu", 347)):
-        by_path = {"train": trained[key], "train_llama": trained_llama[key]}
+        by_path = {"train": trained[key], "train_llama": trained_llama[key],
+                   "trainer_recipe": trainer["recipe"][key],
+                   "trainer_optimizers": trainer["optimizers"][key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"]}
                        if key == "fwd" else {})
@@ -3661,6 +4348,16 @@ def main() -> int:
                                          "library_ms", "max_abs_err")},
                              "launches": sum(f32_by_path.values()),
                              "launches_by_path": f32_by_path}}
+        # float16: the same source instantiated for __half (phase 16 (b))
+        entry["float16"] = {
+            "source": source + src,
+            **{k: v for k, v in fp16_records["GPT"][key].items()
+               if k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms", "max_abs_err")},
+            "launches": trainer["fp16"][key],
+            "launches_by_path": {"trainer_fp16": trainer["fp16"][key]},
+            "llama_shape": fp16_records["Llama"][key],
+            "head_dim_128": fp16_records["D=128"][key]}
         if key == "fwd":
             entry["serve_shape"] = serve_record
         entry["llama_shape"] = records[(key, "bfloat16", 64)]
@@ -3713,7 +4410,10 @@ def main() -> int:
             entry["path"] = flashmask_path["path"]
         kernels.append(entry)
     # no Pallas counterpart: the jnp AdamW update that XLA fuses
-    by_path = {"train": trained["adamw"], "train_llama": trained_llama["adamw"]}
+    by_path = {"train": trained["adamw"], "train_llama": trained_llama["adamw"],
+               "trainer_recipe": trainer["recipe"]["adamw"],
+               "trainer_fp16": trainer["fp16"]["adamw"],
+               "trainer_optimizers": trainer["optimizers"]["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",

@@ -13,7 +13,10 @@ the GPT and Llama training steps (``jit.TrainStep``, ``optimizer.AdamW``,
 ``amp`` O2) with the flash-attention backward kernels and the RMSNorm
 kernel; the batch serving tier: ``jit.save``/``jit.load`` over
 ``torch.export``, ``inference.Predictor`` with one CUDA graph a
-(batch, seq) rung, and ``serving.ServingEngine``.
+(batch, seq) rung, and ``serving.ServingEngine``; the training-step API:
+``optimizer.lr`` schedulers, parameter groups, ``nn.ClipGradBy*``, the ten
+optimizers, ``amp`` O1/O2 in bf16 or fp16 with ``amp.GradScaler``, and
+``nn.CrossEntropyLoss``.
 """
 from . import framework, inference, jit, serving, static
 from .device import DEFAULT_DEVICE, resolve_device

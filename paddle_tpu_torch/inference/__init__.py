@@ -431,11 +431,14 @@ class Predictor:
     def swap_weights(self, source) -> dict:
         """Hot-swap new weights into the program every clone serves from,
         between two calls: no new rung, no capture. ``source`` is a sharded
-        checkpoint directory (``distributed.checkpoint.sharded``; each
-        tensor read onto the live one's device and dtype) or a dict of
-        name → tensor or array. Names are the exported model's state-dict
-        keys: a missing one raises ``KeyError``; extra entries are ignored
-        and counted. Only float casts to float; any other dtype change
+        checkpoint directory in the reference's layout, as the JAX package
+        and the decode tier write and read it (``distributed.checkpoint.
+        sharded``; each tensor read onto the live one's device and dtype;
+        a Linear weight, named by the export's ``linear_weights``, stored
+        ``[in, out]`` and transposed here, square ones included), or a
+        dict of name → tensor or array in the port's layout. Names are the
+        exported model's state-dict keys: a missing one raises
+        ``KeyError``; extra entries are ignored and counted. Only float casts to float; any other dtype change
         raises ``ValueError``, as does a shape mismatch. Returns a
         report."""
         from ..distributed.checkpoint.sharded import (load_sharded_like,
@@ -445,7 +448,10 @@ class Predictor:
         prog = self._ensure_batch_program()
         live = self._layer._params
         if isinstance(source, (str, os.PathLike)):
-            new = load_sharded_like(str(source), live)
+            linear = self._layer.linear_weights
+            flip = {k: (v.t() if k in linear else v) for k, v in live.items()}
+            new = {k: (v.t() if k in linear else v) for k, v in
+                   load_sharded_like(str(source), flip).items()}
             extra = 0
         else:
             source = dict(source)

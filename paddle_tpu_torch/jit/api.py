@@ -13,15 +13,18 @@ every call runs eagerly.
 
 The learning rate rides in the optimizer's device scalar, rewritten
 outside the graph before a call, only when ``get_lr()`` changes, as the
-JAX step's LR cell is; the step count is a device scalar that the graph
-advances. ``clear_grad`` sets every ``.grad`` to None, so the captured
+JAX step's LR cell is: a scheduler stepped between calls moves it, and
+the graph replays with the new value. The step count is a device scalar
+that the graph advances. Gradient clipping, parameter groups and every
+optimizer but ``LBFGS`` (which needs a closure, in both packages) run
+inside the graph: none reads a value to the host. ``clear_grad`` sets every ``.grad`` to None, so the captured
 backward allocates the gradients from the graph's pool, at the same
 addresses on every replay. The model's CUDA generators (dropout) are
 registered with the graph, so a replay draws what an eager step would.
 
-Not ported, each raising ``NotImplementedError``: gradient accumulation
-(``grad_accum_steps != 1``), shape bucketing (``bucket_axes``) and
-``sharding``.
+``grad_accum_steps`` is accepted and read nowhere, as in the JAX
+package. Not ported, each raising ``NotImplementedError``: shape
+bucketing (``bucket_axes``) and ``sharding`` (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..optimizer import LBFGS
 from .functionalize import CompiledFunction
 
 __all__ = ["TrainStep"]
@@ -44,10 +48,6 @@ class TrainStep:
                  loss_fn: Optional[Callable] = None,
                  grad_accum_steps: int = 1, bucket_axes=None, sharding=None,
                  *, device=DEFAULT_DEVICE):
-        if grad_accum_steps != 1:
-            raise NotImplementedError(
-                "gradient accumulation is not ported yet (ROADMAP.md, "
-                "queue 1)")
         if bucket_axes:
             raise NotImplementedError(
                 "TrainStep shape bucketing is not ported yet (ROADMAP.md, "
@@ -57,6 +57,9 @@ class TrainStep:
                 "TrainStep sharding is not ported yet (ROADMAP.md, queue 1)")
         if optimizer is None or loss_fn is None:
             raise ValueError("TrainStep needs an optimizer and a loss_fn")
+        if isinstance(optimizer, LBFGS):
+            raise TypeError("LBFGS steps through a closure: call "
+                            "optimizer.step(closure) eagerly")
         dev = resolve_device(device)
         if model is not None:
             for p in model.parameters():

@@ -11,7 +11,14 @@ The JAX package serializes a layer's forward as a StableHLO module
   own copy of the weights; :func:`load` fills them from ``.pdiparams``);
 - ``<path>.pdmeta``: a pickle with JAX's keys: ``class``,
   ``has_program``, ``quantize``, ``n_inputs``, ``input_shapes`` (``None``
-  for a dynamic dim), ``dynamic_axes`` and ``dynamic_ranks``.
+  for a dynamic dim), ``dynamic_axes`` and ``dynamic_ranks``; and, with a
+  program, the port's own ``linear_weights``: the state-dict names of the
+  layer's ``nn.Linear`` weights, which torch stores ``[out, in]`` and the
+  JAX package ``[in, out]``. An exported program holds no ``nn.Linear``
+  modules any more, so this is the only record of which tensors a
+  checkpoint in the reference's layout holds transposed
+  (``inference.Predictor.swap_weights``). :func:`load` refuses a program
+  whose ``.pdmeta`` lacks it rather than guess.
 
 An ``InputSpec`` dim of ``None`` exports as a symbolic dim. As in JAX,
 symbols go by rank: the first ``None`` dim of every input shares ``"b"``
@@ -118,6 +125,13 @@ def _export(layer, input_spec):
     return ep, meta
 
 
+def linear_weights(layer) -> set:
+    """The state-dict names of ``layer``'s ``nn.Linear`` weights."""
+    names = set(layer.state_dict())
+    return {f"{name}.weight" for name, mod in layer.named_modules()
+            if isinstance(mod, torch.nn.Linear)} & names
+
+
 def save(layer, path, input_spec=None, **configs) -> None:
     """Save ``layer``'s parameters and, with ``input_spec`` (a list of
     ``InputSpec`` or example tensors), its exported forward."""
@@ -135,6 +149,7 @@ def save(layer, path, input_spec=None, **configs) -> None:
             torch.export.save(ep, f)
         meta["has_program"] = True
         meta.update(entries)
+        meta["linear_weights"] = sorted(linear_weights(layer))
     with open(path + ".pdmeta", "wb") as f:
         pickle.dump(meta, f)
 
@@ -142,8 +157,9 @@ def save(layer, path, input_spec=None, **configs) -> None:
 class TranslatedLayer:
     """A loaded exported program (reference ``jit/translated_layer.py``):
     ``module`` is the program's ``torch.fx.GraphModule`` on ``device``,
-    whose parameters are the ones every call reads; ``_content_hash`` is
-    the sha256 of the ``.pdmodel`` bytes."""
+    whose parameters are the ones every call reads; ``linear_weights`` the
+    names of the parameters that were ``nn.Linear`` weights;
+    ``_content_hash`` is the sha256 of the ``.pdmodel`` bytes."""
 
     def __init__(self, exported, meta: dict, device: torch.device):
         self._exported = exported
@@ -154,6 +170,7 @@ class TranslatedLayer:
         self.training = False
         self._dtypes = [getattr(torch, d) for _, d in
                         meta.get("input_shapes") or []]
+        self.linear_weights = frozenset(meta["linear_weights"])
 
     @property
     def _params(self) -> Dict[str, torch.Tensor]:
@@ -193,6 +210,12 @@ def load(path, device=DEFAULT_DEVICE, **configs):
         meta = pickle.load(f)
     if not meta.get("has_program"):
         return {k: v.to(dev) for k, v in state.items()}
+    if "linear_weights" not in meta:
+        raise ValueError(
+            f"{path}.pdmeta has no 'linear_weights': it was written before "
+            f"jit.save recorded which parameters are Linear weights, so a "
+            f"checkpoint in the reference's layout could not be read into "
+            f"it; save the model again")
     with open(path + ".pdmodel", "rb") as f:
         raw = f.read()
     ep = move_to_device_pass(torch.export.load(io.BytesIO(raw)), dev)

@@ -211,6 +211,7 @@ class GPTForCausalLM(nn.Module):
         self._init_weights(generator if generator is not None
                            else torch.Generator().manual_seed(0))
         self.to(dev)
+        name_parameters(self)
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:
@@ -249,6 +250,15 @@ class GPTPretrainingCriterion(nn.Module):
         flat = logits[:, :-1, :].reshape(-1, v)
         return F.cross_entropy(flat, labels[:, 1:].reshape(-1),
                                reduction="mean")
+
+
+def name_parameters(model: nn.Module) -> None:
+    """Give each parameter a ``param_name``, its qualified state-dict key,
+    which AdamW passes to ``apply_decay_param_fun`` where the JAX package
+    passes ``p.name`` (a process-wide counter there, which cannot be
+    matched; torch reserves ``Tensor.name``)."""
+    for name, p in model.named_parameters():
+        p.param_name = name
 
 
 def _linear_weights(model: nn.Module) -> set:

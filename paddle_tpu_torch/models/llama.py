@@ -35,7 +35,8 @@ from ..nn import functional as F
 from ..nn.layer import Linear, RMSNorm
 from ..ops.activation import swiglu
 from ..ops.fused_ops import fused_rotary_position_embedding
-from .gpt import GPTPretrainingCriterion, check_single_device, load_jax_state
+from .gpt import (GPTPretrainingCriterion, check_single_device,
+                  load_jax_state, name_parameters)
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
@@ -204,6 +205,7 @@ class LlamaForCausalLM(nn.Module):
         self._init_weights(generator if generator is not None
                            else torch.Generator().manual_seed(0))
         self.to(dev)
+        name_parameters(self)
 
     @torch.no_grad()
     def _init_weights(self, gen: torch.Generator) -> None:

@@ -1,4 +1,5 @@
 """Layers of the port that route through its AMP-aware functionals."""
 from .common import LayerNorm, Linear, RMSNorm
+from .loss import CrossEntropyLoss
 
-__all__ = ["LayerNorm", "Linear", "RMSNorm"]
+__all__ = ["CrossEntropyLoss", "LayerNorm", "Linear", "RMSNorm"]

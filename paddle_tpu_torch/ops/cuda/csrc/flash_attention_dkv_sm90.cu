@@ -1,5 +1,6 @@
 // Flash-attention dK/dV pass on Hopper's tensor cores (sm_90a): K3 for
-// bfloat16 inputs. The float32 dK/dV pass runs in 3xTF32
+// bfloat16 and float16 inputs (one instantiation each over the element
+// type T). The float32 dK/dV pass runs in 3xTF32
 // (flash_attention_dkv_tf32.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_dkv_kernel (:189,
@@ -16,7 +17,7 @@
 // with P = 0 exactly; keys no query sees get dK = dV = 0, written; dropout
 // replaying the forward's mask (the Pallas _dropout_mask hash over the
 // PALLAS tiles, flash_attention_common.cuh); dk, dv contiguous [B, Sk, H, D]
-// in bf16, each element written by one thread (no atomics, so results do
+// in T, each element written by one thread (no atomics, so results do
 // not change from run to run).
 //
 // Design: flash_attention_dq_sm90.cu's loop turned around. One block per
@@ -37,7 +38,7 @@
 //      dS^T = P^T o (dP'^T - Delta) in the accumulator registers, lse and
 //      Delta per column from the stage, the dropout hash keyed per column;
 //   3. adds P^T.dO to dV and dS^T.Q to dK with wgmma (m64nDk16), P^T
-//      (times keep/(1-p)) and dS^T as the register A operand in two bf16
+//      (times keep/(1-p)) and dS^T as the register A operand in two T
 //      parts each, hi + lo (two products each): rounded once to bf16, as K1
 //      and K2 round P and dS, they leave dK and dV less than 4x inside the
 //      bf16 gate, since a key's column sums many probabilities
@@ -46,7 +47,7 @@
 //      shared memory.
 // dK is scaled once, and both are written from registers.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM):
+// Bound on an H100 SXM (989 TFLOP/s bf16 or fp16 tensor cores, 3.35 TB/s HBM):
 // at the Llama training shape B=4, S=2048, H=12, D=64, causal, four
 // products over the 2.1M kept (q, k) pairs of each of 48 heads are
 // 51.6 GFLOP, 0.052 ms; q, k, v, dO, dk, dv, lse and Delta move 76.3 MB,
@@ -70,8 +71,8 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Params {
   const float* lse;    // [B, H, 1, Sq]
   const float* delta;  // [B, H, 1, Sq]
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  void* dk;  // T
+  void* dv;
   int B, Sq, Sk, H, D;
   int causal;
   float scale;
@@ -98,7 +99,7 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
 
-template <int DP, bool kDropout>
+template <typename T, int DP, bool kDropout>
 __global__ void __launch_bounds__(kThreadsTC, 1)
     dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -216,9 +217,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
           const uint64_t da = desc_sw128(a_tile + (kk / 4) * L::kKBox + (kk % 4) * 32, 16, 1024);
           const uint64_t db = desc_sw128(b_tile + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024);
           if (kk == 0)
-            wgmma_m64n64k16_ss_set(d, da, db);
+            wgmma_m64n64k16_ss_set<T>(d, da, db);
           else
-            wgmma_m64n64k16_ss(d, da, db, 1);
+            wgmma_m64n64k16_ss<T>(d, da, db, 1);
         }
       };
       product(sc, ka, qb);
@@ -263,18 +264,18 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       }
     };
     // acc += x.B over the tile's 64 q rows: x as the register A operand in
-    // two bf16 parts (hi + lo), B (dO or Q) MN-major
+    // two T parts (hi + lo), B (dO or Q) MN-major
     auto add_product = [&](float (&acc)[kO], const float (&x)[32], uint32_t b_tile) {
       uint32_t hi[4][4], lo[4][4];
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) pack_a_split(hi[ks], lo[ks], x, ks);
+      for (int ks = 0; ks < 4; ++ks) pack_a_split<T>(hi[ks], lo[ks], x, ks);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_rs(acc, hi[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
+        wgmma_rs<T>(acc, hi[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_rs(acc, lo[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
+        wgmma_rs<T>(acc, lo[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
       wgmma_commit();
     };
 
@@ -310,37 +311,44 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     for (int i = 0; i < DP / 8; ++i) {
       const int c = 8 * i + col0;
       if (c < p.D) {
-        *reinterpret_cast<__nv_bfloat162*>(p.dk + off + c) = __floats2bfloat162_rn(
-            dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(p.dv + off + c) =
-            __floats2bfloat162_rn(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+        *reinterpret_cast<typename Elem<T>::T2*>(static_cast<T*>(p.dk) + off + c) =
+            Elem<T>::pack2(dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
+        *reinterpret_cast<typename Elem<T>::T2*>(static_cast<T*>(p.dv) + off + c) =
+            Elem<T>::pack2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
       }
     }
   }
 }
 
-template <int DP, bool kDropout>
+template <typename T, int DP, bool kDropout>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
   constexpr int smem = Layout<DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(dkv_sm90_kernel<DP, kDropout>,
+  cudaError_t err = cudaFuncSetAttribute(dkv_sm90_kernel<T, DP, kDropout>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sk + kM - 1) / kM, p.H, p.B);
-  dkv_sm90_kernel<DP, kDropout>
+  dkv_sm90_kernel<T, DP, kDropout>
       <<<grid, kThreadsTC, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
 
-template <bool kDropout>
+template <typename T, bool kDropout>
 cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
-  return p.D <= 64 ? launch<64, kDropout>(maps, p, stream) : launch<128, kDropout>(maps, p, stream);
+  return p.D <= 64 ? launch<T, 64, kDropout>(maps, p, stream)
+                   : launch<T, 128, kDropout>(maps, p, stream);
+}
+
+template <typename T>
+cudaError_t launch_t(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
+  return p.drop.on ? launch_d<T, true>(maps, p, stream) : launch_d<T, false>(maps, p, stream);
 }
 
 }  // namespace
 
 // The arguments of paddle_flash_attention_bwd_dkv_tf32
 // (flash_attention_dkv_tf32.cu);
-// dq is not touched. dtype must be 1 (bfloat16), D one of 16, 32, 64, 128,
+// dq is not touched. dtype must be 1 (bfloat16) or 2 (float16), D one of
+// 16, 32, 64, 128,
 // and every stride of q, k, v, dO a multiple of 8 elements with a 16-byte
 // aligned base (TMA). Returns the cudaError_t of the launch (0 on success),
 // or sm90::kErrTensorMap when a tensor map cannot be encoded.
@@ -352,20 +360,21 @@ extern "C" int paddle_flash_attention_bwd_dkv_sm90(
     long long o_sb, long long o_ss, long long o_sh, int causal, float scale, int dropout_on,
     float keep_prob, uint32_t thresh, int block_q, int block_k, void* stream) {
   (void)dq;
-  if (dtype != 1 || (D != 16 && D != 32 && D != 64 && D != 128))
+  if ((dtype != 1 && dtype != 2) || (D != 16 && D != 32 && D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (block_q < 1 || block_k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType ty = dtype == 2 ? Elem<__half>::kTma : Elem<__nv_bfloat16>::kTma;
   CUtensorMap maps[4];
-  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kN) ||
-      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kM) ||
-      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kM) ||
-      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kN))
+  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kN, ty) ||
+      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kM, ty) ||
+      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kM, ty) ||
+      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kN, ty))
     return kErrTensorMap;
   Params p;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dk = dk;
+  p.dv = dv;
   p.B = B;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -381,6 +390,7 @@ extern "C" int paddle_flash_attention_bwd_dkv_sm90(
   p.drop.block_q = block_q;
   p.drop.block_k = block_k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dropout_on ? launch_d<true>(maps, p, s) : launch_d<false>(maps, p, s);
+  const cudaError_t err =
+      dtype == 2 ? launch_t<__half>(maps, p, s) : launch_t<__nv_bfloat16>(maps, p, s);
   return static_cast<int>(err);
 }

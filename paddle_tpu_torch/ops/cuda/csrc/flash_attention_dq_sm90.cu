@@ -1,5 +1,6 @@
 // Flash-attention dQ pass on Hopper's tensor cores (sm_90a): K2 for
-// bfloat16 inputs. The float32 dQ pass is flash_attention_dq_tf32.cu
+// bfloat16 and float16 inputs (one instantiation each over the element
+// type T). The float32 dQ pass is flash_attention_dq_tf32.cu
 // (3xTF32).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_bwd_dq_kernel (:142,
@@ -14,7 +15,7 @@
 // k tiles past a block's diagonal not loaded; any Sq, Sk, out-of-range rows
 // and columns with P = 0 exactly; dropout replaying the forward's mask (the
 // Pallas _dropout_mask hash over the PALLAS tiles,
-// flash_attention_common.cuh); dq contiguous [B, Sq, H, D] in bf16.
+// flash_attention_common.cuh); dq contiguous [B, Sq, H, D] in T.
 //
 // Design: flash_attention_fwd_sm90.cu's block. One block per (128-row q
 // tile, head, batch), heaviest causal tiles first; two consumer warpgroups
@@ -23,11 +24,11 @@
 // stages by TMA on mbarriers (sm90_common.cuh). Per K/V tile each consumer
 // warpgroup
 //   1. computes S = Q.K^T and dP = dO.V^T with wgmma (m64n64k16, all four
-//      operands K-major from shared memory), bf16 in, f32 sums;
+//      operands K-major from shared memory), T in, f32 sums;
 //   2. forms P = 2^(S * scale * log2(e) - lse * log2(e)) (one FFMA and one
 //      ex2 a score) and dS = P o (dP' - Delta) in the accumulator
 //      registers, lse and Delta held per row;
-//   3. rounds dS to bf16 in registers, the register A operand as it stands,
+//   3. rounds dS to T in registers, the register A operand as it stands,
 //      and adds dS.K to dQ with wgmma (m64nDk16, the same K tile read
 //      MN-major through the transpose bit).
 // Step 1 of tile j + 1 and step 3 of tile j are issued together, and step 2
@@ -36,7 +37,7 @@
 // waiting on each product in turn. dq is scaled once and written from
 // registers.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM):
+// Bound on an H100 SXM (989 TFLOP/s bf16 or fp16 tensor cores, 3.35 TB/s HBM):
 // at the Llama training shape B=4, S=2048, H=12, D=64, causal, three
 // products over the 2.1M kept (q, k) pairs of each of 48 heads are
 // 38.7 GFLOP, 0.039 ms; q, k, v, dO, dq, lse and Delta move 63.7 MB,
@@ -64,7 +65,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 struct Params {
   const float* lse;    // [B, H, 1, Sq]
   const float* delta;  // [B, H, 1, Sq]
-  __nv_bfloat16* dq;
+  void* dq;  // T
   int B, Sq, Sk, H, D;
   int causal;
   float scale;
@@ -90,7 +91,7 @@ struct Layout {
   static constexpr int kBytes = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
 
-template <int DP, bool kDropout>
+template <typename T, int DP, bool kDropout>
 __global__ void __launch_bounds__(kThreadsTC, 1)
     dq_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
@@ -187,11 +188,11 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     const uint32_t vb = sv + (j % kStages) * L::kKV;
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_m64n64k16_ss(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+      wgmma_m64n64k16_ss<T>(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
                          desc_sw128(kb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_m64n64k16_ss(dp, desc_sw128(oa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+      wgmma_m64n64k16_ss<T>(dp, desc_sw128(oa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
                          desc_sw128(vb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
     wgmma_commit();
   };
@@ -232,7 +233,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   fence_operand(dp);
   form_ds(0);
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) pack_a(da[ks], sc, ks);
+  for (int ks = 0; ks < 4; ++ks) pack_a<T>(da[ks], sc, ks);
   for (int j = 0; j < n_kt; ++j) {
     const bool more = j + 1 < n_kt;
     if (more) mbar_wait(bar_full + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
@@ -243,7 +244,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     if (more) issue_sdp(j + 1);
     const uint32_t kb = sk + (j % kStages) * L::kKV;
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, da[ks], desc_sw128(kb + ks * 2048, L::kKVBox, 1024));
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs<T>(acc, da[ks], desc_sw128(kb + ks * 2048, L::kKVBox, 1024));
     wgmma_commit();
     if (more) {
       wgmma_wait<1>();
@@ -256,7 +257,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     mbar_arrive(bar_empty + 8 * (j % kStages));
     if (more) {
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) pack_a(da[ks], sc, ks);
+      for (int ks = 0; ks < 4; ++ks) pack_a<T>(da[ks], sc, ks);
     }
   }
 
@@ -264,40 +265,46 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int qp = row0 + 8 * hh;
     if (qp >= p.Sq) continue;
-    __nv_bfloat16* row = p.dq + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
+    T* row = static_cast<T*>(p.dq) + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i) {
       const int c = 8 * i + col0;
       if (c < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
+        *reinterpret_cast<typename Elem<T>::T2*>(row + c) = Elem<T>::pack2(
             acc[4 * i + 2 * hh] * p.scale, acc[4 * i + 2 * hh + 1] * p.scale);
     }
   }
 }
 
-template <int DP, bool kDropout>
+template <typename T, int DP, bool kDropout>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
   constexpr int smem = Layout<DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(dq_sm90_kernel<DP, kDropout>,
+  cudaError_t err = cudaFuncSetAttribute(dq_sm90_kernel<T, DP, kDropout>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kM - 1) / kM, p.H, p.B);
-  dq_sm90_kernel<DP, kDropout>
+  dq_sm90_kernel<T, DP, kDropout>
       <<<grid, kThreadsTC, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
 
-template <bool kDropout>
+template <typename T, bool kDropout>
 cudaError_t launch_d(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
-  return p.D <= 64 ? launch<64, kDropout>(maps, p, stream) : launch<128, kDropout>(maps, p, stream);
+  return p.D <= 64 ? launch<T, 64, kDropout>(maps, p, stream)
+                   : launch<T, 128, kDropout>(maps, p, stream);
+}
+
+template <typename T>
+cudaError_t launch_t(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
+  return p.drop.on ? launch_d<T, true>(maps, p, stream) : launch_d<T, false>(maps, p, stream);
 }
 
 }  // namespace
 
 // The arguments of paddle_flash_attention_bwd_dkv_tf32
 // (flash_attention_dkv_tf32.cu);
-// dk and dv are not touched. dtype must be 1 (bfloat16), D one of 16, 32,
-// 64, 128, and every stride of q, k, v, dO a multiple of 8 elements with a
+// dk and dv are not touched. dtype must be 1 (bfloat16) or 2 (float16),
+// D one of 16, 32, 64, 128, and every stride of q, k, v, dO a multiple of 8 elements with a
 // 16-byte aligned base (TMA). Returns the cudaError_t of the launch (0 on
 // success), or sm90::kErrTensorMap when a tensor map cannot be encoded.
 extern "C" int paddle_flash_attention_bwd_dq_sm90(
@@ -309,19 +316,20 @@ extern "C" int paddle_flash_attention_bwd_dq_sm90(
     float keep_prob, uint32_t thresh, int block_q, int block_k, void* stream) {
   (void)dk;
   (void)dv;
-  if (dtype != 1 || (D != 16 && D != 32 && D != 64 && D != 128))
+  if ((dtype != 1 && dtype != 2) || (D != 16 && D != 32 && D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (block_q < 1 || block_k < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType ty = dtype == 2 ? Elem<__half>::kTma : Elem<__nv_bfloat16>::kTma;
   CUtensorMap maps[4];
-  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kM) ||
-      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kN) ||
-      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kN) ||
-      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kM))
+  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kM, ty) ||
+      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kN, ty) ||
+      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kN, ty) ||
+      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kM, ty))
     return kErrTensorMap;
   Params p;
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dq = dq;
   p.B = B;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -337,6 +345,7 @@ extern "C" int paddle_flash_attention_bwd_dq_sm90(
   p.drop.block_q = block_q;
   p.drop.block_k = block_k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dropout_on ? launch_d<true>(maps, p, s) : launch_d<false>(maps, p, s);
+  const cudaError_t err =
+      dtype == 2 ? launch_t<__half>(maps, p, s) : launch_t<__nv_bfloat16>(maps, p, s);
   return static_cast<int>(err);
 }

@@ -1,5 +1,7 @@
 // Flash-attention forward on Hopper's tensor cores (sm_90a): K1 for bfloat16
-// inputs. The float32 forward is flash_attention_fwd_tf32.cu (3xTF32).
+// and float16 inputs (one instantiation each over the element type T; the
+// Pallas kernel is dtype-generic). The float32 forward is
+// flash_attention_fwd_tf32.cu (3xTF32).
 //
 // Replaces paddle_tpu/ops/pallas/flash_attention.py::_fwd_kernel (:85,
 // launched by _flash_fwd, :266). It keeps the f32 K1's contract:
@@ -15,7 +17,7 @@
 //     element's global position over the PALLAS tiles
 //     (flash_attention_common.cuh): l sums the undropped probabilities,
 //     O accumulates p * keep / (1 - p_drop);
-//   - O in bf16 [B, Sq, H, D], lse = m + log(max(l, 1e-30)) f32 [B, H, 1, Sq];
+//   - O in T [B, Sq, H, D], lse = m + log(max(l, 1e-30)) f32 [B, H, 1, Sq];
 //   - tile sizes and the k-tile order do not depend on S, and a fully
 //     masked tile leaves a row's state unchanged (alpha = 1, p = 0), so a
 //     causal row's result does not change by a bit when the batch is padded.
@@ -28,18 +30,18 @@
 // consumers release a stage on its "empty" mbarrier. Per K/V tile each
 // consumer warpgroup
 //   1. computes S = Q.K^T with wgmma (m64n64k16, Q and K K-major from shared
-//      memory), bf16 in, f32 sums;
+//      memory), T in, f32 sums;
 //   2. runs the online softmax on the accumulator registers: the row max
 //      of the raw scores over a quad by two shuffles, then one FFMA and one
 //      ex2 a score, p = 2^(s * scale * log2(e) - m * scale * log2(e));
-//   3. rounds P (times keep / (1 - p) under dropout) to bf16 in registers,
+//   3. rounds P (times keep / (1 - p) under dropout) to T in registers,
 //      which is the register A operand of the next product as it stands;
 //   4. rescales O and adds P.V with wgmma (m64nDk16, V MN-major from shared
 //      memory through the transpose bit).
 // O is written from registers. D = 16 and 32 run as D = 64 with zero
 // columns; D = 128 is two 64-column (128-byte) swizzle boxes.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM):
+// Bound on an H100 SXM (989 TFLOP/s bf16 or fp16 tensor cores, 3.35 TB/s HBM):
 // at the Llama training shape B=4, S=2048, H=12, D=64, causal, the two
 // products over the 2.1M kept (q, k) pairs of each of the 48 heads are
 // 25.8 GFLOP, 0.026 ms; q, k, v, o and lse move 50.7 MB, 0.015 ms: bound by
@@ -68,7 +70,7 @@ constexpr int kThreadsTC = kConsumers + 32;  // and one producer warp
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
-  __nv_bfloat16* o;
+  void* o;  // T
   float* lse;
   int B, Sq, Sk, H, D;
   int causal;
@@ -96,7 +98,7 @@ struct Layout {
 // sub-partition holds 16,384 registers and gets 5 of the two blocks' 18
 // warps. D <= 64 without dropout fits there without spilling; the others
 // would spill, and run one block per SM.
-template <int DP, bool kDropout>
+template <typename T, int DP, bool kDropout>
 __global__ void __launch_bounds__(kThreadsTC, (DP <= 64 && !kDropout) ? 2 : 1)
     fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                     const __grid_constant__ CUtensorMap tv, const Params p) {
@@ -190,7 +192,7 @@ __global__ void __launch_bounds__(kThreadsTC, (DP <= 64 && !kDropout) ? 2 : 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_m64n64k16_ss(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+      wgmma_m64n64k16_ss<T>(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
                          desc_sw128(kb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -249,13 +251,13 @@ __global__ void __launch_bounds__(kThreadsTC, (DP <= 64 && !kDropout) ? 2 : 1)
 
     uint32_t pa[4][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) pack_a(pa[ks], sc, ks);
+    for (int ks = 0; ks < 4; ++ks) pack_a<T>(pa[ks], sc, ks);
 #pragma unroll
     for (int i = 0; i < kO; ++i) acc[i] *= alpha[(i >> 1) & 1];
     fence_operand(acc);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, pa[ks], desc_sw128(vb + ks * 2048, L::kKVBox, 1024));
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs<T>(acc, pa[ks], desc_sw128(vb + ks * 2048, L::kKVBox, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(acc);
@@ -269,13 +271,13 @@ __global__ void __launch_bounds__(kThreadsTC, (DP <= 64 && !kDropout) ? 2 : 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int qp = row0 + 8 * hh;
     if (qp >= p.Sq) continue;
-    __nv_bfloat16* orow = p.o + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
+    T* orow = static_cast<T*>(p.o) + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i) {
       const int c = 8 * i + col0;
       if (c < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(acc[4 * i + 2 * hh] / den[hh], acc[4 * i + 2 * hh + 1] / den[hh]);
+        *reinterpret_cast<typename Elem<T>::T2*>(orow + c) =
+            Elem<T>::pack2(acc[4 * i + 2 * hh] / den[hh], acc[4 * i + 2 * hh + 1] / den[hh]);
     }
     if (lane % 4 == 0)
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qp] =
@@ -283,29 +285,37 @@ __global__ void __launch_bounds__(kThreadsTC, (DP <= 64 && !kDropout) ? 2 : 1)
   }
 }
 
-template <int DP, bool kDropout>
+template <typename T, int DP, bool kDropout>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, cudaStream_t stream) {
   constexpr int smem = Layout<DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(fwd_sm90_kernel<DP, kDropout>,
+  cudaError_t err = cudaFuncSetAttribute(fwd_sm90_kernel<T, DP, kDropout>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kM - 1) / kM, p.H, p.B);
-  fwd_sm90_kernel<DP, kDropout><<<grid, kThreadsTC, smem, stream>>>(tq, tk, tv, p);
+  fwd_sm90_kernel<T, DP, kDropout><<<grid, kThreadsTC, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
-template <bool kDropout>
+template <typename T, bool kDropout>
 cudaError_t launch_d(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                      const Params& p, cudaStream_t stream) {
-  return p.D <= 64 ? launch<64, kDropout>(tq, tk, tv, p, stream)
-                   : launch<128, kDropout>(tq, tk, tv, p, stream);
+  return p.D <= 64 ? launch<T, 64, kDropout>(tq, tk, tv, p, stream)
+                   : launch<T, 128, kDropout>(tq, tk, tv, p, stream);
+}
+
+template <typename T>
+cudaError_t launch_t(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
+                     const Params& p, cudaStream_t stream) {
+  return p.drop.on ? launch_d<T, true>(tq, tk, tv, p, stream)
+                   : launch_d<T, false>(tq, tk, tv, p, stream);
 }
 
 }  // namespace
 
 // The arguments of paddle_flash_attention_fwd_tf32
-// (flash_attention_fwd_tf32.cu); dtype must be 1 (bfloat16), D one of 16,
+// (flash_attention_fwd_tf32.cu); dtype must be 1 (bfloat16) or 2 (float16),
+// D one of 16,
 // 32, 64, 128, and every stride a multiple of 8 elements with a 16-byte
 // aligned base (TMA). Returns the cudaError_t of the launch (0 on success),
 // or sm90::kErrTensorMap when a tensor map cannot be encoded.
@@ -315,16 +325,17 @@ extern "C" int paddle_flash_attention_fwd_sm90(
     long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     int causal, float scale, int dropout_on, float keep_prob, uint32_t thresh, int block_q,
     int block_k, void* stream) {
-  if (dtype != 1 || (D != 16 && D != 32 && D != 64 && D != 128))
+  if ((dtype != 1 && dtype != 2) || (D != 16 && D != 32 && D != 64 && D != 128))
     return static_cast<int>(cudaErrorInvalidValue);
   if (dropout_on && (block_q < 1 || block_k < 1)) return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType ty = dtype == 2 ? Elem<__half>::kTma : Elem<__nv_bfloat16>::kTma;
   CUtensorMap tq, tk, tv;
-  if (!encode_bshd(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, kM) ||
-      !encode_bshd(&tk, k, B, Sk, H, D, k_sb, k_ss, k_sh, kN) ||
-      !encode_bshd(&tv, v, B, Sk, H, D, v_sb, v_ss, v_sh, kN))
+  if (!encode_bshd(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, kM, ty) ||
+      !encode_bshd(&tk, k, B, Sk, H, D, k_sb, k_ss, k_sh, kN, ty) ||
+      !encode_bshd(&tv, v, B, Sk, H, D, v_sb, v_ss, v_sh, kN, ty))
     return kErrTensorMap;
   Params p;
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = o;
   p.lse = static_cast<float*>(lse);
   p.B = B;
   p.Sq = Sq;
@@ -341,7 +352,7 @@ extern "C" int paddle_flash_attention_fwd_sm90(
   p.drop.block_q = block_q;
   p.drop.block_k = block_k;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = dropout_on ? launch_d<true>(tq, tk, tv, p, s)
-                                     : launch_d<false>(tq, tk, tv, p, s);
+  const cudaError_t err = dtype == 2 ? launch_t<__half>(tq, tk, tv, p, s)
+                                     : launch_t<__nv_bfloat16>(tq, tk, tv, p, s);
   return static_cast<int>(err);
 }

@@ -11,9 +11,11 @@ the three Pallas bodies; each source comment states its design and bound:
   two-pass recompute backward.
 
 Each kernel has one version per dtype (:func:`kernel_for`), and every
-one runs on the tensor cores with wgmma, fed by TMA: bfloat16 K1–K3 in
-``csrc/flash_attention_fwd_sm90.cu``, ``csrc/flash_attention_dq_sm90.cu``
-and ``csrc/flash_attention_dkv_sm90.cu``; float32 K1–K3 in
+one runs on the tensor cores with wgmma, fed by TMA: bfloat16 and float16
+K1–K3 in ``csrc/flash_attention_fwd_sm90.cu``,
+``csrc/flash_attention_dq_sm90.cu`` and
+``csrc/flash_attention_dkv_sm90.cu`` (one instantiation each over the
+element type, as the Pallas kernels are dtype-generic); float32 K1–K3 in
 ``csrc/flash_attention_fwd_tf32.cu``, ``csrc/flash_attention_dq_tf32.cu``
 and ``csrc/flash_attention_dkv_tf32.cu``, in 3×TF32 (each product a·b as
 a_lo·b_hi + a_hi·b_lo + a_hi·b_hi of TF32 parts, summed in f32, which keeps
@@ -71,7 +73,7 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)
 #: the Pallas kernels' default tiles, on which the dropout mask depends
 BLOCK_Q, BLOCK_K = 256, 512
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _DTYPE_OF = {code: dtype for dtype, code in _DTYPES.items()}
 
 #: K1 launches so far (plain-version calls are not counted)
@@ -296,24 +298,26 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, seed, causal: bool,
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
     (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: on the
-    tensor cores in bf16 for bfloat16, in 3×TF32 for float32."""
+    tensor cores in the 16-bit type for bfloat16 and float16, in 3×TF32
+    for float32."""
     if dtype not in _DTYPES:
-        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+        raise TypeError(f"the kernels take float32, bfloat16 or float16, "
+                        f"got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
-    return pass_name + ("_sm90" if dtype == torch.bfloat16 else "_tf32")
+    return pass_name + ("_tf32" if dtype == torch.float32 else "_sm90")
 
 
 def tma_aligned(shape, strides, address: int, dtype: torch.dtype) -> bool:
-    """Whether TMA can read a ``[B, S, H, D]`` operand in place: bfloat16
-    or float32, the last dim contiguous, the first element's byte
+    """Whether TMA can read a ``[B, S, H, D]`` operand in place: bfloat16,
+    float16 or float32, the last dim contiguous, the first element's byte
     ``address`` (or its offset from an aligned base) 16-byte aligned, and
     each of the batch, seq and head strides of a dim longer than 1 a
     positive multiple of 16 bytes below 2**40 (a dim of length 1 is never
     stepped)."""
     if dtype not in _DTYPES or strides[3] != 1 or address % 16:
         return False
-    size = 2 if dtype == torch.bfloat16 else 4
+    size = 4 if dtype == torch.float32 else 2
     return all(n == 1 or (0 < st and (size * st) % 16 == 0
                           and size * st < 2 ** 40)
                for n, st in zip(shape[:3], strides[:3]))
@@ -399,10 +403,14 @@ def _resolve(q, device, dropout, seed):
     return dev
 
 
-def _check_kernel_inputs(tensors, d):
-    if tensors[0].dtype not in _DTYPES:
-        raise TypeError(f"the kernels take float32 or bfloat16, got "
-                        f"{tensors[0].dtype}")
+def _check_kernel_inputs(tensors, d, dtypes=None):
+    """Raise unless the kernels (of ``dtypes``, default K1–K3's) take
+    ``tensors`` at head dim ``d``."""
+    dtypes = _DTYPES if dtypes is None else dtypes
+    if tensors[0].dtype not in dtypes:
+        names = [str(t).replace("torch.", "") for t in dtypes]
+        raise TypeError(f"the kernels take {', '.join(names[:-1])} or "
+                        f"{names[-1]}, got {tensors[0].dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"the kernels take head_dim in {HEAD_DIMS}, got {d}")
     if any(t.stride(-1) != 1 for t in tensors):

@@ -49,7 +49,7 @@ import torch
 
 from ...device import DEFAULT_DEVICE
 from . import _build
-from .flash_attention import (_DTYPE_OF, _DTYPES, NEG_INF, _check,
+from .flash_attention import (_DTYPE_OF, NEG_INF, _check,
                               _check_kernel_inputs, _check_shape, _delta,
                               _for_tma, _raise_launch, _resolve, _strides)
 
@@ -61,6 +61,9 @@ __all__ = ["flashmask_fwd", "flashmask_fwd_reference", "flashmask_bwd",
 
 # the index layouts accepted, as the number of columns by ``causal``
 _LAYOUTS = {True: (1, 2), False: (4,)}
+# the dtypes K5-K7 take, and their codes in the C entry points (float16
+# waits: ROADMAP.md, queue 1)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: K5 launches so far (plain-version calls are not counted)
 fwd_launches = 0
@@ -194,7 +197,8 @@ def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     K7 on the tensor cores, in bfloat16 (``*_sm90``) or in 3×TF32 for
     float32 (``*_tf32``)."""
     if dtype not in _DTYPES:
-        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}")
+        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}"
+                        f" (float16 K5-K7 are not ported yet)")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
     return pass_name + ("_sm90" if dtype == torch.bfloat16 else "_tf32")
@@ -263,7 +267,7 @@ def _run_fwd(q, k, v, idx, causal, scale, tiles=None):
     on the device, takes the kernel's tile counts."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_kernel_inputs((q, k, v), d)
+    _check_kernel_inputs((q, k, v), d, _DTYPES)
     _check_shape(b, sq, sk, h)
     name = kernel_for("fwd", q.dtype)
     extra = ()
@@ -335,7 +339,7 @@ def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
     kernel alone); :func:`flashmask_bwd` launches both."""
     b, sq, h, d = q.shape
     sk = k.shape[1]
-    _check_kernel_inputs((q, k, v, do), d)
+    _check_kernel_inputs((q, k, v, do), d, _DTYPES)
     _check_shape(b, sq, sk, h)
     if do.dtype != q.dtype:
         raise TypeError(f"do must have q's dtype {q.dtype}, got {do.dtype}")

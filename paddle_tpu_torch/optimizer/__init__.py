@@ -1,5 +1,9 @@
-"""``paddle.optimizer`` for the port: Adam and AdamW."""
+"""``paddle.optimizer`` for the port: the ten optimizers and the LR
+schedulers (``optimizer.lr``)."""
+from . import lr
 from .optimizer import Optimizer
-from .optimizers import Adam, AdamW
+from .optimizers import (LBFGS, SGD, Adadelta, Adagrad, Adam, Adamax, AdamW,
+                         Lamb, Momentum, RMSProp)
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adadelta", "Adagrad", "Adam", "AdamW", "Adamax", "LBFGS", "Lamb",
+           "Momentum", "Optimizer", "RMSProp", "SGD", "lr"]

@@ -252,6 +252,8 @@ def test_routing_and_the_tma_alignment_rule():
     bf16, f32 = torch.bfloat16, torch.float32
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fa.kernel_for(name, bf16) == name + "_sm90"
+        # float16: the same tensor-core kernels, instantiated for __half
+        assert fa.kernel_for(name, torch.float16) == name + "_sm90"
     # float32: K1, K2 and K3 on the tensor cores in 3xTF32
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fa.kernel_for(name, f32) == name + "_tf32"
@@ -260,14 +262,15 @@ def test_routing_and_the_tma_alignment_rule():
     assert fa.TMA_KERNELS == {fa.kernel_for(name, dt)
                               for name in ("fwd", "bwd_dq", "bwd_dkv")
                               for dt in (bf16, f32)} == set(fa.SOURCES)
-    for bad in (torch.float16, torch.float64):
-        for mod in (fa, fm):
-            try:
-                mod.kernel_for("fwd", bad)
-            except TypeError:
-                pass
-            else:
-                raise AssertionError(f"{bad} was routed")
+    # float16 waits for K5-K7 (FlashMask); float64 has no kernel
+    for mod, bad in ((fa, torch.float64), (fm, torch.float64),
+                     (fm, torch.float16)):
+        try:
+            mod.kernel_for("fwd", bad)
+        except TypeError:
+            pass
+        else:
+            raise AssertionError(f"{bad} was routed")
     sources = {src for src, _, _ in fa.SOURCES.values()}
     assert sources == {"flash_attention_fwd_sm90", "flash_attention_dq_sm90",
                        "flash_attention_dkv_sm90", "flash_attention_fwd_tf32",
@@ -318,8 +321,11 @@ def test_routing_and_the_tma_alignment_rule():
         fflat = torch.zeros(2 * 100 * 3 * d + 4)
         assert not aligned(fflat[1:1 + 2 * 100 * 3 * d].view(2, 100, 3, d))
         assert aligned(fflat[4:4 + 2 * 100 * 3 * d].view(2, 100, 3, d))
-        # other dtypes never go to TMA; the last dim must be contiguous
-        assert not aligned(torch.zeros(1, 4, 2, d, dtype=torch.float16))
+        # float16 is read as bfloat16 is; other dtypes never go to TMA;
+        # the last dim must be contiguous
+        assert aligned(torch.zeros(2, 100, 3, 3, d,
+                                   dtype=torch.float16)[..., 1, :])
+        assert not aligned(torch.zeros(1, 4, 2, d, dtype=torch.float64))
         assert not aligned(torch.zeros(1, 4, d, 2, dtype=bf16).transpose(2, 3))
         assert not aligned(torch.zeros(1, 4, d, 2).transpose(2, 3))
     # a head stride of 68 elements (136 bytes) is not a multiple of 16 bytes;

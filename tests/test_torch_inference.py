@@ -24,6 +24,8 @@ import torch
 
 import paddle_tpu as paddle
 import paddle_tpu.nn as jnn
+from paddle_tpu.distributed.checkpoint.sharded import \
+    save_sharded as jax_save_sharded
 from paddle_tpu.framework import io as jax_io
 from paddle_tpu.inference import Config as JaxConfig
 from paddle_tpu.inference import Predictor as JaxPredictor
@@ -35,7 +37,7 @@ from paddle_tpu_torch.distributed.checkpoint.sharded import save_sharded
 from paddle_tpu_torch.framework import io as port_io
 from paddle_tpu_torch.inference import Config, Predictor
 from paddle_tpu_torch.models.gpt import (GPTForCausalLM, gpt_tiny,
-                                         load_jax_state)
+                                         jax_state_dict, load_jax_state)
 from paddle_tpu_torch.ops.cuda import flash_attention as fa
 from paddle_tpu_torch.static import InputSpec
 
@@ -168,7 +170,12 @@ def test_save_meta_keys_equal_jax(tmp_path, spec):
              input_spec=[InputSpec(shape, dtype)])
     metas = [pickle.load(open(tmp_path / f"{w}.pdmeta", "rb"))
              for w in ("j", "p")]
-    assert set(metas[0]) == set(metas[1])
+    # the port adds one key: which parameters are Linear weights, the only
+    # record of the layout left once the program holds no nn.Linear
+    assert set(metas[0]) | {"linear_weights"} == set(metas[1])
+    assert metas[1]["linear_weights"] == sorted(
+        f"{n}.weight" for n, m in port_layer.named_modules()
+        if isinstance(m, torch.nn.Linear))
     for key in ("has_program", "quantize", "n_inputs", "dynamic_axes",
                 "dynamic_ranks"):
         assert metas[0][key] == metas[1][key], key
@@ -337,8 +344,10 @@ def test_swap_weights_from_dict_and_checkpoint(tmp_path, swapped, source):
         src = {**{k: v.numpy() for k, v in state.items()},
                "extra.weight": np.zeros(3, np.float32)}
     else:
+        # a checkpoint directory holds the reference's layout, as the JAX
+        # package and the decode tier write it
         src = str(tmp_path / "ckpt")
-        save_sharded(state, src)
+        save_sharded(jax_state_dict(other), src)
     rep = pred.swap_weights(src)
     assert rep["n_tensors"] == len(state) and rep["compile_count"] == 4
     assert rep["ignored_extra_entries"] == (1 if source == "dict" else 0)
@@ -350,6 +359,45 @@ def test_swap_weights_from_dict_and_checkpoint(tmp_path, swapped, source):
     assert pred.compile_count == 4
     pred.swap_weights({k: v for k, v in model.state_dict().items()})
     np.testing.assert_array_equal(pred.run_many([ids])[0], before)
+
+
+def test_swap_weights_reads_a_checkpoint_the_jax_package_wrote(tmp_path,
+                                                              pair):
+    """A seed-1 JAX gpt_tiny's state written by JAX's ``save_sharded``,
+    swapped into the JAX ``Predictor`` and into the port's: the logits
+    agree. ``out_proj.weight`` is square ([32, 32]): read untransposed it
+    would pass every shape check and serve wrong logits."""
+    jax_prefix, port_prefix, _ = pair
+    paddle.seed(1)
+    other = JaxGPT(jax_gpt_tiny(**TINY))
+    state = {k: np.asarray(v.numpy()) for k, v in other.state_dict().items()}
+    square = "gpt.h.0.attn.out_proj.weight"
+    assert state[square].shape[0] == state[square].shape[1]
+    ckpt = str(tmp_path / "jax_ckpt")
+    jax_save_sharded(state, ckpt)
+    ids = np.random.RandomState(7).randint(0, 512, (2, 9)).astype(np.int64)
+    outs = []
+    for pred in (JaxPredictor(JaxConfig(jax_prefix)), _cpu(port_prefix)):
+        pred.set_batch_ladder([1, 2])
+        pred.set_seq_ladder([8, 16])
+        pred.warmup_ladder()
+        pred.swap_weights(ckpt)
+        outs.append(np.asarray(pred.run_many([ids])[0]))
+    np.testing.assert_allclose(outs[1], outs[0], rtol=TOL, atol=TOL)
+
+
+def test_load_refuses_a_meta_without_linear_weights(tmp_path, pair):
+    """An export whose ``.pdmeta`` predates ``linear_weights`` is refused
+    by name: the layout of a reference checkpoint cannot be guessed."""
+    _, port_prefix, _ = pair
+    old = str(tmp_path / "old")
+    for ext in (".pdiparams", ".pdmodel"):
+        Path(old + ext).write_bytes(Path(port_prefix + ext).read_bytes())
+    meta = pickle.load(open(port_prefix + ".pdmeta", "rb"))
+    del meta["linear_weights"]
+    pickle.dump(meta, open(old + ".pdmeta", "wb"))
+    with pytest.raises(ValueError, match="linear_weights"):
+        jit.load(old, device="cpu")
 
 
 def test_swap_weights_refusals(swapped):

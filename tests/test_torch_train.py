@@ -189,33 +189,32 @@ def test_criterion_and_adamw_step_match_jax():
 
 
 def test_unported_training_options_raise():
+    """What the port still refuses: TrainStep's shape bucketing and
+    sharding, and float16 in the kernels K4-K7 (RMSNorm, FlashMask). The
+    scheduler objects, grad_clip, groups, the other optimizers and their
+    options, O1, float16, GradScaler and grad_accum_steps are ported
+    (tests/test_torch_optim_api.py, tests/test_torch_amp_o1.py)."""
+    from paddle_tpu_torch.ops.cuda import flashmask as fm
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
     model = GPTForCausalLM(gpt_tiny(), device="cpu")
-    params = list(model.parameters())
-    with pytest.raises(NotImplementedError, match="O1"):
-        with amp.auto_cast():
-            pass
-    with amp.auto_cast(enable=False):  # off: nothing to refuse
-        pass
-    with pytest.raises(NotImplementedError, match="float16"):
-        amp.decorate(model, level="O2", dtype="float16", device="cpu")
-    with pytest.raises(NotImplementedError, match="GradScaler"):
-        amp.GradScaler()
-    for kwargs, what in ((dict(learning_rate=object()), "scheduler"),
-                         (dict(grad_clip=object()), "grad_clip"),
-                         (dict(lr_ratio=lambda p: 1.0), "lr_ratio"),
-                         (dict(amsgrad=True), "amsgrad"),
-                         (dict(lazy_mode=True), "lazy_mode")):
-        with pytest.raises(NotImplementedError, match=what):
-            AdamW(parameters=params, device="cpu", **kwargs)
-    opt = AdamW(parameters=params, device="cpu")
+    opt = AdamW(parameters=model.parameters(), device="cpu")
     assert amp.decorate(model, opt, level="O2", dtype="bfloat16",
                         device="cpu") == (model, opt)
     assert {p.dtype for p in model.parameters()} == {torch.bfloat16}
-    for kwargs, what in ((dict(grad_accum_steps=2), "accumulation"),
-                         (dict(bucket_axes={0: 1}), "bucketing"),
+    for kwargs, what in ((dict(bucket_axes={0: 1}), "bucketing"),
                          (dict(sharding="zero1"), "sharding")):
         with pytest.raises(NotImplementedError, match=what):
             TrainStep(model=model, optimizer=opt, loss_fn=lambda x: x,
                       device="cpu", **kwargs)
+    # grad_accum_steps is accepted and read nowhere, as in the JAX package
+    TrainStep(model=model, optimizer=opt, loss_fn=lambda x: x,
+              grad_accum_steps=4, device="cpu")
+    half = torch.zeros(4, 8, dtype=torch.float16)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        rms._dtype_codes(half, half[0])
+    for name in ("fwd", "bwd_dq", "bwd_dkv"):
+        with pytest.raises(TypeError, match="float16 K5-K7"):
+            fm.kernel_for(name, torch.float16)
     with pytest.raises(ValueError, match="generator"):
         F.dropout(torch.ones(4), 0.5, training=True, generator=None)
