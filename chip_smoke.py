@@ -242,10 +242,34 @@ Phases, each of which fails the run on any error:
     (Nesterov), Adagrad, RMSProp (centered, momentum 0.9), Adadelta,
     Adamax, Lamb and AdamW (``amsgrad``, ``lr_ratio``) in bf16 O2 at 2 x
     1024 (the batch cut for time), 3 eager then 3 ``TrainStep`` steps each,
-    each graph freed before the next.
+    each graph freed before the next;
+17. BERT fine-tune — (a) ``bench.py``'s ``bench_bert`` accelerator arm on
+    the port, uncut: ``BertForSequenceClassification(ernie_base())``
+    (dropout 0) in bf16 O2, ``AdamW(5e-5)``, ``CrossEntropyLoss`` outside
+    ``auto_cast``, one 32 x 128 batch drawn as ``bench.py`` draws it, no
+    mask; 12 eager steps by hand, then 2 warmup and 10 timed ``TrainStep``
+    steps, losses and parameters bit for bit the eager ones, launches
+    exactly 12 a step of each of K1-K3 (non-causal) and one AdamW launch
+    per 64 parameters; step p50, tokens/s, samples/s, MFU by ``bench.py``'s
+    ``_gpt_flops_per_step`` (and without its vocab term, a projection the
+    classifier does not have), a profile of 2 steps (launches, idle
+    share); (b) K1-K3 at BERT's shape (B=32, S=128, H=12, D=64,
+    non-causal, q, k and v strided views of the packed qkv), bf16 and f32,
+    against their plain versions (f32 also against float64), timed beside
+    their bounds and SDPA's non-causal forward and backward, no operand
+    copied for TMA; (c) ernie_base bf16 O2 under ``TrainStep(bucket_axes=
+    {0: 1, 1: 1}, bucket_pad_values={0: 0, 1: 0}, bucket_range=(16, 128))``
+    over 24 batches of 32 rows with keep-masks, lengths 9-128 from
+    ``RandomState(1)``, six a rung: losses and parameters bit for bit the
+    same padded batches stepped eagerly by hand, one capture a rung and
+    none after its second call, no host sync in a replay
+    (``torch.cuda.set_sync_debug_mode("error")``), no K1-K3 launch (the
+    masked route), each rung's replay p50; then each batch's loss padded
+    against its true length (f32, eager, ``bert_tiny``'s width at 12
+    layers) within ``LOSS_PAD_TOL``.
 
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
-(14) and trainer (16) phases are the main paths: the launch counts are set to 0 just before each
+(14), trainer (16) and BERT (17 (a), (c)) phases are the main paths: the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
 0). The serving and training paths run as CUDA-graph replays, and the
@@ -2095,17 +2119,17 @@ def equal_count(got, want) -> str:
 
 
 def float64_backward_errors(torch, fa, q, k, v, o, lse, do, seed, dropout,
-                            grads) -> str:
+                            grads, causal=True) -> str:
     """The f32 K2/K3's (dq, dk, dv) and the f32 plain version's against
     the plain backward computed in float64 from the same (o, lse); the
     kernels fail past ``BWD_TOL["float32"]`` of it. Returns both errors
     per gradient as text."""
     scale = 1.0 / math.sqrt(q.shape[-1])
     exact = fa.flash_attention_bwd_reference(
-        *(t.double() for t in (q, k, v, o, lse, do)), seed, True, scale,
+        *(t.double() for t in (q, k, v, o, lse, do)), seed, causal, scale,
         dropout)
-    plain = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed, True,
-                                             scale, dropout)
+    plain = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, seed,
+                                             causal, scale, dropout)
     rows = []
     for name, got, ref, want in zip(("dq", "dk", "dv"), grads, plain, exact):
         err = float((got.double() - want).abs().max())
@@ -2158,9 +2182,9 @@ def compare_backward(torch, fa, q, k, v, do, seed, dtype, dropout,
     exact = ""
     if dtype == "float32":
         exact = ("\n    vs float64 " + float64_forward_errors(
-            torch, fa, q, k, v, o, lse, True, scale, dropout, seed) + " "
+            torch, fa, q, k, v, o, lse, causal, scale, dropout, seed) + " "
             + float64_backward_errors(torch, fa, q, k, v, o, lse, do, seed,
-                                      dropout, grads))
+                                      dropout, grads, causal))
         torch.cuda.empty_cache()
     return errs, equal, exact
 
@@ -2251,7 +2275,8 @@ def time_qkv_scatter(torch) -> float:
                                                     retain_graph=True))
 
 
-def time_attention(torch, fa, q, k, v, do, seed, dtype, dropout) -> dict:
+def time_attention(torch, fa, q, k, v, do, seed, dtype, dropout,
+                   causal=True) -> dict:
     """K1, K2 and K3 timed alone by CUDA events at the shape of q (k and v
     as they reach the kernels), beside their bounds, their plain versions
     and SDPA's forward and backward (a yardstick only)."""
@@ -2260,37 +2285,37 @@ def time_attention(torch, fa, q, k, v, do, seed, dtype, dropout) -> dict:
     b, s, h, d = q.shape
     dev = q.device
     scale = 1.0 / math.sqrt(d)
-    o, lse = fa.flash_attention_fwd(q, k, v, True, scale, dropout, seed)
-    args, keep = fa.bwd_launch_args(q, k, v, o, lse, do, seed, True, scale,
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale, dropout, seed)
+    args, keep = fa.bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale,
                                     dropout)
     ms = {
         "fwd": cuda_time_ms(lambda: fa.flash_attention_fwd(
-            q, k, v, True, scale, dropout, seed)),
+            q, k, v, causal, scale, dropout, seed)),
         "dq": cuda_time_ms(lambda: fa.run_bwd_pass("bwd_dq", args, dev)),
         "dkv": cuda_time_ms(lambda: fa.run_bwd_pass("bwd_dkv", args, dev)),
     }
     plain = {
         "fwd": cuda_time_ms(lambda: fa.flash_attention_fwd_reference(
-            q, k, v, True, scale, dropout, seed), iters=3),
+            q, k, v, causal, scale, dropout, seed), iters=3),
         "bwd": cuda_time_ms(lambda: fa.flash_attention_bwd_reference(
-            q, k, v, o, lse, do, seed, True, scale, dropout), iters=3),
+            q, k, v, o, lse, do, seed, causal, scale, dropout), iters=3),
     }
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
                   for t in (q, k, v))
     lib_fwd = cuda_time_ms(lambda: TF.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    out = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        qt, kt, vt, is_causal=causal))
+    out = TF.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dot = do.transpose(1, 2)
     lib_bwd = cuda_time_ms(lambda: torch.autograd.grad(
         out, (qt, kt, vt), dot, retain_graph=True))
     del out, qt, kt, vt, keep
     shapes = {"fwd": (2, 4, 1), **BWD_BOUND}
-    bounds = {name: kernel_bound(b, s, h, d, dtype, True, *shape,
+    bounds = {name: kernel_bound(b, s, h, d, dtype, causal, *shape,
                                  peak=pass_peak(name, dtype))
               for name, shape in shapes.items()}
     # the f32 tensor-core kernels' bounds at 495/3 TFLOP/s, with the
     # 67 TFLOP/s CUDA-core figure beside them
-    cores = {name: kernel_bound(b, s, h, d, dtype, True, *shapes[name])[0]
+    cores = {name: kernel_bound(b, s, h, d, dtype, causal, *shapes[name])[0]
              for name in TF32X3_PASSES} if dtype == "float32" else {}
 
     def bound(name):
@@ -2513,12 +2538,13 @@ def adamw_launches_per_step(model) -> int:
 GRAPH_WARMUP = 2
 
 
-def run_timed_steps(torch, step, ids) -> tuple:
+def run_timed_steps(torch, step, batch: tuple) -> tuple:
     """``GRAPH_WARMUP`` warmup steps (the eager call, then the capture),
     then ``TRAIN_STEPS`` timed ones (host clock around each, ending in a
     synchronize), every one a graph replay, with every launch count set to
-    0 just before them and read just after; fails if an operand was
-    copied for TMA or a timed step did not replay. Returns (warmup losses,
+    0 just before them and read just after; ``step(*batch)`` is one step.
+    Fails if an operand was copied for TMA or a timed step did not replay.
+    Returns (warmup losses,
     losses, step seconds, launches of K1, K2, K3, K4, AdamW, the RMSNorm
     backward)."""
     from paddle_tpu_torch.ops.cuda import adamw
@@ -2526,7 +2552,7 @@ def run_timed_steps(torch, step, ids) -> tuple:
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
     torch.cuda.reset_peak_memory_stats()
-    first = [float(step(ids).float()) for _ in range(GRAPH_WARMUP)]
+    first = [float(step(*batch).float()) for _ in range(GRAPH_WARMUP)]
     torch.cuda.synchronize()
     stats = dict(step.stats)
     # the main path's run: counts from 0, read right after it
@@ -2536,7 +2562,7 @@ def run_timed_steps(torch, step, ids) -> tuple:
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = step(ids)
+        loss = step(*batch)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         losses.append(loss)
@@ -2601,14 +2627,15 @@ RMS_NORM_BWD_KERNEL = PROFILED_KERNELS["K4 bwd"]
 PROFILE_PAD_S = 0.25
 
 
-def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
+def profile_steps(torch, step, batch: tuple, step_ms, steps=2) -> dict:
     """Device time by kernel over a few steps (torch.profiler), beside the
     timed step's p50: their gap is the time the card idles. One warmup step
     starts the tracer before the window, and the card idles
     ``PROFILE_PAD_S`` inside each end of the window, so that no kernel at
     its edges falls outside it; the profile's launches of K1–K4 per step
     must equal the launch counters over the same steps, and so must the
-    RMSNorm backward's and the AdamW kernel's. Returns the ms per step of
+    RMSNorm backward's and the AdamW kernel's; ``step(*batch)`` is one
+    step. Returns the ms per step of
     K1–K3 together, of K4, of the RMSNorm backward, of the element-wise
     rest, and of all device work."""
     from torch.autograd import DeviceType
@@ -2638,7 +2665,7 @@ def profile_steps(torch, step, ids, step_ms, steps=2) -> dict:
             if i == 1:
                 time.sleep(PROFILE_PAD_S)
                 before = counters()
-            step(ids)
+            step(*batch)
             torch.cuda.synchronize()
             if i == steps:
                 time.sleep(PROFILE_PAD_S)
@@ -2715,7 +2742,7 @@ def phase_train(torch, gpt) -> dict:
                                 GRAPH_WARMUP + TRAIN_STEPS)
     model, step, _ = build_train_step(torch, gpt.GPTForCausalLM,
                                       gpt.GPTPretrainingCriterion, cfg)
-    first, losses, times, counts = run_timed_steps(torch, step, ids)
+    first, losses, times, counts = run_timed_steps(torch, step, (ids,))
     check_against_eager(torch, "train", first + losses,
                         [p.detach() for p in model.parameters()], reference)
     del reference
@@ -2731,7 +2758,7 @@ def phase_train(torch, gpt) -> dict:
           f"launches {counts}, want {want} each of K1-K3 ({LAYERS} per "
           f"step) and {per_step * TRAIN_STEPS} of AdamW ({per_step} per "
           f"step)")
-    prof = profile_steps(torch, step, ids, p50 * 1e3)
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
     del model, step
     torch.cuda.empty_cache()
 
@@ -3103,7 +3130,7 @@ def phase_train_llama(torch, llama) -> dict:
                                 GRAPH_WARMUP + TRAIN_STEPS)
     model, step, _ = build_train_step(torch, llama.LlamaForCausalLM,
                                       llama.LlamaPretrainingCriterion, cfg)
-    first, losses, times, counts = run_timed_steps(torch, step, ids)
+    first, losses, times, counts = run_timed_steps(torch, step, (ids,))
     check_against_eager(torch, "train Llama", first + losses,
                         [p.detach() for p in model.parameters()], reference)
     del reference
@@ -3124,7 +3151,7 @@ def phase_train_llama(torch, llama) -> dict:
           f"{calls * rms.BWD_LAUNCHES_PER_CALL} of K4's backward "
           f"({2 * n + 1} calls per step, {rms.BWD_LAUNCHES_PER_CALL} "
           f"launches a call)")
-    prof = profile_steps(torch, step, ids, p50 * 1e3)
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
     check(prof["rms_norm_rows"] > 0, "K4 has no row in the profile")
     check(prof["rms_norm_bwd_rows"] > 0,
           "K4's backward has no row in the profile")
@@ -3945,7 +3972,7 @@ def trainer_recipe(torch, gpt, ids, launches_9) -> dict:
     p50 = float(np.median(times))
     flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
                            cfg.hidden_size, cfg.vocab_size)
-    prof = profile_steps(torch, step, ids, p50 * 1e3)
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
     print(f"recipe: step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}"
           f", max {max(times) * 1e3:.3f}); tokens/s "
           f"{TRAIN_BATCH * TRAIN_SEQ / p50:.1f}; MFU "
@@ -4155,7 +4182,7 @@ def trainer_fp16(torch, gpt, ids) -> dict:
           f"fp16 launches {counts}")
     times = times[GRAPH_WARMUP:]
     p50 = float(np.median(times))
-    prof = profile_steps(torch, compiled, ids, p50 * 1e3)
+    prof = profile_steps(torch, compiled, (ids,), p50 * 1e3)
     flops = megatron_flops(TRAIN_BATCH, TRAIN_SEQ, cfg.num_hidden_layers,
                            cfg.hidden_size, cfg.vocab_size)
     print(f"fp16 O1: step ms p50 {p50 * 1e3:.3f} (min "
@@ -4268,6 +4295,303 @@ def phase_trainer(torch, gpt, launches_9) -> dict:
             "optimizers": trainer_optimizers(torch, gpt, ids)}
 
 
+BERT_BATCH, BERT_SEQ = 32, 128  # bench_bert's accelerator arm
+BERT_LR = 5e-5
+BUCKET_LADDER = (16, 32, 64, 128)
+BUCKET_ROUNDS = 6  # every rung this many times: eager, capture, replays
+LOSS_PAD_TOL = 1e-3  # a padded batch's loss against its true length's
+
+
+def bert_twin(torch, bert, cfg, masked: bool):
+    """``bench_bert``'s setup: ``BertForSequenceClassification(cfg)``
+    (weights from a generator seeded 0) in bf16 O2, ``AdamW(5e-5)``,
+    ``CrossEntropyLoss`` outside ``auto_cast``. Returns (model, optimizer,
+    loss_fn): ``loss_fn(ids, labels)``, or with ``masked``
+    ``loss_fn(ids, mask, labels)``."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = bert.BertForSequenceClassification(
+        cfg, generator=torch.Generator().manual_seed(0)).train()
+    crit = nn.CrossEntropyLoss()
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(learning_rate=BERT_LR, parameters=model.parameters())
+
+    def logits(ids, mask=None):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model(ids, attention_mask=mask)
+
+    if masked:
+        return model, opt, lambda ids, mask, y: crit(logits(ids, mask), y)
+    return model, opt, lambda ids, y: crit(logits(ids), y)
+
+
+def eager_steps(torch, opt, loss_fn, batches) -> list:
+    """One eager step by hand a batch (``loss_fn``, ``backward``, ``step``,
+    ``clear_grad``); returns the losses as floats."""
+    losses = []
+    for batch in batches:
+        loss = loss_fn(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach())
+    torch.cuda.synchronize()
+    return [float(x) for x in losses]
+
+
+def bert_bench_arm(torch, bert) -> dict:
+    """(a) ``bench_bert`` uncut: ernie_base, dropout 0, one 32 x 128 batch
+    as ``bench.py`` draws it, no mask; 12 eager steps, then 2 warmup and 10
+    timed graphed steps bit for bit the eager ones, launches, a profile."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    cfg = bert.ernie_base(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    print(f"-- (a) bench arm: ernie_base (vocab {cfg.vocab_size}, "
+          f"{cfg.num_hidden_layers} layers, hidden {cfg.hidden_size}) bf16 "
+          f"O2, AdamW({BERT_LR}), CrossEntropyLoss outside auto_cast, one "
+          f"{BERT_BATCH}x{BERT_SEQ} batch, no mask; "
+          f"{GRAPH_WARMUP + TRAIN_STEPS} eager steps, then {GRAPH_WARMUP} "
+          f"warmup and {TRAIN_STEPS} timed TrainStep steps", flush=True)
+    rs = np.random.RandomState(0)  # as bench.py draws ids, then labels
+    ids = rs.randint(0, cfg.vocab_size, (BERT_BATCH, BERT_SEQ))
+    labels = rs.randint(0, 2, (BERT_BATCH,))
+    batch = tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                  for a in (ids, labels))
+    model, opt, loss_fn = bert_twin(torch, bert, cfg, masked=False)
+    reference = (eager_steps(torch, opt, loss_fn,
+                             [batch] * (GRAPH_WARMUP + TRAIN_STEPS)),
+                 [p.detach().clone() for p in model.parameters()])
+    del model, opt, loss_fn
+    release_memory(torch)
+    model, opt, loss_fn = bert_twin(torch, bert, cfg, masked=False)
+    step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    first, losses, times, counts = run_timed_steps(torch, step, batch)
+    check_against_eager(torch, "BERT bench arm", first + losses,
+                        [p.detach() for p in model.parameters()], reference)
+    flops = megatron_flops(BERT_BATCH, BERT_SEQ, cfg.num_hidden_layers,
+                           cfg.hidden_size, cfg.vocab_size)
+    p50 = report_steps(torch, first, losses, times, BERT_BATCH * BERT_SEQ,
+                       flops, "bench.py _gpt_flops_per_step")
+    # the formula's factor 1 + s/(6h) + V/(16·l·h): its last term is a
+    # vocab projection the classifier does not have
+    attn = 1.0 + BERT_SEQ / (6.0 * cfg.hidden_size)
+    head = cfg.vocab_size / (16.0 * cfg.num_hidden_layers * cfg.hidden_size)
+    no_head = flops * attn / (attn + head)
+    print(f"samples/s {BERT_BATCH / p50:.1f}; the formula counts a "
+          f"{cfg.vocab_size}-wide vocab projection the classifier does not "
+          f"have (V/(16*l*h) = {head:.4f}, +{head / attn:.1%}); without it "
+          f"{no_head / p50 / 1e12:.2f} TFLOP/s, MFU "
+          f"{no_head / p50 / PEAK_FLOPS['bfloat16']:.2%}", flush=True)
+    per_step = adamw_launches_per_step(model)
+    layers = cfg.num_hidden_layers
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts} over {TRAIN_STEPS} "
+          f"steps", flush=True)
+    want = layers * TRAIN_STEPS
+    check(counts == (want, want, want, 0, per_step * TRAIN_STEPS, 0),
+          f"BERT launches {counts}, want {want} each of K1-K3 ({layers} "
+          f"per step, non-causal) and {per_step * TRAIN_STEPS} of AdamW")
+    prof = profile_steps(torch, step, batch, p50 * 1e3)
+    print(f"BERT bench arm: step ms p50 {p50 * 1e3:.3f}; "
+          f"{prof['launches']:.0f} launches per step; idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; K1+K2+K3 "
+          f"{prof['attention_ms']:.3f} ms a step", flush=True)
+    out = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+           "adamw": counts[4], "p50_ms": p50 * 1e3}
+    del model, opt, step, loss_fn, reference
+    release_memory(torch)
+    return out
+
+
+def bert_attention_kernels(torch) -> dict:
+    """(b) K1–K3 at BERT's shape (B=32, S=128, H=12, D=64, non-causal, q, k
+    and v strided views of BERT's packed [B, S, H, 3, D] qkv), bf16 and
+    f32: against their plain versions (K1 within ``TOL``, K1–K3 within
+    ``BWD_TOL``; f32 also against float64), timed
+    beside their bounds and SDPA's non-causal forward and backward, no
+    operand copied for TMA. Returns the records by (kernel, dtype)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    print(f"-- (b) K1-K3 at BERT's shape B={BERT_BATCH} S={BERT_SEQ} "
+          f"H={HEADS} D={HEAD_DIM}, non-causal, packed qkv (ms by CUDA "
+          f"events)", flush=True)
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(17)
+    seed = torch.tensor([20241017], dtype=torch.int32, device=dev)
+    records = {}
+    for dtype in ("bfloat16", "float32"):
+        q, k, v = packed_qkv(torch, rs, BERT_BATCH, BERT_SEQ, dtype)
+        do = torch.from_numpy(rs.randn(*q.shape).astype(np.float32)).to(
+            dev, getattr(torch, dtype))
+        fa.tma_copies = 0
+        err_o, err_l, fwd_exact = compare_kernel(torch, fa, q, k, v, dtype,
+                                                 False)
+        print(f"{dtype:8s} K1 against TOL: O err {err_o:.2e} lse err "
+              f"{err_l:.2e}{fwd_exact}", flush=True)
+        errs, equal, exact = compare_backward(torch, fa, q, k, v, do, seed,
+                                              dtype, 0.0, causal=False)
+        t = time_attention(torch, fa, q, k, v, do, seed, dtype, 0.0,
+                           causal=False)
+        check(fa.tma_copies == 0, f"{fa.tma_copies} BERT operands copied "
+              f"for TMA ({dtype})")
+        print(f"{dtype:8s} err " + " ".join(f"{n} {e:.2e}"
+                                           for n, e in errs.items())
+              + "  bitwise equal " + " ".join(f"{n} {c}"
+                                              for n, c in equal.items())
+              + exact + "\n    " + t["line"] + "  (tma copies 0)", flush=True)
+        shape = (f"B={BERT_BATCH} S={BERT_SEQ} H={HEADS} D={HEAD_DIM} "
+                 f"{dtype} non-causal")
+        for name, rec in attention_records(t, errs).items():
+            records[(name, dtype)] = dict(rec, shape=shape)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    return records
+
+
+def bucket_batches(torch, vocab: int) -> list:
+    """``BUCKET_ROUNDS`` rounds of one batch a rung of ``BUCKET_LADDER`` in
+    a shuffled order, from ``RandomState(1)``: a batch's length L lies
+    within its rung (9-16, 17-32, 33-64, 65-128), its first row is L long
+    and the others end at lengths from 1 to L (their keep-mask marks
+    them). Returns (ids, mask, labels) on the card, int64."""
+    rs = np.random.RandomState(1)
+    batches = []
+    for _ in range(BUCKET_ROUNDS):
+        for rung in rs.permutation(BUCKET_LADDER):
+            n = int(rs.randint(rung // 2 + 1, rung + 1))
+            ids = rs.randint(1, vocab, (BERT_BATCH, n))
+            ends = np.concatenate([[n], rs.randint(1, n + 1,
+                                                   BERT_BATCH - 1)])
+            mask = np.arange(n)[None] < ends[:, None]
+            labels = rs.randint(0, 2, (BERT_BATCH,))
+            batches.append(tuple(torch.from_numpy(a.astype(np.int64)).cuda()
+                                 for a in (ids, mask, labels)))
+    return batches
+
+
+def check_mask_hides_padding(torch, bert, batches) -> float:
+    """A padded batch's loss within ``LOSS_PAD_TOL`` of the same batch at
+    its true length, eagerly in f32 on ``bert_tiny``'s width at full depth
+    (12 layers): the keep-mask hides the rung's padding. Returns the
+    largest difference."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.jit.bucketing import bucket_for, pad_to_bucket
+
+    model = bert.BertForSequenceClassification(
+        bert.bert_tiny(num_hidden_layers=12, vocab_size=40000),
+        generator=torch.Generator().manual_seed(0))
+    crit = nn.CrossEntropyLoss()
+    worst = 0.0
+    with torch.no_grad():
+        for ids, mask, labels in batches:
+            rung = bucket_for(ids.shape[1], BUCKET_LADDER)
+            true = crit(model(ids, attention_mask=mask), labels)
+            padded = crit(model(pad_to_bucket(ids, 1, rung),
+                                attention_mask=pad_to_bucket(mask, 1, rung)),
+                          labels)
+            worst = max(worst, abs(float(padded) - float(true)))
+    check(worst <= LOSS_PAD_TOL, f"a padded batch's loss differs from its "
+          f"true length's by {worst:.3g} (tol {LOSS_PAD_TOL})")
+    del model
+    return worst
+
+
+def bert_bucketed(torch, bert) -> dict:
+    """(c) Variable-length fine-tuning: ernie_base bf16 O2 under
+    ``TrainStep(bucket_axes={0: 1, 1: 1})``, a keep-mask a batch; held bit
+    for bit to eager steps on the same padded batches, one capture a rung,
+    no host sync in a replay, each rung's replay p50."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.jit.bucketing import bucket_for, pad_to_bucket
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cfg = bert.ernie_base(hidden_dropout_prob=0.0,
+                          attention_probs_dropout_prob=0.0)
+    batches = bucket_batches(torch, cfg.vocab_size)
+    rungs = [bucket_for(b[0].shape[1], BUCKET_LADDER) for b in batches]
+    print(f"-- (c) bucketed fine-tune: ernie_base bf16 O2, TrainStep("
+          f"bucket_axes={{0: 1, 1: 1}}, bucket_pad_values={{0: 0, 1: 0}}, "
+          f"bucket_range=(16, 128)), B={BERT_BATCH}, {len(batches)} batches "
+          f"of lengths {[int(b[0].shape[1]) for b in batches]} (rungs "
+          f"{rungs}), each with its keep-mask", flush=True)
+    model, opt, loss_fn = bert_twin(torch, bert, cfg, masked=True)
+    padded = [(pad_to_bucket(ids, 1, r), pad_to_bucket(mask, 1, r), labels)
+              for (ids, mask, labels), r in zip(batches, rungs)]
+    reference = (eager_steps(torch, opt, loss_fn, padded),
+                 [p.detach().clone() for p in model.parameters()])
+    del model, opt, loss_fn, padded
+    release_memory(torch)
+
+    model, opt, loss_fn = bert_twin(torch, bert, cfg, masked=True)
+    step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn,
+                     bucket_axes={0: 1, 1: 1}, bucket_range=(16, 128),
+                     bucket_pad_values={0: 0, 1: 0})
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.tma_copies = 0
+    adamw.launches = 0
+    seen, losses, times, captured_late = {}, [], {}, []
+    for batch, rung in zip(batches, rungs):
+        calls = seen.get(rung, 0)
+        seen[rung] = calls + 1
+        before = step._compiled.graph_counts()["captures"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if calls >= 2:  # a replay: no host sync may happen in it
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            loss = step(*batch)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        if calls >= 2:
+            times.setdefault(rung, []).append(time.perf_counter() - t0)
+            if step._compiled.graph_counts()["captures"] != before:
+                captured_late.append(rung)
+        losses.append(loss)
+    counts = (fa.launches, fa.dq_launches, fa.dkv_launches, adamw.launches)
+    check_against_eager(torch, "BERT bucketed", [float(x) for x in losses],
+                        [p.detach() for p in model.parameters()], reference)
+    graphs = step._compiled.graph_counts()
+    report = step.audit_report()
+    print(f"rungs {report['buckets']}; graph counts {graphs}; captured after "
+          f"a rung's second call: {captured_late}", flush=True)
+    check(graphs["signatures"] == graphs["captures"] == len(BUCKET_LADDER)
+          and not captured_late, f"bucketed captures {graphs}, late "
+          f"{captured_late}: want one a rung, none after its second call")
+    check(step.stats == {"compiled_steps": len(batches) - len(BUCKET_LADDER),
+                         "eager_steps": len(BUCKET_LADDER)},
+          f"bucketed steps {step.stats}")
+    per_step = adamw_launches_per_step(model)
+    print(f"launches K1/K2/K3/AdamW {counts} over {len(batches)} steps (the "
+          f"masked route runs no K1-K3)", flush=True)
+    check(counts == (0, 0, 0, per_step * len(batches)),
+          f"bucketed launches {counts}")
+    print("step ms p50 by rung (replays, no host sync): " + ", ".join(
+        f"{r}: {float(np.median(times[r])) * 1e3:.3f}"
+        for r in BUCKET_LADDER), flush=True)
+    del model, opt, step, loss_fn, reference
+    release_memory(torch)
+    worst = check_mask_hides_padding(torch, bert, batches)
+    print(f"padded vs true-length loss (bert_tiny width, 12 layers, f32, "
+          f"eager) over {len(batches)} batches: max diff {worst:.3g} (tol "
+          f"{LOSS_PAD_TOL})", flush=True)
+    return {"adamw": counts[3],
+            "p50_ms": {r: float(np.median(times[r])) * 1e3
+                       for r in BUCKET_LADDER}}
+
+
+def phase_bert(torch, bert) -> dict:
+    """Phase 17: BERT/ERNIE fine-tuning, (a) the bench arm, (b) K1-K3 at
+    its shape, (c) bucketed variable-length batches with masks."""
+    print("== BERT fine-tune: bench_bert's arm graphed, K1-K3 non-causal at "
+          "its shape, bucketed variable-length batches with padding masks",
+          flush=True)
+    return {"arm": bert_bench_arm(torch, bert),
+            "records": bert_attention_kernels(torch),
+            "bucketed": bert_bucketed(torch, bert)}
+
+
 def main() -> int:
     try:
         import torch
@@ -4279,7 +4603,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from paddle_tpu_torch.models import gpt, llama
+        from paddle_tpu_torch.models import bert, gpt, llama
         from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
@@ -4312,6 +4636,7 @@ def main() -> int:
         adamw_record = phase_adamw(torch, gpt)
         phase_adamw_modes(torch, gpt)
         trainer = phase_trainer(torch, gpt, trained["launches_per_step"])
+        bert_run = phase_bert(torch, bert)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4330,7 +4655,8 @@ def main() -> int:
              "flash_attention_dkv_tf32.cu", 347)):
         by_path = {"train": trained[key], "train_llama": trained_llama[key],
                    "trainer_recipe": trainer["recipe"][key],
-                   "trainer_optimizers": trainer["optimizers"][key]}
+                   "trainer_optimizers": trainer["optimizers"][key],
+                   "train_bert": bert_run["arm"][key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"]}
                        if key == "fwd" else {})
@@ -4361,6 +4687,9 @@ def main() -> int:
         if key == "fwd":
             entry["serve_shape"] = serve_record
         entry["llama_shape"] = records[(key, "bfloat16", 64)]
+        # non-causal, B=32 S=128 H=12 D=64 (phase 17 (b))
+        entry["bert_shape"] = {dtype: bert_run["records"][(key, dtype)]
+                               for dtype in ("bfloat16", "float32")}
         entry["head_dim_128"] = {dtype: records[(key, dtype, 128)]
                                  for dtype in ("bfloat16", "float32")}
         kernels.append(entry)
@@ -4413,7 +4742,9 @@ def main() -> int:
     by_path = {"train": trained["adamw"], "train_llama": trained_llama["adamw"],
                "trainer_recipe": trainer["recipe"]["adamw"],
                "trainer_fp16": trainer["fp16"]["adamw"],
-               "trainer_optimizers": trainer["optimizers"]["adamw"]}
+               "trainer_optimizers": trainer["optimizers"]["adamw"],
+               "train_bert": bert_run["arm"]["adamw"],
+               "train_bert_bucketed": bert_run["bucketed"]["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",

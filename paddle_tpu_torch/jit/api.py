@@ -22,9 +22,16 @@ backward allocates the gradients from the graph's pool, at the same
 addresses on every replay. The model's CUDA generators (dropout) are
 registered with the graph, so a replay draws what an eager step would.
 
+``bucket_axes`` (``{arg_index: axis}``) pads each batch's variable dims
+up to a rung of the log₂ ladder over ``bucket_range`` (default ``(16,
+4096)``) with ``bucket_pad_values`` per arg, before the call and outside
+the graph, through a :class:`~.bucketing.BucketedFunction`: each rung is
+one signature, so one CUDA graph, captured at the rung's second call and
+replayed after it.
+
 ``grad_accum_steps`` is accepted and read nowhere, as in the JAX
-package. Not ported, each raising ``NotImplementedError``: shape
-bucketing (``bucket_axes``) and ``sharding`` (ROADMAP.md, queue 1).
+package. Not ported: ``sharding`` raises ``NotImplementedError``
+(ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..optimizer import LBFGS
+from .bucketing import BucketedFunction
 from .functionalize import CompiledFunction
 
 __all__ = ["TrainStep"]
@@ -46,12 +54,9 @@ class TrainStep:
 
     def __init__(self, model=None, optimizer=None,
                  loss_fn: Optional[Callable] = None,
-                 grad_accum_steps: int = 1, bucket_axes=None, sharding=None,
+                 grad_accum_steps: int = 1, bucket_axes=None,
+                 bucket_range=None, bucket_pad_values=None, sharding=None,
                  *, device=DEFAULT_DEVICE):
-        if bucket_axes:
-            raise NotImplementedError(
-                "TrainStep shape bucketing is not ported yet (ROADMAP.md, "
-                "queue 1)")
         if sharding is not None:
             raise NotImplementedError(
                 "TrainStep sharding is not ported yet (ROADMAP.md, queue 1)")
@@ -82,9 +87,15 @@ class TrainStep:
             optimizer.clear_grad()
             return loss.detach()
 
-        self._compiled = CompiledFunction(
-            step_fn, static_key_fn=base_key, name="train_step", device=dev,
-            generators=_cuda_generators(model))
+        compiled_kw = dict(static_key_fn=base_key, name="train_step",
+                           device=dev, generators=_cuda_generators(model))
+        if bucket_axes:
+            lo, hi = bucket_range or (16, 4096)
+            self._compiled = BucketedFunction(
+                step_fn, bucket_axes=bucket_axes, min_len=lo, max_len=hi,
+                pad_values=bucket_pad_values, **compiled_kw)
+        else:
+            self._compiled = CompiledFunction(step_fn, **compiled_kw)
 
     def __call__(self, *batch):
         # refresh the LR cell before the graph, only when it changed: a
@@ -98,7 +109,8 @@ class TrainStep:
         return self._compiled.stats
 
     def audit_report(self) -> dict:
-        """Captures and replays per cache key, and the run accounting."""
+        """Captures and replays per cache key, and the run accounting (and
+        the ladder, ``"buckets"``, when bucketed)."""
         return self._compiled.audit_report()
 
 

@@ -1,19 +1,25 @@
-"""Shape bucketing: the rung ladders of the serving paths.
+"""Shape bucketing: the rung ladders of the serving and training paths.
 
 Port of ``powers_of_two_buckets``, ``bucket_for``, ``bucket_grid``,
-``bucket_pair_for``, ``table_ladder`` and ``assemble_bucket`` from
+``bucket_pair_for``, ``table_ladder``, ``assemble_bucket``,
+``pad_to_bucket`` and ``BucketedFunction`` from
 ``paddle_tpu/jit/bucketing.py``. Each rung is one CUDA graph on the card:
 decode prefill pads prompts to a seq rung and decode pads its batch and
 block tables to rungs; the batch tier pads an assembled batch to a
-(batch, seq) rung of its grid. A request's arithmetic is then the same
-whatever batch it rides in.
+(batch, seq) rung of its grid; a bucketed ``TrainStep`` pads each batch's
+variable dims to a rung of the log₂ ladder (:class:`BucketedFunction`).
+A request's arithmetic is then the same whatever batch it rides in.
+``bucket_collate`` waits for the port's ``io`` (ROADMAP.md, queue 5).
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
+
+import torch
 
 __all__ = ["powers_of_two_buckets", "bucket_for", "bucket_grid",
-           "bucket_pair_for", "table_ladder", "assemble_bucket"]
+           "bucket_pair_for", "table_ladder", "assemble_bucket",
+           "pad_to_bucket", "BucketedFunction"]
 
 
 def powers_of_two_buckets(min_len: int, max_len: int) -> List[int]:
@@ -95,3 +101,75 @@ def assemble_bucket(counts: Sequence[int], buckets: Sequence[int],
         total += int(n)
         k += 1
     return k, bucket
+
+
+def pad_to_bucket(value, axis: int, bucket: int, pad_value=0):
+    """``value`` right-padded along ``axis`` up to ``bucket`` with
+    ``pad_value``, on its own device and in its dtype (no host sync);
+    ``value`` itself when already that size. A value that is not a tensor
+    is made one first."""
+    v = value if isinstance(value, torch.Tensor) else torch.as_tensor(value)
+    n = v.shape[axis]
+    if n == bucket:
+        return value
+    if n > bucket:
+        raise ValueError(f"dim {n} larger than bucket {bucket}")
+    shape = list(v.shape)
+    shape[axis] = bucket - n
+    return torch.cat([v, v.new_full(shape, pad_value)], dim=axis)
+
+
+class BucketedFunction:
+    """A :class:`~.functionalize.CompiledFunction` with pad-to-bucket on
+    declared argument axes: each rung of the ladder is one signature, so
+    one CUDA graph on the card.
+
+    ``bucket_axes``: ``{arg_index: axis}``, the positional args with a
+    variable dim. All declared dims share one bucket per call, the rung of
+    the largest; ``pad_values`` gives each arg's fill (``ignore_index`` for
+    labels, say). Masking the padding out of the loss is the caller's
+    contract, as with any padded batch. The padding runs before the call,
+    outside the graph. ``compiled_kw`` goes to the ``CompiledFunction``."""
+
+    def __init__(self, fn: Callable, *, bucket_axes: Dict[int, int],
+                 min_len: int, max_len: int,
+                 pad_values: Optional[Dict[int, float]] = None,
+                 buckets: Optional[Sequence[int]] = None,
+                 static_key_fn=None, name=None, **compiled_kw):
+        from .functionalize import CompiledFunction
+
+        self.buckets = (list(buckets) if buckets
+                        else powers_of_two_buckets(min_len, max_len))
+        self.bucket_axes = dict(bucket_axes)
+        self.pad_values = dict(pad_values or {})
+        self._compiled = CompiledFunction(
+            fn, static_key_fn=static_key_fn,
+            name=name or getattr(fn, "__name__", "fn"), **compiled_kw)
+
+    @property
+    def num_compiled(self) -> int:
+        """Rungs met so far (one cache entry each)."""
+        return len(self._compiled._cache)
+
+    @property
+    def stats(self) -> dict:
+        return self._compiled.stats
+
+    def graph_counts(self) -> dict:
+        return self._compiled.graph_counts()
+
+    def audit_report(self) -> dict:
+        report = self._compiled.audit_report()
+        report["buckets"] = list(self.buckets)
+        return report
+
+    def __call__(self, *args, **kwargs):
+        if self.bucket_axes:
+            bucket = bucket_for(max(args[i].shape[axis] for i, axis
+                                    in self.bucket_axes.items()),
+                                self.buckets)
+            args = list(args)
+            for i, axis in self.bucket_axes.items():
+                args[i] = pad_to_bucket(args[i], axis, bucket,
+                                        self.pad_values.get(i, 0))
+        return self._compiled(*args, **kwargs)

@@ -1,4 +1,7 @@
-"""Model zoo of the port: GPT and Llama, single device."""
+"""Model zoo of the port: GPT, Llama and BERT/ERNIE, single device."""
+from .bert import (BertConfig, BertForPretraining,
+                   BertForSequenceClassification, BertModel, bert_base,
+                   bert_large, bert_tiny, ernie_base)
 from .gpt import (GPTConfig, GPTForCausalLM, GPTModel,
                   GPTPretrainingCriterion, gpt2_medium, gpt2_small, gpt_1p3b,
                   gpt_tiny, jax_state_dict, load_jax_state)
@@ -6,7 +9,9 @@ from .llama import (LlamaConfig, LlamaDecoderLayer, LlamaForCausalLM,
                     LlamaModel, LlamaPretrainingCriterion, llama2_7b,
                     llama3_8b, llama_124m_gqa, llama_tiny)
 
-__all__ = ["GPTConfig", "GPTForCausalLM", "GPTModel",
+__all__ = ["BertConfig", "BertForPretraining",
+           "BertForSequenceClassification", "BertModel", "bert_base",
+           "bert_large", "bert_tiny", "ernie_base", "GPTConfig", "GPTForCausalLM", "GPTModel",
            "GPTPretrainingCriterion", "gpt2_medium", "gpt2_small",
            "gpt_1p3b", "gpt_tiny", "jax_state_dict", "load_jax_state", "LlamaConfig",
            "LlamaDecoderLayer", "LlamaForCausalLM", "LlamaModel",

@@ -4,9 +4,11 @@ from .clip import (ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm,
                    ClipGradByValue, GradientClipBase,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue)
-from .layer import CrossEntropyLoss, LayerNorm, Linear, RMSNorm
+from .layer import (CrossEntropyLoss, Dropout, Embedding, LayerNorm, Linear,
+                    RMSNorm)
 
 __all__ = ["ClipGradBase", "ClipGradByGlobalNorm", "ClipGradByNorm",
-           "ClipGradByValue", "CrossEntropyLoss", "GradientClipBase",
-           "GradientClipByGlobalNorm", "GradientClipByNorm",
-           "GradientClipByValue", "LayerNorm", "Linear", "RMSNorm"]
+           "ClipGradByValue", "CrossEntropyLoss", "Dropout", "Embedding",
+           "GradientClipBase", "GradientClipByGlobalNorm",
+           "GradientClipByNorm", "GradientClipByValue", "LayerNorm",
+           "Linear", "RMSNorm"]

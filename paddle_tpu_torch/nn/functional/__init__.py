@@ -9,13 +9,15 @@ from .flash_attention import (calc_reduced_attn_scores, flash_attn_qkvpacked,
                               flashmask_attention, fused_softmax_mask,
                               fused_softmax_mask_upper_triangle)
 from .attention import flash_attention, scaled_dot_product_attention
-from .common import dropout, linear
+from .common import dropout, embedding, linear
 from .loss import cross_entropy, softmax_with_cross_entropy
 from .norm import layer_norm, rms_norm
+from ...ops.activation import gelu, tanh
 
 __all__ = ["calc_reduced_attn_scores", "cross_entropy", "dropout",
-           "flash_attention", "flash_attn_qkvpacked", "flash_attn_unpadded",
-           "flash_attn_varlen_qkvpacked", "flashmask_attention",
-           "fused_softmax_mask", "fused_softmax_mask_upper_triangle",
-           "layer_norm", "linear", "rms_norm", "scaled_dot_product_attention",
-           "softmax_with_cross_entropy"]
+           "embedding", "flash_attention", "flash_attn_qkvpacked",
+           "flash_attn_unpadded", "flash_attn_varlen_qkvpacked",
+           "flashmask_attention", "fused_softmax_mask",
+           "fused_softmax_mask_upper_triangle", "gelu", "layer_norm",
+           "linear", "rms_norm", "scaled_dot_product_attention",
+           "softmax_with_cross_entropy", "tanh"]

@@ -1,6 +1,7 @@
 """Common functionals (port of ``paddle_tpu/nn/functional/common.py``, the
-subset the GPT path reaches): ``linear`` under AMP and ``dropout`` from an
-explicit generator."""
+subset the GPT and BERT paths reach): ``linear`` under AMP, ``embedding``
+with the JAX ``padding_idx`` rule and ``dropout`` from an explicit
+generator."""
 from __future__ import annotations
 
 from typing import Optional
@@ -10,7 +11,7 @@ import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["linear", "dropout"]
+__all__ = ["linear", "embedding", "dropout"]
 
 
 def linear(x, weight, bias=None):
@@ -18,6 +19,20 @@ def linear(x, weight, bias=None):
     AMP O2 it computes in the AMP dtype (op ``linear``)."""
     x, weight, bias = cast_inputs("linear", x, weight, bias)
     return TF.linear(x, weight, bias)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False):
+    """Rows of ``weight`` gathered at the integer ids ``x``; op
+    ``embedding`` (gray under AMP). With ``padding_idx`` the output is 0
+    wherever ``x`` equals it, whatever that row holds, as the JAX function
+    selects it away (torch's ``padding_idx`` returns the row and zeroes only
+    its gradient). The gradient reaches the weight alone. ``sparse`` is
+    accepted and ignored, as in the JAX package."""
+    (weight,) = cast_inputs("embedding", weight)
+    out = TF.embedding(x, weight)
+    if padding_idx is not None:
+        out = torch.where((x == padding_idx)[..., None], 0.0, out)
+    return out
 
 
 def dropout(x, p: float = 0.5, training: bool = True,

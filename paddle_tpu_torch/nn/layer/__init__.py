@@ -1,5 +1,6 @@
 """Layers of the port that route through its AMP-aware functionals."""
-from .common import LayerNorm, Linear, RMSNorm
+from .common import Dropout, Embedding, LayerNorm, Linear, RMSNorm
 from .loss import CrossEntropyLoss
 
-__all__ = ["CrossEntropyLoss", "LayerNorm", "Linear", "RMSNorm"]
+__all__ = ["CrossEntropyLoss", "Dropout", "Embedding", "LayerNorm",
+           "Linear", "RMSNorm"]

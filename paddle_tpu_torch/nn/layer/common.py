@@ -1,20 +1,52 @@
-"""``Linear``, ``LayerNorm`` and ``RMSNorm``. The first two are torch's
-modules (same parameters, names and ``[out, in]`` weight layout) whose
-forward runs the port's functionals, so they follow the AMP state as the
-JAX layers do; ``RMSNorm`` is the JAX layer's counterpart."""
+"""``Linear``, ``Embedding``, ``LayerNorm``, ``Dropout`` and ``RMSNorm``.
+``Linear``, ``Embedding`` and ``LayerNorm`` are torch's modules (same
+parameters, names and ``[out, in]`` weight layout) whose forward runs the
+port's functionals, so they follow the AMP state and the JAX rules as the
+JAX layers do; ``Dropout`` and ``RMSNorm`` are the JAX layers'
+counterparts."""
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Linear", "LayerNorm", "RMSNorm"]
+__all__ = ["Dropout", "Embedding", "Linear", "LayerNorm", "RMSNorm"]
 
 
 class Linear(nn.Linear):
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Embedding(nn.Embedding):
+    """torch's module (its ``padding_idx`` row is zero at construction, as
+    the JAX layer's is) with the JAX forward: the output is 0 at padding
+    positions whatever the row holds (``F.embedding``)."""
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, self.padding_idx)
+
+
+class Dropout(nn.Module):
+    """Upscale-in-train dropout of probability ``p`` while training, its
+    keep masks drawn from ``generator`` (a ``torch.Generator`` on the
+    input's device; required when the layer drops), never from torch's
+    global one."""
+
+    def __init__(self, p: float = 0.5,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.p = p
+        self.generator = generator
+
+    def forward(self, x):
+        return F.dropout(x, self.p, self.training, self.generator)
+
+    def extra_repr(self) -> str:
+        return f"p={self.p}"
 
 
 class LayerNorm(nn.LayerNorm):

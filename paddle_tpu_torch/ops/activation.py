@@ -1,12 +1,28 @@
 """Activations (port of ``paddle_tpu/ops/activation.py``, the subset the
-Llama path reaches)."""
+Llama and BERT paths reach). ``gelu`` and ``tanh`` are gray under AMP, as
+in the JAX package: O1 leaves their inputs' dtype, O2 computes them in the
+AMP dtype."""
 from __future__ import annotations
 
+import torch
 import torch.nn.functional as TF
 
 from ..amp.auto_cast import cast_inputs
 
-__all__ = ["swiglu"]
+__all__ = ["gelu", "swiglu", "tanh"]
+
+
+def gelu(x, approximate: bool = False):
+    """GELU, by default in its exact form ``x·Φ(x)`` over erf (BERT's);
+    ``approximate=True`` takes the tanh form (GPT's), as ``jax.nn.gelu``
+    does."""
+    (x,) = cast_inputs("gelu", x)
+    return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def tanh(x):
+    (x,) = cast_inputs("tanh", x)
+    return torch.tanh(x)
 
 
 def swiglu(x, y=None):

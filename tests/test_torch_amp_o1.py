@@ -48,7 +48,8 @@ PORT_OPS = ("linear", "layer_norm", "pallas_rms_norm", "rms_norm",
             "cross_entropy", "swiglu", "fused_rope", "flash_attention",
             "sdpa_flash", "flash_attn_unpadded", "flashmask_attention",
             "calc_reduced_attn_scores", "fused_softmax_mask",
-            "fused_softmax_mask_upper_triangle")
+            "fused_softmax_mask_upper_triangle", "embedding", "gelu", "tanh",
+            "sdpa_xla", "flash_attention_xla", "add", "subtract")
 
 
 @pytest.mark.parametrize("op", PORT_OPS)

@@ -50,6 +50,7 @@ CASES = [
     (1, 130, 64, 2, 64, torch.float32, True, 0.2),     # Sq > Sk
     (2, 200, 200, 2, 128, torch.bfloat16, True, 0.1),
     (1, 33, 33, 4, 64, torch.bfloat16, False, 0.0),
+    (4, 128, 128, 12, 64, torch.bfloat16, False, 0.0),  # BERT, non-causal
 ]
 
 
