@@ -462,17 +462,28 @@ def check_tensor_core_sass(_build) -> None:
         print(f"{name} (SASS): " + "; ".join(rows), flush=True)
 
 
+def print_serialized_wgmma(_build) -> None:
+    """ptxas's C7514 advisories ("wgmma ... serialized"), by source, for
+    every tensor-core kernel: printed, not checked."""
+    for name in TC_SOURCES:
+        notes = [ln.strip() for ln in _build.ptxas_report.get(name, "")
+                 .splitlines() if "C7514" in ln]
+        print(f"{name}: {len(notes)} C7514 advisories"
+              + "".join(f"\n    {ln[:240]}" for ln in notes), flush=True)
+
+
 def phase_build() -> float:
     from paddle_tpu_torch.ops.cuda import (_build, adamw, flash_attention,
-                                           flashmask, rms_norm)
+                                           flashmask, momentum, rms_norm)
 
     print("== build (one nvcc per source, in parallel)", flush=True)
     t0 = time.perf_counter()
-    _build.build_all([*TC_SOURCES, "rms_norm", "adamw"])
+    _build.build_all([*TC_SOURCES, "rms_norm", "adamw", "momentum"])
     flash_attention.build()
     rms_norm.build()
     flashmask.build()
     adamw.build()
+    momentum.build()
     seconds = time.perf_counter() - t0
     for name, log in sorted(_build.ptxas_report.items()):
         # one "entry function" line, then its spill and register lines
@@ -492,8 +503,9 @@ def phase_build() -> float:
                                entry)
                 norm = "rms_norm" in entry
                 # AdamW's <parameter type, gradient type>; S1_: the first
-                opt = re.search(r"adamw_kernelI(13__nv_bfloat16|6__half|f)"
-                                r"(f|S\d*_)E", entry)
+                opt = re.search(r"(adamw|momentum)_kernelI"
+                                r"(13__nv_bfloat16|6__half|f)(f|S\d*_)E",
+                                entry)
                 if tc:
                     kind = (TC_TYPES[tc.group(3)] if tc.group(2) == "sm90"
                             else "f32 3xTF32")
@@ -515,9 +527,9 @@ def phase_build() -> float:
                 elif opt:
                     names = {"f": "f32", "13__nv_bfloat16": "bf16",
                              "6__half": "fp16"}
-                    pt = names[opt.group(1)]
-                    entry = (f"adamw p {pt} g "
-                             f"{pt if opt.group(2) != 'f' else 'f32'}")
+                    pt = names[opt.group(2)]
+                    entry = (f"{opt.group(1)} p {pt} g "
+                             f"{pt if opt.group(3) != 'f' else 'f32'}")
             m = re.search(r"(\d+) bytes spill stores", ln)
             if m and entry:
                 spill = m.group(1)
@@ -540,8 +552,9 @@ def phase_build() -> float:
                 if norm:
                     rows[-1] += f", {stack} B stack"
                     check(spill == "0", f"{entry} spills {spill} B")
-                # the AdamW kernel indexes its __grid_constant__ tensor
-                # list in the parameter space: no copy to a stack frame
+                # the AdamW and Momentum kernels index their
+                # __grid_constant__ tensor lists in the parameter space:
+                # no copy to a stack frame
                 if opt:
                     rows[-1] += f", {stack} B stack"
                     check(spill == "0" and stack == "0",
@@ -550,6 +563,7 @@ def phase_build() -> float:
         print(f"{name} (ptxas): " + "; ".join(rows), flush=True)
     print(f"built in {seconds:.1f} s", flush=True)
     check_tensor_core_sass(_build)
+    print_serialized_wgmma(_build)
     return seconds
 
 
@@ -2544,10 +2558,11 @@ def run_timed_steps(torch, step, batch: tuple) -> tuple:
     synchronize), every one a graph replay, with every launch count set to
     0 just before them and read just after; ``step(*batch)`` is one step.
     Fails if an operand was copied for TMA or a timed step did not replay.
-    Returns (warmup losses,
+    The Momentum kernel's count is zeroed with the others and left in
+    ``momentum.launches``. Returns (warmup losses,
     losses, step seconds, launches of K1, K2, K3, K4, AdamW, the RMSNorm
     backward)."""
-    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import adamw, momentum
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
 
@@ -2555,9 +2570,11 @@ def run_timed_steps(torch, step, batch: tuple) -> tuple:
     first = [float(step(*batch).float()) for _ in range(GRAPH_WARMUP)]
     torch.cuda.synchronize()
     stats = dict(step.stats)
-    # the main path's run: counts from 0, read right after it
+    # the main path's run: counts from 0, read right after it (the
+    # Momentum kernel's by the caller, from momentum.launches)
     fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
     fa.tma_copies = adamw.launches = rms.bwd_launches = 0
+    momentum.launches = 0
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -4223,7 +4240,7 @@ def trainer_optimizers(torch, gpt, ids) -> dict:
     the next optimizer."""
     from paddle_tpu_torch import amp, optimizer
     from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import adamw, momentum
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
 
     cfg = gpt.gpt2_small(hidden_dropout_prob=0.0, attention_dropout_prob=0.0)
@@ -4232,7 +4249,7 @@ def trainer_optimizers(torch, gpt, ids) -> dict:
           f"{OPTIMIZER_BATCH}x{TRAIN_SEQ} (batch cut for time), "
           f"{OPTIMIZER_STEPS} eager then {OPTIMIZER_STEPS} TrainStep steps "
           f"each", flush=True)
-    launched = {"fwd": 0, "dq": 0, "dkv": 0, "adamw": 0}
+    launched = {"fwd": 0, "dq": 0, "dkv": 0, "adamw": 0, "momentum": 0}
     for name, kw in optimizer_cases():
         def twin():
             model = gpt.GPTForCausalLM(
@@ -4262,10 +4279,10 @@ def trainer_optimizers(torch, gpt, ids) -> dict:
         model, opt, loss_fn = twin()
         step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
         before = (fa.launches, fa.dq_launches, fa.dkv_launches,
-                  adamw.launches)
+                  adamw.launches, momentum.launches)
         got = [float(step(batch)) for _ in range(OPTIMIZER_STEPS)]
         after = (fa.launches, fa.dq_launches, fa.dkv_launches,
-                 adamw.launches)
+                 adamw.launches, momentum.launches)
         for key, a, b in zip(launched, after, before):
             launched[key] += a - b
         check(step.stats == {"compiled_steps": OPTIMIZER_STEPS - 1,
@@ -4275,7 +4292,7 @@ def trainer_optimizers(torch, gpt, ids) -> dict:
                             [p.detach() for p in model.parameters()], want)
         del model, opt, loss_fn, step, want
         release_memory(torch)
-    print(f"(c) launches K1/K2/K3/AdamW {launched}", flush=True)
+    print(f"(c) launches K1/K2/K3/AdamW/Momentum {launched}", flush=True)
     return launched
 
 
@@ -4592,6 +4609,506 @@ def phase_bert(torch, bert) -> dict:
             "bucketed": bert_bucketed(torch, bert)}
 
 
+# ------------------------------------------------------- phase 18, ResNet
+RESNET_BATCH, RESNET_SIZE = 32, 224  # bench_resnet's accelerator arm
+RESNET_CLASSES, RESNET_LR, RESNET_MOMENTUM = 1000, 0.1, 0.9
+RESNET_GFLOP = 4.089  # bench.py: ResNet-50's forward GFLOP an image at 224²
+RESNET_STEPS = GRAPH_WARMUP + TRAIN_STEPS
+# when two eager runs differ (cuDNN's default algorithms not deterministic),
+# the timed graphed run is held to an eager run within this share of each
+# loss; the graph = eager check then runs under cudnn.deterministic
+RESNET_NONDET_TOL = 5e-2
+# eval logits, card (f32, TF32 off) against the CPU: within this share of
+# the largest logit
+RESNET_EVAL_TOL = 1e-3
+RESNET_EVAL_BATCH = 4
+# f32 operations per element of a Momentum update: v (mul, add), p (mul,
+# sub), the L2 or Nesterov term at most one more
+MOMENTUM_OPS = 5
+# the profile's kernel classes, first match wins (cuDNN's convolution
+# kernels name their pass: fprop, dgrad, wgrad)
+RESNET_CLASSES_RX = (
+    ("Momentum", re.compile(r"(?:^|[\s:])momentum_kernel<")),
+    ("layout transposes", re.compile(r"nchwToNhwc|nhwcToNchw|[Tt]ranspose")),
+    ("conv dgrad", re.compile(r"dgrad", re.I)),
+    ("conv wgrad", re.compile(r"wgrad", re.I)),
+    ("conv fwd", re.compile(r"fprop", re.I)),
+    ("BatchNorm", re.compile(r"batch_norm|welford", re.I)),
+    ("pooling", re.compile(r"pool", re.I)),
+    ("element-wise (casts, relu, adds)", re.compile(r"elementwise", re.I)),
+    ("reductions", re.compile(r"reduce", re.I)),
+    # cuDNN runs some convolutions as GEMM kernels whose names do not say
+    # the pass; the fc's three GEMMs land here too
+    ("GEMM-named (cuDNN convs, fc)", re.compile(r"nvjet|gemm|cutlass|xmma",
+                                                re.I)),
+)
+RESNET_CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward")
+
+
+def resnet_twin(torch, resnet):
+    """``bench_resnet``'s setup: ``resnet50(num_classes=1000)`` (weights
+    from a generator seeded 0) in bf16 O2, ``Momentum(0.1, 0.9)``,
+    ``CrossEntropyLoss`` outside ``auto_cast``. Returns (model, optimizer,
+    loss_fn(x, y))."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = resnet.resnet50(num_classes=RESNET_CLASSES,
+                            generator=torch.Generator().manual_seed(0))
+    crit = nn.CrossEntropyLoss()
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = Momentum(learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+                   parameters=model.parameters())
+
+    def loss_fn(x, y):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(x)
+        return crit(logits, y)
+
+    return model, opt, loss_fn
+
+
+def state_of(model) -> list:
+    """Every parameter and buffer (the BatchNorms' running stats)."""
+    return list(model.parameters()) + list(model.buffers())
+
+
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` hold the same bits (NaN included)."""
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return torch.equal(a.contiguous().view(ints[a.element_size()]),
+                       b.contiguous().view(ints[b.element_size()]))
+
+
+def resnet_eager(torch, resnet, batch, steps) -> tuple:
+    """``steps`` eager steps by hand on a fresh twin: the losses (float32
+    tensors) and every parameter and buffer after them."""
+    model, opt, loss_fn = resnet_twin(torch, resnet)
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.detach().float())
+    torch.cuda.synchronize()
+    out = (losses, [t.detach().clone() for t in state_of(model)])
+    del model, opt, loss_fn
+    release_memory(torch)
+    return out
+
+
+def resnet_equal(torch, a, b) -> tuple:
+    """(losses bit for bit, tensors bit for bit, tensor count) of two
+    runs."""
+    (la, sa), (lb, sb) = a, b
+    losses = len(la) == len(lb) and all(same_bits(torch, x, y)
+                                        for x, y in zip(la, lb))
+    same = sum(same_bits(torch, x, y) for x, y in zip(sa, sb))
+    return losses, same, len(sa)
+
+
+def profile_resnet(torch, step, batch, step_ms, steps=2) -> dict:
+    """Device time by kernel class over ``steps`` replayed steps after a
+    warmup step (``torch.profiler``, the card idle ``PROFILE_PAD_S`` inside
+    each end of the window): conv forward / dgrad / wgrad, BatchNorm,
+    element-wise, layout transposes, the Momentum kernel, ...; the
+    profile's Momentum launches per step must equal the counter's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    from paddle_tpu_torch.ops.cuda import momentum
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        for i in range(steps + 1):
+            if i == 1:
+                time.sleep(PROFILE_PAD_S)
+                before = momentum.launches
+            step(*batch)
+            torch.cuda.synchronize()
+            if i == steps:
+                time.sleep(PROFILE_PAD_S)
+            prof.step()
+    counted = (momentum.launches - before) / steps
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count / steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and not e.key.startswith("ProfilerStep")]
+    check(len(rows) > 0, "the profiler recorded no device time")
+    total = sum(r[1] for r in rows)
+    classes = {name: [0.0, 0.0] for name, _ in RESNET_CLASSES_RX}
+    classes["the rest"] = [0.0, 0.0]
+    for key, ms, count in rows:
+        name = next((n for n, rx in RESNET_CLASSES_RX if rx.search(key)),
+                    "the rest")
+        classes[name][0] += ms
+        classes[name][1] += count
+    launches = sum(r[2] for r in rows)
+    print(f"launches per step, profile Momentum "
+          f"{classes['Momentum'][1]:.0f}, counter {counted:.0f}", flush=True)
+    check(classes["Momentum"][1] == counted, f"the profile's Momentum "
+          f"launches {classes['Momentum'][1]} differ from the counter's "
+          f"{counted}")
+    print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
+          f"({total / step_ms:.1%} of the {step_ms:.3f} ms p50 step; idle "
+          f"{1 - total / step_ms:.1%}), {launches:.0f} kernel launches per "
+          f"step; " + "; ".join(f"{n} {ms:.3f} ms ({ms / total:.1%}, "
+                                f"x{c:.0f})" for n, (ms, c)
+                                in classes.items()), flush=True)
+    rows.sort(key=lambda r: -r[1])
+    for key, ms, count in rows[:24]:
+        print(f"    {ms:8.3f} ms  x{count:<6.0f} {key[:110]}", flush=True)
+    return {"device_ms": total, "launches": launches,
+            "classes": {n: ms for n, (ms, _) in classes.items()}}
+
+
+def conv_passes(torch, loss_fn, opt, batch) -> dict:
+    """Device ms of one eager forward and backward's convolution kernels by
+    pass, from the op that launched each (``torch.profiler``; a replayed
+    graph's kernels have no launching op): forward under
+    ``aten::cudnn_convolution``, dgrad and wgrad under
+    ``aten::convolution_backward`` by their names, the backward's kernels
+    whose names do not say the pass apart, and the layout transposes of
+    both."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        loss_fn(*batch).backward()
+        torch.cuda.synchronize()
+    opt.clear_grad()
+    out = {"fwd": 0.0, "dgrad": 0.0, "wgrad": 0.0, "bwd, pass unnamed": 0.0,
+           "transposes": 0.0}
+    for e in prof.events():
+        if e.name not in RESNET_CONV_OPS:
+            continue
+        for k in e.kernels:
+            ms = k.duration / 1e3
+            if RESNET_CLASSES_RX[1][1].search(k.name):
+                out["transposes"] += ms
+            elif e.name == RESNET_CONV_OPS[0]:
+                out["fwd"] += ms
+            elif "dgrad" in k.name.lower():
+                out["dgrad"] += ms
+            elif "wgrad" in k.name.lower():
+                out["wgrad"] += ms
+            else:
+                out["bwd, pass unnamed"] += ms
+    check(out["fwd"] > 0, "the eager profile attributed no kernel to "
+          "aten::cudnn_convolution")
+    print("convolutions by pass in one eager forward and backward (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items())
+          + f"; total {sum(out.values()):.3f}", flush=True)
+    return out
+
+
+def resnet_bench_arm(torch, resnet) -> dict:
+    """(a) ``bench_resnet`` uncut: resnet50, 1000 classes, one 32 x 3 x
+    224² batch as ``bench.py`` draws it, bf16 O2, ``Momentum(0.1, 0.9)``;
+    two eager runs, the graphed run held to them, timed, profiled."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import momentum
+
+    print(f"-- (a) bench arm: resnet50 ({RESNET_CLASSES} classes) bf16 O2, "
+          f"Momentum({RESNET_LR}, {RESNET_MOMENTUM}), CrossEntropyLoss "
+          f"outside auto_cast, one {RESNET_BATCH}x3x{RESNET_SIZE}x"
+          f"{RESNET_SIZE} batch, labels in [0, 10); {RESNET_STEPS} eager "
+          f"steps twice, then {GRAPH_WARMUP} warmup and {TRAIN_STEPS} timed "
+          f"TrainStep steps", flush=True)
+    rs = np.random.RandomState(0)  # as bench.py draws x, then y
+    x = rs.randn(RESNET_BATCH, 3, RESNET_SIZE, RESNET_SIZE).astype(
+        np.float32)
+    y = rs.randint(0, 10, (RESNET_BATCH,)).astype(np.int64)
+    batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    reference = resnet_eager(torch, resnet, batch, RESNET_STEPS)
+    losses_eq, same, n = resnet_equal(
+        torch, reference, resnet_eager(torch, resnet, batch, RESNET_STEPS))
+    deterministic = losses_eq and same == n
+    print(f"two eager runs: losses bitwise equal {losses_eq}, parameters "
+          f"and buffers bitwise equal {same}/{n}: cuDNN's default "
+          f"algorithms {'are' if deterministic else 'are NOT'} "
+          f"deterministic here", flush=True)
+    if not deterministic:
+        torch.backends.cudnn.deterministic = True
+        try:
+            want = resnet_eager(torch, resnet, batch, RESNET_STEPS)
+            model, opt, loss_fn = resnet_twin(torch, resnet)
+            step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+            got = ([step(*batch).float() for _ in range(RESNET_STEPS)],
+                   [t.detach().clone() for t in state_of(model)])
+            losses_eq, same, n = resnet_equal(torch, got, want)
+            print(f"under cudnn.deterministic: graphed steps against eager "
+                  f"steps: losses bitwise equal {losses_eq}, parameters "
+                  f"and buffers {same}/{n}", flush=True)
+            check(losses_eq and same == n, "ResNet: the graphed steps "
+                  "differ from the eager ones under cudnn.deterministic")
+            del model, opt, loss_fn, step, got, want
+            release_memory(torch)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    model, opt, loss_fn = resnet_twin(torch, resnet)
+    step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    first, losses, times, counts = run_timed_steps(torch, step, batch)
+    launched = momentum.launches
+    stats_ptr = model.bn1._mean.data_ptr()
+    got = ([torch.tensor(v, dtype=torch.float32) for v in first + losses],
+           state_of(model))
+    want_losses = [float(v) for v in reference[0]]
+    if deterministic:
+        losses_eq, same, n = resnet_equal(
+            torch, ([v.cuda() for v in got[0]], got[1]), reference)
+        print(f"graphed steps against the eager run: losses bitwise equal "
+              f"{losses_eq}, parameters and buffers {same}/{n}", flush=True)
+        check(losses_eq and same == n, "ResNet: the graphed steps differ "
+              "from the eager sequence")
+    else:
+        worst = max(abs(a - b) / max(abs(b), 1e-6)
+                    for a, b in zip(first + losses, want_losses))
+        print(f"graphed (timed) steps against the eager run: losses within "
+              f"{worst:.3g} of each eager loss (tol {RESNET_NONDET_TOL})",
+              flush=True)
+        check(worst <= RESNET_NONDET_TOL, "ResNet: graphed losses stray "
+              "from the eager run")
+    print("eager losses " + " ".join(f"{v:.4f}" for v in want_losses)
+          + "\ngraphed losses " + " ".join(f"{v:.4f}"
+                                            for v in first + losses),
+          flush=True)
+    check(all(math.isfinite(v) for v in first), f"non-finite first "
+          f"losses {first}")
+    check(model.bn1._mean.dtype == torch.float32
+          and model.bn1._mean.data_ptr() == stats_ptr,
+          "the running stats were rebound during the replays")
+    p50 = float(np.median(times))
+    flops = 3 * RESNET_GFLOP * 1e9 * RESNET_BATCH
+    print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); images/s {RESNET_BATCH / p50:.1f}; "
+          f"TFLOP/s {flops / p50 / 1e12:.2f} (bench.py: 3 x {RESNET_GFLOP} "
+          f"GFLOP x {RESNET_BATCH} a step); MFU "
+          f"{flops / p50 / PEAK_FLOPS['bfloat16']:.2%} of 989 TFLOP/s; peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    per_step = math.ceil(len(list(model.parameters())) / momentum.MAX_TENSORS)
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts}, Momentum {launched} "
+          f"over {TRAIN_STEPS} steps", flush=True)
+    check(counts == (0,) * 6 and launched == per_step * TRAIN_STEPS,
+          f"ResNet launches {counts}, Momentum {launched}: want "
+          f"{per_step * TRAIN_STEPS} of Momentum and none of the others")
+    # the running stats move at every replay: one more replay changes them
+    before = model.bn1._mean.clone()
+    step(*batch)
+    torch.cuda.synchronize()
+    check(not torch.equal(before, model.bn1._mean), "the running stats did "
+          "not move in a replay")
+    prof = profile_resnet(torch, step, batch, p50 * 1e3)
+    prof["conv_passes"] = conv_passes(torch, loss_fn, opt, batch)
+    out = {"momentum": launched, "p50_ms": p50 * 1e3,
+           "images_s": RESNET_BATCH / p50, "deterministic": deterministic,
+           "profile": prof}
+    del step, opt, loss_fn, reference, got
+    release_memory(torch)
+    return out, model
+
+
+def graph_time_ms(torch, fn, iters: int = 50) -> float:
+    """Mean device time of ``fn`` replayed from a CUDA graph (``fn`` run
+    once on a side stream first, then captured): the card's time alone, for
+    a call whose host work outlasts its kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    ms = cuda_time_ms(graph.replay, iters=iters)
+    del graph
+    return ms
+
+
+def momentum_bound(numel: int, elem: int, gelem: int) -> tuple:
+    """Least time (ms) of one Momentum pass: p read and written (``elem``
+    bytes), g read (``gelem``), the f32 velocity read and written, over
+    HBM bandwidth, against ``MOMENTUM_OPS`` f32 operations an element."""
+    t_mem = numel * (2 * elem + gelem + 8) / PEAK_BYTES * 1e3
+    t_ops = numel * MOMENTUM_OPS / PEAK_FLOPS["float32"] * 1e3
+    return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
+
+
+def resnet_momentum_kernel(torch, resnet) -> dict:
+    """(b) The Momentum kernel against ``momentum_reference``, bit for bit:
+    on resnet50's 161 bf16 tensors (timed beside its bound, the plain chain
+    and torch's SGD with momentum), then in every mode: bf16, fp16 and f32
+    parameters, f32 gradients, Nesterov, L2 on the conv weights, group LR
+    factors, ``found_inf`` unset and set."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.ops.cuda import momentum
+
+    print("-- (b) Momentum kernel: resnet50's parameters, kernel vs plain "
+          "bitwise; ms by CUDA events", flush=True)
+    dev = torch.device("cuda")
+    model = resnet.resnet50(num_classes=RESNET_CLASSES,
+                            generator=torch.Generator().manual_seed(0))
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    named = [(n, p.detach()) for n, p in model.named_parameters()]
+    params = [p for _, p in named]
+    gen = torch.Generator(device=dev).manual_seed(18)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in params]
+    vels = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+            for p in params]
+    lr = torch.tensor(RESNET_LR, device=dev)
+    kw = dict(momentum=RESNET_MOMENTUM)
+    got, want = ([[t.clone() for t in ts] for ts in (params, vels)]
+                 for _ in range(2))
+    momentum.launches = 0
+    momentum.momentum_update(got[0], grads, got[1], lr, **kw)
+    launched = momentum.launches
+    momentum.momentum_reference(want[0], grads, want[1], lr, **kw)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for ga, gb in zip(got, want) for a, b in zip(ga, gb)]
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    numel = sum(p.numel() for p in params)
+    per = math.ceil(len(params) / momentum.MAX_TENSORS)
+    print(f"{len(params)} parameters, {numel} elements; p, v bitwise equal "
+          f"to the plain version: {equal}/{len(pairs)} (max abs err "
+          f"{err:.3g}); {launched} launches", flush=True)
+    check(equal == len(pairs) and launched == per, f"the Momentum kernel "
+          f"differs from its plain version in {len(pairs) - equal} tensors "
+          f"(max abs err {err}), or {launched} launches (want {per})")
+    # the wrapper's host work (161 tensors packed into 3 launches) outlasts
+    # its kernels, so the update is timed as a replayed graph, as TrainStep
+    # runs it; one eager call is timed beside it
+    ms = graph_time_ms(torch, lambda: momentum.momentum_update(
+        got[0], grads, got[1], lr, **kw))
+    eager_ms = cuda_time_ms(lambda: momentum.momentum_update(
+        got[0], grads, got[1], lr, **kw), iters=20)
+    plain_ms = graph_time_ms(torch, lambda: momentum.momentum_reference(
+        want[0], grads, want[1], lr, **kw), iters=10)
+    del got, want
+    lib_params = [torch.nn.Parameter(p.clone()) for p in params]
+    for p, g in zip(lib_params, grads):
+        p.grad = g
+    try:
+        sgd = torch.optim.SGD(lib_params, lr=RESNET_LR,
+                              momentum=RESNET_MOMENTUM, fused=True)
+        lib_name = "torch.optim.SGD(momentum=0.9, fused=True)"
+    except (TypeError, RuntimeError):
+        sgd = torch.optim.SGD(lib_params, lr=RESNET_LR,
+                              momentum=RESNET_MOMENTUM, foreach=True)
+        lib_name = "torch.optim.SGD(momentum=0.9, foreach=True)"
+    lib_ms = graph_time_ms(torch, sgd.step)
+    bound_ms, bound_by = momentum_bound(numel, 2, 2)
+    print(f"replayed in a CUDA graph: kernel {ms:.4f} ms "
+          f"({numel * 14 / ms / 1e6:.1f} GB/s of 14 B an element), plain "
+          f"chain {plain_ms:.4f}, {lib_name} {lib_ms:.4f} (a bf16 momentum "
+          f"buffer), bound {bound_ms:.4f} ({bound_by}); one eager call of "
+          f"the kernel's wrapper {eager_ms:.4f} (its host work)", flush=True)
+    del lib_params, sgd
+    # every mode
+    factors = [((0.5,) if ".bn" in n or "downsample.1" in n else ())
+               + ((2.0,) if n.startswith("fc.") else ()) for n, _ in named]
+    wds = [1e-4 if n.endswith("weight") and p.dim() == 4 else None
+           for n, p in named]
+    modes = 0
+    for pdt, gdt in ((torch.bfloat16, torch.bfloat16),
+                     (torch.float16, torch.float16),
+                     (torch.float32, torch.float32),
+                     (torch.bfloat16, torch.float32),
+                     (torch.float16, torch.float32)):
+        ps = [p.to(pdt) for p in params]
+        gs = [g.to(gdt) for g in grads]
+        for nesterov in (False, True):
+            for found in (None, False, True):
+                flag = (None if found is None
+                        else torch.tensor(found, device=dev))
+                runs = [([p.clone() for p in ps], [v.clone() for v in vels])
+                        for _ in range(2)]
+                mkw = dict(momentum=RESNET_MOMENTUM, nesterov=nesterov,
+                           weight_decay=wds, lr_factors=factors,
+                           found_inf=flag)
+                momentum.launches = 0
+                momentum.momentum_update(runs[0][0], gs, runs[0][1], lr,
+                                         **mkw)
+                n_launch = momentum.launches
+                momentum.momentum_reference(runs[1][0], gs, runs[1][1], lr,
+                                            **mkw)
+                torch.cuda.synchronize()
+                eq = sum(torch.equal(a, b) for a, b in
+                         zip(runs[0][0] + runs[0][1],
+                             runs[1][0] + runs[1][1]))
+                kept = (all(torch.equal(a, b) for a, b in
+                            zip(runs[0][0], ps)) if found else None)
+                check(eq == 2 * len(ps) and n_launch == per
+                      and kept in (None, True),
+                      f"Momentum mode p {pdt} g {gdt} nesterov {nesterov} "
+                      f"found_inf {found}: {eq}/{2 * len(ps)} equal, "
+                      f"{n_launch} launches, unchanged {kept}")
+                modes += 1
+                del runs
+        del ps, gs
+        torch.cuda.empty_cache()
+    print(f"{modes} modes (p bf16/fp16/f32 with g of their dtype or f32; "
+          f"Nesterov or not; found_inf none/unset/set), L2 on the conv "
+          f"weights, LR factors on the BatchNorms and fc: every tensor "
+          f"bitwise equal, {per} launches each", flush=True)
+    del model, params, grads, vels
+    release_memory(torch)
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib_ms,
+            "library": lib_name, "eager_call_ms": eager_ms,
+            "shape": f"resnet50, {len(named)} bf16 tensors, {numel} "
+                     f"elements"}
+
+
+def resnet_eval_logits(torch, resnet, trained) -> float:
+    """(c) The trained resnet50 in eval mode (running stats from (a)): f32
+    logits on the card against the same weights on the CPU, within
+    ``RESNET_EVAL_TOL`` of the largest logit."""
+    state = {k: v.detach().float().cpu()
+             for k, v in trained.state_dict().items()}
+    x = torch.from_numpy(np.random.RandomState(18).randn(
+        RESNET_EVAL_BATCH, 3, RESNET_SIZE, RESNET_SIZE).astype(np.float32))
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = resnet.resnet50(num_classes=RESNET_CLASSES, device=dev)
+        model.load_state_dict(state)
+        model.eval()
+        with torch.no_grad():
+            out.append(model(x.to(dev)).float().cpu())
+        del model
+    card, cpu = out
+    scale = float(cpu.abs().max())
+    err = float((card - cpu).abs().max())
+    print(f"-- (c) trained resnet50, eval mode, f32, {RESNET_EVAL_BATCH} "
+          f"images: logits card vs CPU max abs err {err:.3g} (largest "
+          f"logit {scale:.4g}, tol {RESNET_EVAL_TOL} of it); argmax equal "
+          f"{torch.equal(card.argmax(-1), cpu.argmax(-1))}", flush=True)
+    check(math.isfinite(scale) and err <= RESNET_EVAL_TOL * max(scale, 1.0),
+          f"ResNet eval logits card vs CPU: {err} (largest {scale})")
+    release_memory(torch)
+    return err
+
+
+def phase_resnet(torch, resnet) -> dict:
+    """Phase 18: ResNet-50 training, (a) the bench arm graphed, (b) the
+    Momentum kernel, (c) eval logits card vs CPU."""
+    print("== ResNet train: bench_resnet's arm graphed, the Momentum kernel, "
+          "eval logits card vs CPU", flush=True)
+    arm, model = resnet_bench_arm(torch, resnet)
+    record = resnet_momentum_kernel(torch, resnet)
+    record["eval_logits_err"] = resnet_eval_logits(torch, resnet, model)
+    del model
+    release_memory(torch)
+    return {"arm": arm, "momentum": record}
+
+
 def main() -> int:
     try:
         import torch
@@ -4605,6 +5122,7 @@ def main() -> int:
     try:
         from paddle_tpu_torch.models import bert, gpt, llama
         from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
+        from paddle_tpu_torch.vision.models import resnet
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -4637,6 +5155,7 @@ def main() -> int:
         phase_adamw_modes(torch, gpt)
         trainer = phase_trainer(torch, gpt, trained["launches_per_step"])
         bert_run = phase_bert(torch, bert)
+        resnet_run = phase_resnet(torch, resnet)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -4751,6 +5270,16 @@ def main() -> int:
         "pallas_counterpart": False,
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **adamw_record})
+    # no Pallas counterpart: the jnp Momentum update that XLA fuses
+    by_path = {"train_resnet": resnet_run["arm"]["momentum"],
+               "trainer_optimizers": trainer["optimizers"]["momentum"]}
+    kernels.append({
+        "name": "momentum", "route": "cuda",
+        "source": source + "momentum.cu",
+        "replaces": "paddle_tpu/optimizer/optimizers.py:23",
+        "pallas_counterpart": False,
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **resnet_run["momentum"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

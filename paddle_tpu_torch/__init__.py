@@ -16,10 +16,12 @@ kernel; the batch serving tier: ``jit.save``/``jit.load`` over
 (batch, seq) rung, and ``serving.ServingEngine``; the training-step API:
 ``optimizer.lr`` schedulers, parameter groups, ``nn.ClipGradBy*``, the ten
 optimizers, ``amp`` O1/O2 in bf16 or fp16 with ``amp.GradScaler``, and
-``nn.CrossEntropyLoss``.
+``nn.CrossEntropyLoss``; BERT/ERNIE fine-tuning with shape bucketing; and
+ResNet training (``vision.models``, convolution, BatchNorm and pooling
+layers) with a multi-tensor Momentum kernel.
 """
-from . import framework, inference, jit, serving, static
+from . import framework, inference, jit, serving, static, vision
 from .device import DEFAULT_DEVICE, resolve_device
 
 __all__ = ["DEFAULT_DEVICE", "framework", "inference", "jit",
-           "resolve_device", "serving", "static"]
+           "resolve_device", "serving", "static", "vision"]

@@ -59,7 +59,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..observability.locks import named_lock
-from ..ops.cuda import adamw, flash_attention, flashmask, rms_norm
+from ..ops.cuda import adamw, flash_attention, flashmask, momentum, rms_norm
 
 __all__ = ["CompiledFunction", "ProgramSet", "launch_counters"]
 
@@ -71,7 +71,7 @@ _COUNTERS = ((flash_attention, "launches"), (flash_attention, "dq_launches"),
              (flash_attention, "tma_copies"), (rms_norm, "launches"),
              (rms_norm, "bwd_launches"), (flashmask, "fwd_launches"),
              (flashmask, "dq_launches"), (flashmask, "dkv_launches"),
-             (adamw, "launches"))
+             (adamw, "launches"), (momentum, "launches"))
 
 
 def launch_counters() -> Dict[tuple, int]:

@@ -21,7 +21,7 @@ inverse). ERNIE is a preset of the same trunk.
 
 Under AMP the sums, the GELU, the tanh and the mask's arithmetic are gray
 ops, as in the JAX package: O2 computes them in the AMP dtype, so a
-LayerNorm's f32 output meets the bf16 branch in bf16 (``_add``).
+LayerNorm's f32 output meets the bf16 branch in bf16 (``ops.math.add``).
 
 Randomness is explicit, as in ``models/gpt.py``: weights are normal with
 std ``initializer_range`` from a ``torch.Generator`` on the CPU (biases
@@ -30,7 +30,6 @@ its device, seeded by ``dropout_seed``. ``tensor_parallel=True`` raises.
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -41,8 +40,9 @@ from ..amp.auto_cast import cast_inputs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
-from .gpt import (jax_state_dict, load_jax_state, name_parameters,
-                  port_state_from_jax)
+from ..nn.layer.layers import building
+from ..ops.math import add
+from .gpt import jax_state_dict, load_jax_state, port_state_from_jax
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
            "BertPooler", "BertModel", "BertForSequenceClassification",
@@ -73,12 +73,6 @@ class BertConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-def _add(a, b):
-    """``a + b`` as the JAX ``add`` computes it: a gray op under AMP."""
-    a, b = cast_inputs("add", a, b)
-    return a + b
-
-
 class BertEmbeddings(nn.Module):
     def __init__(self, config: BertConfig,
                  generator: Optional[torch.Generator] = None):
@@ -99,7 +93,7 @@ class BertEmbeddings(nn.Module):
             position_ids = torch.arange(s, device=dev).expand(b, s)
         if token_type_ids is None:
             token_type_ids = torch.zeros(b, s, dtype=torch.int64, device=dev)
-        x = _add(_add(self.word_embeddings(input_ids),
+        x = add(add(self.word_embeddings(input_ids),
                       self.position_embeddings(position_ids)),
                  self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(x))
@@ -148,9 +142,9 @@ class BertLayer(nn.Module):
 
     def forward(self, x, attention_mask=None):
         h = self.attention(x, attention_mask)
-        x = self.attn_norm(_add(x, self.dropout(h)))
+        x = self.attn_norm(add(x, self.dropout(h)))
         h = self.fc2(F.gelu(self.fc1(x)))
-        return self.ffn_norm(_add(x, self.dropout(h)))
+        return self.ffn_norm(add(x, self.dropout(h)))
 
 
 class BertPooler(nn.Module):
@@ -170,24 +164,13 @@ def _model_device(config: BertConfig, device) -> torch.device:
     return resolve_device(device)
 
 
-@contextlib.contextmanager
 def _building(model: nn.Module, config: BertConfig, device: torch.device,
               generator: Optional[torch.Generator]):
-    """Build ``model``'s submodules without storage; on leaving, the
-    outermost model under construction takes CPU storage, draws its weights
-    from ``generator`` (default: one seeded 0), moves to ``device`` and
-    names its parameters. A model built inside another's build leaves all
-    of that to the outer one."""
-    if torch.empty(0).device.type == "meta":
-        yield
-        return
-    with torch.device("meta"):
-        yield
-    model.to_empty(device="cpu")
-    _init_weights(model, config, generator if generator is not None
-                  else torch.Generator().manual_seed(0))
-    model.to(device)
-    name_parameters(model)
+    """``nn.layer.layers.building`` with BERT's initializers: the
+    outermost model under construction draws its weights from
+    ``generator``, moves to ``device`` and names its parameters."""
+    return building(model, device, generator,
+                    lambda m, gen: _init_weights(m, config, gen))
 
 
 @torch.no_grad()
@@ -293,7 +276,7 @@ class BertForPretraining(nn.Module):
         h = self.transform_norm(F.gelu(self.transform(seq)))
         # the word embeddings [V, H] are the tied decoder's [out, in] weight
         logits = F.linear(h, self.bert.embeddings.word_embeddings.weight)
-        return _add(logits, self.decoder_bias), self.nsp(pooled)
+        return add(logits, self.decoder_bias), self.nsp(pooled)
 
 
 # ---------------------------------------------------------------- presets

@@ -33,6 +33,7 @@ from torch import nn
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import LayerNorm, Linear
+from ..nn.layer.layers import name_parameters
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
@@ -252,18 +253,19 @@ class GPTPretrainingCriterion(nn.Module):
                                reduction="mean")
 
 
-def name_parameters(model: nn.Module) -> None:
-    """Give each parameter a ``param_name``, its qualified state-dict key,
-    which AdamW passes to ``apply_decay_param_fun`` where the JAX package
-    passes ``p.name`` (a process-wide counter there, which cannot be
-    matched; torch reserves ``Tensor.name``)."""
-    for name, p in model.named_parameters():
-        p.param_name = name
-
-
 def _linear_weights(model: nn.Module) -> set:
     return {f"{name}.weight" for name, mod in model.named_modules()
             if isinstance(mod, nn.Linear)}
+
+
+def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
+    """What the JAX ``state_dict()`` holds: every parameter and every
+    persistent buffer (BatchNorm's ``_mean`` and ``_variance``), by
+    name."""
+    out = dict(model.named_parameters())
+    keys = model.state_dict().keys()
+    out.update((n, b) for n, b in model.named_buffers() if n in keys)
+    return out
 
 
 def port_state_from_jax(model: nn.Module,
@@ -271,11 +273,11 @@ def port_state_from_jax(model: nn.Module,
     """``state`` (the JAX model's ``state_dict()`` under the JAX names, as
     numpy arrays or tensors) in the port's layout for ``model``: each JAX
     ``Linear`` weight ``[in, out]`` transposed into torch's ``[out, in]``
-    (a view), every other tensor as it is. Every parameter must be given,
-    and nothing else, each at the parameter's shape; ``model`` is not
-    touched."""
+    (a view), every other tensor as it is. Every parameter and persistent
+    buffer must be given, and nothing else, each at its shape; ``model`` is
+    not touched."""
     linear = _linear_weights(model)
-    params = dict(model.named_parameters())
+    params = _state_tensors(model)
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
     if missing or unexpected:
@@ -299,27 +301,30 @@ def port_state_from_jax(model: nn.Module,
 @torch.no_grad()
 def load_jax_state(model: nn.Module,
                    state: Mapping[str, object]) -> nn.Module:
-    """Fill ``model`` (the port's GPT or Llama) from the JAX model's
-    ``state_dict()`` given under the JAX names, which the port's parameter
-    names match name for name. With :func:`jax_state_dict`, the one place
-    that knows both layouts: a JAX ``Linear`` weight is ``[in, out]`` and
-    is transposed into torch's ``[out, in]``; every other tensor copies as
-    it is. Every parameter must be given, and nothing else."""
-    params = dict(model.named_parameters())
+    """Fill ``model`` (the port's GPT, Llama, BERT or ResNet) from the JAX
+    model's ``state_dict()`` given under the JAX names, which the port's
+    parameter and buffer names match name for name. With
+    :func:`jax_state_dict`, the one place that knows both layouts: a JAX
+    ``Linear`` weight is ``[in, out]`` and is transposed into torch's
+    ``[out, in]``; every other tensor copies as it is, into the port
+    tensor's dtype. Every parameter and persistent buffer must be given,
+    and nothing else."""
+    params = _state_tensors(model)
     for name, value in port_state_from_jax(model, state).items():
         params[name].copy_(value)
     return model
 
 
 def jax_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
-    """The inverse of :func:`load_jax_state`: ``model``'s parameters under
-    the JAX names in the JAX layout, each ``Linear`` weight as ``[in,
-    out]``. The tensors are views of the model's storage (no copy); a
-    checkpoint written from them (``save_sharded``) is in the reference's
-    layout, whichever package wrote it."""
+    """The inverse of :func:`load_jax_state`: ``model``'s parameters and
+    persistent buffers under the JAX names in the JAX layout, each
+    ``Linear`` weight as ``[in, out]``. The tensors are views of the
+    model's storage (no copy); a checkpoint written from them
+    (``save_sharded``) is in the reference's layout, whichever package
+    wrote it."""
     linear = _linear_weights(model)
     return {name: p.detach().t() if name in linear else p.detach()
-            for name, p in model.named_parameters()}
+            for name, p in _state_tensors(model).items()}
 
 
 # ---------------------------------------------------------------- presets

@@ -1,5 +1,5 @@
 """Normalization functionals (port of ``paddle_tpu/nn/functional/norm.py``,
-``layer_norm`` and ``rms_norm``)."""
+``layer_norm``, ``rms_norm`` and ``batch_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,7 @@ import torch.nn.functional as TF
 from ...amp.auto_cast import cast_inputs
 from ...ops.cuda.rms_norm import rms_norm_value
 
-__all__ = ["layer_norm", "rms_norm"]
+__all__ = ["batch_norm", "layer_norm", "rms_norm"]
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
@@ -34,3 +34,69 @@ def rms_norm(x, weight=None, epsilon: float = 1e-6):
         return x * torch.rsqrt(ms + epsilon)
     x, weight = cast_inputs("pallas_rms_norm", x, weight)
     return rms_norm_value(x, weight, epsilon, device=x.device)
+
+
+def batch_norm(x, running_mean, running_var, weight=None, bias=None,
+               training: bool = False, momentum: float = 0.9,
+               epsilon: float = 1e-5, data_format: str = "NCHW",
+               use_global_stats=None):
+    """BatchNorm over every axis but the channel's (axis 1 for an ``NC*``
+    layout, else the last).
+
+    - With batch statistics (``training``, unless ``use_global_stats``
+      says otherwise): ``(x − mean)·rsqrt(var + eps)·w + b`` with the
+      batch's biased variance (op ``batch_norm``), and the running stats
+      move as the JAX function moves them, ``m·running + (1 − m)·batch``
+      with the unbiased variance ``var·n/(n − 1)`` (``m`` is the kept
+      share: torch's ``momentum`` is ``1 − m``).
+    - With the running stats: the same formula over them (op
+      ``batch_norm_infer``), and nothing moves.
+
+    Both ops are black under AMP: f32 in, f32 out. The running stats are
+    written in place (``copy_``), so a CUDA graph that captured them keeps
+    accumulating into the same storage. One exception, as in the JAX
+    package: when the update's dtype differs from the buffer's (``decorate``
+    cast the buffers to bf16 at O2 and the batch stats are f32), the buffer
+    takes the f32 value once (``.data``, the same tensor object); that
+    raises while a CUDA stream is capturing, where the graph would hold a
+    tensor the module never sees."""
+    ch_axis = 1 if data_format.startswith("NC") and x.ndim > 1 else x.ndim - 1
+    use_stats = (not training) if use_global_stats is None \
+        else use_global_stats
+    if use_stats:
+        x, running_mean, running_var, weight, bias = cast_inputs(
+            "batch_norm_infer", x, running_mean, running_var, weight, bias)
+    else:
+        x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
+    if ch_axis != 1:
+        x = x.movedim(ch_axis, 1)
+    out = torch.native_batch_norm(
+        x, weight, bias, running_mean if use_stats else None,
+        running_var if use_stats else None, not use_stats, 0.0, epsilon)[0]
+    if not use_stats and running_mean is not None:
+        axes = [i for i in range(x.ndim) if i != 1]
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=axes, correction=0)
+            n = x.numel() // x.shape[1]
+            unbiased = var * (n / max(n - 1, 1))
+            _store_stat(running_mean, momentum * running_mean
+                        + (1 - momentum) * mean)
+            _store_stat(running_var, momentum * running_var
+                        + (1 - momentum) * unbiased)
+    return out.movedim(1, ch_axis) if ch_axis != 1 else out
+
+
+def _store_stat(buffer: torch.Tensor, value: torch.Tensor) -> None:
+    """``buffer ← value``: in place when the dtypes agree, else (the first
+    O2 step's bf16 → f32) by taking the value's storage, which must not
+    happen under CUDA graph capture."""
+    if buffer.dtype == value.dtype:
+        buffer.copy_(value)
+        return
+    if buffer.is_cuda and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"batch_norm would rebind a {buffer.dtype} running stat to "
+            f"{value.dtype} inside a CUDA graph capture; the graph would "
+            f"write a tensor the module never reads. Run one eager step "
+            f"first (TrainStep's first call is eager)")
+    buffer.data = value

@@ -1,11 +1,12 @@
-"""``Linear``, ``Embedding``, ``LayerNorm``, ``Dropout`` and ``RMSNorm``.
-``Linear``, ``Embedding`` and ``LayerNorm`` are torch's modules (same
-parameters, names and ``[out, in]`` weight layout) whose forward runs the
-port's functionals, so they follow the AMP state and the JAX rules as the
-JAX layers do; ``Dropout`` and ``RMSNorm`` are the JAX layers'
-counterparts."""
+"""``Linear``, ``Embedding``, ``LayerNorm``, ``Dropout``, ``RMSNorm`` and
+``Flatten``. ``Linear``, ``Embedding`` and ``LayerNorm`` are torch's
+modules (same parameters, names and ``[out, in]`` weight layout) whose
+forward runs the port's functionals, so they follow the AMP state and the
+JAX rules as the JAX layers do; ``Dropout``, ``RMSNorm`` and ``Flatten``
+are the JAX layers' counterparts."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -13,12 +14,22 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["Dropout", "Embedding", "Linear", "LayerNorm", "RMSNorm"]
+__all__ = ["Dropout", "Embedding", "Flatten", "Linear", "LayerNorm",
+           "RMSNorm"]
 
 
 class Linear(nn.Linear):
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+    def _init_parameters(self, gen: torch.Generator) -> None:
+        """The JAX ``Linear``'s defaults (``nn.layer.layers.
+        init_parameters``): ``XavierNormal`` weight, std ``sqrt(2 / (in +
+        out))``, and a zero bias."""
+        std = math.sqrt(2.0 / (self.in_features + self.out_features))
+        self.weight.normal_(0.0, std, generator=gen)
+        if self.bias is not None:
+            self.bias.zero_()
 
 
 class Embedding(nn.Embedding):
@@ -76,3 +87,15 @@ class RMSNorm(nn.Module):
 
     def extra_repr(self) -> str:
         return f"normalized_shape={self.normalized_shape}, epsilon={self.epsilon}"
+
+
+class Flatten(nn.Module):
+    """``x`` with its axes ``start_axis`` to ``stop_axis`` merged into one
+    (``paddle_tpu/nn/layer/common.py:102``)."""
+
+    def __init__(self, start_axis: int = 1, stop_axis: int = -1):
+        super().__init__()
+        self.start_axis, self.stop_axis = start_axis, stop_axis
+
+    def forward(self, x):
+        return torch.flatten(x, self.start_axis, self.stop_axis)

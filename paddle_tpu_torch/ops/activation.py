@@ -1,7 +1,8 @@
 """Activations (port of ``paddle_tpu/ops/activation.py``, the subset the
-Llama and BERT paths reach). ``gelu`` and ``tanh`` are gray under AMP, as
-in the JAX package: O1 leaves their inputs' dtype, O2 computes them in the
-AMP dtype."""
+Llama, BERT and ResNet paths reach). ``gelu``, ``tanh`` and ``relu`` are
+gray under AMP, as in the JAX package: O1 leaves their inputs' dtype, O2
+computes them in the AMP dtype (so a BatchNorm's f32 output enters
+``relu`` in bf16)."""
 from __future__ import annotations
 
 import torch
@@ -9,7 +10,7 @@ import torch.nn.functional as TF
 
 from ..amp.auto_cast import cast_inputs
 
-__all__ = ["gelu", "swiglu", "tanh"]
+__all__ = ["gelu", "relu", "swiglu", "tanh"]
 
 
 def gelu(x, approximate: bool = False):
@@ -18,6 +19,12 @@ def gelu(x, approximate: bool = False):
     does."""
     (x,) = cast_inputs("gelu", x)
     return TF.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def relu(x):
+    """``max(x, 0)``; its gradient is 0 at 0, as ``jax.nn.relu``'s."""
+    (x,) = cast_inputs("relu", x)
+    return TF.relu(x)
 
 
 def tanh(x):

@@ -44,7 +44,8 @@ from ...device import DEFAULT_DEVICE, resolve_device
 from . import _build
 
 __all__ = ["adamw_update", "adamw_reference", "build", "launches",
-           "MAX_TENSORS"]
+           "MAX_TENSORS", "check_update", "fill_blocks", "slot_table",
+           "tensor_lr"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: tensors one launch takes (``kMaxTensors`` in ``csrc/adamw.cu``)
@@ -202,28 +203,39 @@ def build() -> None:
     _kernel()
 
 
-def _check(params, grads, exp_avgs, exp_avg_sqs, vmaxes, lr, step,
-           found_inf, device):
-    """The device the update runs on, after checking the lists and the
-    scalars."""
-    if not (len(params) == len(grads) == len(exp_avgs) == len(exp_avg_sqs)):
-        raise ValueError("params, grads and both moment lists must have one "
-                         "entry per parameter")
-    if vmaxes is not None and len(vmaxes) != len(params):
-        raise ValueError("max_exp_avg_sqs must have one entry per parameter")
+def slot_table(values) -> torch.Tensor:
+    """Device scalars stacked into the table a kernel indexes by slot (one
+    entry needs no stack); raises past the kernels' 256 slots."""
+    if len(values) > 256:
+        raise ValueError(f"{len(values)} distinct LR factors and decay "
+                         f"coefficients; the kernel's table holds 256")
+    return torch.stack(values) if len(values) > 1 else values[0].reshape(1)
+
+
+def check_update(lists, device, **scalars) -> torch.device:
+    """The device a multi-tensor update runs on, after checking it: every
+    list of ``lists`` (``{name: list}``, the parameters first; a None list
+    is absent) has one entry a parameter at its shape and on its device,
+    of ``device`` 's type, and each named device scalar (None: absent) lies
+    with the parameters; ``found_inf`` is a one-element bool tensor."""
+    named = {k: v for k, v in lists.items() if v is not None}
+    params = next(iter(named.values()))
+    for name, ts in named.items():
+        if len(ts) != len(params):
+            raise ValueError(f"{name} must have one entry per parameter")
     dev = resolve_device(device)
     if params:
         where = params[0].device
-        for name, t in (("LR", lr), ("step", step), ("found_inf", found_inf)):
+        for name, t in scalars.items():
             if t is not None and t.device != where:
                 raise ValueError(f"the {name} scalar ({t.device}) must lie "
                                  f"with the parameters ({where})")
+    found_inf = scalars.get("found_inf")
     if found_inf is not None and (found_inf.dtype != torch.bool
                                   or found_inf.numel() != 1):
         raise ValueError("found_inf must be a one-element bool tensor")
-    for i, (p, g, m, v) in enumerate(zip(params, grads, exp_avgs,
-                                         exp_avg_sqs)):
-        group = (p, g, m, v) + ((vmaxes[i],) if vmaxes is not None else ())
+    for i, p in enumerate(params):
+        group = [ts[i] for ts in named.values()]
         if any(t.shape != p.shape for t in group):
             raise ValueError(f"shapes differ: p {tuple(p.shape)}, others "
                              f"{[tuple(t.shape) for t in group[1:]]}")
@@ -232,6 +244,19 @@ def _check(params, grads, exp_avgs, exp_avg_sqs, vmaxes, lr, step,
             raise ValueError(f"a parameter lies on {p.device}, the update "
                              f"was asked for {dev}")
     return dev
+
+
+def fill_blocks(tl, numels) -> None:
+    """The block layout of a launch's tensor list: tensor j owns blocks
+    ``[block_start[j], block_start[j + 1])``, one per ``_BLOCK_ELEMS``
+    elements up to ``_MAX_BLOCKS`` (they grid-stride over the rest)."""
+    blocks = 0
+    for j, n in enumerate(numels):
+        tl.n[j] = n
+        tl.block_start[j] = blocks
+        blocks += min(math.ceil(n / _BLOCK_ELEMS), _MAX_BLOCKS)
+    tl.block_start[len(numels)] = blocks
+    tl.count = len(numels)
 
 
 def adamw_update(params: Sequence[torch.Tensor],
@@ -248,8 +273,10 @@ def adamw_update(params: Sequence[torch.Tensor],
     there. On CUDA the kernel launches (once per :data:`MAX_TENSORS`
     tensors of one parameter and gradient dtype) or this raises; on the
     CPU the plain version runs."""
-    dev = _check(params, grads, exp_avgs, exp_avg_sqs, max_exp_avg_sqs, lr,
-                 step, found_inf, device)
+    dev = check_update({"params": params, "grads": grads,
+                        "exp_avgs": exp_avgs, "exp_avg_sqs": exp_avg_sqs,
+                        "max_exp_avg_sqs": max_exp_avg_sqs}, device, LR=lr,
+                       step=step, found_inf=found_inf)
     kw = dict(beta1=beta1, beta2=beta2, eps=eps, coeff=coeff,
               weight_decay=weight_decay, lr_factors=lr_factors,
               max_exp_avg_sqs=max_exp_avg_sqs, found_inf=found_inf)
@@ -282,19 +309,12 @@ def adamw_update(params: Sequence[torch.Tensor],
                 (p, g, m, v, vm, slot, coeffs[i], wds[i]))
     if not groups:
         return
-    if len(slots) > 256:
-        raise ValueError(f"{len(slots)} distinct LR factors and decay "
-                         f"coefficients; the kernel's table holds 256")
     # the tables: each slot's LR and 1 - lr_t * coeff_t, by the plain
-    # version's ops (one entry needs no stack)
-    lrs, decays = [], []
-    for fs, c in slots:
-        lr_t = tensor_lr(lr, fs)
-        lrs.append(lr_t)
-        decays.append((1 - lr_t * c) if c else lr_t)
-    lr_tab = torch.stack(lrs) if len(lrs) > 1 else lrs[0].reshape(1)
-    decay_tab = torch.stack(decays) if len(decays) > 1 \
-        else decays[0].reshape(1)
+    # version's ops
+    lrs = [tensor_lr(lr, fs) for fs, _ in slots]
+    lr_tab = slot_table(lrs)
+    decay_tab = slot_table([(1 - lr_t * c) if c else lr_t
+                            for lr_t, (_, c) in zip(lrs, slots)])
     bc1, bc2 = _bias_corrections(step, beta1, beta2)
     scalars = _Scalars(
         lr_tab.data_ptr(), decay_tab.data_ptr(), bc1.data_ptr(),
@@ -313,23 +333,17 @@ def adamw_update(params: Sequence[torch.Tensor],
 def _launch(fn, entries, scalars, dtype_code, gdtype_code, stream):
     global launches
     tl = _TensorList()
-    blocks = 0
     for j, (p, g, m, v, vm, slot, c, wd) in enumerate(entries):
-        n = p.numel()
         tl.p[j], tl.g[j] = p.data_ptr(), g.data_ptr()
         tl.m[j], tl.v[j] = m.data_ptr(), v.data_ptr()
         tl.vmax[j] = vm.data_ptr() if vm is not None else None
-        tl.n[j] = n
         tl.slot[j] = slot
         if c:
             tl.decay_mask |= 1 << j
         if wd is not None:
             tl.l2_mask |= 1 << j
             tl.wd[j] = float(wd)
-        tl.block_start[j] = blocks
-        blocks += min(math.ceil(n / _BLOCK_ELEMS), _MAX_BLOCKS)
-    tl.block_start[len(entries)] = blocks
-    tl.count = len(entries)
+    fill_blocks(tl, [e[0].numel() for e in entries])
     err = fn(ctypes.byref(tl), ctypes.byref(scalars), dtype_code,
              gdtype_code, stream)
     if err != 0:

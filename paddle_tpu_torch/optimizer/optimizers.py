@@ -13,11 +13,12 @@ jnp rounds the scalar to that dtype first, torch computes with it in
 f32, so such products may differ by an ulp of that dtype.
 
 Adam and AdamW update every parameter at once through
-``ops/cuda/adamw.py``: the multi-tensor kernel for CUDA parameters, its
-plain per-tensor version for CPU ones, with each tensor's LR, decoupled
-decay and L2 coefficient, ``amsgrad``, and the GradScaler's overflow skip
-read on the device. The other optimizers are torch ops per parameter (the
-JAX versions are jnp, which XLA fuses; none is a Pallas kernel).
+``ops/cuda/adamw.py``, and Momentum through ``ops/cuda/momentum.py``: the
+multi-tensor kernel for CUDA parameters, its plain per-tensor version for
+CPU ones, with each tensor's LR and L2 coefficient (AdamW's decoupled decay
+and ``amsgrad``), and the GradScaler's overflow skip read on the device.
+The other optimizers are torch ops per parameter (the JAX versions are
+jnp, which XLA fuses; none is a Pallas kernel).
 ``LBFGS.step(closure)`` runs eagerly and reads values to the host, as the
 JAX one does; ``TrainStep`` cannot drive it in either package.
 
@@ -34,6 +35,7 @@ import torch
 
 from ..device import DEFAULT_DEVICE
 from ..ops.cuda import adamw
+from ..ops.cuda.momentum import momentum_update
 from .optimizer import Optimizer
 
 __all__ = ["SGD", "Momentum", "Adam", "AdamW", "Adagrad", "RMSProp",
@@ -59,6 +61,7 @@ class SGD(Optimizer):
 
 class Momentum(Optimizer):
     _accum_names = ["velocity"]
+    _skips_in_update = True
 
     def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
                  use_nesterov=False, weight_decay=None, grad_clip=None,
@@ -68,13 +71,18 @@ class Momentum(Optimizer):
         self._momentum = momentum
         self._nesterov = use_nesterov
 
-    def _apply_one(self, i, p, g, lr, weight_decay):
-        gv = self._decayed_grad(p, g, weight_decay)
-        vel = self._get_accumulator("velocity", i, p)
-        v_new = self._momentum * vel + gv
-        vel.copy_(v_new)
-        update = gv + self._momentum * v_new if self._nesterov else v_new
-        _store(p, p.float() - lr * update)
+    def _update(self, entries, lr):
+        params, grads, vels, factors, wds = ([] for _ in range(5))
+        for i, p, g, group in entries:
+            params.append(p)
+            grads.append(g)
+            vels.append(self._get_accumulator("velocity", i, p))
+            factors.append(self._lr_factors(p, group))
+            wds.append(self._l2_coeff(p, self._group_weight_decay(group)))
+        momentum_update(
+            params, grads, vels, lr, momentum=self._momentum,
+            nesterov=self._nesterov, weight_decay=wds, lr_factors=factors,
+            found_inf=self._skip_if, device=self._device)
 
 
 class Adam(Optimizer):

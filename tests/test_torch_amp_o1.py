@@ -49,7 +49,9 @@ PORT_OPS = ("linear", "layer_norm", "pallas_rms_norm", "rms_norm",
             "sdpa_flash", "flash_attn_unpadded", "flashmask_attention",
             "calc_reduced_attn_scores", "fused_softmax_mask",
             "fused_softmax_mask_upper_triangle", "embedding", "gelu", "tanh",
-            "sdpa_xla", "flash_attention_xla", "add", "subtract")
+            "sdpa_xla", "flash_attention_xla", "add", "subtract", "relu",
+            "conv1d", "conv2d", "conv3d", "max_pool2d", "avg_pool2d",
+            "adaptive_avg_pool2d", "batch_norm", "batch_norm_infer")
 
 
 @pytest.mark.parametrize("op", PORT_OPS)
