@@ -266,10 +266,34 @@ Phases, each of which fails the run on any error:
     (``torch.cuda.set_sync_debug_mode("error")``), no K1-K3 launch (the
     masked route), each rung's replay p50; then each batch's loss padded
     against its true length (f32, eager, ``bert_tiny``'s width at 12
-    layers) within ``LOSS_PAD_TOL``.
+    layers) within ``LOSS_PAD_TOL``;
+18. ResNet train — (a) ``bench_resnet``'s accelerator arm uncut (resnet50,
+    1000 classes, bf16 O2, ``Momentum(0.1, 0.9)``, one 32 x 3 x 224²
+    batch): two eager runs compared bit for bit (else the graph = eager
+    check under ``cudnn.deterministic``), the graphed ``TrainStep`` held
+    to them (losses, parameters, running stats), step p50, images/s, a
+    profile by kernel class; (b) the Momentum kernel bit for bit its plain
+    version in every mode, timed beside its bound, the plain chain and
+    fused SGD; (c) eval logits card vs CPU;
+19. PP-LiteSeg train — (a) ``bench_liteseg``'s accelerator arm uncut
+    (``pp_liteseg(num_classes=19, base=32)``, bf16 O2, ``Momentum(0.01,
+    0.9)``, one 16 x 3 x 512² batch and labels in [0, 19) drawn as
+    ``bench.py`` draws them, the per-pixel loss over 4,194,304 rows
+    outside ``auto_cast``) held as phase 18 (a) holds ResNet; step p50,
+    images/s, launches, idle share and a profile of 2 replayed steps by
+    class (convolutions, depthwise ones apart, BatchNorm, element-wise,
+    layout transposes, the resize contractions, the cross entropy and its
+    transpose copy, Momentum; each kernel name classed by the op that
+    launched it in an eager step); (b) ``interpolate`` forward and
+    backward at the arm's resizes, a shrinking and a bicubic one, f32 and
+    bf16, against float64 of the same contractions, two backward passes
+    bit for bit; (c) eval logits card vs CPU; (d) PP-YOLOE (forward,
+    decode, postprocess, loss and backward) and every ``small.py`` model's
+    logits card vs CPU, checked, not timed.
 
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
-(14), trainer (16) and BERT (17 (a), (c)) phases are the main paths: the launch counts are set to 0 just before each
+(14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)) and PP-LiteSeg
+(19 (a)) phases are the main paths: the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
 0). The serving and training paths run as CUDA-graph replays, and the
@@ -4682,10 +4706,11 @@ def same_bits(torch, a, b) -> bool:
                        b.contiguous().view(ints[b.element_size()]))
 
 
-def resnet_eager(torch, resnet, batch, steps) -> tuple:
-    """``steps`` eager steps by hand on a fresh twin: the losses (float32
-    tensors) and every parameter and buffer after them."""
-    model, opt, loss_fn = resnet_twin(torch, resnet)
+def eager_train(torch, make, batch, steps) -> tuple:
+    """``steps`` eager steps by hand on a fresh twin ``make()`` returns
+    (model, optimizer, loss_fn): the losses (float32 tensors) and every
+    parameter and buffer after them."""
+    model, opt, loss_fn = make()
     losses = []
     for _ in range(steps):
         loss = loss_fn(*batch)
@@ -4700,7 +4725,7 @@ def resnet_eager(torch, resnet, batch, steps) -> tuple:
     return out
 
 
-def resnet_equal(torch, a, b) -> tuple:
+def train_equal(torch, a, b) -> tuple:
     """(losses bit for bit, tensors bit for bit, tensor count) of two
     runs."""
     (la, sa), (lb, sb) = a, b
@@ -4710,12 +4735,113 @@ def resnet_equal(torch, a, b) -> tuple:
     return losses, same, len(sa)
 
 
-def profile_resnet(torch, step, batch, step_ms, steps=2) -> dict:
+def first_running_mean(model):
+    """The first BatchNorm's running mean."""
+    return next(b for n, b in model.named_buffers() if n.endswith("._mean"))
+
+
+def graphed_arm(torch, make, batch, steps, what) -> dict:
+    """A bench arm's training path on the card: two eager runs of
+    ``steps`` steps on twins from ``make()`` compared bit for bit; if they
+    differ (cuDNN's default algorithms not deterministic here), a graphed
+    run under ``cudnn.deterministic`` held bit for bit to an eager run
+    under it. Then the timed graphed run (``run_timed_steps``) on a fresh
+    twin, held bit for bit to the first eager run (losses, parameters and
+    running stats), or, where the eager runs differed, its losses within
+    ``RESNET_NONDET_TOL`` of the eager ones. Checks the launches (the
+    Momentum kernel's ceil(tensors / 64) a step, no other kernel of the
+    port) and that the running stats keep their storage and move in a
+    replay. Returns the graphed run's record, its model, ``TrainStep``,
+    optimizer and loss_fn."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import momentum
+
+    reference = eager_train(torch, make, batch, steps)
+    losses_eq, same, n = train_equal(
+        torch, reference, eager_train(torch, make, batch, steps))
+    deterministic = losses_eq and same == n
+    print(f"two eager runs: losses bitwise equal {losses_eq}, parameters "
+          f"and buffers bitwise equal {same}/{n}: cuDNN's default "
+          f"algorithms {'are' if deterministic else 'are NOT'} "
+          f"deterministic here", flush=True)
+    if not deterministic:
+        torch.backends.cudnn.deterministic = True
+        try:
+            want = eager_train(torch, make, batch, steps)
+            model, opt, loss_fn = make()
+            step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+            got = ([step(*batch).float() for _ in range(steps)],
+                   [t.detach().clone() for t in state_of(model)])
+            losses_eq, same, n = train_equal(torch, got, want)
+            print(f"under cudnn.deterministic: graphed steps against eager "
+                  f"steps: losses bitwise equal {losses_eq}, parameters "
+                  f"and buffers {same}/{n}", flush=True)
+            check(losses_eq and same == n, f"{what}: the graphed steps "
+                  f"differ from the eager ones under cudnn.deterministic")
+            del model, opt, loss_fn, step, got, want
+            release_memory(torch)
+        finally:
+            torch.backends.cudnn.deterministic = False
+    model, opt, loss_fn = make()
+    step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    first, losses, times, counts = run_timed_steps(torch, step, batch)
+    launched = momentum.launches
+    stats = first_running_mean(model)
+    stats_ptr = stats.data_ptr()
+    got = ([torch.tensor(v, dtype=torch.float32) for v in first + losses],
+           state_of(model))
+    want_losses = [float(v) for v in reference[0]]
+    if deterministic:
+        losses_eq, same, n = train_equal(
+            torch, ([v.cuda() for v in got[0]], got[1]), reference)
+        print(f"graphed steps against the eager run: losses bitwise equal "
+              f"{losses_eq}, parameters and buffers {same}/{n}", flush=True)
+        check(losses_eq and same == n, f"{what}: the graphed steps differ "
+              f"from the eager sequence")
+    else:
+        worst = max(abs(a - b) / max(abs(b), 1e-6)
+                    for a, b in zip(first + losses, want_losses))
+        print(f"graphed (timed) steps against the eager run: losses within "
+              f"{worst:.3g} of each eager loss (tol {RESNET_NONDET_TOL})",
+              flush=True)
+        check(worst <= RESNET_NONDET_TOL, f"{what}: graphed losses stray "
+              f"from the eager run")
+    print("eager losses " + " ".join(f"{v:.4f}" for v in want_losses)
+          + "\ngraphed losses " + " ".join(f"{v:.4f}"
+                                            for v in first + losses),
+          flush=True)
+    check(all(math.isfinite(v) for v in first), f"non-finite first "
+          f"losses {first}")
+    stats = first_running_mean(model)
+    check(stats.dtype == torch.float32 and stats.data_ptr() == stats_ptr,
+          "the running stats were rebound during the replays")
+    per_step = math.ceil(len(list(model.parameters())) / momentum.MAX_TENSORS)
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts}, Momentum {launched} "
+          f"over {TRAIN_STEPS} steps", flush=True)
+    check(counts == (0,) * 6 and launched == per_step * TRAIN_STEPS,
+          f"{what} launches {counts}, Momentum {launched}: want "
+          f"{per_step * TRAIN_STEPS} of Momentum and none of the others")
+    # the running stats move at every replay: one more replay changes them
+    before = stats.clone()
+    step(*batch)
+    torch.cuda.synchronize()
+    check(not torch.equal(before, stats), "the running stats did not move "
+          "in a replay")
+    del reference, got
+    return {"model": model, "step": step, "opt": opt, "loss_fn": loss_fn,
+            "first": first, "losses": losses, "times": times,
+            "momentum": launched, "deterministic": deterministic,
+            "p50": float(np.median(times))}
+
+
+def profile_replayed(torch, step, batch, step_ms, classify, class_names,
+                     steps=2) -> dict:
     """Device time by kernel class over ``steps`` replayed steps after a
     warmup step (``torch.profiler``, the card idle ``PROFILE_PAD_S`` inside
-    each end of the window): conv forward / dgrad / wgrad, BatchNorm,
-    element-wise, layout transposes, the Momentum kernel, ...; the
-    profile's Momentum launches per step must equal the counter's."""
+    each end of the window). ``classify(kernel name)`` returns
+    ``{class: share}``, a name's time split over those classes by share;
+    ``class_names`` orders the classes. The profile's Momentum launches
+    per step must equal the counter's."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -4741,30 +4867,37 @@ def profile_resnet(torch, step, batch, step_ms, steps=2) -> dict:
             and not e.key.startswith("ProfilerStep")]
     check(len(rows) > 0, "the profiler recorded no device time")
     total = sum(r[1] for r in rows)
-    classes = {name: [0.0, 0.0] for name, _ in RESNET_CLASSES_RX}
-    classes["the rest"] = [0.0, 0.0]
+    classes = {name: [0.0, 0.0] for name in class_names}
     for key, ms, count in rows:
-        name = next((n for n, rx in RESNET_CLASSES_RX if rx.search(key)),
-                    "the rest")
-        classes[name][0] += ms
-        classes[name][1] += count
+        split = classify(key)
+        whole = sum(split.values())
+        for cls, share in split.items():
+            classes[cls][0] += ms * share / whole
+            classes[cls][1] += count * share / whole
     launches = sum(r[2] for r in rows)
     print(f"launches per step, profile Momentum "
           f"{classes['Momentum'][1]:.0f}, counter {counted:.0f}", flush=True)
-    check(classes["Momentum"][1] == counted, f"the profile's Momentum "
-          f"launches {classes['Momentum'][1]} differ from the counter's "
-          f"{counted}")
-    print(f"profile of {steps} steps: device busy {total:.3f} ms per step "
-          f"({total / step_ms:.1%} of the {step_ms:.3f} ms p50 step; idle "
-          f"{1 - total / step_ms:.1%}), {launches:.0f} kernel launches per "
-          f"step; " + "; ".join(f"{n} {ms:.3f} ms ({ms / total:.1%}, "
-                                f"x{c:.0f})" for n, (ms, c)
-                                in classes.items()), flush=True)
+    check(round(classes["Momentum"][1]) == counted, f"the profile's "
+          f"Momentum launches {classes['Momentum'][1]} differ from the "
+          f"counter's {counted}")
+    idle = 1 - total / step_ms
+    print(f"profile of {steps} replayed steps: device busy {total:.3f} ms "
+          f"per step ({total / step_ms:.1%} of the {step_ms:.3f} ms p50 "
+          f"step; idle share {idle:.1%}), {launches:.0f} kernel launches "
+          f"per step; " + "; ".join(f"{n} {ms:.3f} ms ({ms / total:.1%}, "
+                                    f"x{c:.0f})" for n, (ms, c)
+                                    in classes.items() if c), flush=True)
     rows.sort(key=lambda r: -r[1])
     for key, ms, count in rows[:24]:
         print(f"    {ms:8.3f} ms  x{count:<6.0f} {key[:110]}", flush=True)
-    return {"device_ms": total, "launches": launches,
+    return {"device_ms": total, "launches": launches, "idle": idle,
             "classes": {n: ms for n, (ms, _) in classes.items()}}
+
+
+def resnet_kernel_class(key) -> dict:
+    """A kernel name's class by ``RESNET_CLASSES_RX``, first match wins."""
+    return {next((n for n, rx in RESNET_CLASSES_RX if rx.search(key)),
+                 "the rest"): 1.0}
 
 
 def conv_passes(torch, loss_fn, opt, batch) -> dict:
@@ -4811,9 +4944,6 @@ def resnet_bench_arm(torch, resnet) -> dict:
     """(a) ``bench_resnet`` uncut: resnet50, 1000 classes, one 32 x 3 x
     224² batch as ``bench.py`` draws it, bf16 O2, ``Momentum(0.1, 0.9)``;
     two eager runs, the graphed run held to them, timed, profiled."""
-    from paddle_tpu_torch.jit import TrainStep
-    from paddle_tpu_torch.ops.cuda import momentum
-
     print(f"-- (a) bench arm: resnet50 ({RESNET_CLASSES} classes) bf16 O2, "
           f"Momentum({RESNET_LR}, {RESNET_MOMENTUM}), CrossEntropyLoss "
           f"outside auto_cast, one {RESNET_BATCH}x3x{RESNET_SIZE}x"
@@ -4825,65 +4955,9 @@ def resnet_bench_arm(torch, resnet) -> dict:
         np.float32)
     y = rs.randint(0, 10, (RESNET_BATCH,)).astype(np.int64)
     batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
-    reference = resnet_eager(torch, resnet, batch, RESNET_STEPS)
-    losses_eq, same, n = resnet_equal(
-        torch, reference, resnet_eager(torch, resnet, batch, RESNET_STEPS))
-    deterministic = losses_eq and same == n
-    print(f"two eager runs: losses bitwise equal {losses_eq}, parameters "
-          f"and buffers bitwise equal {same}/{n}: cuDNN's default "
-          f"algorithms {'are' if deterministic else 'are NOT'} "
-          f"deterministic here", flush=True)
-    if not deterministic:
-        torch.backends.cudnn.deterministic = True
-        try:
-            want = resnet_eager(torch, resnet, batch, RESNET_STEPS)
-            model, opt, loss_fn = resnet_twin(torch, resnet)
-            step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
-            got = ([step(*batch).float() for _ in range(RESNET_STEPS)],
-                   [t.detach().clone() for t in state_of(model)])
-            losses_eq, same, n = resnet_equal(torch, got, want)
-            print(f"under cudnn.deterministic: graphed steps against eager "
-                  f"steps: losses bitwise equal {losses_eq}, parameters "
-                  f"and buffers {same}/{n}", flush=True)
-            check(losses_eq and same == n, "ResNet: the graphed steps "
-                  "differ from the eager ones under cudnn.deterministic")
-            del model, opt, loss_fn, step, got, want
-            release_memory(torch)
-        finally:
-            torch.backends.cudnn.deterministic = False
-    model, opt, loss_fn = resnet_twin(torch, resnet)
-    step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
-    first, losses, times, counts = run_timed_steps(torch, step, batch)
-    launched = momentum.launches
-    stats_ptr = model.bn1._mean.data_ptr()
-    got = ([torch.tensor(v, dtype=torch.float32) for v in first + losses],
-           state_of(model))
-    want_losses = [float(v) for v in reference[0]]
-    if deterministic:
-        losses_eq, same, n = resnet_equal(
-            torch, ([v.cuda() for v in got[0]], got[1]), reference)
-        print(f"graphed steps against the eager run: losses bitwise equal "
-              f"{losses_eq}, parameters and buffers {same}/{n}", flush=True)
-        check(losses_eq and same == n, "ResNet: the graphed steps differ "
-              "from the eager sequence")
-    else:
-        worst = max(abs(a - b) / max(abs(b), 1e-6)
-                    for a, b in zip(first + losses, want_losses))
-        print(f"graphed (timed) steps against the eager run: losses within "
-              f"{worst:.3g} of each eager loss (tol {RESNET_NONDET_TOL})",
-              flush=True)
-        check(worst <= RESNET_NONDET_TOL, "ResNet: graphed losses stray "
-              "from the eager run")
-    print("eager losses " + " ".join(f"{v:.4f}" for v in want_losses)
-          + "\ngraphed losses " + " ".join(f"{v:.4f}"
-                                            for v in first + losses),
-          flush=True)
-    check(all(math.isfinite(v) for v in first), f"non-finite first "
-          f"losses {first}")
-    check(model.bn1._mean.dtype == torch.float32
-          and model.bn1._mean.data_ptr() == stats_ptr,
-          "the running stats were rebound during the replays")
-    p50 = float(np.median(times))
+    arm = graphed_arm(torch, lambda: resnet_twin(torch, resnet), batch,
+                      RESNET_STEPS, "ResNet")
+    p50, times = arm["p50"], arm["times"]
     flops = 3 * RESNET_GFLOP * 1e9 * RESNET_BATCH
     print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
           f"{max(times) * 1e3:.3f}); images/s {RESNET_BATCH / p50:.1f}; "
@@ -4892,24 +4966,16 @@ def resnet_bench_arm(torch, resnet) -> dict:
           f"{flops / p50 / PEAK_FLOPS['bfloat16']:.2%} of 989 TFLOP/s; peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
-    per_step = math.ceil(len(list(model.parameters())) / momentum.MAX_TENSORS)
-    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts}, Momentum {launched} "
-          f"over {TRAIN_STEPS} steps", flush=True)
-    check(counts == (0,) * 6 and launched == per_step * TRAIN_STEPS,
-          f"ResNet launches {counts}, Momentum {launched}: want "
-          f"{per_step * TRAIN_STEPS} of Momentum and none of the others")
-    # the running stats move at every replay: one more replay changes them
-    before = model.bn1._mean.clone()
-    step(*batch)
-    torch.cuda.synchronize()
-    check(not torch.equal(before, model.bn1._mean), "the running stats did "
-          "not move in a replay")
-    prof = profile_resnet(torch, step, batch, p50 * 1e3)
-    prof["conv_passes"] = conv_passes(torch, loss_fn, opt, batch)
-    out = {"momentum": launched, "p50_ms": p50 * 1e3,
-           "images_s": RESNET_BATCH / p50, "deterministic": deterministic,
-           "profile": prof}
-    del step, opt, loss_fn, reference, got
+    prof = profile_replayed(
+        torch, arm["step"], batch, p50 * 1e3, resnet_kernel_class,
+        [n for n, _ in RESNET_CLASSES_RX] + ["the rest"])
+    prof["conv_passes"] = conv_passes(torch, arm["loss_fn"], arm["opt"],
+                                      batch)
+    out = {"momentum": arm["momentum"], "p50_ms": p50 * 1e3,
+           "images_s": RESNET_BATCH / p50,
+           "deterministic": arm["deterministic"], "profile": prof}
+    model = arm["model"]
+    del arm
     release_memory(torch)
     return out, model
 
@@ -4940,6 +5006,49 @@ def momentum_bound(numel: int, elem: int, gelem: int) -> tuple:
     return max(t_ops, t_mem), ("operations" if t_ops >= t_mem else "bytes")
 
 
+def momentum_bitwise(torch, model, lr, mu, what, seed) -> dict:
+    """``momentum_update`` against ``momentum_reference``, bit for bit,
+    launches included, on ``model``'s parameters (O2: their AMP dtype)
+    with random gradients and velocities from ``seed``, at learning rate
+    ``lr`` and momentum ``mu``. Returns the tensors and the check's
+    numbers."""
+    from paddle_tpu_torch.ops.cuda import momentum
+
+    dev = torch.device("cuda")
+    named = [(n, p.detach()) for n, p in model.named_parameters()]
+    params = [p for _, p in named]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
+             for p in params]
+    vels = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+            for p in params]
+    lr = torch.tensor(lr, device=dev)
+    got, want = ([[t.clone() for t in ts] for ts in (params, vels)]
+                 for _ in range(2))
+    momentum.launches = 0
+    momentum.momentum_update(got[0], grads, got[1], lr, momentum=mu)
+    launched = momentum.launches
+    momentum.momentum_reference(want[0], grads, want[1], lr, momentum=mu)
+    torch.cuda.synchronize()
+    pairs = [(a, b) for ga, gb in zip(got, want) for a, b in zip(ga, gb)]
+    equal = sum(torch.equal(a, b) for a, b in pairs)
+    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
+    numel = sum(p.numel() for p in params)
+    per = math.ceil(len(params) / momentum.MAX_TENSORS)
+    odd = sum(p.numel() % 4 != 0 for p in params)
+    print(f"{what}: {len(params)} parameters ({odd} of a size not a "
+          f"multiple of 4), {numel} elements; p, v bitwise equal to the "
+          f"plain version: {equal}/{len(pairs)} (max abs err {err:.3g}); "
+          f"{launched} launches", flush=True)
+    check(equal == len(pairs) and launched == per, f"{what}: the Momentum "
+          f"kernel differs from its plain version in {len(pairs) - equal} "
+          f"tensors (max abs err {err}), or {launched} launches (want "
+          f"{per})")
+    return {"named": named, "params": params, "grads": grads, "vels": vels,
+            "got": got, "want": want, "lr": lr, "err": err, "numel": numel,
+            "per": per}
+
+
 def resnet_momentum_kernel(torch, resnet) -> dict:
     """(b) The Momentum kernel against ``momentum_reference``, bit for bit:
     on resnet50's 161 bf16 tensors (timed beside its bound, the plain chain
@@ -4955,33 +5064,14 @@ def resnet_momentum_kernel(torch, resnet) -> dict:
     model = resnet.resnet50(num_classes=RESNET_CLASSES,
                             generator=torch.Generator().manual_seed(0))
     amp.decorate(model, level="O2", dtype="bfloat16")
-    named = [(n, p.detach()) for n, p in model.named_parameters()]
-    params = [p for _, p in named]
-    gen = torch.Generator(device=dev).manual_seed(18)
-    grads = [torch.randn(p.shape, generator=gen, device=dev).to(p.dtype)
-             for p in params]
-    vels = [torch.randn(p.shape, generator=gen, device=dev) * 1e-2
-            for p in params]
-    lr = torch.tensor(RESNET_LR, device=dev)
+    run = momentum_bitwise(torch, model, RESNET_LR, RESNET_MOMENTUM,
+                           "resnet50", 18)
+    named, params, grads, vels = (run[k] for k in ("named", "params",
+                                                   "grads", "vels"))
+    got, want, lr, err, numel, per = (run[k] for k in (
+        "got", "want", "lr", "err", "numel", "per"))
+    del run
     kw = dict(momentum=RESNET_MOMENTUM)
-    got, want = ([[t.clone() for t in ts] for ts in (params, vels)]
-                 for _ in range(2))
-    momentum.launches = 0
-    momentum.momentum_update(got[0], grads, got[1], lr, **kw)
-    launched = momentum.launches
-    momentum.momentum_reference(want[0], grads, want[1], lr, **kw)
-    torch.cuda.synchronize()
-    pairs = [(a, b) for ga, gb in zip(got, want) for a, b in zip(ga, gb)]
-    equal = sum(torch.equal(a, b) for a, b in pairs)
-    err = max((a.float() - b.float()).abs().max().item() for a, b in pairs)
-    numel = sum(p.numel() for p in params)
-    per = math.ceil(len(params) / momentum.MAX_TENSORS)
-    print(f"{len(params)} parameters, {numel} elements; p, v bitwise equal "
-          f"to the plain version: {equal}/{len(pairs)} (max abs err "
-          f"{err:.3g}); {launched} launches", flush=True)
-    check(equal == len(pairs) and launched == per, f"the Momentum kernel "
-          f"differs from its plain version in {len(pairs) - equal} tensors "
-          f"(max abs err {err}), or {launched} launches (want {per})")
     # the wrapper's host work (161 tensors packed into 3 launches) outlasts
     # its kernels, so the update is timed as a replayed graph, as TrainStep
     # runs it; one eager call is timed beside it
@@ -5109,6 +5199,400 @@ def phase_resnet(torch, resnet) -> dict:
     return {"arm": arm, "momentum": record}
 
 
+# ------------------------------------------------------ phase 19, PP-LiteSeg
+LITESEG_BATCH, LITESEG_SIZE = 16, 512  # bench_liteseg's accelerator arm
+LITESEG_CLASSES, LITESEG_BASE = 19, 32
+LITESEG_LR, LITESEG_MOMENTUM = 0.01, 0.9
+LITESEG_STEPS = GRAPH_WARMUP + TRAIN_STEPS
+LITESEG_EVAL_BATCH = 2
+# interpolate on the card against float64 of the same contractions (the
+# same weight matrices, in the input's dtype): f32 (TF32 off) within this
+# share of the largest value; bf16 rounds the first axis's product and the
+# output, each by at most 2^-9 of the largest, so within 2^-7 of it
+INTERP_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# (what, input shape, output size, mode): the bench arm's resizes (SPPM's
+# bins 1/2/4 to 16², UAFM 16² -> 32² and 32² -> 64², the head 64² ->
+# 512²), a shrinking one and a bicubic one
+INTERP_CARD_CASES = (
+    ("SPPM bin 1", (16, 256, 1, 1), (16, 16), "bilinear"),
+    ("SPPM bin 2", (16, 256, 2, 2), (16, 16), "bilinear"),
+    ("SPPM bin 4", (16, 256, 4, 4), (16, 16), "bilinear"),
+    ("UAFM 16->32", (16, 64, 16, 16), (32, 32), "bilinear"),
+    ("UAFM 32->64", (16, 32, 32, 32), (64, 64), "bilinear"),
+    ("head 64->512", (16, 19, 64, 64), (512, 512), "bilinear"),
+    ("shrink 64->37x29", (16, 19, 64, 64), (37, 29), "bilinear"),
+    ("bicubic 16->32", (16, 64, 16, 16), (32, 32), "bicubic"),
+)
+# PP-YOLOE at 2 x 3 x 320², eval mode: card (f32, TF32 off) against the CPU
+YOLO_SIZE, YOLO_CLASSES = 320, 80
+YOLO_GT = (np.array([[16.0, 24.0, 200.0, 180.0], [120.0, 100.0, 300.0,
+                                                   310.0]], np.float32),
+           np.array([3, 41]))
+# small.py's constructors and their inputs, eval logits card vs CPU
+SMALL_MODELS = (("LeNet", {}, (2, 1, 28, 28)),
+                ("alexnet", {}, (1, 3, 224, 224)),
+                ("vgg11", {}, (1, 3, 224, 224)),
+                ("vgg13", dict(batch_norm=True), (1, 3, 224, 224)),
+                ("vgg16", {}, (1, 3, 224, 224)),
+                ("vgg19", dict(batch_norm=True), (1, 3, 224, 224)),
+                ("mobilenet_v1", {}, (1, 3, 224, 224)),
+                ("mobilenet_v2", {}, (1, 3, 224, 224)))
+# the profile's kernel classes; an eager step attributes each kernel to the
+# op that launched it (``liteseg_eager_split``) and the replayed kernels
+# take those classes by name
+LITESEG_CLASS_NAMES = (
+    "convolutions", "depthwise convolutions", "BatchNorm",
+    "element-wise, casts, pools, reductions", "NCHW<->NHWC transposes",
+    "resize contractions", "cross entropy and its transpose copy",
+    "Momentum", "the rest")
+LITESEG_NAME_RX = (
+    ("depthwise convolutions", re.compile(r"depthwise|dwconv", re.I)),
+    ("convolutions", re.compile(r"fprop|dgrad|wgrad|conv", re.I)),
+    ("BatchNorm", re.compile(r"batch_norm|welford", re.I)),
+    ("cross entropy and its transpose copy",
+     re.compile(r"softmax|nll_loss", re.I)),
+    ("element-wise, casts, pools, reductions",
+     re.compile(r"elementwise|reduce|pool", re.I)))
+LITESEG_CONV_OPS = ("aten::cudnn_convolution", "aten::convolution_backward",
+                    "aten::_conv_depthwise2d", "aten::convolution",
+                    "aten::_convolution")
+LITESEG_CE_OPS = ("aten::log_softmax", "aten::_log_softmax",
+                  "aten::_log_softmax_backward_data", "aten::nll_loss",
+                  "aten::gather", "aten::scatter_add_", "aten::reshape")
+
+
+def liteseg_twin(torch, segdet):
+    """``bench_liteseg``'s setup: ``pp_liteseg(num_classes=19, base=32)``
+    (weights from a generator seeded 0) in bf16 O2, ``Momentum(0.01,
+    0.9)``, ``CrossEntropyLoss`` over ``reshape(transpose(logits, [0, 2,
+    3, 1]), [-1, 19])`` outside ``auto_cast``. Returns (model, optimizer,
+    loss_fn(x, y))."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.ops.manipulation import reshape, transpose
+    from paddle_tpu_torch.optimizer import Momentum
+
+    model = segdet.pp_liteseg(num_classes=LITESEG_CLASSES, base=LITESEG_BASE,
+                              generator=torch.Generator().manual_seed(0))
+    crit = nn.CrossEntropyLoss()
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = Momentum(learning_rate=LITESEG_LR, momentum=LITESEG_MOMENTUM,
+                   parameters=model.parameters())
+
+    def loss_fn(x, y):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(x)
+        flat = reshape(transpose(logits, [0, 2, 3, 1]), [-1, LITESEG_CLASSES])
+        return crit(flat, reshape(y, [-1]))
+
+    return model, opt, loss_fn
+
+
+def liteseg_kernel_class(event, kernel) -> str:
+    """The class of ``kernel``, launched under the profiler's ``event``:
+    by its name for Momentum and the layout transposes, else by the
+    nearest enclosing op (a depthwise convolution's weight is [c, 1, k,
+    k])."""
+    if RESNET_CLASSES_RX[0][1].search(kernel):
+        return "Momentum"
+    if RESNET_CLASSES_RX[1][1].search(kernel):
+        return "NCHW<->NHWC transposes"
+    e = event
+    while e is not None:
+        name = e.name
+        if name in ("aten::mm", "aten::bmm", "aten::matmul"):
+            return "resize contractions"
+        if name in LITESEG_CONV_OPS:
+            depthwise = any(len(s) == 4 and s[1] == 1 and s[0] > 1
+                            and s[2] == s[3] <= 7
+                            for s in (e.input_shapes or ()))
+            return "depthwise convolutions" if depthwise else "convolutions"
+        if "batch_norm" in name or name == "aten::var_mean":
+            return "BatchNorm"
+        if name in LITESEG_CE_OPS:
+            return "cross entropy and its transpose copy"
+        e = e.cpu_parent
+    if event is None:  # a name the eager step did not launch
+        for cls, rx in LITESEG_NAME_RX:
+            if rx.search(kernel):
+                return cls
+        return "the rest"
+    return "element-wise, casts, pools, reductions"
+
+
+def liteseg_eager_split(torch, loss_fn, opt, batch) -> tuple:
+    """Device ms of one eager forward and backward by class, each kernel
+    attributed to the op that launched it (``torch.profiler`` with shapes;
+    a replayed graph's kernels have no launching op); also each kernel
+    name's ms by class, which the replay profile splits by."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        loss_fn(*batch).backward()
+        torch.cuda.synchronize()
+    opt.clear_grad()
+    out = {name: 0.0 for name in LITESEG_CLASS_NAMES}
+    by_name = {}
+    for e in prof.events():
+        for k in e.kernels:
+            cls = liteseg_kernel_class(e, k.name)
+            ms = k.duration / 1e3
+            out[cls] += ms
+            by_name.setdefault(k.name, {}).setdefault(cls, 0.0)
+            by_name[k.name][cls] += ms
+    check(out["resize contractions"] > 0 and out["convolutions"] > 0,
+          "the eager profile attributed no kernel to the resize or the "
+          "convolutions")
+    print("one eager forward and backward by launching op (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in out.items() if v)
+          + f"; total {sum(out.values()):.3f}", flush=True)
+    return out, by_name
+
+
+def liteseg_bench_arm(torch, segdet) -> tuple:
+    """(a) ``bench_liteseg`` uncut: pp_liteseg(19, base=32), one 16 x 3 x
+    512² batch and labels in [0, 19) as ``bench.py`` draws them, bf16 O2,
+    ``Momentum(0.01, 0.9)``; two eager runs, the graphed run held to them,
+    timed, profiled by class; then the Momentum kernel held bit for bit to
+    its plain version on the model's parameters."""
+    print(f"-- (a) bench arm: pp_liteseg({LITESEG_CLASSES} classes, base "
+          f"{LITESEG_BASE}) bf16 O2, Momentum({LITESEG_LR}, "
+          f"{LITESEG_MOMENTUM}), per-pixel CrossEntropyLoss outside "
+          f"auto_cast, one {LITESEG_BATCH}x3x{LITESEG_SIZE}x{LITESEG_SIZE} "
+          f"batch, labels in [0, {LITESEG_CLASSES}); {LITESEG_STEPS} eager "
+          f"steps twice, then {GRAPH_WARMUP} warmup and {TRAIN_STEPS} timed "
+          f"TrainStep steps", flush=True)
+    rs = np.random.RandomState(0)  # as bench.py draws x, then y
+    x = rs.randn(LITESEG_BATCH, 3, LITESEG_SIZE, LITESEG_SIZE).astype(
+        np.float32)
+    y = rs.randint(0, LITESEG_CLASSES, (LITESEG_BATCH, LITESEG_SIZE,
+                                        LITESEG_SIZE)).astype(np.int64)
+    batch = (torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda())
+    arm = graphed_arm(torch, lambda: liteseg_twin(torch, segdet), batch,
+                      LITESEG_STEPS, "PP-LiteSeg")
+    p50, times = arm["p50"], arm["times"]
+    print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); images/s {LITESEG_BATCH / p50:.1f}; "
+          f"Momentum launches {arm['momentum']} over {TRAIN_STEPS} steps; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB (bench.py reports no TFLOP/s for this arm)", flush=True)
+    check(arm["losses"][-1] < arm["first"][0], f"the loss did not fall: "
+          f"{arm['first'] + arm['losses']}")
+    # the eager split last: its forward moves the running stats
+    split, by_name = liteseg_eager_split(torch, arm["loss_fn"], arm["opt"],
+                                         batch)
+    # each kernel name's time split over the classes the eager step gave
+    # it; a name the eager step did not launch classed on its name alone
+    prof = profile_replayed(
+        torch, arm["step"], batch, p50 * 1e3,
+        lambda key: by_name.get(key) or {liteseg_kernel_class(None, key):
+                                         1.0}, LITESEG_CLASS_NAMES)
+    prof["eager_split"] = split
+    # the kernel at this path's shapes: pp_liteseg's bf16 tensors include
+    # sizes under 4 and not a multiple of 4, which resnet50's lack
+    check_run = momentum_bitwise(torch, arm["model"], LITESEG_LR,
+                                 LITESEG_MOMENTUM, "Momentum kernel on "
+                                 "pp_liteseg's parameters", 19)
+    out = {"momentum": arm["momentum"], "p50_ms": p50 * 1e3,
+           "images_s": LITESEG_BATCH / p50,
+           "deterministic": arm["deterministic"], "profile": prof,
+           "momentum_err": check_run["err"]}
+    del check_run
+    model = arm["model"]
+    del arm
+    release_memory(torch)
+    return out, model
+
+
+def interp_reference(torch, x, size, mode, g):
+    """Float64 of the port's contractions: the same per-axis weights (in
+    ``x``'s dtype), the output and the input gradient for ``g``."""
+    from paddle_tpu_torch.nn.functional.common import resize_weights
+
+    method = {"bilinear": "linear", "bicubic": "cubic"}[mode]
+    ws = [resize_weights(x.shape[2 + i], size[i], method).to(x.dtype)
+          .double().cuda() for i in range(2)]
+    out = torch.einsum("nchw,hH,wW->ncHW", x.double(), *ws)
+    grad = torch.einsum("ncHW,hH,wW->nchw", g.double(), *ws)
+    return out, grad
+
+
+def liteseg_interpolate(torch) -> dict:
+    """(b) ``interpolate`` forward and backward on the card at the arm's
+    shapes, a shrinking one and a bicubic one, f32 (TF32 off) and bf16,
+    against float64 of the same contractions; two backward passes bit for
+    bit equal."""
+    from paddle_tpu_torch.nn import functional as F
+
+    print("-- (b) interpolate (JAX's resize as per-axis contractions) on "
+          "the card vs float64 of the same contractions; backward twice",
+          flush=True)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    worst = {}
+    for what, shape, size, mode in INTERP_CARD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[-1]
+            x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+            x.requires_grad_(True)
+            out = F.interpolate(x, size=list(size), mode=mode)
+            g = torch.randn(out.shape, generator=gen, device="cuda").to(
+                dtype)
+            grads = []
+            for _ in range(2):
+                x.grad = None
+                F.interpolate(x, size=list(size), mode=mode).backward(g)
+                grads.append(x.grad.clone())
+            torch.cuda.synchronize()
+            want, want_grad = interp_reference(torch, x.detach(), size,
+                                               mode, g)
+            err = float((out.detach().double() - want).abs().max()
+                        / want.abs().max())
+            gerr = float((grads[0].double() - want_grad).abs().max()
+                         / want_grad.abs().max())
+            same = same_bits(torch, grads[0], grads[1])
+            fwd_ms = cuda_time_ms(lambda: F.interpolate(
+                x.detach(), size=list(size), mode=mode), iters=10)
+            print(f"{what} {mode} {tuple(shape)} -> {size} {name}: out "
+                  f"err {err:.3g}, grad err {gerr:.3g} of the largest (tol "
+                  f"{INTERP_TOL[name]:.3g}); backward twice bitwise equal "
+                  f"{same}; forward {fwd_ms:.4f} ms", flush=True)
+            check(err <= INTERP_TOL[name] and gerr <= INTERP_TOL[name]
+                  and same, f"interpolate {what} {name}: err {err}, grad "
+                  f"err {gerr}, repeatable {same}")
+            worst[name] = max(worst.get(name, 0.0), err, gerr)
+            del x, out, g, grads, want, want_grad
+    release_memory(torch)
+    return worst
+
+
+def card_vs_cpu(torch, make, state):
+    """The same model on the card and the CPU: ``make(device)`` built
+    there with ``state`` loaded, in eval mode."""
+    out = []
+    for dev in ("cuda", "cpu"):
+        model = make(dev)
+        model.load_state_dict(state)
+        model.eval()
+        out.append(model)
+    return out
+
+
+def rel_err(torch, got, want) -> float:
+    """The largest difference over the largest value (at least 1)."""
+    return float((got.detach().float().cpu() - want.detach().float()).abs()
+                 .max() / max(float(want.detach().abs().max()), 1.0))
+
+
+def liteseg_eval_logits(torch, segdet, trained) -> float:
+    """(c) The trained pp_liteseg in eval mode (running stats from (a)): f32
+    logits on the card against the same weights on the CPU, within
+    ``RESNET_EVAL_TOL`` of the largest logit."""
+    state = {k: v.detach().float().cpu()
+             for k, v in trained.state_dict().items()}
+    x = torch.from_numpy(np.random.RandomState(19).randn(
+        LITESEG_EVAL_BATCH, 3, LITESEG_SIZE, LITESEG_SIZE).astype(
+            np.float32))
+    card, cpu = card_vs_cpu(torch, lambda dev: segdet.pp_liteseg(
+        num_classes=LITESEG_CLASSES, base=LITESEG_BASE, device=dev), state)
+    with torch.no_grad():
+        want = cpu(x)
+        err = rel_err(torch, card(x.cuda()), want)
+    print(f"-- (c) trained pp_liteseg, eval mode, f32, {LITESEG_EVAL_BATCH} "
+          f"images: logits card vs CPU within {err:.3g} of the largest "
+          f"logit ({float(want.abs().max()):.4g}; tol {RESNET_EVAL_TOL})",
+          flush=True)
+    check(err <= RESNET_EVAL_TOL, f"PP-LiteSeg eval logits card vs CPU: "
+          f"{err}")
+    del card, cpu
+    release_memory(torch)
+    return err
+
+
+def liteseg_other_models(torch, segdet, small) -> dict:
+    """(d) PP-YOLOE (80 classes, base 32, 2 x 3 x 320², eval mode):
+    forward, decode, postprocess and one loss + backward card vs CPU; each
+    of small.py's constructors: eval logits card vs CPU. All f32 within
+    ``RESNET_EVAL_TOL`` of the largest value. Checked, not timed."""
+    print(f"-- (d) PP-YOLOE and small.py's models, eval mode, f32, card vs "
+          f"CPU (tol {RESNET_EVAL_TOL} of the largest value)", flush=True)
+    errs = {}
+    made = segdet.pp_yoloe(num_classes=YOLO_CLASSES,
+                           generator=torch.Generator().manual_seed(0))
+    state = {k: v.detach().cpu() for k, v in made.state_dict().items()}
+    del made
+    card, cpu = card_vs_cpu(torch, lambda dev: segdet.pp_yoloe(
+        num_classes=YOLO_CLASSES, device=dev), state)
+    x = torch.from_numpy(np.random.RandomState(20).randn(
+        2, 3, YOLO_SIZE, YOLO_SIZE).astype(np.float32))
+    shapes = [(YOLO_SIZE // s, YOLO_SIZE // s) for s in cpu.STRIDES]
+    outs = [card(x.cuda()), cpu(x)]
+    errs["forward"] = max(rel_err(torch, a, b) for oc, oh in zip(*outs)
+                          for a, b in zip(oc, oh))
+    decoded = [m.decode(o, shapes) for m, o in zip((card, cpu), outs)]
+    errs["decode"] = max(rel_err(torch, a, b)
+                         for a, b in zip(decoded[0], decoded[1]))
+    kept = [m.postprocess(*d) for m, d in zip((card, cpu), decoded)]
+    same_kept = (len(kept[0][0]) == len(kept[1][0])
+                 and np.array_equal(kept[0][2], kept[1][2]))
+    errs["postprocess"] = (float(np.abs(kept[0][0] - kept[1][0]).max()
+                                 / max(np.abs(kept[1][0]).max(), 1.0))
+                           if same_kept and len(kept[0][0]) else 0.0)
+    losses = [m.loss(o, shapes, *YOLO_GT) for m, o in zip((card, cpu), outs)]
+    for loss in losses:
+        loss.backward()
+    loss_values = [float(loss.detach()) for loss in losses]
+    errs["loss"] = abs(loss_values[0] - loss_values[1]) / abs(loss_values[1])
+    grads = dict(cpu.named_parameters())
+    errs["gradients"] = max(rel_err(torch, p.grad, grads[n].grad)
+                            for n, p in card.named_parameters())
+    print(f"PP-YOLOE: forward {errs['forward']:.3g}, decode "
+          f"{errs['decode']:.3g}, postprocess kept {len(kept[0][0])} boxes "
+          f"(same classes {same_kept}; boxes {errs['postprocess']:.3g}), "
+          f"loss {loss_values[0]:.5f} ({errs['loss']:.3g} relative), "
+          f"gradients {errs['gradients']:.3g}", flush=True)
+    check(same_kept and max(errs.values()) <= RESNET_EVAL_TOL,
+          f"PP-YOLOE card vs CPU: {errs}, same kept {same_kept}")
+    del card, cpu, outs, decoded, losses, grads
+    release_memory(torch)
+    for name, kw, shape in SMALL_MODELS:
+        made = getattr(small, name)(
+            generator=torch.Generator().manual_seed(0), **kw)
+        state = {k: v.detach().cpu() for k, v in made.state_dict().items()}
+        del made
+        card, cpu = card_vs_cpu(
+            torch, lambda dev: getattr(small, name)(device=dev, **kw), state)
+        x = torch.from_numpy(np.random.RandomState(21).randn(*shape).astype(
+            np.float32))
+        with torch.no_grad():
+            want = cpu(x)
+            errs[name] = rel_err(torch, card(x.cuda()), want)
+        print(f"{name}{kw or ''} {tuple(shape)}: logits {tuple(want.shape)} "
+              f"card vs CPU {errs[name]:.3g}", flush=True)
+        check(bool(torch.isfinite(want).all())
+              and errs[name] <= RESNET_EVAL_TOL,
+              f"{name} logits card vs CPU: {errs[name]}")
+        del card, cpu
+        release_memory(torch)
+    return errs
+
+
+def phase_liteseg(torch, segdet, small) -> dict:
+    """Phase 19: PP-LiteSeg training, (a) the bench arm graphed, (b)
+    interpolate on the card, (c) eval logits card vs CPU, (d) PP-YOLOE and
+    small.py's models checked."""
+    print("== PP-LiteSeg train: bench_liteseg's arm graphed, interpolate on "
+          "the card, eval logits card vs CPU, PP-YOLOE and small.py",
+          flush=True)
+    arm, model = liteseg_bench_arm(torch, segdet)
+    interp = liteseg_interpolate(torch)
+    eval_err = liteseg_eval_logits(torch, segdet, model)
+    del model
+    release_memory(torch)
+    others = liteseg_other_models(torch, segdet, small)
+    return {"arm": arm, "interpolate": interp, "eval_logits_err": eval_err,
+            "others": others}
+
+
 def main() -> int:
     try:
         import torch
@@ -5122,7 +5606,7 @@ def main() -> int:
     try:
         from paddle_tpu_torch.models import bert, gpt, llama
         from paddle_tpu_torch.models.gpt import GPTForCausalLM, gpt2_small
-        from paddle_tpu_torch.vision.models import resnet
+        from paddle_tpu_torch.vision.models import resnet, segdet, small
     except ImportError as e:
         print(f"chip_smoke: run from the root of a checkout ({e})",
               file=sys.stderr)
@@ -5156,6 +5640,7 @@ def main() -> int:
         trainer = phase_trainer(torch, gpt, trained["launches_per_step"])
         bert_run = phase_bert(torch, bert)
         resnet_run = phase_resnet(torch, resnet)
+        liteseg_run = phase_liteseg(torch, segdet, small)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5272,14 +5757,17 @@ def main() -> int:
         **adamw_record})
     # no Pallas counterpart: the jnp Momentum update that XLA fuses
     by_path = {"train_resnet": resnet_run["arm"]["momentum"],
-               "trainer_optimizers": trainer["optimizers"]["momentum"]}
+               "trainer_optimizers": trainer["optimizers"]["momentum"],
+               "train_liteseg": liteseg_run["arm"]["momentum"]}
     kernels.append({
         "name": "momentum", "route": "cuda",
         "source": source + "momentum.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:23",
         "pallas_counterpart": False,
         "launches": sum(by_path.values()), "launches_by_path": by_path,
-        **resnet_run["momentum"]})
+        **resnet_run["momentum"],
+        "max_abs_err": max(resnet_run["momentum"]["max_abs_err"],
+                           liteseg_run["arm"]["momentum_err"])})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,17 +5,22 @@ from .clip import (ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm,
                    ClipGradByValue, GradientClipBase,
                    GradientClipByGlobalNorm, GradientClipByNorm,
                    GradientClipByValue)
-from .layer import (AdaptiveAvgPool2D, AvgPool2D, BatchNorm, BatchNorm1D,
-                    BatchNorm2D, BatchNorm3D, Conv1D, Conv2D, Conv3D,
-                    CrossEntropyLoss, Dropout, Embedding, Flatten, LayerNorm,
-                    Linear, MaxPool2D, ReLU, RMSNorm, Sequential,
-                    SyncBatchNorm)
+from .layer import (AdaptiveAvgPool1D, AdaptiveAvgPool2D, AdaptiveAvgPool3D,
+                    AdaptiveMaxPool1D, AdaptiveMaxPool2D, AdaptiveMaxPool3D,
+                    AvgPool2D, BatchNorm, BatchNorm1D, BatchNorm2D,
+                    BatchNorm3D, Conv1D, Conv2D, Conv3D, CrossEntropyLoss,
+                    Dropout, Embedding, Flatten, LayerList, LayerNorm, Linear,
+                    MaxPool2D, ReLU, ReLU6, RMSNorm, Sequential, SiLU,
+                    Sigmoid, Silu, Softplus, SyncBatchNorm)
 
-__all__ = ["AdaptiveAvgPool2D", "AvgPool2D", "BatchNorm", "BatchNorm1D",
-           "BatchNorm2D", "BatchNorm3D", "ClipGradBase",
-           "ClipGradByGlobalNorm", "ClipGradByNorm", "ClipGradByValue",
-           "Conv1D", "Conv2D", "Conv3D", "CrossEntropyLoss", "Dropout",
-           "Embedding", "Flatten", "GradientClipBase",
-           "GradientClipByGlobalNorm", "GradientClipByNorm",
-           "GradientClipByValue", "LayerNorm", "Linear", "MaxPool2D", "ReLU",
-           "RMSNorm", "Sequential", "SyncBatchNorm"]
+__all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
+           "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
+           "AvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
+           "BatchNorm3D", "ClipGradBase", "ClipGradByGlobalNorm",
+           "ClipGradByNorm", "ClipGradByValue", "Conv1D", "Conv2D", "Conv3D",
+           "CrossEntropyLoss", "Dropout", "Embedding", "Flatten",
+           "GradientClipBase", "GradientClipByGlobalNorm",
+           "GradientClipByNorm", "GradientClipByValue", "LayerList",
+           "LayerNorm", "Linear", "MaxPool2D", "ReLU", "ReLU6", "RMSNorm",
+           "Sequential", "SiLU", "Sigmoid", "Silu", "Softplus",
+           "SyncBatchNorm"]

@@ -9,19 +9,30 @@ from .flash_attention import (calc_reduced_attn_scores, flash_attn_qkvpacked,
                               flashmask_attention, fused_softmax_mask,
                               fused_softmax_mask_upper_triangle)
 from .attention import flash_attention, scaled_dot_product_attention
-from .common import dropout, embedding, linear
+from .common import dropout, embedding, interpolate, linear, upsample
 from .conv import conv1d, conv2d, conv3d
-from .loss import cross_entropy, softmax_with_cross_entropy
+from .loss import (binary_cross_entropy_with_logits, cross_entropy,
+                   softmax_with_cross_entropy)
 from .norm import batch_norm, layer_norm, rms_norm
-from .pooling import adaptive_avg_pool2d, avg_pool2d, max_pool2d
-from ...ops.activation import gelu, relu, tanh
+from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
+                      adaptive_avg_pool3d, adaptive_max_pool1d,
+                      adaptive_max_pool2d, adaptive_max_pool3d, avg_pool2d,
+                      max_pool2d)
+from ...ops.activation import (gelu, relu, relu6, sigmoid, silu, softplus,
+                               tanh)
 
-__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "batch_norm",
+swish = silu
+
+__all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d",
+           "adaptive_avg_pool3d", "adaptive_max_pool1d",
+           "adaptive_max_pool2d", "adaptive_max_pool3d", "avg_pool2d",
+           "batch_norm", "binary_cross_entropy_with_logits",
            "calc_reduced_attn_scores", "conv1d", "conv2d", "conv3d",
            "cross_entropy", "dropout", "embedding", "flash_attention",
            "flash_attn_qkvpacked", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked", "flashmask_attention",
            "fused_softmax_mask", "fused_softmax_mask_upper_triangle", "gelu",
-           "layer_norm", "linear", "max_pool2d", "relu", "rms_norm",
-           "scaled_dot_product_attention", "softmax_with_cross_entropy",
-           "tanh"]
+           "interpolate", "layer_norm", "linear", "max_pool2d", "relu",
+           "relu6", "rms_norm", "scaled_dot_product_attention", "sigmoid",
+           "silu", "softmax_with_cross_entropy", "softplus", "swish", "tanh",
+           "upsample"]

@@ -1,17 +1,51 @@
 """Common functionals (port of ``paddle_tpu/nn/functional/common.py``, the
-subset the GPT and BERT paths reach): ``linear`` under AMP, ``embedding``
-with the JAX ``padding_idx`` rule and ``dropout`` from an explicit
-generator."""
+subset the model paths reach): ``linear`` under AMP, ``embedding`` with
+the JAX ``padding_idx`` rule, ``dropout`` from an explicit generator, and
+``interpolate``/``upsample``.
+
+``interpolate`` computes what the JAX function computes, not what
+``torch.nn.functional.interpolate`` does:
+
+- ``linear``/``bilinear``/``trilinear``, ``bicubic`` and ``area`` (linear,
+  as in JAX) with ``align_corners=False`` go through ``jax.image.resize``
+  there, which antialiases when it shrinks and uses the Keys cubic kernel
+  with a = −0.5 (torch's bicubic uses −0.75, and its bilinear does not
+  antialias). The port builds ``jax.image``'s per-axis weight matrix
+  ``[in, out]`` (:func:`resize_weights`: the triangle or cubic kernel,
+  widened by ``in / out`` when shrinking, each column normalised, columns
+  whose sample falls outside the input zeroed) in f32, casts it to the
+  input's dtype as JAX does, and contracts the axes one at a time with
+  ``torch.matmul``, in the order JAX's einsum path takes (the cheapest;
+  ties in axis order). An axis whose size does not change is skipped, as
+  in JAX. The backward is a matrix product too, so two runs give the same
+  bits (torch's ``upsample_bilinear2d`` backward adds with atomics on the
+  GPU). The weights are built once per (in, out, kernel, dtype, device)
+  and kept for the life of the process, so a captured CUDA graph may read
+  them: the first call of a shape must come before a capture, as
+  ``CompiledFunction``'s eager first call does.
+- ``nearest`` gathers index ``floor(i · in / out)`` (f32) on every axis.
+- ``align_corners=True`` blends the rows at ``floor(p)`` and ``floor(p) +
+  1`` of ``p = linspace(0, in - 1, out)`` (JAX's f32 ``linspace``), with
+  the blend weight in the input's dtype.
+
+The gathers' backward (``nearest``, ``align_corners=True``) adds with
+``index_add`` (atomics on the GPU). ``interpolate`` is a gray op under
+AMP: O2 computes it in the AMP dtype.
+"""
 from __future__ import annotations
 
+import itertools
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["linear", "embedding", "dropout"]
+__all__ = ["linear", "embedding", "dropout", "interpolate",
+           "resize_weights", "upsample"]
 
 
 def linear(x, weight, bias=None):
@@ -50,3 +84,158 @@ def dropout(x, p: float = 0.5, training: bool = True,
                          "pass generator=")
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+_CHANNEL_LAST = ("NHWC", "NWC", "NDHWC")
+_METHODS = {"nearest": "nearest", "bilinear": "linear", "linear": "linear",
+            "trilinear": "linear", "bicubic": "cubic", "area": "linear"}
+_WEIGHTS = {}  # (in, out, method, dtype, device) -> [in, out] weights
+
+
+def _triangle(x):
+    return torch.clamp_min(1.0 - x.abs(), 0.0)
+
+
+def _keys_cubic(x):
+    """The Keys cubic kernel with a = -0.5, as ``jax.image`` writes it."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def resize_weights(isz: int, osz: int, method: str) -> torch.Tensor:
+    """``jax.image``'s ``compute_weight_mat`` for a resize of one axis from
+    ``isz`` to ``osz`` (scale ``osz / isz``, no translation, antialiased),
+    in f32 on the CPU: ``[isz, osz]``, column ``j`` the weights of output
+    ``j``."""
+    f32 = torch.float32
+    kernel = {"linear": _triangle, "cubic": _keys_cubic}[method]
+    inv_scale = 1.0 / torch.tensor(osz / isz, dtype=f32)
+    kernel_scale = torch.clamp_min(inv_scale, 1.0)
+    sample = (torch.arange(osz, dtype=f32) + 0.5) * inv_scale - 0.5
+    dist = (sample[None, :] - torch.arange(isz, dtype=f32)[:, None]).abs()
+    w = kernel(dist / kernel_scale)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= isz - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def _weights(isz, osz, method, dtype, device):
+    key = (isz, osz, method, dtype, device)
+    if key not in _WEIGHTS:
+        _WEIGHTS[key] = resize_weights(isz, osz, method).to(device=device,
+                                                            dtype=dtype)
+    return _WEIGHTS[key]
+
+
+def _contract(v, ax, w):
+    """``v`` with axis ``ax`` contracted against ``w`` ``[in, out]``."""
+    if ax == v.dim() - 1:
+        return torch.matmul(v, w)
+    shape = v.shape
+    pre = math.prod(shape[:ax])
+    out = torch.matmul(w.t(), v.reshape(pre, shape[ax], -1))
+    return out.reshape(shape[:ax] + (w.shape[1],) + shape[ax + 1:])
+
+
+def _contraction_order(shape, axes, sizes):
+    """The order in which JAX's einsum path contracts the axes: the least
+    total of each step's index space (the operand's size times the new
+    axis's), ties to the earlier order."""
+    best, best_cost = None, None
+    for order in itertools.permutations(range(len(axes))):
+        cur, cost = list(shape), 0
+        for i in order:
+            cost += math.prod(cur) * sizes[i]
+            cur[axes[i]] = sizes[i]
+        if best_cost is None or cost < best_cost:
+            best, best_cost = order, cost
+    return best
+
+
+def _resize(v, axes, sizes, method):
+    """The ``jax.image.resize`` route: per-axis weight matrices in ``v``'s
+    dtype, contracted one axis at a time."""
+    todo = [(ax, osz) for ax, osz in zip(axes, sizes) if v.shape[ax] != osz]
+    if not todo:
+        return v
+    order = _contraction_order(v.shape, [ax for ax, _ in todo],
+                               [osz for _, osz in todo])
+    for i in order:
+        ax, osz = todo[i]
+        v = _contract(v, ax, _weights(v.shape[ax], osz, method, v.dtype,
+                                      v.device))
+    return v
+
+
+def _nearest(v, axes, sizes):
+    for ax, osz in zip(axes, sizes):
+        pos = torch.arange(osz, dtype=torch.float32, device=v.device) * (
+            v.shape[ax] / osz)  # an f32 product, as JAX's
+        v = v.index_select(ax, torch.floor(pos).long())
+    return v
+
+
+def _linspace(stop: float, num: int, device) -> torch.Tensor:
+    """``jnp.linspace(0.0, stop, num)`` in f32, as JAX computes it."""
+    last = torch.full((1,), stop, dtype=torch.float32, device=device)
+    if num == 1:
+        return last * 0
+    step = torch.arange(num - 1, dtype=torch.float32, device=device) / float(
+        num - 1)
+    return torch.cat([stop * step, last])
+
+
+def _align_corners(v, axes, sizes):
+    for ax, osz in zip(axes, sizes):
+        isz = v.shape[ax]
+        pos = _linspace(isz - 1.0, osz, v.device)
+        lo = torch.floor(pos)
+        hi = torch.clamp_max(lo + 1, isz - 1)
+        shape = [1] * v.dim()
+        shape[ax] = osz
+        w = (pos - lo).to(v.dtype).reshape(shape)
+        v = (v.index_select(ax, lo.long()) * (1 - w)
+             + v.index_select(ax, hi.long()) * w)
+    return v
+
+
+def interpolate(x, size=None, scale_factor=None, mode="nearest",
+                align_corners=False, align_mode=0, data_format="NCHW",
+                name=None):
+    """``x`` resized over its spatial axes to ``size`` (or the floor of
+    each size times ``scale_factor``) as the JAX function computes it (see
+    the module's docstring; op ``interpolate``). ``align_mode`` is accepted
+    and read nowhere, as in JAX."""
+    if mode not in _METHODS:
+        raise ValueError(f"interpolate mode {mode!r}: one of "
+                         f"{sorted(_METHODS)}")
+    (x,) = cast_inputs("interpolate", x)
+    n = x.dim() - 2
+    first = 1 if data_format in _CHANNEL_LAST else 2
+    axes = list(range(first, first + n))
+    if size is not None:
+        if isinstance(size, torch.Tensor):
+            size = size.tolist()
+        sizes = ([int(s) for s in size] if isinstance(size, (list, tuple))
+                 else [int(size)] * n)
+    else:
+        factors = (scale_factor if isinstance(scale_factor, (list, tuple))
+                   else [scale_factor] * n)
+        sizes = [int(np.floor(x.shape[ax] * f))
+                 for ax, f in zip(axes, factors)]
+    method = _METHODS[mode]
+    if method == "nearest":
+        return _nearest(x, axes, sizes)
+    if align_corners:
+        return _align_corners(x, axes, sizes)
+    return _resize(x, axes, sizes, method)
+
+
+def upsample(x, size=None, scale_factor=None, mode="nearest",
+             align_corners=False, align_mode=0, data_format="NCHW",
+             name=None):
+    return interpolate(x, size, scale_factor, mode, align_corners,
+                       align_mode, data_format)

@@ -1,5 +1,6 @@
 """Loss functionals (port of ``paddle_tpu/nn/functional/loss.py``): softmax
-cross entropy in full, and ``softmax_with_cross_entropy``."""
+cross entropy in full, ``softmax_with_cross_entropy`` and
+``binary_cross_entropy_with_logits``."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +8,8 @@ import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["cross_entropy", "softmax_with_cross_entropy"]
+__all__ = ["binary_cross_entropy_with_logits", "cross_entropy",
+           "softmax_with_cross_entropy"]
 
 
 def _reduce(out, reduction):
@@ -92,3 +94,28 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
     if return_softmax:
         return loss, TF.softmax(logits, dim=axis)
     return loss
+
+
+def binary_cross_entropy_with_logits(logit, label, weight=None,
+                                     reduction="mean", pos_weight=None,
+                                     name=None):
+    """Sigmoid cross entropy of ``logit`` against ``label`` in the JAX
+    function's stable form: ``max(z, 0) - z·y + log(1 + exp(-|z|))``, and
+    with ``pos_weight`` ``(1 - y)·z + ((pw - 1)·y + 1)·(log(1 +
+    exp(-|z|)) + max(-z, 0))``; times ``weight`` when given; ``reduction``
+    ``mean``, ``sum`` or ``none``. Op ``bce_with_logits``: f32 under AMP
+    (black list)."""
+    z, y, w, pw = cast_inputs("bce_with_logits", logit, label, weight,
+                              pos_weight)
+    # |z| with jnp.abs's gradient (1 at 0, where torch's abs gives 0), and
+    # torch.maximum, which splits a tie's gradient as jnp.maximum does
+    soft = torch.log1p(torch.exp(-torch.where(z >= 0, z, -z)))
+    zero = z.new_zeros(())
+    if pw is not None:
+        out = (1 - y) * z + ((pw - 1) * y + 1) * (soft
+                                                  + torch.maximum(-z, zero))
+    else:
+        out = torch.maximum(z, zero) - z * y + soft
+    if w is not None:
+        out = out * w
+    return _reduce(out, reduction)

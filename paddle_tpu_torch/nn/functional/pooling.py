@@ -1,5 +1,6 @@
 """Pooling (port of ``paddle_tpu/nn/functional/pooling.py``): ``max_pool2d``,
-``avg_pool2d`` and ``adaptive_avg_pool2d``.
+``avg_pool2d`` and the adaptive pools ``adaptive_avg_pool1d/2d/3d`` and
+``adaptive_max_pool1d/2d/3d``.
 
 The JAX functions are ``lax.reduce_window`` over windows padded as
 :func:`_pads` says (``"SAME"``/``"VALID"``, ints, ``[before, after]``
@@ -13,15 +14,20 @@ same windows with torch's pooling:
 - ``avg_pool2d`` divides the window sum by ``divisor_override``, by the
   count of real elements (``exclusive`` with padding), or by the window's
   size, as the JAX function does.
-- ``adaptive_avg_pool2d`` takes the JAX route, one spatial axis at a time:
-  where the size divides, the axis is cut into ``k``-element windows,
-  summed and divided by ``k``; else each output bin averages its slice
-  ``[floor(j·n/o), ceil((j+1)·n/o))``. Each axis rounds to the input's
-  dtype, so in bf16 the result rounds twice, as in JAX. Its gradient is a
-  broadcast, with no scattered adds.
+- The adaptive pools take the JAX route (``_adaptive``), one spatial axis
+  at a time: where the size divides, the axis is cut into ``k``-element
+  windows, and each window is summed and divided by ``k`` (mean) or
+  reduced by a 1-D max pool whose gradient goes to the window's first
+  maximum, as ``reduce_window``'s does; else each output bin reduces its
+  slice ``[floor(j·n/o), ceil((j+1)·n/o))`` by ``mean`` or ``amax`` (a tie
+  shares the gradient equally, as ``jnp.max``'s). Each axis rounds to the
+  input's dtype, so in bf16 the result rounds once an axis, as in JAX. The
+  mean's gradient is a broadcast, with no scattered adds.
+  ``adaptive_max_pool*(return_mask=True)`` returns ``(out, None)``, as the
+  JAX functions do.
 
-All three are gray ops under AMP: O2 computes them in the AMP dtype. The
-other pools are not ported yet (ROADMAP.md, queue 1).
+All are gray ops under AMP: O2 computes them in the AMP dtype. The other
+pools are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -32,7 +38,9 @@ import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["adaptive_avg_pool2d", "avg_pool2d", "max_pool2d"]
+__all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
+           "avg_pool2d", "max_pool2d"]
 
 _CHANNEL_LAST = ("NHWC", "NLC", "NWC", "NDHWC")
 
@@ -134,21 +142,69 @@ def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
     return _restore(out, data_format)
 
 
-def adaptive_avg_pool2d(x, output_size, data_format="NCHW"):
-    """Mean over ``output_size`` bins, one spatial axis at a time, as the
-    JAX ``_adaptive`` computes it (op ``adaptive_avg_pool2d``)."""
-    (x,) = cast_inputs("adaptive_avg_pool2d", x)
+def _window_max(x, ax, k):
+    """The max of each ``k``-element window along ``ax``, its gradient to
+    the window's first maximum (a 1-D max pool over that axis alone)."""
+    moved = x.movedim(ax, -1)
+    shape = moved.shape
+    out = TF.max_pool1d(moved.reshape(-1, 1, shape[-1]), k, k)
+    return out.reshape(shape[:-1] + (shape[-1] // k,)).movedim(-1, ax)
+
+
+def _adaptive(name, x, output_size, n, data_format, mode):
+    """``output_size`` bins over the ``n`` spatial axes, one axis at a
+    time, as the JAX ``_adaptive`` reduces them."""
+    (x,) = cast_inputs(name, x)
     first = 1 if data_format in _CHANNEL_LAST else 2
     out = x
-    for i, osz in enumerate(_tup(output_size, 2)):
+    for i, osz in enumerate(_tup(output_size, n)):
         ax = first + i
         isz = out.shape[ax]
         if isz % osz == 0:
             k = isz // osz
-            out = out.unflatten(ax, (osz, k)).sum(ax + 1) / k
+            out = (_window_max(out, ax, k) if mode == "max"
+                   else out.unflatten(ax, (osz, k)).sum(ax + 1) / k)
         else:
+            reduce = ((lambda t: t.amax(ax, keepdim=True)) if mode == "max"
+                      else (lambda t: t.mean(ax, keepdim=True)))
             out = torch.cat(
-                [out.narrow(ax, (j * isz) // osz,
-                            -(-((j + 1) * isz) // osz) - (j * isz) // osz)
-                 .mean(ax, keepdim=True) for j in range(osz)], dim=ax)
+                [reduce(out.narrow(ax, (j * isz) // osz,
+                                   -(-((j + 1) * isz) // osz)
+                                   - (j * isz) // osz))
+                 for j in range(osz)], dim=ax)
     return out
+
+
+def adaptive_avg_pool1d(x, output_size, name=None):
+    """Mean over ``output_size`` bins of the last axis (op
+    ``adaptive_avg_pool1d``)."""
+    return _adaptive("adaptive_avg_pool1d", x, output_size, 1, "NCL", "avg")
+
+
+def adaptive_avg_pool2d(x, output_size, data_format="NCHW", name=None):
+    """Mean over ``output_size`` bins, one spatial axis at a time, as the
+    JAX ``_adaptive`` computes it (op ``adaptive_avg_pool2d``)."""
+    return _adaptive("adaptive_avg_pool2d", x, output_size, 2, data_format,
+                     "avg")
+
+
+def adaptive_avg_pool3d(x, output_size, data_format="NCDHW", name=None):
+    return _adaptive("adaptive_avg_pool3d", x, output_size, 3, data_format,
+                     "avg")
+
+
+def adaptive_max_pool1d(x, output_size, return_mask=False, name=None):
+    """Max over ``output_size`` bins; with ``return_mask``, ``(out,
+    None)`` as in JAX (op ``adaptive_max_pool1d``)."""
+    out = _adaptive("adaptive_max_pool1d", x, output_size, 1, "NCL", "max")
+    return (out, None) if return_mask else out
+
+
+def adaptive_max_pool2d(x, output_size, return_mask=False, name=None):
+    out = _adaptive("adaptive_max_pool2d", x, output_size, 2, "NCHW", "max")
+    return (out, None) if return_mask else out
+
+
+def adaptive_max_pool3d(x, output_size, return_mask=False, name=None):
+    out = _adaptive("adaptive_max_pool3d", x, output_size, 3, "NCDHW", "max")
+    return (out, None) if return_mask else out

@@ -1,5 +1,6 @@
 """Activation layers (port of ``paddle_tpu/nn/layer/activation.py``): the
-``_simple`` factory and ``ReLU``. The other classes are not ported yet
+``_simple`` factory, ``ReLU``, ``ReLU6``, ``Sigmoid`` and ``Silu`` (also
+named ``SiLU``), and ``Softplus``. The other classes are not ported yet
 (ROADMAP.md, queue 1)."""
 from __future__ import annotations
 
@@ -7,7 +8,7 @@ from torch import nn
 
 from .. import functional as F
 
-__all__ = ["ReLU"]
+__all__ = ["ReLU", "ReLU6", "SiLU", "Sigmoid", "Silu", "Softplus"]
 
 
 def _simple(name, fn_name=None, **defaults):
@@ -29,3 +30,16 @@ def _simple(name, fn_name=None, **defaults):
 
 
 ReLU = _simple("ReLU", "relu")
+ReLU6 = _simple("ReLU6", "relu6")
+Sigmoid = _simple("Sigmoid", "sigmoid")
+Silu = _simple("Silu", "silu")
+SiLU = Silu
+
+
+class Softplus(nn.Module):
+    def __init__(self, beta=1.0, threshold=20.0, name=None):
+        super().__init__()
+        self._beta, self._threshold = beta, threshold
+
+    def forward(self, x):
+        return F.softplus(x, self._beta, self._threshold)

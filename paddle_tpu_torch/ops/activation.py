@@ -1,8 +1,8 @@
 """Activations (port of ``paddle_tpu/ops/activation.py``, the subset the
-Llama, BERT and ResNet paths reach). ``gelu``, ``tanh`` and ``relu`` are
-gray under AMP, as in the JAX package: O1 leaves their inputs' dtype, O2
-computes them in the AMP dtype (so a BatchNorm's f32 output enters
-``relu`` in bf16)."""
+Llama, BERT and vision paths reach). ``gelu``, ``tanh``, ``relu``,
+``relu6``, ``sigmoid``, ``silu`` and ``softplus`` are gray under AMP, as in
+the JAX package: O1 leaves their inputs' dtype, O2 computes them in the
+AMP dtype (so a BatchNorm's f32 output enters ``relu`` in bf16)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +10,8 @@ import torch.nn.functional as TF
 
 from ..amp.auto_cast import cast_inputs
 
-__all__ = ["gelu", "relu", "swiglu", "tanh"]
+__all__ = ["gelu", "relu", "relu6", "sigmoid", "silu", "softplus", "swiglu",
+           "tanh"]
 
 
 def gelu(x, approximate: bool = False):
@@ -25,6 +26,31 @@ def relu(x):
     """``max(x, 0)``; its gradient is 0 at 0, as ``jax.nn.relu``'s."""
     (x,) = cast_inputs("relu", x)
     return TF.relu(x)
+
+
+def relu6(x, name=None):
+    """``min(max(x, 0), 6)``; its gradient is 0 at both ends."""
+    (x,) = cast_inputs("relu6", x)
+    return TF.relu6(x)
+
+
+def sigmoid(x, name=None):
+    (x,) = cast_inputs("sigmoid", x)
+    return torch.sigmoid(x)
+
+
+def silu(x, name=None):
+    """``x * sigmoid(x)``."""
+    (x,) = cast_inputs("silu", x)
+    return TF.silu(x)
+
+
+def softplus(x, beta=1.0, threshold=20.0, name=None):
+    """``log(1 + exp(beta * x)) / beta``, and ``x`` itself where ``beta * x
+    > threshold``, as the JAX function selects."""
+    (x,) = cast_inputs("softplus", x)
+    bx = x * beta
+    return torch.where(bx > threshold, x, TF.softplus(bx) / beta)
 
 
 def tanh(x):

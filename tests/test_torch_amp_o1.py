@@ -51,7 +51,12 @@ PORT_OPS = ("linear", "layer_norm", "pallas_rms_norm", "rms_norm",
             "fused_softmax_mask_upper_triangle", "embedding", "gelu", "tanh",
             "sdpa_xla", "flash_attention_xla", "add", "subtract", "relu",
             "conv1d", "conv2d", "conv3d", "max_pool2d", "avg_pool2d",
-            "adaptive_avg_pool2d", "batch_norm", "batch_norm_infer")
+            "adaptive_avg_pool2d", "batch_norm", "batch_norm_infer",
+            "concat", "stack", "reshape", "transpose", "mean", "max",
+            "multiply", "sigmoid", "silu", "softplus", "relu6",
+            "interpolate", "adaptive_avg_pool1d", "adaptive_avg_pool3d",
+            "adaptive_max_pool1d", "adaptive_max_pool2d",
+            "adaptive_max_pool3d", "bce_with_logits")
 
 
 @pytest.mark.parametrize("op", PORT_OPS)
