@@ -14,9 +14,10 @@ Phases, each of which fails the run on any error:
    instantiation of the RMSNorm forward (K4) and backward kernels, nor in
    the AdamW kernel, which must keep no stack frame either), and check with
    ``cuobjdump -sass`` that every attention kernel (bf16 K1, K2, K3, K5,
-   K6 and K7; fp16 K1, K2 and K3, the same sources instantiated for
-   __half; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all on the tensor
-   cores) holds wgmma (HGMMA) and TMA load (UTMALDG) instructions;
+   K6 and K7; fp16 K1, K2, K3, K5, K6 and K7, the same sources
+   instantiated for __half; f32 K1, K2, K3, K5, K6 and K7 in 3×TF32, all
+   on the tensor cores) holds wgmma (HGMMA) and TMA load (UTMALDG)
+   instructions;
 3. kernel — the flash-attention forward kernel (K1: bf16 and f32 3×TF32,
    both on the tensor cores) against its plain PyTorch version on the card
    at the GPT-2-small serving shapes (B in {1, 4}, S in {128, 1024}, H=12,
@@ -289,11 +290,32 @@ Phases, each of which fails the run on any error:
     bf16, against float64 of the same contractions, two backward passes
     bit for bit; (c) eval logits card vs CPU; (d) PP-YOLOE (forward,
     decode, postprocess, loss and backward) and every ``small.py`` model's
-    logits card vs CPU, checked, not timed.
+    logits card vs CPU, checked, not timed;
+20. fit Llama — the training loop: (a) ``Model.fit`` on llama_124m_gqa at
+    ``bench_llama``'s width (bf16 O2 through a thin forward wrapper,
+    ``LlamaPretrainingCriterion``, ``AdamW(1e-4)``) over a ``Dataset`` of
+    16 seeded batches of 4 x 2048 tokens, 2 shuffled epochs, 2 worker
+    processes, ``device_prefetch=2``, ``log_freq=4``, snapshots armed (so
+    the epoch pins the shuffle): every step after the second a replay, the
+    loss stream and the final parameters bit for bit the same batches fed
+    straight to a ``TrainStep`` in the loader's order, one host sync a
+    boundary and none in the steps between (run under
+    ``set_sync_debug_mode("error")``); step p50 between boundaries,
+    tokens/s, launches a step and the idle share from a profile of 4 fit
+    steps, beside phase 12's bare step; (b) the same fit with
+    ``snapshot_every=4`` raises SIGTERM at itself at step 20, snapshots at
+    that boundary and stops; a fresh model ``fit(resume=True)``: losses
+    and final parameters bit for bit (a)'s; one snapshot's bytes and save
+    time; (c) ``evaluate`` (next-token top-1 ``Accuracy``) and ``predict``
+    against the plain forward; (d) fp16: K4 and its backward against their
+    plain versions at 8192 x 768 and timed beside ``F.rms_norm``, 4
+    graphed llama_124m_gqa O1 fp16 steps with a ``GradScaler`` bit for bit
+    their eager steps, fp16 K5-K7 on phase 14's path; (e) an ``io.h2d``
+    fault in the prefetch thread reaches ``fit`` as an exception.
 
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
-(14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)) and PP-LiteSeg
-(19 (a)) phases are the main paths: the launch counts are set to 0 just before each
+(14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)), PP-LiteSeg
+(19 (a)) and fit (20 (a), (d)) phases are the main paths: the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
 0). The serving and training paths run as CUDA-graph replays, and the
@@ -344,14 +366,20 @@ NEW_TOKENS = 32
 LLAMA_BATCH, LLAMA_SEQ = 4, 2048  # bench_llama's accelerator arm
 # RMSNorm kernel against its plain version: f32 relative to the row's max;
 # bf16 within one bf16 step (2^-7 of the value) plus 1e-3
-RMS_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
+RMS_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3),
+           # float16: bf16's gate divided by 8, as for fp16 K1-K3
+           "float16": (2.0 ** -10, 1.25e-4)}
 RMS_SHAPES = ((8192, 768), (4, 768), (1000, 768), (256, 4096), (8, 100))
 RMS_EPS = 1e-5  # LlamaConfig.rms_norm_eps
 RETIME_TRIALS = 5  # K4 and F.rms_norm, timed in turns at the training shape
 # RMSNorm backward kernel against its plain version: f32 dx and dw within
 # 1e-5 of the gradient's max (and of the float64 plain version); bf16
 # within one bf16 step (2^-7 of the value) plus 1e-3
-RMS_BWD_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3)}
+RMS_BWD_TOL = {"float32": 1e-5, "bfloat16": (2.0 ** -7, 1e-3),
+               # float16: bf16's gate divided by 8, plus the f32 gate's
+               # 1e-5 of the gradient's max, the room dw's f32 sums take
+               # in their own order before the one rounding to fp16
+               "float16": (2.0 ** -10, 1.25e-4, 1e-5)}
 # H100 SXM data-sheet peaks (dense): f32 on CUDA cores, bf16 on tensor
 # cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12, "float16": 989e12}
@@ -453,11 +481,13 @@ TC_SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
               "flash_attention_dkv_tf32", "flashmask_fwd_tf32",
               "flashmask_dq_tf32", "flashmask_dkv_tf32")
 # a tensor-core kernel's mangled name: its kind (its suffix names its
-# type: sm90 16-bit, tf32 f32), the element type of K1-K3's sm90 kernels
-# (bf16 or fp16; K5-K7's are bf16 only), head dim and dropout flag
+# type: sm90 16-bit, tf32 f32), the element type of the sm90 kernels
+# (bf16 or fp16), head dim and dropout flag
 TC_KERNEL = re.compile(r"((?:flashmask_)?(?:fwd|dq|dkv)_(sm90|tf32))_kernelI"
                        r"(13__nv_bfloat16|6__half)?Li(\d+)E(?:Lb([01])E)?")
 TC_TYPES = {"13__nv_bfloat16": "bf16", "6__half": "fp16", None: "bf16"}
+# a mangled element type's short name
+ELEM_NAMES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "fp16"}
 
 
 def check_tensor_core_sass(_build) -> None:
@@ -520,11 +550,12 @@ def phase_build() -> float:
                 # the RMSNorm forward (K4) and backward kernels' <TX, TW,
                 # VEC, TPR, NV>; S<n>_: the mangler's back-reference to the
                 # first type
-                r = re.search(r"rms_norm_(bwd_)?kernelI(13__nv_bfloat16|f)"
-                              r"(13__nv_bfloat16|f|S\d*_)Li(\d+)ELi(\d+)E"
-                              r"Li(\d+)E", entry)
-                dw = re.search(r"rms_norm_dw_kernelI(13__nv_bfloat16|f)E",
-                               entry)
+                r = re.search(r"rms_norm_(bwd_)?kernelI"
+                              r"(13__nv_bfloat16|6__half|f)"
+                              r"(13__nv_bfloat16|6__half|f|S\d*_)Li(\d+)E"
+                              r"Li(\d+)ELi(\d+)E", entry)
+                dw = re.search(r"rms_norm_dw_kernelI"
+                               r"(13__nv_bfloat16|6__half|f)E", entry)
                 norm = "rms_norm" in entry
                 # AdamW's <parameter type, gradient type>; S1_: the first
                 opt = re.search(r"(adamw|momentum)_kernelI"
@@ -536,7 +567,7 @@ def phase_build() -> float:
                     entry = (f"{tc.group(1)} {kind}/D={tc.group(4)}"
                              f"{' dropout' if tc.group(5) == '1' else ''}")
                 elif r:
-                    x, w = ("bf16" if g != "f" else "f32" for g in (
+                    x, w = (ELEM_NAMES[g] for g in (
                         r.group(2), r.group(2) if r.group(3).startswith("S")
                         else r.group(3)))
                     nv = r.group(6)
@@ -546,12 +577,9 @@ def phase_build() -> float:
                              + (f"vectors/thread {nv}" if nv != "0"
                                 else "loop"))
                 elif dw:
-                    entry = ("rms_norm dw " + ("f32" if dw.group(1) == "f"
-                                               else "bf16"))
+                    entry = "rms_norm dw " + ELEM_NAMES[dw.group(1)]
                 elif opt:
-                    names = {"f": "f32", "13__nv_bfloat16": "bf16",
-                             "6__half": "fp16"}
-                    pt = names[opt.group(2)]
+                    pt = ELEM_NAMES[opt.group(2)]
                     entry = (f"{opt.group(1)} p {pt} g "
                              f"{pt if opt.group(3) != 'f' else 'f32'}")
             m = re.search(r"(\d+) bytes spill stores", ln)
@@ -2895,8 +2923,11 @@ def _rms_bwd_within(torch, got, want, dtype) -> bool:
     if dtype == "float32":
         return bool((err <= RMS_BWD_TOL[dtype]
                      * want.float().abs().max()).all())
-    rel, atol = RMS_BWD_TOL[dtype]
-    return bool((err <= rel * want.float().abs() + atol).all())
+    rel, atol, *of_max = RMS_BWD_TOL[dtype]
+    limit = rel * want.float().abs() + atol
+    if of_max:
+        limit = limit + of_max[0] * float(want.float().abs().max())
+    return bool((err <= limit).all())
 
 
 def compare_rms_norm_bwd(torch, rms, x, w, g, dtype) -> dict:
@@ -2965,6 +2996,88 @@ def compare_rms_norm(torch, rms, x, w, dtype) -> float:
     return float(err.max())
 
 
+def rms_norm_timed(torch, rms, x, w, g, dtype, err, berrs) -> tuple:
+    """K4 and its backward at ``x``'s ``[rows, d]`` timed by CUDA events
+    beside their bounds, their plain chains, F.rms_norm and its autograd
+    backward (in turns), on inputs enough to exceed L2; ``err`` and
+    ``berrs`` are their errors against the plain versions. Returns the
+    printed text and the two kernels' records."""
+    import torch.nn.functional as TF
+
+    rows, d = x.shape
+    text = ""
+    # inputs enough to exceed L2, one launch on each in turn
+    n = max(2, math.ceil(120e6 / x.numel() / x.element_size()))
+    xs = [x] + [torch.randn_like(x) for _ in range(n - 1)]
+    gs = [g] + [torch.randn_like(g) for _ in range(n - 1)]
+    # K4 and F.rms_norm in turns
+    ms, lib_ms, spread = time_in_turns(
+        torch, [lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS)
+                for t in xs],
+        [lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
+         for t in xs])
+    plain_ms = device_time_ms(torch, [
+        lambda t=t: rms.rms_norm_reference(t, w, RMS_EPS)
+        for t in xs], iters=20)
+    # the card's practical rate for these bytes: a bare copy
+    # of x, its output allocated per call as K4's is
+    copy_ms = device_time_ms(torch, [lambda t=t: t.clone()
+                                     for t in xs])
+    bound_ms, bound_by = rms_norm_bound(rows, d, dtype)
+    gap = ms - lib_ms
+    text += (f"\n    K4: kernel {ms:.4f} (spread "
+             f"{spread['kernel']:.4f})  plain {plain_ms:.4f}  "
+             f"F.rms_norm {lib_ms:.4f} (spread "
+             f"{spread['library']:.4f}), least of "
+             f"{RETIME_TRIALS} trials each  bound {bound_ms:.4f} "
+             f"({bound_by}, {bound_ms / ms:.0%} of it)  x.clone() "
+             f"{copy_ms:.4f}\n    K4 "
+             f"{dtype} against F.rms_norm: {gap:+.4f} ms, "
+             + ("loses by more than the spread"
+                if gap > max(spread.values()) else
+                "level within the spread" if gap > 0 else
+                "faster"))
+    fwd_rec = {
+        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": lib_ms, "ms_spread": spread["kernel"],
+        "library_spread": spread["library"], "copy_ms": copy_ms,
+        "shape": f"rows={rows} d={d} {dtype}"}
+    # the backward kernel and F.rms_norm's autograd backward
+    # (its graph kept, so each call runs the backward alone)
+    lib_bwd = []
+    for t, u in zip(xs, gs):
+        tx, tw = (a.detach().requires_grad_(True) for a in (t, w))
+        y = TF.rms_norm(tx, (d,), tw, RMS_EPS)
+        lib_bwd.append(lambda y=y, tx=tx, tw=tw, u=u:
+                       torch.autograd.grad(y, (tx, tw), u,
+                                           retain_graph=True))
+    ms, lib_ms, spread = time_in_turns(
+        torch, [lambda t=t, u=u: rms.rms_norm_bwd(
+            t, w, u, RMS_EPS) for t, u in zip(xs, gs)], lib_bwd)
+    plain_ms = device_time_ms(torch, [
+        lambda t=t, u=u: rms.rms_norm_bwd_reference(
+            t, w, u, RMS_EPS) for t, u in zip(xs, gs)], iters=20)
+    bound_ms, bound_by = rms_norm_bwd_bound(rows, d, dtype)
+    text += (f"\n    K4's backward ({rms.BWD_LAUNCHES_PER_CALL} "
+             f"launches): kernel {ms:.4f} (spread "
+             f"{spread['kernel']:.4f})  plain chain "
+             f"{plain_ms:.4f}  F.rms_norm's autograd backward "
+             f"{lib_ms:.4f} (spread {spread['library']:.4f}), "
+             f"least of {RETIME_TRIALS} trials each  bound "
+             f"{bound_ms:.4f} ({bound_by}, {bound_ms / ms:.0%} "
+             f"of it)")
+    bwd_rec = {
+        "max_abs_err": max(berrs["dx"], berrs["dw"]), "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": lib_ms,
+        "ms_spread": spread["kernel"],
+        "library_spread": spread["library"],
+        "shape": f"rows={rows} d={d} {dtype}"}
+    del xs, gs, lib_bwd
+    return text, fwd_rec, bwd_rec
+
+
 def llama_qkv(torch, rs, b, s, h, hkv, d, dtype):
     """q, k, v as the Llama attention hands them to K1: k and v expanded
     from ``hkv`` KV heads by ``repeat_interleave`` along the head axis."""
@@ -2985,7 +3098,6 @@ def phase_llama_kernels(torch) -> dict:
     (timed) and at D=128. Returns the kernels' records."""
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import rms_norm as rms
-    import torch.nn.functional as TF
 
     print("== Llama kernels: K4 (rms_norm) and its backward vs plain vs "
           "F.rms_norm; K1-K3 at the Llama shapes (ms by CUDA events)",
@@ -3012,75 +3124,11 @@ def phase_llama_kernels(torch) -> dict:
                        if dtype == "float32" else "")
                     + ", two calls bitwise equal")
             if (rows, d) == RMS_SHAPES[0]:
-                # inputs enough to exceed L2, one launch on each in turn
-                n = max(2, math.ceil(120e6 / x.numel() / x.element_size()))
-                xs = [x] + [torch.randn_like(x) for _ in range(n - 1)]
-                gs = [g] + [torch.randn_like(g) for _ in range(n - 1)]
-                # K4 and F.rms_norm in turns
-                ms, lib_ms, spread = time_in_turns(
-                    torch, [lambda t=t: rms.rms_norm_fwd(t, w, RMS_EPS)
-                            for t in xs],
-                    [lambda t=t: TF.rms_norm(t, (d,), w, RMS_EPS)
-                     for t in xs])
-                plain_ms = device_time_ms(torch, [
-                    lambda t=t: rms.rms_norm_reference(t, w, RMS_EPS)
-                    for t in xs], iters=20)
-                # the card's practical rate for these bytes: a bare copy
-                # of x, its output allocated per call as K4's is
-                copy_ms = device_time_ms(torch, [lambda t=t: t.clone()
-                                                 for t in xs])
-                bound_ms, bound_by = rms_norm_bound(rows, d, dtype)
-                gap = ms - lib_ms
-                line += (f"\n    K4: kernel {ms:.4f} (spread "
-                         f"{spread['kernel']:.4f})  plain {plain_ms:.4f}  "
-                         f"F.rms_norm {lib_ms:.4f} (spread "
-                         f"{spread['library']:.4f}), least of "
-                         f"{RETIME_TRIALS} trials each  bound {bound_ms:.4f} "
-                         f"({bound_by}, {bound_ms / ms:.0%} of it)  x.clone() "
-                         f"{copy_ms:.4f}\n    K4 "
-                         f"{dtype} against F.rms_norm: {gap:+.4f} ms, "
-                         + ("loses by more than the spread"
-                            if gap > max(spread.values()) else
-                            "level within the spread" if gap > 0 else
-                            "faster"))
-                records[("rms_norm", dtype)] = {
-                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                    "bound_ms": bound_ms, "bound_by": bound_by,
-                    "library_ms": lib_ms, "ms_spread": spread["kernel"],
-                    "library_spread": spread["library"], "copy_ms": copy_ms,
-                    "shape": f"rows={rows} d={d} {dtype}"}
-                # the backward kernel and F.rms_norm's autograd backward
-                # (its graph kept, so each call runs the backward alone)
-                lib_bwd = []
-                for t, u in zip(xs, gs):
-                    tx, tw = (a.detach().requires_grad_(True) for a in (t, w))
-                    y = TF.rms_norm(tx, (d,), tw, RMS_EPS)
-                    lib_bwd.append(lambda y=y, tx=tx, tw=tw, u=u:
-                                   torch.autograd.grad(y, (tx, tw), u,
-                                                       retain_graph=True))
-                ms, lib_ms, spread = time_in_turns(
-                    torch, [lambda t=t, u=u: rms.rms_norm_bwd(
-                        t, w, u, RMS_EPS) for t, u in zip(xs, gs)], lib_bwd)
-                plain_ms = device_time_ms(torch, [
-                    lambda t=t, u=u: rms.rms_norm_bwd_reference(
-                        t, w, u, RMS_EPS) for t, u in zip(xs, gs)], iters=20)
-                bound_ms, bound_by = rms_norm_bwd_bound(rows, d, dtype)
-                line += (f"\n    K4's backward ({rms.BWD_LAUNCHES_PER_CALL} "
-                         f"launches): kernel {ms:.4f} (spread "
-                         f"{spread['kernel']:.4f})  plain chain "
-                         f"{plain_ms:.4f}  F.rms_norm's autograd backward "
-                         f"{lib_ms:.4f} (spread {spread['library']:.4f}), "
-                         f"least of {RETIME_TRIALS} trials each  bound "
-                         f"{bound_ms:.4f} ({bound_by}, {bound_ms / ms:.0%} "
-                         f"of it)")
-                records[("rms_norm_bwd", dtype)] = {
-                    "max_abs_err": max(berrs["dx"], berrs["dw"]), "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": lib_ms,
-                    "ms_spread": spread["kernel"],
-                    "library_spread": spread["library"],
-                    "shape": f"rows={rows} d={d} {dtype}"}
-                del xs, gs, lib_bwd
+                text, fwd_rec, bwd_rec = rms_norm_timed(
+                    torch, rms, x, w, g, dtype, err, berrs)
+                line += text
+                records[("rms_norm", dtype)] = fwd_rec
+                records[("rms_norm_bwd", dtype)] = bwd_rec
             print(line, flush=True)
 
     seed = torch.tensor([20241016], dtype=torch.int32, device=dev)
@@ -3200,7 +3248,7 @@ def phase_train_llama(torch, llama) -> dict:
     torch.cuda.empty_cache()
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
             "rms_norm": counts[3], "adamw": counts[4],
-            "rms_norm_bwd": counts[5]}
+            "rms_norm_bwd": counts[5], "p50_ms": p50 * 1e3}
 
 
 def flashmask_indices(rs, kind, b, hm, sq, sk) -> np.ndarray:
@@ -3435,12 +3483,13 @@ def document_lengths(seq, lo, hi, seed=0) -> list:
     return lengths
 
 
-def phase_flashmask_path(torch) -> dict:
+def phase_flashmask_path(torch, dtypes=("bfloat16", "float32")) -> dict:
     """The FlashMask path at llama3_8b's attention width: forward and
-    autograd backward of ``flashmask_attention`` over packed documents,
-    counted, checked against the plain versions and timed beside the
-    kernels' bounds and SDPA with the equivalent dense mask (a yardstick
-    only). Returns the launches and the kernels' records."""
+    autograd backward of ``flashmask_attention`` over packed documents in
+    each of ``dtypes``, counted, checked against the plain versions and
+    timed beside the kernels' bounds and SDPA with the equivalent dense
+    mask (a yardstick only). Returns the first dtype's launches and the
+    kernels' records."""
     from paddle_tpu_torch.nn.functional import flashmask_attention
     from paddle_tpu_torch.ops.cuda import flash_attention as fa
     from paddle_tpu_torch.ops.cuda import flashmask as fm
@@ -3463,7 +3512,7 @@ def phase_flashmask_path(torch) -> dict:
     check(bool(mask.any(-1).all()), "the path mask hides a whole row")
     flops_fwd = 4.0 * d * pairs * b * h
     records, launched, path, tiles = {}, None, {}, {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in dtypes:
         dt = getattr(torch, dtype)
 
         def randn(heads):
@@ -3509,14 +3558,15 @@ def phase_flashmask_path(torch) -> dict:
         # the k tiles K5's and K6's blocks and the q tiles K7's blocks
         # computed, beside those within their causal bounds (one uncounted
         # launch of each kernel)
-        kind = "bf16" if dtype == "bfloat16" else "f32"
+        kind = {"bfloat16": "bf16", "float16": "fp16"}.get(dtype, "f32")
         for name, (live, bound) in zip(("fwd", "dq", "dkv"), (
                 fm.fwd_tiles(qd, k, v, idx, True, scale),
                 *fm.bwd_tiles(qd, k, v, o, lse, do, idx, True, scale))):
             if dtype == "bfloat16":
                 tiles[name] = {"computed": live, "causal": bound}
             else:
-                tiles[name]["float32"] = {"computed": live, "causal": bound}
+                tiles.setdefault(name, {})[dtype] = {"computed": live,
+                                                     "causal": bound}
             print(f"{dict(fwd='K5', dq='K6', dkv='K7')[name]} ({kind}) "
                   f"{'q' if name == 'dkv' else 'k'} tiles computed {live} of "
                   f"the {bound} within the causal bound ({live / bound:.1%})"
@@ -5593,6 +5643,559 @@ def phase_liteseg(torch, segdet, small) -> dict:
             "others": others}
 
 
+# phase 20: the training loop. Each epoch is FIT_BATCHES batches of
+# LLAMA_BATCH x LLAMA_SEQ tokens; the loss reaches the host every
+# FIT_LOG_FREQ steps (a MetricBuffer boundary) and at each epoch's end
+FIT_BATCHES, FIT_EPOCHS, FIT_LOG_FREQ = 16, 2, 4
+FIT_WORKERS, FIT_PREFETCH = 2, 2
+# (b): snapshots every FIT_SNAPSHOT_EVERY steps, SIGTERM raised at the
+# boundary of global step FIT_PREEMPT_STEP (epoch 1, its batch 4)
+FIT_SNAPSHOT_EVERY, FIT_PREEMPT_STEP = 4, 20
+# (a)'s profile: the steps between the boundaries at these batches of
+# epoch 1, both synced by their boundary's read
+FIT_PROFILE = (8, 12)
+# (d): graphed fp16 O1 llama_124m_gqa steps, after the eager and the
+# capturing call, from a loss scale under which the first steps apply
+FIT_FP16_STEPS, FIT_FP16_INIT_SCALE = 4, 2.0 ** 20
+
+
+def fit_twin(torch, llama, cfg):
+    """llama_124m_gqa (seed 0) in bf16 O2 behind a thin forward wrapper that
+    runs it under ``auto_cast(level="O2", dtype="bfloat16")``, as
+    ``bench_llama``'s ``loss_fn`` does, ``AdamW(1e-4)`` and the criterion
+    (outside ``auto_cast``). Returns (network, optimizer, criterion)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+
+    model = llama.LlamaForCausalLM(cfg, generator=torch.Generator()
+                                   .manual_seed(0))
+    amp.decorate(model, level="O2", dtype="bfloat16")
+
+    class O2Forward(torch.nn.Module):
+        def __init__(self, inner):
+            super().__init__()
+            self.inner = inner
+
+        def forward(self, ids):
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                return self.inner(ids)
+
+    net = O2Forward(model).train()
+    opt = AdamW(learning_rate=1e-4, parameters=net.parameters())
+    return net, opt, llama.LlamaPretrainingCriterion(cfg)
+
+
+def recording_model(hapi):
+    """``Model`` that also keeps each train step's loss tensor (a replay's
+    clone, on the card, never read during the fit)."""
+
+    class Recording(hapi.Model):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.stream = []
+
+        def train_batch(self, inputs, labels=None, update=True, sync=True):
+            out = super().train_batch(inputs, labels, update, sync)
+            self.stream.append(out[0])
+            return out
+
+    return Recording
+
+
+def fit_callbacks(torch, hapi):
+    """(a)'s callbacks: the boundary clock, the no-sync guard between
+    boundaries and the profile window."""
+    from torch.profiler import ProfilerActivity, profile
+
+    class Boundaries(hapi.Callback):
+        """perf_counter at each boundary step's end (its loss read has
+        synced the card), by epoch."""
+
+        def __init__(self):
+            super().__init__()
+            self.stamps = {}
+            self.epochs = []
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+            self.epochs.append(time.perf_counter())
+
+        def on_epoch_end(self, epoch, logs=None):
+            self.epochs[-1] = time.perf_counter() - self.epochs[-1]
+
+        def on_train_batch_end(self, step, logs=None):
+            if step % FIT_LOG_FREQ == 0:
+                self.stamps.setdefault(self.epoch, []).append(
+                    (step, time.perf_counter()))
+
+    class NoSyncBetween(hapi.Callback):
+        """``set_sync_debug_mode("error")`` over each step that is not a
+        boundary, from the third step on (the first is eager, the second
+        captures): a host sync there raises."""
+
+        def __init__(self):
+            super().__init__()
+            self.seen = self.guarded = 0
+
+        def on_train_batch_begin(self, step, logs=None):
+            if self.seen >= 2 and step % FIT_LOG_FREQ:
+                torch.cuda.set_sync_debug_mode("error")
+                self.guarded += 1
+
+        def on_train_batch_end(self, step, logs=None):
+            torch.cuda.set_sync_debug_mode(0)
+            self.seen += 1
+
+    class Window(hapi.Callback):
+        """torch.profiler over epoch 1's steps between the boundaries at
+        ``FIT_PROFILE``, with the host clock around them."""
+
+        def on_epoch_begin(self, epoch, logs=None):
+            self.epoch = epoch
+
+        def on_train_batch_end(self, step, logs=None):
+            if self.epoch != 1:
+                return
+            if step == FIT_PROFILE[0]:
+                t = time.perf_counter()
+                self.prof = profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA])
+                self.prof.__enter__()
+                self.t0 = time.perf_counter()
+                self.overhead = self.t0 - t
+            elif step == FIT_PROFILE[1]:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                self.seconds = t - self.t0
+                self.prof.__exit__(None, None, None)
+                self.overhead += time.perf_counter() - t
+
+    return Boundaries(), NoSyncBetween(), Window()
+
+
+def fit_profile(window) -> dict:
+    """The device's busy time, idle share and kernel launches a step over
+    the profiled window."""
+    from torch.autograd import DeviceType
+
+    steps = FIT_PROFILE[1] - FIT_PROFILE[0]
+    rows = [e for e in window.prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    check(len(rows) > 0, "the fit profile recorded no device time")
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    wall_ms = window.seconds * 1e3
+    return {"overhead_s": window.overhead,
+            "busy_ms_per_step": busy_ms / steps,
+            "wall_ms_per_step": wall_ms / steps,
+            "idle_share": 1.0 - busy_ms / wall_ms,
+            "launches_per_step": sum(e.count for e in rows) / steps}
+
+
+def fit_counts(fa, rms, adamw) -> tuple:
+    return (fa.launches, fa.dq_launches, fa.dkv_launches, rms.launches,
+            rms.bwd_launches, adamw.launches)
+
+
+def zero_counts(fa, rms, adamw) -> None:
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.tma_copies = 0
+    rms.launches = rms.bwd_launches = adamw.launches = 0
+
+
+def fit_arm(torch, llama, hapi, io, cfg, ds, tmp, bare_p50_ms) -> dict:
+    """(a): ``Model.fit`` over the Dataset with worker processes and the
+    device prefetch; the loss stream and the final parameters against the
+    same batches fed straight to a ``TrainStep``."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+    from paddle_tpu_torch.profiler.pipeline import pipeline_stats
+
+    steps = FIT_EPOCHS * FIT_BATCHES
+    net, opt, crit = fit_twin(torch, llama, cfg)
+    model = recording_model(hapi)(net)
+    model.prepare(opt, crit)
+    clock, guard, window = fit_callbacks(torch, hapi)
+    torch.cuda.synchronize()
+    # the main path's run: counts from 0, read right after it
+    zero_counts(fa, rms, adamw)
+    pipeline_stats.reset()
+    t0 = time.perf_counter()
+    model.fit(ds, batch_size=LLAMA_BATCH, epochs=FIT_EPOCHS, shuffle=True,
+              num_workers=FIT_WORKERS, device_prefetch=FIT_PREFETCH,
+              log_freq=FIT_LOG_FREQ, verbose=0,
+              snapshot_dir=os.path.join(tmp, "a"),
+              callbacks=[clock, guard, window])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = fit_counts(fa, rms, adamw)
+    pipe = pipeline_stats.summary()
+    check(fa.tma_copies == 0, f"{fa.tma_copies} operands copied for TMA")
+    losses = [float(x) for x in model.stream]
+    check(len(losses) == steps and all(map(math.isfinite, losses)),
+          f"fit ran {len(losses)} steps of {steps}, losses {losses}")
+    stats, report = model._train_step.stats, model._train_step.audit_report()
+    print(f"fit: {steps} steps in {wall:.2f} s; TrainStep {stats}, "
+          f"{report['total_captures']} capture(s)", flush=True)
+    check(stats == {"compiled_steps": steps - 1, "eager_steps": 1}
+          and report["total_captures"] == 1,
+          f"steps {stats}: not every step after the second a replay")
+    # boundaries: FIT_BATCHES / FIT_LOG_FREQ a epoch, and its flush
+    boundaries = FIT_EPOCHS * (FIT_BATCHES // FIT_LOG_FREQ + 1)
+    print(f"host syncs {pipe['host_syncs']} at {boundaries} boundaries "
+          f"(loss reads), none in the {guard.guarded} steps run under "
+          f"set_sync_debug_mode('error'); pipeline {pipe}", flush=True)
+    check(pipe["host_syncs"] == boundaries,
+          f"{pipe['host_syncs']} host syncs, want one a boundary "
+          f"({boundaries})")
+    guarded = sum(1 for g in range(2, steps)
+                  if g % FIT_BATCHES % FIT_LOG_FREQ)
+    check(guard.guarded == guarded,
+          f"{guard.guarded} steps guarded, want {guarded}")
+    # step time: the spans between boundaries after the capture, those
+    # in the profiled window left out
+    spans = []
+    for epoch, stamps in clock.stamps.items():
+        for (s0, t_0), (s1, t_1) in zip(stamps, stamps[1:]):
+            if s0 == 0 or (epoch == 1 and s0 == FIT_PROFILE[0]):
+                continue
+            spans.append((t_1 - t_0) / (s1 - s0))
+    p50 = float(np.median(spans))
+    prof = fit_profile(window)
+    # the same batches, in the loader's order, fed straight to a TrainStep
+    # built the same way
+    ref_net, ref_opt, ref_crit = fit_twin(torch, llama, cfg)
+    step = TrainStep(model=ref_net, optimizer=ref_opt,
+                     loss_fn=lambda ids, y: ref_crit(ref_net(ids), y))
+    rows = ds.tensors[0]
+    want = []
+    for epoch in range(FIT_EPOCHS):
+        order = io.BatchSampler(ds, shuffle=True, batch_size=LLAMA_BATCH)
+        order.set_epoch(epoch)
+        for idx in order:
+            ids = torch.from_numpy(rows[idx]).cuda()
+            want.append(step(ids, ids))
+    want = [float(x) for x in want]
+    params = [p.detach() for p in net.parameters()]
+    check_against_eager(torch, "fit vs TrainStep", losses, params,
+                        (want, [p.detach() for p in ref_net.parameters()]))
+    del step, ref_net, ref_opt
+    release_memory(torch)
+    tokens = LLAMA_BATCH * LLAMA_SEQ
+    per_step = [c / steps for c in counts]
+    print(f"fit: step p50 {p50 * 1e3:.3f} ms over {len(spans)} boundary "
+          f"spans (phase 12's bare TrainStep step p50 "
+          f"{bare_p50_ms:.3f} ms); tokens/s {tokens / p50:.1f}; "
+          f"launches a step K1/K2/K3/K4/K4-bwd/AdamW "
+          f"{[round(x, 2) for x in per_step]}; profile of "
+          f"{FIT_PROFILE[1] - FIT_PROFILE[0]} fit steps: "
+          f"device busy {prof['busy_ms_per_step']:.3f} ms of "
+          f"{prof['wall_ms_per_step']:.3f} ms a step, idle "
+          f"{prof['idle_share']:.1%}, {prof['launches_per_step']:.0f} "
+          f"device events a step; loader {pipe['h2d_wait_us'] / 1e3:.3f} "
+          f"ms waited and {pipe['h2d_issue_us'] / 1e3:.3f} ms issued a "
+          f"step; fit wall {wall:.2f} s for {steps} steps, of which "
+          f"{prof['overhead_s']:.2f} s starting and stopping the profiler "
+          f"and {pipe['dispatch_us'] * steps / 1e6:.2f} s in train_batch "
+          f"(the eager step and the capture included); epochs "
+          f"{[round(t, 2) for t in clock.epochs]} s", flush=True)
+    losses_ok = losses[-1] < losses[0]
+    check(losses_ok, f"the fit's loss did not fall: {losses}")
+    return {"model": model, "net": net, "opt": opt, "crit": crit,
+            "losses": losses, "params": params, "counts": counts,
+            "p50_ms": p50 * 1e3, "profile": prof, "pipeline": pipe}
+
+
+def fit_preempt(torch, llama, hapi, reliability, cfg, ds, tmp, arm) -> dict:
+    """(b): the same fit with snapshots, SIGTERM at a step's boundary, then
+    a fresh model resumed from the snapshot: losses and final parameters
+    bit for bit (a)'s."""
+    import signal
+
+    from paddle_tpu_torch.jit.api import model_generators
+
+    snap_dir = os.path.join(tmp, "b")
+    Recording = recording_model(hapi)
+    net, opt, crit = fit_twin(torch, llama, cfg)
+    model = Recording(net)
+    model.prepare(opt, crit)
+
+    class Preempt(hapi.Callback):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def on_train_batch_end(self, step, logs=None):
+            self.n += 1
+            if self.n == FIT_PREEMPT_STEP:
+                signal.raise_signal(signal.SIGTERM)
+
+    prev = signal.getsignal(signal.SIGTERM)
+    model.fit(ds, batch_size=LLAMA_BATCH, epochs=FIT_EPOCHS, shuffle=True,
+              num_workers=FIT_WORKERS, device_prefetch=FIT_PREFETCH,
+              log_freq=FIT_LOG_FREQ, verbose=0, snapshot_dir=snap_dir,
+              snapshot_every=FIT_SNAPSHOT_EVERY, callbacks=[Preempt()])
+    first = [float(x) for x in model.stream]
+    snaps = reliability.TrainSnapshotter(snap_dir).snapshots()
+    check(len(first) == FIT_PREEMPT_STEP and model.stop_training
+          and signal.getsignal(signal.SIGTERM) == prev,
+          f"the preempted fit ran {len(first)} steps")
+    check([s for s, _ in snaps] == [FIT_PREEMPT_STEP - FIT_SNAPSHOT_EVERY,
+                                    FIT_PREEMPT_STEP],
+          f"snapshots {snaps}")
+    del model, net, opt
+    release_memory(torch)
+    net, opt, crit = fit_twin(torch, llama, cfg)
+    model = Recording(net)
+    model.prepare(opt, crit)
+    model.fit(ds, batch_size=LLAMA_BATCH, epochs=FIT_EPOCHS, shuffle=True,
+              num_workers=FIT_WORKERS, device_prefetch=FIT_PREFETCH,
+              log_freq=FIT_LOG_FREQ, verbose=0, snapshot_dir=snap_dir,
+              resume=True)
+    rest = [float(x) for x in model.stream]
+    print(f"preempted at step {FIT_PREEMPT_STEP} (snapshots "
+          f"{[s for s, _ in snaps]}), resumed {len(rest)} steps", flush=True)
+    check_against_eager(torch, "SIGTERM + resume vs uninterrupted",
+                        first + rest, [p.detach() for p in net.parameters()],
+                        (arm["losses"], arm["params"]))
+    # one snapshot of the resumed model, timed
+    snap = reliability.TrainSnapshotter(os.path.join(tmp, "timed"), keep=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = snap.save(net, opt, step=FIT_EPOCHS * FIT_BATCHES,
+                     epoch=FIT_EPOCHS, generators=model_generators(net))
+    save_ms = (time.perf_counter() - t0) * 1e3
+    nbytes = sum(os.path.getsize(os.path.join(root, f))
+                 for root, _, files in os.walk(path) for f in files)
+    print(f"snapshot: {nbytes} bytes ({nbytes / 2**20:.1f} MiB: parameters, "
+          f"optimizer, generators, cursor), saved in {save_ms:.1f} ms with "
+          f"fsync and the atomic rename", flush=True)
+    del model, net, opt
+    release_memory(torch)
+    return {"bytes": nbytes, "save_ms": save_ms}
+
+
+def fit_evaluate(torch, hapi, metric, io, arm, rows) -> None:
+    """(c): ``evaluate`` with next-token top-1 ``Accuracy`` and ``predict``
+    against the plain forward over the same batches."""
+
+    class NextTokenAccuracy(metric.Accuracy):
+        """Top-1 of the logits at position i against token i + 1."""
+
+        def compute(self, pred, label, *args):
+            v = pred.shape[-1]
+            return super().compute(pred[:, :-1].reshape(-1, v),
+                                   label[:, 1:].reshape(-1))
+
+    model, net, crit = arm["model"], arm["net"], arm["crit"]
+    model.prepare(arm["opt"], crit, metrics=NextTokenAccuracy())
+    n_eval = 2 * LLAMA_BATCH
+    logs = model.evaluate(io.TensorDataset([rows[:n_eval], rows[:n_eval]]),
+                          batch_size=LLAMA_BATCH, verbose=0)
+    losses, correct, total = [], 0, 0
+    net.eval()
+    with torch.no_grad():
+        for b0 in range(0, n_eval, LLAMA_BATCH):
+            ids = torch.from_numpy(rows[b0:b0 + LLAMA_BATCH]).cuda()
+            logits = net(ids)
+            losses.append(float(crit(logits, ids)))
+            v = logits.shape[-1]
+            top = torch.topk(logits[:, :-1].reshape(-1, v), 1,
+                             dim=-1).indices[:, 0]
+            correct += int((top == ids[:, 1:].reshape(-1)).sum())
+            total += top.numel()
+    want_loss = float(np.mean(losses))
+    print(f"evaluate over {n_eval // LLAMA_BATCH} batches: {logs}; plain "
+          f"forward loss {want_loss}, next-token top-1 {correct}/{total}",
+          flush=True)
+    check(logs["loss"] == want_loss, f"evaluate loss {logs['loss']} != "
+          f"{want_loss}")
+    check(abs(logs["acc"] * total - correct) < 0.5,
+          f"evaluate accuracy {logs['acc']} != {correct}/{total}")
+    outs = model.predict(io.TensorDataset([rows[:LLAMA_BATCH]]),
+                         batch_size=LLAMA_BATCH)
+    with torch.no_grad():
+        want = net(torch.from_numpy(rows[:LLAMA_BATCH]).cuda()).float()
+    got = outs[0][0]
+    print(f"predict: {len(outs[0])} batch, logits {got.shape} {got.dtype}",
+          flush=True)
+    check(got.shape == (LLAMA_BATCH, LLAMA_SEQ, want.shape[-1])
+          and np.array_equal(got, want.cpu().numpy()),
+          f"predict's logits {got.shape} differ from the plain forward's")
+    net.train()
+
+
+def fit_h2d_fault(torch, reliability, io, arm, rows) -> None:
+    """(e): a fault in the DeviceLoader's thread reaches ``fit``."""
+    batch = torch.from_numpy(rows[:LLAMA_BATCH])
+    reliability.arm(reliability.FaultInjector(seed=0).plan("io.h2d",
+                                                           rate=1.0))
+    t0 = time.perf_counter()
+    try:
+        arm["model"].fit(io.DeviceLoader([(batch, batch)] * 6, depth=2),
+                         epochs=1, verbose=0, sync_every=1)
+        raised = None
+    except reliability.FaultInjection as e:
+        raised = e
+    finally:
+        reliability.disarm()
+    seconds = time.perf_counter() - t0
+    print(f"io.h2d fault in the prefetch thread: fit raised "
+          f"{type(raised).__name__}: {raised} after {seconds:.3f} s",
+          flush=True)
+    check(raised is not None and seconds < 30.0,
+          "the io.h2d fault did not reach fit as an exception")
+
+
+def fit_fp16_llama(torch, llama) -> dict:
+    """(d): llama_124m_gqa (f32 parameters) under ``auto_cast(level="O1",
+    dtype="float16")`` with a GradScaler, eager steps and the same step
+    function captured by ``CompiledFunction``, bit for bit; fp16 K1-K4
+    and K4's backward counted through the replays."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.jit.api import _cuda_generators
+    from paddle_tpu_torch.jit.functionalize import CompiledFunction
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = llama.llama_124m_gqa()
+    ids = torch.from_numpy(np.random.RandomState(21).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    steps = GRAPH_WARMUP + FIT_FP16_STEPS
+
+    def twin():
+        model = llama.LlamaForCausalLM(cfg, generator=torch.Generator()
+                                       .manual_seed(0)).train()
+        crit = llama.LlamaPretrainingCriterion(cfg)
+        opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
+        scaler = amp.GradScaler(init_loss_scaling=FIT_FP16_INIT_SCALE,
+                                incr_every_n_steps=2,
+                                decr_every_n_nan_or_inf=1)
+
+        def step_fn(x):
+            with amp.auto_cast(level="O1", dtype="float16"):
+                loss = crit(model(x), x)
+            scaler.scale(loss).backward()
+            scaler.step(opt)
+            scaler.update()
+            opt.clear_grad()
+            return loss.detach()
+
+        return model, scaler, step_fn
+
+    model, scaler, step_fn = twin()
+    want, scales = [], []
+    for _ in range(steps):
+        want.append(float(step_fn(ids)))
+        scales.append(float(scaler._scale))
+    check(len(set(want)) > 1, f"every fp16 step was skipped: losses {want}, "
+          f"scales {scales}")
+    want_scales = scales[-1]
+    want_params = [p.detach().clone() for p in model.parameters()]
+    del model, scaler, step_fn
+    release_memory(torch)
+    model, scaler, step_fn = twin()
+    compiled = CompiledFunction(step_fn, name="fp16_llama_step",
+                                device="cuda",
+                                generators=_cuda_generators(model))
+    got = [float(compiled(ids)) for _ in range(GRAPH_WARMUP)]
+    torch.cuda.synchronize()
+    # the path's run: counts from 0, read right after it
+    zero_counts(fa, rms, adamw)
+    got += [float(compiled(ids)) for _ in range(FIT_FP16_STEPS)]
+    counts = fit_counts(fa, rms, adamw)
+    check(compiled.stats == {"compiled_steps": steps - 1, "eager_steps": 1},
+          f"fp16 steps {compiled.stats}")
+    check(float(scaler._scale) == want_scales, "graphed scale differs")
+    check_against_eager(torch, "fp16 O1 llama_124m_gqa", got,
+                        [p.detach() for p in model.parameters()],
+                        (want, want_params))
+    n = cfg.num_hidden_layers
+    calls = (2 * n + 1) * FIT_FP16_STEPS
+    check(counts[:5] == (n * FIT_FP16_STEPS,) * 3
+          + (calls, calls * rms.BWD_LAUNCHES_PER_CALL),
+          f"fp16 launches K1/K2/K3/K4/K4-bwd/AdamW {counts}")
+    print(f"fp16 O1 llama_124m_gqa: losses {got}; scale after each step "
+          f"{scales}; launches over "
+          f"{FIT_FP16_STEPS} replays K1/K2/K3/K4/K4-bwd/AdamW {counts}",
+          flush=True)
+    del model, scaler, step_fn, compiled, want_params
+    release_memory(torch)
+    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+            "rms_norm": counts[3], "rms_norm_bwd": counts[4],
+            "adamw": counts[5]}
+
+
+def fit_fp16_kernels(torch) -> dict:
+    """(d): fp16 K4 and its backward against their plain versions at
+    8192 x 768, timed beside F.rms_norm in fp16 and their bounds."""
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    rows, d = RMS_SHAPES[0]
+    rs = np.random.RandomState(22)
+    dev = torch.device("cuda")
+    x = torch.from_numpy(rs.randn(rows, d).astype(np.float32) * 3).to(
+        dev, torch.float16)
+    w = torch.from_numpy(rs.uniform(0.5, 1.5, d).astype(np.float32)).to(
+        dev, torch.float16)
+    g = torch.from_numpy(rs.randn(rows, d).astype(np.float32)).to(
+        dev, torch.float16)
+    err = compare_rms_norm(torch, rms, x, w, "float16")
+    berrs = compare_rms_norm_bwd(torch, rms, x, w, g, "float16")
+    text, fwd_rec, bwd_rec = rms_norm_timed(torch, rms, x, w, g, "float16",
+                                            err, berrs)
+    print(f"fp16 K4 rows={rows} d={d} err {err:.2e}; backward err dx "
+          f"{berrs['dx']:.2e} dw {berrs['dw']:.2e}, two calls bitwise "
+          f"equal" + text, flush=True)
+    return {"rms_norm": fwd_rec, "rms_norm_bwd": bwd_rec}
+
+
+def phase_fit(torch, llama, bare_p50_ms) -> dict:
+    """The training loop on llama_124m_gqa: (a) fit, (b) SIGTERM and
+    resume, (c) evaluate and predict, (d) fp16, (e) the io.h2d fault.
+    Returns the launches and the fp16 records."""
+    from paddle_tpu_torch import hapi, io, metric, reliability
+
+    cfg = llama.llama_124m_gqa()
+    print(f"== fit Llama: Model.fit on llama_124m_gqa bf16 O2 (AdamW(1e-4), "
+          f"LlamaPretrainingCriterion), a Dataset of {FIT_BATCHES} batches "
+          f"of {LLAMA_BATCH}x{LLAMA_SEQ} tokens, {FIT_EPOCHS} epochs, "
+          f"shuffled, {FIT_WORKERS} worker processes, device_prefetch="
+          f"{FIT_PREFETCH}, log_freq={FIT_LOG_FREQ}", flush=True)
+    rows = np.random.RandomState(20).randint(
+        0, cfg.vocab_size, (FIT_BATCHES * LLAMA_BATCH, LLAMA_SEQ)).astype(
+        np.int64)
+    ds = io.TensorDataset([rows, rows])
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_fit_")
+    try:
+        print("-- (a) fit", flush=True)
+        arm = fit_arm(torch, llama, hapi, io, cfg, ds, tmp, bare_p50_ms)
+        print("-- (b) SIGTERM at a step boundary, then resume", flush=True)
+        snap = fit_preempt(torch, llama, hapi, reliability, cfg, ds, tmp,
+                           arm)
+        print("-- (c) evaluate and predict", flush=True)
+        fit_evaluate(torch, hapi, metric, io, arm, rows)
+        print("-- (e) an io.h2d fault in the prefetch thread", flush=True)
+        fit_h2d_fault(torch, reliability, io, arm, rows)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = arm["counts"]
+    del arm
+    release_memory(torch)
+    print("-- (d) fp16: K4 and its backward, O1 steps, K5-K7 at the "
+          "FlashMask path", flush=True)
+    records = fit_fp16_kernels(torch)
+    fp16_llama = fit_fp16_llama(torch, llama)
+    fm16 = phase_flashmask_path(torch, dtypes=("float16",))
+    return {"launches": dict(zip(("fwd", "dq", "dkv", "rms_norm",
+                                  "rms_norm_bwd", "adamw"), counts)),
+            "fp16_llama": fp16_llama, "rms16": records, "fm16": fm16,
+            "snapshot": snap}
+
+
 def main() -> int:
     try:
         import torch
@@ -5641,6 +6244,7 @@ def main() -> int:
         bert_run = phase_bert(torch, bert)
         resnet_run = phase_resnet(torch, resnet)
         liteseg_run = phase_liteseg(torch, segdet, small)
+        fit_run = phase_fit(torch, llama, trained_llama["p50_ms"])
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -5660,7 +6264,8 @@ def main() -> int:
         by_path = {"train": trained[key], "train_llama": trained_llama[key],
                    "trainer_recipe": trainer["recipe"][key],
                    "trainer_optimizers": trainer["optimizers"][key],
-                   "train_bert": bert_run["arm"][key]}
+                   "train_bert": bert_run["arm"][key],
+                   "fit_llama": fit_run["launches"][key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"]}
                        if key == "fwd" else {})
@@ -5684,8 +6289,10 @@ def main() -> int:
             **{k: v for k, v in fp16_records["GPT"][key].items()
                if k in ("ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms", "max_abs_err")},
-            "launches": trainer["fp16"][key],
-            "launches_by_path": {"trainer_fp16": trainer["fp16"][key]},
+            "launches": trainer["fp16"][key] + fit_run["fp16_llama"][key],
+            "launches_by_path": {"trainer_fp16": trainer["fp16"][key],
+                                 "fit_fp16_llama":
+                                     fit_run["fp16_llama"][key]},
             "llama_shape": fp16_records["Llama"][key],
             "head_dim_128": fp16_records["D=128"][key]}
         if key == "fwd":
@@ -5697,28 +6304,31 @@ def main() -> int:
         entry["head_dim_128"] = {dtype: records[(key, dtype, 128)]
                                  for dtype in ("bfloat16", "float32")}
         kernels.append(entry)
-    kernels.append({
-        "name": "rms_norm", "route": "cuda",
-        "source": source + "rms_norm.cu",
-        "replaces": "paddle_tpu/ops/pallas/rms_norm.py:46",
-        "launches": trained_llama["rms_norm"],
-        "launches_by_path": {"train_llama": trained_llama["rms_norm"]},
-        **records[("rms_norm", "bfloat16")],
-        "float32": {k: records[("rms_norm", "float32")][k]
-                    for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                              "max_abs_err")}})
-    # no Pallas counterpart: the jnp _bwd of the custom VJP, which XLA fuses
-    kernels.append({
-        "name": "rms_norm_bwd", "route": "cuda",
-        "source": source + "rms_norm.cu",
-        "replaces": "paddle_tpu/ops/pallas/rms_norm.py:84",
-        "pallas_counterpart": False,
-        "launches": trained_llama["rms_norm_bwd"],
-        "launches_by_path": {"train_llama": trained_llama["rms_norm_bwd"]},
-        **records[("rms_norm_bwd", "bfloat16")],
-        "float32": {k: records[("rms_norm_bwd", "float32")][k]
-                    for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                              "max_abs_err")}})
+    # K4 and its backward: bf16 on the Llama training paths, f32 and fp16
+    # beside (fp16 on phase 20 (d)'s O1 steps)
+    for name, replaces, extra in (
+            ("rms_norm", "paddle_tpu/ops/pallas/rms_norm.py:46", {}),
+            # no Pallas counterpart: the jnp _bwd of the custom VJP, which
+            # XLA fuses
+            ("rms_norm_bwd", "paddle_tpu/ops/pallas/rms_norm.py:84",
+             {"pallas_counterpart": False})):
+        by_path = {"train_llama": trained_llama[name],
+                   "fit_llama": fit_run["launches"][name]}
+        fp16 = fit_run["fp16_llama"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source + "rms_norm.cu",
+            "replaces": replaces, **extra,
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            **records[(name, "bfloat16")],
+            "float32": {k: records[(name, "float32")][k]
+                        for k in ("ms", "plain_ms", "bound_ms", "library_ms",
+                                  "max_abs_err")},
+            "float16": {**{k: fit_run["rms16"][name][k]
+                           for k in ("ms", "plain_ms", "bound_ms",
+                                     "bound_by", "library_ms",
+                                     "max_abs_err", "shape")},
+                        "launches": fp16,
+                        "launches_by_path": {"fit_fp16_llama": fp16}}})
     fm_records = flashmask_path["records"]
     # K5-K7 each have a bf16 kernel and an f32 one in 3xTF32, all on the
     # tensor cores
@@ -5738,6 +6348,15 @@ def main() -> int:
                              **{k: fm_records[(key, "float32")][k]
                                 for k in ("ms", "plain_ms", "bound_ms",
                                           "library_ms", "max_abs_err")}}}
+        # float16: the same source instantiated for __half (phase 20 (d))
+        fm16 = fit_run["fm16"]
+        entry["float16"] = {
+            "source": source + src,
+            **{k: fm16["records"][(key, "float16")][k]
+               for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                         "library_ms", "max_abs_err", "shape")},
+            "launches": fm16["launches"][key],
+            "launches_by_path": {"flashmask_fp16": fm16["launches"][key]}}
         entry["tiles"] = flashmask_path["tiles"][key]
         if key == "fwd":
             entry["path"] = flashmask_path["path"]
@@ -5748,7 +6367,9 @@ def main() -> int:
                "trainer_fp16": trainer["fp16"]["adamw"],
                "trainer_optimizers": trainer["optimizers"]["adamw"],
                "train_bert": bert_run["arm"]["adamw"],
-               "train_bert_bucketed": bert_run["bucketed"]["adamw"]}
+               "train_bert_bucketed": bert_run["bucketed"]["adamw"],
+               "fit_llama": fit_run["launches"]["adamw"],
+               "fit_fp16_llama": fit_run["fp16_llama"]["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",

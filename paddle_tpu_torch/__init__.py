@@ -16,12 +16,19 @@ kernel; the batch serving tier: ``jit.save``/``jit.load`` over
 (batch, seq) rung, and ``serving.ServingEngine``; the training-step API:
 ``optimizer.lr`` schedulers, parameter groups, ``nn.ClipGradBy*``, the ten
 optimizers, ``amp`` O1/O2 in bf16 or fp16 with ``amp.GradScaler``, and
-``nn.CrossEntropyLoss``; BERT/ERNIE fine-tuning with shape bucketing; and
-ResNet training (``vision.models``, convolution, BatchNorm and pooling
-layers) with a multi-tensor Momentum kernel.
+``nn.CrossEntropyLoss``; BERT/ERNIE fine-tuning with shape bucketing;
+ResNet and PP-LiteSeg training (``vision.models``, convolution, BatchNorm
+and pooling layers) with a multi-tensor Momentum kernel; and the training
+loop: ``Model`` (``hapi``) with ``fit``/``evaluate``/``predict``, callbacks
+and ``metric`` s over ``io.DataLoader`` (worker processes) and
+``io.DeviceLoader`` (batches staged on the card), with preemption-safe
+snapshots (``reliability.TrainSnapshotter``) and the flight recorder,
+memory sampler and numerics witness of ``observability``.
 """
-from . import framework, inference, jit, serving, static, vision
+from . import framework, hapi, inference, io, jit, metric, serving, static, vision
 from .device import DEFAULT_DEVICE, resolve_device
+from .hapi import Model, flops, summary
 
-__all__ = ["DEFAULT_DEVICE", "framework", "inference", "jit",
-           "resolve_device", "serving", "static", "vision"]
+__all__ = ["DEFAULT_DEVICE", "Model", "flops", "framework", "hapi",
+           "inference", "io", "jit", "metric", "resolve_device", "serving",
+           "static", "summary", "vision"]

@@ -19,8 +19,11 @@ into a CUDA graph (``jit.TrainStep``, ``jit.functionalize``).
 - :meth:`GradScaler.update` applies one scale transition per step and is
   idempotent until the next ``step``.
 
-Not ported: the JAX ``unscale_``'s ``numerics.nonfinite_grad`` fault point
-and numerics witness (``observability/numerics.py`` has no port).
+``unscale_`` carries the JAX package's ``numerics.nonfinite_grad`` fault
+point (a ``corrupt`` plan poisons the first gradient with NaN, so the step
+is skipped) and watches each unscaled gradient (``"amp.unscaled_grad"``)
+when the numerics witness is lit; dark, both are one global read, and in a
+CUDA graph capture the watch reads nothing.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from typing import Sequence
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..observability import numerics
+from ..reliability.faults import fault_point
 
 __all__ = ["GradScaler", "check_finite_and_unscale", "update_loss_scaling"]
 
@@ -103,12 +108,18 @@ class GradScaler:
             return
         params = [p for p in optimizer._parameter_list
                   if optimizer._grad_of(p) is not None]
+        # the chaos site: a "corrupt" plan poisons the first gradient with
+        # NaN; the finite check trips and step() skips the update
+        poison = fault_point("numerics.nonfinite_grad") == "corrupt"
         if params:
             self._check(params[0])
-            grads, found = _unscale([optimizer._grad_of(p) for p in params],
-                                    1.0 / self._scale)
+            grads = [optimizer._grad_of(p) for p in params]
+            if poison:
+                grads[0] = torch.full_like(grads[0], float("nan"))
+            grads, found = _unscale(grads, 1.0 / self._scale)
             for p, g in zip(params, grads):
                 optimizer._set_grad(p, g)
+                numerics.watch("amp.unscaled_grad", g)
             self._found_inf.copy_(found)
         else:
             self._found_inf.fill_(False)

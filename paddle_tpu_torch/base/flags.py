@@ -1,8 +1,10 @@
-"""Process-level flags the serving path reads.
+"""Process-level flags the serving and training paths read.
 
 The port's copy of ``paddle_tpu/base/flags.py``, cut to the flags of the
 decode path and its operational tier (telemetry, fault injection, retries,
-circuit breakers, the lock witness): same names, same defaults, each
+circuit breakers, the lock witness) and of the training loop (device
+prefetch, metric syncs, snapshots, the anomaly flight recorder, the memory
+sampler, the numerics witness): same names, same defaults, each
 overridable by a ``FLAGS_<name>`` environment variable and at run time by
 :func:`set_flags`, whose changes reach the hooks registered with
 :func:`on_flag_change`.
@@ -190,3 +192,62 @@ define_flag("concurrency_witness", False,
 define_flag("concurrency_max_hold_ms", 0.0,
             "lock witness: a lit-mode hold longer than this records a "
             "hold violation; <=0 disables the hold-time watcher")
+define_flag("device_prefetch", 0,
+            "DataLoader default for device_prefetch=N: stage N collated "
+            "batches onto the device ahead of the train loop "
+            "(io/device_prefetch.py DeviceLoader); 0 disables")
+define_flag("metric_sync_every", 0,
+            "hapi.Model.fit default for how often (in steps) the "
+            "MetricBuffer materializes device metrics to host floats; "
+            "0 defers to the loop's log_freq (log-boundary syncs only)")
+define_flag("train_snapshot_every", 0,
+            "hapi.Model.fit default for snapshot_every: land an atomic "
+            "rolling train-state snapshot (step, params, optimizer, "
+            "generator states, loader cursor) every N steps into "
+            "snapshot_dir; 0 disables the cadence (a preemption still "
+            "snapshots)")
+define_flag("train_snapshot_keep", 2,
+            "reliability TrainSnapshotter: rolling window — newest N "
+            "snapshots survive, older ones are pruned after each commit")
+define_flag("telemetry_anomaly", False,
+            "observability: feed the anomaly flight recorder "
+            "(observability/anomaly.py AnomalyMonitor) at train-step "
+            "close and metric-flush boundaries; off = one attribute read "
+            "per boundary, zero recording")
+define_flag("telemetry_dump_dir", "",
+            "anomaly flight recorder: directory for forensic bundles "
+            "(last-N spans + metrics snapshot + detector verdict + "
+            "step-time window) dumped on a detector trigger or an "
+            "uncaught train-loop exception; empty disables dumping "
+            "(triggers are still counted)")
+define_flag("anomaly_step_mad", 8.0,
+            "anomaly flight recorder: a step slower than "
+            "median + N*MAD of the rolling step-time window trips the "
+            "step-time regression detector; <=0 disables it")
+define_flag("anomaly_dump_cooldown_s", 60.0,
+            "anomaly flight recorder: per-anomaly-kind dedup window — "
+            "repeat triggers of the same kind inside it tick "
+            "anomaly.suppressed instead of writing another bundle")
+define_flag("anomaly_reject_burst", 16,
+            "anomaly flight recorder: admission rejections within one "
+            "second that count as a rejection burst; <=0 disables the "
+            "burst watcher")
+define_flag("cost_hbm_budget_bytes", 16 << 30,
+            "anomaly flight recorder: the per-device memory budget the "
+            "boundary sampler's watermark is checked against")
+define_flag("telemetry_memory_sample_every", 8,
+            "observability: sample device-memory telemetry (the caching "
+            "allocator's allocated and peak bytes) every N-th step "
+            "boundary the train loop crosses; 0 disables sampling. "
+            "Boundary-only and sync-free")
+define_flag("numerics_witness", False,
+            "observability/numerics.py: arm the runtime NaN/Inf + "
+            "dynamic-range witness — every watch() site (the TrainStep "
+            "loss, GradScaler's unscaled gradients) checks finiteness and "
+            "tracks a per-name max-abs watermark; off = one bool read per "
+            "site")
+define_flag("numerics_collapse_ratio", 1e-4,
+            "numerics witness (NM1105): once a watched tensor's max-abs "
+            "watermark is established, a later sample whose max-abs "
+            "falls below watermark*ratio records a range-collapse "
+            "verdict")

@@ -29,22 +29,33 @@ the graph, through a :class:`~.bucketing.BucketedFunction`: each rung is
 one signature, so one CUDA graph, captured at the rung's second call and
 replayed after it.
 
+Telemetry, as in the JAX step: with ``FLAGS_telemetry_trace`` a call is a
+``train.step`` span; with ``FLAGS_telemetry_anomaly`` its host wall (the
+queueing of a replay) feeds the flight recorder's step-time detector;
+with ``FLAGS_numerics_witness`` the returned loss is watched
+(``"train.loss"``). All three dark, a call reads three attributes and
+nothing else: no clock, no host read, no launch.
+
 ``grad_accum_steps`` is accepted and read nowhere, as in the JAX
 package. Not ported: ``sharding`` raises ``NotImplementedError``
-(ROADMAP.md, queue 1).
+(ROADMAP.md, queue 7).
 """
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional
 
 import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
+from ..observability import numerics
+from ..observability.anomaly import monitor
+from ..observability.tracing import tracer
 from ..optimizer import LBFGS
 from .bucketing import BucketedFunction
 from .functionalize import CompiledFunction
 
-__all__ = ["TrainStep"]
+__all__ = ["TrainStep", "model_generators"]
 
 
 class TrainStep:
@@ -59,7 +70,7 @@ class TrainStep:
                  *, device=DEFAULT_DEVICE):
         if sharding is not None:
             raise NotImplementedError(
-                "TrainStep sharding is not ported yet (ROADMAP.md, queue 1)")
+                "TrainStep sharding is not ported yet (ROADMAP.md, queue 7)")
         if optimizer is None or loss_fn is None:
             raise ValueError("TrainStep needs an optimizer and a loss_fn")
         if isinstance(optimizer, LBFGS):
@@ -101,7 +112,20 @@ class TrainStep:
         # refresh the LR cell before the graph, only when it changed: a
         # refresh captured into the graph would replay a stale LR
         self.optimizer._device_lr()
-        return self._compiled(*batch)
+        if not (tracer.enabled or monitor.enabled or numerics._enabled):
+            return self._compiled(*batch)
+        # read once: a flag flipped mid-step must not leave t0 unset
+        timed = monitor.enabled
+        t0 = time.perf_counter() if timed else 0.0
+        if tracer.enabled:
+            with tracer.span("train.step", track="train_loop"):
+                out = self._compiled(*batch)
+        else:
+            out = self._compiled(*batch)
+        if timed:
+            monitor.on_step(time.perf_counter() - t0)
+        numerics.watch("train.loss", out)
+        return out
 
     @property
     def stats(self) -> dict:
@@ -114,14 +138,20 @@ class TrainStep:
         return self._compiled.audit_report()
 
 
-def _cuda_generators(model) -> List[torch.Generator]:
-    """The distinct CUDA generators the model's modules hold (dropout)."""
+def model_generators(model) -> List[torch.Generator]:
+    """The distinct generators the model's modules hold (dropout), in the
+    order ``model.modules()`` meets them: what a train-state snapshot
+    saves beside torch's default generators."""
     if model is None:
         return []
     found = {}
     for mod in model.modules():
         for value in vars(mod).values():
-            if isinstance(value, torch.Generator) \
-                    and value.device.type == "cuda":
-                found[id(value)] = value
+            if isinstance(value, torch.Generator):
+                found.setdefault(id(value), value)
     return list(found.values())
+
+
+def _cuda_generators(model) -> List[torch.Generator]:
+    """The model's CUDA generators, which a captured step registers."""
+    return [g for g in model_generators(model) if g.device.type == "cuda"]

@@ -9,7 +9,8 @@ block tables to rungs; the batch tier pads an assembled batch to a
 (batch, seq) rung of its grid; a bucketed ``TrainStep`` pads each batch's
 variable dims to a rung of the log₂ ladder (:class:`BucketedFunction`).
 A request's arithmetic is then the same whatever batch it rides in.
-``bucket_collate`` waits for the port's ``io`` (ROADMAP.md, queue 5).
+``bucket_collate`` is the ``DataLoader`` side: a collate function that pads
+each sample's variable axis to the batch's rung before stacking.
 """
 from __future__ import annotations
 
@@ -19,7 +20,7 @@ import torch
 
 __all__ = ["powers_of_two_buckets", "bucket_for", "bucket_grid",
            "bucket_pair_for", "table_ladder", "assemble_bucket",
-           "pad_to_bucket", "BucketedFunction"]
+           "pad_to_bucket", "BucketedFunction", "bucket_collate"]
 
 
 def powers_of_two_buckets(min_len: int, max_len: int) -> List[int]:
@@ -173,3 +174,42 @@ class BucketedFunction:
                 args[i] = pad_to_bucket(args[i], axis, bucket,
                                         self.pad_values.get(i, 0))
         return self._compiled(*args, **kwargs)
+
+
+def bucket_collate(axis: int = 0, min_len: int = 16, max_len: int = 4096,
+                   pad_value=0, buckets: Optional[Sequence[int]] = None,
+                   base_collate=None):
+    """DataLoader ``collate_fn`` factory: pads each sample's ``axis`` to the
+    rung of the batch's longest, then stacks (``io.default_collate_fn``),
+    so the steps downstream see at most the ladder's shapes. Non-numeric
+    leaves and leaves without ``axis`` stack as they are. ``base_collate``
+    is accepted and read nowhere, as in the JAX package."""
+    import numpy as np
+
+    ladder = (list(buckets) if buckets
+              else powers_of_two_buckets(min_len, max_len))
+
+    def collate(batch):
+        from ..io.dataloader import default_collate_fn
+
+        def pad_leaf(samples):
+            arrs = [np.asarray(s) for s in samples]
+            if arrs[0].ndim <= axis or not np.issubdtype(arrs[0].dtype,
+                                                         np.number):
+                return default_collate_fn(samples)
+            b = bucket_for(max(a.shape[axis] for a in arrs), ladder)
+            out = []
+            for a in arrs:
+                widths = [(0, 0)] * a.ndim
+                widths[axis] = (0, b - a.shape[axis])
+                out.append(np.pad(a, widths, constant_values=pad_value))
+            return default_collate_fn(out)
+
+        sample = batch[0]
+        if isinstance(sample, (tuple, list)):
+            return tuple(pad_leaf(list(f)) for f in zip(*batch))
+        if isinstance(sample, dict):
+            return {k: pad_leaf([s[k] for s in batch]) for k in sample}
+        return pad_leaf(batch)
+
+    return collate

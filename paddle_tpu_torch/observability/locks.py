@@ -9,11 +9,10 @@
   process-wide lock-order graph keyed by name: per-thread held stacks,
   per-name acquire/contended counters, hold times, and edges ``held ->
   acquired``. A new edge that closes a cycle is a lock-order inversion,
-  recorded as a witness violation; a hold longer than
-  ``FLAGS_concurrency_max_hold_ms`` (when > 0) is a hold violation. The
-  JAX package also hands each inversion to its anomaly flight recorder;
-  that recorder is not ported yet (``ROADMAP.md``, queue 8), so here the
-  verdict is recorded and nothing more.
+  recorded as a witness violation and handed to the anomaly flight
+  recorder (``observability/anomaly.py``, one bundle per cooldown); a hold
+  longer than ``FLAGS_concurrency_max_hold_ms`` (when > 0) is a hold
+  violation.
 - Off (the default), every acquire pays one module-global bool read and
   goes straight to the wrapped primitive.
 """
@@ -80,9 +79,27 @@ def _reaches(src: str, dst: str) -> bool:
     return False
 
 
+def _notify_inversion(verdict: dict) -> None:
+    """Feed the flight recorder outside ``_WLOCK``. The monitor's own
+    locks are named too, so its recording re-enters the witness: the
+    per-thread ``busy`` latch keeps that recursion out of the verdict path
+    (the re-entrant acquires still count, they cannot trigger a nested
+    notification)."""
+    if getattr(_tls, "busy", False):
+        return
+    _tls.busy = True
+    try:
+        from .anomaly import monitor
+
+        monitor.on_lock_inversion(verdict)
+    finally:
+        _tls.busy = False
+
+
 def _record_acquire(name: str, contended: bool) -> None:
     stack = _stack()
     now = time.perf_counter()
+    verdict = None
     with _WLOCK:
         _acquires[name] = _acquires.get(name, 0) + 1
         if contended:
@@ -95,14 +112,17 @@ def _record_acquire(name: str, contended: bool) -> None:
                 succ = _edges.setdefault(holder, set())
                 if name not in succ:
                     succ.add(name)
-                    if (_reaches(name, holder)
-                            and len(_violations) < _MAX_VIOLATIONS):
-                        _violations.append({
+                    if _reaches(name, holder):
+                        verdict = {
                             "code": "CX1004", "kind": "lock_inversion",
                             "edge": [holder, name],
                             "held_stack": [e[0] for e in stack] + [name],
-                            "thread": threading.current_thread().name})
+                            "thread": threading.current_thread().name}
+                        if len(_violations) < _MAX_VIOLATIONS:
+                            _violations.append(verdict)
     stack.append([name, now, _epoch])
+    if verdict is not None:
+        _notify_inversion(verdict)
 
 
 def _record_release(name: str) -> None:

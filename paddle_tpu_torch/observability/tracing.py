@@ -121,6 +121,14 @@ class SpanTracer:
             self._append(("X", name, track, t0_s * 1e6, dur_s * 1e6,
                           args or None))
 
+    def instant(self, name: str, track: str = "host", **args) -> None:
+        """Zero-duration marker (a memory sample tick)."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._append(("i", name, track, time.perf_counter() * 1e6, 0.0,
+                          args or None))
+
     def _append(self, event: tuple) -> None:
         # caller holds self._lock
         self._events.append(event)
@@ -153,6 +161,16 @@ class SpanTracer:
         if args:
             ev["args"] = dict(args)
         return ev
+
+    def tail_chrome_events(self, n: int = 512) -> List[dict]:
+        """The most recent ``n`` events as chrome-trace dicts: the anomaly
+        flight recorder's bounded span window."""
+        if (n := int(n)) <= 0:
+            return []
+        pid = os.getpid()
+        with self._lock:
+            events = list(self._events[-n:])
+        return [self._event_dict(e, pid) for e in events]
 
     def to_chrome_trace(self) -> dict:
         """The timeline as a chrome://tracing / Perfetto JSON object.

@@ -1,5 +1,5 @@
 // FlashMask dK/dV pass on Hopper's tensor cores (sm_90a): K7 for bfloat16
-// inputs. The float32 dK/dV pass runs in 3xTF32
+// and float16 inputs (one instantiation each over the element type T). The float32 dK/dV pass runs in 3xTF32
 // (flashmask_dkv_tf32.cu).
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_bwd_dkv_kernel (:145,
@@ -18,7 +18,7 @@
 //   - any Sq, Sk: TMA fills the rows past the end (and the columns past D
 //     when D < 64) with zeros, and the pairs there are masked; keys no
 //     query sees get dK = dV = 0, written;
-//   - dk, dv contiguous [B, Sk, H, D] in bf16, each element written by one
+//   - dk, dv contiguous [B, Sk, H, D] in T, each element written by one
 //     thread (no atomics, so results do not change from run to run); no
 //     dropout (the Pallas kernel has none).
 //
@@ -50,14 +50,14 @@
 //      against the ragged edge and the causal diagonal only in a tile that
 //      meets them;
 //   3. adds P^T.dO to dV and dS^T.Q to dK with wgmma (m64nDk16), P^T and
-//      dS^T as the register A operand in two bf16 parts each, hi + lo (two
+//      dS^T as the register A operand in two T parts each, hi + lo (two
 //      products each): rounded once they leave dK and dV less than 4x inside
 //      the bf16 gate on FlashMask's layouts
 //      (tests/test_torch_flashmask_bwd_tc_numerics.py), as in K3. dO and Q
 //      are read MN-major through the transpose bit.
 // dK is scaled once, and both are written from registers.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM),
+// Bound on an H100 SXM (989 TFLOP/s bf16 or fp16 tensor cores, 3.35 TB/s HBM),
 // counted over the (q, k) pairs the mask allows, N: four products, 8 D N
 // flops a head, against q, k, v, dO, dk, dv, lse, Delta and the indices
 // read or written once. At the FlashMask path of chip_smoke.py (B=1,
@@ -85,8 +85,8 @@ struct Params {
   const int* idx;      // [B, Hm, Sk, ncol]
   const float* lse;    // [B, H, 1, Sq]
   const float* delta;  // [B, H, 1, Sq]
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
+  void* dk;  // T
+  void* dv;  // T
   int* tiles;  // null, or (live tiles, tiles within the causal bound) summed over blocks
   int B, Sq, Sk, H, D, Hm, ncol;
   int causal;
@@ -117,7 +117,7 @@ struct Layout {
   static int bytes(int n_qt) { return kFixed + 8 * n_qt; }
 };
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreadsTC, 1)
     flashmask_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -251,9 +251,9 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
           const uint64_t da = desc_sw128(a_tile + (kk / 4) * L::kKBox + (kk % 4) * 32, 16, 1024);
           const uint64_t db = desc_sw128(b_tile + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024);
           if (kk == 0)
-            wgmma_m64n64k16_ss_set(d, da, db);
+            wgmma_m64n64k16_ss_set<T>(d, da, db);
           else
-            wgmma_m64n64k16_ss(d, da, db, 1);
+            wgmma_m64n64k16_ss<T>(d, da, db, 1);
         }
       };
       product(sc, ka, qb);
@@ -289,18 +289,18 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       }
     };
     // acc += x.B over the tile's 64 q rows: x as the register A operand in
-    // two bf16 parts (hi + lo), B (dO or Q) MN-major
+    // two T parts (hi + lo), B (dO or Q) MN-major
     auto add_product = [&](float (&acc)[kO], const float (&x)[32], uint32_t b_tile) {
       uint32_t hi[4][4], lo[4][4];
 #pragma unroll
-      for (int ks = 0; ks < 4; ++ks) pack_a_split(hi[ks], lo[ks], x, ks);
+      for (int ks = 0; ks < 4; ++ks) pack_a_split<T>(hi[ks], lo[ks], x, ks);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_rs(acc, hi[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
+        wgmma_rs<T>(acc, hi[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_rs(acc, lo[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
+        wgmma_rs<T>(acc, lo[ks], desc_sw128(b_tile + ks * 2048, L::kQBox, 1024));
       wgmma_commit();
     };
 
@@ -336,24 +336,24 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     for (int i = 0; i < DP / 8; ++i) {
       const int c = 8 * i + col0;
       if (c < p.D) {
-        *reinterpret_cast<__nv_bfloat162*>(p.dk + off + c) = __floats2bfloat162_rn(
+        *reinterpret_cast<typename Elem<T>::T2*>(static_cast<T*>(p.dk) + off + c) = Elem<T>::pack2(
             dk[4 * i + 2 * hh] * p.scale, dk[4 * i + 2 * hh + 1] * p.scale);
-        *reinterpret_cast<__nv_bfloat162*>(p.dv + off + c) =
-            __floats2bfloat162_rn(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
+        *reinterpret_cast<typename Elem<T>::T2*>(static_cast<T*>(p.dv) + off + c) =
+            Elem<T>::pack2(dv[4 * i + 2 * hh], dv[4 * i + 2 * hh + 1]);
       }
     }
   }
 }
 
-template <int DP>
+template <typename T, int DP>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
   const int smem = Layout<DP>::bytes((p.Sq + kN - 1) / kN);
   if (smem > 232448) return cudaErrorInvalidValue;  // Sq past ~300k rows
-  cudaError_t err = cudaFuncSetAttribute(flashmask_dkv_sm90_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flashmask_dkv_sm90_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sk + kM - 1) / kM, p.H, p.B);
-  flashmask_dkv_sm90_kernel<DP>
+  flashmask_dkv_sm90_kernel<T, DP>
       <<<grid, kThreadsTC, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
@@ -361,10 +361,10 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t s
 }  // namespace
 
 // The arguments of paddle_flashmask_bwd_dq_sm90 (flashmask_dq_sm90.cu),
-// with dk and dv contiguous [B, Sk, H, D] bf16 tensors (dq is not touched);
+// with dk and dv contiguous [B, Sk, H, D] tensors of q's type (dq is not touched);
 // tiles null, or a zeroed int32 pair on the device to which each block adds
 // its live q tiles and its q tiles within the causal bound. dtype must be
-// 1 (bfloat16), D one of 16, 32, 64, 128, and every stride of q, k, v, dO a
+// 1 (bfloat16) or 2 (float16), D one of 16, 32, 64, 128, and every stride of q, k, v, dO a
 // multiple of 8 elements with a 16-byte aligned base (TMA). Returns the
 // cudaError_t of the launch (0 on success), or sm90::kErrTensorMap when a
 // tensor map cannot be encoded.
@@ -376,21 +376,22 @@ extern "C" int paddle_flashmask_bwd_dkv_sm90(
     long long v_ss, long long v_sh, long long o_sb, long long o_ss, long long o_sh, int causal,
     float scale, void* stream) {
   (void)dq;
-  if (dtype != 1 || (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Sq < 1 || Sk < 1 ||
+  if ((dtype != 1 && dtype != 2) || (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Sq < 1 || Sk < 1 ||
       H < 1 || (Hm != 1 && Hm != H) || (ncol != 1 && ncol != 2 && ncol != 4))
     return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType ty = dtype == 2 ? Elem<__half>::kTma : Elem<__nv_bfloat16>::kTma;
   CUtensorMap maps[4];
-  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kN) ||
-      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kM) ||
-      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kM) ||
-      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kN))
+  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kN, ty) ||
+      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kM, ty) ||
+      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kM, ty) ||
+      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kN, ty))
     return kErrTensorMap;
   Params p;
   p.idx = static_cast<const int*>(idx);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dk = static_cast<__nv_bfloat16*>(dk);
-  p.dv = static_cast<__nv_bfloat16*>(dv);
+  p.dk = dk;
+  p.dv = dv;
   p.tiles = static_cast<int*>(tiles);
   p.B = B;
   p.Sq = Sq;
@@ -403,6 +404,9 @@ extern "C" int paddle_flashmask_bwd_dkv_sm90(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D <= 64 ? launch<64>(maps, p, s) : launch<128>(maps, p, s);
+  const cudaError_t err =
+      dtype == 2 ? (D <= 64 ? launch<__half, 64>(maps, p, s) : launch<__half, 128>(maps, p, s))
+                 : (D <= 64 ? launch<__nv_bfloat16, 64>(maps, p, s)
+                            : launch<__nv_bfloat16, 128>(maps, p, s));
   return static_cast<int>(err);
 }

@@ -1,4 +1,5 @@
-// FlashMask dQ pass on Hopper's tensor cores (sm_90a): K6 for bfloat16
+// FlashMask dQ pass on Hopper's tensor cores (sm_90a): K6 for bfloat16 and
+// float16 (one instantiation each over the element type T)
 // inputs. The float32 K6 is flashmask_dq_tf32.cu.
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_bwd_dq_kernel (:103,
@@ -17,7 +18,7 @@
 //     as the Pallas kernel gives;
 //   - any Sq, Sk: TMA fills the rows past the end (and the columns past D
 //     when D < 64) with zeros, and the pairs there are masked;
-//   - dq contiguous [B, Sq, H, D] in bf16; no dropout (the Pallas kernel
+//   - dq contiguous [B, Sq, H, D] in T; no dropout (the Pallas kernel
 //     has none).
 //
 // Design: flash_attention_dq_sm90.cu's block with flashmask_fwd_sm90.cu's
@@ -33,7 +34,7 @@
 // warp issues the loads kStages - 2 tiles ahead while its own products
 // run, as flash_attention_dkv_sm90.cu does. Per live tile each warpgroup
 //   1. computes S = Q.K^T and dP = dO.V^T with wgmma (m64n64k16, all four
-//      operands K-major from shared memory), bf16 in, f32 sums;
+//      operands K-major from shared memory), T in, f32 sums;
 //   2. forms P = 2^(S * scale * log2(e) - lse * log2(e)), selected to 0
 //      where hidden, and dS = P o (dP - Delta) in the accumulator registers;
 //      a thread tests its elements against their columns' intervals only
@@ -41,7 +42,7 @@
 //      diagonal only in a tile that meets them;
 //   3. adds dS.K to dQ with wgmma (m64nDk16, the same K tile read MN-major
 //      through the transpose bit), dS as the register A operand in two
-//      bf16 parts, hi + lo (two products): rounded once, as K2 rounds dS,
+//      T parts, hi + lo (two products): rounded once, as K2 rounds dS,
 //      it leaves dQ less than 4x inside the bf16 gate on FlashMask's
 //      layouts, where short documents make P large
 //      (tests/test_torch_flashmask_bwd_tc_numerics.py).
@@ -50,7 +51,7 @@
 // order inside a warpgroup, as in K2). dq is scaled once and written from
 // registers; a block with no live tile writes dQ = 0.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM),
+// Bound on an H100 SXM (989 TFLOP/s bf16 or fp16 tensor cores, 3.35 TB/s HBM),
 // counted over the (q, k) pairs the mask allows, N: three products, 6 D N
 // flops a head, against q, k, v, dO, dq, lse, Delta and the indices read or
 // written once. At the FlashMask path of chip_smoke.py (B=1, S=8192, 32
@@ -78,7 +79,7 @@ struct Params {
   const int* idx;      // [B, Hm, Sk, ncol]
   const float* lse;    // [B, H, 1, Sq]
   const float* delta;  // [B, H, 1, Sq]
-  __nv_bfloat16* dq;
+  void* dq;  // T
   int* tiles;  // null, or (live tiles, tiles within the causal bound) summed over blocks
   int B, Sq, Sk, H, D, Hm, ncol;
   int causal;
@@ -109,7 +110,7 @@ struct Layout {
   static int bytes(int n_kt) { return kFixed + 8 * n_kt; }
 };
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreadsTC, 1)
     flashmask_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -236,11 +237,11 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       const uint32_t vb = sv + (j % kStages) * L::kKV;
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_m64n64k16_ss(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+        wgmma_m64n64k16_ss<T>(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
                            desc_sw128(kb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
 #pragma unroll
       for (int kk = 0; kk < DP / 16; ++kk)
-        wgmma_m64n64k16_ss(dp, desc_sw128(oa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+        wgmma_m64n64k16_ss<T>(dp, desc_sw128(oa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
                            desc_sw128(vb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
       wgmma_commit();
     };
@@ -281,7 +282,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     fence_operand(dp);
     form_ds(0);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) pack_a_split(hi[ks], lo[ks], sc, ks);
+    for (int ks = 0; ks < 4; ++ks) pack_a_split<T>(hi[ks], lo[ks], sc, ks);
     for (int j = 0; j < nl; ++j) {
       const bool more = j + 1 < nl;
       if (more) mbar_wait(bar_full + 8 * ((j + 1) % kStages), ((j + 1) / kStages) & 1);
@@ -293,10 +294,10 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       const uint32_t kb = sk + (j % kStages) * L::kKV;
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_rs(acc, hi[ks], desc_sw128(kb + ks * 2048, L::kKVBox, 1024));
+        wgmma_rs<T>(acc, hi[ks], desc_sw128(kb + ks * 2048, L::kKVBox, 1024));
 #pragma unroll
       for (int ks = 0; ks < 4; ++ks)
-        wgmma_rs(acc, lo[ks], desc_sw128(kb + ks * 2048, L::kKVBox, 1024));
+        wgmma_rs<T>(acc, lo[ks], desc_sw128(kb + ks * 2048, L::kKVBox, 1024));
       wgmma_commit();
       // the first warp refills the ring while the products run
       if (tid < 32 && j + kAhead < nl) load(j + kAhead);
@@ -311,7 +312,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
       mbar_arrive(bar_empty + 8 * (j % kStages));
       if (more) {
 #pragma unroll
-        for (int ks = 0; ks < 4; ++ks) pack_a_split(hi[ks], lo[ks], sc, ks);
+        for (int ks = 0; ks < 4; ++ks) pack_a_split<T>(hi[ks], lo[ks], sc, ks);
       }
     }
   }
@@ -320,26 +321,26 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int qp = row0 + 8 * hh;
     if (qp >= p.Sq) continue;
-    __nv_bfloat16* row = p.dq + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
+    T* row = static_cast<T*>(p.dq) + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i) {
       const int c = 8 * i + col0;
       if (c < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(row + c) = __floats2bfloat162_rn(
+        *reinterpret_cast<typename Elem<T>::T2*>(row + c) = Elem<T>::pack2(
             acc[4 * i + 2 * hh] * p.scale, acc[4 * i + 2 * hh + 1] * p.scale);
     }
   }
 }
 
-template <int DP>
+template <typename T, int DP>
 cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t stream) {
   const int smem = Layout<DP>::bytes((p.Sk + kN - 1) / kN);
   if (smem > 232448) return cudaErrorInvalidValue;  // Sk past ~300k keys
-  cudaError_t err = cudaFuncSetAttribute(flashmask_dq_sm90_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flashmask_dq_sm90_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kM - 1) / kM, p.H, p.B);
-  flashmask_dq_sm90_kernel<DP>
+  flashmask_dq_sm90_kernel<T, DP>
       <<<grid, kThreadsTC, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
@@ -347,11 +348,11 @@ cudaError_t launch(const CUtensorMap (&maps)[4], const Params& p, cudaStream_t s
 }  // namespace
 
 // Strides are in elements, those of q, k, v, then dO; lse and delta are
-// contiguous [B, H, 1, Sq] f32 tensors, dq a contiguous [B, Sq, H, D] bf16
+// contiguous [B, H, 1, Sq] f32 tensors, dq a contiguous [B, Sq, H, D] T
 // tensor (dk and dv are not touched), idx as for
 // paddle_flashmask_fwd_sm90; tiles null, or a zeroed int32 pair on the
 // device to which each block adds its live k tiles and its k tiles within
-// the causal bound. dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and
+// the causal bound. dtype must be 1 (bfloat16) or 2 (float16), D one of 16, 32, 64, 128, and
 // every stride of q, k, v, dO a multiple of 8 elements with a 16-byte
 // aligned base (TMA). Returns the cudaError_t of the launch (0 on
 // success), or sm90::kErrTensorMap when a tensor map cannot be encoded.
@@ -364,20 +365,21 @@ extern "C" int paddle_flashmask_bwd_dq_sm90(
     float scale, void* stream) {
   (void)dk;
   (void)dv;
-  if (dtype != 1 || (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Sq < 1 || Sk < 1 ||
+  if ((dtype != 1 && dtype != 2) || (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Sq < 1 || Sk < 1 ||
       H < 1 || (Hm != 1 && Hm != H) || (ncol != 1 && ncol != 2 && ncol != 4))
     return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType ty = dtype == 2 ? Elem<__half>::kTma : Elem<__nv_bfloat16>::kTma;
   CUtensorMap maps[4];
-  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kM) ||
-      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kN) ||
-      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kN) ||
-      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kM))
+  if (!encode_bshd(&maps[0], q, B, Sq, H, D, q_sb, q_ss, q_sh, kM, ty) ||
+      !encode_bshd(&maps[1], k, B, Sk, H, D, k_sb, k_ss, k_sh, kN, ty) ||
+      !encode_bshd(&maps[2], v, B, Sk, H, D, v_sb, v_ss, v_sh, kN, ty) ||
+      !encode_bshd(&maps[3], dout, B, Sq, H, D, o_sb, o_ss, o_sh, kM, ty))
     return kErrTensorMap;
   Params p;
   p.idx = static_cast<const int*>(idx);
   p.lse = static_cast<const float*>(lse);
   p.delta = static_cast<const float*>(delta);
-  p.dq = static_cast<__nv_bfloat16*>(dq);
+  p.dq = dq;
   p.tiles = static_cast<int*>(tiles);
   p.B = B;
   p.Sq = Sq;
@@ -390,6 +392,9 @@ extern "C" int paddle_flashmask_bwd_dq_sm90(
   p.scale = scale;
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = D <= 64 ? launch<64>(maps, p, s) : launch<128>(maps, p, s);
+  const cudaError_t err =
+      dtype == 2 ? (D <= 64 ? launch<__half, 64>(maps, p, s) : launch<__half, 128>(maps, p, s))
+                 : (D <= 64 ? launch<__nv_bfloat16, 64>(maps, p, s)
+                            : launch<__nv_bfloat16, 128>(maps, p, s));
   return static_cast<int>(err);
 }

@@ -1,5 +1,6 @@
 // FlashMask forward on Hopper's tensor cores (sm_90a): K5 for bfloat16
-// inputs. The float32 K5 is flashmask_fwd_tf32.cu; the bfloat16 K6 and K7
+// and float16 inputs (one instantiation each over the element type T, as
+// K1; the Pallas kernel writes O in its input's dtype). The float32 K5 is flashmask_fwd_tf32.cu; the bfloat16 K6 and K7
 // are flashmask_dq_sm90.cu and flashmask_dkv_sm90.cu.
 //
 // Replaces paddle_tpu/ops/pallas/flashmask.py::_fm_fwd_kernel (:52,
@@ -18,14 +19,14 @@
 //     lse = -1e30 + log(1e-30), as the Pallas kernel does;
 //   - any Sq, Sk: TMA fills the rows past the end (and the columns past D
 //     when D < 64) with zeros, and the scores there are masked;
-//   - O in bf16 [B, Sq, H, D], lse f32 [B, H, 1, Sq]; no dropout (the
+//   - O in T [B, Sq, H, D], lse f32 [B, H, 1, Sq]; no dropout (the
 //     Pallas kernel has none).
 //
 // Design: flash_attention_fwd_sm90.cu's block (one block per (128-row q
 // tile, head, batch), heaviest causal tiles first; two consumer warpgroups
 // of 64 rows, one producer warp, a ring of kStages K/V stages filled by
 // TMA on mbarriers, S = Q.K^T and O += P.V with wgmma, the online softmax
-// in exp2 on the accumulator registers, P rounded to bf16 as the register
+// in exp2 on the accumulator registers, P rounded to T as the register
 // A operand) with FlashMask's mask:
 //   - before the loop, all 288 threads read the key columns' intervals up
 //     to the causal bound (flashmask_sm90_common.cuh, shared with K6 and
@@ -43,7 +44,7 @@
 //     only in a partial tile, and against the ragged edge and the causal
 //     diagonal only in a tile that meets them, as K1 does.
 //
-// Bound on an H100 SXM (989 TFLOP/s bf16 tensor cores, 3.35 TB/s HBM),
+// Bound on an H100 SXM (989 TFLOP/s bf16 or fp16 tensor cores, 3.35 TB/s HBM),
 // counted over the (q, k) pairs the mask allows, N: two products, 4 D N
 // flops a head, against q, k, v, o, lse and the indices read or written
 // once. At the FlashMask path of chip_smoke.py (B=1, S=8192, 32 heads,
@@ -71,7 +72,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 struct Params {
   const int* idx;  // [B, Hm, Sk, ncol]
-  __nv_bfloat16* o;
+  void* o;  // T
   float* lse;
   int* tiles;  // null, or (live tiles, tiles within the causal bound) summed over blocks
   int B, Sq, Sk, H, D, Hm, ncol;
@@ -99,7 +100,7 @@ struct Layout {
   static int bytes(int n_kt) { return kFixed + 8 * n_kt; }
 };
 
-template <int DP>
+template <typename T, int DP>
 __global__ void __launch_bounds__(kThreadsTC, 1)
     flashmask_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -207,7 +208,7 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk)
-      wgmma_m64n64k16_ss(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
+      wgmma_m64n64k16_ss<T>(sc, desc_sw128(qa + (kk / 4) * L::kQBox + (kk % 4) * 32, 16, 1024),
                          desc_sw128(kb + (kk / 4) * L::kKVBox + (kk % 4) * 32, 16, 1024), kk > 0);
     wgmma_commit();
     wgmma_wait<0>();
@@ -259,13 +260,13 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
 
     uint32_t pa[4][4];
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) pack_a(pa[ks], sc, ks);
+    for (int ks = 0; ks < 4; ++ks) pack_a<T>(pa[ks], sc, ks);
 #pragma unroll
     for (int i = 0; i < kO; ++i) acc[i] *= alpha[(i >> 1) & 1];
     fence_operand(acc);
     wgmma_fence();
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_rs(acc, pa[ks], desc_sw128(vb + ks * 2048, L::kKVBox, 1024));
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs<T>(acc, pa[ks], desc_sw128(vb + ks * 2048, L::kKVBox, 1024));
     wgmma_commit();
     wgmma_wait<0>();
     fence_operand(acc);
@@ -279,13 +280,13 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   for (int hh = 0; hh < 2; ++hh) {
     const int qp = row0 + 8 * hh;
     if (qp >= p.Sq) continue;
-    __nv_bfloat16* orow = p.o + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
+    T* orow = static_cast<T*>(p.o) + ((static_cast<long long>(b) * p.Sq + qp) * p.H + h) * p.D;
 #pragma unroll
     for (int i = 0; i < DP / 8; ++i) {
       const int c = 8 * i + col0;
       if (c < p.D)
-        *reinterpret_cast<__nv_bfloat162*>(orow + c) =
-            __floats2bfloat162_rn(acc[4 * i + 2 * hh] / den[hh], acc[4 * i + 2 * hh + 1] / den[hh]);
+        *reinterpret_cast<typename Elem<T>::T2*>(orow + c) =
+            Elem<T>::pack2(acc[4 * i + 2 * hh] / den[hh], acc[4 * i + 2 * hh + 1] / den[hh]);
     }
     if (lane % 4 == 0)
       p.lse[(static_cast<long long>(b) * p.H + h) * p.Sq + qp] =
@@ -293,16 +294,16 @@ __global__ void __launch_bounds__(kThreadsTC, 1)
   }
 }
 
-template <int DP>
+template <typename T, int DP>
 cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorMap& tv,
                    const Params& p, cudaStream_t stream) {
   const int smem = Layout<DP>::bytes((p.Sk + kN - 1) / kN);
   if (smem > 232448) return cudaErrorInvalidValue;  // Sk past ~500k keys
-  cudaError_t err = cudaFuncSetAttribute(flashmask_fwd_sm90_kernel<DP>,
+  cudaError_t err = cudaFuncSetAttribute(flashmask_fwd_sm90_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + kM - 1) / kM, p.H, p.B);
-  flashmask_fwd_sm90_kernel<DP><<<grid, kThreadsTC, smem, stream>>>(tq, tk, tv, p);
+  flashmask_fwd_sm90_kernel<T, DP><<<grid, kThreadsTC, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();
 }
 
@@ -310,10 +311,10 @@ cudaError_t launch(const CUtensorMap& tq, const CUtensorMap& tk, const CUtensorM
 
 // Strides are in elements. idx is the contiguous [B, Hm, Sk, ncol] int32
 // tensor of start/end rows (Hm in {1, H}, ncol in {1, 2, 4}); o a
-// contiguous [B, Sq, H, D] bf16 tensor, lse a contiguous [B, H, 1, Sq] f32
+// contiguous [B, Sq, H, D] tensor of q's type, lse a contiguous [B, H, 1, Sq] f32
 // tensor; tiles null, or a zeroed int32 pair on the device to which each
 // block adds its live k tiles and its k tiles within the causal bound.
-// dtype must be 1 (bfloat16), D one of 16, 32, 64, 128, and every stride
+// dtype must be 1 (bfloat16) or 2 (float16), D one of 16, 32, 64, 128, and every stride
 // of q, k, v a multiple of 8 elements with a 16-byte aligned base (TMA).
 // Returns the cudaError_t of the launch (0 on success), or
 // sm90::kErrTensorMap when a tensor map cannot be encoded.
@@ -324,17 +325,18 @@ extern "C" int paddle_flashmask_fwd_sm90(const void* q, const void* k, const voi
                                          long long k_sb, long long k_ss, long long k_sh,
                                          long long v_sb, long long v_ss, long long v_sh,
                                          int causal, float scale, void* stream) {
-  if (dtype != 1 || (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Sq < 1 || Sk < 1 ||
+  if ((dtype != 1 && dtype != 2) || (D != 16 && D != 32 && D != 64 && D != 128) || B < 1 || Sq < 1 || Sk < 1 ||
       H < 1 || (Hm != 1 && Hm != H) || (ncol != 1 && ncol != 2 && ncol != 4))
     return static_cast<int>(cudaErrorInvalidValue);
+  const CUtensorMapDataType ty = dtype == 2 ? Elem<__half>::kTma : Elem<__nv_bfloat16>::kTma;
   CUtensorMap tq, tk, tv;
-  if (!encode_bshd(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, kM) ||
-      !encode_bshd(&tk, k, B, Sk, H, D, k_sb, k_ss, k_sh, kN) ||
-      !encode_bshd(&tv, v, B, Sk, H, D, v_sb, v_ss, v_sh, kN))
+  if (!encode_bshd(&tq, q, B, Sq, H, D, q_sb, q_ss, q_sh, kM, ty) ||
+      !encode_bshd(&tk, k, B, Sk, H, D, k_sb, k_ss, k_sh, kN, ty) ||
+      !encode_bshd(&tv, v, B, Sk, H, D, v_sb, v_ss, v_sh, kN, ty))
     return kErrTensorMap;
   Params p;
   p.idx = static_cast<const int*>(idx);
-  p.o = static_cast<__nv_bfloat16*>(o);
+  p.o = o;
   p.lse = static_cast<float*>(lse);
   p.tiles = static_cast<int*>(tiles);
   p.B = B;
@@ -349,6 +351,8 @@ extern "C" int paddle_flashmask_fwd_sm90(const void* q, const void* k, const voi
   p.scale_log2 = scale * kLog2e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      D <= 64 ? launch<64>(tq, tk, tv, p, s) : launch<128>(tq, tk, tv, p, s);
+      dtype == 2 ? (D <= 64 ? launch<__half, 64>(tq, tk, tv, p, s) : launch<__half, 128>(tq, tk, tv, p, s))
+                 : (D <= 64 ? launch<__nv_bfloat16, 64>(tq, tk, tv, p, s)
+                            : launch<__nv_bfloat16, 128>(tq, tk, tv, p, s));
   return static_cast<int>(err);
 }

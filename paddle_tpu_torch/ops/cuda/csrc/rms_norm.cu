@@ -7,9 +7,9 @@
 // blocks: the Pallas kernel's row blocking does not change a row's result.
 //   - x and w are upcast to f32; the sum of squares is an f32 sum over the
 //     row, divided by d; y = x * rsqrt(ms + eps), then y * w, rounded once to
-//     x's dtype (f32 or bf16, round to nearest even);
+//     x's dtype (f32, bf16 or fp16, round to nearest even);
 //   - x's rows may be strided (ldx elements apart); the last dim must be
-//     contiguous. w is [d] contiguous, in f32 or bf16 independently of x.
+//     contiguous. w is [d] contiguous, in f32, bf16 or fp16 independently of x.
 //     out is [rows, d] contiguous.
 //
 // Backward, paddle_rms_norm_bwd: the port's counterpart of the jnp _bwd of
@@ -60,6 +60,7 @@
 // 256 x 768 f32 (0.8 MB), read once more by the second launch.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,6 +113,7 @@ struct BwdParams {
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(__half v) { return __half2float(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);
@@ -120,6 +122,10 @@ __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+template <>
+__device__ __forceinline__ __half from_float<__half>(float v) {
+  return __float2half_rn(v);
 }
 
 // N elements of T as one load or store: 16 bytes (two for 8 f32), or one
@@ -549,10 +555,29 @@ cudaError_t bwd_t(const BwdParams& p, int max_blocks, void* dw, cudaStream_t s) 
   });
 }
 
+// f(TX{}, TW{}) for the element types the dtype codes name
+template <typename F>
+cudaError_t with_types(int x_dtype, int w_dtype, F&& f) {
+  auto with_w = [&](auto x) -> cudaError_t {
+    switch (w_dtype) {
+      case 0: return f(x, float{});
+      case 1: return f(x, __nv_bfloat16{});
+      case 2: return f(x, __half{});
+      default: return cudaErrorInvalidValue;
+    }
+  };
+  switch (x_dtype) {
+    case 0: return with_w(float{});
+    case 1: return with_w(__nv_bfloat16{});
+    case 2: return with_w(__half{});
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
-// dtype codes: 0 float32, 1 bfloat16. Each returns the cudaError_t of its
-// launches.
+// dtype codes: 0 float32, 1 bfloat16, 2 float16, for x and w independently.
+// Each returns the cudaError_t of its launches.
 
 extern "C" int paddle_rms_norm_fwd(const void* x, const void* w, void* out, int x_dtype,
                                    int w_dtype, long long rows, long long d, long long ldx,
@@ -560,19 +585,9 @@ extern "C" int paddle_rms_norm_fwd(const void* x, const void* w, void* out, int 
   if (rows < 1 || d < 1 || d > kMaxD || ldx < d) return static_cast<int>(cudaErrorInvalidValue);
   const FwdParams p{x, w, out, rows, d, ldx, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_dtype == 0 && w_dtype == 0) {
-    err = fwd_t<float, float>(p, s);
-  } else if (x_dtype == 0 && w_dtype == 1) {
-    err = fwd_t<float, __nv_bfloat16>(p, s);
-  } else if (x_dtype == 1 && w_dtype == 0) {
-    err = fwd_t<__nv_bfloat16, float>(p, s);
-  } else if (x_dtype == 1 && w_dtype == 1) {
-    err = fwd_t<__nv_bfloat16, __nv_bfloat16>(p, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_types(x_dtype, w_dtype, [&](auto x, auto w) {
+    return fwd_t<decltype(x), decltype(w)>(p, s);
+  }));
 }
 
 // The backward's blocks an SM: the caller's partials hold
@@ -591,17 +606,7 @@ extern "C" int paddle_rms_norm_bwd(const void* x, const void* w, const void* g, 
   }
   const BwdParams p{x, w, g, dx, static_cast<float*>(partial), rows, d, ldx, ldg, eps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (x_dtype == 0 && w_dtype == 0) {
-    err = bwd_t<float, float>(p, max_blocks, dw, s);
-  } else if (x_dtype == 0 && w_dtype == 1) {
-    err = bwd_t<float, __nv_bfloat16>(p, max_blocks, dw, s);
-  } else if (x_dtype == 1 && w_dtype == 0) {
-    err = bwd_t<__nv_bfloat16, float>(p, max_blocks, dw, s);
-  } else if (x_dtype == 1 && w_dtype == 1) {
-    err = bwd_t<__nv_bfloat16, __nv_bfloat16>(p, max_blocks, dw, s);
-  } else {
-    err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(with_types(x_dtype, w_dtype, [&](auto x, auto w) {
+    return bwd_t<decltype(x), decltype(w)>(p, max_blocks, dw, s);
+  }));
 }

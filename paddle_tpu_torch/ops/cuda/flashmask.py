@@ -15,8 +15,9 @@ Three kernels replace the three Pallas bodies, each in two sources that
 :func:`kernel_for` picks by dtype; each source states its design and
 bound. All six run on the tensor cores with wgmma, fed by TMA, and walk a
 list of the tiles the mask leaves live, built by each block before its
-loop (``csrc/flashmask_sm90_common.cuh``); bfloat16 goes in as it is,
-float32 in 3×TF32 (each product as three TF32 products, f32 accuracy):
+loop (``csrc/flashmask_sm90_common.cuh``); bfloat16 and float16 go in as
+they are (one instantiation each of the ``*_sm90`` sources), float32 in
+3×TF32 (each product as three TF32 products, f32 accuracy):
 
 - K5 replaces ``_fm_fwd_kernel`` (launched by ``_fm_fwd``): O and the row
   logsumexp (``csrc/flashmask_fwd_sm90.cu``, ``csrc/flashmask_fwd_tf32.cu``);
@@ -61,9 +62,8 @@ __all__ = ["flashmask_fwd", "flashmask_fwd_reference", "flashmask_bwd",
 
 # the index layouts accepted, as the number of columns by ``causal``
 _LAYOUTS = {True: (1, 2), False: (4,)}
-# the dtypes K5-K7 take, and their codes in the C entry points (float16
-# waits: ROADMAP.md, queue 1)
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the dtypes K5-K7 take, and their codes in the C entry points
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: K5 launches so far (plain-version calls are not counted)
 fwd_launches = 0
@@ -194,14 +194,14 @@ def flashmask_bwd_reference(q, k, v, o, lse, do, idx, causal: bool,
 def kernel_for(pass_name: str, dtype: torch.dtype) -> str:
     """The kernel (a key of :data:`SOURCES`) that runs ``pass_name``
     (``"fwd"``, ``"bwd_dq"`` or ``"bwd_dkv"``) for ``dtype``: K5, K6 and
-    K7 on the tensor cores, in bfloat16 (``*_sm90``) or in 3×TF32 for
-    float32 (``*_tf32``)."""
+    K7 on the tensor cores, in the 16-bit type for bfloat16 and float16
+    (``*_sm90``), in 3×TF32 for float32 (``*_tf32``)."""
     if dtype not in _DTYPES:
-        raise TypeError(f"the kernels take float32 or bfloat16, got {dtype}"
-                        f" (float16 K5-K7 are not ported yet)")
+        raise TypeError(f"the kernels take float32, bfloat16 or float16, "
+                        f"got {dtype}")
     if pass_name not in ("fwd", "bwd_dq", "bwd_dkv"):
         raise ValueError(f"no pass {pass_name!r}")
-    return pass_name + ("_sm90" if dtype == torch.bfloat16 else "_tf32")
+    return pass_name + ("_tf32" if dtype == torch.float32 else "_sm90")
 
 
 def _kernel(name: str):

@@ -34,7 +34,7 @@ __all__ = ["rms_norm_fwd", "rms_norm_reference", "rms_norm_bwd",
            "rms_norm_bwd_reference", "rms_norm_value", "RMSNormFunction",
            "build", "launches", "bwd_launches", "BWD_LAUNCHES_PER_CALL"]
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 #: K4 launches so far (plain-version calls are not counted)
 launches = 0
@@ -126,8 +126,8 @@ def _rows(t: torch.Tensor, d: int) -> tuple:
 
 def _dtype_codes(x, w):
     if x.dtype not in _DTYPES or w.dtype not in _DTYPES:
-        raise TypeError(f"the RMSNorm kernels take float32 or bfloat16, got "
-                        f"x {x.dtype}, w {w.dtype}")
+        raise TypeError(f"the RMSNorm kernels take float32, bfloat16 or "
+                        f"float16, got x {x.dtype}, w {w.dtype}")
     return _DTYPES[x.dtype], _DTYPES[w.dtype]
 
 

@@ -1,7 +1,24 @@
-"""Serving statistics (port of ``ServingStats`` from
-``paddle_tpu/profiler/pipeline.py``).
+"""Pipeline and serving statistics (port of ``PipelineStats`` and
+``ServingStats`` from ``paddle_tpu/profiler/pipeline.py``).
 
-Every completed request reports its enqueue → admit → dispatch →
+:class:`PipelineStats` is the training loop's breakdown of a step's wall
+time, one process-global instance, :data:`pipeline_stats`, that the
+``DeviceLoader`` (``io/device_prefetch.py``), the ``MetricBuffer``
+(``hapi/metric_buffer.py``) and ``Model.fit`` report into:
+
+- ``h2d_wait_us``: the time the loop blocked waiting for the next batch on
+  the device (0 when the prefetch keeps up);
+- ``h2d_issue_us``: the time the prefetch thread spent pinning a batch and
+  queueing its copy (the transfer cost being hidden);
+- ``dispatch_us``: the time inside the step call (queueing a graph replay
+  on CUDA, the whole step on the CPU);
+- ``host_sync_us`` / ``host_syncs_per_step``: the time and count of
+  blocking device-to-host reads (metric materialization). The steady
+  state has none between log boundaries;
+- ``overlap_ratio``: the share of the issue time the loop never waited
+  for.
+
+:class:`ServingStats`: every completed request reports its enqueue → admit → dispatch →
 complete timestamps; the batch tier's scheduler reports each dispatched
 batch (real rows against the rung's slots, and on a (batch × seq) grid
 real tokens against the rung's token slots) and the queue depth it left;
@@ -21,7 +38,7 @@ import threading
 import time
 from typing import Optional
 
-__all__ = ["ServingStats"]
+__all__ = ["PipelineStats", "ServingStats", "pipeline_stats", "timed"]
 
 
 class ServingStats:
@@ -287,3 +304,79 @@ class ServingStats:
                                      if spec_s > 0 else None),
             )
         return out
+
+
+class PipelineStats:
+    """Thread-safe accumulator of the per-step pipeline breakdown."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self):
+        with self._lock:
+            self.steps = 0
+            self.h2d_wait_s = 0.0
+            self.h2d_issue_s = 0.0
+            self.dispatch_s = 0.0
+            self.host_sync_s = 0.0
+            self.host_syncs = 0
+
+    def add_h2d_wait(self, seconds: float):
+        with self._lock:
+            self.h2d_wait_s += seconds
+
+    def add_h2d_issue(self, seconds: float):
+        with self._lock:
+            self.h2d_issue_s += seconds
+
+    def add_dispatch(self, seconds: float):
+        with self._lock:
+            self.dispatch_s += seconds
+
+    def add_host_sync(self, seconds: float, count: int = 1):
+        with self._lock:
+            self.host_sync_s += seconds
+            self.host_syncs += count
+
+    def step(self, n: int = 1):
+        with self._lock:
+            self.steps += n
+
+    def summary(self) -> dict:
+        with self._lock:
+            steps = max(self.steps, 1)
+            overlap = (1.0 - min(self.h2d_wait_s / self.h2d_issue_s, 1.0)
+                       if self.h2d_issue_s > 0 else None)
+            return {
+                "steps": self.steps,
+                "h2d_wait_us": self.h2d_wait_s / steps * 1e6,
+                "h2d_issue_us": self.h2d_issue_s / steps * 1e6,
+                "dispatch_us": self.dispatch_s / steps * 1e6,
+                "host_sync_us": self.host_sync_s / steps * 1e6,
+                "host_syncs": self.host_syncs,
+                "host_syncs_per_step": self.host_syncs / steps,
+                "overlap_ratio": overlap,
+            }
+
+
+#: the process's training-loop breakdown
+pipeline_stats = PipelineStats()
+
+
+class timed:
+    """``with timed(pipeline_stats.add_dispatch): step(batch)`` records the
+    block's host seconds."""
+
+    __slots__ = ("_add", "_t0")
+
+    def __init__(self, add):
+        self._add = add
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self._add(time.perf_counter() - self._t0)
+        return False

@@ -1,30 +1,36 @@
 """paddle_tpu_torch.reliability — fault injection, retries and circuit
-breakers for the decode serving tier (port of the part of
-``paddle_tpu.reliability`` the decode engine uses).
+breakers for the serving tiers, and preemption-safe train snapshots (port
+of ``paddle_tpu.reliability``).
 
 - :mod:`faults`: the deterministic, seedable :class:`FaultInjector` with
   named sites (the decode program call, the KV pool's page allocation and
-  commit, the sharded checkpoint's commit), configured via
+  commit, the checkpoint's and the snapshot's commit, the prefetch
+  thread's host-to-device copy, ``GradScaler``'s unscaled gradients),
+  configured via
   ``FLAGS_fault_inject="site:rate:kind"``; one global read when off.
 - :mod:`policy`: :class:`RetryPolicy` (bounded attempts, exponential
   backoff, deadline budget, transient-vs-fatal classifier) around the
   decode program call, and the :class:`CircuitBreaker` /
   :class:`BreakerBoard` that flip a tenant to ``degraded`` (``/healthz``
   lists it; admission sheds its load with reason ``"circuit"``).
+- :mod:`snapshot`: the :class:`TrainSnapshotter` that ``Model.fit`` drives
+  (``snapshot_dir=``, ``resume=``, SIGTERM): atomic, rolling snapshots
+  from which a new process continues the loss stream bit for bit.
 
-The JAX package's ``TrainSnapshotter`` waits for the training loop
-(``ROADMAP.md``, queue 5).
+The ``collective`` and ``comm.watchdog`` sites wait for the port's
+``distributed`` (``ROADMAP.md``, queue 7).
 """
 from __future__ import annotations
 
 from .faults import (SITES, FaultInjection, FaultInjector, FaultPlan, active,
                      arm, corrupt_bytes, disarm, fault_point)
 from .policy import BreakerBoard, CircuitBreaker, RetryPolicy, default_classify
+from .snapshot import TrainSnapshotter
 
 __all__ = [
     "BreakerBoard", "CircuitBreaker", "FaultInjection", "FaultInjector",
     "FaultPlan", "RetryPolicy", "SITES", "active", "arm", "corrupt_bytes",
-    "default_classify", "disarm", "fault_point",
+    "TrainSnapshotter", "default_classify", "disarm", "fault_point",
 ]
 
 # FLAGS_fault_inject set in the environment arms the injector at import;

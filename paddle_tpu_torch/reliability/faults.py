@@ -66,7 +66,17 @@ SITES: Dict[str, str] = {
         "release) and every other lane keeps decoding"),
     "ckpt.write": (
         "atomic tmp+rename commit: a crash leaves the previous checkpoint "
-        "intact and an ignorable tmp dir"),
+        "or train snapshot intact and an ignorable tmp dir"),
+    "io.h2d": (
+        "the DeviceLoader's prefetch thread forwards the error through its "
+        "bounded queue; the consumer (Model.fit) re-raises instead of "
+        "waiting forever"),
+    "numerics.nonfinite_grad": (
+        "a 'corrupt' plan makes GradScaler.unscale_ poison one gradient "
+        "with NaN: the finite check trips, found_inf sets, step() leaves "
+        "every optimizer cell as it was and update() backs the scale off; "
+        "the poisoned step is skipped and training continues (the lit "
+        "numerics witness also records an NM1104 verdict)"),
 }
 
 

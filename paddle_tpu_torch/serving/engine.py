@@ -18,8 +18,9 @@ mixed-size requests into bucketed batches and replays the rung's graph;
 no rung is added after ``warmup()``. Each batch passes the fault point
 ``serving.execute`` under a retry policy, and each request emits a
 ``serving.request`` span. ``swap_weights`` rolls new weights in between
-two batches. The anomaly monitor and the device-memory sampler of the JAX
-engine wait in ``ROADMAP.md`` queue 8.
+two batches. The JAX engine's feeds to the anomaly monitor and the
+device-memory sampler (``observability.anomaly``, ``observability.memory``)
+wait in ``ROADMAP.md`` queue 8.
 """
 from __future__ import annotations
 

@@ -12,7 +12,8 @@ the K1–K3 card tests (the bf16 K5's O within one bf16 step plus 2e-2):
 f32 1e-4 absolute (lse 1e-3); bf16 2e-2 absolute plus 1e-2 of the value
 (the outputs round once to bf16). The f32 kernels (3xTF32 on the tensor
 cores) are also held within 1e-4 of the plain versions computed in
-float64, over every layout and at a long sequence whose blocks list their
+float64, the fp16 kernels (the bf16 sources instantiated for __half) at the
+bf16 gates divided by 8 over every layout and head dim, over every layout and at a long sequence whose blocks list their
 tiles in rounds. Fully masked rows give exactly 0 in O and dQ. ``flashmask_attention`` differentiates through them with exactly
 one launch of each and none of K1–K3, and copies no ``[B, S, H, D]``
 operand for TMA; an operand TMA cannot read in place is copied and
@@ -423,3 +424,60 @@ def test_f32_fwd_and_dq_list_a_long_sequence_in_rounds(card):
         (live, bound), _ = fm.bwd_tiles(q, k, v, o, lse, do, idx, True,
                                         scale)
         assert 0 < live < bound, d
+
+
+def _close_fp16(got, want, atol, rtol):
+    err = (got.float() - want.float()).abs()
+    return bool((err <= atol + rtol * want.float().abs()).all())
+
+
+def test_float16_kernels_over_layouts(card):
+    """float16 K5, K6 and K7 (the bf16 tensor-core sources instantiated for
+    __half) take fp16 q, k, v and dO and write O, dq, dk and dv in fp16,
+    over every documented layout, Hm = 1 and Hm = H, at every head dim,
+    against their plain versions at the bf16 gates divided by 8 (fp16's
+    step is 2^-10 of the value, bf16's 2^-7): O within 2.5e-3 plus 2^-10 of
+    the value, lse within 1.25e-4, the gradients within 2.5e-3 plus
+    1.25e-3 of the value; finite, exactly 0 on fully masked rows (O and
+    dQ), one launch each and no TMA copy. Before the fp16 instantiations
+    the wrappers raised ``TypeError`` here."""
+    rs = np.random.RandomState(4)
+    for kind, causal in (("doc", True), ("share_question", True),
+                         ("masked_rows", True), ("window", False)):
+        for hm in (1, 2):
+            for d in fa.HEAD_DIMS:
+                b, s, h = 1, 320, 2
+                idx = (_share_question(b, hm, s) if kind == "share_question"
+                       else _indices(rs, kind, b, hm, s, s))
+                idx = torch.from_numpy(idx).to(card)
+                q, k, v, do = (torch.from_numpy(rs.randn(b, s, h, d).astype(
+                    np.float32)).to(card, torch.float16) for _ in range(4))
+                scale = 1.0 / math.sqrt(d)
+                counts = (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                          fa.tma_copies)
+                o, lse = fm.flashmask_fwd(q, k, v, idx, causal, scale)
+                grads = fm.flashmask_bwd(q, k, v, o, lse, do, idx, causal,
+                                         scale)
+                torch.cuda.synchronize()
+                case = (kind, hm, d)
+                assert (fm.fwd_launches, fm.dq_launches, fm.dkv_launches,
+                        fa.tma_copies) == (counts[0] + 1, counts[1] + 1,
+                                           counts[2] + 1, counts[3]), case
+                assert o.dtype == torch.float16 and lse.dtype == torch.float32
+                tidx = fm.prepare_indices(idx, q, k, causal)
+                ro, rlse = fm.flashmask_fwd_reference(q, k, v, tidx, causal,
+                                                      scale)
+                assert _close_fp16(o, ro, 2.5e-3, 2.0 ** -10), case
+                assert float((lse - rlse).abs().max()) <= 1.25e-4, case
+                want = fm.flashmask_bwd_reference(q, k, v, o, lse, do, tidx,
+                                                  causal, scale)
+                for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+                    assert got.dtype == torch.float16, (case, name)
+                    assert bool(torch.isfinite(got.float()).all()), (case,
+                                                                     name)
+                    assert _close_fp16(got, ref, 2.5e-3, 1.25e-3), (case,
+                                                                    name)
+                dead = fm.disallowed(tidx, s, s, causal).expand(
+                    b, h, s, s).all(-1).transpose(1, 2)
+                assert float(o[dead].float().abs().sum()) == 0.0, case
+                assert float(grads[0][dead].float().abs().sum()) == 0.0, case

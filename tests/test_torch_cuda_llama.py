@@ -11,7 +11,9 @@ value) plus 1e-3. The backward kernel is held against its plain version
 (``rms_norm_bwd_reference``): f32 dx and dw within 1e-5 of each gradient's
 max, and within 1e-5 of the plain version computed in float64; bf16 within
 one bf16 step plus 1e-3. Both run at ``chip_smoke.py``'s phase-10 shapes,
-one with strided rows, and at widths that leave lanes masked. Two
+one with strided rows, and at widths that leave lanes masked; fp16 x
+(with fp16 or f32 w) at the bf16 gates divided by 8, the backward with
+the f32 gate's room for dw's sum order beside them. Two
 backward calls on the same inputs, and a CUDA
 graph of forward and backward replayed, give the eager call's bits.
 ``llama_tiny``'s gradients on the card (K1–K4 and the backward kernel) are
@@ -175,6 +177,49 @@ def test_graph_of_forward_and_backward_replays_the_eager_bits(card, dtype):
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# float16 against the plain version: the bf16 gates divided by 8 (fp16's
+# step is 2^-10 of the value, bf16's 2^-7); the backward also keeps the
+# f32 gate's 1e-5 of the gradient's max, the room the f32 sums of dw take
+# in their own order before the one rounding to fp16
+FP16_REL, FP16_ATOL, FP16_OF_MAX = 2.0 ** -10, 1.25e-4, 1e-5
+
+
+def _fp16_close(got, want, of_max=0.0):
+    got, want = got.float(), want.float()
+    limit = (FP16_REL * want.abs() + FP16_ATOL
+             + of_max * float(want.abs().max()))
+    return bool(((got - want).abs() <= limit).all())
+
+
+@pytest.mark.parametrize("w_dtype", ["float16", "float32"])
+@pytest.mark.parametrize("rows,d", RMS_SHAPES + MASKED_SHAPES)
+def test_kernels_take_float16(card, rows, d, w_dtype):
+    """K4 and the RMSNorm backward kernel take float16 x (with fp16 or f32
+    w, as AMP O1 and O2 give them): y and dx in x's dtype, dw in w's,
+    against their plain versions, strided rows too, and two backward
+    calls give the same bits. Before the fp16 codes both wrappers raised
+    ``TypeError`` here."""
+    for strided in (False, True):
+        x, w, g = _rms_inputs(rows, d, "float16", seed=rows + 7 * d,
+                              strided=strided)
+        w = w.to(getattr(torch, w_dtype))
+        case = (rows, d, w_dtype, strided)
+        before = (rms.launches, rms.bwd_launches)
+        y = rms.rms_norm_fwd(x, w, EPS)
+        dx, dw = rms.rms_norm_bwd(x, w, g, EPS)
+        again = rms.rms_norm_bwd(x, w, g, EPS)
+        torch.cuda.synchronize()
+        assert (rms.launches, rms.bwd_launches) == (
+            before[0] + 1, before[1] + 2 * rms.BWD_LAUNCHES_PER_CALL), case
+        assert y.dtype == dx.dtype == torch.float16 and dw.dtype == w.dtype
+        assert all(bool(torch.isfinite(t.float()).all()) for t in (y, dx, dw))
+        assert _fp16_close(y, rms.rms_norm_reference(x, w, EPS)), case
+        want_dx, want_dw = rms.rms_norm_bwd_reference(x, w, g, EPS)
+        assert _fp16_close(dx, want_dx, FP16_OF_MAX), case
+        assert _fp16_close(dw, want_dw, FP16_OF_MAX), case
+        assert torch.equal(dx, again[0]) and torch.equal(dw, again[1]), case
 
 
 def _grads(model, ids):

@@ -262,9 +262,8 @@ def test_routing_and_the_tma_alignment_rule():
     assert fa.TMA_KERNELS == {fa.kernel_for(name, dt)
                               for name in ("fwd", "bwd_dq", "bwd_dkv")
                               for dt in (bf16, f32)} == set(fa.SOURCES)
-    # float16 waits for K5-K7 (FlashMask); float64 has no kernel
-    for mod, bad in ((fa, torch.float64), (fm, torch.float64),
-                     (fm, torch.float16)):
+    # float64 has no kernel
+    for mod, bad in ((fa, torch.float64), (fm, torch.float64)):
         try:
             mod.kernel_for("fwd", bad)
         except TypeError:
@@ -282,6 +281,8 @@ def test_routing_and_the_tma_alignment_rule():
     # flashmask_dkv_tf32.cu)
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
         assert fm.kernel_for(name, bf16) == name + "_sm90"
+        # float16: the same tensor-core kernels, instantiated for __half
+        assert fm.kernel_for(name, torch.float16) == name + "_sm90"
         assert fm.kernel_for(name, f32) == name + "_tf32"
     assert fm.SOURCES["fwd_tf32"][:2] == ("flashmask_fwd_tf32",
                                           "paddle_flashmask_fwd_tf32")

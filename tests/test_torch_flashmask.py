@@ -6,7 +6,8 @@ inputs, at the tolerances of ``tests/test_pallas_backward.py``: 2e-4 on O
 and lse, 2e-3 on the gradients, all in f32. The layouts are the documented
 ones (causal ncol 1 and 2, non-causal ncol 4), with Hm = 1 and Hm = H,
 Sq != Sk and a ragged S. A fully masked row must give exactly 0 in O and dQ,
-with no NaN anywhere. The CUDA kernels are held against the plain versions
+with no NaN anywhere. In float16 both sides compute in f32 and round
+once, and agree within one fp16 step plus those tolerances. The CUDA kernels are held against the plain versions
 on the card (``tests/test_torch_cuda_flashmask.py``, ``chip_smoke.py``).
 """
 import math
@@ -146,6 +147,48 @@ def test_plain_kernels_match_pallas_interpret(name):
     assert torch.equal(grads[0][dead], torch.zeros_like(grads[0][dead]))
     assert bool((lse.squeeze(2).transpose(1, 2)[dead] <= -1e29).all())
     assert bool(torch.isfinite(o).all()) and bool(torch.isfinite(lse).all())
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_float16_plain_kernels_match_pallas_interpret(name):
+    """float16 (what AMP O1 casts attention to): the Pallas kernels compute
+    in f32 and write O, dq, dk, dv in the input's dtype, as the plain
+    versions do, so both round one f32 result to fp16. Held within one
+    fp16 step (2⁻¹⁰ of the value) plus the f32 tolerances above; lse is
+    f32 in both."""
+    b, sq, sk, h, causal, idx = _case(name)
+    d = 16
+    rs = np.random.RandomState(1)
+    q, do = (rs.randn(b, sq, h, d).astype(np.float16) for _ in range(2))
+    k, v = (rs.randn(b, sk, h, d).astype(np.float16) for _ in range(2))
+    scale = 1.0 / math.sqrt(d)
+
+    jq, jk, jv, jdo, jidx = (jnp.asarray(a) for a in (q, k, v, do, idx))
+    o_ref, lse_ref = _fm_fwd(jq, jk, jv, jidx, causal, scale, interpret=True)
+    grads_ref = _fm_bwd(jq, jk, jv, jidx, o_ref, lse_ref, jdo, causal, scale,
+                        interpret=True)
+    assert o_ref.dtype == jnp.float16
+
+    tq, tk, tv, tdo = (torch.from_numpy(a) for a in (q, k, v, do))
+    tidx = torch.from_numpy(idx)
+    o, lse = fm.flashmask_fwd(tq, tk, tv, tidx, causal, scale, device="cpu")
+    grads = fm.flashmask_bwd(tq, tk, tv, o, lse, tdo, tidx, causal, scale,
+                             device="cpu")
+
+    def close(got, want, tol, label):
+        assert got.dtype == torch.float16 and got.shape == want.shape, label
+        got = got.float().numpy()
+        want = np.asarray(want, np.float32)
+        assert np.isfinite(got).all(), label
+        err = np.abs(got - want)
+        bad = err > 2.0 ** -10 * np.abs(want) + tol
+        assert not bad.any(), (label, float(err.max()))
+
+    close(o, o_ref, TOL_O, "o")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), rtol=TOL_O,
+                               atol=TOL_O)
+    for label, got, want in zip(("dq", "dk", "dv"), grads, grads_ref):
+        close(got, want, TOL_GRAD, label)
 
 
 def test_disallowed_matches_pallas_tile_mask():

@@ -150,7 +150,8 @@ class TestFaultInjector:
     def test_every_port_site_has_a_cleanup_story(self):
         assert set(rel.SITES) == {"serving.execute", "serving.decode_step",
                                   "kv.commit", "kv.page_alloc",
-                                  "ckpt.write"}
+                                  "ckpt.write", "io.h2d",
+                                  "numerics.nonfinite_grad"}
         for site in rel.SITES:
             assert site in jax_rel.SITES
 

@@ -4,14 +4,16 @@ against the JAX package.
 - K4's plain version, :func:`rms_norm_reference` (what the wrapper runs for
   CPU tensors), against the Pallas ``_rms_norm_fwd`` in interpret mode:
   f32 within 1e-5 of each row's largest output; bf16 within one bf16 step
-  (2⁻⁷ of the value) plus 1e-3, since both round an f32 result once;
+  (2⁻⁷ of the value) plus 1e-3, fp16 within one fp16 step (2⁻¹⁰ of the
+  value) plus 1e-3, since both round an f32 result once;
 - ``RMSNormFunction``'s dx and dw against ``jax.vjp`` of the Pallas
   ``rms_norm_value`` (interpret mode): f32 within 1e-5 relative to each
   gradient's max;
 - the backward kernel's plain version, :func:`rms_norm_bwd_reference`,
-  against the same ``jax.vjp`` for f32 and bf16 x with f32 and bf16 w, a
-  3-D x, an odd d and d = 4096: f32 within 1e-5 of each gradient's max,
-  bf16 within one bf16 step (2⁻⁷ of the value) plus 1e-3;
+  against the same ``jax.vjp`` for f32, bf16 and fp16 x with f32, bf16 and
+  fp16 w, a 3-D x, an odd d and d = 4096: f32 within 1e-5 of each
+  gradient's max, bf16 within one bf16 step (2⁻⁷ of the value) plus 1e-3,
+  fp16 within one fp16 step (2⁻¹⁰ of the value) plus 1e-3;
 - a torch emulation of the backward kernel's arithmetic (mean(g·w·xn) as
   inv·Σ(g·w·x)/d) and of its fixed order of summing dw (each warp over its
   rows, the 8 warps of a block in a tree, then the blocks' partials in a
@@ -61,10 +63,14 @@ def _close(got, want, dtype):
     if dtype == "float32":
         top = np.abs(want).max(axis=-1, keepdims=True)
         return bool((err <= 1e-5 * top).all())
-    return bool((err <= 2.0 ** -7 * np.abs(want) + 1e-3).all())
+    return bool((err <= _STEP[dtype] * np.abs(want) + 1e-3).all())
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+# one step of a 16-bit type, relative to the value
+_STEP = {"bfloat16": 2.0 ** -7, "float16": 2.0 ** -10}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_plain_version_matches_pallas_kernel(dtype):
     for shape in SHAPES:
         x, w = _inputs(shape)
@@ -155,7 +161,12 @@ BWD_CASES = [((64, 96), "float32", "float32"),
              ((3, 5, 33), "float32", "float32"),
              ((3, 5, 33), "bfloat16", "bfloat16"),
              ((3, 4096), "float32", "float32"),
-             ((3, 4096), "bfloat16", "bfloat16")]
+             ((3, 4096), "bfloat16", "bfloat16"),
+             # float16, as AMP O1 casts both (and each beside f32)
+             ((64, 96), "float16", "float16"),
+             ((7, 100), "float16", "float32"),
+             ((7, 100), "float32", "float16"),
+             ((3, 4096), "float16", "float16")]
 
 
 def _jax_vjp(x, w, g, x_dtype, w_dtype):
@@ -171,14 +182,14 @@ def _jax_vjp(x, w, g, x_dtype, w_dtype):
 
 
 def _grad_close(got, want, dtype):
-    """f32 within 1e-5 of the gradient's max; bf16 within one bf16 step
-    plus 1e-3."""
+    """f32 within 1e-5 of the gradient's max; bf16 and fp16 within one
+    step of their type plus 1e-3."""
     got = np.asarray(got, np.float32)
     want = np.asarray(want, np.float32)
     err = np.abs(got - want)
     if dtype == "float32":
         return bool((err <= 1e-5 * np.abs(want).max()).all())
-    return bool((err <= 2.0 ** -7 * np.abs(want) + 1e-3).all())
+    return bool((err <= _STEP[dtype] * np.abs(want) + 1e-3).all())
 
 
 @pytest.mark.parametrize("shape,x_dtype,w_dtype", BWD_CASES)

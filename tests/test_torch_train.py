@@ -189,9 +189,11 @@ def test_criterion_and_adamw_step_match_jax():
 
 
 def test_unported_training_options_raise():
-    """What the port still refuses: TrainStep's sharding, and float16 in
-    the kernels K4-K7 (RMSNorm, FlashMask). The scheduler objects,
-    grad_clip, groups, the other optimizers and their options, O1, float16,
+    """What the port still refuses: TrainStep's sharding, and dtypes the
+    kernels K4-K7 (RMSNorm, FlashMask) have no instantiation for (float64;
+    float16 has one since the fp16 K4-K7, tests/test_torch_cuda_llama.py,
+    tests/test_torch_cuda_flashmask.py). The scheduler objects, grad_clip,
+    groups, the other optimizers and their options, O1, float16,
     GradScaler and grad_accum_steps are ported
     (tests/test_torch_optim_api.py, tests/test_torch_amp_o1.py), and so is
     shape bucketing (tests/test_torch_bucketing.py)."""
@@ -213,10 +215,13 @@ def test_unported_training_options_raise():
     TrainStep(model=model, optimizer=opt, loss_fn=lambda x: x,
               grad_accum_steps=4, device="cpu")
     half = torch.zeros(4, 8, dtype=torch.float16)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        rms._dtype_codes(half, half[0])
+    assert rms._dtype_codes(half, half[0]) == (2, 2)
+    double = half.double()
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        rms._dtype_codes(double, double[0])
     for name in ("fwd", "bwd_dq", "bwd_dkv"):
-        with pytest.raises(TypeError, match="float16 K5-K7"):
-            fm.kernel_for(name, torch.float16)
+        assert fm.kernel_for(name, torch.float16) == name + "_sm90"
+        with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+            fm.kernel_for(name, torch.float64)
     with pytest.raises(ValueError, match="generator"):
         F.dropout(torch.ones(4), 0.5, training=True, generator=None)
