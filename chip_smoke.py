@@ -311,11 +311,27 @@ Phases, each of which fails the run on any error:
     plain versions at 8192 x 768 and timed beside ``F.rms_norm``, 4
     graphed llama_124m_gqa O1 fp16 steps with a ``GradScaler`` bit for bit
     their eager steps, fp16 K5-K7 on phase 14's path; (e) an ``io.h2d``
-    fault in the prefetch thread reaches ``fit`` as an exception.
+    fault in the prefetch thread reaches ``fit`` as an exception;
+21. bench arms — ``bench.py``'s five training arms (``bench_gpt``,
+    ``bench_llama``, ``bench_bert``, ``bench_resnet``, ``bench_liteseg``)
+    read from its text with ``ast`` (never imported), each from its
+    ``def`` through ``dt = time.perf_counter() - t0``, with only the
+    import statements' ``paddle_tpu`` renamed ``paddle_tpu_torch``, run
+    with ``on_tpu=True`` after ``paddle.set_device("gpu")`` at full width
+    (gpt2_small 8 x 1024, llama_124m_gqa 4 x 2048, ernie_base 32 x 128,
+    resnet50 32 x 3 x 224², pp_liteseg 16 x 3 x 512², all bf16 O2): the
+    first step and the arm's own timed steps, every one after the first a
+    replay; GPT's and Llama's last loss and every parameter bit for bit the
+    hand-built ``TrainStep``'s (phases 9 and 12's construction) after as
+    many steps, BERT's, ResNet's and PP-LiteSeg's first loss bit for bit
+    phases 17-19's; a profiled replayed step of each arm launches what the
+    hand-built one does; each arm's tokens/s or images/s from its own
+    timing beside the hand-built phase's p50.
 
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
 (14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)), PP-LiteSeg
-(19 (a)) and fit (20 (a), (d)) phases are the main paths: the launch counts are set to 0 just before each
+(19 (a)), fit (20 (a), (d)) and bench-arm (21) phases are the main paths:
+the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
 0). The serving and training paths run as CUDA-graph replays, and the
@@ -2865,7 +2881,8 @@ def phase_train(torch, gpt) -> dict:
                        "bwd_dkv": steps * LAYERS},
           f"kernels did not run with dropout: {launched}")
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
-            "adamw": counts[4], "launches_per_step": prof["launches"]}
+            "adamw": counts[4], "launches_per_step": prof["launches"],
+            "p50_ms": p50 * 1e3}
 
 
 def device_time_ms(torch, fns, iters: int = 60) -> float:
@@ -3248,7 +3265,8 @@ def phase_train_llama(torch, llama) -> dict:
     torch.cuda.empty_cache()
     return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
             "rms_norm": counts[3], "adamw": counts[4],
-            "rms_norm_bwd": counts[5], "p50_ms": p50 * 1e3}
+            "rms_norm_bwd": counts[5], "p50_ms": p50 * 1e3,
+            "launches_per_step": prof["launches"]}
 
 
 def flashmask_indices(rs, kind, b, hm, sq, sk) -> np.ndarray:
@@ -4489,7 +4507,8 @@ def bert_bench_arm(torch, bert) -> dict:
           f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; K1+K2+K3 "
           f"{prof['attention_ms']:.3f} ms a step", flush=True)
     out = {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
-           "adamw": counts[4], "p50_ms": p50 * 1e3}
+           "adamw": counts[4], "p50_ms": p50 * 1e3, "first_loss": first[0],
+           "launches": prof["launches"]}
     del model, opt, step, loss_fn, reference
     release_memory(torch)
     return out
@@ -5023,7 +5042,8 @@ def resnet_bench_arm(torch, resnet) -> dict:
                                       batch)
     out = {"momentum": arm["momentum"], "p50_ms": p50 * 1e3,
            "images_s": RESNET_BATCH / p50,
-           "deterministic": arm["deterministic"], "profile": prof}
+           "deterministic": arm["deterministic"], "profile": prof,
+           "first_loss": arm["first"][0], "launches": prof["launches"]}
     model = arm["model"]
     del arm
     release_memory(torch)
@@ -5446,7 +5466,8 @@ def liteseg_bench_arm(torch, segdet) -> tuple:
     out = {"momentum": arm["momentum"], "p50_ms": p50 * 1e3,
            "images_s": LITESEG_BATCH / p50,
            "deterministic": arm["deterministic"], "profile": prof,
-           "momentum_err": check_run["err"]}
+           "momentum_err": check_run["err"], "first_loss": arm["first"][0],
+           "launches": prof["launches"]}
     del check_run
     model = arm["model"]
     del arm
@@ -6196,6 +6217,278 @@ def phase_fit(torch, llama, bare_p50_ms) -> dict:
             "snapshot": snap}
 
 
+# ---------------------------------------------------------------- phase 21
+# bench.py's five training arms, read as text and run on the port with only
+# their imports renamed
+BENCH_ARMS = ("bench_gpt", "bench_llama", "bench_bert", "bench_resnet",
+              "bench_liteseg")
+BENCH_ARM_END = "dt = time.perf_counter() - t0"
+BENCH_HELPERS = ("_sync", "_gpt_flops_per_step")
+_PADDLE_IMPORT = re.compile(r"^(\s*(?:from|import)\s+)paddle_tpu(?=[\s.])")
+
+
+def bench_text() -> str:
+    """``bench.py`` beside this script, as text: it is never imported
+    (it imports the JAX package)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "bench.py")
+    with open(path) as f:
+        return f.read()
+
+
+def bench_arm_source(name: str, text: str) -> tuple:
+    """``bench.py``'s lines of the arm ``name`` from its ``def`` through
+    ``BENCH_ARM_END``, and the same lines with each import statement's
+    ``paddle_tpu`` renamed ``paddle_tpu_torch``; nothing else changes."""
+    import ast
+
+    fn = next(node for node in ast.parse(text).body
+              if isinstance(node, ast.FunctionDef) and node.name == name)
+    lines = text.splitlines()[fn.lineno - 1:fn.end_lineno]
+    end = next(i for i, line in enumerate(lines)
+               if line.strip() == BENCH_ARM_END)
+    original = lines[:end + 1]
+    return ("\n".join(original),
+            "\n".join(_PADDLE_IMPORT.sub(r"\1paddle_tpu_torch", line)
+                      for line in original))
+
+
+def bench_namespace(text: str) -> dict:
+    """A namespace with ``os``, ``time`` and ``bench.py``'s own
+    ``_sync`` and ``_gpt_flops_per_step``, copied from its text."""
+    import ast
+
+    ns = {"os": os, "time": time}
+    lines = text.splitlines()
+    for node in ast.parse(text).body:
+        if isinstance(node, ast.FunctionDef) and node.name in BENCH_HELPERS:
+            exec("\n".join(lines[node.lineno - 1:node.end_lineno]), ns)
+    return ns
+
+
+class recorded_steps:
+    """Inside the block, every ``jit.TrainStep`` call's loss is kept, in
+    order, in ``losses``: the tensor the call returned (no host read, no
+    launch)."""
+
+    def __enter__(self):
+        from paddle_tpu_torch.jit import api
+
+        self.losses = []
+        self._api, self._call = api, api.TrainStep.__call__
+        losses, call = self.losses, self._call
+
+        def record(step, *batch):
+            out = call(step, *batch)
+            losses.append(out)
+            return out
+
+        api.TrainStep.__call__ = record
+        return self
+
+    def __exit__(self, *exc):
+        self._api.TrainStep.__call__ = self._call
+        return False
+
+
+def run_bench_arm(name: str, on_tpu: bool, text: str = None) -> tuple:
+    """Run ``bench.py``'s arm ``name`` up to its timing's end on the
+    port (imports renamed, nothing else): returns the arm's locals (its
+    ``model``, ``step``, ``loss``, ``dt``, ...) and every step's loss."""
+    text = bench_text() if text is None else text
+    _, source = bench_arm_source(name, text)
+    ns = bench_namespace(text)
+    exec(compile(source + "\n    return locals()\n", f"bench.py:{name}",
+                 "exec"), ns)
+    with recorded_steps() as rec:
+        local = ns[name](on_tpu)
+    return local, rec.losses
+
+
+def arm_counters() -> dict:
+    """The launch counters of every kernel a training arm reaches."""
+    from paddle_tpu_torch.ops.cuda import adamw, momentum
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    return {"fwd": fa.launches, "dq": fa.dq_launches,
+            "dkv": fa.dkv_launches, "rms_norm": rms.launches,
+            "rms_norm_bwd": rms.bwd_launches, "adamw": adamw.launches,
+            "momentum": momentum.launches, "tma_copies": fa.tma_copies}
+
+
+def zero_arm_counters() -> None:
+    from paddle_tpu_torch.ops.cuda import adamw, momentum
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = fa.tma_copies = 0
+    rms.launches = rms.bwd_launches = adamw.launches = momentum.launches = 0
+
+
+def arm_batch(local: dict) -> tuple:
+    """The arm's batch as its step takes it."""
+    if "ids" in local and "labels" in local:
+        return (local["ids"], local["labels"])
+    if "ids" in local:
+        return (local["ids"],)
+    return (local["x"], local["y"])
+
+
+def hand_built_arm(torch, key, steps, batch):
+    """The arm ``key``'s step as phases 9, 12 and 17–19 build it by hand
+    (weights from a generator seeded 0, bf16 O2, the arm's optimizer and
+    loss outside ``auto_cast``), run ``steps`` steps on ``batch``: returns
+    the step, its losses and its parameters."""
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models import bert, gpt, llama
+    from paddle_tpu_torch.vision.models import resnet, segdet
+
+    if key in ("gpt", "llama"):
+        model_cls, crit_cls, cfg = (
+            (gpt.GPTForCausalLM, gpt.GPTPretrainingCriterion,
+             gpt.gpt2_small(hidden_dropout_prob=0.0,
+                            attention_dropout_prob=0.0))
+            if key == "gpt" else
+            (llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion,
+             llama.llama_124m_gqa()))
+        model, step, _ = build_train_step(torch, model_cls, crit_cls, cfg)
+    else:
+        model, opt, loss_fn = {
+            "bert": lambda: bert_twin(torch, bert, bert.ernie_base(
+                hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0),
+                masked=False),
+            "resnet": lambda: resnet_twin(torch, resnet),
+            "liteseg": lambda: liteseg_twin(torch, segdet)}[key]()
+        step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    losses = [step(*batch) for _ in range(steps)]
+    torch.cuda.synchronize()
+    return step, losses, [p.detach() for p in model.parameters()]
+
+
+ARM_KEYS = {"bench_gpt": "gpt", "bench_llama": "llama", "bench_bert": "bert",
+            "bench_resnet": "resnet", "bench_liteseg": "liteseg"}
+
+
+def phase_bench_arms(torch, hand: dict) -> dict:
+    """Phase 21: each of ``bench.py``'s five training arms, read as text
+    with only its imports renamed, run at full width on the card after
+    ``paddle.set_device("gpu")``: its first step, then its own timed steps.
+    Each is held to the hand-built ``TrainStep`` of its phase: GPT's and
+    Llama's last loss and every parameter bit for bit that step's after as
+    many steps (``hand_built_arm``); BERT's, ResNet-50's and PP-LiteSeg's
+    first loss bit for bit the first loss phases 17–19 recorded; a profiled
+    replayed step's launches equal to the launches of that phase's profiled
+    step. ``hand`` holds each phase's record (phases 9, 12 and 17–19 (a));
+    for an arm without one (phase 21 run alone) the hand-built step is
+    built, run and profiled here. The launch counts are set to 0 just
+    before each arm and read just after it. Returns the five arms' launches
+    by kernel."""
+    import paddle_tpu_torch as paddle
+
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu")
+    text = bench_text()
+    for name in BENCH_ARMS:
+        original, renamed = bench_arm_source(name, text)
+        changed = [(a, b) for a, b in zip(original.splitlines(),
+                                          renamed.splitlines()) if a != b]
+        check(changed and all(_PADDLE_IMPORT.match(a) for a, _ in changed),
+              f"{name}: the arm differs from bench.py beyond its imports")
+    totals = {}
+    print("== bench arms: bench.py's five training arms on the port, read "
+          "as text, imports renamed paddle_tpu -> paddle_tpu_torch, "
+          "on_tpu=True, set_device('gpu')", flush=True)
+    for name in BENCH_ARMS:
+        key = ARM_KEYS[name]
+        t_arm = time.perf_counter()
+        release_memory(torch)
+        zero_arm_counters()
+        local, losses = run_bench_arm(name, True, text)
+        torch.cuda.synchronize()
+        counts = arm_counters()
+        check(counts.pop("tma_copies") == 0, f"{name}: operands copied for "
+              f"TMA")
+        for k, v in counts.items():
+            totals[k] = totals.get(k, 0) + v
+        steps, dt, step = local["steps"], local["dt"], local["step"]
+        batch = tuple(t.as_subclass(torch.Tensor) for t in arm_batch(local))
+        check(len(losses) == steps + 1, f"{name}: {len(losses)} steps ran, "
+              f"want {steps + 1}")
+        values = [float(x) for x in losses]
+        check(all(math.isfinite(v) for v in values), f"{name}: non-finite "
+              f"loss {values}")
+        check(type(local["loss"]) is paddle.Tensor, f"{name}: the step "
+              f"returned {type(local['loss'])}, not a paddle.Tensor")
+        stats = dict(step.stats)
+        check(stats == {"compiled_steps": steps, "eager_steps": 1},
+              f"{name}: steps {stats}: not every step after the first ran "
+              f"as a replay")
+        units = ((local["batch"] * local["seq"], "tokens") if "seq" in local
+                 else (local["batch"], "images"))
+        rate, arm_ms = units[0] * steps / dt, dt / steps * 1e3
+        lm = key in ("gpt", "llama")
+        # the state after the arm's own steps, before the profile's
+        params = ([p.detach().clone() for p in local["model"].parameters()]
+                  if lm else [])
+        last = local["loss"].as_subclass(torch.Tensor).clone()
+        prof = profile_steps(torch, step, batch, arm_ms)
+        del local, step, losses
+        release_memory(torch)
+        rec = hand.get(key)
+        if lm or rec is None:
+            hand_step, hand_losses, hand_params = hand_built_arm(
+                torch, key, steps + 1 if lm else GRAPH_WARMUP + 1, batch)
+            first = float(hand_losses[0])
+        if lm:
+            same = sum(torch.equal(a, b) for a, b in zip(params,
+                                                          hand_params))
+            print(f"{name}: last loss {float(last)!r}, hand-built "
+                  f"{float(hand_losses[-1])!r}, bitwise equal "
+                  f"{torch.equal(last, hand_losses[-1])}; parameters bitwise "
+                  f"equal {same}/{len(hand_params)}", flush=True)
+            check(torch.equal(last, hand_losses[-1]) and same == len(
+                hand_params) and len(params) == len(hand_params),
+                f"{name}: the arm's steps differ from the hand-built ones")
+        else:
+            first = rec["first_loss"] if rec is not None else first
+            print(f"{name}: first loss {values[0]!r}, the hand-built step's "
+                  f"{first!r}" + (" (its phase's record)" if rec else ""),
+                  flush=True)
+            check(values[0] == first, f"{name}: the arm's first loss "
+                  f"differs from the hand-built step's")
+        if rec is not None:
+            want = rec["launches_per_step" if lm else "launches"]
+        else:
+            want = profile_steps(torch, hand_step, batch, arm_ms)["launches"]
+        print(f"{name}: launches per replayed step {prof['launches']:.0f}, "
+              f"the hand-built step's {want:.0f}; kernel launches over the "
+              f"arm's {steps + 1} steps {counts}", flush=True)
+        check(prof["launches"] == want, f"{name}: a replayed step launches "
+              f"{prof['launches']}, the hand-built one {want}")
+        p50 = rec["p50_ms"] if rec is not None else None
+        print(f"{name}: {rate:.1f} {units[1]}/s from the arm's own timing "
+              f"({steps} steps in {dt:.4f} s, {arm_ms:.3f} ms a step, the "
+              f"capture among them); the hand-built phase's p50 "
+              + (f"{p50:.3f} ms, {units[0] / p50 * 1e3:.1f} {units[1]}/s"
+                 if p50 else "not measured in this run")
+              + f"; the arm's checks took {time.perf_counter() - t_arm:.1f} s",
+              flush=True)
+        hand_step = hand_losses = hand_params = params = batch = None
+        release_memory(torch)
+    print(f"bench arms: phase 21 took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return totals
+
+
+def timed(phase, *args):
+    """``phase(*args)``, then its wall time printed."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    print(f"-- {phase.__name__}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -6216,39 +6509,46 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     try:
-        phase_card()
-        phase_build()
-        serve_record = phase_kernel(torch)
-        model = phase_model(torch, GPTForCausalLM, gpt2_small)
-        served = phase_serve(torch, model)
-        served["launches"] += phase_serve_modes(torch, model, served)
-        served["launches"] += phase_operate(torch, model, served)
-        batch = phase_batch_serve(torch, model)
-        phase_serve_shapes(torch, sorted(set(served["prefill_shapes"])
-                                         | set(batch["rungs"])))
+        timed(phase_card)
+        timed(phase_build)
+        serve_record = timed(phase_kernel, torch)
+        model = timed(phase_model, torch, GPTForCausalLM, gpt2_small)
+        served = timed(phase_serve, torch, model)
+        served["launches"] += timed(phase_serve_modes, torch, model, served)
+        served["launches"] += timed(phase_operate, torch, model, served)
+        batch = timed(phase_batch_serve, torch, model)
+        timed(phase_serve_shapes, torch, sorted(
+            set(served["prefill_shapes"]) | set(batch["rungs"])))
         del model
         release_memory(torch)
-        records = phase_backward(torch)
-        fp16_records = phase_fp16_attention(torch)
-        phase_gradients(torch, gpt)
-        trained = phase_train(torch, gpt)
-        records.update(phase_llama_kernels(torch))
-        phase_llama_model(torch, llama)
-        trained_llama = phase_train_llama(torch, llama)
-        phase_flashmask_kernels(torch)
-        flashmask_path = phase_flashmask_path(torch)
-        adamw_record = phase_adamw(torch, gpt)
-        phase_adamw_modes(torch, gpt)
-        trainer = phase_trainer(torch, gpt, trained["launches_per_step"])
-        bert_run = phase_bert(torch, bert)
-        resnet_run = phase_resnet(torch, resnet)
-        liteseg_run = phase_liteseg(torch, segdet, small)
-        fit_run = phase_fit(torch, llama, trained_llama["p50_ms"])
+        records = timed(phase_backward, torch)
+        fp16_records = timed(phase_fp16_attention, torch)
+        timed(phase_gradients, torch, gpt)
+        trained = timed(phase_train, torch, gpt)
+        records.update(timed(phase_llama_kernels, torch))
+        timed(phase_llama_model, torch, llama)
+        trained_llama = timed(phase_train_llama, torch, llama)
+        timed(phase_flashmask_kernels, torch)
+        flashmask_path = timed(phase_flashmask_path, torch)
+        adamw_record = timed(phase_adamw, torch, gpt)
+        timed(phase_adamw_modes, torch, gpt)
+        trainer = timed(phase_trainer, torch, gpt,
+                        trained["launches_per_step"])
+        bert_run = timed(phase_bert, torch, bert)
+        resnet_run = timed(phase_resnet, torch, resnet)
+        liteseg_run = timed(phase_liteseg, torch, segdet, small)
+        fit_run = timed(phase_fit, torch, llama, trained_llama["p50_ms"])
+        arms = timed(phase_bench_arms, torch, {
+            "gpt": trained, "llama": trained_llama, "bert": bert_run["arm"],
+            "resnet": resnet_run["arm"], "liteseg": liteseg_run["arm"]})
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s", flush=True)
     source = "paddle_tpu_torch/ops/cuda/csrc/"
     replaces = "paddle_tpu/ops/pallas/flash_attention.py:"
     kernels = []
@@ -6265,7 +6565,8 @@ def main() -> int:
                    "trainer_recipe": trainer["recipe"][key],
                    "trainer_optimizers": trainer["optimizers"][key],
                    "train_bert": bert_run["arm"][key],
-                   "fit_llama": fit_run["launches"][key]}
+                   "fit_llama": fit_run["launches"][key],
+                   "bench_arms": arms[key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"]}
                        if key == "fwd" else {})
@@ -6313,7 +6614,8 @@ def main() -> int:
             ("rms_norm_bwd", "paddle_tpu/ops/pallas/rms_norm.py:84",
              {"pallas_counterpart": False})):
         by_path = {"train_llama": trained_llama[name],
-                   "fit_llama": fit_run["launches"][name]}
+                   "fit_llama": fit_run["launches"][name],
+                   "bench_arms": arms[name]}
         fp16 = fit_run["fp16_llama"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source + "rms_norm.cu",
@@ -6369,7 +6671,8 @@ def main() -> int:
                "train_bert": bert_run["arm"]["adamw"],
                "train_bert_bucketed": bert_run["bucketed"]["adamw"],
                "fit_llama": fit_run["launches"]["adamw"],
-               "fit_fp16_llama": fit_run["fp16_llama"]["adamw"]}
+               "fit_fp16_llama": fit_run["fp16_llama"]["adamw"],
+               "bench_arms": arms["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",
@@ -6379,7 +6682,8 @@ def main() -> int:
     # no Pallas counterpart: the jnp Momentum update that XLA fuses
     by_path = {"train_resnet": resnet_run["arm"]["momentum"],
                "trainer_optimizers": trainer["optimizers"]["momentum"],
-               "train_liteseg": liteseg_run["arm"]["momentum"]}
+               "train_liteseg": liteseg_run["arm"]["momentum"],
+               "bench_arms": arms["momentum"]}
     kernels.append({
         "name": "momentum", "route": "cuda",
         "source": source + "momentum.cu",

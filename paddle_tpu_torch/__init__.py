@@ -3,9 +3,20 @@
 A package of its own beside the JAX one: it imports ``torch`` and never
 ``jax`` or ``paddle_tpu``. Module paths mirror ``paddle_tpu``'s so each
 piece's counterpart is easy to find. Every entry point runs on the GPU
-(``device="cuda"``) unless the caller asks for ``device="cpu"``, and
-every TPU kernel on the ported path is a hand-written Hopper kernel under
-``ops/cuda/csrc`` with a plain PyTorch version beside it.
+(``device="cuda"``, or the device ``set_device`` chose) unless the caller
+asks for the CPU, and every TPU kernel on the ported path is a hand-written
+Hopper kernel under ``ops/cuda/csrc`` with a plain PyTorch version beside
+it.
+
+The top level is Paddle's: ``Tensor`` (a ``torch.Tensor`` subclass with
+Paddle's methods), ``to_tensor`` and the functional ops of ``ops``
+(creation, math, manipulation, logic, search, statistics, random), the
+dtypes (torch's own), ``seed``, the grad mode, ``set_device``, ``grad``,
+and the subpackages. ``core/dispatch.py``, ``core/kernel_cache.py`` and
+``base/jax_compat.py`` have no counterpart: torch's dispatcher does their
+work. A name of the JAX top level that is not ported yet raises
+``NotImplementedError`` naming its item of ``ROADMAP.md``. Importing the
+package touches no CUDA and compiles nothing.
 
 Ported so far: GPT paged decode serving (``serving.DecodeEngine`` over
 ``models.gpt.GPTForCausalLM``) with the flash-attention forward kernel;
@@ -18,17 +29,71 @@ kernel; the batch serving tier: ``jit.save``/``jit.load`` over
 optimizers, ``amp`` O1/O2 in bf16 or fp16 with ``amp.GradScaler``, and
 ``nn.CrossEntropyLoss``; BERT/ERNIE fine-tuning with shape bucketing;
 ResNet and PP-LiteSeg training (``vision.models``, convolution, BatchNorm
-and pooling layers) with a multi-tensor Momentum kernel; and the training
+and pooling layers) with a multi-tensor Momentum kernel; the training
 loop: ``Model`` (``hapi``) with ``fit``/``evaluate``/``predict``, callbacks
 and ``metric`` s over ``io.DataLoader`` (worker processes) and
 ``io.DeviceLoader`` (batches staged on the card), with preemption-safe
 snapshots (``reliability.TrainSnapshotter``) and the flight recorder,
-memory sampler and numerics witness of ``observability``.
+memory sampler and numerics witness of ``observability``; and the
+Paddle-style top level above, on which ``bench.py``'s training arms run
+with only their imports renamed.
 """
-from . import framework, hapi, inference, io, jit, metric, serving, static, vision
-from .device import DEFAULT_DEVICE, resolve_device
-from .hapi import Model, flops, summary
+import torch as _torch
 
-__all__ = ["DEFAULT_DEVICE", "Model", "flops", "framework", "hapi",
-           "inference", "io", "jit", "metric", "resolve_device", "serving",
-           "static", "summary", "vision"]
+from . import tensor, version
+from .base import dtype as _dtype
+from .base.dtype import (bfloat16, complex64, complex128, finfo, float16,
+                         float32, float64, iinfo, int8, int16, int32, int64,
+                         uint8)
+from .base.flags import get_flags, set_flags
+from .base.global_state import (enable_grad, get_default_dtype,
+                                is_grad_enabled, no_grad, seed,
+                                set_default_dtype, set_grad_enabled)
+from .core import tensor_methods as _tensor_methods  # noqa: F401
+from .core.autograd import grad
+from .core.tensor import Tensor, to_tensor
+from .device import (DEFAULT_DEVICE, CPUPlace, CUDAPlace, device_count,
+                     get_device, is_compiled_with_cuda, resolve_device,
+                     set_device, synchronize)
+from .tensor import *  # noqa: F401,F403 — the functional ops
+from .version import __version__
+from ._late_imports import *  # noqa: F401,F403 — the subpackages
+
+bool = _dtype.bool_  # noqa: A001 — paddle.bool
+dtype = _torch.dtype
+
+
+def in_dynamic_mode() -> bool:
+    return True
+
+
+def in_dygraph_mode() -> bool:
+    return True
+
+
+# the JAX top level's names that are not ported yet, by ROADMAP.md item
+_NOT_PORTED = {
+    "queue 1 item 1, the top level's leftovers": (
+        "cdist", "cholesky", "cholesky_solve", "corrcoef", "cov", "det",
+        "dist", "eig", "eigh", "eigvals", "eigvalsh", "householder_product",
+        "inv", "lstsq", "lu", "matrix_power", "matrix_rank", "multi_dot",
+        "norm", "pinv", "qr", "slogdet", "solve", "svd", "t",
+        "triangular_solve", "einsum", "linalg", "Layer", "Parameter",
+        "autograd", "TPUPlace", "unwrap", "passthrough", "primitive",
+        "TensorArray", "SelectedRows", "StringTensor", "register_op",
+        "run_custom_op", "enable_static", "disable_static"),
+    "queue 7": ("DataParallel",),
+    "queue 1 item 9": ("analysis",),
+    "queue 1 item 10": ("audio", "distribution", "fft", "geometric", "onnx",
+                        "signal", "sparse", "text"),
+}
+
+
+def __getattr__(name):
+    for item, names in _NOT_PORTED.items():
+        if name in names:
+            raise NotImplementedError(
+                f"paddle_tpu_torch.{name} is not ported yet (ROADMAP.md, "
+                f"{item})")
+    raise AttributeError(f"module 'paddle_tpu_torch' has no attribute "
+                         f"{name!r}")

@@ -13,9 +13,10 @@ from __future__ import annotations
 
 import os
 import threading
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Optional, Union
 
-__all__ = ["define_flag", "get_flag", "on_flag_change", "set_flags"]
+__all__ = ["define_flag", "get_flag", "get_flags", "on_flag_change",
+           "set_flags"]
 
 _lock = threading.Lock()
 _registry: Dict[str, "_Flag"] = {}
@@ -58,6 +59,17 @@ def get_flag(name: str) -> Any:
     if f is None:
         raise KeyError(f"flag '{name}' is not defined")
     return f.value
+
+
+def get_flags(names: Optional[Union[Iterable[str], str]] = None
+              ) -> Dict[str, Any]:
+    """The values of the named flags (one name or several), or of every
+    flag when None."""
+    if names is None:
+        return {k: f.value for k, f in _registry.items()}
+    if isinstance(names, str):
+        names = [names]
+    return {n: get_flag(n) for n in names}
 
 
 def set_flags(flags: Mapping[str, Any]) -> None:

@@ -146,8 +146,8 @@ class Model:
 
     @torch.no_grad()
     def predict_batch(self, inputs):
-        """The network's outputs on one batch, as numpy arrays (bf16 and
-        fp16 outputs as f32)."""
+        """The network's outputs on one batch, as numpy arrays (bf16
+        outputs as f32)."""
         self.network.eval()
         out = self.network(*_to_device(_to_list(inputs), self.device))
         return [_to_numpy(o) if isinstance(o, torch.Tensor) else o

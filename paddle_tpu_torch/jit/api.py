@@ -36,6 +36,13 @@ with ``FLAGS_numerics_witness`` the returned loss is watched
 (``"train.loss"``). All three dark, a call reads three attributes and
 nothing else: no clock, no host read, no launch.
 
+A call takes ``paddle.Tensor`` s as readily as plain tensors: it hands
+the step their plain form (``as_subclass``: no copy), so the graph's
+static input buffers and the model see plain tensors and the copy in is
+the one launch it always was. The loss comes back as a ``paddle.Tensor``
+the same way, so ``loss.numpy()`` works on the card; a replay launches
+nothing more for it.
+
 ``grad_accum_steps`` is accepted and read nowhere, as in the JAX
 package. Not ported: ``sharding`` raises ``NotImplementedError``
 (ROADMAP.md, queue 7).
@@ -47,6 +54,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from ..core.tensor import plain, wrap
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..observability import numerics
 from ..observability.anomaly import monitor
@@ -109,11 +117,12 @@ class TrainStep:
             self._compiled = CompiledFunction(step_fn, **compiled_kw)
 
     def __call__(self, *batch):
+        batch = tuple(plain(x) for x in batch)
         # refresh the LR cell before the graph, only when it changed: a
         # refresh captured into the graph would replay a stale LR
         self.optimizer._device_lr()
         if not (tracer.enabled or monitor.enabled or numerics._enabled):
-            return self._compiled(*batch)
+            return wrap(self._compiled(*batch))
         # read once: a flag flipped mid-step must not leave t0 unset
         timed = monitor.enabled
         t0 = time.perf_counter() if timed else 0.0
@@ -125,7 +134,7 @@ class TrainStep:
         if timed:
             monitor.on_step(time.perf_counter() - t0)
         numerics.watch("train.loss", out)
-        return out
+        return wrap(out)
 
     @property
     def stats(self) -> dict:

@@ -4,7 +4,8 @@ compute/update/accumulate/reset/name, Accuracy, Precision, Recall, Auc).
 
 Host-side numpy accumulation, as in the JAX package: metric state is tiny,
 so it stays off the card; a tensor handed in is read to the host once
-(``_to_numpy``), bf16 and fp16 through f32."""
+(``_to_numpy``), in its own dtype but bf16, which numpy lacks without
+``ml_dtypes``: that comes as f32, which holds every bf16 value exactly."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,11 +14,52 @@ import torch
 
 def _to_numpy(x):
     if isinstance(x, torch.Tensor):
-        x = x.detach()
-        if x.dtype in (torch.bfloat16, torch.float16):
+        x = x.detach().cpu()
+        if x.dtype == torch.bfloat16:
             x = x.float()
-        return x.cpu().numpy()
+        return x.numpy()
     return np.asarray(x)
+
+
+def _argsort_desc(rows: np.ndarray, bf16: bool) -> np.ndarray:
+    """``np.argsort(-rows, axis=-1)`` as numpy orders the rows' own dtype.
+    numpy sorts a bf16 array (``ml_dtypes``) through its generic sort, the
+    one it uses for Python objects, and not through the SIMD sorts of its
+    own float types, which order ties differently; so bf16 rows (here as
+    float32, which holds every bf16 value) are ranked as objects."""
+    if bf16:
+        rows = rows.astype(np.float64).astype(object)
+    return np.argsort(-rows, axis=-1)
+
+
+def _top_order(pred: torch.Tensor, k: int) -> np.ndarray:
+    """The first ``k`` indices of ``np.argsort(-pred, axis=-1)`` over the
+    host copy of ``pred`` in its own dtype. A row whose ``k + 1`` highest
+    scores are all distinct (and free of NaN) has those first ``k`` fixed
+    whatever the sort does with ties: ``torch.topk`` gives them where
+    ``pred`` lies. Only the other rows, where a tie can move an index into
+    or within the first ``k``, are copied to the host and sorted as the
+    reference sorts them."""
+    pred = pred.detach()
+    lead, n = pred.shape[:-1], pred.shape[-1]
+    flat = pred.reshape(-1, n)
+    bf16 = pred.dtype == torch.bfloat16
+    if k >= n or flat.shape[0] == 0:
+        return _argsort_desc(_to_numpy(flat), bf16)[:, :k].reshape(
+            *lead, min(k, n))
+    # f32 holds every bf16 and fp16 value; f64 stays f64
+    exact = flat if flat.dtype in (torch.float32, torch.float64) \
+        else flat.float()
+    vals, idx = torch.topk(exact, k + 1, dim=-1)
+    clear = (vals[:, :-1] > vals[:, 1:]).all(-1)
+    if exact.is_floating_point():
+        clear &= ~torch.isnan(exact).any(-1)
+    order = idx[:, :k].cpu().numpy()
+    tied = np.flatnonzero(~clear.cpu().numpy())
+    if tied.size:
+        rows = _to_numpy(flat[torch.from_numpy(tied).to(flat.device)])
+        order[tied] = _argsort_desc(rows, bf16)[:, :k]
+    return order.reshape(*lead, k)
 
 
 class Metric:
@@ -54,20 +96,18 @@ class Accuracy(Metric):
 
     def compute(self, pred, label, *args):
         """Whether each of the ``maxk`` highest scores is the label, as
-        f32 numpy ``[..., maxk]``. A tensor's top k come from
-        ``torch.topk`` on its own device (one copy of the small result to
-        the host, not of the scores), the same indices as the JAX
-        package's argsort wherever the scores do not tie."""
+        f32 numpy ``[..., maxk]``, in the order of ``np.argsort(-pred)``
+        over the host array in its own dtype, as the JAX package ranks, so
+        tied scores come in its order (:func:`_top_order`)."""
         if isinstance(pred, torch.Tensor):
-            label = torch.as_tensor(label, device=pred.device)
-            order = torch.topk(pred.detach(), self.maxk, dim=-1).indices
-            if label.dim() == pred.dim():  # one-hot / soft labels
-                label = label.argmax(-1)
-            return (order == label[..., None]).to(torch.float32).cpu().numpy()
-        pred = _to_numpy(pred)
+            order = _top_order(pred, self.maxk)
+            ndim = pred.dim()
+        else:
+            pred = _to_numpy(pred)
+            order = np.argsort(-pred, axis=-1)[..., : self.maxk]
+            ndim = pred.ndim
         label = _to_numpy(label)
-        order = np.argsort(-pred, axis=-1)[..., : self.maxk]
-        if label.ndim == pred.ndim:  # one-hot / soft labels
+        if label.ndim == ndim:  # one-hot / soft labels
             label = label.argmax(-1)
         correct = order == label[..., None]
         return correct.astype(np.float32)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as TF
 from torch import nn
 
+from ..base.global_state import build_generator
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import LayerNorm, Linear
@@ -187,8 +188,9 @@ class GPTForCausalLM(nn.Module):
     """Trunk + LM head; with ``tie_word_embeddings`` the head reuses the
     word-embedding matrix. Built on ``device`` (default CUDA; raises when
     CUDA is absent and the caller did not ask for the CPU) with weights
-    drawn on the CPU from ``generator`` (default: a generator seeded 0),
-    so one seed gives the same weights on every device. Dropout draws from
+    drawn on the CPU from ``generator`` (default: the build generator
+    that ``paddle.seed`` seeds, ``base.global_state``), so one seed gives
+    the same weights on every device. Dropout draws from
     ``dropout_generator``, a ``torch.Generator`` on ``device`` seeded with
     ``dropout_seed``; the model stays on that device."""
 
@@ -210,7 +212,7 @@ class GPTForCausalLM(nn.Module):
                                       bias=False)
         self.to_empty(device="cpu")
         self._init_weights(generator if generator is not None
-                           else torch.Generator().manual_seed(0))
+                           else build_generator())
         self.to(dev)
         name_parameters(self)
 

@@ -30,6 +30,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..base.global_state import build_generator
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import Linear, RMSNorm
@@ -180,10 +181,11 @@ class LlamaForCausalLM(nn.Module):
     """Trunk + LM head (untied by default; with ``tie_word_embeddings``
     the head reuses the embedding matrix). Built on ``device`` (default
     CUDA; raises when CUDA is absent and the caller did not ask for the
-    CPU) with weights drawn on the CPU from ``generator`` (default: a
-    generator seeded 0), so one seed gives the same weights on every
-    device. Dropout draws from ``dropout_generator``, a ``torch.Generator``
-    on ``device`` seeded with ``dropout_seed``."""
+    CPU) with weights drawn on the CPU from ``generator`` (default: the
+    build generator that ``paddle.seed`` seeds), so one seed gives the
+    same weights on every device. Dropout draws from
+    ``dropout_generator``, a ``torch.Generator`` on ``device`` seeded with
+    ``dropout_seed``."""
 
     def __init__(self, config: LlamaConfig, *, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None,
@@ -203,7 +205,7 @@ class LlamaForCausalLM(nn.Module):
                                       bias=False)
         self.to_empty(device="cpu")
         self._init_weights(generator if generator is not None
-                           else torch.Generator().manual_seed(0))
+                           else build_generator())
         self.to(dev)
         name_parameters(self)
 

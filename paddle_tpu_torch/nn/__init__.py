@@ -24,3 +24,13 @@ __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "LayerNorm", "Linear", "MaxPool2D", "ReLU", "ReLU6", "RMSNorm",
            "Sequential", "SiLU", "Sigmoid", "Silu", "Softplus",
            "SyncBatchNorm"]
+
+
+def __getattr__(name):
+    if name == "Layer":
+        raise NotImplementedError(
+            "paddle_tpu_torch.nn.Layer is not ported yet (ROADMAP.md, queue "
+            "1 item 1, the top level's leftovers): the port's layers are "
+            "torch.nn.Module s")
+    raise AttributeError(f"module 'paddle_tpu_torch.nn' has no attribute "
+                         f"{name!r}")

@@ -6,10 +6,12 @@ A public constructor with parameters builds inside :func:`building`: its
 submodules are made without storage (on the ``meta`` device), so torch's
 own initializers neither run nor draw from the global generator. The
 outermost module under construction then takes CPU storage, draws every
-initial value from one explicit ``torch.Generator`` (default: one seeded
+initial value from one explicit ``torch.Generator`` (default: the
+process-wide build generator that ``paddle.seed`` seeds, which starts at
 0), so one seed gives the same weights on every device, moves to the
-device the caller asked for (default CUDA; raises when CUDA is absent and
-the caller did not ask for the CPU) and names its parameters. A module
+device the caller asked for (default: ``set_device``'s, else CUDA; raises
+when CUDA is absent and the caller did not ask for the CPU) and names its
+parameters. A module
 built inside another's build leaves all of that to the outer one.
 """
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
+from ...base.global_state import build_generator
 from ...device import resolve_device
 
 __all__ = ["building", "init_parameters", "name_parameters"]
@@ -62,7 +65,6 @@ def building(model: nn.Module, device, generator: Optional[torch.Generator],
     with torch.device("meta"):
         yield
     model.to_empty(device="cpu")
-    init(model, generator if generator is not None
-         else torch.Generator().manual_seed(0))
+    init(model, generator if generator is not None else build_generator())
     model.to(dev)
     name_parameters(model)

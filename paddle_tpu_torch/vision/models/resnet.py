@@ -17,9 +17,10 @@ gray op's inputs, so a BatchNorm's f32 output enters them in bf16).
 
 Built on ``device`` (default CUDA; raises when CUDA is absent and the
 caller did not ask for the CPU) with initial values drawn from
-``generator`` (default: one seeded 0) by the JAX layers' initializers:
-``KaimingUniform`` convolutions, BatchNorms at 1 and 0, ``fc`` by
-``XavierNormal`` with a zero bias. ``pretrained=True`` raises, as in JAX.
+``generator`` (default: the build generator ``paddle.seed`` seeds) by
+the JAX layers' initializers: ``KaimingUniform`` convolutions,
+BatchNorms at 1 and 0, ``fc`` by ``XavierNormal`` with a zero bias.
+``pretrained=True`` raises, as in JAX.
 """
 from __future__ import annotations
 

@@ -31,7 +31,8 @@ reference's TAL as in JAX) builds its targets on the host too.
 
 Built on ``device`` (default CUDA; raises when CUDA is absent and the
 caller did not ask for the CPU) with initial values drawn from
-``generator`` (default: one seeded 0) by the JAX layers' initializers.
+``generator`` (default: the build generator ``paddle.seed`` seeds) by
+the JAX layers' initializers.
 """
 from __future__ import annotations
 

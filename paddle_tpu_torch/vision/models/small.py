@@ -13,8 +13,8 @@ device, seeded by ``dropout_seed`` (the JAX layers draw from the global
 generator, a stream the port does not reproduce); ``eval()`` makes it
 inert. Built on ``device`` (default CUDA; raises when CUDA is absent and
 the caller did not ask for the CPU) with initial values drawn from
-``generator`` (default: one seeded 0). ``pretrained=True`` raises, as in
-JAX.
+``generator`` (default: the build generator ``paddle.seed`` seeds).
+``pretrained=True`` raises, as in JAX.
 """
 from __future__ import annotations
 

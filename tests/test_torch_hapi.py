@@ -79,6 +79,58 @@ def test_accuracy_matches_jax():
     assert abs(got.accumulate() - want.accumulate()) <= 1e-6
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_accuracy_ties_match_jax(dtype):
+    """Tied scores rank as the JAX package ranks them: ``np.argsort(-pred)``
+    on the host array in its own dtype (bf16 through ``ml_dtypes`` on the
+    JAX side), so the top 5 agree exactly, batch by batch, at 1000 classes
+    (bf16 2·N(0, 1) scores tie often there) and at 10. Each label is the
+    JAX ranking's entry at a random place among the first six, so a tie
+    inside the top 5 shows in the result."""
+    import ml_dtypes
+
+    host = {"bfloat16": ml_dtypes.bfloat16, "float16": np.float16,
+            "float32": np.float32}[dtype]
+    rs = np.random.RandomState(0)
+    for classes in (1000, 10):
+        got, want = metric.Accuracy(topk=(1, 5)), JaxAccuracy(topk=(1, 5))
+        for _ in range(4):
+            scores = (2 * rs.randn(256, classes)).astype(host)
+            place = rs.randint(0, 6, 256)
+            label = np.argsort(-scores, axis=-1)[np.arange(256), place]
+            pred = torch.from_numpy(scores.astype(np.float32)).to(
+                getattr(torch, dtype))
+            g = got.compute(pred, torch.from_numpy(label))
+            w = want.compute(scores, label)
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(got.update(g), want.update(w))
+        assert got.accumulate() == want.accumulate()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16", "float32"])
+def test_accuracy_top_order_is_numpys_full_argsort(dtype):
+    """``metric.metrics._top_order`` (``torch.topk`` where the top scores
+    are distinct, numpy's sort only on the rows with a tie, a NaN or a
+    signed zero near the top) gives the first k of ``np.argsort(-x)``
+    over the whole array in its own dtype (bf16 through ``ml_dtypes``)."""
+    import ml_dtypes
+
+    from paddle_tpu_torch.metric.metrics import _top_order
+
+    host = {"bfloat16": ml_dtypes.bfloat16, "float16": np.float16,
+            "float32": np.float32}[dtype]
+    rs = np.random.RandomState(3)
+    x = (rs.randn(3, 40, 64) * 0.5).astype(host)
+    x[0, 0, :4] = np.nan
+    x[0, 1, :] = 0
+    x[0, 1, ::3] = -0.0
+    x[1, 2, 5:9] = x[1, 2].max()  # a four-way tie at the top
+    t = torch.from_numpy(x.astype(np.float32)).to(getattr(torch, dtype))
+    for k in (1, 5, 64):
+        want = np.argsort(-x, axis=-1)[..., :k]
+        np.testing.assert_array_equal(_top_order(t, k), want)
+
+
 def test_precision_recall_auc_match_jax():
     rs = np.random.RandomState(1)
     for cls_got, cls_want in ((metric.Precision, JaxPrecision),

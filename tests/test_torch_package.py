@@ -1,8 +1,10 @@
 """Package boundaries of the PyTorch/CUDA port.
 
-``paddle_tpu_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
-package, and every entry point runs on the GPU unless the caller asks for
-the CPU: without CUDA, the defaults raise instead of falling back.
+``paddle_tpu_torch`` and ``chip_smoke.py`` import neither JAX, the JAX
+package nor ``ml_dtypes`` (which comes with JAX, and which a PyTorch
+install need not have), and every entry point runs on the GPU unless
+the caller asks for the CPU: without CUDA, the defaults raise instead of
+falling back.
 """
 import ast
 import os
@@ -29,7 +31,7 @@ def _imported_modules(path: Path):
 
 def _forbidden(module: str) -> bool:
     top = module.split(".")[0]
-    return top in ("jax", "jaxlib", "paddle_tpu")
+    return top in ("jax", "jaxlib", "paddle_tpu", "ml_dtypes")
 
 
 def test_no_jax_or_jax_package_import_in_source():
@@ -44,6 +46,7 @@ def test_no_jax_or_jax_package_import_in_source():
     # the prefix check must not mistake the port for the JAX package
     assert not _forbidden("paddle_tpu_torch.serving")
     assert _forbidden("paddle_tpu.serving") and _forbidden("jax.numpy")
+    assert _forbidden("ml_dtypes")
 
 
 def test_gpt_presets_match_jax():
