@@ -328,9 +328,38 @@ Phases, each of which fails the run on any error:
     hand-built one does; each arm's tokens/s or images/s from its own
     timing beside the hand-built phase's p50.
 
+22. Transformer-base — a user-written ``nn.Layer`` in Paddle idiom
+    (:func:`transformer_base`, the text the CPU test also builds with the
+    JAX package): one ``nn.Embedding`` of 37,000 tokens shared by source,
+    target and the tied pre-softmax projection, a sinusoidal position
+    buffer (``persistable=False``), ``nn.Transformer()`` at its defaults
+    (Transformer-base: 6 + 6 layers of d_model 512, 8 heads, FFN 2048,
+    dropout 0.1), the causal target mask, cross entropy against
+    ``label_smooth(one_hot(label), 0.1)`` outside ``auto_cast``, ``Adam``
+    under ``NoamDecay(512, 4000)``, bf16 O2, one 16 x 256 batch a side:
+    (a) built through the port's ``Layer``, ``ParamAttr`` and
+    initializers; (b) 12 eager steps by hand, then 2 warmup and 10 timed
+    ``TrainStep`` steps, every one after the first a replay, losses and
+    every parameter bit for bit the eager ones (dropout in K1-K3's hash,
+    the masked composition and the ``Dropout`` layers, all drawn from the
+    registered dropout generator), launches 12 a step of each of K1-K3
+    (encoder self-attention and decoder cross-attention; the masked
+    decoder self-attention launches none) and 4 of AdamW (253 bf16
+    tensors), no operand copied for TMA; K1-K3 at the path's shape (B=16,
+    S=256, H=8, D=64, non-causal, dropout 0.1 and 0) against their plain
+    versions, timed beside their bounds and SDPA; (c) step p50, target
+    tokens/s, peak memory, launches a step, the idle share and device ms
+    by class from a profile of 2 replayed steps, the masked composition
+    and the 37,000-way loss each timed alone; (d) an incremental greedy
+    decode of 8 tokens with ``TransformerDecoder.gen_cache`` on an f32
+    twin: each step's decoder output within 1e-4 of the full-sequence
+    decoder's at its position, and the tokens equal the full decoder's on
+    the same prefix, except near-ties. About 10–20 s on the H100.
+
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
 (14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)), PP-LiteSeg
-(19 (a)), fit (20 (a), (d)) and bench-arm (21) phases are the main paths:
+(19 (a)), fit (20 (a), (d)), bench-arm (21) and Transformer-base (22 (b))
+phases are the main paths:
 the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
@@ -6481,6 +6510,385 @@ def phase_bench_arms(torch, hand: dict) -> dict:
     return totals
 
 
+# Transformer-base (Vaswani et al. 2017, Table 3 "base": N = 6, d_model 512,
+# d_ff 2048, h 8, P_drop 0.1, eps_ls 0.1), a shared vocabulary of 37,000
+# tokens (§5.1) and 16 x 256 tokens a side (about one GPU's share of §5.1's
+# 25,000 source tokens over 8 GPUs)
+TB_VOCAB, TB_BATCH, TB_SEQ = 37000, 16, 256
+TB_LAYERS, TB_MODEL, TB_HEADS, TB_FFN = 6, 512, 8, 2048
+TB_DROPOUT, TB_SMOOTHING, TB_WARMUP = 0.1, 0.1, 4000
+TB_DECODE = 8  # greedy tokens decoded incrementally in (d)
+# (d)'s f32 gate on each cached step's decoder output against the full
+# decoder's at its position: TOL's f32 O gate, the TF32-free GEMMs and K1's
+# 3xTF32 products each far inside it over 6 layers
+DECODE_TOL = 1e-4
+
+
+def transformer_base(paddle, vocab=TB_VOCAB, d_model=TB_MODEL,
+                     nhead=TB_HEADS, layers=TB_LAYERS, d_ff=TB_FFN,
+                     dropout=TB_DROPOUT, max_len=TB_SEQ,
+                     smoothing=TB_SMOOTHING, amp=True, seed=0):
+    """A user-written Transformer-base in Paddle idiom, built by the
+    ``paddle`` module it is given (``paddle_tpu_torch`` here; the CPU test
+    gives the JAX package the same text): one ``nn.Embedding`` shared by
+    source, target and the pre-softmax projection (scaled by sqrt(d_model)
+    on the way in, Vaswani et al. §3.4), a sinusoidal position table as a
+    non-persistable buffer, ``nn.Transformer``, the causal target mask,
+    the label-smoothed cross entropy computed outside ``auto_cast``, Adam
+    (beta2 0.98, eps 1e-9) under ``NoamDecay(d_model, 4000)`` (§5.3), the
+    model in bf16 O2 when ``amp``. Returns (model, optimizer, scheduler,
+    loss_fn(src, tgt, label))."""
+    nn = paddle.nn
+    F = paddle.nn.functional
+    paddle.seed(seed)
+
+    class TransformerBase(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(
+                vocab, d_model, padding_idx=0,
+                weight_attr=nn.ParamAttr(
+                    initializer=nn.initializer.Normal(0.0, d_model ** -0.5)))
+            pos = np.arange(max_len, dtype=np.float64)[:, None]
+            rate = np.power(10000.0, -np.arange(0, d_model, 2) / d_model)
+            table = np.zeros((max_len, d_model), np.float32)
+            table[:, 0::2] = np.sin(pos * rate)
+            table[:, 1::2] = np.cos(pos * rate)
+            self.register_buffer("position_table", paddle.to_tensor(table),
+                                 persistable=False)
+            self.dropout = nn.Dropout(dropout)
+            self.transformer = nn.Transformer(
+                d_model=d_model, nhead=nhead, num_encoder_layers=layers,
+                num_decoder_layers=layers, dim_feedforward=d_ff,
+                dropout=dropout)
+            self.tgt_mask = self.transformer.generate_square_subsequent_mask(
+                max_len)
+
+        def embed(self, ids, start=0):
+            x = self.embedding(ids) * d_model ** 0.5
+            return self.dropout(
+                x + self.position_table[start:start + ids.shape[1]])
+
+        def forward(self, src, tgt):
+            t = tgt.shape[1]
+            out = self.transformer(self.embed(src), self.embed(tgt),
+                                   tgt_mask=self.tgt_mask[:t, :t])
+            return paddle.matmul(out, self.embedding.weight, transpose_y=True)
+
+    model = TransformerBase()
+    if amp:
+        paddle.amp.decorate(model, level="O2", dtype="bfloat16")
+    scheduler = paddle.optimizer.lr.NoamDecay(d_model, TB_WARMUP)
+    opt = paddle.optimizer.Adam(learning_rate=scheduler, beta1=0.9,
+                                beta2=0.98, epsilon=1e-9,
+                                parameters=model.parameters())
+
+    def loss_fn(src, tgt, label):
+        if amp:
+            with paddle.amp.auto_cast(level="O2", dtype="bfloat16"):
+                logits = model(src, tgt)
+        else:
+            logits = model(src, tgt)
+        soft = F.label_smooth(F.one_hot(label, vocab), epsilon=smoothing)
+        return F.cross_entropy(logits, soft, soft_label=True)
+
+    return model, opt, scheduler, loss_fn
+
+
+def transformer_batch(torch, vocab, batch, seq, seed=0) -> tuple:
+    """(src, tgt, label) ids in [1, vocab) from ``RandomState(seed)``: the
+    target read shifted by one (teacher forcing), on the card."""
+    rs = np.random.RandomState(seed)
+    src = rs.randint(1, vocab, (batch, seq)).astype(np.int64)
+    full = rs.randint(1, vocab, (batch, seq + 1)).astype(np.int64)
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in (src, full[:, :-1], full[:, 1:]))
+
+
+class _SchedulerStepped:
+    """A ``TrainStep`` whose scheduler steps after each call, as the
+    recipe's loop steps it; ``stats`` and ``audit_report`` are the
+    step's."""
+
+    def __init__(self, step, scheduler):
+        self.step, self.scheduler = step, scheduler
+
+    def __call__(self, *batch):
+        out = self.step(*batch)
+        self.scheduler.step()
+        return out
+
+    @property
+    def stats(self):
+        return self.step.stats
+
+    def audit_report(self):
+        return self.step.audit_report()
+
+
+def transformer_eager(torch, paddle, batch, steps) -> tuple:
+    """``steps`` eager steps by hand of the recipe (loss, backward, step,
+    clear_grad, scheduler step): the losses and every parameter after
+    them."""
+    model, opt, scheduler, loss_fn = transformer_base(paddle)
+    losses = []
+    for _ in range(steps):
+        loss = loss_fn(*batch)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        scheduler.step()
+        losses.append(float(loss.detach()))
+    torch.cuda.synchronize()
+    out = (losses, [p.detach().clone() for p in model.parameters()])
+    del model, opt, loss_fn
+    release_memory(torch)
+    return out
+
+
+# each kernel name's class in a replayed Transformer-base step, first match
+# wins; the masked composition's two products fall among the GEMMs and its
+# softmax among the softmaxes: (c) also times it alone
+TRANSFORMER_CLASSES_RX = (
+    ("K1-K3", ATTENTION_KERNELS),
+    ("AdamW", PROFILED_KERNELS["AdamW"]),
+    ("GEMM", re.compile(r"nvjet|gemm|cutlass|sm90_xmma")),
+    ("softmax and loss", re.compile(r"softmax|nll|cross_entropy")),
+    ("element-wise and the rest", re.compile(r"")),
+)
+
+
+def transformer_classes(torch, step, batch, p50_ms) -> dict:
+    """Device ms a replayed step by kernel class: the profile of
+    ``profile_steps`` (launches held to the counters), its rows classed by
+    ``TRANSFORMER_CLASSES_RX``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile_steps(torch, step, batch, p50_ms)
+    with profile(activities=[ProfilerActivity.CUDA]) as trace:
+        step(*batch)
+        torch.cuda.synchronize()
+    classes = {name: 0.0 for name, _ in TRANSFORMER_CLASSES_RX}
+    for e in trace.key_averages():
+        if e.device_type != DeviceType.CUDA or e.self_device_time_total <= 0:
+            continue
+        name = next(n for n, rx in TRANSFORMER_CLASSES_RX if rx.search(e.key))
+        classes[name] += e.self_device_time_total / 1e3
+    total = sum(classes.values())
+    print("device ms of one replayed step by class: " + "; ".join(
+        f"{n} {ms:.3f} ({ms / total:.1%})" for n, ms in classes.items())
+        + f"; total {total:.3f}", flush=True)
+    return {"profile": prof, "classes": classes}
+
+
+def transformer_parts_ms(torch, batch) -> dict:
+    """The masked composition (decoder self-attention, forward and
+    backward, 6 layers' worth) and the 37,000-way label-smoothed loss
+    (forward and backward) each timed alone at the path's shapes by CUDA
+    events, in bf16 as the O2 step runs them."""
+    import paddle_tpu_torch.nn.functional as F
+    from paddle_tpu_torch.nn.functional.attention import _xla_attention
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    shape = (TB_BATCH, TB_SEQ, TB_HEADS, TB_MODEL // TB_HEADS)
+    q, k, v = (torch.randn(shape, device=dev, dtype=torch.bfloat16,
+                           generator=gen).requires_grad_(True)
+               for _ in range(3))
+    mask = torch.full((TB_SEQ, TB_SEQ), float("-inf"), device=dev).triu(1)
+    bias = mask.to(torch.bfloat16)
+    scale = 1.0 / math.sqrt(shape[-1])
+
+    def composition():
+        out = _xla_attention(q, k, v, False, scale, bias, TB_DROPOUT, gen)[0]
+        out.backward(torch.ones_like(out))
+
+    logits = torch.randn(TB_BATCH, TB_SEQ, TB_VOCAB, device=dev,
+                         dtype=torch.bfloat16,
+                         generator=gen).requires_grad_(True)
+    label = batch[2]
+
+    def loss():
+        soft = F.label_smooth(F.one_hot(label, TB_VOCAB),
+                              epsilon=TB_SMOOTHING)
+        F.cross_entropy(logits, soft, soft_label=True).backward()
+
+    out = {"composition_ms": TB_LAYERS * cuda_time_ms(composition, iters=10),
+           "loss_ms": cuda_time_ms(loss, iters=10)}
+    print(f"timed alone: the masked composition (fwd+bwd, x{TB_LAYERS} "
+          f"layers) {out['composition_ms']:.3f} ms; the label-smoothed "
+          f"37,000-way loss (fwd+bwd) {out['loss_ms']:.3f} ms", flush=True)
+    return out
+
+
+def transformer_path_kernels(torch) -> dict:
+    """K1–K3 at the path's shape (B=16, S=256, H=8, D=64, bf16, non-causal,
+    contiguous q, k and v, dropout 0.1 as trained and 0) against their
+    plain versions under ``TOL``/``BWD_TOL``, timed beside their bounds and
+    SDPA, no operand copied for TMA. Returns the records by (kernel,
+    dropout)."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(22)
+    seed = torch.tensor([20261018], dtype=torch.int32, device=dev)
+    shape = (TB_BATCH, TB_SEQ, TB_HEADS, TB_MODEL // TB_HEADS)
+    q, k, v, do = (torch.from_numpy(rs.randn(*shape).astype(np.float32)).to(
+        dev, torch.bfloat16) for _ in range(4))
+    fa.tma_copies = 0
+    err_o, err_l, _ = compare_kernel(torch, fa, q, k, v, "bfloat16", False)
+    print(f"K1 at the path's shape {shape} bf16 non-causal against TOL: O "
+          f"err {err_o:.2e} lse err {err_l:.2e}", flush=True)
+    records = {}
+    for dropout in (TB_DROPOUT, 0.0):
+        errs, equal, _ = compare_backward(torch, fa, q, k, v, do, seed,
+                                          "bfloat16", dropout, causal=False)
+        t = time_attention(torch, fa, q, k, v, do, seed, "bfloat16", dropout,
+                           causal=False)
+        print(f"dropout {dropout}: err " + " ".join(
+            f"{n} {e:.2e}" for n, e in errs.items()) + "  bitwise equal "
+            + " ".join(f"{n} {c}" for n, c in equal.items()) + "\n    "
+            + t["line"], flush=True)
+        for name, rec in attention_records(t, errs).items():
+            records[(name, dropout)] = dict(
+                rec, shape=f"B={shape[0]} S={shape[1]} H={shape[2]} "
+                f"D={shape[3]} bfloat16 non-causal dropout {dropout}")
+    check(fa.tma_copies == 0, f"{fa.tma_copies} operands copied for TMA at "
+          f"the Transformer-base shape")
+    return records
+
+
+def transformer_decode(torch, paddle) -> int:
+    """(d) Greedy decoding of ``TB_DECODE`` tokens from an f32 twin in eval
+    mode: incrementally (``TransformerDecoder.gen_cache``, one token a
+    call: K1 over the cached keys) and by the full-sequence decoder under
+    the causal mask (the composition) on the same prefix. Each step's
+    output must be the full decoder's at its position within
+    ``DECODE_TOL`` (a stale, unextended or misordered cache moves it far
+    more, whatever the tokens do), and the tokens must agree wherever the
+    full decoder's top-2 margin is at least ``NEAR_TIE``. Returns the
+    near-ties met."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    model = transformer_base(paddle, amp=False, seed=1)[0].eval()
+    src = transformer_batch(torch, TB_VOCAB, 2, TB_SEQ, seed=3)[0]
+    weight = model.embedding.weight
+    with torch.no_grad():
+        memory = model.transformer.encoder(model.embed(src))
+        decoder = model.transformer.decoder
+        cache = decoder.gen_cache(memory)
+        ids = torch.ones(src.shape[0], 1, dtype=torch.int64, device="cuda")
+        before = fa.launches
+        steps = []
+        for t in range(TB_DECODE):
+            out, cache = decoder(model.embed(ids[:, -1:], start=t), memory,
+                                 cache=cache)
+            steps.append(out[:, 0])
+            nxt = (out[:, 0] @ weight.t()).argmax(-1, keepdim=True)
+            ids = torch.cat([ids, nxt], dim=1)
+        launched = fa.launches - before
+        full = decoder(model.embed(ids[:, :-1]), memory,
+                       tgt_mask=model.tgt_mask[:TB_DECODE, :TB_DECODE])
+        logits = full @ weight.t()
+        out_err = float((torch.stack(steps, dim=1) - full).abs().max())
+    top2 = logits.float().topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])
+    agree = logits.argmax(-1) == ids[:, 1:]
+    ties = int((~agree & (margin < NEAR_TIE)).sum())
+    check(out_err <= DECODE_TOL, f"the incremental decoder's outputs are "
+          f"{out_err:.3g} from the full decoder's, over {DECODE_TOL}")
+    check(bool((agree | (margin < NEAR_TIE)).all()), "the incremental "
+          "decode's tokens differ from the full decoder's")
+    check(launched == 2 * TB_LAYERS * TB_DECODE, f"the cached decode "
+          f"launched K1 {launched} times, want {2 * TB_LAYERS * TB_DECODE}")
+    print(f"(d) incremental greedy decode of {TB_DECODE} tokens x "
+          f"{src.shape[0]} rows (K1 {launched} launches) against the full "
+          f"decoder: outputs within {out_err:.3g} (gate {DECODE_TOL}), "
+          f"{int(agree.sum())}/{agree.numel()} tokens equal, "
+          f"near-ties {ties}, least top-2 margin {float(margin.min()):.3g}; "
+          f"tokens {ids[:, 1:].tolist()}", flush=True)
+    del model, cache, memory
+    release_memory(torch)
+    return ties
+
+
+def phase_transformer(torch) -> dict:
+    """Phase 22: the user-written Transformer-base of
+    :func:`transformer_base` at full width on the card. (a) Built from the
+    recipe by ``paddle_tpu_torch``; (b) 12 eager steps by hand as the
+    reference, then 2 warmup and 10 timed ``TrainStep`` steps, every one
+    after the first a replay, the losses and every parameter bit for bit
+    the eager ones (dropout 0.1 in K1-K3's hash, the composition and the
+    Dropout layers, all from the registered dropout generator); launches
+    12 a step of each of K1-K3 and one AdamW launch per 64 parameters, no
+    operand copied for TMA; K1-K3 at the path's shape against their plain
+    versions; (c) step p50, target tokens/s, peak memory, the idle share
+    and device ms by class from a profile of 2 replayed steps, the masked
+    composition and the loss timed alone; (d) the incremental decode.
+    Returns the launches and the records."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu")
+    print(f"== Transformer-base: a user-written nn.Layer around "
+          f"nn.Transformer() ({TB_LAYERS}+{TB_LAYERS} x {TB_MODEL}, FFN "
+          f"{TB_FFN}, {TB_HEADS} heads, dropout {TB_DROPOUT}), shared "
+          f"{TB_VOCAB}-token embedding, label smoothing {TB_SMOOTHING}, "
+          f"Adam + NoamDecay, bf16 O2, {TB_BATCH}x{TB_SEQ} tokens a side",
+          flush=True)
+    batch = transformer_batch(torch, TB_VOCAB, TB_BATCH, TB_SEQ)
+    steps = GRAPH_WARMUP + TRAIN_STEPS
+    reference = transformer_eager(torch, paddle, batch, steps)
+    model, opt, scheduler, loss_fn = transformer_base(paddle)
+    n_params = len(model.parameters())
+    step = _SchedulerStepped(TrainStep(model=model, optimizer=opt,
+                                       loss_fn=loss_fn), scheduler)
+    first, losses, times, counts = run_timed_steps(torch, step, batch)
+    check_against_eager(torch, "Transformer-base", first + losses,
+                        [p.detach() for p in model.parameters()], reference)
+    del reference
+    p50 = float(np.median(times))
+    tokens = TB_BATCH * TB_SEQ
+    peak = torch.cuda.max_memory_allocated()
+    per_step = adamw_launches_per_step(model)
+    want = 2 * TB_LAYERS * TRAIN_STEPS
+    print("warmup losses " + " ".join(f"{x:.4f}" for x in first)
+          + "; losses " + " ".join(f"{x:.4f}" for x in losses), flush=True)
+    print(f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); target tokens/s {tokens / p50:.1f}; "
+          f"peak memory {peak / 2**30:.2f} GiB (of which each of the "
+          f"[{tokens}, {TB_VOCAB}] f32 one-hot, smoothed labels and f32 "
+          f"logits takes {tokens * TB_VOCAB * 4 / 2**20:.0f} MiB); "
+          f"{n_params} parameters", flush=True)
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts} over {TRAIN_STEPS} "
+          f"steps", flush=True)
+    check(all(math.isfinite(x) for x in first + losses), "non-finite loss")
+    check(counts == (want, want, want, 0, per_step * TRAIN_STEPS, 0),
+          f"launches {counts}, want {want} each of K1-K3 "
+          f"({2 * TB_LAYERS} a step) and {per_step * TRAIN_STEPS} of AdamW")
+    parts = transformer_classes(torch, step, batch, p50 * 1e3)
+    parts.update(transformer_parts_ms(torch, batch))
+    prof = parts["profile"]
+    print(f"(c) {torch.cuda.get_device_name(0)}: step p50 {p50 * 1e3:.3f} ms, "
+          f"{tokens / p50:.1f} target tokens/s, "
+          f"{prof['launches']:.0f} launches a step, idle share "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}", flush=True)
+    del model, opt, loss_fn, step
+    release_memory(torch)
+    records = transformer_path_kernels(torch)
+    ties = transformer_decode(torch, paddle)
+    paddle.set_device("gpu")
+    print(f"Transformer-base: phase 22 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+            "adamw": counts[4], "records": records, "p50_ms": p50 * 1e3,
+            "near_ties": ties}
+
+
 def timed(phase, *args):
     """``phase(*args)``, then its wall time printed."""
     t0 = time.perf_counter()
@@ -6543,6 +6951,7 @@ def main() -> int:
         arms = timed(phase_bench_arms, torch, {
             "gpt": trained, "llama": trained_llama, "bert": bert_run["arm"],
             "resnet": resnet_run["arm"], "liteseg": liteseg_run["arm"]})
+        transformer = timed(phase_transformer, torch)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6566,7 +6975,8 @@ def main() -> int:
                    "trainer_optimizers": trainer["optimizers"][key],
                    "train_bert": bert_run["arm"][key],
                    "fit_llama": fit_run["launches"][key],
-                   "bench_arms": arms[key]}
+                   "bench_arms": arms[key],
+                   "transformer_base": transformer[key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"]}
                        if key == "fwd" else {})
@@ -6604,6 +7014,10 @@ def main() -> int:
                                for dtype in ("bfloat16", "float32")}
         entry["head_dim_128"] = {dtype: records[(key, dtype, 128)]
                                  for dtype in ("bfloat16", "float32")}
+        # non-causal, B=16 S=256 H=8 D=64 bf16, dropout 0.1 and 0 (phase 22)
+        entry["transformer_base_shape"] = {
+            f"dropout_{p}": transformer["records"][(key, p)]
+            for p in (TB_DROPOUT, 0.0)}
         kernels.append(entry)
     # K4 and its backward: bf16 on the Llama training paths, f32 and fp16
     # beside (fp16 on phase 20 (d)'s O1 steps)
@@ -6672,7 +7086,8 @@ def main() -> int:
                "train_bert_bucketed": bert_run["bucketed"]["adamw"],
                "fit_llama": fit_run["launches"]["adamw"],
                "fit_fp16_llama": fit_run["fp16_llama"]["adamw"],
-               "bench_arms": arms["adamw"]}
+               "bench_arms": arms["adamw"],
+               "transformer_base": transformer["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",

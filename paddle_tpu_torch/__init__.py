@@ -9,10 +9,12 @@ Hopper kernel under ``ops/cuda/csrc`` with a plain PyTorch version beside
 it.
 
 The top level is Paddle's: ``Tensor`` (a ``torch.Tensor`` subclass with
-Paddle's methods), ``to_tensor`` and the functional ops of ``ops``
-(creation, math, manipulation, logic, search, statistics, random), the
-dtypes (torch's own), ``seed``, the grad mode, ``set_device``, ``grad``,
-and the subpackages. ``core/dispatch.py``, ``core/kernel_cache.py`` and
+Paddle's methods), ``Parameter`` (a ``torch.nn.Parameter`` with Paddle's
+attributes), ``Layer``, ``to_tensor`` and the functional ops of ``ops``
+(creation, math, manipulation, logic, search, statistics, random, the
+linear algebra, ``einsum``), the dtypes (torch's own), ``seed``, the grad
+mode, ``set_device``, ``grad``, and the subpackages (``autograd``,
+``linalg``, ``nn``, ...). ``core/dispatch.py``, ``core/kernel_cache.py`` and
 ``base/jax_compat.py`` have no counterpart: torch's dispatcher does their
 work. A name of the JAX top level that is not ported yet raises
 ``NotImplementedError`` naming its item of ``ROADMAP.md``. Importing the
@@ -36,7 +38,11 @@ and ``metric`` s over ``io.DataLoader`` (worker processes) and
 snapshots (``reliability.TrainSnapshotter``) and the flight recorder,
 memory sampler and numerics witness of ``observability``; and the
 Paddle-style top level above, on which ``bench.py``'s training arms run
-with only their imports renamed.
+with only their imports renamed; and the model-authoring API:
+``nn.Layer``, ``Parameter``, ``nn.ParamAttr``, ``nn.initializer``,
+``autograd`` (``backward``, ``PyLayer``, ``saved_tensors_hooks``), the
+transformer stack (``nn.Transformer``, ``nn.MultiHeadAttention``, ...),
+``linalg`` and ``einsum``.
 """
 import torch as _torch
 
@@ -51,13 +57,15 @@ from .base.global_state import (enable_grad, get_default_dtype,
                                 set_default_dtype, set_grad_enabled)
 from .core import tensor_methods as _tensor_methods  # noqa: F401
 from .core.autograd import grad
-from .core.tensor import Tensor, to_tensor
+from .core.tensor import Parameter, Tensor, to_tensor
 from .device import (DEFAULT_DEVICE, CPUPlace, CUDAPlace, device_count,
                      get_device, is_compiled_with_cuda, resolve_device,
                      set_device, synchronize)
 from .tensor import *  # noqa: F401,F403 — the functional ops
 from .version import __version__
 from ._late_imports import *  # noqa: F401,F403 — the subpackages
+from . import autograd, linalg
+from .nn.layer.layers import Layer
 
 bool = _dtype.bool_  # noqa: A001 — paddle.bool
 dtype = _torch.dtype
@@ -74,14 +82,9 @@ def in_dygraph_mode() -> bool:
 # the JAX top level's names that are not ported yet, by ROADMAP.md item
 _NOT_PORTED = {
     "queue 1 item 1, the top level's leftovers": (
-        "cdist", "cholesky", "cholesky_solve", "corrcoef", "cov", "det",
-        "dist", "eig", "eigh", "eigvals", "eigvalsh", "householder_product",
-        "inv", "lstsq", "lu", "matrix_power", "matrix_rank", "multi_dot",
-        "norm", "pinv", "qr", "slogdet", "solve", "svd", "t",
-        "triangular_solve", "einsum", "linalg", "Layer", "Parameter",
-        "autograd", "TPUPlace", "unwrap", "passthrough", "primitive",
-        "TensorArray", "SelectedRows", "StringTensor", "register_op",
-        "run_custom_op", "enable_static", "disable_static"),
+        "TPUPlace", "unwrap", "passthrough", "primitive", "TensorArray",
+        "SelectedRows", "StringTensor", "register_op", "run_custom_op",
+        "enable_static", "disable_static"),
     "queue 7": ("DataParallel",),
     "queue 1 item 9": ("analysis",),
     "queue 1 item 10": ("audio", "distribution", "fft", "geometric", "onnx",

@@ -127,7 +127,9 @@ def decorate(models, optimizers=None, level: str = "O2",
              dtype: str = "bfloat16", master_weight=None, save_dtype=None, *,
              device=DEFAULT_DEVICE):
     """``paddle.amp.decorate``: at O2 casts every floating parameter and
-    buffer of each model to the AMP dtype in place; O1 leaves them f32.
+    persistable buffer of each model (its ``state_dict``, as the JAX
+    package's ``_convert_dtype``) to the AMP dtype in place; a
+    non-persistable buffer keeps its dtype; O1 leaves them f32.
     ``device`` (default CUDA) is where the models must lie. Returns the
     models, and the optimizers unchanged when given. There is no f32
     master copy, as in the JAX package."""
@@ -141,6 +143,12 @@ def decorate(models, optimizers=None, level: str = "O2",
                 raise ValueError(f"the model lies on {t.device}, the call "
                                  f"asked for {dev}")
         if level == "O2":
+            kept = [(mod, name, mod._buffers[name])
+                    for mod in model.modules()
+                    for name in mod._non_persistent_buffers_set
+                    if mod._buffers.get(name) is not None]
             model.to(target)
+            for mod, name, buf in kept:
+                mod._buffers[name] = buf
     out = models if single else model_list
     return out if optimizers is None else (out, optimizers)

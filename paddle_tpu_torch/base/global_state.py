@@ -11,6 +11,14 @@ process, so ``seed(0)`` then a build gives the weights of a build with
 same process draws further and differs, as the JAX package's splitting
 key does. Its stream is torch's, not JAX's threefry: the same seed gives
 other values in the two packages.
+
+The Paddle-style layers built without a generator (``nn.Dropout``,
+``nn.RReLU``, ``nn.MultiHeadAttention``) draw from one process-wide
+generator a device (:func:`dropout_generator`), made at first use and
+seeded by :func:`seed` (0 until then), where the JAX package draws from its
+global key. Each such layer holds it from its construction, so a captured
+training step registers it with its graph and a train-state snapshot saves
+it, as they do a model's own generators.
 """
 from __future__ import annotations
 
@@ -18,9 +26,9 @@ import torch
 
 from . import dtype as dtype_mod
 
-__all__ = ["build_generator", "enable_grad", "get_default_dtype",
-           "is_grad_enabled", "no_grad", "seed", "set_default_dtype",
-           "set_grad_enabled"]
+__all__ = ["build_generator", "dropout_generator", "enable_grad",
+           "get_default_dtype", "is_dropout_generator", "is_grad_enabled",
+           "no_grad", "seed", "set_default_dtype", "set_grad_enabled"]
 
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
@@ -31,6 +39,8 @@ set_grad_enabled = torch.set_grad_enabled
 
 _build_generator = torch.Generator().manual_seed(0)
 _default_dtype = torch.float32
+_seed = 0
+_dropout_generators = {}  # torch.device -> torch.Generator
 
 
 def build_generator() -> torch.Generator:
@@ -43,9 +53,30 @@ def seed(s: int) -> torch.Generator:
     """Seed torch's CPU and CUDA generators and the build generator with
     ``s`` (``paddle.seed``); returns the build generator. Initializes no
     CUDA: torch applies the seed to the CUDA generators when CUDA starts."""
-    s = int(s)
+    global _seed
+    s = _seed = int(s)
     torch.manual_seed(s)
+    for gen in _dropout_generators.values():
+        gen.manual_seed(s)
     return _build_generator.manual_seed(s)
+
+
+def dropout_generator(device) -> torch.Generator:
+    """The process-wide dropout generator on ``device``, made at first use
+    and seeded with the last :func:`seed` (0 before any)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    gen = _dropout_generators.get(dev)
+    if gen is None:
+        gen = _dropout_generators[dev] = torch.Generator(
+            device=dev).manual_seed(_seed)
+    return gen
+
+
+def is_dropout_generator(gen) -> bool:
+    """Whether ``gen`` is one of the process-wide dropout generators."""
+    return any(gen is g for g in _dropout_generators.values())
 
 
 def get_default_dtype() -> str:

@@ -1,12 +1,13 @@
-"""``paddle.grad`` (port of ``paddle_tpu/core/autograd.py`` ``grad``) over
-``torch.autograd.grad``."""
+"""``paddle.grad`` and ``paddle.autograd.backward`` (port of
+``paddle_tpu/core/autograd.py`` ``grad`` and ``backward``) over
+``torch.autograd``."""
 from __future__ import annotations
 
 import torch
 
-from .tensor import wrap
+from .tensor import plain, wrap
 
-__all__ = ["grad"]
+__all__ = ["backward", "grad"]
 
 
 def _as_list(x):
@@ -33,3 +34,17 @@ def grad(outputs, inputs, grad_outputs=None, retain_graph=None,
         raise ValueError("an input is unreachable from the outputs (set "
                          "allow_unused=True to get None for it)")
     return [None if g is None else wrap(g) for g in grads]
+
+
+def backward(tensors, grad_tensors=None, retain_graph=False):
+    """Accumulate into every leaf's ``.grad`` the gradients of ``tensors``
+    (a tensor or a list), each weighted by its ``grad_tensors`` entry
+    (default: ones, for a root of any shape, as the JAX engine seeds it)."""
+    roots = [plain(t) for t in _as_list(tensors)]
+    if grad_tensors is None:
+        grad_tensors = [None] * len(roots)
+    else:
+        grad_tensors = _as_list(grad_tensors)
+    seeds = [torch.ones_like(t) if g is None else plain(g)
+             for t, g in zip(roots, grad_tensors)]
+    torch.autograd.backward(roots, seeds, retain_graph=retain_graph)

@@ -24,6 +24,7 @@ have (the JAX package returns bf16 there).
 """
 from __future__ import annotations
 
+import copy
 import numbers
 
 import numpy as np
@@ -33,7 +34,8 @@ from ..base import dtype as dtype_mod
 from ..base import global_state
 from ..device import DEFAULT_DEVICE, resolve_device
 
-__all__ = ["Tensor", "as_tensor", "paddle_out", "plain", "to_tensor", "wrap"]
+__all__ = ["Parameter", "Tensor", "as_tensor", "paddle_out", "plain",
+           "to_tensor", "wrap"]
 
 
 class _TensorMeta(torch._C._TensorMeta):
@@ -81,9 +83,9 @@ def as_tensor(data, dtype=None, place=None) -> torch.Tensor:
 
 def plain(x):
     """``x`` as a plain ``torch.Tensor`` (the same storage and autograd
-    history); anything else unchanged."""
+    history); a parameter, and anything else, unchanged."""
     if isinstance(x, torch.Tensor) and type(x) is not torch.Tensor \
-            and type(x) is not torch.nn.Parameter:
+            and not isinstance(x, torch.nn.Parameter):
         return x.as_subclass(torch.Tensor)
     return x
 
@@ -222,6 +224,19 @@ class Tensor(torch.Tensor, metaclass=_TensorMeta):
         return out
 
     # ------------------------------------------------------------ autograd
+    def backward(self, grad_tensor=None, retain_graph=None,
+                 create_graph=False, inputs=None):
+        """Accumulate the gradients of this tensor into the leaves, seeded
+        with ``grad_tensor`` (default: ones, whatever the shape, as in the
+        JAX package). torch's engine gets the plain tensor: it calls
+        ``numel`` and ``size``, which a ``Tensor`` shadows with Paddle's
+        (an op, and so a copy that a CUDA-graph capture refuses)."""
+        t = self.as_subclass(torch.Tensor)
+        if grad_tensor is None and t.numel() != 1:
+            grad_tensor = torch.ones_like(t)
+        torch.Tensor.backward(t, plain(grad_tensor), retain_graph,
+                              create_graph, inputs)
+
     def clear_grad(self) -> None:
         torch.Tensor.grad.__set__(self, None)
 
@@ -347,3 +362,119 @@ def to_tensor(data, dtype=None, place=None, stop_gradient=True) -> Tensor:
     that gradients flow to."""
     return Tensor(data, dtype=dtype, stop_gradient=stop_gradient,
                   place=place)
+
+
+class Parameter(torch.nn.Parameter):
+    """A trainable tensor (port of ``paddle_tpu/core/tensor.py``
+    ``Parameter``): a ``torch.nn.Parameter``, so every torch module,
+    optimizer and CUDA graph takes it as it is, with Paddle's attributes:
+    ``trainable`` and ``stop_gradient`` (both views of ``requires_grad``),
+    ``optimize_attr`` (``{"learning_rate": 1.0}``), ``regularizer``,
+    ``need_clip``, ``init_fn`` (the initializer that filled it),
+    ``is_parameter`` and ``persistable``, and the ``Tensor`` methods
+    ``set_value``, ``clear_grad`` and ``numpy``. Its other methods are
+    torch's (the port's modules call them). ``param_name`` stands for
+    Paddle's ``name``: torch reserves ``Tensor.name``.
+
+    ``Parameter(value, dtype=None, name=None, trainable=True)`` copies
+    ``value`` (an array, a number, a list or a tensor) like ``Tensor``
+    does; a torch tensor is taken without a copy. torch's own form,
+    ``Parameter(data, requires_grad)``, also works. The subclass and the
+    attributes survive ``copy.deepcopy``, pickling and the moves and casts
+    of a ``Layer``."""
+
+    def __new__(cls, value=None, dtype=None, name=None, trainable=True,
+                requires_grad=None):
+        if isinstance(dtype, bool):  # torch's Parameter(data, requires_grad)
+            requires_grad, dtype = dtype, None
+        if requires_grad is not None:
+            trainable = requires_grad
+        if value is None:
+            value = torch.empty(0)
+        if isinstance(value, torch.Tensor) and dtype is None:
+            data = value.detach()
+        else:
+            data = as_tensor(value, dtype, value.device
+                             if isinstance(value, torch.Tensor) else "cpu")
+        if type(data) is not torch.Tensor:
+            data = data.as_subclass(torch.Tensor)
+        return torch.Tensor._make_subclass(cls, data, bool(trainable))
+
+    def __init__(self, value=None, dtype=None, name=None, trainable=True,
+                 requires_grad=None):
+        self.optimize_attr = {"learning_rate": 1.0}
+        self.regularizer = None
+        self.need_clip = True
+        self.init_fn = None
+        if name is not None:
+            self.param_name = name
+
+    is_parameter = True
+    persistable = True
+
+    @property
+    def trainable(self) -> bool:
+        return self.requires_grad
+
+    @trainable.setter
+    def trainable(self, value) -> None:
+        self.requires_grad_(bool(value))
+
+    @property
+    def stop_gradient(self) -> bool:
+        return not self.requires_grad
+
+    @stop_gradient.setter
+    def stop_gradient(self, value) -> None:
+        self.requires_grad_(not bool(value))
+
+    @property
+    def place(self) -> str:
+        dev = self.device
+        return "cpu" if dev.type == "cpu" else f"gpu:{dev.index or 0}"
+
+    @classmethod
+    def like(cls, data: torch.Tensor, template: "Parameter") -> "Parameter":
+        """``data`` (no copy) as a ``Parameter`` carrying ``template``'s
+        attributes and ``requires_grad``."""
+        p = torch.Tensor._make_subclass(cls, data.detach(),
+                                        template.requires_grad)
+        p.__dict__.update(template.__dict__)
+        return p
+
+    def numpy(self) -> np.ndarray:
+        """A host copy (bf16 as float32 values)."""
+        return Tensor.numpy(self)
+
+    def set_value(self, value) -> None:
+        """Overwrite the values in place (shape kept, cast to this dtype)."""
+        with torch.no_grad():
+            torch.Tensor.copy_(self, as_tensor(value, place=self.device))
+
+    def clear_grad(self) -> None:
+        self.grad = None
+
+    clear_gradient = clear_grad
+
+    def __deepcopy__(self, memo):
+        if id(self) in memo:
+            return memo[id(self)]
+        out = Parameter(self.data.clone(memory_format=torch.preserve_format),
+                        requires_grad=self.requires_grad)
+        memo[id(self)] = out
+        out.__dict__.update(copy.deepcopy(self.__dict__, memo))
+        return out
+
+    def __reduce_ex__(self, proto):
+        return (_rebuild_parameter, (self.data, self.requires_grad,
+                                     dict(self.__dict__)))
+
+    def __repr__(self):
+        return "Parameter containing:\n" + torch.Tensor.__repr__(
+            self.detach())
+
+
+def _rebuild_parameter(data, requires_grad, state) -> Parameter:
+    p = Parameter(data, requires_grad=requires_grad)
+    p.__dict__.update(state)
+    return p

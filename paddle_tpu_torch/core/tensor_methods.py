@@ -1,7 +1,8 @@
 """``Tensor``'s method surface (port of ``paddle_tpu/core/tensor_methods.py``).
 
 Every public op of ``ops.creation``, ``manipulation``, ``math``, ``logic``,
-``search``, ``stat`` and ``random`` whose first parameter takes a tensor
+``search``, ``stat``, ``linalg``, ``einsum_ops`` and ``random`` whose first
+parameter takes a tensor
 becomes a ``Tensor`` method, by the JAX package's rules (``_patchable``,
 ``_SKIP``): ``x.sum(axis=1)`` is ``paddle.sum(x, axis=1)``, and returns a
 ``Tensor``. Where torch has a method of the same name (``size``,
@@ -15,9 +16,10 @@ from __future__ import annotations
 import inspect
 
 from .. import tensor as paddle_tensor
-from ..ops import creation, logic, manipulation, math, search, stat
+from ..ops import (creation, einsum_ops, linalg, logic, manipulation, math,
+                   search, stat)
 from ..ops import random as random_ops
-from .tensor import Tensor
+from .tensor import Tensor, paddle_out
 
 # names that must not become methods: constructors and shape helpers
 _SKIP = {
@@ -47,9 +49,10 @@ def _install(module) -> None:
         fn = getattr(module, name)
         if _patchable(name, fn) and name not in Tensor.__dict__:
             # the op as ``paddle.tensor`` exports it: returning Tensors
-            setattr(Tensor, name, getattr(paddle_tensor, name))
+            setattr(Tensor, name, getattr(paddle_tensor, name, None)
+                    or paddle_out(fn))
 
 
-for _module in (math, manipulation, logic, search, stat, creation,
-                random_ops):
+for _module in (math, manipulation, logic, search, stat, linalg, einsum_ops,
+                creation, random_ops):
     _install(_module)

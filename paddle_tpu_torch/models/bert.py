@@ -40,7 +40,7 @@ from ..amp.auto_cast import cast_inputs
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
-from ..nn.layer.layers import building
+from ..nn.layer.layers import Layer, building
 from ..ops.math import add
 from .gpt import jax_state_dict, load_jax_state, port_state_from_jax
 
@@ -73,7 +73,7 @@ class BertConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-class BertEmbeddings(nn.Module):
+class BertEmbeddings(Layer):
     def __init__(self, config: BertConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -84,7 +84,8 @@ class BertEmbeddings(nn.Module):
                                              h)
         self.token_type_embeddings = Embedding(config.type_vocab_size, h)
         self.layer_norm = LayerNorm(h, eps=config.layer_norm_eps)
-        self.dropout = Dropout(config.hidden_dropout_prob, generator)
+        self.dropout = Dropout(config.hidden_dropout_prob,
+                               generator=generator)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None):
         b, s = input_ids.shape[0], input_ids.shape[-1]
@@ -99,7 +100,7 @@ class BertEmbeddings(nn.Module):
         return self.dropout(self.layer_norm(x))
 
 
-class BertSelfAttention(nn.Module):
+class BertSelfAttention(Layer):
     """Fused-qkv bidirectional attention with an optional additive mask;
     attention dropout draws from ``generator``."""
 
@@ -126,7 +127,7 @@ class BertSelfAttention(nn.Module):
         return self.out(out.reshape(b, s, heads * cfg.head_dim))
 
 
-class BertLayer(nn.Module):
+class BertLayer(Layer):
     """Post-LN block (original BERT ordering)."""
 
     def __init__(self, config: BertConfig,
@@ -138,7 +139,8 @@ class BertLayer(nn.Module):
         self.fc1 = Linear(h, config.intermediate_size)
         self.fc2 = Linear(config.intermediate_size, h)
         self.ffn_norm = LayerNorm(h, eps=eps)
-        self.dropout = Dropout(config.hidden_dropout_prob, generator)
+        self.dropout = Dropout(config.hidden_dropout_prob,
+                               generator=generator)
 
     def forward(self, x, attention_mask=None):
         h = self.attention(x, attention_mask)
@@ -147,7 +149,7 @@ class BertLayer(nn.Module):
         return self.ffn_norm(add(x, self.dropout(h)))
 
 
-class BertPooler(nn.Module):
+class BertPooler(Layer):
     def __init__(self, config: BertConfig):
         super().__init__()
         self.dense = Linear(config.hidden_size, config.hidden_size)
@@ -190,7 +192,7 @@ def _init_weights(model: nn.Module, config: BertConfig,
         model.decoder_bias.zero_()
 
 
-class BertModel(nn.Module):
+class BertModel(Layer):
     """Trunk: embeddings → post-LN encoder stack → pooler; returns
     ``(sequence_output, pooled_output)``. Built on ``device`` (default
     CUDA; raises when CUDA is absent and the caller did not ask for the
@@ -225,7 +227,7 @@ class BertModel(nn.Module):
         return x, self.pooler(x)
 
 
-class BertForSequenceClassification(nn.Module):
+class BertForSequenceClassification(Layer):
     """The trunk's pooled output → dropout → a ``num_classes`` Linear.
     ``device``, ``generator`` and ``dropout_seed`` as :class:`BertModel`."""
 
@@ -240,7 +242,7 @@ class BertForSequenceClassification(nn.Module):
             self.bert = BertModel(config, device=dev,
                                   dropout_seed=dropout_seed)
             self.dropout = Dropout(config.hidden_dropout_prob,
-                                   self.bert.dropout_generator)
+                                   generator=self.bert.dropout_generator)
             self.classifier = Linear(config.hidden_size, num_classes)
 
     def forward(self, input_ids, token_type_ids=None, position_ids=None,
@@ -250,7 +252,7 @@ class BertForSequenceClassification(nn.Module):
         return self.classifier(self.dropout(pooled))
 
 
-class BertForPretraining(nn.Module):
+class BertForPretraining(Layer):
     """MLM head, its decoder tied to the word embeddings
     (``linear(h, Wᵀ) + decoder_bias``), and the NSP head. ``device``,
     ``generator`` and ``dropout_seed`` as :class:`BertModel`."""

@@ -34,7 +34,7 @@ from ..base.global_state import build_generator
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import LayerNorm, Linear
-from ..nn.layer.layers import name_parameters
+from ..nn.layer.layers import Layer, name_parameters
 
 __all__ = ["GPTConfig", "GPTAttention", "GPTMLP", "GPTDecoderLayer",
            "GPTEmbeddings", "GPTModel", "GPTForCausalLM",
@@ -86,7 +86,7 @@ def check_single_device(cfg) -> None:
             "ported yet (ROADMAP.md, queue 7)")
 
 
-class GPTAttention(nn.Module):
+class GPTAttention(Layer):
     """Causal self-attention: fused qkv projection → flash attention →
     output projection. Attention dropout draws its seed from
     ``generator``."""
@@ -112,7 +112,7 @@ class GPTAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, cfg.hidden_size))
 
 
-class GPTMLP(nn.Module):
+class GPTMLP(Layer):
     def __init__(self, config: GPTConfig):
         super().__init__()
         self.fc1 = Linear(config.hidden_size, config.intermediate_size)
@@ -122,7 +122,7 @@ class GPTMLP(nn.Module):
         return self.fc2(TF.gelu(self.fc1(x), approximate="tanh"))
 
 
-class GPTDecoderLayer(nn.Module):
+class GPTDecoderLayer(Layer):
     """Pre-LN transformer block; hidden dropout draws from ``generator``."""
 
     def __init__(self, config: GPTConfig,
@@ -142,7 +142,7 @@ class GPTDecoderLayer(nn.Module):
         return x + F.dropout(self.mlp(self.ln_2(x)), p, self.training, gen)
 
 
-class GPTEmbeddings(nn.Module):
+class GPTEmbeddings(Layer):
     def __init__(self, config: GPTConfig,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -163,7 +163,7 @@ class GPTEmbeddings(nn.Module):
                          self.generator)
 
 
-class GPTModel(nn.Module):
+class GPTModel(Layer):
     """Transformer trunk: embeddings → N decoder blocks → final LN."""
 
     def __init__(self, config: GPTConfig,
@@ -184,7 +184,7 @@ class GPTModel(nn.Module):
         return self.ln_f(x)
 
 
-class GPTForCausalLM(nn.Module):
+class GPTForCausalLM(Layer):
     """Trunk + LM head; with ``tie_word_embeddings`` the head reuses the
     word-embedding matrix. Built on ``device`` (default CUDA; raises when
     CUDA is absent and the caller did not ask for the CPU) with weights
@@ -209,7 +209,7 @@ class GPTForCausalLM(nn.Module):
             self.gpt = GPTModel(config, self.dropout_generator)
             if not config.tie_word_embeddings:
                 self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                      bias=False)
+                                      bias_attr=False)
         self.to_empty(device="cpu")
         self._init_weights(generator if generator is not None
                            else build_generator())
@@ -238,7 +238,7 @@ class GPTForCausalLM(nn.Module):
         return self.lm_head(x)
 
 
-class GPTPretrainingCriterion(nn.Module):
+class GPTPretrainingCriterion(Layer):
     """Next-token cross entropy: logits at position i are scored against
     token i+1 (the shift happens here, so callers pass the raw ids as
     labels), mean over the ``B·(S−1)`` positions."""
@@ -273,7 +273,7 @@ def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
 def port_state_from_jax(model: nn.Module,
                         state: Mapping[str, object]) -> Dict[str, torch.Tensor]:
     """``state`` (the JAX model's ``state_dict()`` under the JAX names, as
-    numpy arrays or tensors) in the port's layout for ``model``: each JAX
+    numpy arrays, bf16 ones included, or tensors) in the port's layout for ``model``: each JAX
     ``Linear`` weight ``[in, out]`` transposed into torch's ``[out, in]``
     (a view), every other tensor as it is. Every parameter and persistent
     buffer must be given, and nothing else, each at its shape; ``model`` is
@@ -289,7 +289,10 @@ def port_state_from_jax(model: nn.Module,
     for name, param in params.items():
         value = state[name]
         if not isinstance(value, torch.Tensor):
-            value = torch.tensor(np.asarray(value))
+            arr = np.asarray(value)
+            value = (torch.from_numpy(arr.astype(np.float32)).to(
+                torch.bfloat16) if arr.dtype.name == "bfloat16"
+                else torch.tensor(arr))
         if name in linear:
             value = value.t()
         if tuple(value.shape) != tuple(param.shape):

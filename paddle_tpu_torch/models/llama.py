@@ -33,7 +33,7 @@ from torch import nn
 from ..base.global_state import build_generator
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
-from ..nn.layer import Linear, RMSNorm
+from ..nn.layer import Layer, Linear, RMSNorm
 from ..ops.activation import swiglu
 from ..ops.fused_ops import fused_rotary_position_embedding
 from .gpt import (GPTPretrainingCriterion, check_single_device,
@@ -83,7 +83,7 @@ class LlamaConfig:
         return self.hidden_size // self.num_attention_heads
 
 
-class LlamaAttention(nn.Module):
+class LlamaAttention(Layer):
     """GQA self-attention with rotary embeddings; attention dropout draws
     its seed from ``generator``."""
 
@@ -94,8 +94,8 @@ class LlamaAttention(nn.Module):
         self.generator = generator
         h, d = config.hidden_size, config.head_dim
         kv_out = config.num_key_value_heads * d
-        self.qkv_proj = Linear(h, h + 2 * kv_out, bias=False)
-        self.out_proj = Linear(h, h, bias=False)
+        self.qkv_proj = Linear(h, h + 2 * kv_out, bias_attr=False)
+        self.out_proj = Linear(h, h, bias_attr=False)
 
     def forward(self, x):
         cfg = self.config
@@ -120,20 +120,20 @@ class LlamaAttention(nn.Module):
         return self.out_proj(out.reshape(b, s, hq * d))
 
 
-class LlamaMLP(nn.Module):
+class LlamaMLP(Layer):
     """SwiGLU MLP: one ``[gate | up]`` projection, silu gate, down."""
 
     def __init__(self, config: LlamaConfig):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
-        self.gate_up_proj = Linear(h, 2 * ffn, bias=False)
-        self.down_proj = Linear(ffn, h, bias=False)
+        self.gate_up_proj = Linear(h, 2 * ffn, bias_attr=False)
+        self.down_proj = Linear(ffn, h, bias_attr=False)
 
     def forward(self, x):
         return self.down_proj(swiglu(self.gate_up_proj(x)))
 
 
-class LlamaDecoderLayer(nn.Module):
+class LlamaDecoderLayer(Layer):
     """Pre-norm block; hidden dropout draws from ``generator``."""
 
     def __init__(self, config: LlamaConfig,
@@ -156,7 +156,7 @@ class LlamaDecoderLayer(nn.Module):
         return x + F.dropout(h, p, self.training, gen)
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(Layer):
     """Trunk: token embeddings → N decoder blocks → final RMSNorm."""
 
     def __init__(self, config: LlamaConfig,
@@ -177,7 +177,7 @@ class LlamaModel(nn.Module):
         return self.norm(x)
 
 
-class LlamaForCausalLM(nn.Module):
+class LlamaForCausalLM(Layer):
     """Trunk + LM head (untied by default; with ``tie_word_embeddings``
     the head reuses the embedding matrix). Built on ``device`` (default
     CUDA; raises when CUDA is absent and the caller did not ask for the
@@ -202,7 +202,7 @@ class LlamaForCausalLM(nn.Module):
             self.llama = LlamaModel(config, self.dropout_generator)
             if not config.tie_word_embeddings:
                 self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                      bias=False)
+                                      bias_attr=False)
         self.to_empty(device="cpu")
         self._init_weights(generator if generator is not None
                            else build_generator())

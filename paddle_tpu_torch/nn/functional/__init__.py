@@ -9,7 +9,8 @@ from .flash_attention import (calc_reduced_attn_scores, flash_attn_qkvpacked,
                               flashmask_attention, fused_softmax_mask,
                               fused_softmax_mask_upper_triangle)
 from .attention import flash_attention, scaled_dot_product_attention
-from .common import dropout, embedding, interpolate, linear, upsample
+from .common import (dropout, embedding, interpolate, label_smooth, linear,
+                     one_hot, upsample)
 from .conv import conv1d, conv2d, conv3d
 from .loss import (binary_cross_entropy_with_logits, cross_entropy,
                    softmax_with_cross_entropy)
@@ -18,8 +19,12 @@ from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool2d,
                       max_pool2d)
-from ...ops.activation import (gelu, relu, relu6, sigmoid, silu, softplus,
-                               tanh)
+from ...ops.activation import (celu, elu, gelu, hardshrink, hardsigmoid,
+                               hardswish, hardtanh, leaky_relu, log_sigmoid,
+                               log_softmax, maxout, mish, prelu, relu, relu6,
+                               rrelu, selu, sigmoid, silu, softmax, softplus,
+                               softshrink, softsign, tanh, tanhshrink,
+                               thresholded_relu)
 
 swish = silu
 
@@ -27,12 +32,16 @@ __all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d",
            "adaptive_avg_pool3d", "adaptive_max_pool1d",
            "adaptive_max_pool2d", "adaptive_max_pool3d", "avg_pool2d",
            "batch_norm", "binary_cross_entropy_with_logits",
-           "calc_reduced_attn_scores", "conv1d", "conv2d", "conv3d",
-           "cross_entropy", "dropout", "embedding", "flash_attention",
+           "calc_reduced_attn_scores", "celu", "conv1d", "conv2d", "conv3d",
+           "cross_entropy", "dropout", "elu", "embedding", "flash_attention",
            "flash_attn_qkvpacked", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked", "flashmask_attention",
            "fused_softmax_mask", "fused_softmax_mask_upper_triangle", "gelu",
-           "interpolate", "layer_norm", "linear", "max_pool2d", "relu",
-           "relu6", "rms_norm", "scaled_dot_product_attention", "sigmoid",
-           "silu", "softmax_with_cross_entropy", "softplus", "swish", "tanh",
+           "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
+           "interpolate", "label_smooth", "layer_norm", "leaky_relu",
+           "linear", "log_sigmoid", "log_softmax", "max_pool2d", "maxout",
+           "mish", "one_hot", "prelu", "relu", "relu6", "rms_norm", "rrelu",
+           "scaled_dot_product_attention", "selu", "sigmoid", "silu",
+           "softmax", "softmax_with_cross_entropy", "softplus", "softshrink",
+           "softsign", "swish", "tanh", "tanhshrink", "thresholded_relu",
            "upsample"]

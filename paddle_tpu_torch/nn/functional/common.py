@@ -44,8 +44,8 @@ import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
 
-__all__ = ["linear", "embedding", "dropout", "interpolate",
-           "resize_weights", "upsample"]
+__all__ = ["linear", "embedding", "dropout", "interpolate", "label_smooth",
+           "one_hot", "resize_weights", "upsample"]
 
 
 def linear(x, weight, bias=None):
@@ -84,6 +84,27 @@ def dropout(x, p: float = 0.5, training: bool = True,
                          "pass generator=")
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def one_hot(x, num_classes, name=None):
+    """``x``'s integer classes as one-hot rows in the default float dtype
+    (``ops.creation.one_hot``)."""
+    from ...ops.creation import one_hot as _one_hot
+
+    return _one_hot(x, num_classes)
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, name=None):
+    """``(1 - epsilon) · label + epsilon · prior``: the prior is uniform
+    (``1 / classes`` of the last axis) unless ``prior_dist`` gives one. Op
+    ``label_smooth``, gray under AMP."""
+    from ...ops._common import tensor
+
+    label = tensor(label)
+    (label,) = cast_inputs("label_smooth", label)
+    if prior_dist is not None:
+        return (1 - epsilon) * label + epsilon * tensor(prior_dist, label)
+    return (1 - epsilon) * label + epsilon / label.shape[-1]
 
 
 _CHANNEL_LAST = ("NHWC", "NWC", "NDHWC")

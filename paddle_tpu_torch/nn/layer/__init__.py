@@ -1,8 +1,16 @@
-"""Layers of the port that route through its AMP-aware functionals."""
-from .activation import ReLU, ReLU6, SiLU, Sigmoid, Silu, Softplus
-from .common import Dropout, Embedding, Flatten, LayerNorm, Linear, RMSNorm
-from .container import LayerList, Sequential
+"""Layers of the port, every one a ``Layer``, routed through its AMP-aware
+functionals."""
+from .activation import (CELU, ELU, GELU, Hardshrink, Hardsigmoid,
+                         Hardswish, Hardtanh, LeakyReLU, LogSigmoid,
+                         LogSoftmax, Maxout, Mish, PReLU, ReLU, ReLU6, RReLU,
+                         SELU, SiLU, Sigmoid, Silu, Softmax, Softplus,
+                         Softshrink, Softsign, Swish, Tanh, Tanhshrink,
+                         ThresholdedReLU)
+from .common import (Dropout, Embedding, Flatten, Identity, LayerNorm, Linear,
+                     RMSNorm)
+from .container import LayerDict, LayerList, ParameterList, Sequential
 from .conv import Conv1D, Conv2D, Conv3D
+from .layers import Layer
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
                    SyncBatchNorm)
@@ -10,11 +18,22 @@ from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                       AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool2D,
                       MaxPool2D)
+from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
+                          TransformerDecoderLayer, TransformerEncoder,
+                          TransformerEncoderLayer)
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
            "AvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "Conv1D", "Conv2D", "Conv3D", "CrossEntropyLoss",
-           "Dropout", "Embedding", "Flatten", "LayerList", "LayerNorm",
-           "Linear", "MaxPool2D", "ReLU", "ReLU6", "RMSNorm", "Sequential",
-           "SiLU", "Sigmoid", "Silu", "Softplus", "SyncBatchNorm"]
+           "BatchNorm3D", "CELU", "Conv1D", "Conv2D", "Conv3D",
+           "CrossEntropyLoss", "Dropout", "ELU", "Embedding", "Flatten",
+           "GELU", "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh",
+           "Identity", "Layer", "LayerDict", "LayerList", "LayerNorm",
+           "LeakyReLU", "Linear", "LogSigmoid", "LogSoftmax", "MaxPool2D",
+           "Maxout", "Mish", "MultiHeadAttention", "PReLU", "ParameterList",
+           "RMSNorm", "RReLU", "ReLU", "ReLU6", "SELU", "Sequential", "SiLU",
+           "Sigmoid", "Silu", "Softmax", "Softplus", "Softshrink",
+           "Softsign", "Swish", "SyncBatchNorm", "Tanh", "Tanhshrink",
+           "ThresholdedReLU", "Transformer", "TransformerDecoder",
+           "TransformerDecoderLayer", "TransformerEncoder",
+           "TransformerEncoderLayer"]

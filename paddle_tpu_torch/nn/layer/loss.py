@@ -1,15 +1,18 @@
 """Loss layers (port of ``paddle_tpu/nn/layer/loss.py``)."""
 from __future__ import annotations
 
-from torch import nn
 
+from ...core.tensor import wrap
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["CrossEntropyLoss"]
 
 
-class CrossEntropyLoss(nn.Module):
-    """``F.cross_entropy`` with its options fixed at construction."""
+class CrossEntropyLoss(Layer):
+    """``F.cross_entropy`` with its options fixed at construction; the
+    loss comes back as a ``paddle.Tensor`` (``loss.numpy()``, ``.item()``
+    as in Paddle)."""
 
     def __init__(self, weight=None, ignore_index=-100, reduction="mean",
                  soft_label=False, axis=-1, use_softmax=True,
@@ -22,5 +25,5 @@ class CrossEntropyLoss(nn.Module):
                           label_smoothing=label_smoothing)
 
     def forward(self, input, label):
-        return F.cross_entropy(input, label, weight=self._weight,
-                               **self._args)
+        return wrap(F.cross_entropy(input, label, weight=self._weight,
+                                    **self._args))

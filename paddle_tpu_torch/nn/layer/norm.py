@@ -2,7 +2,7 @@
 ``BatchNorm``, ``BatchNorm1D``, ``BatchNorm2D`` and ``BatchNorm3D``.
 
 As the JAX layers: ``weight`` 1 and ``bias`` 0 (each dropped with
-``*_attr=False``), and two buffers named ``_mean`` (0) and ``_variance``
+``*_attr=False``, each replaced by a ``ParamAttr``'s initializer), and two buffers named ``_mean`` (0) and ``_variance``
 (1), so the state dicts line up key for key; ``momentum`` 0.9 is the
 share of the running stats kept at each update (``F.batch_norm``).
 ``decorate`` at O2 casts the buffers to bf16 with the rest of the model;
@@ -15,41 +15,36 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
-
 from ...device import DEFAULT_DEVICE
 from .. import functional as F
-from .conv import check_attrs
-from .layers import building
+from ..initializer import Constant
+from .layers import Layer, building
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "SyncBatchNorm"]
 
 
-class _BatchNormBase(nn.Module):
+class _BatchNormBase(Layer):
     def __init__(self, num_features, momentum=0.9, epsilon=1e-5,
                  weight_attr=None, bias_attr=None, data_format="NCHW",
                  use_global_stats=None, name=None, *, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        check_attrs(None if weight_attr is False else weight_attr, bias_attr)
         self._num_features = num_features
         self._momentum, self._epsilon = momentum, epsilon
         self._data_format = data_format
         self._use_global_stats = use_global_stats
         with building(self, device, generator):
-            self.weight = (nn.Parameter(torch.empty(num_features))
-                           if weight_attr is not False else None)
-            self.bias = (nn.Parameter(torch.empty(num_features))
-                         if bias_attr is not False else None)
+            self.weight = self.create_parameter(
+                [num_features], attr=weight_attr,
+                default_initializer=Constant(1.0))
+            self.bias = self.create_parameter([num_features], attr=bias_attr,
+                                              is_bias=True)
             self.register_buffer("_mean", torch.empty(num_features))
             self.register_buffer("_variance", torch.empty(num_features))
 
     def _init_parameters(self, gen: torch.Generator) -> None:
-        if self.weight is not None:
-            self.weight.fill_(1.0)
-        if self.bias is not None:
-            self.bias.zero_()
+        super()._init_parameters(gen)
         self._mean.zero_()
         self._variance.fill_(1.0)
 

@@ -5,16 +5,16 @@
 (ROADMAP.md, queue 1)."""
 from __future__ import annotations
 
-from torch import nn
 
 from .. import functional as F
+from .layers import Layer
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
            "AvgPool2D", "MaxPool2D"]
 
 
-class MaxPool2D(nn.Module):
+class MaxPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0,
                  return_mask=False, ceil_mode=False, data_format="NCHW",
                  name=None):
@@ -29,7 +29,7 @@ class MaxPool2D(nn.Module):
                             **self.kw)
 
 
-class AvgPool2D(nn.Module):
+class AvgPool2D(Layer):
     def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
                  exclusive=True, divisor_override=None, data_format="NCHW",
                  name=None):
@@ -45,7 +45,7 @@ class AvgPool2D(nn.Module):
                             **self.kw)
 
 
-class AdaptiveAvgPool1D(nn.Module):
+class AdaptiveAvgPool1D(Layer):
     def __init__(self, output_size, name=None):
         super().__init__()
         self._output_size = output_size
@@ -54,7 +54,7 @@ class AdaptiveAvgPool1D(nn.Module):
         return F.adaptive_avg_pool1d(x, self._output_size)
 
 
-class AdaptiveAvgPool2D(nn.Module):
+class AdaptiveAvgPool2D(Layer):
     def __init__(self, output_size, data_format="NCHW", name=None):
         super().__init__()
         self._output_size, self._data_format = output_size, data_format
@@ -63,7 +63,7 @@ class AdaptiveAvgPool2D(nn.Module):
         return F.adaptive_avg_pool2d(x, self._output_size, self._data_format)
 
 
-class AdaptiveAvgPool3D(nn.Module):
+class AdaptiveAvgPool3D(Layer):
     def __init__(self, output_size, data_format="NCDHW", name=None):
         super().__init__()
         self._output_size, self._data_format = output_size, data_format
@@ -77,7 +77,7 @@ def _adaptive_max(name, fn_name):
     ``return_mask`` its forward returns ``(out, None)``, as in JAX."""
     fn = getattr(F, fn_name)
 
-    class _Pool(nn.Module):
+    class _Pool(Layer):
         def __init__(self, output_size, return_mask=False, name=None):
             super().__init__()
             self._output_size, self._return_mask = output_size, return_mask

@@ -85,6 +85,24 @@ def _default_generators() -> list:
     return gens
 
 
+def _restore_default_generators(states: list, path: str) -> None:
+    """Set torch's default generators from a snapshot's ``states`` (the
+    CPU one first, then one a CUDA device). CUDA is initialized first when
+    the snapshot holds CUDA states, so none is dropped for want of it; a
+    count that still differs from this host's raises ``ValueError``."""
+    gens = [torch.default_generator]
+    if len(states) > 1 and torch.cuda.is_available():
+        torch.cuda.init()
+        gens += [torch.cuda.default_generators[i]
+                 for i in range(torch.cuda.device_count())]
+    if len(states) != len(gens):
+        raise ValueError(f"{path} holds {len(states)} default generator "
+                         f"states, this host has {len(gens)} default "
+                         f"generators (the CPU one and one a CUDA device)")
+    for gen, st in zip(gens, states):
+        gen.set_state(st)
+
+
 class TrainSnapshotter:
     """Rolling atomic snapshots under one directory.
 
@@ -241,8 +259,7 @@ class TrainSnapshotter:
                              f"{len(generators)} generators")
         for gen, st in zip(generators, rng["model"]):
             gen.set_state(st)
-        for gen, st in zip(_default_generators(), rng["default"]):
-            gen.set_state(st)
+        _restore_default_generators(rng["default"], path)
         return state
 
     # ------------------------------------------------------------- prune

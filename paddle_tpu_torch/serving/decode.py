@@ -713,7 +713,7 @@ class DecodeEngine(EngineBase):
         if kv_mode not in ("paged", "slots"):
             raise ValueError(f"kv_mode must be 'paged' or 'slots', "
                              f"got {kv_mode!r}")
-        weights_on = next(model.parameters()).device
+        weights_on = next(iter(model.parameters())).device
         if weights_on.type != dev.type or (
                 dev.type == "cuda" and weights_on != dev):
             raise ValueError(f"the model's weights lie on {weights_on}, "

@@ -27,13 +27,12 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...device import DEFAULT_DEVICE
 from ...models.gpt import jax_state_dict, load_jax_state, port_state_from_jax
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Linear,
                          MaxPool2D, ReLU, Sequential)
-from ...nn.layer.layers import building
+from ...nn.layer.layers import Layer, building
 from ...ops.math import add
 
 __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "jax_state_dict",
@@ -42,7 +41,7 @@ __all__ = ["BasicBlock", "BottleneckBlock", "ResNet", "jax_state_dict",
            "resnext101_32x4d", "wide_resnet50_2", "wide_resnet101_2"]
 
 
-class BasicBlock(nn.Module):
+class BasicBlock(Layer):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -74,7 +73,7 @@ class BasicBlock(nn.Module):
         return self.relu(add(out, identity))
 
 
-class BottleneckBlock(nn.Module):
+class BottleneckBlock(Layer):
     expansion = 4
 
     def __init__(self, inplanes, planes, stride=1, downsample=None, groups=1,
@@ -112,7 +111,7 @@ _LAYERS = {18: [2, 2, 2, 2], 34: [3, 4, 6, 3], 50: [3, 4, 6, 3],
            101: [3, 4, 23, 3], 152: [3, 8, 36, 3]}
 
 
-class ResNet(nn.Module):
+class ResNet(Layer):
     """The stem (7×7 stride-2 conv, BatchNorm, relu, 3×3 stride-2
     max-pool), four stages of ``block`` s, then, with ``with_pool``, an
     adaptive average pool to 1×1 and, with ``num_classes > 0``, a flatten

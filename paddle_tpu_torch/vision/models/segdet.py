@@ -40,13 +40,12 @@ from typing import Optional
 
 import numpy as np
 import torch
-from torch import nn
 
 from ...device import DEFAULT_DEVICE
 from ...models.gpt import jax_state_dict, load_jax_state, port_state_from_jax
 from ...nn import functional as F
 from ...nn.layer import BatchNorm2D, Conv2D, LayerList, Sequential
-from ...nn.layer.layers import building
+from ...nn.layer.layers import Layer, building
 from ...ops.manipulation import concat, reshape, stack, transpose
 from ...ops.math import add, max as pmax, mean as pmean, multiply, subtract
 
@@ -56,7 +55,7 @@ __all__ = ["CSPStage", "ConvBNReLU", "PPLiteSeg", "PPYOLOE", "PPYOLOEHead",
            "pp_liteseg", "pp_yoloe"]
 
 
-class ConvBNReLU(nn.Module):
+class ConvBNReLU(Layer):
     def __init__(self, c_in, c_out, k=3, stride=1, groups=1, act=True, *,
                  device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
@@ -72,7 +71,7 @@ class ConvBNReLU(nn.Module):
         return F.relu(x) if self.act else x
 
 
-class STDCBlock(nn.Module):
+class STDCBlock(Layer):
     """Short-Term Dense Concatenate block: a 1x1 conv, at stride 2 a
     depthwise 3x3 ``down``, then two halving 3x3 convs; the three outputs
     concatenate on the channels."""
@@ -96,7 +95,7 @@ class STDCBlock(nn.Module):
         return concat([x1d, x2, x3], 1)
 
 
-class STDCNet(nn.Module):
+class STDCNet(Layer):
     """The 3-stage STDC encoder: features at 1/8, 1/16 and 1/32."""
 
     def __init__(self, base=32, *, device=DEFAULT_DEVICE,
@@ -118,7 +117,7 @@ class STDCNet(nn.Module):
         return [f8, f16, f32]
 
 
-class SPPM(nn.Module):
+class SPPM(Layer):
     """Simple Pyramid Pooling Module: adaptive average pools to each of
     ``bins``, a 1x1 reduce each, bilinear back to the input's size, summed,
     then a 3x3 fuse."""
@@ -145,7 +144,7 @@ class SPPM(nn.Module):
         return self.fuse(acc)
 
 
-class UAFM(nn.Module):
+class UAFM(Layer):
     """Unified Attention Fusion Module (spatial form): the deep feature,
     upsampled to the skip's size, and the skip blend by an attention map
     from their channel mean and max maps."""
@@ -173,7 +172,7 @@ class UAFM(nn.Module):
                    multiply(deep, subtract(1, alpha)))
 
 
-class PPLiteSeg(nn.Module):
+class PPLiteSeg(Layer):
     """PP-LiteSeg: STDC encoder → SPPM context → two UAFM fusions of
     decreasing width → a seg head → bilinear to the input's size."""
 
@@ -208,7 +207,7 @@ def pp_liteseg(num_classes=19, **kw):
 
 # ------------------------------------------------------------------ PP-YOLOE
 
-class RepConvBlock(nn.Module):
+class RepConvBlock(Layer):
     """CSPRep-style unit in its deploy form: 3x3 and 1x1 branches summed,
     BatchNorm, SiLU."""
 
@@ -226,7 +225,7 @@ class RepConvBlock(nn.Module):
         return F.silu(self.bn(add(self.conv3(x), self.conv1(x))))
 
 
-class CSPStage(nn.Module):
+class CSPStage(Layer):
     def __init__(self, c_in, c_out, n=1, stride=2, *, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
@@ -239,7 +238,7 @@ class CSPStage(nn.Module):
         return self.blocks(self.down(x))
 
 
-class PPYOLOEHead(nn.Module):
+class PPYOLOEHead(Layer):
     """Decoupled per-scale head: class logits ``[B, A, C]`` and positive
     ``l/t/r/b`` distances ``[B, A, 4]`` from the grid centres."""
 
@@ -262,7 +261,7 @@ class PPYOLOEHead(nn.Module):
         return cls, F.softplus(reg)
 
 
-class PPYOLOE(nn.Module):
+class PPYOLOE(Layer):
     """PP-YOLOE-style anchor-free detector over scales 1/8, 1/16, 1/32:
     ``forward`` gives each scale's (class logits, ltrb); ``decode`` turns
     them into ``[B, A, 4]`` xyxy boxes and ``[B, A, C]`` scores;
@@ -301,7 +300,7 @@ class PPYOLOE(nn.Module):
         return [head(p) for head, p in zip(self.heads, (p3, p4, p5))]
 
     def _device(self):
-        return next(self.parameters()).device
+        return next(iter(self.parameters())).device
 
     def _centers(self, shapes):
         out = []

@@ -21,12 +21,11 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch import nn
 
 from ...device import DEFAULT_DEVICE, resolve_device
 from ...nn.layer import (AdaptiveAvgPool2D, BatchNorm2D, Conv2D, Dropout,
                          Linear, MaxPool2D, ReLU, ReLU6, Sequential)
-from ...nn.layer.layers import building
+from ...nn.layer.layers import Layer, building
 from ...ops.math import add
 
 __all__ = ["AlexNet", "InvertedResidual", "LeNet", "MobileNetV1",
@@ -47,7 +46,7 @@ def _dropout_generator(device, seed):
         int(seed))
 
 
-class LeNet(nn.Module):
+class LeNet(Layer):
     """For 28x28 single-channel inputs."""
 
     def __init__(self, num_classes=10, *, device=DEFAULT_DEVICE,
@@ -71,7 +70,7 @@ class LeNet(nn.Module):
         return x
 
 
-class AlexNet(nn.Module):
+class AlexNet(Layer):
     def __init__(self, num_classes=1000, dropout=0.5, *,
                  device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None,
@@ -90,8 +89,9 @@ class AlexNet(nn.Module):
             self.avgpool = AdaptiveAvgPool2D((6, 6))
             if num_classes > 0:
                 self.classifier = Sequential(
-                    Dropout(dropout, gen), Linear(256 * 36, 4096), ReLU(),
-                    Dropout(dropout, gen), Linear(4096, 4096), ReLU(),
+                    Dropout(dropout, generator=gen), Linear(256 * 36, 4096),
+                    ReLU(), Dropout(dropout, generator=gen),
+                    Linear(4096, 4096), ReLU(),
                     Linear(4096, num_classes))
 
     def forward(self, x):
@@ -131,7 +131,7 @@ def _make_vgg_features(cfg, batch_norm=False):
     return Sequential(*layers)
 
 
-class VGG(nn.Module):
+class VGG(Layer):
     """``features`` (a ``Sequential``, or a VGG config letter's list with
     ``batch_norm``), a 7x7 adaptive average pool with ``with_pool``, and the
     3-layer classifier with ``num_classes > 0``."""
@@ -151,8 +151,9 @@ class VGG(nn.Module):
                 self.avgpool = AdaptiveAvgPool2D((7, 7))
             if num_classes > 0:
                 self.classifier = Sequential(
-                    Linear(512 * 49, 4096), ReLU(), Dropout(0.5, gen),
-                    Linear(4096, 4096), ReLU(), Dropout(0.5, gen),
+                    Linear(512 * 49, 4096), ReLU(),
+                    Dropout(0.5, generator=gen), Linear(4096, 4096), ReLU(),
+                    Dropout(0.5, generator=gen),
                     Linear(4096, num_classes))
 
     def forward(self, x):
@@ -199,7 +200,7 @@ class _ConvBNReLU(Sequential):
         super().__init__(*layers)
 
 
-class MobileNetV1(nn.Module):
+class MobileNetV1(Layer):
     """The depthwise-separable stack: each step a depthwise 3x3 and a
     pointwise 1x1, each with BatchNorm and ReLU6."""
 
@@ -238,7 +239,7 @@ class MobileNetV1(nn.Module):
         return x
 
 
-class InvertedResidual(nn.Module):
+class InvertedResidual(Layer):
     """MobileNetV2's block: a 1x1 expansion (unless ``expand_ratio`` is
     1), a depthwise 3x3, a linear 1x1 projection; the input added back
     when the stride is 1 and the widths match."""
@@ -265,7 +266,7 @@ class InvertedResidual(nn.Module):
         return add(x, out) if self.use_res else out
 
 
-class MobileNetV2(nn.Module):
+class MobileNetV2(Layer):
     def __init__(self, scale=1.0, num_classes=1000, with_pool=True, *,
                  device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None,
@@ -295,7 +296,7 @@ class MobileNetV2(nn.Module):
             if with_pool:
                 self.pool = AdaptiveAvgPool2D((1, 1))
             if num_classes > 0:
-                self.classifier = Sequential(Dropout(0.2, gen),
+                self.classifier = Sequential(Dropout(0.2, generator=gen),
                                              Linear(self.last_ch,
                                                     num_classes))
 

@@ -228,7 +228,7 @@ def test_embedding_padding_row_is_zero_as_in_jax():
                                          padding_idx=3)
     assert float(rows[0, 1].abs().max()) > 0
     # the layer normalizes a negative padding_idx, as the JAX layer does
-    layer = nn.Embedding(10, 6, padding_idx=-7)
+    layer = nn.Embedding(10, 6, padding_idx=-7, device="cpu")
     assert layer.padding_idx == 3
     assert float(layer.weight.detach()[3].abs().max()) == 0.0
 

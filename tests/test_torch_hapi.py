@@ -260,8 +260,9 @@ def _classifiers(jax_opt, port_opt, sizes=(4, 16, 2)):
     a, h, c = sizes
     jnet = jnn.Sequential(jnn.Linear(a, h), jnn.ReLU(), jnn.Linear(h, c))
     state = {k: np.asarray(v.numpy()) for k, v in jnet.state_dict().items()}
-    net = load_jax_state(nn.Sequential(nn.Linear(a, h), nn.ReLU(),
-                                       nn.Linear(h, c)), state)
+    net = load_jax_state(nn.Sequential(nn.Linear(a, h, device="cpu"),
+                                       nn.ReLU(),
+                                       nn.Linear(h, c, device="cpu")), state)
     jmodel = paddle.Model(jnet)
     jmodel.prepare(jax_opt(jnet.parameters()), jnn.CrossEntropyLoss(),
                    JaxAccuracy())
@@ -395,14 +396,15 @@ def test_train_batch_sync_and_the_cuda_default():
 
 def test_summary_and_flops_count_as_jax():
     jnet = jnn.Sequential(jnn.Linear(4, 8), jnn.ReLU(), jnn.Linear(8, 2))
-    net = nn.Sequential(nn.Linear(4, 8), nn.ReLU(), nn.Linear(8, 2))
+    net = nn.Sequential(nn.Linear(4, 8, device="cpu"), nn.ReLU(),
+                        nn.Linear(8, 2, device="cpu"))
     assert hapi.summary(net, (2, 4)) == paddle.summary(jnet, (2, 4))
     net[0].weight.requires_grad_(False)
     jnet[0].weight.stop_gradient = True
     assert hapi.summary(net, (2, 4)) == paddle.summary(jnet, (2, 4))
     conv = nn.Sequential(nn.Conv2D(3, 8, 3, padding=1, device="cpu"),
                          nn.ReLU(), nn.MaxPool2D(2), nn.Flatten(),
-                         nn.Linear(8 * 16 * 16, 10))
+                         nn.Linear(8 * 16 * 16, 10, device="cpu"))
     jconv = jnn.Sequential(jnn.Conv2D(3, 8, 3, padding=1), jnn.ReLU(),
                            jnn.MaxPool2D(2), jnn.Flatten(),
                            jnn.Linear(8 * 16 * 16, 10))

@@ -145,7 +145,7 @@ def test_functional_op_names_under_o2(monkeypatch):
     assert want_n.numpy().dtype == np.float32
     assert _close(got_n.numpy(), want_n.numpy(), "float32")
     # outside AMP the result keeps x's dtype; the layer is the functional
-    layer = RMSNorm(64, epsilon=EPS)
+    layer = RMSNorm(64, epsilon=EPS, device="cpu")
     assert torch.equal(layer.weight, torch.ones(64))
     out = layer(tx.bfloat16())
     assert out.dtype == torch.bfloat16

@@ -10,7 +10,9 @@
   error, f32): the uninterrupted loss stream agrees with JAX's within
   ``rtol=1e-5, atol=1e-6`` (f32 sums in another order); a crash mid-epoch
   and a SIGTERM each resume bit for bit the uninterrupted run, losses and
-  parameters, the replay bounded by the snapshot cadence; the SIGTERM
+  parameters, the replay bounded by the snapshot cadence; so does a user
+  layer with ``nn.Dropout(0.1)``, whose process-wide dropout generator
+  the snapshot saves and the resume restores; the SIGTERM
   snapshot lands at the same step and cursor as JAX's; a shuffled
   ``Dataset`` resumes at the exact batch (the epoch pins the order); a
   resume into an empty directory starts fresh; ``resume=True`` without a
@@ -75,8 +77,9 @@ def _tiny_model(seed=7):
     """The port's twin of ``_jax_model(seed)``: the same weights."""
     jnet = _jax_model(seed).network
     state = {k: np.asarray(v.numpy()) for k, v in jnet.state_dict().items()}
-    net = load_jax_state(nn.Sequential(nn.Linear(4, 8), nn.ReLU(),
-                                       nn.Linear(8, 1)), state)
+    net = load_jax_state(nn.Sequential(nn.Linear(4, 8, device="cpu"),
+                                       nn.ReLU(),
+                                       nn.Linear(8, 1, device="cpu")), state)
     m = hapi.Model(net, device="cpu")
     m.prepare(optimizer=Adam(learning_rate=0.01, parameters=net.parameters(),
                              device="cpu"), loss=_mse)
@@ -187,6 +190,32 @@ def test_restore_copies_in_place_bit_for_bit(tmp_path):
         snap.restore(twin.network, generators=[], device="cpu")
 
 
+def test_restore_sets_or_refuses_every_saved_default_state(tmp_path):
+    """A snapshot holding more default generator states (CUDA ones) than
+    the restoring host can set raises, where the states used to be dropped
+    without a word when CUDA was not yet initialized."""
+    from paddle_tpu_torch.framework.io import load as fw_load
+    from paddle_tpu_torch.framework.io import save as fw_save
+
+    snap = TrainSnapshotter(str(tmp_path))
+    path = snap.save(step=1)
+    rng_file = os.path.join(path, "rng.pdstate")
+    rng = fw_load(rng_file)
+    cpu_state = torch.default_generator.get_state()
+    # one state more than the CPU generator and every CUDA device's
+    rng["default"] = [cpu_state] * (2 + torch.cuda.device_count())
+    fw_save(rng, rng_file)
+    with pytest.raises(ValueError, match="default generator states"):
+        snap.restore(generators=[], device="cpu")
+    # the host's own count restores
+    rng["default"] = [cpu_state]
+    fw_save(rng, rng_file)
+    if not torch.cuda.is_available():
+        torch.rand(3)
+        snap.restore(generators=[], device="cpu")
+        assert torch.equal(torch.default_generator.get_state(), cpu_state)
+
+
 # -------------------------------------------------------- preemption safety
 def test_mid_epoch_crash_resume_bit_identical(tmp_path, reference):
     data = _tiny_data(10)
@@ -211,6 +240,71 @@ def test_mid_epoch_crash_resume_bit_identical(tmp_path, reference):
     # the replay distance is bounded by the snapshot cadence
     assert len(first.losses) - cut <= 3
     assert _same(_params(m), reference["params"])
+
+
+class _DropNet(nn.Layer):
+    """A user-written layer with ``nn.Dropout(0.1)`` and no generator of
+    its own: it draws from the process-wide dropout generator."""
+
+    def __init__(self):
+        super().__init__()
+        self.fc1 = nn.Linear(4, 16)
+        self.drop = nn.Dropout(0.1)
+        self.fc2 = nn.Linear(16, 1)
+
+    def forward(self, x):
+        return self.fc2(self.drop(nn.functional.relu(self.fc1(x))))
+
+
+def _drop_model():
+    import paddle_tpu_torch as T
+
+    T.seed(11)  # the weights and the dropout generator's stream
+    net = _DropNet()
+    m = hapi.Model(net, device="cpu")
+    m.prepare(optimizer=Adam(learning_rate=0.01, parameters=net.parameters(),
+                             device="cpu"), loss=_mse)
+    return m
+
+
+def test_dropout_layer_resumes_bit_identical(tmp_path, monkeypatch):
+    """The dropout generator a user layer draws from is saved by the
+    snapshot and restored by the resume before the first step: the
+    resumed run's masks, losses and parameters are the uninterrupted
+    run's bit for bit."""
+    import paddle_tpu_torch as T
+    from paddle_tpu_torch import device as device_mod
+    from paddle_tpu_torch.jit.api import model_generators
+
+    monkeypatch.setattr(device_mod, "_chosen", None)
+    T.set_device("cpu")
+    data = _tiny_data(10)
+    ref = LossRec()
+    m = _drop_model()
+    assert model_generators(m.network) == [
+        T.base.global_state.dropout_generator("cpu")]
+    m.fit(data, epochs=2, sync_every=1, verbose=0, shuffle=False,
+          callbacks=[ref])
+    want = _params(m)
+    first = LossRec()
+
+    class Crash(hapi.Callback):
+        def on_train_batch_end(self, step, logs=None):
+            if len(first.losses) == 7:
+                raise RuntimeError("simulated crash")
+
+    with pytest.raises(RuntimeError, match="simulated crash"):
+        _drop_model().fit(data, epochs=2, sync_every=1, verbose=0,
+                          shuffle=False, callbacks=[first, Crash()],
+                          snapshot_dir=str(tmp_path), snapshot_every=3)
+    assert first.losses == ref.losses[:7]
+    resumed = LossRec()
+    m = _drop_model()  # its seed restarts the dropout stream
+    m.fit(data, epochs=2, sync_every=1, verbose=0, shuffle=False,
+          callbacks=[resumed], snapshot_dir=str(tmp_path), resume=True)
+    assert len(resumed.losses) == 14  # from the snapshot at step 6
+    assert first.losses[:6] + resumed.losses == ref.losses
+    assert _same(_params(m), want)
 
 
 def test_sigterm_snapshots_at_the_boundary_as_jax(tmp_path, reference):

@@ -955,9 +955,12 @@ def test_every_other_jax_top_level_name_raises_naming_the_roadmap():
         except AttributeError:
             pytest.fail(f"paddle_tpu_torch.{name} is silently absent")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.nn.Layer
+        T.TensorArray
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.einsum
+        T.enable_static
+    # the model-authoring names are ported
+    assert T.nn.Layer is T.Layer and callable(T.einsum)
+    assert T.Parameter and T.autograd.PyLayer and T.linalg.svd
     with pytest.raises(AttributeError):
         T.no_such_name
 
