@@ -356,10 +356,46 @@ Phases, each of which fails the run on any error:
     decoder's at its position, and the tokens equal the full decoder's on
     the same prefix, except near-ties. About 10–20 s on the H100.
 
+23. static mode and the op-interception tier (``core/hooks.py``'s one
+    ``TorchDispatchMode``), on llama_124m_gqa with ``load_jax_state``
+    weights drawn from numpy seed 23: (a) ``paddle.enable_static()``, the
+    model built at full width (12 layers) in f32, called under
+    ``program_guard`` on ``static.data("input_ids", [4, 1024], "int64")``:
+    the program holds 12 K1 and 25 K4 registered operators;
+    ``Executor.run`` 2 warmup runs (eager, capture) and 10 timed replays of
+    one CUDA graph on fresh seeded ids (never the zero placeholder), each
+    launching 12 K1 and 25 K4 by the counters and, over a profiled replay,
+    by the profile; every replay's logits bit for bit the eager forward's
+    on the card, the last within 1e-3 of the CPU plain path (row 0);
+    ``save_inference_model`` → ``load_inference_model`` → run: the same
+    bits, 12 K1 and 25 K4 launches; the host ms and device ms of a replay
+    and the graph/eager replay counts printed; the kernels line counts the
+    replays (warmup, timed, profiled) and, apart, the loaded program's run,
+    not the eager forwards the replays are held to; (b) an eager bf16 O2
+    step (forward and backward, 2 x 1024): the tensor checker in warn mode
+    finds nothing over 3 steps (step p50 with the checker off and on
+    printed); the operator stats over one step count K1's and K4's forward
+    operators 12 and 25 times (and K2/K3's and K4's backward ones), equal
+    to the launch counters; the kernels line counts these 7 checked steps,
+    each launching what the stats' step did; a NaN written into ``llama.layers.0.mlp.down_proj.
+    weight`` makes abort mode raise at the first op whose output holds it,
+    the same op at the same position as the port's CPU run of the same
+    step (after a CPU run that fills the first-use caches the card's warm
+    steps hold: the RoPE table, the zero dropout seed), and
+    ``FLAGS_check_nan_inf`` raises there too; (c) a
+    ``register_op`` swish with a backward on a 4096 x 768 f32 tensor: one
+    op in the stats, its gradient within 1e-6 of the plain rule's, recorded
+    as the one node of a static program whose graph replays give the eager
+    call's bits; (d) ``profiler.Profiler`` (scheduler ``(1, 2)``) over one
+    eager step after a ``READY`` step: ``summary()`` lists the K1 and K4
+    operators with calls equal to their launches, and its
+    ``torch.profiler`` timeline holds as many K1 and K4 kernels.
+    About 40 s on the H100.
+
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
 (14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)), PP-LiteSeg
-(19 (a)), fit (20 (a), (d)), bench-arm (21) and Transformer-base (22 (b))
-phases are the main paths:
+(19 (a)), fit (20 (a), (d)), bench-arm (21), Transformer-base (22 (b))
+and static Llama (23 (a), (b), (d)) phases are the main paths:
 the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
@@ -373,7 +409,9 @@ f32 matmuls run in full f32: TF32 is switched off for cuBLAS and cuDNN.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
+import io
 import json
 import math
 import os
@@ -6889,6 +6927,431 @@ def phase_transformer(torch) -> dict:
             "near_ties": ties}
 
 
+# phase 23: static mode and the op-interception tier
+STATIC_BATCH, STATIC_SEQ = 4, 1024
+STATIC_REPLAYS = 10
+DEBUG_BATCH, DEBUG_SEQ = 2, 1024
+DEBUG_STEPS = 3
+# where phase 23 (b) writes its NaN: one element of layer 0's MLP output
+# projection
+NAN_PARAM, NAN_AT = "llama.layers.0.mlp.down_proj.weight", (3, 5)
+
+
+def seeded_llama_state(torch, llama, cfg, seed: int) -> dict:
+    """A JAX-layout state dict of ``cfg``'s Llama drawn from numpy seed
+    ``seed``: matrices normal with std 0.02, RMSNorm weights 1 + N(0, 0.1)."""
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    shapes = {k: tuple(v.shape) for k, v in jax_state_dict(
+        llama.LlamaForCausalLM(cfg, device="cpu")).items()}
+    rs = np.random.RandomState(seed)
+    return {k: ((1.0 + 0.1 * rs.standard_normal(s)) if len(s) == 1
+                else 0.02 * rs.standard_normal(s)).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def llama_from_state(torch, llama, cfg, state, device="cuda"):
+    model = llama.LlamaForCausalLM(cfg, device=device,
+                                   generator=torch.Generator().manual_seed(0))
+    return llama.load_jax_state(model, state)
+
+
+def static_llama(torch, llama, state) -> dict:
+    """Phase 23 (a): llama_124m_gqa at full width, all layers, f32,
+    recorded in static mode and replayed by ``Executor.run``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    cfg = llama.llama_124m_gqa()
+    n = cfg.num_hidden_layers
+    b, s = STATIC_BATCH, STATIC_SEQ
+    print(f"== static Llama: llama_124m_gqa f32 ({n} layers, hidden "
+          f"{cfg.hidden_size}, {cfg.num_attention_heads} heads over "
+          f"{cfg.num_key_value_heads} KV heads), weights from a seed by "
+          f"load_jax_state, recorded under enable_static + program_guard on "
+          f"static.data('input_ids', [{b}, {s}], 'int64'), Executor.run "
+          f"{GRAPH_WARMUP} warmup + {STATIC_REPLAYS} timed replays",
+          flush=True)
+    paddle.enable_static()
+    try:
+        model = llama_from_state(torch, llama, cfg, state).eval()
+        main = paddle.static.Program()
+        t0 = time.perf_counter()
+        with paddle.static.program_guard(main):
+            ids = paddle.static.data("input_ids", [b, s], "int64")
+            logits = model(ids)
+        names = main.op_types()
+        k1_nodes = names.count("paddle_tpu_torch::flash_attention_fwd")
+        k4_nodes = names.count("paddle_tpu_torch::rms_norm_fwd")
+        print(f"recorded {len(names)} ops in {time.perf_counter() - t0:.2f} "
+              f"s ({k1_nodes} K1 and {k4_nodes} K4 operators), "
+              f"{len(main.constants())} constants; K1/K4 nodes want "
+              f"({n}, {2 * n + 1})", flush=True)
+        check((k1_nodes, k4_nodes) == (n, 2 * n + 1),
+              f"recorded K1/K4 operators {(k1_nodes, k4_nodes)}")
+        exe = paddle.static.Executor()
+        rs = np.random.RandomState(23)
+        feeds = [rs.randint(1, cfg.vocab_size, (b, s)).astype(np.int64)
+                 for _ in range(GRAPH_WARMUP + STATIC_REPLAYS)]
+
+        def run(feed):
+            return exe.run(main, feed={"input_ids": feed}, fetch_list=[logits],
+                           return_numpy=False)[0]
+
+        fa.launches = rms.launches = 0
+        for feed in feeds[:GRAPH_WARMUP]:
+            run(feed)
+        outs, host_ms = [], []
+        for feed in feeds[GRAPH_WARMUP:]:
+            counts = (fa.launches, rms.launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(run(feed))
+            torch.cuda.synchronize()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+            got = (fa.launches - counts[0], rms.launches - counts[1])
+            check(got == (n, 2 * n + 1),
+                  f"K1/K4 launches of a replay {got}, want "
+                  f"({n}, {2 * n + 1})")
+        replays = exe.replay_counts()
+        check(replays == {"graph": STATIC_REPLAYS + 1, "eager": 1},
+              f"replay counts {replays}")
+        p50 = float(np.median(host_ms))
+        prof = profile_steps(torch, lambda: run(feeds[-1]), (), p50)
+        # the replays alone: the warmup runs, the timed replays and
+        # profile_steps' warmup and 2 profiled replays
+        launches = {"fwd": fa.launches, "rms_norm": rms.launches}
+        runs = GRAPH_WARMUP + STATIC_REPLAYS + 3
+        check((launches["fwd"], launches["rms_norm"])
+              == (runs * n, runs * (2 * n + 1)),
+              f"K1/K4 launches over {runs} runs {launches}")
+        paddle.disable_static()
+        with torch.no_grad():
+            same = [torch.equal(out, model(torch.from_numpy(feed).cuda()))
+                    for out, feed in zip(outs, feeds[GRAPH_WARMUP:])]
+        print(f"{STATIC_REPLAYS} replays on fresh feeds: logits bit for bit "
+              f"the eager forward's {sum(same)}/{len(same)}; host ms of a "
+              f"replay p50 {p50:.3f} (min {min(host_ms):.3f}, max "
+              f"{max(host_ms):.3f}; feed copy in, graph replay, logits "
+              f"clone out), device ms {prof['device_ms']:.3f}; replays "
+              f"{replays}", flush=True)
+        check(all(same), "a replay's logits differ from the eager forward's")
+        check(not torch.equal(outs[0], outs[1]),
+              "two feeds gave the same logits")
+
+        with tempfile.TemporaryDirectory() as tmp:
+            prefix = os.path.join(tmp, "llama_124m_gqa")
+            t0 = time.perf_counter()
+            paddle.static.save_inference_model(prefix, [ids], [logits], exe,
+                                               program=main)
+            t_save = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prog, feed_names, _ = paddle.static.load_inference_model(
+                prefix, exe)
+            t_load = time.perf_counter() - t0
+            size = os.path.getsize(prefix + ".pdmodel")
+            counts = (fa.launches, rms.launches)
+            (loaded,) = exe.run(prog, feed={"input_ids": feeds[-1]})
+            loaded_counts = (fa.launches - counts[0],
+                             rms.launches - counts[1])
+        same_loaded = np.array_equal(loaded, outs[-1].cpu().numpy())
+        print(f"save_inference_model {t_save:.1f} s ({size / 2**20:.0f} "
+              f"MiB), load_inference_model {t_load:.1f} s, feeds "
+              f"{feed_names}; the loaded program: K1/K4 launches "
+              f"{loaded_counts}, logits bit for bit the replay's "
+              f"{same_loaded}", flush=True)
+        check(loaded_counts == (n, 2 * n + 1),
+              f"the loaded program's K1/K4 launches {loaded_counts}")
+        check(same_loaded, "the loaded program's logits differ")
+        launches["loaded"] = dict(zip(("fwd", "rms_norm"), loaded_counts))
+        last = outs[-1][:1].float().cpu()
+        del outs, exe, main, prog, model, logits, ids
+        release_memory(torch)
+
+        cpu = llama_from_state(torch, llama, cfg, state, "cpu").eval()
+        with torch.no_grad():
+            want = cpu(torch.from_numpy(feeds[-1][:1]))
+        del cpu
+        err = (last - want).abs().max().item()
+        print(f"replay logits (row 0) vs the CPU plain path: max abs err "
+              f"{err:.3e} (tol {LOGITS_TOL})", flush=True)
+        check(err <= LOGITS_TOL, f"static Llama vs CPU err {err}")
+    finally:
+        paddle.disable_static()
+    return {"launches": launches, "host_ms": p50,
+            "device_ms": prof["device_ms"], "replays": replays}
+
+
+def debug_llama(torch, llama, cfg, state, device):
+    """The bf16 O2 Llama of phase 23 (b) and (d) on ``device``, with its
+    eager step (forward and backward; the gradients are dropped)."""
+    from paddle_tpu_torch import amp
+
+    model = llama_from_state(torch, llama, cfg, state, device)
+    amp.decorate(model, level="O2", dtype="bfloat16", device=device)
+    crit = llama.LlamaPretrainingCriterion(cfg)
+
+    def step(ids):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(ids)
+        loss = crit(logits, ids)
+        loss.backward()
+        for p in model.parameters():
+            p.grad = None
+        return loss.detach()
+
+    return model, step
+
+
+def first_nan_op(torch, hooks, step, ids, arm) -> tuple:
+    """The names of the ops a step ran up to the one that raised, and its
+    message, under ``arm`` (the checker, or FLAGS_check_nan_inf)."""
+    from paddle_tpu_torch.base.enforce import PreconditionNotMetError
+
+    names = []
+    arm()
+    inner = hooks.op_observer
+
+    def observe(name, outs):
+        names.append(name)
+        if inner is not None:
+            inner(name, outs)
+
+    hooks.op_observer = observe
+    try:
+        step(ids)
+    except PreconditionNotMetError as e:
+        return names, str(e)
+    finally:
+        hooks.op_observer = None
+    raise AssertionError("the NaN step did not raise")
+
+
+def interception_tier(torch, llama, state) -> dict:
+    """Phase 23 (b)-(d): the tensor checker, FLAGS_check_nan_inf and the
+    operator stats on an eager llama_124m_gqa bf16 O2 step, a register_op
+    op, and profiler.Profiler over one step."""
+    from torch.autograd import DeviceType
+
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.base import flags
+    from paddle_tpu_torch.core import hooks
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    cfg = llama.llama_124m_gqa()
+    n = cfg.num_hidden_layers
+    print(f"== interception tier: llama_124m_gqa bf16 O2 eager steps "
+          f"(forward and backward), {DEBUG_BATCH}x{DEBUG_SEQ}", flush=True)
+    model, step = debug_llama(torch, llama, cfg, state, "cuda")
+    ids = torch.from_numpy(np.random.RandomState(31).randint(
+        1, cfg.vocab_size, (DEBUG_BATCH, DEBUG_SEQ))).cuda()
+
+    def timed_steps():
+        times = []
+        for _ in range(DEBUG_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(ids)
+            dbg.advance_step()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(times))
+
+    def counters():
+        return (fa.launches, rms.launches, fa.dq_launches, fa.dkv_launches,
+                rms.bwd_launches)
+
+    step(ids)
+    fa.launches = fa.dq_launches = fa.dkv_launches = 0
+    rms.launches = rms.bwd_launches = 0
+    off_ms = timed_steps()
+    dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+        enable=True, debug_mode=dbg.DebugMode.CHECK_NAN_INF))
+    try:
+        on_ms = timed_steps()
+    finally:
+        dbg.disable_tensor_checker()
+    found = dbg.tensor_checker_results()
+    print(f"(b) step p50 {off_ms:.2f} ms with the checker off, {on_ms:.2f} "
+          f"ms with it on (warn mode, {on_ms / off_ms:.1f}x); findings over "
+          f"{DEBUG_STEPS} steps: {len(found)}", flush=True)
+    check(not found, f"the checker found {found[:3]} on a clean model")
+
+    counts = counters()
+    with dbg.collect_operator_stats():
+        step(ids)
+        stats = dbg.get_operator_stats()
+    torch.cuda.synchronize()
+    step_counts = tuple(now - was for now, was in zip(counters(), counts))
+    # the checked steps: checker off, checker on, the stats' step
+    checked = counters()
+    check(checked == tuple((2 * DEBUG_STEPS + 1) * c for c in step_counts),
+          f"launches over the {2 * DEBUG_STEPS + 1} checked steps {checked}, "
+          f"one step {step_counts}")
+    ops = {name: stats.get(f"paddle_tpu_torch::{name}", {}) for name in (
+        "flash_attention_fwd", "rms_norm_fwd", "flash_attention_bwd",
+        "rms_norm_bwd")}
+    print(f"(b) operator stats over one step: {ops}; launches K1/K4/K2/K3/"
+          f"K4-bwd {step_counts}; {len(stats)} distinct ops, "
+          f"{sum(sum(c.values()) for c in stats.values())} calls", flush=True)
+    check(ops["flash_attention_fwd"] == {"bf16": n} == {"bf16": step_counts[0]}
+          and ops["rms_norm_fwd"] == {"bf16": 2 * n + 1}
+          == {"bf16": step_counts[1]},
+          f"the stats' K1/K4 counts {ops} against the launches {step_counts}")
+    check(ops["flash_attention_bwd"] == {"bf16": step_counts[2]}
+          == {"bf16": step_counts[3]}
+          and ops["rms_norm_bwd"] == {
+              "bf16": step_counts[4] // rms.BWD_LAUNCHES_PER_CALL},
+          f"the stats' backward counts {ops} against {step_counts}")
+
+    # a NaN written into one parameter: the first op whose output holds it
+    param = dict(model.named_parameters())[NAN_PARAM]
+    kept = param.detach().clone()
+    with torch.no_grad():
+        param[NAN_AT] = float("nan")
+
+    def checker():
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(enable=True))
+
+    names_c, msg_c = first_nan_op(torch, hooks, step, ids, checker)
+    dbg.disable_tensor_checker()
+    names_f, msg_f = first_nan_op(torch, hooks, step, ids,
+                                  flags.enable_check_nan_inf)
+    flags.disable_check_nan_inf()
+    with torch.no_grad():
+        param.copy_(kept)
+    cpu_model, cpu_step = debug_llama(torch, llama, cfg, state, "cpu")
+    with torch.no_grad():
+        dict(cpu_model.named_parameters())[NAN_PARAM][NAN_AT] = float("nan")
+    # twice: the first CPU run fills the first-use caches the card's warm
+    # steps already hold (the RoPE table, the zero dropout seed), which
+    # would add their ops to its sequence
+    for _ in range(2):
+        names_cpu, msg_cpu = first_nan_op(torch, hooks, cpu_step, ids.cpu(),
+                                          checker)
+        dbg.disable_tensor_checker()
+    del cpu_model, cpu_step
+    print(f"(b) NaN at {NAN_PARAM}{list(NAN_AT)}: the checker raised at op "
+          f"#{len(names_c)} {names_c[-1]!r} ({msg_c.split(']')[-1].strip()}"
+          f"); FLAGS_check_nan_inf at op #{len(names_f) + 1} ({msg_f}); the "
+          f"CPU run of the same step at op #{len(names_cpu)} "
+          f"{names_cpu[-1]!r}", flush=True)
+    differ = next((i for i, (a, b) in enumerate(zip(names_c, names_cpu))
+                   if a != b), None)
+    check(names_c == names_cpu, f"the card's first NaN op "
+          f"#{len(names_c)} {names_c[-1]} differs from the CPU's "
+          f"#{len(names_cpu)} {names_cpu[-1]}; first difference at op "
+          f"#{differ}")
+    check(names_f == names_c[:-1] and f"'{names_c[-1]}'" in msg_f,
+          "FLAGS_check_nan_inf raised at another op than the checker")
+
+    # (c) a user op with a torch body and a backward
+    def swish(x):
+        return x * torch.sigmoid(x)
+
+    def swish_bwd(res, g):
+        (x,), _ = res
+        s = torch.sigmoid(x)
+        return (g * (s + x * s * (1 - s)),)
+
+    op = paddle.register_op("chip_swish", swish, backward=swish_bwd)
+    x = torch.randn(4096, cfg.hidden_size, device="cuda", requires_grad=True)
+    with dbg.collect_operator_stats():
+        y = op(x)
+        user_stats = dbg.get_operator_stats()
+    y.backward(torch.ones_like(y))
+    xr = x.detach().clone().requires_grad_()
+    swish(xr).backward(torch.ones_like(xr))
+    grad_err = (x.grad - xr.grad).abs().max().item()
+    main = paddle.static.Program()
+    with paddle.static.program_guard(main):
+        xs = paddle.static.data("x", [4096, cfg.hidden_size], "float32")
+        ys = paddle.run_custom_op("chip_swish", xs)
+    exe = paddle.static.Executor()
+    feed = np.random.RandomState(5).randn(4096, cfg.hidden_size).astype(
+        np.float32)
+    replays = [exe.run(main, feed={"x": feed}, fetch_list=[ys],
+                       return_numpy=False)[0] for _ in range(3)]
+    with torch.no_grad():
+        eager = op(torch.from_numpy(feed).cuda())
+    same = all(torch.equal(r, eager) for r in replays)
+    name = "paddle_tpu_torch_custom::chip_swish"
+    print(f"(c) register_op chip_swish: stats {user_stats}; gradient vs the "
+          f"plain rule max abs err {grad_err:.3e}; static program "
+          f"{main.op_types()}, replays {exe.replay_counts()} bit for bit the "
+          f"eager call {same}", flush=True)
+    # one call of the op; the body's own ops run inside it, unseen
+    check(user_stats.get(name) == {"fp32": 1}
+          and not any(k.startswith("aten::sigmoid") for k in user_stats),
+          f"custom op stats {user_stats}")
+    check(grad_err <= 1e-6, f"custom op gradient err {grad_err}")
+    check(main.op_types() == [name] and same
+          and exe.replay_counts() == {"graph": 2, "eager": 1},
+          "the custom op's static program")
+    del exe, main, replays
+
+    # (d) profiler.Profiler over one eager step, after a READY step (the
+    # scheduler (1, 2)) that warms the device trace up on the same work
+    with paddle.profiler.Profiler(targets=[paddle.profiler.ProfilerTarget.CPU,
+                                           paddle.profiler.ProfilerTarget.GPU],
+                                  scheduler=(1, 2)) as prof:
+        step(ids)
+        prof.step()
+        counts = (fa.launches, rms.launches)
+        step(ids)
+        torch.cuda.synchronize()
+        launched = (fa.launches - counts[0], rms.launches - counts[1])
+        prof.step()
+        # read before the exit, which collects the next (empty) window
+        with contextlib.redirect_stdout(io.StringIO()) as table:
+            agg = prof.summary(time_unit="ms")
+    rows = [line for line in table.getvalue().splitlines()
+            if line.startswith(("Name", "paddle_tpu_torch::"))]
+    calls = tuple(agg.get(f"paddle_tpu_torch::{k}", {}).get("calls", 0)
+                  for k in ("flash_attention_fwd", "rms_norm_fwd"))
+    kernel_rows = [(name, e.key[:90], e.count)
+                   for e in prof.device_profile.key_averages()
+                   for name in ("K1", "K4")
+                   if e.device_type == DeviceType.CUDA
+                   and PROFILED_KERNELS[name].search(e.key)]
+    device_k = {name: sum(c for k, _, c in kernel_rows if k == name)
+                for name in ("K1", "K4")}
+    print(f"(d) Profiler over one step: summary K1/K4 op calls {calls}, "
+          f"launches {launched}, device profile kernel rows {device_k}; "
+          f"{len(agg)} op names, {sum(a['calls'] for a in agg.values())} "
+          f"op events; the summary's rows of the port's operators:",
+          flush=True)
+    for line in rows:
+        print(f"    {line}", flush=True)
+    for name, key, count in kernel_rows:
+        print(f"    device {name} x{count}: {key}", flush=True)
+    check(calls == launched == (n, 2 * n + 1),
+          f"the profiler's K1/K4 calls {calls} against launches {launched}")
+    check((device_k["K1"], device_k["K4"]) == launched,
+          f"the device timeline's K1/K4 kernels {device_k} against the "
+          f"launches {launched}")
+    out = {**dict(zip(("fwd", "rms_norm", "dq", "dkv", "rms_norm_bwd"),
+                      checked)),
+           "off_ms": off_ms, "on_ms": on_ms}
+    del model, step, prof
+    release_memory(torch)
+    return out
+
+
+def phase_static(torch, llama) -> dict:
+    """Phase 23: static mode and the op-interception tier on
+    llama_124m_gqa (see :func:`static_llama` and
+    :func:`interception_tier`). Returns the launches by path and the
+    figures."""
+    state = seeded_llama_state(torch, llama, llama.llama_124m_gqa(), 23)
+    static = static_llama(torch, llama, state)
+    tier = interception_tier(torch, llama, state)
+    return {"static": static, "debug": tier}
+
+
 def timed(phase, *args):
     """``phase(*args)``, then its wall time printed."""
     t0 = time.perf_counter()
@@ -6952,6 +7415,7 @@ def main() -> int:
             "gpt": trained, "llama": trained_llama, "bert": bert_run["arm"],
             "resnet": resnet_run["arm"], "liteseg": liteseg_run["arm"]})
         transformer = timed(phase_transformer, torch)
+        static = timed(phase_static, torch, llama)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -6976,9 +7440,13 @@ def main() -> int:
                    "train_bert": bert_run["arm"][key],
                    "fit_llama": fit_run["launches"][key],
                    "bench_arms": arms[key],
-                   "transformer_base": transformer[key]}
+                   "transformer_base": transformer[key],
+                   "debug_llama": static["debug"][key]}
         f32_by_path = ({"serve": served["launches"],
-                        "batch_serve": batch["launches"]}
+                        "batch_serve": batch["launches"],
+                        "static_llama": static["static"]["launches"]["fwd"],
+                        "static_llama_loaded":
+                            static["static"]["launches"]["loaded"]["fwd"]}
                        if key == "fwd" else {})
         entry = {"name": name, "route": "cuda", "source": source + src,
                  "replaces": replaces + str(line),
@@ -7029,16 +7497,24 @@ def main() -> int:
              {"pallas_counterpart": False})):
         by_path = {"train_llama": trained_llama[name],
                    "fit_llama": fit_run["launches"][name],
-                   "bench_arms": arms[name]}
+                   "bench_arms": arms[name],
+                   "debug_llama": static["debug"][name]}
+        f32_by_path = ({"static_llama":
+                        static["static"]["launches"]["rms_norm"],
+                        "static_llama_loaded":
+                        static["static"]["launches"]["loaded"]["rms_norm"]}
+                       if name == "rms_norm" else {})
         fp16 = fit_run["fp16_llama"][name]
         kernels.append({
             "name": name, "route": "cuda", "source": source + "rms_norm.cu",
             "replaces": replaces, **extra,
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             **records[(name, "bfloat16")],
-            "float32": {k: records[(name, "float32")][k]
-                        for k in ("ms", "plain_ms", "bound_ms", "library_ms",
-                                  "max_abs_err")},
+            "float32": {**{k: records[(name, "float32")][k]
+                           for k in ("ms", "plain_ms", "bound_ms",
+                                     "library_ms", "max_abs_err")},
+                        "launches": sum(f32_by_path.values()),
+                        "launches_by_path": f32_by_path},
             "float16": {**{k: fit_run["rms16"][name][k]
                            for k in ("ms", "plain_ms", "bound_ms",
                                      "bound_by", "library_ms",

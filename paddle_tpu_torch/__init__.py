@@ -42,7 +42,12 @@ with only their imports renamed; and the model-authoring API:
 ``nn.Layer``, ``Parameter``, ``nn.ParamAttr``, ``nn.initializer``,
 ``autograd`` (``backward``, ``PyLayer``, ``saved_tensors_hooks``), the
 transformer stack (``nn.Transformer``, ``nn.MultiHeadAttention``, ...),
-``linalg`` and ``einsum``.
+``linalg`` and ``einsum``; and the op-interception tier: one
+``TorchDispatchMode`` (``core/hooks.py``) under static mode
+(``enable_static``, ``static.Program``/``Executor``, replayed as one CUDA
+graph a signature, ``save_inference_model``), ``amp.debugging``,
+``FLAGS_check_nan_inf``, ``register_op`` custom ops and the profiler's op
+events, with ``TensorArray``, ``SelectedRows`` and ``StringTensor``.
 """
 import torch as _torch
 
@@ -55,8 +60,11 @@ from .base.flags import get_flags, set_flags
 from .base.global_state import (enable_grad, get_default_dtype,
                                 is_grad_enabled, no_grad, seed,
                                 set_default_dtype, set_grad_enabled)
+from .core import hooks as _hooks  # noqa: F401 — the interception mode
 from .core import tensor_methods as _tensor_methods  # noqa: F401
 from .core.autograd import grad
+from .core.custom_op import get_custom_op, register_op, run_custom_op
+from .core.tensor_array import SelectedRows, StringTensor, TensorArray
 from .core.tensor import Parameter, Tensor, to_tensor
 from .device import (DEFAULT_DEVICE, CPUPlace, CUDAPlace, device_count,
                      get_device, is_compiled_with_cuda, resolve_device,
@@ -66,6 +74,7 @@ from .version import __version__
 from ._late_imports import *  # noqa: F401,F403 — the subpackages
 from . import autograd, linalg
 from .nn.layer.layers import Layer
+from .static.program import disable_static, enable_static
 
 bool = _dtype.bool_  # noqa: A001 — paddle.bool
 dtype = _torch.dtype
@@ -81,10 +90,8 @@ def in_dygraph_mode() -> bool:
 
 # the JAX top level's names that are not ported yet, by ROADMAP.md item
 _NOT_PORTED = {
-    "queue 1 item 1, the top level's leftovers": (
-        "TPUPlace", "unwrap", "passthrough", "primitive", "TensorArray",
-        "SelectedRows", "StringTensor", "register_op", "run_custom_op",
-        "enable_static", "disable_static"),
+    "queue 1 item 1, the JAX dispatcher's helpers, which have no "
+    "counterpart": ("TPUPlace", "unwrap", "passthrough", "primitive"),
     "queue 7": ("DataParallel",),
     "queue 1 item 9": ("analysis",),
     "queue 1 item 10": ("audio", "distribution", "fft", "geometric", "onnx",

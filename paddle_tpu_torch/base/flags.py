@@ -4,7 +4,9 @@ The port's copy of ``paddle_tpu/base/flags.py``, cut to the flags of the
 decode path and its operational tier (telemetry, fault injection, retries,
 circuit breakers, the lock witness) and of the training loop (device
 prefetch, metric syncs, snapshots, the anomaly flight recorder, the memory
-sampler, the numerics witness): same names, same defaults, each
+sampler, the numerics witness) and of the op-interception tier
+(``check_nan_inf``, ``check_nan_inf_level``, ``static_verify_program``):
+same names, same defaults, each
 overridable by a ``FLAGS_<name>`` environment variable and at run time by
 :func:`set_flags`, whose changes reach the hooks registered with
 :func:`on_flag_change`.
@@ -15,7 +17,9 @@ import os
 import threading
 from typing import Any, Dict, Iterable, Mapping, Optional, Union
 
-__all__ = ["define_flag", "get_flag", "get_flags", "on_flag_change",
+__all__ = ["define_flag", "disable_check_model_nan_inf",
+           "disable_check_nan_inf", "enable_check_model_nan_inf",
+           "enable_check_nan_inf", "get_flag", "get_flags", "on_flag_change",
            "set_flags"]
 
 _lock = threading.Lock()
@@ -263,3 +267,23 @@ define_flag("numerics_collapse_ratio", 1e-4,
             "watermark is established, a later sample whose max-abs "
             "falls below watermark*ratio records a range-collapse "
             "verdict")
+define_flag("check_nan_inf", False, "scan op outputs for NaN/Inf and raise")
+define_flag("check_nan_inf_level", 0, "0: raise on nan/inf; >0: log only")
+define_flag("static_verify_program", False,
+            "run the analysis verify pass over a static Program before "
+            "Executor.run compiles it (the port has no analysis/ yet: "
+            "Executor.run raises while this is on)")
+
+
+def enable_check_model_nan_inf():
+    """(reference op: enable_check_model_nan_inf)."""
+    set_flags({"check_nan_inf": True})
+
+
+def disable_check_model_nan_inf():
+    """(reference op: disable_check_model_nan_inf)."""
+    set_flags({"check_nan_inf": False})
+
+
+enable_check_nan_inf = enable_check_model_nan_inf
+disable_check_nan_inf = disable_check_model_nan_inf

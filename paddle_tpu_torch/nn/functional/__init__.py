@@ -11,10 +11,11 @@ from .flash_attention import (calc_reduced_attn_scores, flash_attn_qkvpacked,
 from .attention import flash_attention, scaled_dot_product_attention
 from .common import (dropout, embedding, interpolate, label_smooth, linear,
                      one_hot, upsample)
-from .conv import conv1d, conv2d, conv3d
+from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
+                   conv3d, conv3d_transpose)
 from .loss import (binary_cross_entropy_with_logits, cross_entropy,
                    softmax_with_cross_entropy)
-from .norm import batch_norm, layer_norm, rms_norm
+from .norm import batch_norm, group_norm, instance_norm, layer_norm, rms_norm
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
                       adaptive_max_pool2d, adaptive_max_pool3d, avg_pool2d,
@@ -32,11 +33,13 @@ __all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d",
            "adaptive_avg_pool3d", "adaptive_max_pool1d",
            "adaptive_max_pool2d", "adaptive_max_pool3d", "avg_pool2d",
            "batch_norm", "binary_cross_entropy_with_logits",
-           "calc_reduced_attn_scores", "celu", "conv1d", "conv2d", "conv3d",
+           "calc_reduced_attn_scores", "celu", "conv1d", "conv1d_transpose",
+           "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
            "cross_entropy", "dropout", "elu", "embedding", "flash_attention",
            "flash_attn_qkvpacked", "flash_attn_unpadded",
            "flash_attn_varlen_qkvpacked", "flashmask_attention",
            "fused_softmax_mask", "fused_softmax_mask_upper_triangle", "gelu",
+           "group_norm", "instance_norm",
            "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
            "interpolate", "label_smooth", "layer_norm", "leaky_relu",
            "linear", "log_sigmoid", "log_softmax", "max_pool2d", "maxout",

@@ -1,5 +1,6 @@
 """Normalization functionals (port of ``paddle_tpu/nn/functional/norm.py``,
-``layer_norm``, ``rms_norm`` and ``batch_norm``)."""
+``layer_norm``, ``rms_norm``, ``batch_norm``, ``group_norm`` and
+``instance_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +9,8 @@ import torch.nn.functional as TF
 from ...amp.auto_cast import cast_inputs
 from ...ops.cuda.rms_norm import rms_norm_value
 
-__all__ = ["batch_norm", "layer_norm", "rms_norm"]
+__all__ = ["batch_norm", "group_norm", "instance_norm", "layer_norm",
+           "rms_norm"]
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
@@ -100,3 +102,49 @@ def _store_stat(buffer: torch.Tensor, value: torch.Tensor) -> None:
             f"write a tensor the module never reads. Run one eager step "
             f"first (TrainStep's first call is eager)")
     buffer.data = value
+
+
+def _affine(out, weight, bias, shape):
+    if weight is not None:
+        out = out * weight.reshape(shape)
+    if bias is not None:
+        out = out + bias.reshape(shape)
+    return out
+
+
+def instance_norm(x, running_mean=None, running_var=None, weight=None,
+                  bias=None, use_input_stats=True, momentum=0.9, eps=1e-5,
+                  data_format="NCHW", name=None):
+    """Each sample's channel normalized over its spatial axes with its own
+    mean and biased variance, then the per-channel affine, as the JAX
+    function computes it (the running stats are accepted and unused, as
+    there). Op ``instance_norm``, black under AMP."""
+    x, weight, bias = cast_inputs("instance_norm", x, weight, bias)
+    ch_axis = 1 if data_format.startswith("NC") else x.ndim - 1
+    spatial = (tuple(range(2, x.ndim)) if ch_axis == 1
+               else tuple(range(1, x.ndim - 1)))
+    var, mean = torch.var_mean(x, dim=spatial, correction=0, keepdim=True)
+    out = (x - mean) * torch.rsqrt(var + eps)
+    shape = [1] * x.ndim
+    shape[ch_axis] = x.shape[ch_axis]
+    return _affine(out, weight, bias, shape)
+
+
+def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
+               data_format="NCHW", name=None):
+    """The channels split into ``num_groups`` groups, each sample's group
+    normalized with its mean and biased variance, then the per-channel
+    affine, as the JAX function computes it. Op ``group_norm``, black
+    under AMP."""
+    x, weight, bias = cast_inputs("group_norm", x, weight, bias)
+    channel_last = not data_format.startswith("NC")
+    v = x.movedim(-1, 1) if channel_last else x
+    b, c = v.shape[0], v.shape[1]
+    g = v.reshape((b, num_groups, c // num_groups) + tuple(v.shape[2:]))
+    var, mean = torch.var_mean(g, dim=tuple(range(2, g.ndim)), correction=0,
+                               keepdim=True)
+    out = ((g - mean) * torch.rsqrt(var + epsilon)).reshape(v.shape)
+    shape = [1] * out.ndim
+    shape[1] = c
+    out = _affine(out, weight, bias, shape)
+    return out.movedim(1, -1) if channel_last else out

@@ -9,11 +9,13 @@ from .activation import (CELU, ELU, GELU, Hardshrink, Hardsigmoid,
 from .common import (Dropout, Embedding, Flatten, Identity, LayerNorm, Linear,
                      RMSNorm)
 from .container import LayerDict, LayerList, ParameterList, Sequential
-from .conv import Conv1D, Conv2D, Conv3D
+from .conv import (Conv1D, Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                   Conv3DTranspose)
 from .layers import Layer
 from .loss import CrossEntropyLoss
 from .norm import (BatchNorm, BatchNorm1D, BatchNorm2D, BatchNorm3D,
-                   SyncBatchNorm)
+                   GroupNorm, InstanceNorm1D, InstanceNorm2D, InstanceNorm3D,
+                   SpectralNorm, SyncBatchNorm)
 from .pooling import (AdaptiveAvgPool1D, AdaptiveAvgPool2D,
                       AdaptiveAvgPool3D, AdaptiveMaxPool1D,
                       AdaptiveMaxPool2D, AdaptiveMaxPool3D, AvgPool2D,
@@ -25,7 +27,10 @@ from .transformer import (MultiHeadAttention, Transformer, TransformerDecoder,
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
            "AvgPool2D", "BatchNorm", "BatchNorm1D", "BatchNorm2D",
-           "BatchNorm3D", "CELU", "Conv1D", "Conv2D", "Conv3D",
+           "BatchNorm3D", "CELU", "Conv1D", "Conv1DTranspose", "Conv2D",
+           "Conv2DTranspose", "Conv3D", "Conv3DTranspose", "GroupNorm",
+           "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
+           "SpectralNorm",
            "CrossEntropyLoss", "Dropout", "ELU", "Embedding", "Flatten",
            "GELU", "Hardshrink", "Hardsigmoid", "Hardswish", "Hardtanh",
            "Identity", "Layer", "LayerDict", "LayerList", "LayerNorm",

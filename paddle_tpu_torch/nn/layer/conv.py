@@ -1,5 +1,5 @@
 """Convolution layers (port of ``paddle_tpu/nn/layer/conv.py``): ``Conv1D``,
-``Conv2D`` and ``Conv3D``.
+``Conv2D``, ``Conv3D`` and their transposes.
 
 Parameters as the JAX layers make them: ``weight`` ``[out, in / groups,
 *k]`` from ``KaimingUniform(fan_in)`` (uniform within ``±sqrt(6 /
@@ -9,8 +9,10 @@ are the defaults of ``create_parameter``; ``weight_attr``/``bias_attr``
 (a ``ParamAttr``, an initializer or a name) replace them as in the JAX
 layers. The values are drawn from ``generator`` when the layer is built
 alone, else from its model's (``nn.layer.layers.building``).
-``padding_mode`` is kept and read nowhere, as in the JAX package. The
-transposed layers are not ported yet (ROADMAP.md, queue 1).
+``padding_mode`` is kept and read nowhere, as in the JAX package. A
+transposed layer's weight is ``[in, out / groups, *k]``, with the same
+``fan_in``; its ``forward`` takes an ``output_size`` that the functions
+ignore, as the JAX ones do.
 """
 from __future__ import annotations
 
@@ -23,7 +25,8 @@ from .. import functional as F
 from ..initializer import KaimingUniform, Uniform
 from .layers import Layer, building
 
-__all__ = ["Conv1D", "Conv2D", "Conv3D"]
+__all__ = ["Conv1D", "Conv2D", "Conv3D", "Conv1DTranspose",
+           "Conv2DTranspose", "Conv3DTranspose"]
 
 
 class _ConvNd(Layer):
@@ -32,7 +35,7 @@ class _ConvNd(Layer):
     def __init__(self, in_channels, out_channels, kernel_size, n, stride=1,
                  padding=0, dilation=1, groups=1, padding_mode="zeros",
                  weight_attr=None, bias_attr=None, data_format="NCHW", *,
-                 device=DEFAULT_DEVICE,
+                 transpose=False, output_padding=0, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         ks = list(kernel_size) if isinstance(kernel_size, (list, tuple)) \
@@ -42,11 +45,14 @@ class _ConvNd(Layer):
         self._stride, self._padding = stride, padding
         self._dilation, self._groups = dilation, groups
         self._padding_mode, self._data_format = padding_mode, data_format
+        self._output_padding = output_padding
         self._fan_in = in_channels // groups * math.prod(ks)
+        shape = ([in_channels, out_channels // groups] if transpose
+                 else [out_channels, in_channels // groups]) + ks
         bound = 1.0 / math.sqrt(self._fan_in)
         with building(self, device, generator):
             self.weight = self.create_parameter(
-                [out_channels, in_channels // groups] + ks, attr=weight_attr,
+                shape, attr=weight_attr,
                 default_initializer=KaimingUniform(fan_in=self._fan_in))
             self.bias = self.create_parameter(
                 [out_channels], attr=bias_attr, is_bias=True,
@@ -99,4 +105,66 @@ class Conv3D(_ConvNd):
         super().__init__(in_channels, out_channels, kernel_size, 3, stride,
                          padding, dilation, groups, padding_mode, weight_attr,
                          bias_attr, data_format, device=device,
+                         generator=generator)
+
+
+class _ConvTransposeNd(_ConvNd):
+    _n = 0
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device=DEFAULT_DEVICE, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, self._n,
+                         stride, padding, dilation, groups, "zeros",
+                         weight_attr, bias_attr, data_format, transpose=True,
+                         output_padding=output_padding, device=device,
+                         generator=generator)
+
+    def forward(self, x, output_size=None):
+        return type(self)._fn(x, self.weight, self.bias, self._stride,
+                              self._padding, self._output_padding,
+                              self._groups, self._dilation, output_size,
+                              self._data_format)
+
+
+class Conv1DTranspose(_ConvTransposeNd):
+    _n = 1
+    _fn = staticmethod(F.conv1d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCL", *,
+                 device=DEFAULT_DEVICE, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, output_padding, groups, dilation,
+                         weight_attr, bias_attr, data_format, device=device,
+                         generator=generator)
+
+
+class Conv2DTranspose(_ConvTransposeNd):
+    _n = 2
+    _fn = staticmethod(F.conv2d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCHW", *,
+                 device=DEFAULT_DEVICE, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, output_padding, groups, dilation,
+                         weight_attr, bias_attr, data_format, device=device,
+                         generator=generator)
+
+
+class Conv3DTranspose(_ConvTransposeNd):
+    _n = 3
+    _fn = staticmethod(F.conv3d_transpose)
+
+    def __init__(self, in_channels, out_channels, kernel_size, stride=1,
+                 padding=0, output_padding=0, groups=1, dilation=1,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW", *,
+                 device=DEFAULT_DEVICE, generator=None):
+        super().__init__(in_channels, out_channels, kernel_size, stride,
+                         padding, output_padding, groups, dilation,
+                         weight_attr, bias_attr, data_format, device=device,
                          generator=generator)

@@ -1,5 +1,6 @@
-"""BatchNorm layers (port of ``paddle_tpu/nn/layer/norm.py:12-86``):
-``BatchNorm``, ``BatchNorm1D``, ``BatchNorm2D`` and ``BatchNorm3D``.
+"""Normalization layers (port of ``paddle_tpu/nn/layer/norm.py``):
+``BatchNorm``, ``BatchNorm1D``, ``BatchNorm2D`` and ``BatchNorm3D``,
+``GroupNorm``, ``InstanceNorm1D/2D/3D`` and ``SpectralNorm``.
 
 As the JAX layers: ``weight`` 1 and ``bias`` 0 (each dropped with
 ``*_attr=False``, each replaced by a ``ParamAttr``'s initializer), and two buffers named ``_mean`` (0) and ``_variance``
@@ -12,16 +13,18 @@ distributed layouts (ROADMAP.md, queue 7).
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 from ...device import DEFAULT_DEVICE
 from .. import functional as F
-from ..initializer import Constant
+from ..initializer import Constant, Normal
 from .layers import Layer, building
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
-           "SyncBatchNorm"]
+           "GroupNorm", "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
+           "SpectralNorm", "SyncBatchNorm"]
 
 
 class _BatchNormBase(Layer):
@@ -89,3 +92,91 @@ class SyncBatchNorm(_BatchNormBase):
         raise NotImplementedError(
             "SyncBatchNorm needs the distributed layouts, which are not "
             "ported yet (ROADMAP.md, queue 7)")
+
+
+def _affine_params(layer, n, weight_attr, bias_attr):
+    layer.weight = layer.create_parameter(
+        [n], attr=weight_attr, default_initializer=Constant(1.0))
+    layer.bias = layer.create_parameter([n], attr=bias_attr, is_bias=True)
+
+
+class GroupNorm(Layer):
+    def __init__(self, num_groups, num_channels, epsilon=1e-5,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, *, device=DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._num_groups, self._num_channels = num_groups, num_channels
+        self._epsilon, self._data_format = epsilon, data_format
+        with building(self, device, generator):
+            _affine_params(self, num_channels, weight_attr, bias_attr)
+
+    def forward(self, x):
+        return F.group_norm(x, self._num_groups, self._epsilon, self.weight,
+                            self.bias, self._data_format)
+
+
+class InstanceNorm1D(Layer):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCL",
+                 name=None, *, device=DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._epsilon, self._data_format = epsilon, data_format
+        with building(self, device, generator):
+            _affine_params(self, num_features, weight_attr, bias_attr)
+
+    def forward(self, x):
+        return F.instance_norm(x, weight=self.weight, bias=self.bias,
+                               eps=self._epsilon,
+                               data_format=self._data_format)
+
+
+class InstanceNorm2D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCHW",
+                 name=None, **kw):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, name, **kw)
+
+
+class InstanceNorm3D(InstanceNorm1D):
+    def __init__(self, num_features, epsilon=1e-5, momentum=0.9,
+                 weight_attr=None, bias_attr=None, data_format="NCDHW",
+                 name=None, **kw):
+        super().__init__(num_features, epsilon, momentum, weight_attr,
+                         bias_attr, data_format, name, **kw)
+
+
+class SpectralNorm(Layer):
+    """``weight`` divided by its largest singular value, estimated by
+    ``power_iters`` steps of power iteration from the layer's ``weight_u``
+    and ``weight_v`` (which the forward does not update), as the JAX layer
+    computes it."""
+
+    def __init__(self, weight_shape, dim=0, power_iters=1, epsilon=1e-12,
+                 dtype="float32", *, device=DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self._dim, self._power_iters, self._epsilon = dim, power_iters, \
+            epsilon
+        h = int(weight_shape[dim])
+        w = math.prod(int(s) for s in weight_shape) // h
+        with building(self, device, generator):
+            self.weight_u = self.create_parameter(
+                [h], default_initializer=Normal(0.0, 1.0))
+            self.weight_v = self.create_parameter(
+                [w], default_initializer=Normal(0.0, 1.0))
+        self.weight_u.stop_gradient = True
+        self.weight_v.stop_gradient = True
+
+    def forward(self, weight):
+        dim, eps = self._dim, self._epsilon
+        wm = weight.movedim(dim, 0).reshape(weight.shape[dim], -1)
+        u, v = self.weight_u.detach(), self.weight_v.detach()
+        for _ in range(self._power_iters):
+            v = wm.T @ u
+            v = v / (torch.linalg.vector_norm(v) + eps)
+            u = wm @ v
+            u = u / (torch.linalg.vector_norm(u) + eps)
+        return weight / (u @ wm @ v)

@@ -40,6 +40,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ...core import hooks
 from ...device import DEFAULT_DEVICE, resolve_device
 from . import _build
 
@@ -332,6 +333,7 @@ def adamw_update(params: Sequence[torch.Tensor],
 
 def _launch(fn, entries, scalars, dtype_code, gdtype_code, stream):
     global launches
+    hooks.check_launch("adamw")
     tl = _TensorList()
     for j, (p, g, m, v, vm, slot, c, wd) in enumerate(entries):
         tl.p[j], tl.g[j] = p.data_ptr(), g.data_ptr()

@@ -31,7 +31,9 @@ forward is the registered operator ``paddle_tpu_torch::flash_attention_fwd``
 (:func:`flash_attention_fwd_op`: CUDA runs the kernel, the CPU the plain
 version, and a fake version gives the shapes), so ``torch.export`` keeps it
 as one node of an exported graph (``jit.save``) instead of tracing the
-plain version. The plain
+plain version; K2 and K3 together are ``paddle_tpu_torch::flash_attention_bwd``
+(:func:`flash_attention_bwd_op`). The op-interception tier
+(``core/hooks.py``) sees each as one op. The plain
 versions materialize the probabilities; the CPU tests hold them against
 the Pallas kernels in interpret mode and the on-card checks hold the
 kernels against them. :data:`launches` (K1), :data:`dq_launches` (K2) and
@@ -56,10 +58,12 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ...core import hooks
 from ...device import DEFAULT_DEVICE, resolve_device
-from . import _build
+from . import _build, _registry
 
 __all__ = ["flash_attention_fwd", "flash_attention_fwd_op",
+           "flash_attention_bwd_op",
            "flash_attention_fwd_reference",
            "flash_attention_bwd", "flash_attention_bwd_reference",
            "flash_attention_value", "FlashAttentionFunction", "dropout_keep",
@@ -457,13 +461,7 @@ def flash_attention_fwd(q, k, v, causal: bool, scale: float,
                                   float(dropout), int(block_q), int(block_k))
 
 
-@torch.library.custom_op("paddle_tpu_torch::flash_attention_fwd",
-                         mutates_args=(), device_types="cuda")
-def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, seed: Optional[torch.Tensor],
-                           causal: bool, scale: float, dropout: float,
-                           block_q: int, block_k: int
-                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _fwd_op_cuda(q, k, v, seed, causal, scale, dropout, block_q, block_k):
     """K1 as a registered operator, ``paddle_tpu_torch::flash_attention_fwd``,
     so that ``torch.export`` keeps it as one node of the exported graph
     (its fake version gives the shapes) instead of tracing into the plain
@@ -474,7 +472,6 @@ def flash_attention_fwd_op(q: torch.Tensor, k: torch.Tensor,
                        block_k)
 
 
-@flash_attention_fwd_op.register_kernel("cpu")
 def _fwd_op_cpu(q, k, v, seed, causal, scale, dropout, block_q, block_k):
     o, lse = flash_attention_fwd_reference(q, k, v, causal, scale, dropout,
                                            seed, block_q=block_q,
@@ -482,11 +479,17 @@ def _fwd_op_cpu(q, k, v, seed, causal, scale, dropout, block_q, block_k):
     return o.contiguous(), lse.contiguous()
 
 
-@flash_attention_fwd_op.register_fake
 def _fwd_op_fake(q, k, v, seed, causal, scale, dropout, block_q, block_k):
     b, sq, h, d = q.shape
     return (q.new_empty((b, sq, h, d)),
             q.new_empty((b, h, 1, sq), dtype=_compute_type(q)))
+
+
+flash_attention_fwd_op = _registry.define(
+    "flash_attention_fwd(Tensor q, Tensor k, Tensor v, Tensor? "
+    "seed, bool causal, float scale, float dropout, int block_q, "
+    "int block_k) -> (Tensor, Tensor)",
+    cuda=_fwd_op_cuda, cpu=_fwd_op_cpu, fake=_fwd_op_fake)
 
 
 def _check_shape(b, sq, sk, h):
@@ -496,6 +499,7 @@ def _check_shape(b, sq, sk, h):
 
 def _launch_fwd(q, k, v, causal, scale, dropout, seed, block_q, block_k):
     global launches
+    hooks.check_launch("flash_attention_fwd")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v), d)
@@ -534,14 +538,40 @@ def flash_attention_bwd(q, k, v, o, lse, do, seed, causal: bool,
     if do.shape != o.shape or o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
-    dev = _resolve(q, device, dropout, seed)
-    if dev.type == "cpu":
-        return flash_attention_bwd_reference(q, k, v, o, lse, do, seed,
-                                             causal, scale, dropout,
-                                             block_q=block_q,
-                                             block_k=block_k)
-    return _launch_bwd(q, k, v, o, lse, do, seed, bool(causal), float(scale),
-                       float(dropout), block_q, block_k)
+    _resolve(q, device, dropout, seed)
+    return flash_attention_bwd_op(q, k, v, o, lse, do, seed, bool(causal),
+                                  float(scale), float(dropout), int(block_q),
+                                  int(block_k))
+
+
+def _bwd_op_cuda(q, k, v, o, lse, do, seed, causal, scale, dropout, block_q,
+                block_k):
+    """K2 and K3 as one registered operator,
+    ``paddle_tpu_torch::flash_attention_bwd``: ``(dq, dk, dv)``. For CUDA
+    tensors K2 then K3 launch or this raises; for CPU tensors the plain
+    version runs."""
+    return _launch_bwd(q, k, v, o, lse, do, seed, causal, scale,
+                       dropout, block_q, block_k)
+
+
+def _bwd_op_cpu(q, k, v, o, lse, do, seed, causal, scale, dropout, block_q,
+                block_k):
+    return tuple(t.contiguous() for t in flash_attention_bwd_reference(
+        q, k, v, o, lse, do, seed, causal, scale, dropout, block_q=block_q,
+        block_k=block_k))
+
+
+def _bwd_op_fake(q, k, v, o, lse, do, seed, causal, scale, dropout, block_q,
+                 block_k):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+flash_attention_bwd_op = _registry.define(
+    "flash_attention_bwd(Tensor q, Tensor k, Tensor v, Tensor o, "
+    "Tensor lse, Tensor do, Tensor? seed, bool causal, float scale, "
+    "float dropout, int block_q, int block_k) -> (Tensor, Tensor, "
+    "Tensor)",
+    cuda=_bwd_op_cuda, cpu=_bwd_op_cpu, fake=_bwd_op_fake)
 
 
 def bwd_launch_args(q, k, v, o, lse, do, seed, causal, scale, dropout,
@@ -594,6 +624,7 @@ def run_bwd_pass(name: str, args, device) -> None:
     :func:`bwd_launch_args`' arguments, the kernel for their dtype; raises
     if the launch fails. Not counted: the counted path is
     :func:`flash_attention_bwd`."""
+    hooks.check_launch(f"flash_attention {name}")
     pass_args = args[name]
     # pass_args[10]: dtype
     fn = _kernel(kernel_for(name, _DTYPE_OF[pass_args[10]]))

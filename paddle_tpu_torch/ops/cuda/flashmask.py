@@ -35,7 +35,12 @@ count the tiles they compute when given a counter (:func:`fwd_tiles`,
 A fully masked row gives O = 0 and lse = -1e30 + log(1e-30), as the
 Pallas kernel does (the XLA route of the JAX entry point gives the mean of
 v there instead). Each wrapper launches its kernel for CUDA tensors or
-raises — no fallback — and runs the plain PyTorch version for CPU tensors.
+raises — no fallback — and runs the plain PyTorch version for CPU tensors,
+through a registered operator: ``paddle_tpu_torch::flashmask_fwd`` (K5,
+:func:`flashmask_fwd_op`) and ``paddle_tpu_torch::flashmask_bwd`` (K6 and
+K7, :func:`flashmask_bwd_op`), each with a CPU kernel (the plain version)
+and a fake, so the op-interception tier (``core/hooks.py``) sees each call
+as one op and ``torch.export`` keeps it as one node.
 :data:`fwd_launches` (K5), :data:`dq_launches` (K6) and
 :data:`dkv_launches` (K7) count kernel launches, and only those; they are
 apart from K1–K3's counters. Layout is ``[batch, seq, heads, head_dim]``;
@@ -48,13 +53,15 @@ from typing import Dict, Tuple
 
 import torch
 
+from ...core import hooks
 from ...device import DEFAULT_DEVICE
-from . import _build
-from .flash_attention import (_DTYPE_OF, NEG_INF, _check,
+from . import _build, _registry
+from .flash_attention import (_DTYPE_OF, NEG_INF, _check, _compute_type,
                               _check_kernel_inputs, _check_shape, _delta,
                               _for_tma, _raise_launch, _resolve, _strides)
 
-__all__ = ["flashmask_fwd", "flashmask_fwd_reference", "flashmask_bwd",
+__all__ = ["flashmask_fwd", "flashmask_fwd_op", "flashmask_bwd_op",
+           "flashmask_fwd_reference", "flashmask_bwd",
            "flashmask_bwd_reference", "flashmask_value", "FlashMaskFunction",
            "prepare_indices", "disallowed", "build", "bwd_launch_args",
            "run_bwd_pass", "fwd_tiles", "bwd_tiles", "kernel_for", "SOURCES",
@@ -247,12 +254,33 @@ def flashmask_fwd(q, k, v, startend_row_indices, causal: bool, scale: float,
     to run (default CUDA); the tensors must lie there. On CUDA K5 launches
     or this raises; on the CPU the plain version runs."""
     _check(q, k, v)
-    dev = _resolve(q, device, 0.0, None)
+    _resolve(q, device, 0.0, None)
     idx = prepare_indices(startend_row_indices, q, k, causal)
-    if dev.type == "cpu":
-        return flashmask_fwd_reference(q, k, v, idx, bool(causal),
-                                       float(scale))
-    return _launch_fwd(q, k, v, idx, bool(causal), float(scale))
+    return flashmask_fwd_op(q, k, v, idx, bool(causal), float(scale))
+
+
+def _fwd_op_cuda(q, k, v, idx, causal, scale):
+    """K5 as a registered operator, ``paddle_tpu_torch::flashmask_fwd``:
+    ``(o, lse)`` over :func:`prepare_indices`' ``idx``. For CUDA tensors K5
+    launches or this raises; for CPU tensors the plain version runs."""
+    return _launch_fwd(q, k, v, idx, causal, scale)
+
+
+def _fwd_op_cpu(q, k, v, idx, causal, scale):
+    o, lse = flashmask_fwd_reference(q, k, v, idx, causal, scale)
+    return o.contiguous(), lse.contiguous()
+
+
+def _fwd_op_fake(q, k, v, idx, causal, scale):
+    b, sq, h, d = q.shape
+    return (q.new_empty((b, sq, h, d)),
+            q.new_empty((b, h, 1, sq), dtype=_compute_type(q)))
+
+
+flashmask_fwd_op = _registry.define(
+    "flashmask_fwd(Tensor q, Tensor k, Tensor v, Tensor idx, bool "
+    "causal, float scale) -> (Tensor, Tensor)",
+    cuda=_fwd_op_cuda, cpu=_fwd_op_cpu, fake=_fwd_op_fake)
 
 
 def _launch_fwd(q, k, v, idx, causal, scale):
@@ -265,6 +293,7 @@ def _launch_fwd(q, k, v, idx, causal, scale):
 def _run_fwd(q, k, v, idx, causal, scale, tiles=None):
     """One launch of K5 for ``q``'s dtype; ``tiles``, a zeroed int32 pair
     on the device, takes the kernel's tile counts."""
+    hooks.check_launch("flashmask_fwd")
     b, sq, h, d = q.shape
     sk = k.shape[1]
     _check_kernel_inputs((q, k, v), d, _DTYPES)
@@ -318,15 +347,37 @@ def flashmask_bwd(q, k, v, o, lse, do, startend_row_indices, causal: bool,
     if do.shape != o.shape or o.shape != q.shape:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)}")
-    dev = _resolve(q, device, 0.0, None)
+    _resolve(q, device, 0.0, None)
     idx = prepare_indices(startend_row_indices, q, k, causal)
-    if dev.type == "cpu":
-        return flashmask_bwd_reference(q, k, v, o, lse, do, idx,
-                                       bool(causal), float(scale))
+    return flashmask_bwd_op(q, k, v, o, lse, do, idx, bool(causal),
+                            float(scale))
+
+
+def _bwd_op_cuda(q, k, v, o, lse, do, idx, causal, scale):
+    """K6 and K7 as one registered operator,
+    ``paddle_tpu_torch::flashmask_bwd``: ``(dq, dk, dv)``. For CUDA tensors
+    K6 then K7 launch or this raises; for CPU tensors the plain version
+    runs."""
     args, (dq, dk, dv, *_) = bwd_launch_args(q, k, v, o, lse, do, idx,
-                                             bool(causal), float(scale))
+                                             causal, scale)
     _launch_bwd(args, q.device)
     return dq, dk, dv
+
+
+def _bwd_op_cpu(q, k, v, o, lse, do, idx, causal, scale):
+    return tuple(t.contiguous() for t in flashmask_bwd_reference(
+        q, k, v, o, lse, do, idx, causal, scale))
+
+
+def _bwd_op_fake(q, k, v, o, lse, do, idx, causal, scale):
+    return q.new_empty(q.shape), k.new_empty(k.shape), v.new_empty(v.shape)
+
+
+flashmask_bwd_op = _registry.define(
+    "flashmask_bwd(Tensor q, Tensor k, Tensor v, Tensor o, Tensor "
+    "lse, Tensor do, Tensor idx, bool causal, float scale) -> "
+    "(Tensor, Tensor, Tensor)",
+    cuda=_bwd_op_cuda, cpu=_bwd_op_cpu, fake=_bwd_op_fake)
 
 
 def bwd_launch_args(q, k, v, o, lse, do, idx, causal, scale):
@@ -379,6 +430,7 @@ def run_bwd_pass(name: str, args, device, tiles=None) -> None:
     if the launch fails. ``tiles``, a zeroed int32 pair on the device, takes
     a tensor-core kernel's tile counts. Not counted: the counted path is
     :func:`flashmask_bwd`."""
+    hooks.check_launch(f"flashmask {name}")
     pass_args = args[name]
     kernel = kernel_for(name, _DTYPE_OF[pass_args[10]])  # [10]: dtype
     if SOURCES[kernel][2]:

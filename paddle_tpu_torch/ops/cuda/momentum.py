@@ -34,6 +34,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from ...core import hooks
 from ...device import DEFAULT_DEVICE
 from . import _build
 from .adamw import (_DTYPES, _PARAM_LIMIT, MAX_TENSORS, _factors,
@@ -184,6 +185,7 @@ def momentum_update(params: Sequence[torch.Tensor],
 
 def _launch(fn, entries, scalars, dtype_code, gdtype_code, stream):
     global launches
+    hooks.check_launch("momentum")
     tl = _TensorList()
     for j, (p, g, vel, slot, wd) in enumerate(entries):
         tl.p[j], tl.g[j], tl.v[j] = p.data_ptr(), g.data_ptr(), vel.data_ptr()

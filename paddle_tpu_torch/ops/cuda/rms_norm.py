@@ -16,21 +16,30 @@ Port of ``paddle_tpu/ops/pallas/rms_norm.py``. Both kernels are in
 :func:`rms_norm_fwd` and :func:`rms_norm_bwd` launch their kernels for CUDA
 tensors or raise — no fallback — and run the plain versions,
 :func:`rms_norm_reference` and :func:`rms_norm_bwd_reference`, for CPU
-tensors. :data:`launches` and :data:`bwd_launches` count kernel launches,
+tensors. Both go through registered operators,
+``paddle_tpu_torch::rms_norm_fwd`` and ``paddle_tpu_torch::rms_norm_bwd``
+(:func:`rms_norm_fwd_op`, :func:`rms_norm_bwd_op`: CUDA runs the kernel,
+the CPU the plain version, a fake version gives the shapes), so the
+op-interception tier (``core/hooks.py``) sees each call as one op: a
+static program records it, ``torch.export`` keeps it as one node, and the
+tensor checker reads its output. :data:`launches` and :data:`bwd_launches` count kernel launches,
 and only those. The JAX ``available()``/``self_test`` downgrade is not
 carried over.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from ...core import hooks
+from ...core.tensor import plain
 from ...device import DEFAULT_DEVICE, resolve_device
-from . import _build
+from . import _build, _registry
 
-__all__ = ["rms_norm_fwd", "rms_norm_reference", "rms_norm_bwd",
+__all__ = ["rms_norm_fwd", "rms_norm_fwd_op", "rms_norm_bwd_op",
+           "rms_norm_reference", "rms_norm_bwd",
            "rms_norm_bwd_reference", "rms_norm_value", "RMSNormFunction",
            "build", "launches", "bwd_launches", "BWD_LAUNCHES_PER_CALL"]
 
@@ -136,15 +145,37 @@ def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
     """RMSNorm over the last dim as the Pallas ``_rms_norm_fwd`` computes
     it: ``[..., d]`` in, the same shape and dtype out. ``device`` is where
     the caller means to run (default CUDA); the tensors must lie there. On
-    CUDA K4 launches or this raises; on the CPU the plain version runs."""
-    dev = _check(x, w, device)
-    if dev.type == "cpu":
-        return rms_norm_reference(x, w, eps)
-    return _launch(x, w, float(eps))
+    CUDA K4 launches or this raises; on the CPU the plain version runs. A
+    ``paddle.Tensor`` is taken plain, so torch's methods keep their
+    meaning inside."""
+    x, w = plain(x), plain(w)
+    _check(x, w, device)
+    return rms_norm_fwd_op(x, w, float(eps))
+
+
+def _fwd_op_cuda(x, w, eps):
+    """K4 as a registered operator, ``paddle_tpu_torch::rms_norm_fwd``: for
+    CUDA tensors K4 launches or this raises; for CPU tensors the plain
+    version runs."""
+    return _launch(x, w, eps)
+
+
+def _fwd_op_cpu(x, w, eps):
+    return rms_norm_reference(x, w, eps).contiguous()
+
+
+def _fwd_op_fake(x, w, eps):
+    return x.new_empty(x.shape)
+
+
+rms_norm_fwd_op = _registry.define(
+    "rms_norm_fwd(Tensor x, Tensor w, float eps) -> Tensor",
+    cuda=_fwd_op_cuda, cpu=_fwd_op_cpu, fake=_fwd_op_fake)
 
 
 def _launch(x, w, eps):
     global launches
+    hooks.check_launch("rms_norm_fwd")
     x_code, w_code = _dtype_codes(x, w)
     d = x.shape[-1]
     out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
@@ -172,18 +203,41 @@ def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     dtype): dx in x's dtype, dw in w's. On CUDA the backward kernel
     launches (two launches) or this raises; on the CPU the plain version
     runs."""
-    dev = _check(x, w, device)
+    x, w, g = plain(x), plain(w), plain(g)
+    _check(x, w, device)
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g must be x's shape on x's device, got g "
                          f"{tuple(g.shape)} on {g.device}, x "
                          f"{tuple(x.shape)} on {x.device}")
-    if dev.type == "cpu":
-        return rms_norm_bwd_reference(x, w, g, eps)
-    return _launch_bwd(x, w, g, float(eps))
+    return rms_norm_bwd_op(x, w, g, float(eps))
+
+
+def _bwd_op_cuda(x, w, g, eps):
+    """The backward kernel as a registered operator,
+    ``paddle_tpu_torch::rms_norm_bwd``: ``(dx, dw)``; for CUDA tensors the
+    kernel launches (twice) or this raises; for CPU tensors the plain
+    version runs."""
+    return _launch_bwd(x, w, g, eps)
+
+
+def _bwd_op_cpu(x, w, g, eps):
+    dx, dw = rms_norm_bwd_reference(x, w, g, eps)
+    return dx.contiguous(), dw.contiguous()
+
+
+def _bwd_op_fake(x, w, g, eps):
+    return x.new_empty(x.shape), w.new_empty(w.shape)
+
+
+rms_norm_bwd_op = _registry.define(
+    "rms_norm_bwd(Tensor x, Tensor w, Tensor g, float eps) -> "
+    "(Tensor, Tensor)",
+    cuda=_bwd_op_cuda, cpu=_bwd_op_cpu, fake=_bwd_op_fake)
 
 
 def _launch_bwd(x, w, g, eps):
     global bwd_launches
+    hooks.check_launch("rms_norm_bwd")
     x_code, w_code = _dtype_codes(x, w)
     if g.dtype != x.dtype:
         raise TypeError(f"the RMSNorm backward takes g in x's dtype "
@@ -238,6 +292,7 @@ def rms_norm_value(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
                    device=DEFAULT_DEVICE) -> torch.Tensor:
     """Differentiable fused RMSNorm (the Pallas ``rms_norm_value``): K4 and
     the backward kernel on CUDA, their plain versions on the CPU."""
+    x, w = plain(x), plain(w)
     _check(x, w, device)
     if not (torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)):
         return rms_norm_fwd(x, w, eps, device=x.device)

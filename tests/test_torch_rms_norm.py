@@ -287,3 +287,24 @@ def test_cpu_bwd_wrapper_counts_no_launch_and_rejects_a_cuda_request():
         rms.rms_norm_bwd(tx, tw, tg, EPS, device="cuda")
     with pytest.raises(ValueError, match="g must"):
         rms.rms_norm_bwd(tx, tw, tg[:2], EPS, device="cpu")
+
+
+def test_paddle_tensor_inputs_take_the_kernel_route():
+    """``paddle.Tensor`` inputs (whose methods take Paddle's meaning) reach
+    K4's wrappers and ``F.rms_norm`` taken plain: the same values as plain
+    tensors, and the gradient too."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    x, w = _inputs((4, 16))
+    tx, tw = torch.from_numpy(x), torch.from_numpy(w)
+    px, pw = paddle.to_tensor(x, place="cpu"), paddle.to_tensor(w,
+                                                                 place="cpu")
+    want = rms.rms_norm_fwd(tx, tw, 1e-6, device="cpu")
+    assert torch.equal(rms.rms_norm_fwd(px, pw, 1e-6, device="cpu"), want)
+    assert torch.equal(paddle.nn.functional.rms_norm(px, pw, 1e-6), want)
+    g = torch.ones_like(tx)
+    for a, b in zip(rms.rms_norm_bwd(px, pw, paddle.to_tensor(g, place="cpu"),
+                                 1e-6, device="cpu"),
+                    rms.rms_norm_bwd(tx, tw, g, 1e-6, device="cpu")):
+        assert torch.equal(a, b)

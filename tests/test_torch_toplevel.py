@@ -955,9 +955,13 @@ def test_every_other_jax_top_level_name_raises_naming_the_roadmap():
         except AttributeError:
             pytest.fail(f"paddle_tpu_torch.{name} is silently absent")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.TensorArray
+        T.primitive
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.enable_static
+        T.fft
+    # the interception tier's names are ported
+    assert T.TensorArray and T.SelectedRows and T.StringTensor
+    assert callable(T.enable_static) and callable(T.disable_static)
+    assert callable(T.register_op) and callable(T.run_custom_op)
     # the model-authoring names are ported
     assert T.nn.Layer is T.Layer and callable(T.einsum)
     assert T.Parameter and T.autograd.PyLayer and T.linalg.svd
