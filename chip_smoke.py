@@ -392,10 +392,52 @@ Phases, each of which fails the run on any error:
     ``torch.profiler`` timeline holds as many K1 and K4 kernels.
     About 40 s on the H100.
 
+24. the recurrent tier and the rest of ``nn`` and ``vision``: (a)
+    Zaremba et al.'s "large" PTB LSTM language model (2014, §4.1), a
+    user-written ``nn.Layer`` (:func:`ptb_lstm_lm`, the text the CPU test
+    also builds with the JAX package) at its published width: 2 x
+    ``nn.LSTM`` 1500 unrolled 35 steps, batch 20, 10,000 words, dropout
+    0.65, ``Uniform(±0.04)``, SGD at 1 with a global-norm clip of 10, f32,
+    the (h, c) state carried from window to window in non-persistable
+    buffers written in place, over a seeded token stream (no corpus): the
+    first window's eval loss card vs CPU within 1e-3; 12 eager steps by
+    hand, then 12 ``TrainStep`` steps (one CUDA graph a step after the
+    first) bit for bit them (losses, parameters, carried states, clip
+    norms), no port kernel launched; a replay under
+    ``set_sync_debug_mode("error")``; step p50 over the 10 timed steps,
+    tokens/s, TFLOP/s against 67, launches a step and the idle share from
+    a profile of 2 replays, device ms by class (recurrent products, input
+    and decoder products, gates, weight-gradient accumulation, loss) from
+    an eager step's ops, peak memory, and ``torch.nn.LSTM`` (cuDNN) beside
+    the port's ``nn.LSTM`` at the same shape, a yardstick only; (b) a
+    3-layer bidirectional ``nn.GRU`` of 1024 units over [16, 200, 161]
+    frames with lengths 50-200, a ``Linear`` to 29 classes,
+    ``log_softmax`` and ``ctc_loss`` (labels up to 60): outputs, final
+    states, loss and input gradient card vs CPU within 1e-3 of each
+    tensor's largest magnitude; (c) ``roi_align`` (256 x 200 x 304, 512
+    boxes, 7 x 7, ratio 2, aligned), ``box_coder`` over SSD300's 8732
+    priors, ``yolo_box`` over YOLOv3's three heads at 608², the 1-D/2-D/3-D
+    pools with ``return_mask`` (the masks gathering the pooled values) and
+    each new loss, card vs CPU within 1e-4; (d) ``DatasetFolder`` over 64
+    seeded 256² ``.npy`` images (``loader=np.load``), ``Resize``,
+    ``CenterCrop``, ``Normalize``, ``Transpose``, ``DataLoader`` (batch
+    32, 2 worker processes), ``DeviceLoader``, resnet50's eval forward:
+    every batch equal to the transforms run in-process, logits card vs CPU
+    within 1e-3; a ``RandomCrop``/``RandomHorizontalFlip`` pipeline the
+    same twice under one seed; (e) an eager llama_124m_gqa bf16 O2 AdamW
+    step and a resnet50 bf16 O2 Momentum step, each from a fresh build,
+    under the tensor checker with the operator stats, under
+    ``FLAGS_check_nan_inf`` and under a recording ``profiler.Profiler``:
+    parameters bit for bit the step without interception, and
+    ``paddle_tpu_torch::adamw``/``::momentum`` and K1-K4's operators
+    counted in the stats and the profiler's op events as the launch
+    counters say.
+
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
 (14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)), PP-LiteSeg
-(19 (a)), fit (20 (a), (d)), bench-arm (21), Transformer-base (22 (b))
-and static Llama (23 (a), (b), (d)) phases are the main paths:
+(19 (a)), fit (20 (a), (d)), bench-arm (21), Transformer-base (22 (b)),
+static Llama (23 (a), (b), (d)) and recurrent (24 (a), (e)) phases are
+the main paths:
 the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
@@ -545,13 +587,18 @@ def attention_bound(b, s, h, d, dtype: str, causal: bool, peak=None):
 BWD_BOUND = {"dq": (3, 5, 2), "dkv": (4, 6, 2)}
 
 
-def phase_card() -> None:
-    print("== card", flush=True)
+def card_label() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout
-    print(out.strip().splitlines()[0], flush=True)
+    return out.strip().splitlines()[0]
+
+
+def phase_card() -> None:
+    print("== card", flush=True)
+    print(card_label(), flush=True)
 
 
 # the sources of the tensor-core kernels (bf16 K1, K2, K3, K5, K6 and K7;
@@ -7352,6 +7399,856 @@ def phase_static(torch, llama) -> dict:
     return {"static": static, "debug": tier}
 
 
+# ------------------------------------------------ phase 24, the recurrent tier
+# Zaremba, Sutskever & Vinyals (2014) §4.1, the "large" network (TensorFlow
+# ptb_word_lm.py LargeConfig): 2 LSTM layers of 1500 units unrolled 35
+# steps, batch 20, 10,000 words, dropout 0.65 on the non-recurrent
+# connections, weights uniform in ±0.04, SGD at 1 with the gradients'
+# global norm clipped to 10. The loss is the per-word cross entropy summed
+# over the unroll and averaged over the batch, as the paper's code sums it
+PTB_VOCAB, PTB_HIDDEN, PTB_LAYERS = 10000, 1500, 2
+PTB_BATCH, PTB_UNROLL = 20, 35
+PTB_DROPOUT, PTB_INIT, PTB_LR, PTB_CLIP = 0.65, 0.04, 1.0, 10.0
+PTB_PROFILED = 2
+# the first step's loss (eval mode, no dropout) on the card against the
+# CPU's on the same weights, relative
+PTB_FIRST_LOSS_TOL = 1e-3
+# phase 24 (b): a DeepSpeech2-style recurrent stack over spectrogram frames
+SEQ_BATCH, SEQ_FRAMES, SEQ_FEATURES = 16, 200, 161
+SEQ_HIDDEN, SEQ_LAYERS, SEQ_CLASSES, SEQ_MAX_LABEL = 1024, 3, 29, 60
+# card against CPU, each tensor within this share of its largest magnitude
+SEQ_TOL = 1e-3
+# phase 24 (c): card against CPU, relative to each output's largest value
+VISION_OPS_TOL = 1e-4
+# phase 24 (d): the input pipeline
+PIPE_IMAGES, PIPE_SIZE, PIPE_BATCH, PIPE_WORKERS = 64, 256, 32, 2
+PIPE_MEAN, PIPE_STD = (123.675, 116.28, 103.53), (58.395, 57.12, 57.375)
+
+
+def ptb_flops(batch, unroll, hidden, layers, vocab) -> float:
+    """Model FLOP of one training step: 2 FLOP a MAC, forward and backward
+    three times the forward; each token's LSTM layer multiplies by
+    ``W_ih`` and ``W_hh`` (8·H² MACs), the decoder by ``H·V``."""
+    return 6.0 * batch * unroll * (layers * 8 * hidden ** 2 + hidden * vocab)
+
+
+def ptb_lstm_lm(paddle, vocab=PTB_VOCAB, hidden=PTB_HIDDEN,
+                layers=PTB_LAYERS, batch=PTB_BATCH, dropout=PTB_DROPOUT,
+                init_scale=PTB_INIT, lr=PTB_LR, clip=PTB_CLIP, seed=0):
+    """Zaremba et al.'s PTB language model as a user writes it in Paddle
+    idiom, built by the ``paddle`` module it is given (``paddle_tpu_torch``
+    here; the CPU test gives the JAX package the same text):
+    ``nn.Embedding``, ``nn.Dropout`` on the embedding's and the LSTM's
+    outputs, ``nn.LSTM(num_layers, dropout)``, ``nn.Linear`` to the
+    vocabulary, every weight ``Uniform(±init_scale)``. Truncated
+    backpropagation carries (h, c) from one window to the next in two
+    non-persistable buffers, written in place at the end of the forward
+    (``reset_state`` zeroes them at an epoch's start). Returns (model,
+    optimizer, clip, loss_fn(ids, labels)): SGD with a global-norm clip;
+    the loss is the mean cross entropy times the unroll."""
+    nn = paddle.nn
+    F = paddle.nn.functional
+    paddle.seed(seed)
+
+    def attr():
+        return nn.ParamAttr(initializer=nn.initializer.Uniform(-init_scale,
+                                                               init_scale))
+
+    class PTBLanguageModel(nn.Layer):
+        def __init__(self):
+            super().__init__()
+            self.embedding = nn.Embedding(vocab, hidden, weight_attr=attr())
+            self.dropout = nn.Dropout(dropout)
+            self.lstm = nn.LSTM(hidden, hidden, num_layers=layers,
+                                dropout=dropout, weight_ih_attr=attr(),
+                                weight_hh_attr=attr(), bias_ih_attr=attr(),
+                                bias_hh_attr=attr())
+            self.decoder = nn.Linear(hidden, vocab, weight_attr=attr(),
+                                     bias_attr=attr())
+            zeros = np.zeros((layers, batch, hidden), np.float32)
+            self.register_buffer("h", paddle.to_tensor(zeros),
+                                 persistable=False)
+            self.register_buffer("c", paddle.to_tensor(zeros),
+                                 persistable=False)
+
+        def reset_state(self):
+            paddle.assign(paddle.zeros_like(self.h), self.h)
+            paddle.assign(paddle.zeros_like(self.c), self.c)
+
+        def forward(self, ids):
+            x = self.dropout(self.embedding(ids))
+            out, (h, c) = self.lstm(x, (self.h.clone(), self.c.clone()))
+            paddle.assign(h.detach(), self.h)
+            paddle.assign(c.detach(), self.c)
+            return self.decoder(self.dropout(out))
+
+    model = PTBLanguageModel()
+    clip_norm = nn.ClipGradByGlobalNorm(clip)
+    opt = paddle.optimizer.SGD(learning_rate=lr,
+                               parameters=model.parameters(),
+                               grad_clip=clip_norm)
+
+    def loss_fn(ids, labels):
+        logits = model(ids)
+        loss = F.cross_entropy(logits.reshape([-1, vocab]),
+                               labels.reshape([-1]))
+        return loss * ids.shape[1]
+
+    return model, opt, clip_norm, loss_fn
+
+
+def ptb_windows(vocab, batch, unroll, count, seed=24) -> list:
+    """``count`` consecutive [batch, unroll] windows of a seeded token
+    stream laid out as the paper's reader lays it (``batch`` rows of one
+    stream), each with its labels, the next tokens: numpy int64."""
+    rs = np.random.RandomState(seed)
+    data = rs.randint(0, vocab, (batch, count * unroll + 1)).astype(np.int64)
+    return [(data[:, i * unroll:(i + 1) * unroll],
+             data[:, i * unroll + 1:(i + 1) * unroll + 1])
+            for i in range(count)]
+
+
+def zero_launch_counters() -> None:
+    """Every kernel wrapper's launch count set to 0."""
+    from paddle_tpu_torch.jit.functionalize import launch_counters
+
+    for mod, attr, key in launch_counters():
+        if key is None:
+            setattr(mod, attr, 0)
+        else:
+            getattr(mod, attr)[key] = 0
+
+
+def ptb_train(torch, paddle, windows, graphed: bool):
+    """The large PTB model from seed 0 over ``windows`` (on the card): one
+    eager step by hand a window, or one ``TrainStep`` call. Returns
+    (records, model, step, clip): a record a step (loss, clip norm, h, c
+    after it) and the step's host seconds."""
+    from paddle_tpu_torch.jit import TrainStep
+
+    model, opt, clip, loss_fn = ptb_lstm_lm(paddle)
+    if graphed:
+        step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+    else:
+        def step(ids, labels):
+            loss = loss_fn(ids, labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+    records = []
+    for ids, labels in windows:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids, labels)
+        torch.cuda.synchronize()
+        # TrainStep returns a paddle.Tensor, whose methods take Paddle's
+        # meaning: kept plain, as the eager step's loss is
+        records.append({"loss": loss.detach().as_subclass(torch.Tensor)
+                        .clone(),
+                        "norm": clip.last_norm.detach().clone(),
+                        "h": model.h.clone(), "c": model.c.clone(),
+                        "s": time.perf_counter() - t0})
+    return records, model, step, clip
+
+
+PTB_CLASSES = ("recurrent h·W_hhᵀ products", "input and decoder products",
+               "gate element-wise work", "weight-gradient accumulation",
+               "loss", "the rest")
+_GEMM_OPS = ("aten::mm", "aten::addmm", "aten::matmul", "aten::bmm",
+             "aten::linear", "aten::baddbmm")
+
+
+def ptb_class(name, shapes, batch, unroll, hidden) -> str:
+    """The class of one op of the PTB step, by its name and input shapes:
+    the GEMMs by the operand shapes of the recurrence (``[B, H]`` against
+    ``[H, 4H]``), of a whole window (``B·T`` rows) and of a weight
+    gradient (``[H, B]`` against ``[B, 4H]``, and the adds of ``[4H, H]``
+    partials)."""
+    dims = [tuple(s) for s in shapes if isinstance(s, (list, tuple)) and s]
+    b, h = batch, hidden
+    w_shapes = {(4 * h, h), (h, 4 * h)}
+    if any(k in name for k in ("log_softmax", "nll_loss", "cross_entropy")):
+        return "loss"
+    if name in _GEMM_OPS:
+        if any(len(s) == 3 for s in dims) or any(
+                batch * unroll in s for s in dims):
+            return "input and decoder products"
+        if (b, h) in dims and w_shapes & set(dims) or (
+                (b, 4 * h) in dims and (4 * h, h) in dims):
+            return "recurrent h·W_hhᵀ products"
+        if (h, b) in dims or (4 * h, b) in dims:
+            return "weight-gradient accumulation"
+        return "the rest"
+    if w_shapes & set(dims):
+        return "weight-gradient accumulation"
+    if any(s in ((b, 4 * h), (b, h)) for s in dims):
+        return "gate element-wise work"
+    return "the rest"
+
+
+def ptb_device_classes(torch, model_step, batch) -> dict:
+    """Device ms of one eager step by :data:`PTB_CLASSES` (the same
+    kernels a replay runs, attributed to the ops that launched them),
+    from ``torch.profiler`` with the ops' input shapes."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    model_step(*batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        model_step(*batch)
+        torch.cuda.synchronize()
+    classes = dict.fromkeys(PTB_CLASSES, 0.0)
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type != DeviceType.CPU or e.self_device_time_total <= 0:
+            continue
+        shapes = list(e.input_shapes or [])
+        cls = ptb_class(e.key, shapes, PTB_BATCH, PTB_UNROLL, PTB_HIDDEN)
+        classes[cls] += e.self_device_time_total / 1e3
+    return classes
+
+
+def cudnn_lstm_ms(torch) -> tuple:
+    """``torch.nn.LSTM`` (cuDNN's fused RNN) forward and backward at the
+    PTB shape, train mode with its dropout, as a yardstick only (not on
+    the port's path), beside the port's ``nn.LSTM`` layer alone, eager:
+    (cuDNN ms, port ms), CUDA events over 10 calls after 3."""
+    from paddle_tpu_torch import nn
+
+    x = torch.randn(PTB_UNROLL, PTB_BATCH, PTB_HIDDEN, device="cuda",
+                    requires_grad=True)
+    g = torch.randn(PTB_UNROLL, PTB_BATCH, PTB_HIDDEN, device="cuda")
+    cudnn = torch.nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS,
+                          dropout=PTB_DROPOUT).cuda()
+    port = nn.LSTM(PTB_HIDDEN, PTB_HIDDEN, PTB_LAYERS, time_major=True,
+                   dropout=PTB_DROPOUT, device="cuda")
+
+    def run(layer):
+        def call():
+            out, _ = layer(x)
+            out.backward(g)
+        return call
+
+    out = []
+    for fn in (run(cudnn), run(port)):
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / 10)
+    del cudnn, port, x, g
+    release_memory(torch)
+    return tuple(out)
+
+
+def ptb_first_loss(torch, paddle, window) -> tuple:
+    """The freshly built model's loss on the first window in eval mode (no
+    dropout) on the card and on the CPU, from the same weights."""
+    losses = []
+    state = None
+    for dev in ("cuda", "cpu"):
+        paddle.set_device("gpu" if dev == "cuda" else "cpu")
+        model, _, _, loss_fn = ptb_lstm_lm(paddle)
+        if state is None:
+            state = {k: v.detach().cpu() for k, v in
+                     model.state_dict().items()}
+        else:
+            model.set_state_dict(state)
+        model.eval()
+        with torch.no_grad():
+            ids, labels = (torch.from_numpy(a).to(dev) for a in window)
+            losses.append(float(loss_fn(ids, labels)))
+        del model, loss_fn
+    paddle.set_device("gpu")
+    return tuple(losses)
+
+
+def phase_ptb(torch) -> dict:
+    """Phase 24 (a): Zaremba et al.'s large PTB LSTM language model, a
+    user-written ``nn.Layer`` at its published width, trained on the card:
+    12 eager steps by hand, then a ``TrainStep`` (one CUDA graph a step)
+    over the same 12 windows (2 warmup, 10 timed), held bit for bit to
+    them (losses, parameters, carried states, clip norms), then 2 profiled
+    steps; a replayed step under the sync debug mode; the first loss
+    against the CPU; step p50, tokens/s, TFLOP/s, launches a step, the
+    idle share, device ms by class, peak memory, cuDNN's LSTM beside it."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.jit.functionalize import launch_counters
+
+    t_phase = time.perf_counter()
+    paddle.set_device("gpu")
+    steps = GRAPH_WARMUP + TRAIN_STEPS
+    flops = ptb_flops(PTB_BATCH, PTB_UNROLL, PTB_HIDDEN, PTB_LAYERS,
+                      PTB_VOCAB)
+    print(f"== PTB LSTM LM, large (Zaremba et al. 2014 §4.1): "
+          f"{PTB_LAYERS} x LSTM {PTB_HIDDEN}, unroll {PTB_UNROLL}, batch "
+          f"{PTB_BATCH}, vocab {PTB_VOCAB}, dropout {PTB_DROPOUT}, init "
+          f"±{PTB_INIT}, SGD {PTB_LR} with global-norm clip {PTB_CLIP}, f32; "
+          f"{flops / 1e9:.1f} GFLOP a step", flush=True)
+    windows = [tuple(torch.from_numpy(a).cuda() for a in w)
+               for w in ptb_windows(PTB_VOCAB, PTB_BATCH, PTB_UNROLL,
+                                    steps + PTB_PROFILED + 2)]
+    first = ptb_first_loss(torch, paddle, [a.cpu().numpy()
+                                           for a in windows[0]])
+    rel = abs(first[0] - first[1]) / abs(first[1])
+    print(f"(a) first window, eval mode: loss on the card {first[0]:.6f}, "
+          f"on the CPU {first[1]:.6f} (relative {rel:.2e}, tol "
+          f"{PTB_FIRST_LOSS_TOL})", flush=True)
+    check(rel <= PTB_FIRST_LOSS_TOL, f"PTB first loss card vs CPU {first}")
+
+    eager, model, _, _ = ptb_train(torch, paddle, windows[:steps], False)
+    eager_params = [p.detach().clone() for p in model.parameters()]
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    release_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_launch_counters()
+    graphed, model, step, clip = ptb_train(torch, paddle, windows[:steps],
+                                           True)
+    launched = {k: v for k, v in launch_counters().items() if v}
+    peak = torch.cuda.max_memory_allocated()
+    fields = ("loss", "norm", "h", "c")
+    same = {f: all(same_bits(torch, a[f], b[f]) for a, b in
+                   zip(eager, graphed)) for f in fields}
+    same_params = [same_bits(torch, a, b.detach()) for a, b in
+                   zip(eager_params, model.parameters())]
+    print(f"(a) {steps} graphed steps against {steps} eager steps by hand, "
+          f"bit for bit: " + ", ".join(f"{f} {same[f]}" for f in fields)
+          + f", parameters {sum(same_params)}/{len(same_params)}; steps "
+          f"{step._compiled.stats}", flush=True)
+    check(all(same.values()) and all(same_params),
+          "the graphed PTB steps differ from the eager ones")
+    check(step._compiled.stats == {"compiled_steps": steps - 1,
+                                   "eager_steps": 1},
+          f"PTB steps {step._compiled.stats}: not graphed after the first")
+    check(launched == {}, f"the PTB path launched port kernels {launched}")
+    losses = [float(r["loss"]) for r in graphed]
+    norms = [float(r["norm"]) for r in graphed]
+    check(all(math.isfinite(x) for x in losses + norms),
+          f"non-finite PTB losses {losses} or norms {norms}")
+    times = [r["s"] for r in graphed[GRAPH_WARMUP:]]
+    p50 = float(np.median(times))
+    tokens = PTB_BATCH * PTB_UNROLL
+    print("(a) losses " + " ".join(f"{x:.4f}" for x in losses)
+          + "; clip norms " + " ".join(f"{x:.3f}" for x in norms),
+          flush=True)
+    # a replayed step with any host synchronisation made an error
+    ids, labels = windows[steps]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(ids, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("(a) a replayed step under torch.cuda.set_sync_debug_mode('error')"
+          ": no host synchronisation inside the step", flush=True)
+    prof = profile_steps(torch, step, windows[steps + 1], p50 * 1e3,
+                         steps=PTB_PROFILED)
+    classes = ptb_device_classes(torch, step._compiled.fn,
+                                 windows[steps + 1])
+    del model, step, clip
+    release_memory(torch)
+    cudnn_ms, port_lstm_ms = cudnn_lstm_ms(torch)
+    card = card_label()
+    total = sum(classes.values())
+    print(f"(a) {card}: step p50 {p50 * 1e3:.3f} ms (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}); "
+          f"{tokens / p50:.1f} tokens/s; model TFLOP/s "
+          f"{flops / p50 / 1e12:.3f} against {PEAK_FLOPS['float32'] / 1e12:.0f}"
+          f" f32 ({flops / p50 / PEAK_FLOPS['float32']:.2%}); floor "
+          f"{flops / PEAK_FLOPS['float32'] * 1e3:.3f} ms; "
+          f"{prof['launches']:.0f} launches a step; idle share "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; peak memory "
+          f"{peak / 2**30:.2f} GiB; {n_params / 1e6:.2f} M parameters",
+          flush=True)
+    print("(a) device ms of one step by class (an eager step's kernels, "
+          "those a replay runs): " + "; ".join(
+              f"{n} {ms:.3f} ({ms / total:.1%})" for n, ms in classes.items())
+          + f"; total {total:.3f}", flush=True)
+    print(f"(a) yardstick, not on the path: torch.nn.LSTM (cuDNN) forward + "
+          f"backward at [{PTB_UNROLL}, {PTB_BATCH}, {PTB_HIDDEN}], "
+          f"{PTB_LAYERS} layers, dropout {PTB_DROPOUT}: {cudnn_ms:.3f} ms; "
+          f"the port's nn.LSTM alone, eager, the same: {port_lstm_ms:.3f} ms",
+          flush=True)
+    print(f"PTB LM: phase 24 (a) took {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"p50_ms": p50 * 1e3, "launches": prof["launches"],
+            "classes": classes, "cudnn_ms": cudnn_ms,
+            "port_lstm_ms": port_lstm_ms}
+
+
+def rel_max_err(torch, got, want) -> float:
+    """Largest absolute difference over ``want``'s largest magnitude."""
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    return float((got - want).abs().max()) / max(float(want.abs().max()),
+                                                 1e-30)
+
+
+def speech_inputs(torch) -> tuple:
+    """Seeded [16, 200, 161] frames, lengths spread over 50-200 (one of
+    200), labels of 29 classes (blank 0) up to 60 long and at most half
+    their input's length (so every alignment exists)."""
+    rs = np.random.RandomState(24)
+    x = rs.randn(SEQ_BATCH, SEQ_FRAMES, SEQ_FEATURES).astype(np.float32)
+    lens = rs.randint(50, SEQ_FRAMES + 1, SEQ_BATCH).astype(np.int64)
+    lens[0] = SEQ_FRAMES
+    lab_len = np.minimum(rs.randint(10, SEQ_MAX_LABEL + 1, SEQ_BATCH),
+                         lens // 2).astype(np.int64)
+    labels = rs.randint(1, SEQ_CLASSES, (SEQ_BATCH, SEQ_MAX_LABEL)).astype(
+        np.int64)
+    return x, lens, labels, lab_len
+
+
+def phase_sequence(torch) -> None:
+    """Phase 24 (b): a 3-layer bidirectional ``nn.GRU`` of 1024 units over
+    [16, 200, 161] frames with ``sequence_length`` over 50-200, an
+    ``nn.Linear`` to 29 classes, ``log_softmax`` into ``ctc_loss``: the
+    outputs, final states, loss and input gradient on the card against the
+    CPU on the same weights, each within ``SEQ_TOL`` of its largest
+    magnitude."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.nn import functional as F
+
+    print(f"== (b) sequence pieces: GRU {SEQ_LAYERS} x bidirect "
+          f"{SEQ_HIDDEN} over [{SEQ_BATCH}, {SEQ_FRAMES}, {SEQ_FEATURES}] "
+          f"with lengths, Linear to {SEQ_CLASSES}, log_softmax, ctc_loss; "
+          f"card against CPU", flush=True)
+    x, lens, labels, lab_len = speech_inputs(torch)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        t0 = time.perf_counter()
+        gen = torch.Generator().manual_seed(24)
+        gru = nn.GRU(SEQ_FEATURES, SEQ_HIDDEN, num_layers=SEQ_LAYERS,
+                     direction="bidirect", device=dev, generator=gen)
+        proj = nn.Linear(2 * SEQ_HIDDEN, SEQ_CLASSES, device=dev,
+                         generator=gen)
+        xt = torch.from_numpy(x).to(dev).requires_grad_()
+        y, h = gru(xt, None, torch.from_numpy(lens).to(dev))
+        lp = F.log_softmax(proj(y), -1).transpose(0, 1)
+        loss = F.ctc_loss(lp, *(torch.from_numpy(a).to(dev)
+                                for a in (labels, lens, lab_len)))
+        loss.backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[dev] = {"outputs": y, "final states": h, "loss": loss,
+                    "input gradient": xt.grad}
+        print(f"(b) {dev}: loss {float(loss):.6f} in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+    errs = {k: rel_max_err(torch, out["cuda"][k], out["cpu"][k])
+            for k in out["cpu"]}
+    print("(b) card against CPU, max abs error over the largest magnitude: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {SEQ_TOL})", flush=True)
+    check(all(math.isfinite(v) and v <= SEQ_TOL for v in errs.values()),
+          f"sequence pieces card vs CPU {errs}")
+    del out
+    release_memory(torch)
+
+
+def vision_cases(torch, rs) -> list:
+    """(name, fn, inputs) of phase 24 (c): the detection ops at their
+    models' sizes, the new pools and their masks, and each new loss."""
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.vision import ops
+
+    def arr(*s, lo=None, hi=None):
+        a = rs.randn(*s) if lo is None else rs.uniform(lo, hi, s)
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    # roi_align: a 256 x 200 x 304 map (an FPN P2 level of an 800 x 1216
+    # image), 512 boxes
+    xy = rs.uniform(0, 1100, (512, 2))
+    wh = rs.uniform(16, 400, (512, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(
+        np.float32))
+    cases = [("roi_align", lambda f, b, n: ops.roi_align(
+        f, b, n, 7, spatial_scale=0.25, sampling_ratio=2, aligned=True),
+        [arr(1, 256, 200, 304), boxes, torch.tensor([512])])]
+    # box_coder over SSD300's 8732 priors
+    cxy = rs.uniform(0.05, 0.95, (8732, 2))
+    pwh = rs.uniform(0.05, 0.6, (8732, 2))
+    priors = np.concatenate([cxy - pwh / 2, cxy + pwh / 2], 1)
+    txy = cxy + rs.uniform(-0.05, 0.05, (8732, 2))
+    twh = pwh * rs.uniform(0.7, 1.4, (8732, 2))
+    targets = np.concatenate([txy - twh / 2, txy + twh / 2], 1)
+    var = [0.1, 0.1, 0.2, 0.2]
+    cases += [
+        ("box_coder encode", lambda p, t: ops.box_coder(p, var, t),
+         [torch.from_numpy(priors.astype(np.float32)),
+          torch.from_numpy(targets.astype(np.float32))]),
+        ("box_coder decode", lambda p, t: ops.box_coder(
+            p, var, t, "decode_center_size"),
+         [torch.from_numpy(priors.astype(np.float32)), arr(8732, 4)])]
+    # yolo_box: YOLOv3's three heads at 608 x 608
+    masks = ([116, 90, 156, 198, 373, 326], [30, 61, 62, 45, 59, 119],
+             [10, 13, 16, 30, 33, 23])
+    for grid, anchors, ratio in zip((19, 38, 76), masks, (32, 16, 8)):
+        cases.append((f"yolo_box {grid}x{grid}",
+                      lambda x, s, a=anchors, r=ratio: ops.yolo_box(
+                          x, s, a, 80, 0.01, r),
+                      [arr(2, 3 * 85, grid, grid),
+                       torch.tensor([[608, 608], [512, 640]])]))
+    cases += [
+        ("max_pool1d mask", lambda x: F.max_pool1d(x, 3, 2, 1,
+                                                   return_mask=True),
+         [arr(8, 64, 1000)]),
+        ("avg_pool1d", lambda x: F.avg_pool1d(x, 4, 2, 1), [arr(8, 64, 1000)]),
+        ("max_pool3d mask", lambda x: F.max_pool3d(x, 3, 2, 1,
+                                                   return_mask=True),
+         [arr(2, 32, 16, 56, 56)]),
+        ("avg_pool3d", lambda x: F.avg_pool3d(x, 2, 2), [arr(2, 32, 16, 56,
+                                                            56)]),
+        ("max_pool2d mask", lambda x: F.max_pool2d(x, 3, 2, 1,
+                                                   return_mask=True),
+         [arr(4, 64, 112, 112)]),
+    ]
+    a, b, c = arr(512, 1000), arr(512, 1000), arr(512, 1000)
+    prob, y01 = arr(512, 1000, lo=0.02, hi=0.98), (arr(512, 1000) > 0).float()
+    pm1 = torch.where(arr(512, 1000) > 0, 1.0, -1.0)
+    logp = torch.log_softmax(arr(512, 1000), -1)
+    cls = torch.from_numpy(rs.randint(0, 1000, 512))
+    cases += [
+        ("mse_loss", F.mse_loss, [a, b]), ("l1_loss", F.l1_loss, [a, b]),
+        ("smooth_l1_loss", F.smooth_l1_loss, [a, b]),
+        ("square_error_cost", F.square_error_cost, [a, b]),
+        ("log_loss", F.log_loss, [prob, y01]),
+        ("binary_cross_entropy", F.binary_cross_entropy, [prob, y01]),
+        ("nll_loss", F.nll_loss, [logp, cls]),
+        ("kl_div", lambda x, t: F.kl_div(x, t, "batchmean"),
+         [logp, torch.softmax(b, -1)]),
+        ("margin_ranking_loss", F.margin_ranking_loss, [a, b, pm1]),
+        ("hinge_embedding_loss", F.hinge_embedding_loss, [a, pm1]),
+        ("triplet_margin_loss", F.triplet_margin_loss, [a, b, c]),
+        ("sigmoid_focal_loss", F.sigmoid_focal_loss, [a, y01]),
+    ]
+    return cases
+
+
+def phase_vision_ops(torch) -> None:
+    """Phase 24 (c): each case of :func:`vision_cases` on the card against
+    the CPU, every output within ``VISION_OPS_TOL`` of its largest value;
+    the pools' masks equal, and gathering the pooled values."""
+    print("== (c) vision ops and the new nn functions: card against CPU",
+          flush=True)
+    rs = np.random.RandomState(124)
+    lines = []
+    for name, fn, inputs in vision_cases(torch, rs):
+        cpu = fn(*inputs)
+        card = fn(*[t.cuda() for t in inputs])
+        cpu = cpu if isinstance(cpu, tuple) else (cpu,)
+        card = card if isinstance(card, tuple) else (card,)
+        errs = []
+        for g, w in zip(card, cpu):
+            check(g.shape == w.shape and g.dtype == w.dtype,
+                  f"{name}: card {g.shape} {g.dtype}, CPU {w.shape} "
+                  f"{w.dtype}")
+            if w.is_floating_point():
+                errs.append(rel_max_err(torch, g, w))
+            else:
+                check(torch.equal(g.cpu(), w), f"{name}: the masks differ")
+        if name.endswith("mask"):
+            x, (pooled, mask) = inputs[0], cpu
+            flat = x.flatten(2).gather(2, mask.flatten(2))
+            check(torch.equal(flat.view_as(pooled), pooled),
+                  f"{name}: the mask does not gather the pooled values")
+        lines.append(f"{name} {max(errs):.1e}")
+        check(all(math.isfinite(e) and e <= VISION_OPS_TOL for e in errs),
+              f"{name}: card vs CPU {errs}")
+    print("(c) max error over the largest value, card vs CPU: "
+          + "; ".join(lines) + f" (tol {VISION_OPS_TOL})", flush=True)
+    release_memory(torch)
+
+
+def _pipeline(T, random_aug: bool):
+    steps = [T.Resize(PIPE_SIZE)]
+    steps += ([T.RandomCrop(224), T.RandomHorizontalFlip()] if random_aug
+              else [T.CenterCrop(224)])
+    return T.Compose(steps + [T.Normalize(PIPE_MEAN, PIPE_STD,
+                                          data_format="HWC"),
+                              T.Transpose()])
+
+
+def phase_pipeline(torch, resnet) -> None:
+    """Phase 24 (d): ``vision.datasets.DatasetFolder`` over 64 seeded
+    256 x 256 x 3 uint8 ``.npy`` images (``loader=np.load``) in a temp
+    dir, ``Compose([Resize, CenterCrop(224), Normalize, Transpose])``,
+    ``io.DataLoader`` (batch 32, 2 worker processes), ``io.DeviceLoader``,
+    resnet50's eval forward: each batch equal to the transforms run here,
+    the logits within ``RESNET_EVAL_TOL`` of the CPU's (4 images); a
+    ``RandomCrop``/``RandomHorizontalFlip`` pipeline gives the same batches
+    twice under one seed."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.vision import datasets
+    from paddle_tpu_torch.vision import transforms as T
+
+    print(f"== (d) input pipeline: DatasetFolder over {PIPE_IMAGES} .npy "
+          f"images, transforms, DataLoader ({PIPE_WORKERS} workers), "
+          f"DeviceLoader, resnet50 eval", flush=True)
+    t0 = time.perf_counter()
+    rs = np.random.RandomState(240)
+    with tempfile.TemporaryDirectory() as root:
+        for i in range(PIPE_IMAGES):
+            d = os.path.join(root, f"class_{i % 4}")
+            os.makedirs(d, exist_ok=True)
+            np.save(os.path.join(d, f"{i:03d}.npy"), rs.randint(
+                0, 256, (PIPE_SIZE, PIPE_SIZE, 3)).astype(np.uint8))
+        ds = datasets.DatasetFolder(root, loader=np.load,
+                                    extensions=(".npy",),
+                                    transform=_pipeline(T, False))
+        loader = io.DataLoader(ds, batch_size=PIPE_BATCH, shuffle=False,
+                               num_workers=PIPE_WORKERS)
+        model = resnet.resnet50(num_classes=RESNET_CLASSES, device="cuda",
+                                generator=torch.Generator().manual_seed(24))
+        model.eval()
+        logits, n = [], 0
+        for bi, (img, label) in enumerate(io.DeviceLoader(loader)):
+            check(img.is_cuda and tuple(img.shape) == (PIPE_BATCH, 3, 224,
+                                                       224),
+                  f"batch {bi}: {img.device} {tuple(img.shape)}")
+            want = np.stack([ds[bi * PIPE_BATCH + j][0]
+                             for j in range(PIPE_BATCH)])
+            check(np.array_equal(img.cpu().numpy(), want)
+                  and np.array_equal(label.cpu().numpy(), [
+                      ds.samples[bi * PIPE_BATCH + j][1]
+                      for j in range(PIPE_BATCH)]),
+                  f"batch {bi} differs from the transforms run here")
+            with torch.no_grad():
+                logits.append(model(img))
+            n += 1
+        check(n == PIPE_IMAGES // PIPE_BATCH, f"{n} batches")
+        first = logits[0][:RESNET_EVAL_BATCH].float().cpu()
+        state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+        cpu_model = resnet.resnet50(num_classes=RESNET_CLASSES, device="cpu")
+        cpu_model.load_state_dict(state)
+        cpu_model.eval()
+        x = torch.from_numpy(np.stack([ds[j][0]
+                                       for j in range(RESNET_EVAL_BATCH)]))
+        with torch.no_grad():
+            want = cpu_model(x).float()
+        err = float((first - want).abs().max())
+        scale = float(want.abs().max())
+        print(f"(d) {n} batches equal to the transforms run in-process; "
+              f"resnet50 eval logits card vs CPU ({RESNET_EVAL_BATCH} "
+              f"images) max abs err {err:.3g} (largest {scale:.4g})",
+              flush=True)
+        check(err <= RESNET_EVAL_TOL * max(scale, 1.0),
+              f"pipeline logits card vs CPU {err}")
+        del model, cpu_model, logits
+        runs = []
+        for _ in range(2):
+            paddle.seed(24)
+            ds_r = datasets.DatasetFolder(root, loader=np.load,
+                                          extensions=(".npy",),
+                                          transform=_pipeline(T, True))
+            runs.append([b[0].numpy() for b in io.DataLoader(
+                ds_r, batch_size=PIPE_BATCH, num_workers=PIPE_WORKERS)])
+        same = all(np.array_equal(a, b) for a, b in zip(*runs))
+        print(f"(d) RandomCrop + RandomHorizontalFlip under paddle.seed(24), "
+              f"twice: batches equal {same}; {time.perf_counter() - t0:.1f} "
+              f"s", flush=True)
+        check(same and len(runs[0]) == n, "the random pipeline differs "
+              "between two runs under one seed")
+    release_memory(torch)
+
+
+def optimizer_arms(torch, llama, resnet) -> dict:
+    """Phase 24 (e)'s two eager steps, each a ``make()`` giving (model,
+    step(), launches of its optimizer kernel a step): llama_124m_gqa bf16
+    O2 with AdamW over 2 x 1024 tokens (the weights of phase 23, numpy seed
+    23), and resnet50 bf16 O2 with Momentum over 8 images (cuDNN
+    deterministic, so that two runs of a step agree)."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.optimizer import AdamW, Momentum
+
+    cfg = llama.llama_124m_gqa()
+    state = seeded_llama_state(torch, llama, cfg, 23)
+    ids = torch.from_numpy(np.random.RandomState(31).randint(
+        1, cfg.vocab_size, (DEBUG_BATCH, DEBUG_SEQ))).cuda()
+    rs = np.random.RandomState(18)
+    x = torch.from_numpy(rs.randn(8, 3, RESNET_SIZE, RESNET_SIZE).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rs.randint(0, RESNET_CLASSES, 8)).cuda()
+
+    def make_llama():
+        model = llama_from_state(torch, llama, cfg, state, "cuda")
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        crit = llama.LlamaPretrainingCriterion(cfg)
+        opt = AdamW(1e-4, parameters=model.parameters())
+
+        def step():
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss = crit(model(ids), ids)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+
+        return model, step, adamw_launches_per_step(model)
+
+    def make_resnet():
+        model = resnet.resnet50(num_classes=RESNET_CLASSES, device="cuda",
+                                generator=torch.Generator().manual_seed(0))
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        crit = nn.CrossEntropyLoss()
+        opt = Momentum(RESNET_LR, RESNET_MOMENTUM,
+                       parameters=model.parameters())
+
+        def step():
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                logits = model(x)
+            crit(logits, y).backward()
+            opt.step()
+            opt.clear_grad()
+
+        # the Momentum kernel packs its launches as AdamW's does
+        return model, step, adamw_launches_per_step(model)
+
+    return {"adamw": make_llama, "momentum": make_resnet}
+
+
+def phase_optimizer_ops(torch, llama, resnet) -> dict:
+    """Phase 24 (e): the AdamW and Momentum kernels as registered
+    operators. Each arm of :func:`optimizer_arms` steps once eagerly with
+    no slot set, then once under each of the tensor checker (warn mode,
+    with the operator stats), ``FLAGS_check_nan_inf`` and a recording
+    ``profiler.Profiler``, each from a fresh build: every run's parameters
+    bit for bit the first's; the stats and the profiler's op events count
+    ``paddle_tpu_torch::adamw``/``::momentum`` once and K1-K4's operators
+    as many times as the launch counters say. Returns the launches of the
+    intercepted steps by kernel."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.amp import debugging as dbg
+    from paddle_tpu_torch.base import flags
+    from paddle_tpu_torch.core import hooks
+    from paddle_tpu_torch.ops.cuda import adamw, momentum
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    print("== (e) the optimizer kernels as registered operators: an eager "
+          "llama_124m_gqa bf16 O2 AdamW step and a resnet50 bf16 O2 "
+          "Momentum step under the tensor checker, FLAGS_check_nan_inf and "
+          "a recording profiler", flush=True)
+    torch.backends.cudnn.deterministic = True
+    paddle.set_device("gpu")
+
+    def counters():
+        return {"fwd": fa.launches, "dq": fa.dq_launches,
+                "dkv": fa.dkv_launches, "rms_norm": rms.launches,
+                "rms_norm_bwd": rms.bwd_launches, "adamw": adamw.launches,
+                "momentum": momentum.launches}
+
+    def checker_on():
+        dbg.enable_tensor_checker(dbg.TensorCheckerConfig(
+            enable=True, debug_mode=dbg.DebugMode.CHECK_NAN_INF))
+        dbg.enable_operator_stats_collection()
+
+    def checker_off():
+        stats = dbg.get_operator_stats()
+        dbg.disable_operator_stats_collection()
+        dbg.disable_tensor_checker()
+        check(not dbg.tensor_checker_results(), "the checker found NaN/Inf")
+        return stats
+
+    total = dict.fromkeys(counters(), 0)
+    for name, make in optimizer_arms(torch, llama, resnet).items():
+        runs = {}
+        for mode in ("plain", "checker", "flag", "profiler"):
+            model, step, per_step = make()
+            step()  # builds the optimizer state: the checked step is second
+            torch.cuda.synchronize()
+            zero_launch_counters()
+            prof = None
+            if mode == "checker":
+                checker_on()
+            elif mode == "flag":
+                flags.enable_check_nan_inf()
+            elif mode == "profiler":
+                prof = paddle.profiler.Profiler(
+                    targets=[paddle.profiler.ProfilerTarget.CPU])
+                prof.start()
+            step()
+            torch.cuda.synchronize()
+            seen = None
+            if mode == "checker":
+                seen = checker_off()
+            elif mode == "flag":
+                flags.disable_check_nan_inf()
+            elif prof is not None:
+                prof.stop()
+                with contextlib.redirect_stdout(io.StringIO()):
+                    agg = prof.summary()
+                seen = {k: {"calls": v["calls"]} for k, v in agg.items()}
+            check(not hooks.active(), f"{mode}: a slot stays set")
+            launched = counters()
+            check(launched[name] == per_step, f"{name} under {mode}: "
+                  f"{launched[name]} launches, want {per_step}")
+            if mode != "plain":
+                for k in total:
+                    total[k] += launched[k]
+            runs[mode] = ([p.detach().clone() for p in model.parameters()],
+                          launched, seen)
+            del model, step
+            release_memory(torch)
+        plain, launched0, _ = runs["plain"]
+        for mode in ("checker", "flag", "profiler"):
+            params, launched, seen = runs[mode]
+            same = sum(same_bits(torch, a, b) for a, b in zip(params, plain))
+            check(same == len(plain) and launched == launched0,
+                  f"{name} under {mode}: {same}/{len(plain)} parameters "
+                  f"equal, launches {launched} against {launched0}")
+            if seen is None:
+                continue
+
+            def calls(op):
+                entry = seen.get(f"paddle_tpu_torch::{op}", {})
+                return entry.get("calls", sum(entry.values()))
+
+            got = {k: calls(k) for k in (
+                name, "flash_attention_fwd", "flash_attention_bwd",
+                "rms_norm_fwd", "rms_norm_bwd")}
+            want = {name: 1 if launched[name] else 0,
+                    "flash_attention_fwd": launched["fwd"],
+                    "flash_attention_bwd": launched["dq"],
+                    "rms_norm_fwd": launched["rms_norm"],
+                    "rms_norm_bwd": launched["rms_norm_bwd"]
+                    // rms.BWD_LAUNCHES_PER_CALL}
+            print(f"(e) {name} step under {mode}: parameters bit for bit "
+                  f"the plain step's ({same}/{len(plain)}); operator calls "
+                  f"{got}; launches {launched}", flush=True)
+            check(got == want and launched["dq"] == launched["dkv"]
+                  and launched[name] > 0,
+                  f"{name} under {mode}: operator calls {got}, want {want}")
+        print(f"(e) {name} step under FLAGS_check_nan_inf: parameters bit "
+              f"for bit the plain step's; launches {runs['flag'][1]}",
+              flush=True)
+    torch.backends.cudnn.deterministic = False
+    return total
+
+
+def phase_recurrent(torch, llama, resnet) -> dict:
+    """Phase 24: the recurrent tier and the rest of ``nn`` and ``vision``
+    (see :func:`phase_ptb`, :func:`phase_sequence`,
+    :func:`phase_vision_ops`, :func:`phase_pipeline` and
+    :func:`phase_optimizer_ops`). Returns the PTB figures and (e)'s
+    launches."""
+    t0 = time.perf_counter()
+    ptb = phase_ptb(torch)
+    phase_sequence(torch)
+    phase_vision_ops(torch)
+    phase_pipeline(torch, resnet)
+    launches = phase_optimizer_ops(torch, llama, resnet)
+    print(f"phase 24 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"ptb": ptb, "launches": launches}
+
+
 def timed(phase, *args):
     """``phase(*args)``, then its wall time printed."""
     t0 = time.perf_counter()
@@ -7416,10 +8313,16 @@ def main() -> int:
             "resnet": resnet_run["arm"], "liteseg": liteseg_run["arm"]})
         transformer = timed(phase_transformer, torch)
         static = timed(phase_static, torch, llama)
+        recurrent = timed(phase_recurrent, torch, llama, resnet)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    finally:
+        # the DataLoader workers' fork server (phases 20 and 24 (d))
+        from paddle_tpu_torch.io.dataloader import stop_fork_server
+
+        stop_fork_server()
     print(f"chip_smoke: every phase passed in "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     source = "paddle_tpu_torch/ops/cuda/csrc/"
@@ -7441,7 +8344,9 @@ def main() -> int:
                    "fit_llama": fit_run["launches"][key],
                    "bench_arms": arms[key],
                    "transformer_base": transformer[key],
-                   "debug_llama": static["debug"][key]}
+                   "debug_llama": static["debug"][key],
+                   "optimizer_interception":
+                       recurrent["launches"][key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"],
                         "static_llama": static["static"]["launches"]["fwd"],
@@ -7498,7 +8403,8 @@ def main() -> int:
         by_path = {"train_llama": trained_llama[name],
                    "fit_llama": fit_run["launches"][name],
                    "bench_arms": arms[name],
-                   "debug_llama": static["debug"][name]}
+                   "debug_llama": static["debug"][name],
+                   "optimizer_interception": recurrent["launches"][name]}
         f32_by_path = ({"static_llama":
                         static["static"]["launches"]["rms_norm"],
                         "static_llama_loaded":
@@ -7563,7 +8469,8 @@ def main() -> int:
                "fit_llama": fit_run["launches"]["adamw"],
                "fit_fp16_llama": fit_run["fp16_llama"]["adamw"],
                "bench_arms": arms["adamw"],
-               "transformer_base": transformer["adamw"]}
+               "transformer_base": transformer["adamw"],
+               "optimizer_interception": recurrent["launches"]["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",
@@ -7574,7 +8481,8 @@ def main() -> int:
     by_path = {"train_resnet": resnet_run["arm"]["momentum"],
                "trainer_optimizers": trainer["optimizers"]["momentum"],
                "train_liteseg": liteseg_run["arm"]["momentum"],
-               "bench_arms": arms["momentum"]}
+               "bench_arms": arms["momentum"],
+               "optimizer_interception": recurrent["launches"]["momentum"]}
     kernels.append({
         "name": "momentum", "route": "cuda",
         "source": source + "momentum.cu",

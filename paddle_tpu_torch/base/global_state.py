@@ -19,15 +19,24 @@ seeded by :func:`seed` (0 until then), where the JAX package draws from its
 global key. Each such layer holds it from its construction, so a captured
 training step registers it with its graph and a train-state snapshot saves
 it, as they do a model's own generators.
+
+The random vision transforms built without a generator draw from one
+process-wide ``random.Random`` (:func:`host_random`), seeded by
+:func:`seed`, where the JAX package draws from Python's global ``random``.
+A ``DataLoader`` worker process reseeds its own copy at each epoch's start
+(``io/dataloader.py``).
 """
 from __future__ import annotations
+
+import random
 
 import torch
 
 from . import dtype as dtype_mod
 
 __all__ = ["build_generator", "dropout_generator", "enable_grad",
-           "get_default_dtype", "is_dropout_generator", "is_grad_enabled",
+           "get_default_dtype", "host_random", "is_dropout_generator",
+           "is_grad_enabled",
            "no_grad", "seed", "set_default_dtype", "set_grad_enabled"]
 
 no_grad = torch.no_grad
@@ -41,6 +50,7 @@ _build_generator = torch.Generator().manual_seed(0)
 _default_dtype = torch.float32
 _seed = 0
 _dropout_generators = {}  # torch.device -> torch.Generator
+_host_random = random.Random(0)
 
 
 def build_generator() -> torch.Generator:
@@ -49,13 +59,21 @@ def build_generator() -> torch.Generator:
     return _build_generator
 
 
+def host_random() -> random.Random:
+    """The process-wide host generator that the random transforms built
+    without ``generator=`` draw from."""
+    return _host_random
+
+
 def seed(s: int) -> torch.Generator:
-    """Seed torch's CPU and CUDA generators and the build generator with
-    ``s`` (``paddle.seed``); returns the build generator. Initializes no
-    CUDA: torch applies the seed to the CUDA generators when CUDA starts."""
+    """Seed torch's CPU and CUDA generators, the build generator and the
+    host generator with ``s`` (``paddle.seed``); returns the build
+    generator. Initializes no CUDA: torch applies the seed to the CUDA
+    generators when CUDA starts."""
     global _seed
     s = _seed = int(s)
     torch.manual_seed(s)
+    _host_random.seed(s)
     for gen in _dropout_generators.values():
         gen.manual_seed(s)
     return _build_generator.manual_seed(s)

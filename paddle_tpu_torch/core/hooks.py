@@ -16,7 +16,9 @@ this thread's stack.
   args, kwargs)`` as an op is about to run, ``record(name, func, args, kwargs,
   out)`` after), set by ``enable_static`` and ``program_guard``;
 - ``op_observer``: ``(name, outputs)`` after each op, set by the tensor
-  checker and the operator stats of ``amp.debugging``;
+  checker and the operator stats of ``amp.debugging`` (an op that returns
+  nothing, as the optimizer kernels' operators, is observed through the
+  tensors its schema says it writes);
 - ``op_profiler``: ``(name) -> context manager`` around each op, set by a
   recording ``profiler.Profiler``.
 
@@ -57,7 +59,7 @@ from torch.utils._python_dispatch import (TorchDispatchMode,
 from ..base.flags import get_flag, on_flag_change
 
 __all__ = ["InterceptionMode", "active", "check_launch", "output_tensors",
-           "suspended"]
+           "suspended", "written_tensors"]
 
 _SLOTS = ("static_capture", "op_observer", "op_profiler")
 _slots = dict.fromkeys(_SLOTS)
@@ -74,6 +76,19 @@ def output_tensors(out) -> List[torch.Tensor]:
     if isinstance(out, (tuple, list)):
         return [t for t in out if isinstance(t, torch.Tensor)]
     return []
+
+
+def written_tensors(func, args, kwargs) -> List[torch.Tensor]:
+    """The tensors an op writes into, by its schema (``Tensor(a!)`` and
+    ``Tensor(a!)[]`` arguments): the outputs of an op that returns
+    nothing, such as the optimizer kernels' operators."""
+    out = []
+    for i, arg in enumerate(func._schema.arguments):
+        if arg.alias_info is None or not arg.alias_info.is_write:
+            continue
+        value = args[i] if i < len(args) else kwargs.get(arg.name)
+        out += output_tensors(value)
+    return out
 
 
 def _nan_check_on() -> bool:
@@ -124,9 +139,9 @@ def check_launch(site: str) -> None:
         f"{site} launches a hand-written kernel outside a registered "
         f"operator while an interception slot is set (static recording, "
         f"amp.debugging, FLAGS_check_nan_inf or a recording profiler): "
-        f"the launch would go unseen. Only the kernels' registered "
-        f"operators run under interception; the optimizer kernels are not "
-        f"registered yet (ROADMAP.md, queue 1 item 2)")
+        f"the launch would go unseen. Every kernel launches inside its "
+        f"registered operator (paddle_tpu_torch::<name>); a launch outside "
+        f"one is a fault of its wrapper (ROADMAP.md, queue 3)")
 
 
 def _capturing(outs) -> bool:
@@ -187,7 +202,8 @@ class InterceptionMode(TorchDispatchMode):
         observer = _slots["op_observer"]
         nan_check = _nan_check_on()
         if observer is not None or nan_check:
-            outs = output_tensors(out)
+            outs = output_tensors(out) or written_tensors(func, args,
+                                                          kwargs)
             if outs and _host_readable(outs):
                 if nan_check:
                     check_nan_inf(name, outs)

@@ -21,7 +21,12 @@ Workers:
   its own bounded queue; the loop reads the queues in turn, which keeps
   the order with no reorder buffer, and turns each batch into tensors in
   its own process. The dataset, the collate function and
-  ``worker_init_fn`` must pickle. The JAX package moves these batches
+  ``worker_init_fn`` must pickle. At each epoch's start the loop draws a
+  seed from the process-wide host generator (``paddle.seed``'s), and
+  worker w seeds its own copy of that generator with it plus w before
+  ``worker_init_fn``: the random transforms built without a generator
+  draw another stream in each worker and each epoch, the same ones under
+  one seed. The JAX package moves these batches
   through its native shared-memory ring and runs threads by default; the
   port uses the standard library's queues and runs processes, as torch's
   loader does;
@@ -47,6 +52,7 @@ from typing import Any, Callable, Optional
 import numpy as np
 import torch
 
+from ..base import global_state
 from ..base.flags import get_flag
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..observability.locks import named_lock
@@ -54,7 +60,7 @@ from .dataset import Dataset, IterableDataset
 from .sampler import BatchSampler
 
 __all__ = ["DataLoader", "WorkerInfo", "default_collate_fn",
-           "default_convert_fn", "get_worker_info"]
+           "default_convert_fn", "get_worker_info", "stop_fork_server"]
 
 _worker_info = threading.local()
 
@@ -209,11 +215,23 @@ class _MapIter:
         return self
 
 
+def stop_fork_server() -> None:
+    """Stop the standard library's fork server that the worker processes
+    are forked from, and reap it; it would otherwise outlive the loaders
+    until this process exits. An epoch with worker processes starts it
+    again."""
+    from multiprocessing import forkserver
+
+    forkserver._forkserver._stop()
+
+
 def _process_worker(dataset, collate_fn, batches, out_q, stop, wid,
-                    n_workers, worker_init_fn):
-    """One worker process: fetch, collate and send its batches, then
-    ``None``; a failure is sent as ``("error", traceback)``."""
+                    n_workers, worker_init_fn, host_seed):
+    """One worker process: seed its host generator, then fetch, collate
+    and send its batches, then ``None``; a failure is sent as
+    ``("error", traceback)``."""
     _worker_info.info = WorkerInfo(wid, n_workers, dataset)
+    global_state.host_random().seed(host_seed + wid)
     try:
         if worker_init_fn is not None:
             worker_init_fn(wid)
@@ -250,12 +268,13 @@ class _ProcessMapIter:
         self.queues = [ctx.Queue(maxsize=loader.prefetch_factor)
                        for _ in range(self.n_workers)]
         self.procs = []
+        host_seed = global_state.host_random().getrandbits(62)
         for w in range(self.n_workers):
             p = ctx.Process(
                 target=_process_worker,
                 args=(loader.dataset, loader.collate_fn,
                       batches[w::self.n_workers], self.queues[w], self.stop,
-                      w, self.n_workers, loader.worker_init_fn),
+                      w, self.n_workers, loader.worker_init_fn, host_seed),
                 daemon=True)
             p.start()
             self.procs.append(p)

@@ -138,8 +138,10 @@ class GPTDecoderLayer(Layer):
 
     def forward(self, x):
         p, gen = self.config.hidden_dropout_prob, self.generator
-        x = x + F.dropout(self.attn(self.ln_1(x)), p, self.training, gen)
-        return x + F.dropout(self.mlp(self.ln_2(x)), p, self.training, gen)
+        x = x + F.dropout(self.attn(self.ln_1(x)), p,
+                          training=self.training, generator=gen)
+        return x + F.dropout(self.mlp(self.ln_2(x)), p,
+                             training=self.training, generator=gen)
 
 
 class GPTEmbeddings(Layer):
@@ -159,8 +161,8 @@ class GPTEmbeddings(Layer):
                                         device=input_ids.device)[None]
         x = self.word_embeddings(input_ids) + self.position_embeddings(
             position_ids)
-        return F.dropout(x, self.config.hidden_dropout_prob, self.training,
-                         self.generator)
+        return F.dropout(x, self.config.hidden_dropout_prob,
+                         training=self.training, generator=self.generator)
 
 
 class GPTModel(Layer):

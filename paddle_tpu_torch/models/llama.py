@@ -151,9 +151,9 @@ class LlamaDecoderLayer(Layer):
     def forward(self, x):
         p, gen = self.config.hidden_dropout_prob, self.generator
         h = self.self_attn(self.input_layernorm(x))
-        x = x + F.dropout(h, p, self.training, gen)
+        x = x + F.dropout(h, p, training=self.training, generator=gen)
         h = self.mlp(self.post_attention_layernorm(x))
-        return x + F.dropout(h, p, self.training, gen)
+        return x + F.dropout(h, p, training=self.training, generator=gen)
 
 
 class LlamaModel(Layer):

@@ -1,8 +1,8 @@
 """Neural-network building blocks of the port: ``Layer`` and the layers
 (linear, embedding, normalization, convolution, pooling, activations,
-containers, the transformer stack), ``ParamAttr`` and the initializers
-(``nn.initializer``), the gradient clips (``nn.ClipGradBy*``) and
-``CrossEntropyLoss``."""
+dropouts, pads, upsamplers, containers, the recurrent tier, the
+transformer stack, the losses), ``ParamAttr`` and the initializers
+(``nn.initializer``) and the gradient clips (``nn.ClipGradBy*``)."""
 from . import functional, initializer
 from .clip import (ClipGradBase, ClipGradByGlobalNorm, ClipGradByNorm,
                    ClipGradByValue, GradientClipBase,

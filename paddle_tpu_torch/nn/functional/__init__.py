@@ -9,17 +9,26 @@ from .flash_attention import (calc_reduced_attn_scores, flash_attn_qkvpacked,
                               flashmask_attention, fused_softmax_mask,
                               fused_softmax_mask_upper_triangle)
 from .attention import flash_attention, scaled_dot_product_attention
-from .common import (dropout, embedding, interpolate, label_smooth, linear,
-                     one_hot, upsample)
+from .common import (alpha_dropout, bilinear, channel_shuffle,
+                     cosine_similarity, dropout, dropout2d, dropout3d,
+                     embedding, fold, interpolate, label_smooth, linear,
+                     normalize, one_hot, pad, pixel_shuffle, pixel_unshuffle,
+                     unfold, upsample)
 from .conv import (conv1d, conv1d_transpose, conv2d, conv2d_transpose,
                    conv3d, conv3d_transpose)
-from .loss import (binary_cross_entropy_with_logits, cross_entropy,
-                   softmax_with_cross_entropy)
-from .norm import batch_norm, group_norm, instance_norm, layer_norm, rms_norm
+from .loss import (binary_cross_entropy, binary_cross_entropy_with_logits,
+                   cross_entropy, ctc_loss, hinge_embedding_loss, kl_div,
+                   l1_loss, log_loss, margin_ranking_loss, mse_loss, nll_loss,
+                   sigmoid_focal_loss, smooth_l1_loss,
+                   softmax_with_cross_entropy, square_error_cost,
+                   triplet_margin_loss)
+from .norm import (batch_norm, group_norm, instance_norm, layer_norm,
+                   local_response_norm, rms_norm)
 from .pooling import (adaptive_avg_pool1d, adaptive_avg_pool2d,
                       adaptive_avg_pool3d, adaptive_max_pool1d,
-                      adaptive_max_pool2d, adaptive_max_pool3d, avg_pool2d,
-                      max_pool2d)
+                      adaptive_max_pool2d, adaptive_max_pool3d, avg_pool1d,
+                      avg_pool2d, avg_pool3d, max_pool1d, max_pool2d,
+                      max_pool3d)
 from ...ops.activation import (celu, elu, gelu, hardshrink, hardsigmoid,
                                hardswish, hardtanh, leaky_relu, log_sigmoid,
                                log_softmax, maxout, mish, prelu, relu, relu6,
@@ -29,22 +38,27 @@ from ...ops.activation import (celu, elu, gelu, hardshrink, hardsigmoid,
 
 swish = silu
 
-__all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d",
-           "adaptive_avg_pool3d", "adaptive_max_pool1d",
-           "adaptive_max_pool2d", "adaptive_max_pool3d", "avg_pool2d",
-           "batch_norm", "binary_cross_entropy_with_logits",
-           "calc_reduced_attn_scores", "celu", "conv1d", "conv1d_transpose",
-           "conv2d", "conv2d_transpose", "conv3d", "conv3d_transpose",
-           "cross_entropy", "dropout", "elu", "embedding", "flash_attention",
+__all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
+           "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
+           "alpha_dropout", "avg_pool1d", "avg_pool2d", "avg_pool3d",
+           "batch_norm", "bilinear", "binary_cross_entropy",
+           "binary_cross_entropy_with_logits", "calc_reduced_attn_scores",
+           "celu", "channel_shuffle", "conv1d", "conv1d_transpose", "conv2d",
+           "conv2d_transpose", "conv3d", "conv3d_transpose",
+           "cosine_similarity", "cross_entropy", "ctc_loss", "dropout",
+           "dropout2d", "dropout3d", "elu", "embedding", "flash_attention",
            "flash_attn_qkvpacked", "flash_attn_unpadded",
-           "flash_attn_varlen_qkvpacked", "flashmask_attention",
+           "flash_attn_varlen_qkvpacked", "flashmask_attention", "fold",
            "fused_softmax_mask", "fused_softmax_mask_upper_triangle", "gelu",
-           "group_norm", "instance_norm",
-           "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
-           "interpolate", "label_smooth", "layer_norm", "leaky_relu",
-           "linear", "log_sigmoid", "log_softmax", "max_pool2d", "maxout",
-           "mish", "one_hot", "prelu", "relu", "relu6", "rms_norm", "rrelu",
-           "scaled_dot_product_attention", "selu", "sigmoid", "silu",
+           "group_norm", "hardshrink", "hardsigmoid", "hardswish", "hardtanh",
+           "hinge_embedding_loss", "instance_norm", "interpolate", "kl_div",
+           "l1_loss", "label_smooth", "layer_norm", "leaky_relu", "linear",
+           "local_response_norm", "log_loss", "log_sigmoid", "log_softmax",
+           "margin_ranking_loss", "max_pool1d", "max_pool2d", "max_pool3d",
+           "maxout", "mish", "mse_loss", "nll_loss", "normalize", "one_hot",
+           "pad", "pixel_shuffle", "pixel_unshuffle", "prelu", "relu", "relu6",
+           "rms_norm", "rrelu", "scaled_dot_product_attention", "selu",
+           "sigmoid", "sigmoid_focal_loss", "silu", "smooth_l1_loss",
            "softmax", "softmax_with_cross_entropy", "softplus", "softshrink",
-           "softsign", "swish", "tanh", "tanhshrink", "thresholded_relu",
-           "upsample"]
+           "softsign", "square_error_cost", "swish", "tanh", "tanhshrink",
+           "thresholded_relu", "triplet_margin_loss", "unfold", "upsample"]

@@ -56,7 +56,7 @@ def _xla_attention(q, k, v, causal: bool, scale: float, bias=None,
         mask = torch.ones(s, t, dtype=torch.bool, device=q.device).tril(t - s)
         logits = torch.where(mask, logits, NEG_INF)
     probs = torch.softmax(logits.float(), dim=-1).to(q.dtype)
-    p = _dropout(probs, dropout, True, generator)
+    p = _dropout(probs, dropout, training=True, generator=generator)
     return torch.einsum("bhst,bthd->bshd", p, v), probs
 
 

@@ -1,7 +1,10 @@
 """Common functionals (port of ``paddle_tpu/nn/functional/common.py``, the
-subset the model paths reach): ``linear`` under AMP, ``embedding`` with
-the JAX ``padding_idx`` rule, ``dropout`` from an explicit generator, and
-``interpolate``/``upsample``.
+functions): ``linear`` under AMP, ``embedding`` with the JAX
+``padding_idx`` rule, ``dropout`` (with ``axis`` and both modes),
+``dropout2d``/``3d`` and ``alpha_dropout`` from an explicit generator,
+``normalize``, ``cosine_similarity``, ``bilinear``, the pixel and channel
+shuffles, ``unfold``/``fold`` (torch's im2col after the JAX pads), ``pad``
+and ``interpolate``/``upsample``.
 
 ``interpolate`` computes what the JAX function computes, not what
 ``torch.nn.functional.interpolate`` does:
@@ -43,9 +46,13 @@ import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
+from ...ops.manipulation import pad  # noqa: F401  (F.pad, as in JAX)
 
-__all__ = ["linear", "embedding", "dropout", "interpolate", "label_smooth",
-           "one_hot", "resize_weights", "upsample"]
+__all__ = ["alpha_dropout", "bilinear", "channel_shuffle",
+           "cosine_similarity", "dropout", "dropout2d", "dropout3d",
+           "embedding", "fold", "interpolate", "label_smooth", "linear",
+           "normalize", "one_hot", "pad", "pixel_shuffle", "pixel_unshuffle",
+           "resize_weights", "unfold", "upsample"]
 
 
 def linear(x, weight, bias=None):
@@ -69,21 +76,159 @@ def embedding(x, weight, padding_idx=None, sparse=False):
     return out
 
 
-def dropout(x, p: float = 0.5, training: bool = True,
-            generator: Optional[torch.Generator] = None):
-    """Upscale-in-train dropout: ``x / (1 - p)`` where kept, 0 where
-    dropped, the keep mask drawn from ``generator`` (a ``torch.Generator``
-    on ``x``'s device). Randomness is explicit: the global generator is
-    never drawn from, so ``generator`` is required when the call drops."""
-    if not training or p == 0.0:
-        return x
+def _keep_mask(x, p, shape, generator):
     if not 0.0 < p < 1.0:
         raise ValueError(f"dropout probability must be in [0, 1), got {p}")
     if generator is None:
         raise ValueError("dropout draws from an explicit torch.Generator: "
                          "pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
-    return torch.where(keep, x / (1.0 - p), 0.0)
+    return torch.rand(shape, generator=generator, device=x.device) >= p
+
+
+def dropout(x, p: float = 0.5, axis=None, training: bool = True,
+            mode: str = "upscale_in_train", name=None, *,
+            generator: Optional[torch.Generator] = None):
+    """Dropout of probability ``p`` while ``training``, the keep mask drawn
+    from ``generator`` (a ``torch.Generator`` on ``x``'s device; the global
+    generator is never drawn from, so it is required when the call drops).
+    ``axis`` (an axis or a list) draws one mask entry per index of those
+    axes, shared along the others. ``upscale_in_train`` gives ``x / (1 -
+    p)`` where kept, ``downscale_in_infer`` ``x`` itself; 0 where dropped.
+    Outside training (or at ``p = 0``) ``x`` is returned as it is, in both
+    modes, as the JAX function returns it."""
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"dropout mode {mode!r}: upscale_in_train or "
+                         f"downscale_in_infer")
+    if not training or p == 0.0:
+        return x
+    shape = list(x.shape)
+    if axis is not None:
+        axes = [a % x.dim() for a in (axis if isinstance(axis, (list, tuple))
+                                      else [axis])]
+        shape = [s if i in axes else 1 for i, s in enumerate(shape)]
+    keep = _keep_mask(x, p, shape, generator)
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0)
+    return torch.where(keep, x, 0.0)
+
+
+def dropout2d(x, p=0.5, training=True, data_format="NCHW", name=None, *,
+              generator: Optional[torch.Generator] = None):
+    """Whole channels dropped: one mask entry per (sample, channel)."""
+    spatial = [2, 3] if data_format == "NCHW" else [1, 2]
+    return dropout(x, p, [i for i in range(4) if i not in spatial], training,
+                   generator=generator)
+
+
+def dropout3d(x, p=0.5, training=True, data_format="NCDHW", name=None, *,
+              generator: Optional[torch.Generator] = None):
+    spatial = [2, 3, 4] if data_format == "NCDHW" else [1, 2, 3]
+    return dropout(x, p, [i for i in range(5) if i not in spatial], training,
+                   generator=generator)
+
+
+_SELU_ALPHA = 1.6732632423543772
+_SELU_SCALE = 1.0507009873554805
+
+
+def alpha_dropout(x, p=0.5, training=True, name=None, *,
+                  generator: Optional[torch.Generator] = None):
+    """SELU-preserving dropout: dropped elements take ``-alpha·scale``,
+    then ``a·x + b`` restores the mean and variance, as the JAX function
+    computes it."""
+    if not training or p == 0.0:
+        return x
+    keep = _keep_mask(x, p, x.shape, generator)
+    alpha_p = -_SELU_ALPHA * _SELU_SCALE
+    a = ((1.0 - p) * (1.0 + p * alpha_p ** 2)) ** -0.5
+    b = -a * alpha_p * p
+    return a * torch.where(keep, x, alpha_p) + b
+
+
+def normalize(x, p=2, axis=1, epsilon=1e-12, name=None):
+    """``x`` over its ``p``-norm along ``axis`` (at least ``epsilon``)."""
+    norm = torch.sum(torch.abs(x) ** p, dim=axis, keepdim=True) ** (1.0 / p)
+    return x / torch.clamp_min(norm, epsilon)
+
+
+def cosine_similarity(x1, x2, axis=1, eps=1e-8):
+    num = torch.sum(x1 * x2, dim=axis)
+    den = (torch.sqrt(torch.sum(x1 * x1, dim=axis))
+           * torch.sqrt(torch.sum(x2 * x2, dim=axis)))
+    return num / torch.clamp_min(den, eps)
+
+
+def bilinear(x1, x2, weight, bias=None, name=None):
+    """``out[b, o] = x1[b] · weight[o] · x2[b]`` (+ ``bias``), ``weight``
+    ``[out, in1, in2]``."""
+    out = torch.einsum("bi,oij,bj->bo", x1, weight, x2)
+    return out if bias is None else out + bias
+
+
+def pixel_shuffle(x, upscale_factor, data_format="NCHW", name=None):
+    r = upscale_factor
+    if data_format == "NCHW":
+        b, c, h, w = x.shape
+        x = x.reshape(b, c // (r * r), r, r, h, w).permute(0, 1, 4, 2, 5, 3)
+        return x.reshape(b, c // (r * r), h * r, w * r)
+    b, h, w, c = x.shape
+    x = x.reshape(b, h, w, r, r, c // (r * r)).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h * r, w * r, c // (r * r))
+
+
+def pixel_unshuffle(x, downscale_factor, data_format="NCHW", name=None):
+    r = downscale_factor
+    if data_format == "NCHW":
+        b, c, h, w = x.shape
+        x = x.reshape(b, c, h // r, r, w // r, r).permute(0, 1, 3, 5, 2, 4)
+        return x.reshape(b, c * r * r, h // r, w // r)
+    b, h, w, c = x.shape
+    x = x.reshape(b, h // r, r, w // r, r, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, h // r, w // r, c * r * r)
+
+
+def channel_shuffle(x, groups, data_format="NCHW", name=None):
+    if data_format == "NCHW":
+        b, c, h, w = x.shape
+        return x.reshape(b, groups, c // groups, h, w).transpose(1, 2) \
+            .reshape(b, c, h, w)
+    b, h, w, c = x.shape
+    return x.reshape(b, h, w, groups, c // groups).transpose(3, 4) \
+        .reshape(b, h, w, c)
+
+
+def _pair(v):
+    return list(v) if isinstance(v, (list, tuple)) else [v, v]
+
+
+def _im2col_args(kernel_sizes, strides, paddings, dilations):
+    """Kernel, stride, dilation pairs and the pads as ``TF.pad`` lists
+    them (``[left, right, top, bottom]``) from the JAX ``[top, left,
+    bottom, right]`` (or ``[h, w]``, or one int)."""
+    pd = _pair(paddings)
+    if len(pd) == 2:
+        pd = [pd[0], pd[1], pd[0], pd[1]]
+    return (_pair(kernel_sizes), _pair(strides), _pair(dilations),
+            [pd[1], pd[3], pd[0], pd[2]])
+
+
+def unfold(x, kernel_sizes, strides=1, paddings=0, dilations=1, name=None):
+    """im2col: ``[N, C·kh·kw, L]``, channel-major, as the JAX function
+    stacks its patches."""
+    ks, st, dl, pads = _im2col_args(kernel_sizes, strides, paddings,
+                                    dilations)
+    return TF.unfold(TF.pad(x, pads), ks, dilation=dl, stride=st)
+
+
+def fold(x, output_sizes, kernel_sizes, strides=1, paddings=0, dilations=1,
+         name=None):
+    """col2im, the sum of the overlapping patches, the pads cut away."""
+    ks, st, dl, pads = _im2col_args(kernel_sizes, strides, paddings,
+                                    dilations)
+    os_ = _pair(output_sizes)
+    full = (os_[0] + pads[2] + pads[3], os_[1] + pads[0] + pads[1])
+    out = TF.fold(x, full, ks, dilation=dl, stride=st)
+    return out[:, :, pads[2]:full[0] - pads[3], pads[0]:full[1] - pads[1]]
 
 
 def one_hot(x, num_classes, name=None):

@@ -1,6 +1,6 @@
 """Normalization functionals (port of ``paddle_tpu/nn/functional/norm.py``,
-``layer_norm``, ``rms_norm``, ``batch_norm``, ``group_norm`` and
-``instance_norm``)."""
+``layer_norm``, ``rms_norm``, ``batch_norm``, ``group_norm``,
+``instance_norm`` and ``local_response_norm``)."""
 from __future__ import annotations
 
 import torch
@@ -10,7 +10,7 @@ from ...amp.auto_cast import cast_inputs
 from ...ops.cuda.rms_norm import rms_norm_value
 
 __all__ = ["batch_norm", "group_norm", "instance_norm", "layer_norm",
-           "rms_norm"]
+           "local_response_norm", "rms_norm"]
 
 
 def layer_norm(x, normalized_shape, weight=None, bias=None,
@@ -148,3 +148,19 @@ def group_norm(x, num_groups, epsilon=1e-5, weight=None, bias=None,
     shape[1] = c
     out = _affine(out, weight, bias, shape)
     return out.movedim(1, -1) if channel_last else out
+
+
+def local_response_norm(x, size, alpha=1e-4, beta=0.75, k=1.0,
+                        data_format="NCHW", name=None):
+    """``x / (k + alpha · Σ x²)^beta``, the sum over ``size`` neighbouring
+    channels (``size // 2`` before, the rest after, zero-padded), added
+    one window offset at a time as the JAX function adds them."""
+    ch = 1 if data_format.startswith("NC") else x.dim() - 1
+    c = x.shape[ch]
+    half = size // 2
+    pads = [0, 0] * (x.dim() - 1 - ch) + [half, size - half - 1]
+    padded = TF.pad(torch.square(x), pads)
+    acc = torch.zeros_like(x)
+    for i in range(size):
+        acc = acc + padded.narrow(ch, i, c)
+    return x / (k + alpha * acc) ** beta

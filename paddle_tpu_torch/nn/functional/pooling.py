@@ -1,17 +1,20 @@
-"""Pooling (port of ``paddle_tpu/nn/functional/pooling.py``): ``max_pool2d``,
-``avg_pool2d`` and the adaptive pools ``adaptive_avg_pool1d/2d/3d`` and
-``adaptive_max_pool1d/2d/3d``.
+"""Pooling (port of ``paddle_tpu/nn/functional/pooling.py``):
+``max_pool1d/2d/3d``, ``avg_pool1d/2d/3d`` and the adaptive pools
+``adaptive_avg_pool1d/2d/3d`` and ``adaptive_max_pool1d/2d/3d``.
 
 The JAX functions are ``lax.reduce_window`` over windows padded as
 :func:`_pads` says (``"SAME"``/``"VALID"``, ints, ``[before, after]``
 pairs, and ``ceil_mode`` as extra padding after). The port computes the
 same windows with torch's pooling:
 
-- ``max_pool2d`` pads with −inf. Where the pads are symmetric and at most
-  half the window, torch pads itself; otherwise ``TF.pad`` pads first. Its
+- ``max_pool*`` pad with −inf. Where the pads are symmetric and at most
+  half the window, torch pads itself; otherwise ``TF.pad`` pads first. The
   gradient goes to the first maximum of a window in row-major order, as
-  XLA's ``select_and_scatter`` (``ge``) sends it.
-- ``avg_pool2d`` divides the window sum by ``divisor_override``, by the
+  XLA's ``select_and_scatter`` (``ge``) sends it. ``return_mask=True``
+  returns the flat spatial index of that maximum in the unpadded input,
+  upstream Paddle's mask; the JAX functions return placeholder zeros
+  (ROADMAP.md, divergences inside the reference).
+- ``avg_pool*`` divide the window sum by ``divisor_override``, by the
   count of real elements (``exclusive`` with padding), or by the window's
   size, as the JAX function does.
 - The adaptive pools take the JAX route (``_adaptive``), one spatial axis
@@ -26,8 +29,7 @@ same windows with torch's pooling:
   ``adaptive_max_pool*(return_mask=True)`` returns ``(out, None)``, as the
   JAX functions do.
 
-All are gray ops under AMP: O2 computes them in the AMP dtype. The other
-pools are not ported yet (ROADMAP.md, queue 1).
+All are gray ops under AMP: O2 computes them in the AMP dtype.
 """
 from __future__ import annotations
 
@@ -40,7 +42,8 @@ from ...amp.auto_cast import cast_inputs
 
 __all__ = ["adaptive_avg_pool1d", "adaptive_avg_pool2d", "adaptive_avg_pool3d",
            "adaptive_max_pool1d", "adaptive_max_pool2d", "adaptive_max_pool3d",
-           "avg_pool2d", "max_pool2d"]
+           "avg_pool1d", "avg_pool2d", "avg_pool3d", "max_pool1d",
+           "max_pool2d", "max_pool3d"]
 
 _CHANNEL_LAST = ("NHWC", "NLC", "NWC", "NDHWC")
 
@@ -84,13 +87,14 @@ def _flat(pads):
     return [p for pair in reversed(pads) for p in pair]
 
 
-def _windows(x, kernel_size, stride, padding, ceil_mode, data_format):
-    """``x`` channel-first, the window, its stride and the JAX pads."""
+def _windows(x, kernel_size, stride, padding, ceil_mode, data_format, n):
+    """``x`` channel-first, the window, its stride and the JAX pads over
+    its ``n`` spatial axes."""
     if data_format in _CHANNEL_LAST:
         x = x.movedim(-1, 1)
-    ksize = _tup(kernel_size, 2)
-    stride = ksize if stride is None else _tup(stride, 2)
-    pads = _pads(padding, 2, ceil_mode, x.shape[2:], ksize, stride)
+    ksize = _tup(kernel_size, n)
+    stride = ksize if stride is None else _tup(stride, n)
+    pads = _pads(padding, n, ceil_mode, x.shape[2:], ksize, stride)
     return x, ksize, stride, pads
 
 
@@ -98,48 +102,115 @@ def _restore(out, data_format):
     return out.movedim(1, -1) if data_format in _CHANNEL_LAST else out
 
 
-def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
-               ceil_mode=False, data_format="NCHW"):
-    """Max over each window, padded with −inf (op ``max_pool2d``)."""
-    if return_mask:
-        raise NotImplementedError(
-            "max_pool2d(return_mask=True) is not ported yet: the JAX "
-            "function returns placeholder indices (ROADMAP.md, queue 1)")
-    (x,) = cast_inputs("max_pool2d", x)
+_MAX_POOL = {1: TF.max_pool1d, 2: TF.max_pool2d, 3: TF.max_pool3d}
+
+
+def _unpad_index(idx, padded, pads):
+    """Flat indices into the padded spatial shape ``padded`` as flat
+    indices into the unpadded one."""
+    coords, rest = [], idx
+    for size in reversed(padded):
+        coords.append(rest % size)
+        rest = rest // size
+    out = None
+    for c, size, (lo, hi) in zip(reversed(coords), padded, pads):
+        c = c - lo
+        out = c if out is None else out * (size - lo - hi) + c
+    return out
+
+
+def _max_pool(name, x, kernel_size, stride, padding, return_mask, ceil_mode,
+              data_format, n):
+    """Max over each window, padded with −inf (op ``name``); with
+    ``return_mask`` also the flat spatial index of each window's first
+    maximum in the unpadded input (int64, upstream Paddle's mask)."""
+    (x,) = cast_inputs(name, x)
     x, ksize, stride, pads = _windows(x, kernel_size, stride, padding,
-                                      ceil_mode, data_format)
+                                      ceil_mode, data_format, n)
+    pool = _MAX_POOL[n]
     if all(lo == hi and 2 * lo <= k for (lo, hi), k in zip(pads, ksize)):
-        torch_pad = tuple(lo for lo, _ in pads)
+        out = pool(x, ksize, stride, tuple(lo for lo, _ in pads),
+                   return_indices=return_mask)
     else:
-        x = TF.pad(x, _flat(pads), value=-math.inf)
-        torch_pad = 0
-    return _restore(TF.max_pool2d(x, ksize, stride, torch_pad), data_format)
+        padded = TF.pad(x, _flat(pads), value=-math.inf)
+        out = pool(padded, ksize, stride, 0, return_indices=return_mask)
+        if return_mask:
+            out = (out[0], _unpad_index(out[1], padded.shape[2:], pads))
+    if return_mask:
+        return _restore(out[0], data_format), _restore(out[1], data_format)
+    return _restore(out, data_format)
+
+
+def max_pool1d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCL", name=None):
+    return _max_pool("max_pool1d", x, kernel_size, stride, padding,
+                     return_mask, ceil_mode, data_format, 1)
+
+
+def max_pool2d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCHW", name=None):
+    """Max over each window, padded with −inf (op ``max_pool2d``); with
+    ``return_mask``, ``(out, indices)``: the flat spatial index of each
+    maximum, where the JAX function returns placeholder zeros."""
+    return _max_pool("max_pool2d", x, kernel_size, stride, padding,
+                     return_mask, ceil_mode, data_format, 2)
+
+
+def max_pool3d(x, kernel_size, stride=None, padding=0, return_mask=False,
+               ceil_mode=False, data_format="NCDHW", name=None):
+    return _max_pool("max_pool3d", x, kernel_size, stride, padding,
+                     return_mask, ceil_mode, data_format, 3)
+
+
+def _window_sum(t, ksize, stride, pads):
+    """The sum of each (zero-padded) window."""
+    if any(p != (0, 0) for p in pads):
+        t = TF.pad(t, _flat(pads))
+    if len(ksize) == 1:  # avg_pool1d has no divisor_override
+        return TF.avg_pool2d(t[..., None, :], (1,) + ksize, (1,) + stride,
+                             divisor_override=1)[..., 0, :]
+    pool = TF.avg_pool2d if len(ksize) == 2 else TF.avg_pool3d
+    return pool(t, ksize, stride, divisor_override=1)
+
+
+def _avg_pool(name, x, kernel_size, stride, padding, ceil_mode, exclusive,
+              divisor_override, data_format, n):
+    """Mean over each window, zero-padded (op ``name``): the window sum
+    over ``divisor_override``, over the count of real elements when
+    ``exclusive`` and padded, else over the window's size."""
+    (x,) = cast_inputs(name, x)
+    x, ksize, stride, pads = _windows(x, kernel_size, stride, padding,
+                                      ceil_mode, data_format, n)
+    s = _window_sum(x, ksize, stride, pads)
+    if divisor_override:
+        out = s / divisor_override
+    elif exclusive and any(p != (0, 0) for p in pads):
+        out = s / _window_sum(torch.ones((1, 1) + tuple(x.shape[2:]),
+                                         dtype=x.dtype, device=x.device),
+                              ksize, stride, pads)
+    else:
+        out = s / float(math.prod(ksize))
+    return _restore(out, data_format)
+
+
+def avg_pool1d(x, kernel_size, stride=None, padding=0, exclusive=True,
+               ceil_mode=False, data_format="NCL", name=None):
+    return _avg_pool("avg_pool1d", x, kernel_size, stride, padding,
+                     ceil_mode, exclusive, None, data_format, 1)
 
 
 def avg_pool2d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
-               exclusive=True, divisor_override=None, data_format="NCHW"):
-    """Mean over each window, zero-padded (op ``avg_pool2d``): the window
-    sum over ``divisor_override``, over the count of real elements when
-    ``exclusive`` and padded, else over the window's size."""
-    (x,) = cast_inputs("avg_pool2d", x)
-    x, ksize, stride, pads = _windows(x, kernel_size, stride, padding,
-                                      ceil_mode, data_format)
-    padded = any(p != (0, 0) for p in pads)
+               exclusive=True, divisor_override=None, data_format="NCHW",
+               name=None):
+    return _avg_pool("avg_pool2d", x, kernel_size, stride, padding,
+                     ceil_mode, exclusive, divisor_override, data_format, 2)
 
-    def window_sum(t):
-        if padded:
-            t = TF.pad(t, _flat(pads))
-        return TF.avg_pool2d(t, ksize, stride, divisor_override=1)
 
-    s = window_sum(x)
-    if divisor_override:
-        out = s / divisor_override
-    elif exclusive and padded:
-        out = s / window_sum(torch.ones((1, 1) + tuple(x.shape[2:]),
-                                        dtype=x.dtype, device=x.device))
-    else:
-        out = s / float(ksize[0] * ksize[1])
-    return _restore(out, data_format)
+def avg_pool3d(x, kernel_size, stride=None, padding=0, ceil_mode=False,
+               exclusive=True, divisor_override=None, data_format="NCDHW",
+               name=None):
+    return _avg_pool("avg_pool3d", x, kernel_size, stride, padding,
+                     ceil_mode, exclusive, divisor_override, data_format, 3)
 
 
 def _window_max(x, ax, k):

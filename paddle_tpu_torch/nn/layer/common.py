@@ -1,6 +1,8 @@
-"""``Linear``, ``Embedding``, ``LayerNorm``, ``Dropout``, ``RMSNorm``,
-``Flatten`` and ``Identity`` (port of ``paddle_tpu/nn/layer/common.py``
-and ``norm.py``). ``Linear``, ``Embedding`` and ``LayerNorm`` are torch's
+"""``Linear``, ``Embedding``, ``LayerNorm``, ``RMSNorm``, the dropouts
+(``Dropout``, ``Dropout2D/3D``, ``AlphaDropout``), the pads, the
+upsamplers, the shuffles, ``Bilinear``, ``CosineSimilarity``,
+``Fold``/``Unfold``, ``Flatten`` and ``Identity`` (port of
+``paddle_tpu/nn/layer/common.py`` and ``norm.py``). ``Linear``, ``Embedding`` and ``LayerNorm`` are torch's
 modules and ``Layer`` s at once (same parameters, names and ``[out, in]``
 weight layout as torch's) whose forward runs the port's functionals, so
 they follow the AMP state and the JAX rules as the JAX layers do. Their
@@ -23,8 +25,12 @@ from .. import functional as F
 from ..initializer import Constant, Normal, XavierNormal
 from .layers import Layer, building, held_generator
 
-__all__ = ["Dropout", "Embedding", "Flatten", "Identity", "Linear",
-           "LayerNorm", "RMSNorm"]
+__all__ = ["AlphaDropout", "Bilinear", "ChannelShuffle", "CosineSimilarity",
+           "Dropout", "Dropout2D", "Dropout3D", "Embedding", "Flatten",
+           "Fold", "Identity", "LayerNorm", "Linear", "Pad1D", "Pad2D",
+           "Pad3D", "PixelShuffle", "PixelUnshuffle", "RMSNorm", "Unfold",
+           "Upsample", "UpsamplingBilinear2D", "UpsamplingNearest2D",
+           "ZeroPad2D"]
 
 
 class Linear(nn.Linear, Layer):
@@ -78,29 +84,203 @@ class Embedding(nn.Embedding, Layer):
 
 
 class Dropout(Layer):
-    """Upscale-in-train dropout of probability ``p`` while training, its
-    keep masks drawn from ``generator`` (a ``torch.Generator`` on the
-    input's device), never from torch's global one. Without one, the
-    layer holds from its construction the process-wide dropout generator
-    of the default device (``layers.held_generator``, seeded by
-    ``paddle.seed``). ``axis`` and the ``downscale_in_infer`` mode are not
-    ported yet (ROADMAP.md, queue 1 item 6)."""
+    """Dropout of probability ``p`` while training (``F.dropout``: ``axis``
+    and both modes), its keep masks drawn from ``generator`` (a
+    ``torch.Generator`` on the input's device), never from torch's global
+    one. Without one, the layer holds from its construction the
+    process-wide dropout generator of the default device
+    (``layers.held_generator``, seeded by ``paddle.seed``)."""
 
     def __init__(self, p: float = 0.5, axis=None, mode="upscale_in_train",
                  name=None, *, generator: Optional[torch.Generator] = None):
         super().__init__()
-        if axis is not None or mode != "upscale_in_train":
-            raise NotImplementedError(
-                "Dropout takes axis=None and mode='upscale_in_train' only "
-                "(ROADMAP.md, queue 1 item 6)")
         self.p, self.axis, self.mode = p, axis, mode
         self.generator = held_generator(generator, p > 0.0)
 
     def forward(self, x):
-        return F.dropout(x, self.p, self.training, self.generator)
+        return F.dropout(x, self.p, self.axis, self.training, self.mode,
+                         generator=self.generator)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"
+
+
+class Dropout2D(Dropout):
+    """Whole channels dropped (``F.dropout2d``)."""
+
+    def __init__(self, p=0.5, data_format="NCHW", name=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(p, generator=generator)
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout2d(x, self.p, self.training, self.data_format,
+                           generator=self.generator)
+
+
+class Dropout3D(Dropout):
+    def __init__(self, p=0.5, data_format="NCDHW", name=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(p, generator=generator)
+        self.data_format = data_format
+
+    def forward(self, x):
+        return F.dropout3d(x, self.p, self.training, self.data_format,
+                           generator=self.generator)
+
+
+class AlphaDropout(Dropout):
+    def __init__(self, p=0.5, name=None, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(p, generator=generator)
+
+    def forward(self, x):
+        return F.alpha_dropout(x, self.p, self.training,
+                               generator=self.generator)
+
+
+class _Pad(Layer):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.padding, self.mode, self.value, self.data_format = (
+            padding, mode, value, data_format)
+
+    def forward(self, x):
+        return F.pad(x, self.padding, mode=self.mode, value=self.value,
+                     data_format=self.data_format)
+
+
+class Pad1D(_Pad):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCL", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad2D(_Pad):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class Pad3D(_Pad):
+    def __init__(self, padding, mode="constant", value=0.0,
+                 data_format="NCDHW", name=None):
+        super().__init__(padding, mode, value, data_format)
+
+
+class ZeroPad2D(Pad2D):
+    def __init__(self, padding, data_format="NCHW", name=None):
+        super().__init__(padding, "constant", 0.0, data_format)
+
+
+class Upsample(Layer):
+    """``F.interpolate`` (the JAX resize) as a layer."""
+
+    def __init__(self, size=None, scale_factor=None, mode="nearest",
+                 align_corners=False, align_mode=0, data_format="NCHW",
+                 name=None):
+        super().__init__()
+        self.size, self.scale_factor = size, scale_factor
+        self.mode, self.align_corners = mode, align_corners
+        self.align_mode, self.data_format = align_mode, data_format
+
+    def forward(self, x):
+        return F.interpolate(x, self.size, self.scale_factor, self.mode,
+                             self.align_corners, self.align_mode,
+                             self.data_format)
+
+
+class UpsamplingNearest2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "nearest", False, 0,
+                         data_format)
+
+
+class UpsamplingBilinear2D(Upsample):
+    def __init__(self, size=None, scale_factor=None, data_format="NCHW",
+                 name=None):
+        super().__init__(size, scale_factor, "bilinear", True, 0,
+                         data_format)
+
+
+class PixelShuffle(Layer):
+    def __init__(self, upscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.upscale_factor, self.data_format = upscale_factor, data_format
+
+    def forward(self, x):
+        return F.pixel_shuffle(x, self.upscale_factor, self.data_format)
+
+
+class PixelUnshuffle(Layer):
+    def __init__(self, downscale_factor, data_format="NCHW", name=None):
+        super().__init__()
+        self.downscale_factor, self.data_format = (downscale_factor,
+                                                   data_format)
+
+    def forward(self, x):
+        return F.pixel_unshuffle(x, self.downscale_factor, self.data_format)
+
+
+class ChannelShuffle(Layer):
+    def __init__(self, groups, data_format="NCHW", name=None):
+        super().__init__()
+        self.groups, self.data_format = groups, data_format
+
+    def forward(self, x):
+        return F.channel_shuffle(x, self.groups, self.data_format)
+
+
+class Bilinear(Layer):
+    """``x1 · weight[o] · x2 + bias``: ``weight`` ``[out, in1, in2]`` from
+    ``XavierNormal`` (the JAX layer's default), ``bias`` 0 (none with
+    ``bias_attr=False``)."""
+
+    def __init__(self, in1_features, in2_features, out_features,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device=DEFAULT_DEVICE,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        with building(self, device, generator):
+            self.weight = self.create_parameter(
+                [out_features, in1_features, in2_features], attr=weight_attr)
+            self.bias = self.create_parameter([out_features], attr=bias_attr,
+                                              is_bias=True)
+
+    def forward(self, x1, x2):
+        return F.bilinear(x1, x2, self.weight, self.bias)
+
+
+class CosineSimilarity(Layer):
+    def __init__(self, axis=1, eps=1e-8):
+        super().__init__()
+        self.axis, self.eps = axis, eps
+
+    def forward(self, x1, x2):
+        return F.cosine_similarity(x1, x2, self.axis, self.eps)
+
+
+class Unfold(Layer):
+    def __init__(self, kernel_sizes, strides=1, paddings=0, dilations=1,
+                 name=None):
+        super().__init__()
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.unfold(x, *self.args)
+
+
+class Fold(Layer):
+    def __init__(self, output_sizes, kernel_sizes, strides=1, paddings=0,
+                 dilations=1, name=None):
+        super().__init__()
+        self.output_sizes = output_sizes
+        self.args = (kernel_sizes, strides, paddings, dilations)
+
+    def forward(self, x):
+        return F.fold(x, self.output_sizes, *self.args)
 
 
 class LayerNorm(nn.LayerNorm, Layer):

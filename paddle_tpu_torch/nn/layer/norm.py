@@ -1,6 +1,7 @@
 """Normalization layers (port of ``paddle_tpu/nn/layer/norm.py``):
 ``BatchNorm``, ``BatchNorm1D``, ``BatchNorm2D`` and ``BatchNorm3D``,
-``GroupNorm``, ``InstanceNorm1D/2D/3D`` and ``SpectralNorm``.
+``GroupNorm``, ``InstanceNorm1D/2D/3D``, ``LocalResponseNorm`` and
+``SpectralNorm``.
 
 As the JAX layers: ``weight`` 1 and ``bias`` 0 (each dropped with
 ``*_attr=False``, each replaced by a ``ParamAttr``'s initializer), and two buffers named ``_mean`` (0) and ``_variance``
@@ -24,7 +25,7 @@ from .layers import Layer, building
 
 __all__ = ["BatchNorm", "BatchNorm1D", "BatchNorm2D", "BatchNorm3D",
            "GroupNorm", "InstanceNorm1D", "InstanceNorm2D", "InstanceNorm3D",
-           "SpectralNorm", "SyncBatchNorm"]
+           "LocalResponseNorm", "SpectralNorm", "SyncBatchNorm"]
 
 
 class _BatchNormBase(Layer):
@@ -146,6 +147,16 @@ class InstanceNorm3D(InstanceNorm1D):
                  name=None, **kw):
         super().__init__(num_features, epsilon, momentum, weight_attr,
                          bias_attr, data_format, name, **kw)
+
+
+class LocalResponseNorm(Layer):
+    def __init__(self, size, alpha=1e-4, beta=0.75, k=1.0,
+                 data_format="NCHW", name=None):
+        super().__init__()
+        self.args = (size, alpha, beta, k, data_format)
+
+    def forward(self, x):
+        return F.local_response_norm(x, *self.args)
 
 
 class SpectralNorm(Layer):

@@ -1,8 +1,7 @@
 """Pooling layers (port of ``paddle_tpu/nn/layer/pooling.py``):
-``MaxPool2D``, ``AvgPool2D``, ``AdaptiveAvgPool1D/2D/3D`` and
+``MaxPool1D/2D/3D``, ``AvgPool1D/2D/3D``, ``AdaptiveAvgPool1D/2D/3D`` and
 ``AdaptiveMaxPool1D/2D/3D``, over the functionals of
-``nn/functional/pooling.py``. The other pools are not ported yet
-(ROADMAP.md, queue 1)."""
+``nn/functional/pooling.py``."""
 from __future__ import annotations
 
 
@@ -11,38 +10,73 @@ from .layers import Layer
 
 __all__ = ["AdaptiveAvgPool1D", "AdaptiveAvgPool2D", "AdaptiveAvgPool3D",
            "AdaptiveMaxPool1D", "AdaptiveMaxPool2D", "AdaptiveMaxPool3D",
-           "AvgPool2D", "MaxPool2D"]
+           "AvgPool1D", "AvgPool2D", "AvgPool3D", "MaxPool1D", "MaxPool2D",
+           "MaxPool3D"]
 
 
-class MaxPool2D(Layer):
-    def __init__(self, kernel_size, stride=None, padding=0,
-                 return_mask=False, ceil_mode=False, data_format="NCHW",
-                 name=None):
+class _Pool(Layer):
+    """A pool over ``F.<_fn>``: the window, its stride and padding, then
+    the pool's keywords."""
+    _fn = None
+
+    def __init__(self, kernel_size, stride=None, padding=0, **kw):
         super().__init__()
         self.kernel_size, self.stride, self.padding = (kernel_size, stride,
                                                        padding)
-        self.kw = dict(return_mask=return_mask, ceil_mode=ceil_mode,
-                       data_format=data_format)
+        self.kw = kw
 
     def forward(self, x):
-        return F.max_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            **self.kw)
+        return getattr(F, self._fn)(x, self.kernel_size, self.stride,
+                                    self.padding, **self.kw)
 
 
-class AvgPool2D(Layer):
-    def __init__(self, kernel_size, stride=None, padding=0, ceil_mode=False,
-                 exclusive=True, divisor_override=None, data_format="NCHW",
-                 name=None):
-        super().__init__()
-        self.kernel_size, self.stride, self.padding = (kernel_size, stride,
-                                                       padding)
-        self.kw = dict(ceil_mode=ceil_mode, exclusive=exclusive,
-                       divisor_override=divisor_override,
-                       data_format=data_format)
+def _max_pool(cls_name, fn, data_format):
+    class _MaxPool(_Pool):
+        _fn = fn
 
-    def forward(self, x):
-        return F.avg_pool2d(x, self.kernel_size, self.stride, self.padding,
-                            **self.kw)
+        def __init__(self, kernel_size, stride=None, padding=0,
+                     return_mask=False, ceil_mode=False,
+                     data_format=data_format, name=None):
+            super().__init__(kernel_size, stride, padding,
+                             return_mask=return_mask, ceil_mode=ceil_mode,
+                             data_format=data_format)
+
+    _MaxPool.__name__ = _MaxPool.__qualname__ = cls_name
+    return _MaxPool
+
+
+MaxPool1D = _max_pool("MaxPool1D", "max_pool1d", "NCL")
+MaxPool2D = _max_pool("MaxPool2D", "max_pool2d", "NCHW")
+MaxPool3D = _max_pool("MaxPool3D", "max_pool3d", "NCDHW")
+
+
+class AvgPool1D(_Pool):
+    _fn = "avg_pool1d"
+
+    def __init__(self, kernel_size, stride=None, padding=0, exclusive=True,
+                 ceil_mode=False, data_format="NCL", name=None):
+        super().__init__(kernel_size, stride, padding, exclusive=exclusive,
+                         ceil_mode=ceil_mode, data_format=data_format)
+
+
+def _avg_pool(cls_name, fn, data_format):
+    class _AvgPool(_Pool):
+        _fn = fn
+
+        def __init__(self, kernel_size, stride=None, padding=0,
+                     ceil_mode=False, exclusive=True, divisor_override=None,
+                     data_format=data_format, name=None):
+            super().__init__(kernel_size, stride, padding,
+                             ceil_mode=ceil_mode, exclusive=exclusive,
+                             divisor_override=divisor_override,
+                             data_format=data_format)
+
+    _AvgPool.__name__ = _AvgPool.__qualname__ = cls_name
+    return _AvgPool
+
+
+AvgPool2D = _avg_pool("AvgPool2D", "avg_pool2d", "NCHW")
+AvgPool3D = _avg_pool("AvgPool3D", "avg_pool3d", "NCDHW")
 
 
 class AdaptiveAvgPool1D(Layer):

@@ -124,8 +124,9 @@ class MultiHeadAttention(Layer):
             if mask is not None:
                 product = product + mask
             weights = softmax(product)
-            dropped = F.dropout(weights, self.dropout, self.training,
-                                self.generator)
+            dropped = F.dropout(weights, self.dropout,
+                                training=self.training,
+                                generator=self.generator)
             out = matmul(dropped, vt).transpose(1, 2)
         else:
             out = F.scaled_dot_product_attention(

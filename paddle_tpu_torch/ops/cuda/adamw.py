@@ -31,6 +31,15 @@ snapshots and selects, as the JAX ``GradScaler`` does. Parameters may be
 float32, bfloat16 or float16, their gradients of their dtype or float32
 (an unscaled gradient). :data:`launches` counts kernel launches, and only
 those.
+
+The update is one operator of torch's dispatcher,
+``paddle_tpu_torch::adamw`` (``ops/cuda/_registry.py``): its CUDA kernel
+launches the kernel, its CPU kernel runs the plain version, and its schema
+declares the parameter and state lists it writes (``Tensor(a!)[]``), so
+the op-interception tier sees an optimizer step as one op and observes
+the tensors it wrote. Outside interception the wrapper runs what the
+operator's kernels run, directly: the dispatcher's boxing of the lists
+costs an eager call hundreds of µs of host time.
 """
 from __future__ import annotations
 
@@ -42,11 +51,12 @@ import torch
 
 from ...core import hooks
 from ...device import DEFAULT_DEVICE, resolve_device
-from . import _build
+from . import _build, _registry
 
 __all__ = ["adamw_update", "adamw_reference", "build", "launches",
-           "MAX_TENSORS", "check_update", "fill_blocks", "slot_table",
-           "tensor_lr"]
+           "MAX_TENSORS", "adamw_op", "check_update", "fill_blocks",
+           "pack_factors", "slot_table", "tensor_lr", "unpack_decay",
+           "unpack_factors"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: tensors one launch takes (``kMaxTensors`` in ``csrc/adamw.cu``)
@@ -271,24 +281,100 @@ def adamw_update(params: Sequence[torch.Tensor],
     """One Adam/AdamW update of every ``(p, g, m, v)``, in place, as
     :func:`adamw_reference` computes it (the same arguments). ``device``
     is where the caller means to run (default CUDA); the tensors must lie
-    there. On CUDA the kernel launches (once per :data:`MAX_TENSORS`
-    tensors of one parameter and gradient dtype) or this raises; on the
-    CPU the plain version runs."""
+    there. Under interception it calls the operator
+    ``paddle_tpu_torch::adamw``, otherwise what its kernels run: on CUDA
+    the kernel launches (once per :data:`MAX_TENSORS` tensors of one
+    parameter and gradient dtype) or this raises; on the CPU the plain
+    version runs."""
     dev = check_update({"params": params, "grads": grads,
                         "exp_avgs": exp_avgs, "exp_avg_sqs": exp_avg_sqs,
                         "max_exp_avg_sqs": max_exp_avg_sqs}, device, LR=lr,
                        step=step, found_inf=found_inf)
-    kw = dict(beta1=beta1, beta2=beta2, eps=eps, coeff=coeff,
-              weight_decay=weight_decay, lr_factors=lr_factors,
-              max_exp_avg_sqs=max_exp_avg_sqs, found_inf=found_inf)
-    if dev.type == "cpu":
-        adamw_reference(params, grads, exp_avgs, exp_avg_sqs, lr, step, **kw)
-        return
     n = len(params)
     coeffs = _per_tensor(coeff, n, "coeff")
     wds = _per_tensor(weight_decay, n, "weight_decay")
     factors = _factors(lr_factors, n)
-    vmaxes = max_exp_avg_sqs
+    if hooks.active():
+        # under interception the slots see the update as one op; the
+        # dispatcher boxes every tensor of its lists, which costs an eager
+        # call hundreds of µs of host time, so only then
+        adamw_op(list(params), list(grads), list(exp_avgs),
+                 list(exp_avg_sqs), list(max_exp_avg_sqs or ()), lr, step,
+                 found_inf, float(beta1), float(beta2), float(eps),
+                 [float(c or 0.0) for c in coeffs],
+                 [0.0 if w is None else float(w) for w in wds],
+                 [w is not None for w in wds], *pack_factors(factors))
+    elif dev.type == "cuda":
+        _launch_all(params, grads, exp_avgs, exp_avg_sqs, max_exp_avg_sqs,
+                    lr, step, found_inf, beta1, beta2, eps, coeffs, wds,
+                    factors)
+    else:
+        adamw_reference(params, grads, exp_avgs, exp_avg_sqs, lr, step,
+                        beta1=beta1, beta2=beta2, eps=eps, coeff=coeffs,
+                        weight_decay=wds, lr_factors=factors,
+                        max_exp_avg_sqs=max_exp_avg_sqs, found_inf=found_inf)
+
+
+def pack_factors(factors) -> tuple:
+    """Per-tensor LR factor tuples as an operator takes them: the factors
+    in one flat list and each tensor's count."""
+    return ([float(f) for fs in factors for f in fs],
+            [len(fs) for fs in factors])
+
+
+def unpack_factors(flat, counts) -> list:
+    """The inverse of :func:`pack_factors`."""
+    out, at = [], 0
+    for c in counts:
+        out.append(tuple(flat[at:at + c]))
+        at += c
+    return out
+
+
+def unpack_decay(weight_decay, has_weight_decay) -> list:
+    """An operator's L2 coefficients back to one value or None a tensor."""
+    return [w if has else None
+            for w, has in zip(weight_decay, has_weight_decay)]
+
+
+def _op_cpu(params, grads, exp_avgs, exp_avg_sqs, max_exp_avg_sqs, lr, step,
+            found_inf, beta1, beta2, eps, coeff, weight_decay,
+            has_weight_decay, factor_values, factor_counts):
+    adamw_reference(params, grads, exp_avgs, exp_avg_sqs, lr, step,
+                    beta1=beta1, beta2=beta2, eps=eps, coeff=coeff,
+                    weight_decay=unpack_decay(weight_decay, has_weight_decay),
+                    lr_factors=unpack_factors(factor_values, factor_counts),
+                    max_exp_avg_sqs=max_exp_avg_sqs or None,
+                    found_inf=found_inf)
+
+
+def _op_cuda(params, grads, exp_avgs, exp_avg_sqs, max_exp_avg_sqs, lr,
+             step, found_inf, beta1, beta2, eps, coeff, weight_decay,
+             has_weight_decay, factor_values, factor_counts):
+    _launch_all(params, grads, exp_avgs, exp_avg_sqs, max_exp_avg_sqs or None,
+                lr, step, found_inf, beta1, beta2, eps, coeff,
+                unpack_decay(weight_decay, has_weight_decay),
+                unpack_factors(factor_values, factor_counts))
+
+
+def _op_fake(*args):
+    return None
+
+
+adamw_op = _registry.define(
+    "adamw(Tensor(a!)[] params, Tensor[] grads, Tensor(b!)[] exp_avgs, "
+    "Tensor(c!)[] exp_avg_sqs, Tensor(d!)[] max_exp_avg_sqs, Tensor lr, "
+    "Tensor step, Tensor? found_inf, float beta1, float beta2, float eps, "
+    "float[] coeff, float[] weight_decay, bool[] has_weight_decay, "
+    "float[] factor_values, int[] factor_counts) -> ()",
+    cuda=_op_cuda, cpu=_op_cpu, fake=_op_fake)
+
+
+def _launch_all(params, grads, exp_avgs, exp_avg_sqs, vmaxes, lr, step,
+                found_inf, beta1, beta2, eps, coeffs, wds, factors):
+    """The kernel's launches over every tensor, once per
+    :data:`MAX_TENSORS` tensors of one parameter and gradient dtype: the
+    operator's CUDA kernel, and the update's outside interception."""
     groups = {}
     slots = {}
     for i, (p, g, m, v) in enumerate(zip(params, grads, exp_avgs,

@@ -25,7 +25,9 @@ selects. Parameters may be float32, bfloat16 or float16, their gradients
 of their dtype or float32 (an unscaled gradient). :data:`launches` counts
 kernel launches, and only those. The packing rules (tensor lists in the
 launch parameters, blocks a tensor, the LR table) are
-``ops/cuda/adamw.py``'s.
+``ops/cuda/adamw.py``'s, and so is the update's form as one operator,
+``paddle_tpu_torch::momentum``, whose schema declares the parameter and
+velocity lists it writes, called while the op-interception tier is on.
 """
 from __future__ import annotations
 
@@ -36,13 +38,13 @@ import torch
 
 from ...core import hooks
 from ...device import DEFAULT_DEVICE
-from . import _build
+from . import _build, _registry
 from .adamw import (_DTYPES, _PARAM_LIMIT, MAX_TENSORS, _factors,
-                    _per_tensor, check_update, fill_blocks, slot_table,
-                    tensor_lr)
+                    _per_tensor, check_update, fill_blocks, pack_factors,
+                    slot_table, tensor_lr, unpack_decay, unpack_factors)
 
 __all__ = ["momentum_update", "momentum_reference", "build", "launches",
-           "MAX_TENSORS"]
+           "MAX_TENSORS", "momentum_op"]
 
 #: kernel launches so far (plain-version calls are not counted)
 launches = 0
@@ -137,21 +139,65 @@ def momentum_update(params: Sequence[torch.Tensor],
     """One Momentum update of every ``(p, g, v)``, in place, as
     :func:`momentum_reference` computes it (the same arguments).
     ``device`` is where the caller means to run (default CUDA); the
-    tensors must lie there. On CUDA the kernel launches (once per
-    :data:`MAX_TENSORS` tensors of one parameter and gradient dtype) or
-    this raises; on the CPU the plain version runs."""
+    tensors must lie there. Under interception it calls the operator
+    ``paddle_tpu_torch::momentum``, otherwise what its kernels run: on
+    CUDA the kernel launches (once per :data:`MAX_TENSORS` tensors of one
+    parameter and gradient dtype) or this raises; on the CPU the plain
+    version runs."""
     dev = check_update({"params": params, "grads": grads,
                         "velocities": velocities}, device, LR=lr,
                        found_inf=found_inf)
-    kw = dict(momentum=momentum, nesterov=nesterov,
-              weight_decay=weight_decay, lr_factors=lr_factors,
-              found_inf=found_inf)
-    if dev.type == "cpu":
-        momentum_reference(params, grads, velocities, lr, **kw)
-        return
     n = len(params)
     wds = _per_tensor(weight_decay, n, "weight_decay")
     factors = _factors(lr_factors, n)
+    if hooks.active():
+        # the operator only under interception, as AdamW's
+        momentum_op(list(params), list(grads), list(velocities), lr,
+                    found_inf, float(momentum), bool(nesterov),
+                    [0.0 if w is None else float(w) for w in wds],
+                    [w is not None for w in wds], *pack_factors(factors))
+    elif dev.type == "cuda":
+        _launch_all(params, grads, velocities, lr, found_inf, momentum,
+                    nesterov, wds, factors)
+    else:
+        momentum_reference(params, grads, velocities, lr, momentum=momentum,
+                           nesterov=nesterov, weight_decay=wds,
+                           lr_factors=factors, found_inf=found_inf)
+
+
+def _op_cpu(params, grads, velocities, lr, found_inf, momentum, nesterov,
+            weight_decay, has_weight_decay, factor_values, factor_counts):
+    momentum_reference(
+        params, grads, velocities, lr, momentum=momentum, nesterov=nesterov,
+        weight_decay=unpack_decay(weight_decay, has_weight_decay),
+        lr_factors=unpack_factors(factor_values, factor_counts),
+        found_inf=found_inf)
+
+
+def _op_cuda(params, grads, velocities, lr, found_inf, momentum, nesterov,
+             weight_decay, has_weight_decay, factor_values, factor_counts):
+    _launch_all(params, grads, velocities, lr, found_inf, momentum, nesterov,
+                unpack_decay(weight_decay, has_weight_decay),
+                unpack_factors(factor_values, factor_counts))
+
+
+def _op_fake(*args):
+    return None
+
+
+momentum_op = _registry.define(
+    "momentum(Tensor(a!)[] params, Tensor[] grads, Tensor(b!)[] velocities, "
+    "Tensor lr, Tensor? found_inf, float momentum, bool nesterov, "
+    "float[] weight_decay, bool[] has_weight_decay, float[] factor_values, "
+    "int[] factor_counts) -> ()",
+    cuda=_op_cuda, cpu=_op_cpu, fake=_op_fake)
+
+
+def _launch_all(params, grads, velocities, lr, found_inf, momentum, nesterov,
+                wds, factors):
+    """The kernel's launches over every tensor, once per
+    :data:`MAX_TENSORS` tensors of one parameter and gradient dtype: the
+    operator's CUDA kernel, and the update's outside interception."""
     groups, slots = {}, {}
     for i, (p, g, vel) in enumerate(zip(params, grads, velocities)):
         if p.dtype not in _DTYPES or g.dtype not in (p.dtype, torch.float32):

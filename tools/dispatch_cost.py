@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Host cost of one eager call of the port's attention and RMSNorm kernels,
-per tree, so that two versions of the wrappers can be compared on one card.
+"""Host cost of one eager call of the port's attention, RMSNorm and
+optimizer kernels, per tree, so that two versions of the wrappers can be
+compared on one card.
 
     python3 tools/dispatch_cost.py                       # this tree
     python3 tools/dispatch_cost.py --tree OLD --tree . --tree . --tree OLD
@@ -14,7 +15,12 @@ bf16, each called through the functional entry point a model calls
 - without autograd (``fwd``),
 - on inputs that require grad, forward only (``fwd, grad``: the autograd
   Function's forward),
-- forward and backward (``fwd+bwd``).
+- forward and backward (``fwd+bwd``);
+
+and the multi-tensor AdamW and Momentum updates (``ops/cuda/adamw.py``
+``adamw_update``, ``momentum.py`` ``momentum_update``) over 64 bf16
+tensors of 256 x 256 with f32 gradients and moments (one launch a call)
+(``update``).
 
 For each, ``CALLS`` calls are issued back to back, ``REPEATS`` times:
 ``host_us`` is the host's time to issue one call (the shapes are small, so
@@ -25,9 +31,10 @@ on it only adds), one table a measurement with a column a run, and
 written as JSON to ``--out``.
 K5 at ``chip_smoke.py`` phase 14's shape (B=1, S=8192, H=32, D=128) is
 timed by CUDA events as well (``fwd_ms``). With ``--phases`` each run
-also drives the tree's own ``chip_smoke.py`` phases 14 (the FlashMask
-path, eager) and 12 (Llama training, one CUDA graph a step) and keeps
-their figures; their printout goes to standard error. Kernels are built
+also drives the tree's own ``chip_smoke.py`` phases 12 (Llama training,
+one CUDA graph a step) and 18 (a) (the ResNet-50 bench arm, one CUDA
+graph a step) and keeps their step p50s; their printout goes to standard
+error. Kernels are built
 from each tree's sources; a library one tree built is copied to the next
 when its name, which holds the digest of its source and flags, is the
 same.
@@ -47,7 +54,9 @@ from pathlib import Path
 CALLS, REPEATS, WARMUP = 200, 5, 20
 SOURCES = ("flash_attention_fwd_sm90", "flash_attention_dq_sm90",
            "flash_attention_dkv_sm90", "flashmask_fwd_sm90",
-           "flashmask_dq_sm90", "flashmask_dkv_sm90", "rms_norm")
+           "flashmask_dq_sm90", "flashmask_dkv_sm90", "rms_norm", "adamw",
+           "momentum")
+UPDATE_TENSORS, UPDATE_SIDE = 64, 256
 BUILD = Path("paddle_tpu_torch/ops/cuda/build")
 
 
@@ -105,19 +114,43 @@ def _time(torch, fn) -> dict:
             "wall_us": wall[REPEATS // 2]}
 
 
+def _updates(torch) -> dict:
+    """The optimizer updates: name -> call, each one launch."""
+    from paddle_tpu_torch.ops.cuda import adamw, momentum
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    shape = (UPDATE_SIDE, UPDATE_SIDE)
+
+    def tensors(dtype):
+        return [torch.randn(*shape, device="cuda", generator=g).to(dtype)
+                for _ in range(UPDATE_TENSORS)]
+
+    p, grads = tensors(torch.bfloat16), tensors(torch.float32)
+    m, v = tensors(torch.float32), tensors(torch.float32)
+    v = [t.abs() for t in v]
+    lr = torch.tensor(1e-6, device="cuda")
+    step = torch.tensor(1, device="cuda")
+    return {
+        "AdamW update": lambda: adamw.adamw_update(
+            p, grads, m, v, lr, step, beta1=0.9, beta2=0.999, eps=1e-8,
+            coeff=0.01),
+        "Momentum update": lambda: momentum.momentum_update(
+            p, grads, m, lr, momentum=0.9),
+    }
+
+
 def _phases(torch) -> dict:
-    """The figures of the tree's chip_smoke.py phases 14 and 12."""
+    """The step p50s of the tree's chip_smoke.py phases 12 and 18 (a)."""
     import chip_smoke
     from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.vision.models import resnet
 
     with contextlib.redirect_stdout(sys.stderr):
-        chip_smoke.phase_build()
-        path = chip_smoke.phase_flashmask_path(torch)["path"]
         trained = chip_smoke.phase_train_llama(torch, llama)
-    out = {(f"phase 14 FlashMask path {dtype}", key): {"ms": path[dtype][key]}
-           for dtype in path for key in ("forward_ms", "forward_backward_ms")}
-    out[("phase 12 Llama TrainStep", "p50_ms")] = {"ms": trained["p50_ms"]}
-    return out
+        arm, model = chip_smoke.resnet_bench_arm(torch, resnet)
+        del model
+    return {("phase 12 Llama TrainStep", "p50_ms"): {"ms": trained["p50_ms"]},
+            ("phase 18 ResNet-50 TrainStep", "p50_ms"): {"ms": arm["p50_ms"]}}
 
 
 def child(phases: bool) -> dict:
@@ -142,6 +175,8 @@ def child(phases: bool) -> dict:
             call(*leaves).backward(dy)
 
         out[(name, "fwd+bwd")] = _time(torch, step)
+    for name, call in _updates(torch).items():
+        out[(name, "update")] = _time(torch, call)
     # K5 at phase 14's shape, by CUDA events
     b, s, h, d = 1, 8192, 32, 128
     gen = torch.Generator(device="cuda").manual_seed(1)
