@@ -433,11 +433,36 @@ Phases, each of which fails the run on any error:
     counted in the stats and the profiler's op events as the launch
     counters say.
 
+25. the data-parallel tier: (a) ``init_parallel_env()`` in this process
+    (NCCL, a world of one on its own store); every collective of
+    ``distributed.communication`` on CUDA tensors against numpy; then
+    ``DataParallel(llama_124m_gqa)`` with bench_llama's settings under
+    ``TrainStep``, one CUDA graph a step with the bucketed NCCL
+    all-reduces inside: its eager steps bit for bit the bare model's, the
+    replays bit for bit its eager steps, a replay under
+    ``set_sync_debug_mode("error")``, K1-K4 and AdamW launching phase 12's
+    counts, one all-reduce a bucket a step; step p50 beside phase 12's,
+    launches a step with NCCL's kernels apart, the all-reduce class's
+    device ms, the idle share, the buckets and their bytes; the process
+    group destroyed after. (b) two ranks on the one card through ``python
+    -m paddle_tpu_torch.distributed.launch --nproc_per_node 2`` with
+    ``PADDLE_DISTRI_BACKEND=gloo`` (this script's ``--data-parallel-rank``
+    mode): the collectives on CUDA tensors against numpy on each rank;
+    ``DataParallel(llama_124m_gqa)`` bf16 O2, eager, 3 AdamW steps, each
+    rank on 2 of the 4 x 2048 rows, the ranks' parameters bit for bit equal
+    after each step, the mean loss and the parameters within the bf16 gate
+    of one process's steps over the 4 rows; a ``DistributedBatchSampler``
+    epoch over the ranks covering the dataset once. (c) ResNet-50's stem
+    and first stage converted by ``convert_sync_batchnorm``, one Momentum
+    step over the ranks' 16 x 3 x 224² images each: the outputs, running
+    stats and gradients against one process's BatchNorm over the 32 images
+    in float64, within 4x that process's own f32 error.
+
 The serve (5, 5b, 5c, 5d), train (9), train Llama (12), FlashMask path
 (14), trainer (16), BERT (17 (a), (c)), ResNet (18 (a)), PP-LiteSeg
 (19 (a)), fit (20 (a), (d)), bench-arm (21), Transformer-base (22 (b)),
-static Llama (23 (a), (b), (d)) and recurrent (24 (a), (e)) phases are
-the main paths:
+static Llama (23 (a), (b), (d)), recurrent (24 (a), (e)) and data-parallel
+(25 (a)) phases are the main paths:
 the launch counts are set to 0 just before each
 serving engine's traffic and each of the other paths and read just after,
 and no operand may have been copied for TMA there (``tma_copies`` stays
@@ -2658,12 +2683,14 @@ def megatron_flops(batch, seq, layers, hidden, vocab) -> float:
             * (1.0 + seq / (6.0 * hidden) + vocab / (16.0 * layers * hidden)))
 
 
-def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0):
+def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0,
+                     data_parallel=False):
     """The model in bf16 O2 under ``TrainStep`` with ``AdamW(1e-4)``, the
-    criterion outside ``auto_cast``, as ``bench.py`` builds its arms.
-    Returns the model, the step, and the eager step by hand: ``loss_fn``,
-    ``backward``, ``step``, ``clear_grad`` on the same model and
-    optimizer."""
+    criterion outside ``auto_cast``, as ``bench.py`` builds its arms
+    (wrapped in ``DataParallel`` after ``decorate`` when
+    ``data_parallel``). Returns the model, the step, and the eager step by
+    hand: ``loss_fn``, ``backward``, ``step``, ``clear_grad`` on the same
+    model and optimizer."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
     from paddle_tpu_torch.optimizer import AdamW
@@ -2672,6 +2699,10 @@ def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0):
                       dropout_seed=dropout_seed).train()
     crit = crit_cls(cfg)
     amp.decorate(model, level="O2", dtype="bfloat16")
+    if data_parallel:
+        from paddle_tpu_torch import DataParallel
+
+        model = DataParallel(model)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
 
     def loss_fn(ids):
@@ -2757,6 +2788,7 @@ def run_timed_steps(torch, step, batch: tuple) -> tuple:
     fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
     fa.tma_copies = adamw.launches = rms.bwd_launches = 0
     momentum.launches = 0
+    zero_collective_counts()
     losses, times = [], []
     for _ in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2922,7 +2954,7 @@ def profile_steps(torch, step, batch: tuple, step_ms, steps=2) -> dict:
     return {"launches": launches, "attention_ms": ours, "rms_norm_ms": k4_ms,
             "rms_norm_rows": len(k4), "rms_norm_bwd_ms": k4_bwd_ms,
             "rms_norm_bwd_rows": len(k4_bwd), "rest_ms": rest,
-            "device_ms": total}
+            "device_ms": total, "rows": rows}
 
 
 def phase_train(torch, gpt) -> dict:
@@ -8249,6 +8281,534 @@ def phase_recurrent(torch, llama, resnet) -> dict:
     return {"ptb": ptb, "launches": launches}
 
 
+# ------------------------------------------- phase 25, the data-parallel tier
+DP_GLOO_RANKS = 2  # (b) and (c): two gloo ranks share the one card
+DP_GLOO_STEPS = 3
+SBN_IMAGES = 16  # (c): images a rank, 3 x 224 x 224
+SBN_LR = 0.1
+# (b): the DataParallel step over 2 x 2 rows against one process over the
+# 4 rows, in bf16: PERF.md §2's bf16 gate, 2e-2 of the tensor's largest
+# value plus one bf16 step of it
+DP_BF16_TOL = 2e-2
+# (c): SyncBatchNorm in f32 against float64, beside one process's f32
+# BatchNorm against float64: within 4x its error, or 1e-5 of the largest
+# float64 value
+SBN_F64_RATIO, SBN_F64_FLOOR = 4.0, 1e-5
+# the profile rows of the collectives (NCCL's kernels)
+NCCL_ROW = re.compile(r"nccl|AllReduce", re.IGNORECASE)
+
+
+def zero_collective_counts() -> None:
+    """The collectives' issue counts set to 0."""
+    from paddle_tpu_torch.distributed import communication
+
+    for key in communication.launches:
+        communication.launches[key] = 0
+
+
+def collective_checks(torch, dist, what: str, dev=None) -> int:
+    """Every collective of ``distributed.communication`` on CUDA tensors
+    against numpy's answer, on this rank's own values (``r``: the rank,
+    ``n``: the world): the process-level calls, then an ``spmd`` region
+    and its gradient. A world of one refuses point to point (the JAX
+    package's rule). Returns the number of checks."""
+    from paddle_tpu_torch.distributed import P
+
+    if dev is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    r, n = dist.get_rank(), dist.get_world_size()
+    checks = []
+
+    def want(name, got, expect):
+        if isinstance(got, torch.Tensor):
+            got = got.as_subclass(torch.Tensor).detach().cpu()
+        ok = np.array_equal(np.asarray(got, dtype=np.float64),
+                            np.asarray(expect, dtype=np.float64))
+        checks.append(name)
+        check(ok, f"{what}: {name} gave {got}, numpy says {expect}")
+
+    def t(values, dtype=torch.float32):
+        return torch.tensor(values, dtype=dtype, device=dev)
+
+    ranks = np.arange(n)
+    for dtype in (torch.float32, torch.bfloat16, torch.int64):
+        x = t([r + 1.0, 2.0 * r], dtype)
+        dist.all_reduce(x)
+        want(f"all_reduce sum {dtype}", x.float(),
+             [(ranks + 1).sum(), (2 * ranks).sum()])
+    for name, fn in (("MAX", np.max), ("MIN", np.min), ("PROD", np.prod)):
+        x = t([r + 1.0, 5.0 - r])
+        dist.all_reduce(x, op=getattr(dist.ReduceOp, name))
+        want(f"all_reduce {name}", x, [fn(ranks + 1.0), fn(5.0 - ranks)])
+    x = t([r + 1.0])
+    dist.all_reduce(x, op=dist.ReduceOp.AVG)
+    want("all_reduce avg", x, [(ranks + 1.0).mean()])
+    x = t([r * 10.0])
+    dist.reduce(x, dst=0)
+    want("reduce", x, [(ranks * 10.0).sum()])
+    parts = []
+    out = dist.all_gather(parts, t([r, r + 0.5]))
+    want("all_gather", out, np.stack([ranks, ranks + 0.5], 1))
+    want("all_gather list", torch.stack(parts), np.stack([ranks, ranks + 0.5],
+                                                         1))
+    parts = []
+    dist.gather(t([3.0 * r]), parts, dst=0)
+    want("gather", torch.stack(parts), (3.0 * ranks)[:, None])
+    objs = []
+    dist.all_gather_object(objs, {"rank": r, "pair": (r, 2 * r)})
+    checks.append("all_gather_object")
+    check(objs == [{"rank": j, "pair": [j, 2 * j]} for j in range(n)],
+          f"{what}: all_gather_object gave {objs}")
+    out = torch.zeros(2, device=dev)
+    dist.reduce_scatter(out, t(np.arange(2 * n) * (r + 1.0)))
+    want("reduce_scatter", out,
+         (np.arange(2 * n) * (ranks + 1.0).sum())[2 * r:2 * r + 2])
+    out = torch.zeros(1, device=dev)
+    dist.reduce_scatter(out, [t([j + r]) for j in range(n)],
+                        op=dist.ReduceOp.MAX)
+    want("reduce_scatter list max", out, [r + n - 1.0])
+    moved = []
+    dist.alltoall([t([10.0 * r + j]) for j in range(n)], moved)
+    want("alltoall", torch.cat(moved), 10.0 * ranks + r)
+    got = dist.all_to_all([], [t([100.0 * r + j, j]) for j in range(n)])
+    want("all_to_all", got, np.stack([100.0 * ranks + r, np.full(n, r)], 1))
+    got = dist.all_to_all_single(None, t(np.arange(n) + 7.0 * r))
+    want("all_to_all_single", got, r + 7.0 * ranks)
+    x = t([r + 0.25])
+    dist.broadcast(x, src=n - 1)
+    want("broadcast", x, [n - 1 + 0.25])
+    x = torch.zeros(2, device=dev)
+    dist.scatter(x, [t([j, -j]) for j in range(n)] if r == 0 else None,
+                 src=0)
+    want("scatter", x, [r, -r])
+    g = dist.new_group(axes=("dp",))
+    want("shift", dist.shift(t([float(r)]), offset=1, group=g),
+         [(r - 1) % n])
+    if n == 1:
+        for name, fn in (("send", dist.send), ("recv", dist.recv)):
+            try:
+                fn(t([1.0]), 0)
+            except ValueError:
+                checks.append(f"{name} to self refused")
+            else:
+                check(False, f"{what}: {name} to self on a world of one ran")
+    else:
+        x = t([r + 40.0])
+        if r == 0:
+            dist.send(x, dst=1)
+        elif r == 1:
+            dist.recv(x, src=0)
+        want("send/recv", x, [40.0 if r < 2 else r + 40.0])
+        x = torch.zeros(1, device=dev)
+        if r == 0:
+            dist.isend(t([9.0]), dst=1).wait()
+        elif r == 1:
+            dist.irecv(x, src=0).wait()
+        want("isend/irecv", x, [9.0 if r == 1 else 0.0])
+        x = torch.zeros(1, device=dev)
+        dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t([float(r)]), peer=(r + 1) % n),
+            dist.P2POp(dist.irecv, x, peer=(r - 1) % n)])
+        want("batch_isend_irecv", x, [(r - 1) % n])
+    dist.barrier()
+    checks.append("barrier")
+
+    @dist.spmd(in_specs=P("dp"), out_specs=P("dp"), axes=("dp",))
+    def summed(v):
+        dist.all_reduce(v, group=g)
+        return v
+    base = np.arange(2 * n, dtype=np.float32)
+    want("spmd all_reduce", summed(t(base)),
+         np.tile(base.reshape(n, 2).sum(0), n))
+
+    @dist.spmd(in_specs=P("dp"), out_specs=P(), axes=("dp",))
+    def loss_of(v):
+        y = v * v
+        dist.all_reduce(y, group=g)
+        return y.sum()
+    x = t(base).requires_grad_()
+    loss_of(x).backward()
+    want("spmd gradient", x.grad, 2 * base)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"{what}: {len(checks)} collective checks on CUDA tensors against "
+          f"numpy passed ({', '.join(checks)})", flush=True)
+    return len(checks)
+
+
+def dp_graphed(torch, llama, bare: dict) -> dict:
+    """(a) One rank over NCCL: ``init_parallel_env()`` in this process,
+    then ``DataParallel(llama_124m_gqa)`` under ``TrainStep``, graphed,
+    held bit for bit to its eager steps and to phase 12's bare eager
+    steps; the collectives on CUDA tensors; the process group destroyed
+    after."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import communication
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    cfg = llama.llama_124m_gqa()
+    env = dist.init_parallel_env()
+    print(f"-- (a) one rank over {env.backend} (world {dist.get_world_size()}"
+          f", {dist.get_backend()}, device {env.device}): DataParallel("
+          f"llama_124m_gqa) bf16 O2, TrainStep (one CUDA graph a step), "
+          f"AdamW(1e-4), {LLAMA_BATCH}x{LLAMA_SEQ} fixed batch", flush=True)
+    check(env.backend == "nccl", f"the CUDA world runs {env.backend}")
+    n_checks = collective_checks(torch, dist, "(a) NCCL, world of one")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    steps = GRAPH_WARMUP + TRAIN_STEPS
+    bare_ref = eager_reference(torch, llama.LlamaForCausalLM,
+                               llama.LlamaPretrainingCriterion, cfg, ids,
+                               steps)
+    model, _, eager_step = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        data_parallel=True)
+    dp_ref = ([float(eager_step(ids)) for _ in range(steps)],
+              [p.detach().clone() for p in model.parameters()])
+    del model, eager_step
+    release_memory(torch)
+    check(dp_ref[0] == bare_ref[0] and all(
+        torch.equal(a, b) for a, b in zip(dp_ref[1], bare_ref[1])),
+        "DataParallel's eager steps on one rank differ from the bare "
+        "model's")
+    print(f"DataParallel's {steps} eager steps: losses and parameters bit "
+          f"for bit the bare model's eager steps", flush=True)
+    del bare_ref
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        data_parallel=True)
+    sizes = model.bucket_sizes
+    first, losses, times, counts = run_timed_steps(torch, step, (ids,))
+    collectives = dict(communication.launches)
+    check_against_eager(torch, "(a) DataParallel graphed", first + losses,
+                        [p.detach() for p in model.parameters()], dp_ref)
+    del dp_ref
+    n = cfg.num_hidden_layers
+    per_step = adamw_launches_per_step(model)
+    want = n * TRAIN_STEPS
+    calls = (2 * n + 1) * TRAIN_STEPS
+    print(f"launches K1/K2/K3/K4/AdamW/K4-bwd {counts} over {TRAIN_STEPS} "
+          f"replays; collectives issued {collectives} ({len(sizes)} "
+          f"buckets a step)", flush=True)
+    check(counts == (want, want, want, calls, per_step * TRAIN_STEPS,
+                     calls * rms.BWD_LAUNCHES_PER_CALL),
+          f"launches {counts}: phase 12 asserts ({want}, {want}, {want}, "
+          f"{calls}, {per_step * TRAIN_STEPS}, "
+          f"{calls * rms.BWD_LAUNCHES_PER_CALL})")
+    check(collectives["all_reduce"] == len(sizes) * TRAIN_STEPS
+          and sum(collectives.values()) == collectives["all_reduce"],
+          f"collectives {collectives}: want {len(sizes)} all-reduces a step")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("a replay under set_sync_debug_mode('error'): no host sync",
+          flush=True)
+    p50 = float(np.median(times))
+    flops = llama.llama_flops_per_step(LLAMA_BATCH, LLAMA_SEQ, cfg)
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+    nccl = [r for r in prof["rows"] if NCCL_ROW.search(r[0])]
+    nccl_ms = sum(r[1] for r in nccl)
+    nccl_launches = sum(r[2] for r in nccl)
+    label = card_label()
+    print(f"[{label}] (a) step ms p50 {p50 * 1e3:.3f} (phase 12's bare step "
+          f"{bare['p50_ms']:.3f}; min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); tokens/s "
+          f"{LLAMA_BATCH * LLAMA_SEQ / p50:.1f}; MFU "
+          f"{flops / p50 / PEAK_FLOPS['bfloat16']:.2%}; launches a step "
+          f"{prof['launches']:.0f} (phase 12's {bare['launches_per_step']:.0f}"
+          f"), NCCL kernels a step {nccl_launches:.0f} in "
+          f"{nccl_ms:.3f} ms (all-reduce class); idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; {len(sizes)} buckets "
+          f"a step, {sum(sizes)} bytes ({', '.join(map(str, sizes))})",
+          flush=True)
+    for key, ms, count in nccl:
+        print(f"    NCCL row: {ms:8.3f} ms  x{count:<6.0f} {key[:100]}",
+              flush=True)
+    del model, step
+    release_memory(torch)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (a)")
+    return {"fwd": counts[0], "dq": counts[1], "dkv": counts[2],
+            "rms_norm": counts[3], "adamw": counts[4],
+            "rms_norm_bwd": counts[5], "p50_ms": p50 * 1e3,
+            "nccl_ms": nccl_ms, "nccl_launches": nccl_launches,
+            "buckets": len(sizes), "bucket_bytes": sum(sizes),
+            "collective_checks": n_checks}
+
+
+def dp_launched_ranks(torch, llama, backend="gloo",
+                      nproc=DP_GLOO_RANKS) -> None:
+    """(b) and (c): ``nproc`` ranks over ``backend`` started by the
+    launcher (``python -m paddle_tpu_torch.distributed.launch
+    --nproc_per_node nproc`` with ``PADDLE_DISTRI_BACKEND``) on this
+    script's ``--data-parallel-rank`` mode; this process writes (b)'s
+    single-process reference first. A rank's failure fails the launcher,
+    and that fails the phase. Phase 25 runs two gloo ranks on the one
+    card; on a host of several cards, one NCCL rank a card:
+
+        python3 -c "import torch, chip_smoke as cs; cs.phase_build(); from paddle_tpu_torch.models import llama; cs.dp_launched_ranks(torch, llama, 'nccl', torch.cuda.device_count())"
+    """
+    cfg = llama.llama_124m_gqa()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    losses, params = eager_reference(torch, llama.LlamaForCausalLM,
+                                     llama.LlamaPretrainingCriterion, cfg,
+                                     ids, DP_GLOO_STEPS)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"losses": losses, "params": [p.cpu() for p in params]},
+                   os.path.join(tmp, "reference.pt"))
+        del params
+        release_memory(torch)
+        env = dict(os.environ, PADDLE_DISTRI_BACKEND=backend,
+                   PYTHONPATH=root)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(nproc), "--log_dir",
+             os.path.join(tmp, "logs"), os.path.abspath(__file__),
+             "--data-parallel-rank", tmp],
+            env=env, cwd=root, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        for r in range(nproc):
+            path = os.path.join(tmp, "logs", f"worker.{r}.log")
+            text = open(path, errors="replace").read() if os.path.exists(
+                path) else ""
+            if r == 0 or res.returncode != 0:
+                print(f"---- rank {r} of the launched job:\n"
+                      + text[-12000:].rstrip(), flush=True)
+        print(f"launcher exit {res.returncode} after {wall:.1f} s "
+              f"{res.stderr[-2000:]}", flush=True)
+        check(res.returncode == 0, f"the launched data-parallel job failed "
+              f"(exit {res.returncode})")
+
+
+def _rank_say(r):
+    return (lambda *a: print(*a, flush=True)) if r == 0 else (lambda *a: None)
+
+
+def _flat_by_dtype(torch, tensors) -> list:
+    groups = {}
+    for t in tensors:
+        groups.setdefault(t.dtype, []).append(t.detach().reshape(-1))
+    return [torch.cat(g) for g in groups.values()]
+
+
+def bf16_gate(torch, got, want) -> float:
+    """|got - want| over the gate (DP_BF16_TOL of the tensor's largest
+    value plus one bf16 step of it): at most 1 passes."""
+    want = want.float()
+    top = float(want.abs().max())
+    room = DP_BF16_TOL * top + 2.0 ** -7 * top
+    err = float((got.float().cpu() - want.cpu()).abs().max())
+    return err / room if room > 0 else (0.0 if err == 0 else math.inf)
+
+
+def dp_rank_llama(torch, dist, llama, out_dir, say) -> None:
+    """(b) DataParallel(llama_124m_gqa) bf16 O2 over the ranks (eager on
+    gloo; on NCCL the first step eager, then captured and replayed), each
+    rank on its rows of the 4 x 2048 batch: the ranks' parameters equal
+    bit for bit after every step; the mean of their losses and the
+    parameters within the bf16 gate of one process's steps over the 4
+    rows (rank 0 checks)."""
+    r, n = dist.get_rank(), dist.get_world_size()
+    gloo = dist.get_backend() == "gloo"
+    cfg = llama.llama_124m_gqa()
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        data_parallel=True)
+    mode = "eager on gloo" if gloo else "one CUDA graph a step"
+    say(f"-- (b) {n} ranks over {dist.get_backend()}: DataParallel("
+        f"llama_124m_gqa) bf16 O2, TrainStep ({mode}), AdamW(1e-4), "
+        f"{LLAMA_BATCH // n}x{LLAMA_SEQ} rows a rank of the "
+        f"{LLAMA_BATCH}x{LLAMA_SEQ} batch; {len(model.bucket_sizes)} "
+        f"buckets, {sum(model.bucket_sizes)} bytes")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    mine = dist.shard_batch(ids)
+    losses, times = [], []
+    for i in range(DP_GLOO_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(mine)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        mean = loss.as_subclass(torch.Tensor).detach().float().clone()
+        dist.all_reduce(mean, op=dist.ReduceOp.AVG)
+        losses.append(float(mean))
+        for flat in _flat_by_dtype(torch, model.parameters()):
+            theirs = flat.clone()
+            dist.broadcast(theirs, src=0)
+            check(torch.equal(flat, theirs), f"(b) rank {r}'s parameters "
+                  f"differ from rank 0's after step {i + 1}")
+    want = ({"compiled_steps": 0, "eager_steps": DP_GLOO_STEPS} if gloo
+            else {"compiled_steps": DP_GLOO_STEPS - 1, "eager_steps": 1})
+    check(step.stats == want, f"(b) steps {step.stats}, want {want}")
+    if r == 0:
+        ref = torch.load(os.path.join(out_dir, "reference.pt"))
+        loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses,
+                                                           ref["losses"]))
+        worst = max(bf16_gate(torch, p.detach(), q) for p, q in
+                    zip(model.parameters(), ref["params"]))
+        say(f"[{card_label()}] (b) mean losses {losses} against one "
+            f"process's {ref['losses']} (largest relative gap "
+            f"{loss_gap:.3g}, gate {DP_BF16_TOL}); parameters at "
+            f"{worst:.3f} of the bf16 gate at worst; ranks equal bit for "
+            f"bit after each of {DP_GLOO_STEPS} steps; step ms "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)}"
+            + (" (host-bound by design: gloo stages every bucket through "
+               "the host)" if gloo else ""))
+        check(loss_gap <= DP_BF16_TOL and worst <= 1.0,
+              f"(b) losses {losses} against {ref['losses']}, parameters at "
+              f"{worst:.3f} of the gate")
+    del model, step
+    release_memory(torch)
+
+
+def dp_rank_sampler(torch, dist, say) -> None:
+    """(b) A ``DistributedBatchSampler`` epoch over the ranks covers the
+    dataset once (padded to a multiple of the ranks)."""
+    import paddle_tpu_torch as paddle
+
+    rows = 37
+    sampler = paddle.io.DistributedBatchSampler(
+        paddle.io.TensorDataset([np.arange(rows)]), batch_size=4,
+        shuffle=True)
+    sampler.set_epoch(1)
+    mine = [i for b in sampler for i in b]
+    seen = []
+    dist.all_gather_object(seen, mine)
+    every = [i for part in seen for i in part]
+    n = dist.get_world_size()
+    padded = -(-rows // n) * n
+    say(f"(b) DistributedBatchSampler over {n} ranks: {len(every)} indices "
+        f"for {rows} rows ({sorted(set(every)) == list(range(rows))} that "
+        f"every row came)")
+    check(sorted(set(every)) == list(range(rows)) and len(every) == padded,
+          f"(b) the sampler's epoch over the ranks {seen}")
+
+
+def dp_rank_sync_batch_norm(torch, dist, resnet, say, dev="cuda",
+                            size=224) -> None:
+    """(c) ResNet-50's stem and first stage with every BatchNorm converted
+    to ``SyncBatchNorm``, under ``DataParallel``, one Momentum train step
+    over the ranks' 16 x 3 x 224² images each: the outputs, every running
+    stat and every gradient against one process's BatchNorm over the 32
+    images in float64, beside that process's own f32 run (rank 0
+    checks)."""
+    import copy
+
+    from paddle_tpu_torch import DataParallel, nn
+    from paddle_tpu_torch.optimizer import Momentum
+
+    r, n = dist.get_rank(), dist.get_world_size()
+    full = resnet.resnet50(generator=torch.Generator().manual_seed(25),
+                           device=dev)
+    stem = nn.Sequential(full.conv1, full.bn1, full.relu, full.maxpool,
+                         full.layer1).train()
+    del full
+    twin = copy.deepcopy(stem)
+    sync = nn.SyncBatchNorm.convert_sync_batchnorm(stem)
+    n_sync = sum(isinstance(m, nn.SyncBatchNorm) for m in sync.modules())
+    dp = DataParallel(sync)
+    gen = torch.Generator().manual_seed(26)
+    x_all = torch.randn(SBN_IMAGES * n, 3, size, size, generator=gen).to(dev)
+    w_all = torch.randn(SBN_IMAGES * n, 256, size // 4, size // 4,
+                        generator=gen).to(dev)
+    x, w = dist.shard_batch(x_all), dist.shard_batch(w_all)
+    opt = Momentum(learning_rate=SBN_LR, momentum=0.9,
+                   parameters=dp.parameters(), device=dev)
+    y = dp(x)
+    (y * w).mean().backward()
+    grads = [p.grad.detach().clone() for p in dp.parameters()]
+    opt.step()
+    opt.clear_grad()
+    ys = dist.all_gather(None, y.detach()).as_subclass(torch.Tensor)
+    ys = ys.reshape(x_all.shape[0], *y.shape[1:])
+    stats = [b.detach().clone() for b in sync.buffers()]
+    if r != 0:
+        return
+
+    def reference(net):
+        out = net(x_all.to(net.parameters()[0].dtype))
+        (out * w_all.to(out.dtype)).mean().backward()
+        return (out.detach(), [p.grad.detach() for p in net.parameters()],
+                [b.detach() for b in net.buffers()])
+
+    exact = reference(copy.deepcopy(twin).double())
+    single = reference(twin)
+
+    def err(got, want):
+        return float((got.double() - want).abs().max() / want.abs().max())
+
+    rows = []
+    for name, got, one, want in (
+            [("output", ys, single[0], exact[0])]
+            + [(f"grad {i}", g, s, e) for i, (g, s, e) in
+               enumerate(zip(grads, single[1], exact[1]))]
+            + [(f"stat {i}", g, s, e) for i, (g, s, e) in
+               enumerate(zip(stats, single[2], exact[2]))
+               if e.is_floating_point()]):
+        e_sync, e_one = err(got, want), err(one, want)
+        rows.append((name, e_sync, e_one))
+        check(e_sync <= max(SBN_F64_RATIO * e_one, SBN_F64_FLOOR),
+              f"(c) {name}: SyncBatchNorm {e_sync:.3g} from float64, one "
+              f"process's BatchNorm {e_one:.3g}")
+    worst = max(rows, key=lambda t: t[1])
+    say(f"[{card_label()}] (c) {n_sync} SyncBatchNorms over {n} ranks x "
+        f"{SBN_IMAGES} images against one process's BatchNorm over "
+        f"{SBN_IMAGES * n} in float64: {len(rows)} tensors (output, "
+        f"{len(grads)} gradients, running stats), the largest relative "
+        f"error {worst[1]:.3g} ({worst[0]}; one process's f32 run "
+        f"{worst[2]:.3g} there); output {rows[0][1]:.3g} (one process "
+        f"{rows[0][2]:.3g}); a Momentum step taken")
+
+
+def dp_rank_main(out_dir: str) -> int:
+    """One rank of phase 25 (b) and (c), started by the launcher."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.vision.models import resnet
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    say = _rank_say(r)
+    t0 = time.perf_counter()
+    asked = os.environ["PADDLE_DISTRI_BACKEND"]
+    check(dist.get_backend() == asked, f"rank {r} runs "
+          f"{dist.get_backend()}, the launch asked for {asked}")
+    collective_checks(torch, dist, f"(b) {asked}, rank {r} of "
+                      f"{dist.get_world_size()}")
+    dp_rank_llama(torch, dist, llama, out_dir, say)
+    dp_rank_sampler(torch, dist, say)
+    dp_rank_sync_batch_norm(torch, dist, resnet, say)
+    dist.barrier()
+    say(f"ranks' work took {time.perf_counter() - t0:.1f} s")
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_data_parallel(torch, llama, bare: dict) -> dict:
+    """Phase 25: (a) one NCCL rank in this process, graphed; (b) and (c)
+    two gloo ranks on the card through the launcher. Returns (a)'s
+    launches."""
+    t0 = time.perf_counter()
+    print(f"== data parallel [{card_label()}]", flush=True)
+    out = dp_graphed(torch, llama, bare)
+    dp_launched_ranks(torch, llama)
+    print(f"phase 25 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
+
+
 def timed(phase, *args):
     """``phase(*args)``, then its wall time printed."""
     t0 = time.perf_counter()
@@ -8314,6 +8874,8 @@ def main() -> int:
         transformer = timed(phase_transformer, torch)
         static = timed(phase_static, torch, llama)
         recurrent = timed(phase_recurrent, torch, llama, resnet)
+        data_parallel = timed(phase_data_parallel, torch, llama,
+                              trained_llama)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -8346,7 +8908,8 @@ def main() -> int:
                    "transformer_base": transformer[key],
                    "debug_llama": static["debug"][key],
                    "optimizer_interception":
-                       recurrent["launches"][key]}
+                       recurrent["launches"][key],
+                   "data_parallel": data_parallel[key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"],
                         "static_llama": static["static"]["launches"]["fwd"],
@@ -8404,7 +8967,8 @@ def main() -> int:
                    "fit_llama": fit_run["launches"][name],
                    "bench_arms": arms[name],
                    "debug_llama": static["debug"][name],
-                   "optimizer_interception": recurrent["launches"][name]}
+                   "optimizer_interception": recurrent["launches"][name],
+                   "data_parallel": data_parallel[name]}
         f32_by_path = ({"static_llama":
                         static["static"]["launches"]["rms_norm"],
                         "static_llama_loaded":
@@ -8470,7 +9034,8 @@ def main() -> int:
                "fit_fp16_llama": fit_run["fp16_llama"]["adamw"],
                "bench_arms": arms["adamw"],
                "transformer_base": transformer["adamw"],
-               "optimizer_interception": recurrent["launches"]["adamw"]}
+               "optimizer_interception": recurrent["launches"]["adamw"],
+               "data_parallel": data_parallel["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",
@@ -8500,4 +9065,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--data-parallel-rank"]:
+        # one rank of phase 25 (b) and (c), started by the launcher
+        sys.exit(dp_rank_main(sys.argv[2]))
     sys.exit(main())

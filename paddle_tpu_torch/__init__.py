@@ -73,6 +73,7 @@ from .tensor import *  # noqa: F401,F403 — the functional ops
 from .version import __version__
 from ._late_imports import *  # noqa: F401,F403 — the subpackages
 from . import autograd, linalg
+from .distributed.parallel import DataParallel
 from .nn.layer.layers import Layer
 from .static.program import disable_static, enable_static
 
@@ -92,7 +93,6 @@ def in_dygraph_mode() -> bool:
 _NOT_PORTED = {
     "queue 1 item 1, the JAX dispatcher's helpers, which have no "
     "counterpart": ("TPUPlace", "unwrap", "passthrough", "primitive"),
-    "queue 7": ("DataParallel",),
     "queue 1 item 9": ("analysis",),
     "queue 1 item 10": ("audio", "distribution", "fft", "geometric", "onnx",
                         "signal", "sparse", "text"),

@@ -269,6 +269,10 @@ define_flag("numerics_collapse_ratio", 1e-4,
             "verdict")
 define_flag("check_nan_inf", False, "scan op outputs for NaN/Inf and raise")
 define_flag("check_nan_inf_level", 0, "0: raise on nan/inf; >0: log only")
+define_flag("comm_quantize_dp_grads", False,
+            "sync data-parallel gradients through the blockwise-int8 "
+            "all-reduce tier of collective_opt: not ported yet "
+            "(ROADMAP.md, queue 7), so DataParallel raises while this is on")
 define_flag("static_verify_program", False,
             "run the analysis verify pass over a static Program before "
             "Executor.run compiles it (the port has no analysis/ yet: "

@@ -23,10 +23,13 @@ gets the error instead of waiting forever. Waits and issue times go to
 ``profiler.pipeline_stats`` (``h2d_wait_us``, ``h2d_issue_us``).
 
 On the CPU (``device="cpu"``) the batches are passed through as CPU
-tensors, the thread and the queue unchanged. The JAX package shards a
-batch over an installed mesh's ``dp`` axis; the port has no mesh yet
-(``ROADMAP.md``, queue 7): ``sharding="auto"`` places every batch on the
-one device, and asking for a mesh placement raises.
+tensors, the thread and the queue unchanged. With ``sharding="auto"`` (the
+default) and a mesh whose ``dp`` degree is above one
+(``distributed.init_parallel_env``), each tensor whose leading dimension
+the degree divides is cut to this rank's contiguous rows before its copy,
+by ``distributed.shard_batch``'s rule: the shard the JAX package places on
+device ``r`` under ``P("dp")``. Other tensors, and every tensor with
+``sharding=None``, go whole.
 """
 from __future__ import annotations
 
@@ -71,9 +74,12 @@ def _tensors(node) -> list:
 class _PrefetchIter:
     """One pass over the inner iterable with a staging thread."""
 
-    def __init__(self, inner_iter, depth: int, device: torch.device):
+    def __init__(self, inner_iter, depth: int, device: torch.device,
+                 rows=None):
         self._inner = inner_iter
         self._device = device
+        # (rank's dp coordinate, dp degree) when batches are cut by rows
+        self._rows = rows
         self._cuda = device.type == "cuda"
         self._stream = torch.cuda.Stream(device) if self._cuda else None
         self._q: "queue.Queue" = queue.Queue(maxsize=max(depth, 1))
@@ -93,9 +99,22 @@ class _PrefetchIter:
                 continue
         return False
 
+    def _cut(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of ``t`` when batches are cut and its leading
+        dimension splits over the ``dp`` degree."""
+        if self._rows is None or t.ndim == 0:
+            return t
+        idx, n = self._rows
+        if t.shape[0] % n:
+            return t
+        rows = t.shape[0] // n
+        return t.narrow(0, idx * rows, rows).contiguous()
+
     def _to_device(self, batch):
         """The batch on the device, its copies queued on the side stream,
         and the event after them (None on the CPU)."""
+        if self._rows is not None:
+            batch = _map_tensors(self._cut, batch)
         if not self._cuda:
             return _map_tensors(lambda t: t, batch), None
         with torch.cuda.device(self._device), torch.cuda.stream(self._stream):
@@ -183,8 +202,9 @@ class DeviceLoader:
     list of batch tuples). ``depth`` batches are kept in flight (2 =
     double buffering). ``device`` is where they go (default CUDA; raises
     without CUDA unless the CPU is asked for). ``sharding``: ``"auto"``
-    (the default) or None places each batch on the one device; a mesh
-    placement is not ported (``ROADMAP.md``, queue 7)."""
+    (the default) cuts each batch to this rank's rows over the installed
+    mesh's ``dp`` axis when its degree is above one; None (or ``"none"``)
+    places each batch whole."""
 
     def __init__(self, loader: Any, depth: int = 2,
                  sharding: Optional[str] = "auto", *,
@@ -192,9 +212,8 @@ class DeviceLoader:
         if depth < 1:
             raise ValueError(f"depth must be >= 1, got {depth}")
         if sharding not in (None, "auto", "none"):
-            raise NotImplementedError(
-                f"DeviceLoader(sharding={sharding!r}): placing batches over "
-                f"a device mesh is not ported yet (ROADMAP.md, queue 7)")
+            raise ValueError(f"DeviceLoader(sharding={sharding!r}): use "
+                             f"'auto' or None")
         self.loader = loader
         self.depth = depth
         self.sharding = sharding or "none"
@@ -214,7 +233,20 @@ class DeviceLoader:
             inner = iter(self.loader)
             for _ in range(start):
                 next(inner)
-        return _PrefetchIter(inner, self.depth, self.device)
+        return _PrefetchIter(inner, self.depth, self.device,
+                             self._dp_rows())
+
+    def _dp_rows(self):
+        """(this rank's dp coordinate, the dp degree) when batches are cut,
+        else None."""
+        if self.sharding != "auto":
+            return None
+        from ..distributed import env as dist_env
+
+        env = dist_env.instance()
+        if env.mesh is None or env.axis_degrees.get("dp", 1) == 1:
+            return None
+        return (env.mesh.coords(env.rank)["dp"], env.axis_degrees["dp"])
 
     def set_epoch(self, epoch: int):
         """Pass the epoch to a ``set_epoch``-aware inner loader."""

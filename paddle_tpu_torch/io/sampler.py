@@ -5,9 +5,10 @@ policy objects consumed by ``DataLoader``.
 Every shuffle draws from numpy exactly as the JAX package does
 (``np.random.default_rng(seed)``, the epoch as the seed once ``set_epoch``
 pins it), so one seed and one epoch give both packages the same index
-order. ``DistributedBatchSampler`` runs as rank 0 of 1: the port has no
-``distributed.env`` yet (``ROADMAP.md``, queue 7), and a world size above 1
-raises.
+order. ``DistributedBatchSampler`` takes the world's size and this
+process's rank from ``distributed.env`` unless given them, pads (or drops)
+the epoch to a multiple of the ranks, and deals rank ``r`` every
+``r``-th index, as the JAX sampler does.
 """
 from __future__ import annotations
 
@@ -154,22 +155,22 @@ class BatchSampler(Sampler):
 class DistributedBatchSampler(BatchSampler):
     """Per-rank shard of the epoch (reference DistributedBatchSampler):
     pads/subsets so every rank sees the same number of batches; set_epoch
-    reseeds the shuffle identically on all ranks. Here rank 0 of 1."""
+    reseeds the shuffle identically on all ranks. ``num_replicas`` and
+    ``rank`` default to the world's (``distributed.get_world_size()``,
+    ``get_rank()``)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
-        if (num_replicas or 1) != 1 or (rank or 0) != 0:
-            raise NotImplementedError(
-                f"DistributedBatchSampler(num_replicas={num_replicas}, "
-                f"rank={rank}): the port runs one rank of one; the data-"
-                f"parallel environment is not ported yet (ROADMAP.md, "
-                f"queue 7)")
+        from ..distributed import env as dist_env
+
         if batch_size <= 0:
             raise ValueError("batch_size must be positive")
         self.dataset = dataset
         self.batch_size = batch_size
-        self.nranks = 1
-        self.local_rank = 0
+        self.nranks = (num_replicas if num_replicas is not None
+                       else dist_env.instance().world_size)
+        self.local_rank = (rank if rank is not None
+                           else dist_env.instance().rank)
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.epoch = 0

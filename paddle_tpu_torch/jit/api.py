@@ -43,6 +43,12 @@ the one launch it always was. The loss comes back as a ``paddle.Tensor``
 the same way, so ``loss.numpy()`` works on the card; a replay launches
 nothing more for it.
 
+A ``DataParallel`` model all-reduces its gradients at the end of the
+backward, before the update: on NCCL inside the step's one CUDA graph (a
+replay issues the all-reduces with no host work), on gloo eagerly (gloo
+stages CUDA tensors through the host, which no graph can hold: every call
+of such a step runs eagerly, and a gloo collective raises under capture).
+
 ``grad_accum_steps`` is accepted and read nowhere, as in the JAX
 package. Not ported: ``sharding`` raises ``NotImplementedError``
 (ROADMAP.md, queue 7).
@@ -107,7 +113,8 @@ class TrainStep:
             return loss.detach()
 
         compiled_kw = dict(static_key_fn=base_key, name="train_step",
-                           device=dev, generators=_cuda_generators(model))
+                           device=dev, generators=_cuda_generators(model),
+                           capture=_capturable(model))
         if bucket_axes:
             lo, hi = bucket_range or (16, 4096)
             self._compiled = BucketedFunction(
@@ -159,6 +166,15 @@ def model_generators(model) -> List[torch.Generator]:
             if isinstance(value, torch.Generator):
                 found.setdefault(id(value), value)
     return list(found.values())
+
+
+def _capturable(model) -> bool:
+    """False for a ``DataParallel`` model whose collectives go through
+    gloo: gloo stages CUDA tensors through the host, which a CUDA graph
+    cannot hold, so its steps run eagerly."""
+    from ..distributed.parallel import DataParallel
+
+    return not (isinstance(model, DataParallel) and model.backend == "gloo")
 
 
 def _cuda_generators(model) -> List[torch.Generator]:

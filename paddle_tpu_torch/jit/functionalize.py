@@ -59,19 +59,21 @@ import torch
 
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..observability.locks import named_lock
+from ..distributed import communication
 from ..ops.cuda import adamw, flash_attention, flashmask, momentum, rms_norm
 
 __all__ = ["CompiledFunction", "ProgramSet", "launch_counters"]
 
-# the kernel wrappers' launch counters, (module, attribute); a dict
-# attribute counts by key
+# the kernel wrappers' launch counters and the collectives' (module,
+# attribute); a dict attribute counts by key
 _COUNTERS = ((flash_attention, "launches"), (flash_attention, "dq_launches"),
              (flash_attention, "dkv_launches"),
              (flash_attention, "dropout_launches"),
              (flash_attention, "tma_copies"), (rms_norm, "launches"),
              (rms_norm, "bwd_launches"), (flashmask, "fwd_launches"),
              (flashmask, "dq_launches"), (flashmask, "dkv_launches"),
-             (adamw, "launches"), (momentum, "launches"))
+             (adamw, "launches"), (momentum, "launches"),
+             (communication, "launches"))
 
 
 def launch_counters() -> Dict[tuple, int]:
@@ -142,13 +144,17 @@ class CompiledFunction:
     ``generators`` are the CUDA ``torch.Generator`` s that ``fn`` draws
     from besides the default one; ``pool`` is a graph memory pool handle
     the captures share (default: a private pool each), ``stream`` the side
-    stream they run on (default: one of its own)."""
+    stream they run on (default: one of its own); ``capture=False`` runs
+    every call eagerly (a step whose collectives go through gloo, which a
+    graph cannot hold)."""
 
     def __init__(self, fn: Callable, static_key_fn: Optional[Callable] = None,
                  name: Optional[str] = None, *, device=DEFAULT_DEVICE,
                  generators: Iterable[torch.Generator] = (), pool=None,
-                 stream: Optional["torch.cuda.Stream"] = None):
+                 stream: Optional["torch.cuda.Stream"] = None,
+                 capture: bool = True):
         self.fn = fn
+        self.capture = capture
         self.static_key_fn = static_key_fn
         self.name = name or getattr(fn, "__name__", "fn")
         self.device = resolve_device(device)
@@ -169,7 +175,7 @@ class CompiledFunction:
         leaves: List[torch.Tensor] = []
         key = self._cache_key(args, kwargs, leaves)
         entry = self._cache.get(key)
-        if entry is None or self.device.type != "cuda":
+        if entry is None or self.device.type != "cuda" or not self.capture:
             out = self.fn(*args, **kwargs)
             if entry is None:
                 self._cache[key] = {"graph": None, "captures": 0,

@@ -88,6 +88,49 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return out.movedim(1, ch_axis) if ch_axis != 1 else out
 
 
+def sync_batch_norm(x, running_mean, running_var, weight=None, bias=None,
+                    momentum: float = 0.9, epsilon: float = 1e-5,
+                    data_format: str = "NCHW", group=None):
+    """Training-mode BatchNorm whose statistics span every rank of
+    ``group`` (a ``distributed.Group``; default the ``dp`` axis): the
+    per-channel sum and row count, then the sum of squared deviations
+    from the global mean, each all-reduced (two passes, as ``jnp.var``
+    takes them), so the output and the running stats are those of
+    BatchNorm over all the ranks' rows. The all-reduces carry JAX's
+    ``psum`` gradient (the cotangents summed over the ranks), so after
+    ``DataParallel`` averages the parameters' gradients they are those of
+    the global batch's mean loss. Black under AMP, as ``batch_norm``; the
+    running stats follow ``batch_norm``'s storage rule."""
+    from ...distributed import communication as comm
+    from ...distributed.parallel import _dp_group
+
+    c = comm._comm(group if group is not None else _dp_group())
+    ch_axis = 1 if data_format.startswith("NC") and x.ndim > 1 else x.ndim - 1
+    x, weight, bias = cast_inputs("batch_norm", x, weight, bias)
+    if ch_axis != 1:
+        x = x.movedim(ch_axis, 1)
+    axes = [i for i in range(x.ndim) if i != 1]
+    channels = x.shape[1]
+    shape = [1, channels] + [1] * (x.ndim - 2)
+    local = torch.cat([x.sum(axes), x.new_full((1,), x.numel() // channels)])
+    total = comm._AllReduce.apply(local, comm.ReduceOp.SUM, c)
+    n = total[channels]
+    mean = total[:channels] / n
+    centered = x - mean.reshape(shape)
+    var = comm._AllReduce.apply((centered * centered).sum(axes),
+                                comm.ReduceOp.SUM, c) / n
+    out = centered * torch.rsqrt(var + epsilon).reshape(shape)
+    out = _affine(out, weight, bias, shape)
+    if running_mean is not None:
+        with torch.no_grad():
+            unbiased = var * (n / torch.clamp(n - 1, min=1))
+            _store_stat(running_mean, momentum * running_mean
+                        + (1 - momentum) * mean.detach())
+            _store_stat(running_var, momentum * running_var
+                        + (1 - momentum) * unbiased)
+    return out.movedim(1, ch_axis) if ch_axis != 1 else out
+
+
 def _store_stat(buffer: torch.Tensor, value: torch.Tensor) -> None:
     """``buffer ← value``: in place when the dtypes agree, else (the first
     O2 step's bf16 → f32) by taking the value's storage, which must not

@@ -9,8 +9,8 @@ As the JAX layers: ``weight`` 1 and ``bias`` 0 (each dropped with
 share of the running stats kept at each update (``F.batch_norm``).
 ``decorate`` at O2 casts the buffers to bf16 with the rest of the model;
 the first training step writes them back as f32, as the JAX step does.
-``SyncBatchNorm`` raises: cross-device statistics come with the
-distributed layouts (ROADMAP.md, queue 7).
+``SyncBatchNorm`` takes its training statistics over every rank of the
+``dp`` group.
 """
 from __future__ import annotations
 
@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 from ...device import DEFAULT_DEVICE
 from .. import functional as F
+from ..functional.norm import sync_batch_norm
 from ..initializer import Constant, Normal
 from .layers import Layer, building
 
@@ -81,18 +82,44 @@ class BatchNorm3D(_BatchNormBase):
 
 
 class SyncBatchNorm(_BatchNormBase):
-    """Cross-device BatchNorm: not ported yet."""
+    """Cross-rank BatchNorm: in training, the statistics span the rows of
+    every rank of the ``dp`` group (``F.sync_batch_norm``), so the output,
+    the running stats and the gradients are those of ``BatchNorm`` over
+    the global batch, as the JAX layer (GSPMD over the global batch) gives
+    them. With one rank, and with the running stats, it is ``BatchNorm``."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "SyncBatchNorm needs the distributed layouts, which are not "
-            "ported yet (ROADMAP.md, queue 7)")
+    def forward(self, x):
+        from ...distributed import env as dist_env
+
+        use_stats = (not self.training) if self._use_global_stats is None \
+            else self._use_global_stats
+        env = dist_env.instance()
+        if use_stats or not env.initialized or \
+                env.axis_degrees.get("dp", 1) == 1:
+            return super().forward(x)
+        return sync_batch_norm(x, self._mean, self._variance, self.weight,
+                                 self.bias, momentum=self._momentum,
+                                 epsilon=self._epsilon,
+                                 data_format=self._data_format)
 
     @classmethod
     def convert_sync_batchnorm(cls, layer):
-        raise NotImplementedError(
-            "SyncBatchNorm needs the distributed layouts, which are not "
-            "ported yet (ROADMAP.md, queue 7)")
+        """``layer`` with every BatchNorm below it replaced by a
+        ``SyncBatchNorm`` holding the same parameters and running stats
+        (the tensors themselves); ``layer`` itself when it is one."""
+        if isinstance(layer, _BatchNormBase) and not isinstance(layer, cls):
+            new = cls(layer._num_features, layer._momentum, layer._epsilon,
+                      weight_attr=False, bias_attr=False,
+                      data_format=layer._data_format,
+                      use_global_stats=layer._use_global_stats,
+                      device=layer._mean.device)
+            new.weight, new.bias = layer.weight, layer.bias
+            new._mean, new._variance = layer._mean, layer._variance
+            new.train(layer.training)
+            return new
+        for name, sub in list(layer.named_children()):
+            setattr(layer, name, cls.convert_sync_batchnorm(sub))
+        return layer
 
 
 def _affine_params(layer, n, weight_attr, bias_attr):

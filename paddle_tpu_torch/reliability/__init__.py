@@ -5,7 +5,8 @@ of ``paddle_tpu.reliability``).
 - :mod:`faults`: the deterministic, seedable :class:`FaultInjector` with
   named sites (the decode program call, the KV pool's page allocation and
   commit, the checkpoint's and the snapshot's commit, the prefetch
-  thread's host-to-device copy, ``GradScaler``'s unscaled gradients),
+  thread's host-to-device copy, ``GradScaler``'s unscaled gradients, a
+  collective's entry and the comm watchdog's task),
   configured via
   ``FLAGS_fault_inject="site:rate:kind"``; one global read when off.
 - :mod:`policy`: :class:`RetryPolicy` (bounded attempts, exponential
@@ -16,9 +17,6 @@ of ``paddle_tpu.reliability``).
 - :mod:`snapshot`: the :class:`TrainSnapshotter` that ``Model.fit`` drives
   (``snapshot_dir=``, ``resume=``, SIGTERM): atomic, rolling snapshots
   from which a new process continues the loss stream bit for bit.
-
-The ``collective`` and ``comm.watchdog`` sites wait for the port's
-``distributed`` (``ROADMAP.md``, queue 7).
 """
 from __future__ import annotations
 

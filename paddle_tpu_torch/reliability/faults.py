@@ -71,6 +71,13 @@ SITES: Dict[str, str] = {
         "the DeviceLoader's prefetch thread forwards the error through its "
         "bounded queue; the consumer (Model.fit) re-raises instead of "
         "waiting forever"),
+    "collective": (
+        "the collective raises to its caller (TrainStep/fit fault "
+        "paths); the comm watchdog reports stragglers"),
+    "comm.watchdog": (
+        "simulated hung collective: the watchdog backdate fires the "
+        "timeout handler + an anomaly forensic bundle; the task is "
+        "reported once and dropped"),
     "numerics.nonfinite_grad": (
         "a 'corrupt' plan makes GradScaler.unscale_ poison one gradient "
         "with NaN: the finite check trips, found_inf sets, step() leaves "

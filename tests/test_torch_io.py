@@ -97,8 +97,21 @@ def test_single_rank_distributed_batch_sampler_matches_jax(shuffle,
         want.set_epoch(epoch)
         assert list(got) == list(want)
     assert len(got) == len(want)
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        io.DistributedBatchSampler(Rows(), batch_size=4, num_replicas=2)
+    # above one rank (the world is passed in here; the launched ranks take
+    # it from the environment: tests/test_torch_data_parallel.py)
+    for rank in range(2):
+        got = io.DistributedBatchSampler(Rows(), batch_size=4, shuffle=shuffle,
+                                         drop_last=drop_last, num_replicas=2,
+                                         rank=rank)
+        want = jax_io.DistributedBatchSampler(JaxRows(), batch_size=4,
+                                              num_replicas=2, rank=rank,
+                                              shuffle=shuffle,
+                                              drop_last=drop_last)
+        for epoch in (0, 5):
+            got.set_epoch(epoch)
+            want.set_epoch(epoch)
+            assert list(got) == list(want)
+        assert len(got) == len(want)
 
 
 @pytest.mark.parametrize("lengths", [[10, 13], [0.5, 0.3, 0.2]])
@@ -246,7 +259,9 @@ def test_device_loader_on_the_cpu_passes_batches_through():
 
 
 def test_card_entry_points_default_to_cuda_and_mesh_placement_raises():
-    with pytest.raises(NotImplementedError, match="queue 7"):
+    # the mesh placement is "auto" (the dp rows of each rank,
+    # tests/test_torch_data_parallel.py); any other name raises
+    with pytest.raises(ValueError, match="sharding"):
         io.DeviceLoader([], sharding="dp", device="cpu")
     if torch.cuda.is_available():
         return  # the defaults resolve on a card

@@ -151,7 +151,8 @@ class TestFaultInjector:
         assert set(rel.SITES) == {"serving.execute", "serving.decode_step",
                                   "kv.commit", "kv.page_alloc",
                                   "ckpt.write", "io.h2d",
-                                  "numerics.nonfinite_grad"}
+                                  "numerics.nonfinite_grad", "collective",
+                                  "comm.watchdog"}
         for site in rel.SITES:
             assert site in jax_rel.SITES
 

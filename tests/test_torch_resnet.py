@@ -598,5 +598,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: nn.BatchNorm2D(4)):
         with pytest.raises(RuntimeError, match="CUDA"):
             ctor()
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        nn.SyncBatchNorm(4, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        nn.SyncBatchNorm(4)
+    # on one rank SyncBatchNorm is BatchNorm (over several ranks:
+    # tests/test_torch_data_parallel.py)
+    x = torch.randn(3, 4, 2, 2)
+    torch.testing.assert_close(nn.SyncBatchNorm(4, device="cpu")(x),
+                               nn.BatchNorm2D(4, device="cpu")(x), rtol=0,
+                               atol=0)
