@@ -2684,25 +2684,32 @@ def megatron_flops(batch, seq, layers, hidden, vocab) -> float:
 
 
 def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0,
-                     data_parallel=False):
+                     data_parallel=False, wrap=None, state=None):
     """The model in bf16 O2 under ``TrainStep`` with ``AdamW(1e-4)``, the
     criterion outside ``auto_cast``, as ``bench.py`` builds its arms
     (wrapped in ``DataParallel`` after ``decorate`` when
-    ``data_parallel``). Returns the model, the step, and the eager step by
-    hand: ``loss_fn``, ``backward``, ``step``, ``clear_grad`` on the same
-    model and optimizer."""
+    ``data_parallel``, or by ``wrap``, such as ``fleet.distributed_model``;
+    its weights from the JAX-layout ``state`` when given). Returns the
+    model, the step, and the eager step by hand: ``loss_fn``,
+    ``backward``, ``step``, ``clear_grad`` on the same model and
+    optimizer."""
     from paddle_tpu_torch import amp
     from paddle_tpu_torch.jit import TrainStep
+    from paddle_tpu_torch.models.gpt import load_jax_state
     from paddle_tpu_torch.optimizer import AdamW
 
     model = model_cls(cfg, generator=torch.Generator().manual_seed(0),
                       dropout_seed=dropout_seed).train()
+    if state is not None:
+        load_jax_state(model, state)
     crit = crit_cls(cfg)
     amp.decorate(model, level="O2", dtype="bfloat16")
     if data_parallel:
         from paddle_tpu_torch import DataParallel
 
         model = DataParallel(model)
+    if wrap is not None:
+        model = wrap(model)
     opt = AdamW(learning_rate=1e-4, parameters=model.parameters())
 
     def loss_fn(ids):
@@ -2722,11 +2729,12 @@ def build_train_step(torch, model_cls, crit_cls, cfg, dropout_seed=0,
 
 
 def eager_reference(torch, model_cls, crit_cls, cfg, ids, steps,
-                    dropout_seed=0) -> tuple:
+                    dropout_seed=0, state=None) -> tuple:
     """The graphed step's reference: ``steps`` eager steps by hand from the
-    same seeds. Returns the losses and the parameters after them."""
+    same seeds (or the JAX-layout ``state``). Returns the losses and the
+    parameters after them."""
     model, _, eager_step = build_train_step(torch, model_cls, crit_cls, cfg,
-                                            dropout_seed)
+                                            dropout_seed, state=state)
     losses = [eager_step(ids) for _ in range(steps)]
     torch.cuda.synchronize()
     out = ([float(x) for x in losses],
@@ -8809,6 +8817,687 @@ def phase_data_parallel(torch, llama, bare: dict) -> dict:
     return out
 
 
+# ------------------------ phase 26, the tensor-, sequence- and context-
+# parallel tier
+FLEET_RANKS = 2  # (b) and (c): two gloo ranks share the one card
+FLEET_STEPS = 3
+FLEET_SEED = 26  # the JAX-layout state every layout of (a) and (b) loads
+# (b): llama_124m_gqa at full width in three layouts over the 2 ranks: the
+# mesh's degrees and the config's flags
+FLEET_LAYOUTS = (
+    ("mp2_sp", {"mp": 2}, {"tensor_parallel": True,
+                           "sequence_parallel": True}),
+    ("sep2_ring", {"sep": 2}, {"context_parallel": "ring"}),
+    ("sep2_ulysses", {"sep": 2}, {"context_parallel": "ulysses"}))
+GPT_TP_BATCH, GPT_TP_SEQ = 4, 1024  # (c): gpt2_small at mp = 2
+# the launch counters a fleet step reads: K1, K2, K3, K4, AdamW, K4's
+# backward
+FLEET_KEYS = ("fwd", "dq", "dkv", "rms_norm", "adamw", "rms_norm_bwd")
+
+
+def fleet_init(fleet, degrees: dict):
+    """``fleet.init`` with the mesh's ``degrees`` (every other one 1)."""
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {"dp_degree": degrees.get("dp", 1),
+                         "mp_degree": degrees.get("mp", 1),
+                         "sep_degree": degrees.get("sep", 1)}
+    fleet.init(is_collective=True, strategy=st)
+    return fleet.get_hybrid_communicate_group()
+
+
+def launch_counts() -> dict:
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    return dict(zip(FLEET_KEYS, (fa.launches, fa.dq_launches,
+                                 fa.dkv_launches, rms.launches,
+                                 adamw.launches, rms.bwd_launches)))
+
+
+def llama_fleet_counts(cfg, per_step_adamw: int, k1_blocks: int) -> dict:
+    """The launches one Llama step makes on a rank: ``k1_blocks`` K1 (and
+    K2, K3) a layer, K4 twice a layer and once at the end, its backward
+    ``BWD_LAUNCHES_PER_CALL`` a call, AdamW ``per_step_adamw``."""
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    n = cfg.num_hidden_layers
+    attn = n * k1_blocks
+    calls = 2 * n + 1
+    return dict(zip(FLEET_KEYS, (attn, attn, attn, calls, per_step_adamw,
+                                 calls * rms.BWD_LAUNCHES_PER_CALL)))
+
+
+def fleet_graphed(torch, llama, bare: dict) -> dict:
+    """(a) A world of one over NCCL in this process: ``fleet.init`` with
+    every degree 1, then ``fleet.distributed_model`` of llama_124m_gqa with
+    ``tensor_parallel`` and ``sequence_parallel`` under ``TrainStep``,
+    graphed (one CUDA graph a step, the mpu autograd ops inside), held bit
+    for bit to its eager steps and to the bare model's eager steps, all
+    from one ``load_jax_state``; the launches phase 12's; one replay under
+    ``set_sync_debug_mode("error")``. The process group is destroyed
+    after."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import communication, fleet
+    from paddle_tpu_torch.distributed.fleet import mpu
+
+    cfg = llama.llama_124m_gqa()
+    tp_cfg = llama.llama_124m_gqa(tensor_parallel=True,
+                                  sequence_parallel=True)
+    hcg = fleet_init(fleet, {})
+    backend = dist.get_backend()
+    print(f"-- (a) fleet.init over {backend}, world "
+          f"{dist.get_world_size()}, degrees dp/mp/pp/sharding/sep "
+          f"{hcg.get_data_parallel_world_size()}/"
+          f"{hcg.get_model_parallel_world_size()}/"
+          f"{hcg.get_pipe_parallel_world_size()}/"
+          f"{hcg.get_sharding_parallel_world_size()}/"
+          f"{hcg.get_sep_parallel_world_size()}: fleet.distributed_model("
+          f"llama_124m_gqa tensor_parallel + sequence_parallel) bf16 O2, "
+          f"TrainStep, AdamW(1e-4), {LLAMA_BATCH}x{LLAMA_SEQ} fixed batch",
+          flush=True)
+    check(backend == "nccl", f"the CUDA world runs {backend}")
+    state = seeded_llama_state(torch, llama, cfg, FLEET_SEED)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    steps = GRAPH_WARMUP + TRAIN_STEPS
+    bare_ref = eager_reference(torch, llama.LlamaForCausalLM,
+                               llama.LlamaPretrainingCriterion, cfg, ids,
+                               steps, state=state)
+
+    def build():
+        return build_train_step(
+            torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion,
+            tp_cfg, wrap=fleet.distributed_model, state=state)
+
+    model, _, eager_step = build()
+    check(isinstance(model.llama.layers[0].self_attn.qkv_proj,
+                     mpu.ColumnParallelLinear), "(a) the model holds no "
+          "tensor-parallel layer")
+    tp_ref = ([float(eager_step(ids)) for _ in range(steps)],
+              [p.detach().clone() for p in model.parameters()])
+    del model, eager_step
+    release_memory(torch)
+    check(tp_ref[0] == bare_ref[0] and all(
+        torch.equal(a, b) for a, b in zip(tp_ref[1], bare_ref[1])),
+        "(a) the tensor-parallel model's eager steps on one rank differ "
+        "from the bare model's")
+    print(f"(a) the tensor-parallel model's {steps} eager steps: losses and "
+          f"parameters bit for bit the bare model's eager steps", flush=True)
+    del bare_ref
+    model, step, _ = build()
+    for key in mpu.op_calls:
+        mpu.op_calls[key] = 0
+    first, losses, times, counts = run_timed_steps(torch, step, (ids,))
+    ops = {k: v for k, v in mpu.op_calls.items() if v}
+    collectives = dict(communication.launches)
+    check_against_eager(torch, "(a) tensor-parallel graphed", first + losses,
+                        [p.detach() for p in model.parameters()], tp_ref)
+    del tp_ref
+    per_step = adamw_launches_per_step(model)
+    want = llama_fleet_counts(cfg, per_step, 1)
+    got = dict(zip(FLEET_KEYS, counts))
+    print(f"(a) launches over {TRAIN_STEPS} replays {got}; mpu ops applied "
+          f"in the eager call and the capture {ops}; collectives issued "
+          f"{collectives} (a world of one: every mpu op is the identity)",
+          flush=True)
+    check(got == {k: v * TRAIN_STEPS for k, v in want.items()},
+          f"(a) launches {got}: phase 12's are {want} a step")
+    check(ops.get("copy", 0) + ops.get("all_gather_seq", 0) > 0
+          and ops.get("reduce_scatter_seq", 0) > 0,
+          f"(a) the step ran no mpu op: {ops}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("(a) a replay under set_sync_debug_mode('error'): no host sync",
+          flush=True)
+    p50 = float(np.median(times))
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+    print(f"[{card_label()}] (a) step ms p50 {p50 * 1e3:.3f} (phase 12's "
+          f"bare step {bare['p50_ms']:.3f}; min {min(times) * 1e3:.3f}, max "
+          f"{max(times) * 1e3:.3f}); launches a step {prof['launches']:.0f} "
+          f"(phase 12's {bare['launches_per_step']:.0f}); idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}", flush=True)
+    del model, step
+    release_memory(torch)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (a)")
+    return {**got, "p50_ms": p50 * 1e3, "launches_per_step":
+            prof["launches"], "idle": 1 - prof["device_ms"] / (p50 * 1e3)}
+
+
+def jax_layout_params(torch, model) -> dict:
+    """``model``'s parameters whole (gathered over ``mp``; collective) in
+    the JAX layout, on the CPU, by name."""
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    return {k: v.cpu() for k, v in jax_state_dict(model).items()}
+
+
+def jax_layout_grads(torch, model) -> dict:
+    """``model``'s gradients whole (gathered over ``mp``; collective) in the
+    JAX layout, on the CPU, by name."""
+    from paddle_tpu_torch.distributed.fleet import mpu
+
+    cut = mpu.sharded_params(model)
+    linear = {f"{n}.weight" for n, m in model.named_modules()
+              if isinstance(m, torch.nn.Linear)}
+    out = {}
+    for name, p in model.named_parameters():
+        g = p.grad.detach()
+        if name in cut:
+            g = mpu.gather_param(g, cut[name])
+        out[name] = (g.t() if name in linear else g).cpu()
+    return out
+
+
+def o2_loss(torch, kind, model, crit, ids):
+    """bench.py's O2 forward (the model under ``auto_cast``, the criterion
+    outside it): the logits (BERT: the MLM logits) and the loss (BERT: the
+    MLM cross entropy against the ids plus the NSP one against the first
+    id's parity)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.nn import functional as F
+
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        out = model(ids)
+    if kind != "bert":
+        return out, crit(out, ids)
+    logits, nsp = out
+    mlm = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                          ids.reshape(-1))
+    return logits, mlm + F.cross_entropy(nsp, ids[:, 0] % 2)
+
+
+def other_model(torch, gpt, bert, kind, parallel: bool, state=None):
+    """(c)'s models, bf16 O2, dropout 0: gpt2_small (its tied head
+    vocab-parallel under ``parallel``) or ERNIE-base's
+    ``BertForPretraining``; from the JAX-layout ``state`` when given."""
+    from paddle_tpu_torch import amp
+
+    flags = {"tensor_parallel": parallel}
+    if kind == "gpt":
+        cfg = gpt.gpt2_small(hidden_dropout_prob=0.0,
+                             attention_dropout_prob=0.0, **flags)
+        model = gpt.GPTForCausalLM(cfg,
+                                   generator=torch.Generator().manual_seed(0))
+        crit = gpt.GPTPretrainingCriterion(cfg)
+    else:
+        cfg = bert.ernie_base(hidden_dropout_prob=0.0,
+                              attention_probs_dropout_prob=0.0, **flags)
+        model = bert.BertForPretraining(
+            cfg, generator=torch.Generator().manual_seed(0))
+        crit = None
+    if state is not None:
+        gpt.load_jax_state(model, state)
+    amp.decorate(model.train(), level="O2", dtype="bfloat16")
+    return model, crit
+
+
+def other_ids(torch, kind):
+    if kind == "gpt":
+        shape, vocab = (GPT_TP_BATCH, GPT_TP_SEQ), 50304
+    else:
+        shape, vocab = (BERT_BATCH, BERT_SEQ), 40000
+    return torch.from_numpy(np.random.RandomState(1).randint(
+        0, vocab, shape).astype(np.int64)).cuda()
+
+
+def fleet_references(torch, llama, gpt, bert, out_dir) -> None:
+    """One process's references for (b) and (c), written to
+    ``out_dir/reference.pt``: the JAX-layout llama state and
+    ``FLEET_STEPS`` eager steps from it (losses, parameters); gpt2_small's
+    and ERNIE's states and one forward/backward each (loss, logits,
+    gradients)."""
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    cfg = llama.llama_124m_gqa()
+    state = seeded_llama_state(torch, llama, cfg, FLEET_SEED)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    model, _, eager_step = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        state=state)
+    ref = {"llama_state": state,
+           "llama_losses": [float(eager_step(ids)) for _ in
+                            range(FLEET_STEPS)],
+           "llama_params": jax_layout_params(torch, model)}
+    del model, eager_step
+    release_memory(torch)
+    for kind in ("gpt", "bert"):
+        model, crit = other_model(torch, gpt, bert, kind, False)
+        ref[f"{kind}_state"] = {k: v.float().cpu().numpy() for k, v in
+                                jax_state_dict(model).items()}
+        logits, loss = o2_loss(torch, kind, model, crit,
+                               other_ids(torch, kind))
+        loss.backward()
+        ref[f"{kind}_loss"] = float(loss.detach())
+        if kind == "bert":
+            ref["bert_logits"] = logits.detach().cpu()
+        ref[f"{kind}_grads"] = jax_layout_grads(torch, model)
+        del model, logits, loss
+        release_memory(torch)
+    torch.save(ref, os.path.join(out_dir, "reference.pt"))
+
+
+def fleet_rank_llama(torch, dist, fleet, llama, layout, ref, say) -> dict:
+    """(b) One layout of llama_124m_gqa over the 2 ranks, bf16 O2, 3 eager
+    AdamW steps of ``fleet.distributed_model(model)`` under ``TrainStep``
+    (eager on gloo) from the reference's JAX-layout state, every rank on
+    the whole 4 x 2048 batch (under ``sep`` the model cuts each row's 1024
+    positions of the rank): after every step the replicated parameters
+    bit-equal on the ranks and the loss equal; K1-K4 and AdamW launch what
+    the layout predicts on this rank; the losses and the gathered
+    parameters within the bf16 gate of one process's steps (rank 0
+    checks). Returns this rank's launches over the steps."""
+    from paddle_tpu_torch.distributed.fleet import context_parallel, mpu
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    name, degrees, flags = layout
+    hcg = fleet_init(fleet, degrees)
+    r = dist.get_rank()
+    cfg = llama.llama_124m_gqa(**flags)
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        wrap=fleet.distributed_model, state=ref["llama_state"])
+    inner = getattr(model, "_layers", model)
+    cut = mpu.sharded_params(inner)
+    replicated = [p for n, p in inner.named_parameters() if n not in cut]
+    sep_rank = hcg.get_sep_parallel_rank()
+    blocks = (len(context_parallel.ring_blocks(
+        sep_rank, hcg.get_sep_parallel_world_size(), True))
+        if flags.get("context_parallel") == "ring" else 1)
+    want = llama_fleet_counts(cfg, adamw_launches_per_step(inner), blocks)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    losses, times, total = [], [], dict.fromkeys(FLEET_KEYS, 0)
+    for i in range(FLEET_STEPS):
+        fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
+        adamw.launches = rms.bwd_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = launch_counts()
+        check(got == want, f"(b) {name} rank {r} step {i + 1}: launches "
+              f"{got}, the layout predicts {want}")
+        for k in FLEET_KEYS:
+            total[k] += got[k]
+        value = loss.as_subclass(torch.Tensor).detach().float().reshape(1)
+        theirs = value.clone()
+        dist.broadcast(theirs, src=0)
+        check(torch.equal(value, theirs), f"(b) {name} rank {r}'s loss "
+              f"differs from rank 0's at step {i + 1}")
+        losses.append(float(value))
+        for flat in _flat_by_dtype(torch, replicated):
+            theirs = flat.clone()
+            dist.broadcast(theirs, src=0)
+            check(torch.equal(flat, theirs), f"(b) {name} rank {r}'s "
+                  f"replicated parameters differ from rank 0's after step "
+                  f"{i + 1}")
+    check(step.stats == {"compiled_steps": 0, "eager_steps": FLEET_STEPS},
+          f"(b) {name} steps {step.stats}")
+    params = jax_layout_params(torch, inner)
+    if r == 0:
+        want_losses = ref["llama_losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        worst = max(bf16_gate(torch, params[k], v)
+                    for k, v in ref["llama_params"].items())
+        say(f"[{card_label()}] (b) {name}: {len(cut)} parameters cut over "
+            f"mp, {len(replicated)} replicated (bit-equal on the ranks "
+            f"after each step); losses {losses} against one process's "
+            f"{want_losses} (largest relative gap {gap:.3g}, gate "
+            f"{DP_BF16_TOL}); parameters at {worst:.3f} of the bf16 gate at "
+            f"worst; launches a step on rank 0 {want}; step ms "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (eager on gloo, "
+            f"host-bound by design)")
+        check(gap <= DP_BF16_TOL and worst <= 1.0,
+              f"(b) {name}: losses {losses} against {want_losses}, "
+              f"parameters at {worst:.3f} of the gate")
+    del model, step, inner, params
+    release_memory(torch)
+    return total
+
+
+def fleet_rank_other(torch, dist, fleet, gpt, bert, ref, say) -> None:
+    """(c) gpt2_small with its tied vocab-parallel head and
+    ``ParallelCrossEntropy``, and ERNIE-base's ``BertForPretraining``, at
+    mp = 2, bf16 O2: one forward/backward from the reference's state, the
+    loss and every gathered gradient (and ERNIE's logits) within the bf16
+    gate of one process's; then gpt2_small at hidden and attention dropout
+    0.1: each block's output (the replicated residual stream) equal bit
+    for bit on the two ranks."""
+    fleet_init(fleet, {"mp": 2})
+    r = dist.get_rank()
+    for kind in ("gpt", "bert"):
+        model, crit = other_model(torch, gpt, bert, kind, True,
+                                  ref[f"{kind}_state"])
+        model = fleet.distributed_model(model)
+        logits, loss = o2_loss(torch, kind, model, crit,
+                               other_ids(torch, kind))
+        loss.backward()
+        grads = jax_layout_grads(torch, model)
+        if r == 0:
+            value = float(loss.detach())
+            gap = abs(value - ref[f"{kind}_loss"]) / abs(ref[f"{kind}_loss"])
+            worst = max(bf16_gate(torch, grads[k], v)
+                        for k, v in ref[f"{kind}_grads"].items())
+            extra = ""
+            if kind == "bert":
+                at = bf16_gate(torch, logits.detach(), ref["bert_logits"])
+                worst = max(worst, at)
+                extra = f"; logits at {at:.3f} of the gate"
+            say(f"[{card_label()}] (c) {kind} at mp = 2: loss "
+                f"{value:.5f} against one process's "
+                f"{ref[f'{kind}_loss']:.5f} (relative gap {gap:.3g}); "
+                f"{len(grads)} gathered gradients at {worst:.3f} of the bf16 "
+                f"gate at worst{extra}")
+            check(gap <= DP_BF16_TOL and worst <= 1.0,
+                  f"(c) {kind}: loss gap {gap:.3g}, gradients at "
+                  f"{worst:.3f} of the gate")
+        del model, logits, loss, grads
+        release_memory(torch)
+    cfg = gpt.gpt2_small(tensor_parallel=True, hidden_dropout_prob=0.1,
+                         attention_dropout_prob=0.1)
+    model = gpt.GPTForCausalLM(cfg, generator=torch.Generator().manual_seed(0),
+                               dropout_seed=3).train()
+    seen = []
+    for block in model.gpt.h:
+        block.register_forward_hook(
+            lambda m, a, y: seen.append(y.detach().clone()))
+    ids = other_ids(torch, "gpt")
+    loss = gpt.GPTPretrainingCriterion(cfg)(model(ids), ids)
+    loss.backward()
+    equal = 0
+    for t in seen + [loss.detach().reshape(1)]:
+        theirs = t.clone()
+        dist.broadcast(theirs, src=0)
+        equal += int(torch.equal(t, theirs))
+    say(f"(c) gpt2_small at dropout 0.1 over mp = 2: {equal} of "
+        f"{len(seen) + 1} residual streams and the loss bit-equal on the "
+        f"ranks")
+    check(equal == len(seen) + 1, f"(c) rank {r}: {equal} of "
+          f"{len(seen) + 1} replicated streams equal rank 0's at dropout 0.1")
+    del model, loss, seen
+    release_memory(torch)
+
+
+def fleet_rank_main(out_dir: str) -> int:
+    """One rank of phase 26 (b) and (c), started by the launcher; rank 0
+    writes its launches by layout to ``out_dir/counts.json``."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import bert, gpt, llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    say = _rank_say(r)
+    t0 = time.perf_counter()
+    asked = os.environ["PADDLE_DISTRI_BACKEND"]
+    check(dist.get_backend() == asked, f"rank {r} runs "
+          f"{dist.get_backend()}, the launch asked for {asked}")
+    ref = torch.load(os.path.join(out_dir, "reference.pt"),
+                     weights_only=False)
+    counts = {layout[0]: fleet_rank_llama(torch, dist, fleet, llama, layout,
+                                          ref, say)
+              for layout in FLEET_LAYOUTS}
+    fleet_rank_other(torch, dist, fleet, gpt, bert, ref, say)
+    if r == 0:
+        with open(os.path.join(out_dir, "counts.json"), "w") as f:
+            json.dump(counts, f)
+    dist.barrier()
+    say(f"ranks' work took {time.perf_counter() - t0:.1f} s")
+    dist.destroy_process_group()
+    return 0
+
+
+def fleet_launched_ranks(torch, llama, gpt, bert) -> dict:
+    """(b) and (c): two gloo ranks on the card started by the launcher
+    (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node 2``
+    with ``PADDLE_DISTRI_BACKEND=gloo``) on this script's ``--fleet-rank``
+    mode, after this process writes one process's references. A rank's
+    failure fails the launcher, and that fails the phase. Returns rank 0's
+    launches by layout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        fleet_references(torch, llama, gpt, bert, tmp)
+        print(f"(b)/(c) one process's references took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        env = dict(os.environ, PADDLE_DISTRI_BACKEND="gloo", PYTHONPATH=root)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(FLEET_RANKS), "--log_dir",
+             os.path.join(tmp, "logs"), os.path.abspath(__file__),
+             "--fleet-rank", tmp],
+            env=env, cwd=root, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        for r in range(FLEET_RANKS):
+            path = os.path.join(tmp, "logs", f"worker.{r}.log")
+            text = open(path, errors="replace").read() if os.path.exists(
+                path) else ""
+            if r == 0 or res.returncode != 0:
+                print(f"---- rank {r} of the launched job:\n"
+                      + text[-12000:].rstrip(), flush=True)
+        print(f"launcher exit {res.returncode} after {wall:.1f} s "
+              f"{res.stderr[-2000:]}", flush=True)
+        check(res.returncode == 0, f"the launched fleet job failed (exit "
+              f"{res.returncode})")
+        with open(os.path.join(tmp, "counts.json")) as f:
+            return json.load(f)
+
+
+def phase_fleet(torch, llama, gpt, bert, bare: dict) -> dict:
+    """Phase 26: (a) a world of one over NCCL in this process, graphed;
+    (b) and (c) two gloo ranks on the card through the launcher. Returns
+    the launches of K1-K4 and AdamW on the tensor-parallel path ((a)'s
+    replays and rank 0's mp = 2 steps) and on the context-parallel path
+    (rank 0's ring and Ulysses steps)."""
+    t0 = time.perf_counter()
+    print(f"== fleet: tensor, sequence and context parallel "
+          f"[{card_label()}]", flush=True)
+    graphed = fleet_graphed(torch, llama, bare)
+    ranks = fleet_launched_ranks(torch, llama, gpt, bert)
+    print(f"phase 26 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"graphed": graphed,
+            "tensor_parallel": {k: graphed[k] + ranks["mp2_sp"][k]
+                                for k in FLEET_KEYS},
+            "context_parallel": {k: ranks["sep2_ring"][k]
+                                 + ranks["sep2_ulysses"][k]
+                                 for k in FLEET_KEYS}}
+
+
+# the four-card run of phase 26 (not part of the one-card run):
+# python3 -c "import chip_smoke as cs; cs.fleet_four_cards()" on 4 cards
+FOUR_TP_SEQ = 4096  # llama2_7b at mp = 4 with SP: 1 x 4096 tokens
+FOUR_RING_SEQ = 16384  # llama_124m_gqa in a ring of sep = 4: 1 x 16384
+FOUR_STEPS = 3
+
+
+def nccl_rows(rows) -> dict:
+    """The NCCL kernels' device ms and launches a step, by collective."""
+    out = {}
+    for key, ms, count in rows:
+        if not NCCL_ROW.search(key) and "nccl" not in key.lower():
+            continue
+        kind = next((k for k in ("AllReduce", "AllGather", "ReduceScatter",
+                                 "SendRecv", "Send", "Recv")
+                     if k.lower() in key.lower()), "other")
+        ms0, n0 = out.get(kind, (0.0, 0.0))
+        out[kind] = (ms0 + ms, n0 + count)
+    return out
+
+
+def four_rank_tp(torch, dist, fleet, llama, say) -> None:
+    """llama2_7b at full width, mp = 4 with sequence parallelism, graphed
+    (one CUDA graph a step over NCCL), 1 x 4096 tokens: the step p50, the
+    NCCL device ms by collective, the launches and the idle share."""
+    fleet_init(fleet, {"mp": 4})
+    layers = int(os.environ.get("FOUR_TP_LAYERS", "32"))
+    cfg = llama.llama2_7b(tensor_parallel=True, sequence_parallel=True,
+                          num_hidden_layers=layers)
+    t0 = time.perf_counter()
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        wrap=fleet.distributed_model)
+    say(f"-- llama2_7b ({layers} layers, hidden 4096, 32 heads, SwiGLU "
+        f"11008) at mp = 4 with SP over NCCL, bf16 O2, TrainStep, "
+        f"AdamW(1e-4), 1x{FOUR_TP_SEQ}; built in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters on this rank")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, FOUR_TP_SEQ)).astype(np.int64)).cuda()
+    first = [float(step(ids)) for _ in range(GRAPH_WARMUP)]
+    torch.cuda.synchronize()
+    stats = dict(step.stats)
+    times, losses = [], []
+    for _ in range(FOUR_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(step(ids)))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    ran = {k: step.stats[k] - stats[k] for k in stats}
+    check(ran == {"compiled_steps": FOUR_STEPS, "eager_steps": 0},
+          f"the timed steps {ran} did not all replay")
+    p50 = float(np.median(times))
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+    nccl = nccl_rows(prof["rows"])
+    flops = llama.llama_flops_per_step(1, FOUR_TP_SEQ, llama.llama2_7b(
+        num_hidden_layers=layers))
+    say(f"[{card_label()}] llama2_7b mp = 4 SP: losses {first + losses}; "
+        f"step ms p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+        f"{max(times) * 1e3:.3f}); tokens/s {FOUR_TP_SEQ / p50:.1f}; MFU "
+        f"{flops / 4 / p50 / PEAK_FLOPS['bfloat16']:.2%} a card; launches "
+        f"a step {prof['launches']:.0f}; idle "
+        f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; NCCL by collective "
+        f"(ms, launches a step) {nccl}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    check(all(math.isfinite(x) for x in first + losses), "non-finite loss")
+    del model, step
+    release_memory(torch)
+
+
+def four_rank_ring(torch, dist, fleet, llama, say) -> None:
+    """llama_124m_gqa in a ring of sep = 4 over 1 x 16384 tokens (4096 a
+    rank), bf16 O2: ``GRAPH_WARMUP + FOUR_STEPS`` eager steps by hand, then
+    as many under ``TrainStep`` on a second model from the same seed (one
+    CUDA graph a step over NCCL, the ring's point-to-point exchanges and
+    the ``("dp", "sep")`` all-reduce inside), its losses and parameters bit
+    for bit the eager steps'; the eager and the graphed step p50, the NCCL
+    device ms, K1's blocks a rank, the idle share."""
+    from paddle_tpu_torch.distributed.fleet import context_parallel
+
+    hcg = fleet_init(fleet, {"sep": 4})
+    cfg = llama.llama_124m_gqa(context_parallel="ring",
+                               max_position_embeddings=FOUR_RING_SEQ)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (1, FOUR_RING_SEQ)).astype(np.int64)).cuda()
+    steps = GRAPH_WARMUP + FOUR_STEPS
+
+    def run(one_step):
+        losses, times = [], []
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(one_step(ids)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        return losses, float(np.median(times[GRAPH_WARMUP:]))
+
+    model, _, eager_step = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        wrap=fleet.distributed_model)
+    eager_losses, eager_p50 = run(eager_step)
+    eager_params = [p.detach().clone() for p in model.parameters()]
+    del model, eager_step
+    release_memory(torch)
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        wrap=fleet.distributed_model)
+    stats = dict(step.stats)
+    losses, p50 = run(step)
+    ran = {k: step.stats[k] - stats[k] for k in stats}
+    check(ran["compiled_steps"] >= FOUR_STEPS,
+          f"the ring's steps {ran} were not graphed")
+    same = [torch.equal(a, b) for a, b in zip(model.parameters(),
+                                              eager_params)]
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+    blocks = len(context_parallel.ring_blocks(
+        hcg.get_sep_parallel_rank(), 4, True))
+    print(f"[{card_label()}] rank {dist.get_rank()} ring sep = 4: "
+          f"{blocks} K1 blocks a layer; steps {ran}; losses {losses} "
+          f"(eager {eager_losses}: bitwise equal {losses == eager_losses}; "
+          f"parameters bitwise equal {sum(same)}/{len(same)}); graphed "
+          f"step ms p50 {p50 * 1e3:.3f}, eager {eager_p50 * 1e3:.3f}; "
+          f"device busy {prof['device_ms']:.3f} ms (idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}), K1-K3 "
+          f"{prof['attention_ms']:.3f} ms; launches {prof['launches']:.0f}; NCCL "
+          f"{nccl_rows(prof['rows'])}", flush=True)
+    check(all(math.isfinite(x) for x in losses), "non-finite loss")
+    check(losses == eager_losses and all(same) and len(same) == len(
+        eager_params), "the graphed ring differs from its eager steps")
+    del model, step
+    release_memory(torch)
+
+
+def four_rank_main() -> int:
+    """One NCCL rank of the four-card run, one card a rank."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env()
+    say = _rank_say(dist.get_rank())
+    check(dist.get_backend() == "nccl", "the four-card run takes NCCL")
+    four_rank_tp(torch, dist, fleet, llama, say)
+    four_rank_ring(torch, dist, fleet, llama, say)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def fleet_four_cards() -> None:
+    """The four-card run of phase 26 on a host of four cards, one NCCL
+    rank a card: llama2_7b at mp = 4 with SP, graphed, and llama_124m_gqa
+    in a ring of sep = 4. Every rank's log is printed."""
+    phase_build()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "4", "--log_dir", os.path.join(tmp, "logs"),
+             os.path.abspath(__file__), "--fleet-four-rank"],
+            env=dict(os.environ, PYTHONPATH=root), cwd=root,
+            capture_output=True, text=True, timeout=3000)
+        for r in range(4):
+            path = os.path.join(tmp, "logs", f"worker.{r}.log")
+            if os.path.exists(path):
+                print(f"---- rank {r}:\n"
+                      + open(path, errors="replace").read()[-8000:],
+                      flush=True)
+        print(f"launcher exit {res.returncode} {res.stderr[-2000:]}",
+              flush=True)
+        check(res.returncode == 0, "the four-card run failed")
+
+
 def timed(phase, *args):
     """``phase(*args)``, then its wall time printed."""
     t0 = time.perf_counter()
@@ -8876,6 +9565,8 @@ def main() -> int:
         recurrent = timed(phase_recurrent, torch, llama, resnet)
         data_parallel = timed(phase_data_parallel, torch, llama,
                               trained_llama)
+        fleet_run = timed(phase_fleet, torch, llama, gpt, bert,
+                          trained_llama)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -8909,7 +9600,9 @@ def main() -> int:
                    "debug_llama": static["debug"][key],
                    "optimizer_interception":
                        recurrent["launches"][key],
-                   "data_parallel": data_parallel[key]}
+                   "data_parallel": data_parallel[key],
+                   "tensor_parallel": fleet_run["tensor_parallel"][key],
+                   "context_parallel": fleet_run["context_parallel"][key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"],
                         "static_llama": static["static"]["launches"]["fwd"],
@@ -8968,7 +9661,9 @@ def main() -> int:
                    "bench_arms": arms[name],
                    "debug_llama": static["debug"][name],
                    "optimizer_interception": recurrent["launches"][name],
-                   "data_parallel": data_parallel[name]}
+                   "data_parallel": data_parallel[name],
+                   "tensor_parallel": fleet_run["tensor_parallel"][name],
+                   "context_parallel": fleet_run["context_parallel"][name]}
         f32_by_path = ({"static_llama":
                         static["static"]["launches"]["rms_norm"],
                         "static_llama_loaded":
@@ -9035,7 +9730,9 @@ def main() -> int:
                "bench_arms": arms["adamw"],
                "transformer_base": transformer["adamw"],
                "optimizer_interception": recurrent["launches"]["adamw"],
-               "data_parallel": data_parallel["adamw"]}
+               "data_parallel": data_parallel["adamw"],
+               "tensor_parallel": fleet_run["tensor_parallel"]["adamw"],
+               "context_parallel": fleet_run["context_parallel"]["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",
@@ -9068,4 +9765,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--data-parallel-rank"]:
         # one rank of phase 25 (b) and (c), started by the launcher
         sys.exit(dp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-rank"]:
+        # one rank of phase 26 (b) and (c), started by the launcher
+        sys.exit(fleet_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--fleet-four-rank"]:
+        # one rank of the four-card run of phase 26
+        sys.exit(four_rank_main())
     sys.exit(main())

@@ -37,7 +37,8 @@ from . import dtype as dtype_mod
 __all__ = ["build_generator", "dropout_generator", "enable_grad",
            "get_default_dtype", "host_random", "is_dropout_generator",
            "is_grad_enabled",
-           "no_grad", "seed", "set_default_dtype", "set_grad_enabled"]
+           "no_grad", "seed", "set_default_dtype", "set_grad_enabled",
+           "swap_dropout_generator"]
 
 no_grad = torch.no_grad
 enable_grad = torch.enable_grad
@@ -90,6 +91,17 @@ def dropout_generator(device) -> torch.Generator:
         gen = _dropout_generators[dev] = torch.Generator(
             device=dev).manual_seed(_seed)
     return gen
+
+
+def swap_dropout_generator(device, gen: torch.Generator) -> torch.Generator:
+    """Make ``gen`` the process-wide dropout generator on ``device`` and
+    return the one it replaces (``RNGStatesTracker.rng_state``)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    prev = dropout_generator(dev)
+    _dropout_generators[dev] = gen
+    return prev
 
 
 def is_dropout_generator(gen) -> bool:

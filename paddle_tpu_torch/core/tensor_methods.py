@@ -1,8 +1,8 @@
 """``Tensor``'s method surface (port of ``paddle_tpu/core/tensor_methods.py``).
 
 Every public op of ``ops.creation``, ``manipulation``, ``math``, ``logic``,
-``search``, ``stat``, ``linalg``, ``einsum_ops`` and ``random`` whose first
-parameter takes a tensor
+``search``, ``stat``, ``linalg``, ``activation``, ``einsum_ops`` and
+``random`` whose first parameter takes a tensor
 becomes a ``Tensor`` method, by the JAX package's rules (``_patchable``,
 ``_SKIP``): ``x.sum(axis=1)`` is ``paddle.sum(x, axis=1)``, and returns a
 ``Tensor``. Where torch has a method of the same name (``size``,
@@ -16,8 +16,8 @@ from __future__ import annotations
 import inspect
 
 from .. import tensor as paddle_tensor
-from ..ops import (creation, einsum_ops, linalg, logic, manipulation, math,
-                   search, stat)
+from ..ops import (activation, creation, einsum_ops, linalg, logic,
+                   manipulation, math, search, stat)
 from ..ops import random as random_ops
 from .tensor import Tensor, paddle_out
 
@@ -53,6 +53,6 @@ def _install(module) -> None:
                     or paddle_out(fn))
 
 
-for _module in (math, manipulation, logic, search, stat, linalg, einsum_ops,
-                creation, random_ops):
+for _module in (math, manipulation, logic, search, stat, linalg, activation,
+                einsum_ops, creation, random_ops):
     _install(_module)

@@ -6,10 +6,14 @@ the functional collectives and ``Group``, ``spmd`` regions, ``DataParallel``
 with ``shard_batch`` and ``replicate_layer``, ``spawn``, the launcher
 (``python -m paddle_tpu_torch.distributed.launch``) and its ``Master``
 rendezvous, the comm watchdog, and the sharded checkpoint
-(``checkpoint.sharded``). ``TCPStore`` is ``torch.distributed.TCPStore``.
+(``checkpoint.sharded``), and ``fleet``: the tensor-, sequence- and
+context-parallel tier (``fleet.init``, the topology, the ``mpu`` layers,
+``sequence_parallel``, ring and Ulysses attention, ``distributed_model``).
+``TCPStore`` is ``torch.distributed.TCPStore``.
 
 Not ported yet (``ROADMAP.md``, queue 7; each raises
-``NotImplementedError`` naming it): ``fleet``, ``auto_parallel`` and its
+``NotImplementedError`` naming it): fleet's pipeline parallelism and
+recompute (item 7.2) and sharded optimizer (item 7.3); ``auto_parallel`` and its
 ``ProcessMesh``/``shard_tensor``/``reshard`` family, ``sharding``, ``ps``,
 ``rpc``, ``auto_tuner``, ``moe_utils`` and ``collective_opt``.
 """
@@ -61,22 +65,28 @@ from .parallel import (DataParallel, ParallelEnv, replicate_layer,  # noqa: F401
 from .spmd import P, PartitionSpec, in_spmd_region, spmd, spmd_region  # noqa: F401
 from .spawn import spawn  # noqa: F401
 from . import checkpoint  # noqa: F401
+from . import fleet  # noqa: F401
 
 TCPStore = _tdist.TCPStore
 
 # the JAX package's distributed names that wait for later slices
-_NOT_PORTED = ("fleet", "auto_parallel", "ProcessMesh", "Partial",
+_NOT_PORTED = ("auto_parallel", "ProcessMesh", "Partial",
                "Placement", "Replicate", "Shard", "dtensor_from_fn",
                "reshard", "shard_layer", "shard_optimizer", "shard_tensor",
                "unshard_dtensor", "sharding", "ps", "rpc", "auto_tuner",
                "moe_utils", "collective_opt")
 
 
+# the queue 7 item each waits for (7.4 unless listed)
+_ITEM = {"sharding": "7.3"}
+
+
 def __getattr__(name):
     if name in _NOT_PORTED:
         raise NotImplementedError(
             f"paddle_tpu_torch.distributed.{name} is not ported yet "
-            f"(ROADMAP.md, queue 7)")
+            f"(ROADMAP.md, queue 7 item "
+            f"{_ITEM.get(name, '7.4')})")
     raise AttributeError(f"module 'paddle_tpu_torch.distributed' has no "
                          f"attribute {name!r}")
 

@@ -46,8 +46,8 @@ from . import communication as comm
 from . import env as env_mod
 from .env import init_parallel_env  # re-export  # noqa: F401
 
-__all__ = ["DataParallel", "ParallelEnv", "init_parallel_env",
-           "replicate_layer", "shard_batch"]
+__all__ = ["DataParallel", "GradientReducer", "ParallelEnv",
+           "init_parallel_env", "replicate_layer", "shard_batch"]
 
 _MB = 1 << 20
 
@@ -115,15 +115,107 @@ def _buckets(params: List[torch.Tensor], size_mb: float,
     return buckets
 
 
+class GradientReducer:
+    """The gradients of ``params`` summed over ``group`` and divided by
+    ``divisor`` (default: the group's size, the mean), at the end of a
+    backward (an autograd final callback, queued by the first parameter
+    whose gradient lands), in flat buckets of one dtype (:func:`_buckets`).
+    ``DataParallel`` and the sequence-parallel hooks both reduce with it.
+
+    Any number of backwards may run before the optimizer's step. The
+    reduction is a mean, which leaves a gradient that is already reduced
+    (the same on every member) as it is, so it reduces only what the new
+    backward added. A ``divisor`` other than the group's size ``n`` is
+    reached by scaling each incoming gradient by ``n / divisor`` (a tensor
+    hook) before it accumulates: the mean of the scaled sums is then
+    ``Σ g / divisor``. While ``sync`` is off (``DataParallel.no_sync``),
+    and on every backward but each ``accumulation_steps``-th, nothing is
+    reduced and the gradients accumulate on each rank (scaled so, when
+    ``divisor`` is given). On NCCL a captured ``TrainStep`` holds the
+    all-reduces in its graph; a captured step runs one backward, so it
+    takes ``accumulation_steps`` 1."""
+
+    def __init__(self, params: List[torch.Tensor], group, divisor=None,
+                 size_mb: float = 25.0, first_mb: float = 25.0,
+                 find_unused_parameters: bool = False,
+                 accumulation_steps: int = 1):
+        if int(accumulation_steps) < 1:
+            raise ValueError(f"accumulation_steps must be at least 1, got "
+                             f"{accumulation_steps}")
+        self.params = list(params)
+        self.group = group
+        self.comm = comm._comm(group)
+        self.find_unused_parameters = find_unused_parameters
+        self.accumulation_steps = int(accumulation_steps)
+        self.sync = True
+        self.buckets = _buckets(self.params, size_mb, first_mb)
+        self._queued = False
+        self._backwards = 0
+        self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
+                       for p in self.params]
+        n = self.comm.n
+        self.divisor = n if divisor is None else divisor
+        if self.divisor != n:
+            scale = n / self.divisor
+            self._hooks += [p.register_hook(lambda g: g * scale)
+                            for p in self.params]
+
+    def _on_grad(self, param) -> None:
+        if not self._queued:
+            if (self.accumulation_steps > 1 and torch.cuda.is_available()
+                    and torch.cuda.is_current_stream_capturing()):
+                raise RuntimeError(
+                    "a captured step runs one backward: reduce with "
+                    "accumulation_steps=1")
+            self._queued = True
+            torch.autograd.Variable._execution_engine.queue_callback(
+                self._end_backward)
+
+    def _end_backward(self) -> None:
+        self._queued = False
+        self._backwards += 1
+        if self.sync and self._backwards % self.accumulation_steps == 0:
+            self.reduce()
+
+    def reduce(self) -> None:
+        """Every bucket's gradients all-reduced and divided by the group's
+        size, in place."""
+        n = self.comm.n
+        with torch.no_grad():
+            for bucket in self.buckets:
+                grads = []
+                for p in bucket:
+                    if p.grad is None:
+                        if not self.find_unused_parameters:
+                            name = getattr(p, "param_name", None) or \
+                                tuple(p.shape)
+                            raise RuntimeError(
+                                f"parameter {name} got no gradient in "
+                                f"this backward; pass DataParallel "
+                                f"find_unused_parameters=True to reduce "
+                                f"zeros for it")
+                        p.grad = torch.zeros_like(p)
+                    grads.append(p.grad)
+                flat = torch.cat([g.reshape(-1) for g in grads])
+                comm.all_reduce(flat, group=self.group)
+                flat.div_(n)
+                at = 0
+                for g in grads:
+                    g.copy_(flat[at:at + g.numel()].view_as(g))
+                    at += g.numel()
+
+
 class DataParallel(Layer):
     """Data-parallel wrapper (reference parallel.py:219): ``model =
     paddle.DataParallel(model)`` after ``init_parallel_env()``; each rank
     feeds its own rows, and every backward leaves each rank the mean of
-    the ranks' gradients."""
+    the ranks' gradients (their sum over ``grad_divisor``, when given: the
+    port's keyword, which ``fleet`` uses to sum over ``("dp", "sep")`` and
+    divide by the ``dp`` degree alone)."""
 
     def __init__(self, layers: Layer, strategy=None, comm_buffer_size=25,
                  last_comm_buffer_size=1, find_unused_parameters=False,
-                 group=None):
+                 group=None, *, grad_divisor=None):
         if get_flag("comm_quantize_dp_grads"):
             raise NotImplementedError(
                 "DataParallel with FLAGS_comm_quantize_dp_grads: the int8 "
@@ -135,74 +227,36 @@ class DataParallel(Layer):
         self.comm_buffer_size = comm_buffer_size
         self.last_comm_buffer_size = last_comm_buffer_size
         self._group = group if group is not None else _dp_group()
-        self._comm = comm._comm(self._group)
         replicate_layer(layers, group=self._group)
-        self._sync = True
-        self._queued = False
-        params = [p for p in layers.parameters() if p.requires_grad]
-        self._grad_buckets = _buckets(params, comm_buffer_size,
-                                      last_comm_buffer_size)
-        self._hooks = [p.register_post_accumulate_grad_hook(self._on_grad)
-                       for p in params]
+        self._reducer = GradientReducer(
+            [p for p in layers.parameters() if p.requires_grad],
+            self._group, grad_divisor, comm_buffer_size,
+            last_comm_buffer_size, find_unused_parameters)
 
     @property
     def bucket_sizes(self) -> List[int]:
         """Bytes of each gradient bucket, in the order they are reduced."""
         return [sum(p.numel() * p.element_size() for p in b)
-                for b in self._grad_buckets]
+                for b in self._reducer.buckets]
 
     @property
     def backend(self):
-        return self._comm.backend()
+        return self._reducer.comm.backend()
 
     def forward(self, *inputs, **kwargs):
         return self._layers(*inputs, **kwargs)
-
-    def _on_grad(self, param) -> None:
-        if self._sync and not self._queued:
-            self._queued = True
-            torch.autograd.Variable._execution_engine.queue_callback(
-                self._reduce)
-
-    def _reduce(self) -> None:
-        """The end of a backward: every bucket's gradients all-reduced and
-        divided by the degree, in place."""
-        self._queued = False
-        n = self._comm.n
-        with torch.no_grad():
-            for bucket in self._grad_buckets:
-                grads = []
-                for p in bucket:
-                    if p.grad is None:
-                        if not self.find_unused_parameters:
-                            name = getattr(p, "param_name", None) or \
-                                tuple(p.shape)
-                            raise RuntimeError(
-                                f"DataParallel: parameter {name} got no "
-                                f"gradient in this backward; pass "
-                                f"find_unused_parameters=True to reduce "
-                                f"zeros for it")
-                        p.grad = torch.zeros_like(p)
-                    grads.append(p.grad)
-                flat = torch.cat([g.reshape(-1) for g in grads])
-                comm.all_reduce(flat, group=self._group)
-                flat.div_(n)
-                at = 0
-                for g in grads:
-                    g.copy_(flat[at:at + g.numel()].view_as(g))
-                    at += g.numel()
 
     @contextlib.contextmanager
     def no_sync(self):
         """Backwards inside run without the gradient all-reduce (reference
         parallel.py ``DataParallel.no_sync``): gradients accumulate on
         each rank until a backward outside reduces them."""
-        before = self._sync
-        self._sync = False
+        before = self._reducer.sync
+        self._reducer.sync = False
         try:
             yield
         finally:
-            self._sync = before
+            self._reducer.sync = before
 
     # state passthrough: checkpoints see the inner layer's names
     def state_dict(self, *a, **k):

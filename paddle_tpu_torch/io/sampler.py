@@ -156,8 +156,11 @@ class DistributedBatchSampler(BatchSampler):
     """Per-rank shard of the epoch (reference DistributedBatchSampler):
     pads/subsets so every rank sees the same number of batches; set_epoch
     reseeds the shuffle identically on all ranks. ``num_replicas`` and
-    ``rank`` default to the world's (``distributed.get_world_size()``,
-    ``get_rank()``)."""
+    ``rank`` default to the data-parallel ones: the size of this rank's
+    group over the mesh's ``dp`` and ``sharding`` axes and its place
+    there, which is the world's size and rank unless ``mp``, ``sep`` or
+    ``pp`` has more than one rank (then the ranks of one model replica
+    read the same rows)."""
 
     def __init__(self, dataset, batch_size, num_replicas=None, rank=None,
                  shuffle=False, drop_last=False):
@@ -167,10 +170,12 @@ class DistributedBatchSampler(BatchSampler):
             raise ValueError("batch_size must be positive")
         self.dataset = dataset
         self.batch_size = batch_size
+        replicas = dist_env.get_mesh().members(dist_env.get_rank(),
+                                               ("dp", "sharding"))
         self.nranks = (num_replicas if num_replicas is not None
-                       else dist_env.instance().world_size)
+                       else len(replicas))
         self.local_rank = (rank if rank is not None
-                           else dist_env.instance().rank)
+                           else replicas.index(dist_env.get_rank()))
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.epoch = 0

@@ -169,12 +169,19 @@ def model_generators(model) -> List[torch.Generator]:
 
 
 def _capturable(model) -> bool:
-    """False for a ``DataParallel`` model whose collectives go through
-    gloo: gloo stages CUDA tensors through the host, which a CUDA graph
-    cannot hold, so its steps run eagerly."""
+    """False in a gloo world of several ranks, whose collectives (a
+    ``DataParallel`` model's, a tensor-, sequence- or context-parallel
+    model's) stage CUDA tensors through the host, which a CUDA graph
+    cannot hold: such steps run eagerly. On NCCL one graph a step holds
+    the collectives, a ring's point-to-point exchanges too."""
+    from ..distributed import env as dist_env
     from ..distributed.parallel import DataParallel
 
-    return not (isinstance(model, DataParallel) and model.backend == "gloo")
+    if isinstance(model, DataParallel) and model.backend == "gloo":
+        return False
+    env = dist_env.instance()
+    return not (env.initialized and env.backend == "gloo"
+                and env.world_size > 1)
 
 
 def _cuda_generators(model) -> List[torch.Generator]:

@@ -26,7 +26,15 @@ LayerNorm's f32 output meets the bf16 branch in bf16 (``ops.math.add``).
 Randomness is explicit, as in ``models/gpt.py``: weights are normal with
 std ``initializer_range`` from a ``torch.Generator`` on the CPU (biases
 0, LayerNorms 1 and 0), dropout draws from the model's own generator on
-its device, seeded by ``dropout_seed``. ``tensor_parallel=True`` raises.
+its device, seeded by ``dropout_seed``.
+
+``tensor_parallel`` (JAX ``models/bert.py:50-130``, one process a rank over
+``distributed.fleet``): ``qkv``/``fc1`` column-parallel and ``out``/``fc2``
+row-parallel over ``mp``, the qkv ``[heads, 3, D]``-major as in GPT, so
+each rank holds whole heads; the word embeddings vocab-parallel. The
+pretraining head's tied decoder gathers the whole logits. Attention
+dropout on a rank's own heads draws from the RNG tracker's
+``model_parallel_rng``.
 """
 from __future__ import annotations
 
@@ -42,6 +50,7 @@ from ..nn import functional as F
 from ..nn.layer import Dropout, Embedding, LayerNorm, Linear
 from ..nn.layer.layers import Layer, building
 from ..ops.math import add
+from . import _parallel
 from .gpt import jax_state_dict, load_jax_state, port_state_from_jax
 
 __all__ = ["BertConfig", "BertEmbeddings", "BertSelfAttention", "BertLayer",
@@ -79,7 +88,11 @@ class BertEmbeddings(Layer):
         super().__init__()
         self.config = config
         h = config.hidden_size
-        self.word_embeddings = Embedding(config.vocab_size, h)
+        if config.tensor_parallel:
+            self.word_embeddings = _parallel.vocab_embedding(
+                config.vocab_size, h)
+        else:
+            self.word_embeddings = Embedding(config.vocab_size, h)
         self.position_embeddings = Embedding(config.max_position_embeddings,
                                              h)
         self.token_type_embeddings = Embedding(config.type_vocab_size, h)
@@ -102,7 +115,8 @@ class BertEmbeddings(Layer):
 
 class BertSelfAttention(Layer):
     """Fused-qkv bidirectional attention with an optional additive mask;
-    attention dropout draws from ``generator``."""
+    attention dropout draws from ``generator`` (under ``tensor_parallel``
+    the rank's own stream)."""
 
     def __init__(self, config: BertConfig,
                  generator: Optional[torch.Generator] = None):
@@ -110,8 +124,13 @@ class BertSelfAttention(Layer):
         self.config = config
         self.generator = generator
         h = config.hidden_size
-        self.qkv = Linear(h, 3 * h)
-        self.out = Linear(h, h)
+        if config.tensor_parallel:
+            col, row = _parallel.linears(config)
+            self.qkv = col(h, 3 * h, has_bias=True, gather_output=False)
+            self.out = row(h, h, has_bias=True, input_is_parallel=True)
+        else:
+            self.qkv = Linear(h, 3 * h)
+            self.out = Linear(h, h)
 
     def forward(self, x, attention_mask=None):
         cfg = self.config
@@ -134,10 +153,17 @@ class BertLayer(Layer):
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         h, eps = config.hidden_size, config.layer_norm_eps
-        self.attention = BertSelfAttention(config, generator)
+        ffn = config.intermediate_size
+        self.attention = BertSelfAttention(config, attention_generator(
+            config, generator))
         self.attn_norm = LayerNorm(h, eps=eps)
-        self.fc1 = Linear(h, config.intermediate_size)
-        self.fc2 = Linear(config.intermediate_size, h)
+        if config.tensor_parallel:
+            col, row = _parallel.linears(config)
+            self.fc1 = col(h, ffn, has_bias=True, gather_output=False)
+            self.fc2 = row(ffn, h, has_bias=True, input_is_parallel=True)
+        else:
+            self.fc1 = Linear(h, ffn)
+            self.fc2 = Linear(ffn, h)
         self.ffn_norm = LayerNorm(h, eps=eps)
         self.dropout = Dropout(config.hidden_dropout_prob,
                                generator=generator)
@@ -159,11 +185,16 @@ class BertPooler(Layer):
 
 
 def _model_device(config: BertConfig, device) -> torch.device:
-    if config.tensor_parallel:
-        raise NotImplementedError(
-            "BERT's tensor-parallel layout is not ported yet (ROADMAP.md, "
-            "queue 7)")
     return resolve_device(device)
+
+
+def attention_generator(config: BertConfig,
+                        generator: Optional[torch.Generator]):
+    """The attention dropout's stream: the model's, or under
+    ``tensor_parallel`` the tracker's per-rank one on its device."""
+    if not config.tensor_parallel or generator is None:
+        return generator
+    return _parallel.local_generator(generator.device)
 
 
 def _building(model: nn.Module, config: BertConfig, device: torch.device,
@@ -185,7 +216,7 @@ def _init_weights(model: nn.Module, config: BertConfig,
             mod.weight.fill_(1.0)
             mod.bias.zero_()
         elif isinstance(mod, (nn.Linear, nn.Embedding)):
-            mod.weight.normal_(0.0, config.initializer_range, generator=gen)
+            _parallel.normal_(mod, "weight", config.initializer_range, gen)
             if getattr(mod, "bias", None) is not None:
                 mod.bias.zero_()
     if isinstance(getattr(model, "decoder_bias", None), nn.Parameter):
@@ -277,7 +308,14 @@ class BertForPretraining(Layer):
                                 attention_mask)
         h = self.transform_norm(F.gelu(self.transform(seq)))
         # the word embeddings [V, H] are the tied decoder's [out, in] weight
-        logits = F.linear(h, self.bert.embeddings.word_embeddings.weight)
+        w = self.bert.embeddings.word_embeddings.weight
+        if self.config.tensor_parallel:
+            from ..distributed.fleet import mpu
+
+            logits = mpu.gather_from_model_parallel(
+                F.linear(mpu.copy_to_model_parallel(h), w))
+        else:
+            logits = F.linear(h, w)
         return add(logits, self.decoder_bias), self.nsp(pooled)
 
 

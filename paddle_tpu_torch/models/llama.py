@@ -18,8 +18,18 @@ carries JAX weights across. No layer has a bias.
 Randomness is explicit, as in ``models/gpt.py``: weights are normal with
 std ``initializer_range`` (``/sqrt(2·layers)`` for ``out_proj`` and
 ``down_proj``) from a ``torch.Generator`` on the CPU; dropout draws from
-the model's own generator on its device. The tensor, sequence, pipeline
-and context-parallel layouts of the JAX model raise here.
+the model's own generator on its device.
+
+The parallel layouts are GPT's (``models/gpt.py``), with Llama's packed
+projections cut block by block: under ``tensor_parallel`` rank ``r`` holds
+``[q_r | k_r | v_r]`` of ``qkv_proj`` and ``[gate_r | up_r]`` of
+``gate_up_proj`` (a contiguous cut would give rank 0 only q heads), which
+needs ``num_key_value_heads`` divisible by the ``mp`` degree. The untied
+``lm_head`` is column-parallel and gathers the whole logits, as the JAX
+model's ``P("dp", None, None)`` does. Under ``context_parallel`` RoPE
+takes the rows of the whole sequence's table at this rank's global
+positions. ``pipeline_parallel`` raises (``ROADMAP.md``, queue 7 item
+7.2).
 """
 from __future__ import annotations
 
@@ -35,9 +45,10 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..nn import functional as F
 from ..nn.layer import Layer, Linear, RMSNorm
 from ..ops.activation import swiglu
-from ..ops.fused_ops import fused_rotary_position_embedding
-from .gpt import (GPTPretrainingCriterion, check_single_device,
-                  load_jax_state, name_parameters)
+from ..ops.fused_ops import _rope_table, fused_rotary_position_embedding
+from . import _parallel
+from .gpt import (GPTPretrainingCriterion, attend, check_layout,
+                  lm_head_input, load_jax_state, name_parameters)
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "LlamaPretrainingCriterion",
@@ -77,6 +88,7 @@ class LlamaConfig:
         if self.num_attention_heads % self.num_key_value_heads:
             raise ValueError(
                 "num_key_value_heads must divide num_attention_heads")
+        check_layout(self)
 
     @property
     def head_dim(self) -> int:
@@ -85,7 +97,8 @@ class LlamaConfig:
 
 class LlamaAttention(Layer):
     """GQA self-attention with rotary embeddings; attention dropout draws
-    its seed from ``generator``."""
+    its seed from ``generator`` (under ``tensor_parallel``: the rank's own
+    stream)."""
 
     def __init__(self, config: LlamaConfig,
                  generator: Optional[torch.Generator] = None):
@@ -94,29 +107,56 @@ class LlamaAttention(Layer):
         self.generator = generator
         h, d = config.hidden_size, config.head_dim
         kv_out = config.num_key_value_heads * d
-        self.qkv_proj = Linear(h, h + 2 * kv_out, bias_attr=False)
-        self.out_proj = Linear(h, h, bias_attr=False)
+        if config.tensor_parallel:
+            n = _parallel.mp_degree()
+            if config.num_key_value_heads % n:
+                raise ValueError(
+                    f"tensor_parallel: num_key_value_heads "
+                    f"{config.num_key_value_heads} must be divisible by the "
+                    f"mp degree {n} (each rank holds whole KV heads)")
+            col, row = _parallel.linears(config)
+            self.qkv_proj = col(h, h + 2 * kv_out, has_bias=False,
+                                gather_output=False,
+                                segments=(h, kv_out, kv_out))
+            self.out_proj = row(h, h, has_bias=False, input_is_parallel=True)
+        else:
+            self.qkv_proj = Linear(h, h + 2 * kv_out, bias_attr=False)
+            self.out_proj = Linear(h, h, bias_attr=False)
+
+    def _rope(self, q, k):
+        cfg = self.config
+        n, r = _parallel.sep_place(cfg)
+        if n == 1:
+            return fused_rotary_position_embedding(
+                q, k, None, rotary_emb_base=cfg.rope_theta,
+                use_neox_rotary_style=True)
+        # this rank's rows of the whole sequence's table: global positions
+        s, d = q.shape[1], q.shape[3]
+        sin, cos = (_parallel.seq_part(t, n, r, dim=1) for t in _rope_table(
+            n * s, d, float(cfg.rope_theta), True, q.device))
+        return fused_rotary_position_embedding(
+            q, k, None, sin=sin, cos=cos, rotary_emb_base=cfg.rope_theta,
+            use_neox_rotary_style=True)
 
     def forward(self, x):
         cfg = self.config
-        b, s = x.shape[0], x.shape[1]
-        d, hq, hkv = (cfg.head_dim, cfg.num_attention_heads,
-                      cfg.num_key_value_heads)
+        d = cfg.head_dim
+        group = cfg.num_attention_heads // cfg.num_key_value_heads
         qkv = self.qkv_proj(x)
+        b, s = qkv.shape[0], qkv.shape[1]
+        # this rank's head counts (all of them on one device)
+        hq = (qkv.shape[-1] // d) * group // (group + 2)
+        hkv = hq // group
         q = qkv[..., :hq * d].unflatten(-1, (hq, d))
         k = qkv[..., hq * d:(hq + hkv) * d].unflatten(-1, (hkv, d))
         v = qkv[..., (hq + hkv) * d:].unflatten(-1, (hkv, d))
-        q, k, _ = fused_rotary_position_embedding(
-            q, k, None, rotary_emb_base=cfg.rope_theta,
-            use_neox_rotary_style=True)
-        group = hq // hkv
+        q, k, _ = self._rope(q, k)
         if group > 1:
             # KV groups expanded to full heads, as the JAX model does
             k = k.repeat_interleave(group, dim=2)
             v = v.repeat_interleave(group, dim=2)
-        out = F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=cfg.attention_dropout_prob,
-            training=self.training, generator=self.generator)
+        out = attend(cfg, q, k, v, cfg.attention_dropout_prob,
+                     self.training, self.generator)
         return self.out_proj(out.reshape(b, s, hq * d))
 
 
@@ -126,27 +166,40 @@ class LlamaMLP(Layer):
     def __init__(self, config: LlamaConfig):
         super().__init__()
         h, ffn = config.hidden_size, config.intermediate_size
-        self.gate_up_proj = Linear(h, 2 * ffn, bias_attr=False)
-        self.down_proj = Linear(ffn, h, bias_attr=False)
+        if config.tensor_parallel:
+            col, row = _parallel.linears(config)
+            self.gate_up_proj = col(h, 2 * ffn, has_bias=False,
+                                    gather_output=False, segments=(ffn, ffn))
+            self.down_proj = row(ffn, h, has_bias=False,
+                                 input_is_parallel=True)
+        else:
+            self.gate_up_proj = Linear(h, 2 * ffn, bias_attr=False)
+            self.down_proj = Linear(ffn, h, bias_attr=False)
 
     def forward(self, x):
         return self.down_proj(swiglu(self.gate_up_proj(x)))
 
 
 class LlamaDecoderLayer(Layer):
-    """Pre-norm block; hidden dropout draws from ``generator``."""
+    """Pre-norm block; hidden dropout draws from ``generator`` (under
+    ``sequence_parallel``, from ``local_generator``)."""
 
     def __init__(self, config: LlamaConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 local_generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
-        self.generator = generator
+        self.generator = (local_generator if config.sequence_parallel
+                          else generator)
         eps = config.rms_norm_eps
         self.input_layernorm = RMSNorm(config.hidden_size, epsilon=eps)
-        self.self_attn = LlamaAttention(config, generator)
+        self.self_attn = LlamaAttention(
+            config, local_generator if config.tensor_parallel else generator)
         self.post_attention_layernorm = RMSNorm(config.hidden_size,
                                                 epsilon=eps)
         self.mlp = LlamaMLP(config)
+        _parallel.mark_sequence_parallel(config, self.input_layernorm,
+                                         self.post_attention_layernorm)
 
     def forward(self, x):
         p, gen = self.config.hidden_dropout_prob, self.generator
@@ -157,21 +210,35 @@ class LlamaDecoderLayer(Layer):
 
 
 class LlamaModel(Layer):
-    """Trunk: token embeddings → N decoder blocks → final RMSNorm."""
+    """Trunk: token embeddings → N decoder blocks → final RMSNorm; the
+    parallel layouts as ``GPTModel``'s."""
 
     def __init__(self, config: LlamaConfig,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 local_generator: Optional[torch.Generator] = None):
         super().__init__()
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size)
+        if config.tensor_parallel:
+            self.embed_tokens = _parallel.vocab_embedding(
+                config.vocab_size, config.hidden_size)
+        else:
+            self.embed_tokens = nn.Embedding(config.vocab_size,
+                                             config.hidden_size)
         self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, generator)
+            [LlamaDecoderLayer(config, generator, local_generator)
              for _ in range(config.num_hidden_layers)])
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
+        _parallel.mark_sequence_parallel(config, self.norm)
 
     def forward(self, input_ids):
+        n, r = _parallel.sep_place(self.config)
+        if n > 1:
+            input_ids = _parallel.seq_part(input_ids, n, r)
         x = self.embed_tokens(input_ids)
+        if self.config.sequence_parallel:
+            from ..distributed.fleet.sequence_parallel import ScatterOp
+
+            x = ScatterOp.apply(x)
         for block in self.layers:
             x = block(x)
         return self.norm(x)
@@ -185,24 +252,32 @@ class LlamaForCausalLM(Layer):
     build generator that ``paddle.seed`` seeds), so one seed gives the
     same weights on every device. Dropout draws from
     ``dropout_generator``, a ``torch.Generator`` on ``device`` seeded with
-    ``dropout_seed``."""
+    ``dropout_seed``. Under ``tensor_parallel`` the logits are gathered
+    whole over ``mp``."""
 
     def __init__(self, config: LlamaConfig, *, device=DEFAULT_DEVICE,
                  generator: Optional[torch.Generator] = None,
                  dropout_seed: int = 0):
         super().__init__()
         dev = resolve_device(device)
-        check_single_device(config)
+        check_layout(config)
         self.config = config
         self.dropout_generator = torch.Generator(device=dev).manual_seed(
             int(dropout_seed))
+        local = (_parallel.local_generator(dev) if config.tensor_parallel
+                 else None)
         # built without storage, so torch's own initializers neither run
         # nor draw from the global generator
         with torch.device("meta"):
-            self.llama = LlamaModel(config, self.dropout_generator)
+            self.llama = LlamaModel(config, self.dropout_generator, local)
             if not config.tie_word_embeddings:
-                self.lm_head = Linear(config.hidden_size, config.vocab_size,
-                                      bias_attr=False)
+                if config.tensor_parallel:
+                    col, _ = _parallel.linears(config)
+                    self.lm_head = col(config.hidden_size, config.vocab_size,
+                                       has_bias=False, gather_output=True)
+                else:
+                    self.lm_head = Linear(config.hidden_size,
+                                          config.vocab_size, bias_attr=False)
         self.to_empty(device="cpu")
         self._init_weights(generator if generator is not None
                            else build_generator())
@@ -219,19 +294,29 @@ class LlamaForCausalLM(Layer):
                 mod.weight.fill_(1.0)
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
                 s = scaled if name.endswith(("out_proj", "down_proj")) else std
-                mod.weight.normal_(0.0, s, generator=gen)
+                _parallel.normal_(mod, "weight", s, gen)
 
     def forward(self, input_ids):
+        cfg = self.config
         x = self.llama(input_ids)
-        if self.config.tie_word_embeddings:
+        if not cfg.tie_word_embeddings:
+            return self.lm_head(x)
+        if not cfg.tensor_parallel:
             return F.linear(x, self.llama.embed_tokens.weight)
-        return self.lm_head(x)
+        from ..distributed.fleet import mpu
+
+        logits = F.linear(lm_head_input(cfg, x),
+                          self.llama.embed_tokens.weight)
+        return mpu.gather_from_model_parallel(logits)
 
 
 class LlamaPretrainingCriterion(GPTPretrainingCriterion):
     """Shifted causal-LM cross entropy, the GPT criterion's contract: the
     logits at position i are scored against token i+1, mean over the
-    ``B·(S−1)`` positions."""
+    ``B·(S−1)`` positions (under ``context_parallel``, over every ``sep``
+    rank's). Llama's logits are whole over ``mp``."""
+
+    logits_are_vocab_parts = False
 
 
 def llama_flops_per_step(batch: int, seq: int, cfg: LlamaConfig) -> float:

@@ -6,8 +6,10 @@ flash_attention.py``), which is differentiable: K1 forward and K2/K3
 backward for CUDA tensors, their plain versions for CPU tensors. Dropout
 applies when ``training`` and the probability is positive; its seed, a
 ``(1,)`` int32 tensor, is drawn from the caller's ``torch.Generator`` on
-the tensors' device (the JAX ``_seed_from_key`` draws it from a key), so
-the global generator is never touched.
+the tensors' device, or from the process-wide dropout generator there
+(``base.global_state.dropout_generator``, seeded by ``paddle.seed``)
+when the caller gives none (the JAX ``_seed_from_key`` draws it from a
+key); torch's global generator is never touched.
 
 With ``attn_mask`` (BERT's padding bias), and for ``return_softmax``, the
 JAX package takes its XLA composition ``_xla_attention``, which has no
@@ -24,6 +26,7 @@ from typing import Optional
 import torch
 
 from ...amp.auto_cast import cast_inputs
+from ...base import global_state
 from ...ops.cuda.flash_attention import NEG_INF, flash_attention_value
 from .common import dropout as _dropout
 
@@ -32,10 +35,10 @@ __all__ = ["flash_attention", "scaled_dot_product_attention"]
 
 def _draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     """A ``(1,)`` int32 dropout seed in [0, 2**31 - 1), drawn on ``device``
-    from ``generator``; no host round trip."""
+    from ``generator`` (the process-wide dropout generator on ``device``
+    when it is None); no host round trip."""
     if generator is None:
-        raise ValueError("attention dropout draws its seed from an explicit "
-                         "torch.Generator: pass generator=")
+        generator = global_state.dropout_generator(device)
     return torch.randint(0, 2**31 - 1, (1,), generator=generator,
                          device=device, dtype=torch.int32)
 

@@ -1,7 +1,8 @@
 """Common functionals (port of ``paddle_tpu/nn/functional/common.py``, the
 functions): ``linear`` under AMP, ``embedding`` with the JAX
 ``padding_idx`` rule, ``dropout`` (with ``axis`` and both modes),
-``dropout2d``/``3d`` and ``alpha_dropout`` from an explicit generator,
+``dropout2d``/``3d`` and ``alpha_dropout`` from the caller's generator or
+the process-wide one,
 ``normalize``, ``cosine_similarity``, ``bilinear``, the pixel and channel
 shuffles, ``unfold``/``fold`` (torch's im2col after the JAX pads), ``pad``
 and ``interpolate``/``upsample``.
@@ -46,6 +47,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
+from ...base import global_state
 from ...ops.manipulation import pad  # noqa: F401  (F.pad, as in JAX)
 
 __all__ = ["alpha_dropout", "bilinear", "channel_shuffle",
@@ -76,12 +78,18 @@ def embedding(x, weight, padding_idx=None, sparse=False):
     return out
 
 
+def _check_p(p):
+    if not 0.0 <= p <= 1.0:
+        raise ValueError(f"dropout probability must be in [0, 1], got {p}")
+
+
 def _keep_mask(x, p, shape, generator):
-    if not 0.0 < p < 1.0:
-        raise ValueError(f"dropout probability must be in [0, 1), got {p}")
+    """The keep mask of shape ``shape``, drawn from ``generator`` or, when
+    it is None, from the process-wide dropout generator on ``x``'s device
+    (``base.global_state.dropout_generator``, seeded by ``paddle.seed``),
+    as the layers draw."""
     if generator is None:
-        raise ValueError("dropout draws from an explicit torch.Generator: "
-                         "pass generator=")
+        generator = global_state.dropout_generator(x.device)
     return torch.rand(shape, generator=generator, device=x.device) >= p
 
 
@@ -89,8 +97,10 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
             mode: str = "upscale_in_train", name=None, *,
             generator: Optional[torch.Generator] = None):
     """Dropout of probability ``p`` while ``training``, the keep mask drawn
-    from ``generator`` (a ``torch.Generator`` on ``x``'s device; the global
-    generator is never drawn from, so it is required when the call drops).
+    from ``generator`` (a ``torch.Generator`` on ``x``'s device), or from
+    the process-wide dropout generator on that device when it is None;
+    torch's global generator is never drawn from. ``p = 1`` gives zeros,
+    as the JAX function does.
     ``axis`` (an axis or a list) draws one mask entry per index of those
     axes, shared along the others. ``upscale_in_train`` gives ``x / (1 -
     p)`` where kept, ``downscale_in_infer`` ``x`` itself; 0 where dropped.
@@ -99,8 +109,13 @@ def dropout(x, p: float = 0.5, axis=None, training: bool = True,
     if mode not in ("upscale_in_train", "downscale_in_infer"):
         raise ValueError(f"dropout mode {mode!r}: upscale_in_train or "
                          f"downscale_in_infer")
+    _check_p(p)
     if not training or p == 0.0:
         return x
+    if p == 1.0:
+        # every element dropped; x / (1 - p) would give a NaN gradient
+        return torch.where(torch.zeros((), dtype=torch.bool,
+                                       device=x.device), x, 0.0)
     shape = list(x.shape)
     if axis is not None:
         axes = [a % x.dim() for a in (axis if isinstance(axis, (list, tuple))

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
+from ...core.tensor import plain
 
 __all__ = ["binary_cross_entropy", "binary_cross_entropy_with_logits",
            "cross_entropy", "ctc_loss", "hinge_embedding_loss", "kl_div",
@@ -56,7 +57,9 @@ def cross_entropy(input, label, weight=None, ignore_index: int = -100,
     if reduction not in ("mean", "sum", "none"):
         raise ValueError(f"cross_entropy reduction {reduction!r}: mean, sum "
                          f"or none")
-    z, w = cast_inputs("cross_entropy", input, weight)
+    # plain: a Tensor's softmax/log_softmax methods are Paddle's, which
+    # torch's functional forms call
+    z, w = cast_inputs("cross_entropy", plain(input), weight)
     y = label
     logp = (TF.log_softmax(z, dim=axis) if use_softmax
             else torch.log(torch.clamp_min(z, 1e-12)))
@@ -110,7 +113,7 @@ def softmax_with_cross_entropy(logits, label, soft_label: bool = False,
                          ignore_index=ignore_index, reduction="none",
                          axis=axis).unsqueeze(axis)
     if return_softmax:
-        return loss, TF.softmax(logits, dim=axis)
+        return loss, TF.softmax(plain(logits), dim=axis)
     return loss
 
 

@@ -10,6 +10,7 @@ import torch
 import torch.nn.functional as TF
 
 from ..amp.auto_cast import cast_inputs
+from ..core.tensor import plain
 
 __all__ = ["celu", "elu", "gelu", "hardshrink", "hardsigmoid", "hardswish",
            "hardtanh", "leaky_relu", "log_sigmoid", "log_softmax", "maxout",
@@ -67,7 +68,7 @@ def swiglu(x, y=None):
     the two halves ``[a | b]`` of x's last axis (the Llama MLP's packed
     gate/up projection). Op ``swiglu``: gray, so bf16 under AMP O2."""
     if y is None:
-        (x,) = cast_inputs("swiglu", x)
+        (x,) = cast_inputs("swiglu", plain(x))
         x, y = x.chunk(2, dim=-1)
     else:
         x, y = cast_inputs("swiglu", x, y)
@@ -143,7 +144,7 @@ def thresholded_relu(x, threshold=1.0, value=0.0, name=None):
 
 def maxout(x, groups, axis=1, name=None):
     """The max over each run of ``groups`` channels of ``axis``."""
-    (x,) = cast_inputs("maxout", x)
+    (x,) = cast_inputs("maxout", plain(x))
     ax = axis % x.ndim
     c = x.shape[ax]
     shape = x.shape[:ax] + (c // groups, groups) + x.shape[ax + 1:]
@@ -185,14 +186,16 @@ def prelu(x, weight, data_format="NCHW", name=None):
 def rrelu(x, lower=1.0 / 8.0, upper=1.0 / 3.0, training=False, name=None,
           generator=None):
     """Leaky ReLU whose negative slope is drawn uniformly from ``[lower,
-    upper]`` a element while training (from ``generator``, required then),
+    upper]`` a element while training (from ``generator``, or the
+    process-wide dropout generator on ``x``'s device when it is None),
     ``(lower + upper) / 2`` otherwise."""
     (x,) = cast_inputs("rrelu", x)
     if not training:
         return torch.where(x >= 0, x, (lower + upper) / 2.0 * x)
     if generator is None:
-        raise ValueError("rrelu draws its training slopes from an explicit "
-                         "torch.Generator: pass generator=")
+        from ..base import global_state
+
+        generator = global_state.dropout_generator(x.device)
     a = torch.empty(x.shape, dtype=x.dtype, device=x.device).uniform_(
         lower, upper, generator=generator)
     return torch.where(x >= 0, x, a * x)

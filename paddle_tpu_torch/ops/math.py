@@ -275,8 +275,12 @@ logit = _unop("logit", lambda x: torch.log(x / (1 - x)),
 
 
 def clip(x, min=None, max=None, name=None):  # noqa: A002
-    """``x`` held to ``[min, max]`` (op ``clip``)."""
-    return torch.clamp(_one("clip", x), c.scalar(min), c.scalar(max))
+    """``x`` held to ``[min, max]`` (op ``clip``); with neither bound,
+    ``x`` itself, as the JAX function returns it."""
+    x = _one("clip", x)
+    if min is None and max is None:
+        return x
+    return torch.clamp(x, c.scalar(min), c.scalar(max))
 
 
 def nan_to_num(x, nan=0.0, posinf=None, neginf=None, name=None):

@@ -335,8 +335,16 @@ def test_masked_route_dropout_draws_from_the_generator():
     assert torch.equal(runs[0], runs[1])
     dense = F.scaled_dot_product_attention(q, k, v, mask)
     assert not torch.equal(runs[0], dense)
-    with pytest.raises(ValueError, match="generator"):
-        F.scaled_dot_product_attention(q, k, v, mask, dropout_p=0.5)
+    # without a generator the mask comes from the process-wide dropout
+    # generator, which paddle.seed governs
+    from paddle_tpu_torch.base import global_state
+    drawn = []
+    for _ in range(2):
+        global_state.seed(5)
+        drawn.append(F.scaled_dot_product_attention(q, k, v, mask,
+                                                    dropout_p=0.5))
+    assert torch.equal(drawn[0], drawn[1])
+    assert not torch.equal(drawn[0], dense)
     # eval mode: no dropout, no generator needed
     assert torch.equal(F.scaled_dot_product_attention(
         q, k, v, mask, dropout_p=0.5, training=False), dense)
@@ -377,8 +385,12 @@ def test_presets_and_refusals():
     assert bert.bert_large().hidden_size == 1024
     assert bert.bert_base().num_hidden_layers == 12
     assert bert.bert_tiny(num_hidden_layers=12).num_hidden_layers == 12
-    with pytest.raises(NotImplementedError, match="queue 7"):
-        bert.BertModel(bert.bert_tiny(tensor_parallel=True), device="cpu")
+    # the tensor-parallel layout builds (a world of one: mp = 1)
+    from paddle_tpu_torch.distributed.fleet import mpu
+    tp = bert.BertModel(bert.bert_tiny(tensor_parallel=True), device="cpu")
+    assert isinstance(tp.encoder[0].attention.qkv, mpu.ColumnParallelLinear)
+    assert isinstance(tp.embeddings.word_embeddings,
+                      mpu.VocabParallelEmbedding)
     a = bert.BertForSequenceClassification(
         bert.bert_tiny(), device="cpu",
         generator=torch.Generator().manual_seed(5))

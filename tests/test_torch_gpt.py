@@ -65,8 +65,21 @@ def test_random_init_from_explicit_generator():
 
 
 def test_parallel_layouts_raise():
-    for layout in ("tensor_parallel", "sequence_parallel",
-                   "pipeline_parallel", "context_parallel"):
-        value = "ring" if layout == "context_parallel" else True
+    """The tensor- and context-parallel layouts build (here a world of
+    one); sequence parallelism needs tensor parallelism, pipeline
+    parallelism is not ported (queue 7 item 7.2), and the decode engines
+    refuse every parallel layout."""
+    from paddle_tpu_torch.models.gpt import check_single_device
+
+    for flags in ({"tensor_parallel": True}, {"context_parallel": "ring"},
+                  {"tensor_parallel": True, "sequence_parallel": True}):
+        cfg = gpt_tiny(**flags)
+        GPTForCausalLM(cfg, device="cpu")
         with pytest.raises(ValueError, match="single-device"):
-            GPTForCausalLM(gpt_tiny(**{layout: value}), device="cpu")
+            check_single_device(cfg)
+    with pytest.raises(ValueError, match="tensor_parallel"):
+        gpt_tiny(sequence_parallel=True)
+    with pytest.raises(ValueError, match="'ring', 'ulysses'"):
+        gpt_tiny(context_parallel="zigzag")
+    with pytest.raises(NotImplementedError, match="queue 7 item 7.2"):
+        gpt_tiny(pipeline_parallel=True)

@@ -40,6 +40,15 @@ WORKER = textwrap.dedent("""
         json.dump({k: os.environ[k] for k in keys}, f)
     if rank == os.environ.get("FAIL_RANK") and gen < int(
             os.environ.get("FAIL_GENS", "0")):
+        # the launcher stops the other ranks when this one fails: wait
+        # (up to a minute) until they have recorded theirs
+        import time
+        n = int(os.environ["PADDLE_TRAINERS_NUM"])
+        deadline = time.time() + 60
+        while time.time() < deadline and not all(os.path.exists(
+                os.path.join(out, f"rank{r}.gen{gen}.json"))
+                for r in range(n)):
+            time.sleep(0.05)
         sys.exit(3)
 """)
 

@@ -223,5 +223,11 @@ def test_unported_training_options_raise():
         assert fm.kernel_for(name, torch.float16) == name + "_sm90"
         with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
             fm.kernel_for(name, torch.float64)
-    with pytest.raises(ValueError, match="generator"):
-        F.dropout(torch.ones(4), 0.5, training=True, generator=None)
+    # no generator: the process-wide dropout generator, under paddle.seed
+    from paddle_tpu_torch.base import global_state
+    masks = []
+    for _ in range(2):
+        global_state.seed(11)
+        masks.append(F.dropout(torch.ones(64), 0.5, training=True,
+                               generator=None))
+    assert torch.equal(masks[0], masks[1])

@@ -437,14 +437,18 @@ def _data_parallel(paddle, dist, P, r, inputs):
     return out
 
 
-def start_ranks(suite: str, nproc: int, out_dir, timeout: float = 240.0):
-    """The launcher running ``suite`` on ``nproc`` gloo ranks, in the
-    background; ``collect`` waits for it and reads the ranks' results."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
+def start_ranks(suite: str, nproc: int, out_dir, timeout: float = 240.0,
+                script=None):
+    """The launcher running ``suite`` of ``script`` (default: this file)
+    on ``nproc`` gloo ranks, in the background; ``collect`` waits for it
+    and reads the ranks' results."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.dirname(os.path.abspath(__file__))]),
+        OMP_NUM_THREADS="1")
     cmd = [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
            "--nproc_per_node", str(nproc), "--log_dir",
-           os.path.join(str(out_dir), "logs"), os.path.abspath(__file__),
-           suite, str(out_dir)]
+           os.path.join(str(out_dir), "logs"),
+           script or os.path.abspath(__file__), suite, str(out_dir)]
     proc = subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.paddle_args = (suite, nproc, str(out_dir), timeout)
