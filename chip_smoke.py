@@ -9498,6 +9498,722 @@ def fleet_four_cards() -> None:
         check(res.returncode == 0, "the four-card run failed")
 
 
+# ------------------------ phase 27, pipeline parallelism and recompute
+PP_RANKS = 2  # (b): two gloo ranks share the one card, one a stage
+PP_STEPS = 3
+PP_SEED = 27  # the JAX-layout state every run of phase 27 loads
+PP_MICRO = 4  # (b)'s microbatches a step
+GPT_PP_BATCH, GPT_PP_SEQ = 8, 1024  # (b) and (a) 3: bench_gpt's batch
+# (b): each layout's name, model, config flags and the fleet entry its
+# stack runs through (None: the model's own forward)
+PP_LAYOUTS = (
+    ("llama_rotation", "llama", {}, None),
+    ("llama_interleave", "llama", {"virtual_pp_degree": 2},
+     "forward_backward_pipeline_interleave"),
+    ("gpt_1f1b", "gpt", {"pp_schedule": "1f1b"}, None),
+    ("gpt_zb", "gpt", {"pp_schedule": "zb"}, None))
+# the four-card run (not part of the one-card run):
+# python3 -c "import chip_smoke as cs; cs.pipeline_four_cards()" on 4 cards
+PP_FOUR_SEQ, PP_FOUR_MICRO = 4096, 8  # llama2_7b: 8 microbatches of 1 x 4096
+
+
+def pp_init(fleet, degrees: dict):
+    """``fleet.init`` with the mesh's ``degrees``, ``pp`` among them."""
+    st = fleet.DistributedStrategy()
+    st.hybrid_configs = {f"{ax}_degree": degrees.get(ax, 1)
+                         for ax in ("dp", "mp", "pp", "sep")}
+    fleet.init(is_collective=True, strategy=st)
+    return fleet.get_hybrid_communicate_group()
+
+
+def trainable_adamw_launches(model) -> int:
+    """AdamW kernel launches one step makes on the parameters that take a
+    gradient (a stack's template takes none)."""
+    from paddle_tpu_torch.ops.cuda import adamw
+
+    by_dtype = {}
+    for p in model.parameters():
+        if p.requires_grad:
+            by_dtype[p.dtype] = by_dtype.get(p.dtype, 0) + 1
+    return sum(math.ceil(n / adamw.MAX_TENSORS) for n in by_dtype.values())
+
+
+def pp_predicted(schedule: str, p: int, v: int, m: int, d: int,
+                 local_layers: int, rms_norms: bool, adamw: int) -> dict:
+    """The launches one step of a pipelined stack makes on stage ``d``:
+    every unit of the schedule runs each of its layers once, so with
+    ``n = local_layers`` layers a stage, K1 runs once a layer for each
+    forward unit, each forward the 1F1B backward runs again (not on the
+    last stage, whose F feeds its own B) and each recompute (one a
+    backward unit; ZB-H1's ``p − 1 − d`` drained microbatches recompute
+    twice, for their input and their weight gradients), K2 and K3 once a
+    layer for each backward pass; Llama's K4 twice a layer for every
+    forward run plus the final norm's once, its backward twice a layer for
+    every backward pass plus the final norm's, two launches a call."""
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    n = local_layers
+    fwd = m * n
+    rerun = m * n if schedule in ("1f1b", "zb") and d < p - 1 else 0
+    drained = (p - 1 - d) if schedule == "zb" else 0
+    recompute = (m + drained) * n
+    back = (m + drained) * n
+    k1 = fwd + rerun + recompute
+    k4 = (2 * k1 + 1) if rms_norms else 0
+    k4_bwd = (2 * back + 1) * rms.BWD_LAUNCHES_PER_CALL if rms_norms else 0
+    return dict(zip(FLEET_KEYS, (k1, back, back, k4, adamw, k4_bwd)))
+
+
+def recompute_blocks(fleet, blocks):
+    """Each block of ``blocks`` run under ``fleet.recompute``."""
+    for block in blocks:
+        block.forward = (lambda f: lambda x: fleet.recompute(f, x))(
+            block.forward)
+
+
+def pp_graphed(torch, llama, bare: dict) -> dict:
+    """(a) 1: a world of one over NCCL: ``fleet.distributed_model(
+    LlamaForCausalLM(llama_124m_gqa(pipeline_parallel=True)))`` at pp = 1
+    from the stacked JAX-layout state, graphed, held bit for bit to its
+    eager steps and those to the bare model's eager steps from the serial
+    state; the launches phase 12's (AdamW on the stacked tensors); one
+    replay under ``set_sync_debug_mode("error")``. (a) 2: the bare model
+    with ``fleet.recompute`` around each decoder block, graphed, bit for
+    bit the bare model's eager steps; K1 and K4 twice a layer, K2 and K3
+    once. The process group is destroyed after (a) 3."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import pipeline_schedules as ps
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    cfg = llama.llama_124m_gqa()
+    pp_cfg = llama.llama_124m_gqa(pipeline_parallel=True)
+    n = cfg.num_hidden_layers
+    hcg = pp_init(fleet, {})
+    check(hcg.get_pipe_parallel_world_size() == 1, "(a) pp is not 1")
+    serial = seeded_llama_state(torch, llama, cfg, PP_SEED)
+    stacked = ps.stacked_state(serial, "llama.layers", n, 1)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (LLAMA_BATCH, LLAMA_SEQ)).astype(np.int64)).cuda()
+    steps = GRAPH_WARMUP + TRAIN_STEPS
+    print(f"-- (a) 1 fleet.distributed_model(llama_124m_gqa(pipeline_"
+          f"parallel)) at pp = 1 over NCCL, bf16 O2, TrainStep, AdamW(1e-4),"
+          f" {LLAMA_BATCH}x{LLAMA_SEQ}; {steps} steps", flush=True)
+
+    def eager_run(c, state, wrap=None):
+        model, _, eager_step = build_train_step(
+            torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion,
+            c, wrap=wrap, state=state)
+        losses = [float(eager_step(ids)) for _ in range(steps)]
+        params = [p.detach().clone() for p in model.parameters()]
+        layout = {k: v.clone() for k, v in jax_state_dict(model).items()}
+        del model, eager_step
+        release_memory(torch)
+        return losses, params, layout
+
+    bare_losses, bare_params, bare_layout = eager_run(cfg, serial)
+    pp_losses, pp_params, pp_layout = eager_run(
+        pp_cfg, stacked, fleet.distributed_model)
+    as_serial = ps.serial_state(pp_layout, "llama.layers", n, 1)
+    same = [torch.equal(as_serial[k], v) for k, v in bare_layout.items()]
+    check(pp_losses == bare_losses and all(same) and len(as_serial) == len(
+        bare_layout), "(a) 1 the pipelined model's eager steps differ from "
+        "the bare model's")
+    print(f"(a) 1 the pipelined model's {steps} eager steps: losses and "
+          f"{len(same)} parameters (unstacked) bit for bit the bare "
+          f"model's", flush=True)
+    del bare_layout, pp_layout, as_serial
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion,
+        pp_cfg, wrap=fleet.distributed_model, state=stacked)
+    check(type(model.llama.layers).__name__ == "PipelinedStack",
+          "(a) 1 the model holds no PipelinedStack")
+    first, losses, times, counts = run_timed_steps(torch, step, (ids,))
+    peak_pp = torch.cuda.max_memory_allocated()
+    check_against_eager(torch, "(a) 1 pp = 1 graphed", first + losses,
+                        [p.detach() for p in model.parameters()],
+                        (pp_losses, pp_params))
+    adamw_step = trainable_adamw_launches(model)
+    want = llama_fleet_counts(cfg, adamw_step, 1)
+    got = dict(zip(FLEET_KEYS, counts))
+    print(f"(a) 1 launches over {TRAIN_STEPS} replays {got} (AdamW on "
+          f"{sum(p.requires_grad for p in model.parameters())} tensors, the "
+          f"stacked ones among them)", flush=True)
+    check(got == {k: v * TRAIN_STEPS for k, v in want.items()},
+          f"(a) 1 launches {got}: phase 12's are {want} a step")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        step(ids)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    print("(a) 1 a replay under set_sync_debug_mode('error'): no host sync",
+          flush=True)
+    p50 = float(np.median(times))
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+    print(f"[{card_label()}] (a) 1 step ms p50 {p50 * 1e3:.3f} (phase 12's "
+          f"bare step {bare['p50_ms']:.3f}); launches a step "
+          f"{prof['launches']:.0f} (phase 12's "
+          f"{bare['launches_per_step']:.0f}); idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; peak memory "
+          f"{peak_pp / 2**30:.2f} GiB", flush=True)
+    graphed = {"pp_p50_ms": p50 * 1e3, "pp_counts": got,
+               "pp_peak": peak_pp}
+    del model, step, pp_params
+    release_memory(torch)
+
+    # (a) 2: fleet.recompute around each block of the bare model
+    print("-- (a) 2 llama_124m_gqa with fleet.recompute around each decoder "
+          "block, graphed", flush=True)
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        state=serial, wrap=lambda m: (recompute_blocks(fleet, m.llama.layers)
+                                      or m))
+    first, losses, times, counts = run_timed_steps(torch, step, (ids,))
+    peak_rc = torch.cuda.max_memory_allocated()
+    check_against_eager(torch, "(a) 2 recompute graphed", first + losses,
+                        [p.detach() for p in model.parameters()],
+                        (bare_losses, bare_params))
+    got = dict(zip(FLEET_KEYS, counts))
+    calls = 2 * n + 1
+    want = dict(zip(FLEET_KEYS, (2 * n, n, n, 2 * (2 * n) + 1,
+                                 trainable_adamw_launches(model), calls * 2)))
+    print(f"(a) 2 launches over {TRAIN_STEPS} replays {got}: K1 and K4 "
+          f"twice a layer (the forward and its recompute), K2 and K3 "
+          f"once", flush=True)
+    check(got == {k: v * TRAIN_STEPS for k, v in want.items()},
+          f"(a) 2 launches {got}: want {want} a step")
+    p50 = float(np.median(times))
+    prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+    print(f"[{card_label()}] (a) 2 step ms p50 {p50 * 1e3:.3f} (phase 12's "
+          f"bare step {bare['p50_ms']:.3f}); launches a step "
+          f"{prof['launches']:.0f}; idle "
+          f"{1 - prof['device_ms'] / (p50 * 1e3):.1%}; peak memory "
+          f"{peak_rc / 2**30:.2f} GiB against {peak_pp / 2**30:.2f} GiB "
+          f"without recompute ((a) 1, phase 12's step)", flush=True)
+    graphed.update(rc_p50_ms=p50 * 1e3, rc_counts=got, rc_peak=peak_rc)
+    del model, step, bare_params
+    release_memory(torch)
+    return graphed
+
+
+def pp_recompute_dropout(torch, gpt) -> dict:
+    """(a) 3: gpt2_small at hidden and attention dropout 0.1, bf16 O2, 8 x
+    1024, with ``fleet.recompute`` on every block against the same model
+    without, from the same seeds (weights and dropout generators): one
+    eager forward and backward, every gradient bit for bit; then
+    ``GRAPH_WARMUP + PP_STEPS`` ``TrainStep`` steps each (the eager call,
+    the capture, replays), losses and parameters bit for bit after every
+    step; K1 twice a layer in a recomputed replay, K2 once."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    cfg = gpt.gpt2_small()
+    ids = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (GPT_PP_BATCH, GPT_PP_SEQ)).astype(
+            np.int64)).cuda()
+    print(f"-- (a) 3 gpt2_small at dropout {cfg.hidden_dropout_prob} "
+          f"(hidden and attention), bf16 O2, {GPT_PP_BATCH}x{GPT_PP_SEQ}: "
+          f"fleet.recompute on every block against none", flush=True)
+    built = []
+    for recomputed in (False, True):
+        wrap = ((lambda m: recompute_blocks(fleet, m.gpt.h) or m)
+                if recomputed else None)
+        built.append(build_train_step(
+            torch, gpt.GPTForCausalLM, gpt.GPTPretrainingCriterion, cfg,
+            dropout_seed=PP_SEED, wrap=wrap))
+    crit = gpt.GPTPretrainingCriterion(cfg)
+    grads = []
+    for model, _, _ in built:
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            logits = model(ids)
+        loss = crit(logits, ids)
+        loss.backward()
+        grads.append([loss.detach()] + [p.grad.clone()
+                                        for p in model.parameters()])
+        model.clear_gradients()
+        del logits, loss
+    same = [torch.equal(a, b) for a, b in zip(*grads)]
+    print(f"(a) 3 eager: the loss and {len(same) - 1} gradients with "
+          f"recompute bit for bit those without: {sum(same)}/{len(same)}",
+          flush=True)
+    check(all(same), "(a) 3 the recomputed gradients differ at dropout 0.1")
+    del grads
+    rows, times = [], [[], []]
+    counts = [[0, 0, 0], [0, 0, 0]]  # K1/K2/K3 over each model's replays
+    for i in range(GRAPH_WARMUP + PP_STEPS):
+        out = []
+        for j, (model, step, _) in enumerate(built):
+            before = (fa.launches, fa.dq_launches, fa.dkv_launches)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = float(step(ids))
+            torch.cuda.synchronize()
+            times[j].append(time.perf_counter() - t0)
+            out.append(loss)
+            if i >= GRAPH_WARMUP:
+                after = (fa.launches, fa.dq_launches, fa.dkv_launches)
+                for c in range(3):
+                    counts[j][c] += after[c] - before[c]
+        params = [torch.equal(a, b) for a, b in zip(
+            built[0][0].parameters(), built[1][0].parameters())]
+        rows.append((out[0] == out[1], sum(params), len(params)))
+        check(out[0] == out[1] and all(params),
+              f"(a) 3 step {i + 1}: with recompute {out[1]}, without "
+              f"{out[0]}, {sum(params)}/{len(params)} parameters equal")
+    stats = [s.stats for _, s, _ in built]
+    check(all(s == {"compiled_steps": GRAPH_WARMUP + PP_STEPS - 1,
+                    "eager_steps": 1} for s in stats), f"(a) 3 steps {stats}")
+    n = cfg.num_hidden_layers
+    plain, rc = (tuple(c) for c in counts)
+    print(f"(a) 3 {GRAPH_WARMUP + PP_STEPS} TrainStep steps each (eager, "
+          f"capture, replays): losses and parameters bit for bit after "
+          f"every step {rows}; replays' K1/K2/K3 recomputed {rc}, plain "
+          f"{plain}; step ms p50 with recompute "
+          f"{np.median(times[1][GRAPH_WARMUP:]) * 1e3:.3f}, without "
+          f"{np.median(times[0][GRAPH_WARMUP:]) * 1e3:.3f} "
+          f"[{card_label()}]", flush=True)
+    check(rc == (2 * n * PP_STEPS, n * PP_STEPS, n * PP_STEPS)
+          and plain == (n * PP_STEPS,) * 3,
+          f"(a) 3 K1/K2/K3 launches {rc} recomputed, {plain} plain over "
+          f"{PP_STEPS} replays")
+    del built
+    release_memory(torch)
+    return dict(zip(("fwd", "dq", "dkv"), rc))
+
+
+def pp_microbatch_kernels(torch) -> dict:
+    """K1–K3 at (b)'s Llama microbatch, B=1 S=2048, 12 heads from 4 KV
+    heads, D=64, bf16, causal: against their plain versions, timed beside
+    their bounds and SDPA."""
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+
+    rs = np.random.RandomState(27)
+    dev = torch.device("cuda")
+    seed = torch.tensor([20241027], dtype=torch.int32, device=dev)
+    q, k, v, do = llama_qkv(torch, rs, 1, LLAMA_SEQ, 12, 4, 64, "bfloat16")
+    errs, equal, _ = compare_backward(torch, fa, q, k, v, do, seed,
+                                      "bfloat16", 0.0)
+    t = time_attention(torch, fa, q, k, v, do, seed, "bfloat16", 0.0)
+    print(f"[{card_label()}] K1-K3 at the pipeline microbatch B=1 "
+          f"S={LLAMA_SEQ} H=12 (from 4 KV heads) D=64 bf16 causal  err "
+          + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+          + "\n    " + t["line"], flush=True)
+    del q, k, v, do
+    return {name: dict(rec, shape=f"B=1 S={LLAMA_SEQ} H=12 D=64 bfloat16 "
+                                  f"causal")
+            for name, rec in attention_records(t, errs).items()}
+
+
+def pp_references(torch, llama, gpt, out_dir) -> None:
+    """One process's references for (b), written to
+    ``out_dir/reference.pt``: the serial JAX-layout states of
+    llama_124m_gqa and of gpt2_small at dropout 0, and ``PP_STEPS`` bare
+    eager steps from each over the whole batch (losses, the JAX-layout
+    parameters after them)."""
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    ref = {}
+    for kind in ("llama", "gpt"):
+        cfg, model_cls, crit_cls, ids = pp_model(torch, llama, gpt, kind)
+        state = (seeded_llama_state(torch, llama, cfg, PP_SEED)
+                 if kind == "llama" else seeded_gpt_state(torch, gpt, cfg))
+        model, _, eager_step = build_train_step(
+            torch, model_cls, crit_cls, cfg, state=state)
+        ref[f"{kind}_serial"] = state
+        ref[f"{kind}_losses"] = [float(eager_step(ids))
+                                 for _ in range(PP_STEPS)]
+        ref[f"{kind}_params"] = {k: v.detach().float().cpu() for k, v in
+                                 jax_state_dict(model).items()}
+        del model, eager_step
+        release_memory(torch)
+    torch.save(ref, os.path.join(out_dir, "reference.pt"))
+
+
+def seeded_gpt_state(torch, gpt, cfg) -> dict:
+    """A JAX-layout state of ``cfg``'s GPT drawn from numpy seed
+    ``PP_SEED``: matrices normal with std 0.02, LayerNorm weights 1 +
+    N(0, 0.1), biases N(0, 0.02). Every tensor has a scale: a bias that
+    starts at 0 (the model's own init) and whose gradient is 0 in exact
+    arithmetic (the key bias: softmax ignores a shift along a row) moves
+    by ±LR a step by the sign of rounding noise, in one process as in a
+    pipeline, which no gate relative to its own size can hold."""
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    shapes = {k: tuple(v.shape) for k, v in jax_state_dict(
+        gpt.GPTForCausalLM(cfg, device="cpu")).items()}
+    rs = np.random.RandomState(PP_SEED)
+    return {k: ((1.0 + 0.1 * rs.standard_normal(s))
+                if len(s) == 1 and k.endswith("weight")
+                else 0.02 * rs.standard_normal(s)).astype(np.float32)
+            for k, s in shapes.items()}
+
+
+def pp_model(torch, llama, gpt, kind, **flags):
+    """(b)'s config of ``kind`` (gpt2_small at dropout 0), its classes and
+    its batch."""
+    if kind == "llama":
+        cfg = llama.llama_124m_gqa(**flags)
+        shape = (LLAMA_BATCH, LLAMA_SEQ)
+        classes = (llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion)
+    else:
+        cfg = gpt.gpt2_small(hidden_dropout_prob=0.0,
+                             attention_dropout_prob=0.0, **flags)
+        shape = (GPT_PP_BATCH, GPT_PP_SEQ)
+        classes = (gpt.GPTForCausalLM, gpt.GPTPretrainingCriterion)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, shape).astype(np.int64)).cuda()
+    return (cfg,) + classes + (ids,)
+
+
+def _through(fleet, model, entry):
+    """``model``'s trunk run with its stack through the fleet entry
+    ``entry`` (the Llama trunk's own steps: embedding, stack, norm)."""
+    trunk = model.llama
+    run = getattr(fleet, entry)
+    trunk.forward = lambda ids: trunk.norm(run(trunk.layers,
+                                               trunk.embed_tokens(ids)))
+
+
+def pp_rank_layout(torch, dist, fleet, llama, gpt, layout, ref, say) -> dict:
+    """(b) One layout over the 2 ranks at pp = 2, bf16 O2, ``PP_STEPS``
+    eager AdamW steps of ``fleet.distributed_model(model)`` under
+    ``TrainStep`` (eager on gloo) from the reference's serial state
+    stacked (``stacked_state``), every rank on the whole batch: before
+    the first step every original layer's weights (``layer_state_dict``,
+    a collective) are the serial state's; after every step the edges
+    (embedding, final norm, head) bit-equal on the ranks and the loss
+    equal; each rank's K1-K4 and AdamW launches what its schedule predicts
+    (:func:`pp_predicted`) and its most held chunk inputs within the
+    schedule's bound; rank 0 holds the losses and the parameters
+    (``jax_state_dict`` gathered over pp, unstacked) within the bf16 gate
+    of one process's. Returns this rank's launches over the steps."""
+    from paddle_tpu_torch.distributed.fleet import pipeline_schedules as ps
+    from paddle_tpu_torch.models.gpt import jax_state_dict
+
+    name, kind, flags, entry = layout
+    hcg = pp_init(fleet, {"pp": PP_RANKS})
+    r = dist.get_rank()
+    p = hcg.get_pipe_parallel_world_size()
+    cfg, model_cls, crit_cls, ids = pp_model(
+        torch, llama, gpt, kind, pipeline_parallel=True,
+        pp_num_microbatches=PP_MICRO, **flags)
+    n, v = cfg.num_hidden_layers, cfg.virtual_pp_degree
+    prefix = "llama.layers" if kind == "llama" else "gpt.h"
+    serial = ref[f"{kind}_serial"]
+    model, step, _ = build_train_step(
+        torch, model_cls, crit_cls, cfg, wrap=fleet.distributed_model,
+        state=ps.stacked_state(serial, prefix, n, p, v))
+    if entry is not None:
+        _through(fleet, model, entry)
+    stack = model.get_submodule(prefix)
+    d = stack.stage
+    linear = {pn for pn in stack._param_names
+              if "stack_" + pn.replace(".", "__") in stack.linear_weights()}
+    for idx in range(n):
+        for pname, value in stack.layer_state_dict(idx).items():
+            want = torch.from_numpy(np.asarray(
+                serial[f"{prefix}.{idx}.{pname}"]))
+            if pname in linear:
+                want = want.t()
+            check(torch.equal(value.cpu(), want.to(value.dtype)),
+                  f"(b) {name} rank {r}: layer {idx}'s {pname} from "
+                  f"layer_state_dict differs from the serial state's")
+    edges = [q for pn, q in model.named_parameters()
+             if ".stack_" not in pn and ".template." not in pn]
+    schedule = cfg.pp_schedule if kind == "gpt" else "rotation"
+    want = pp_predicted(schedule, p, v, PP_MICRO, d, stack.local_layers,
+                        kind == "llama", trainable_adamw_launches(model))
+    bound = PP_MICRO * v if schedule == "rotation" else 2 * (p - 1 - d)
+    losses, times, total = [], [], dict.fromkeys(FLEET_KEYS, 0)
+    for i in range(PP_STEPS):
+        zero_counts_fleet()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = step(ids)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        got = launch_counts()
+        check(got == want, f"(b) {name} rank {r} (stage {d}) step {i + 1}: "
+              f"launches {got}, the schedule predicts {want}")
+        for k in FLEET_KEYS:
+            total[k] += got[k]
+        check(stack.peak_saved <= bound and (
+            schedule != "rotation" or stack.peak_saved == bound),
+              f"(b) {name} rank {r}: {stack.peak_saved} chunk inputs held "
+              f"at once, the bound is {bound}")
+        value = loss.as_subclass(torch.Tensor).detach().float().reshape(1)
+        theirs = value.clone()
+        dist.broadcast(theirs, src=0)
+        check(torch.equal(value, theirs), f"(b) {name} rank {r}'s loss "
+              f"differs from rank 0's at step {i + 1}")
+        losses.append(float(value))
+        for flat in _flat_by_dtype(torch, edges):
+            theirs = flat.clone()
+            dist.broadcast(theirs, src=0)
+            check(torch.equal(flat, theirs), f"(b) {name} rank {r}'s "
+                  f"edge parameters differ from rank 0's after step "
+                  f"{i + 1}")
+    check(step.stats == {"compiled_steps": 0, "eager_steps": PP_STEPS},
+          f"(b) {name} steps {step.stats}")
+    params = ps.serial_state(jax_state_dict(model), prefix, n, p, v)
+    print(f"(b) {name} rank {r} stage {d}: {stack.local_layers} layers "
+          f"({v} chunk(s)), units a step {len(stack.trace)}, most chunk "
+          f"inputs held {stack.peak_saved} (bound {bound}); launches a step "
+          f"{want}", flush=True)
+    if r == 0:
+        want_losses = ref[f"{kind}_losses"]
+        gap = max(abs(a - b) / abs(b) for a, b in zip(losses, want_losses))
+        check(sorted(params) == sorted(ref[f"{kind}_params"]),
+              f"(b) {name}: the unstacked names differ from the serial "
+              f"model's")
+        worst, worst_name = max((bf16_gate(torch, params[k], val), k)
+                                for k, val in ref[f"{kind}_params"].items())
+        say(f"[{card_label()}] (b) {name} ({schedule}"
+            f"{', through ' + entry if entry else ''}): {len(edges)} edge "
+            f"parameters bit-equal on the ranks after each step; losses "
+            f"{losses} against one process's {want_losses} (largest "
+            f"relative gap {gap:.3g}, gate {DP_BF16_TOL}); parameters at "
+            f"{worst:.3f} of the bf16 gate at worst ({worst_name}); step ms "
+            f"{', '.join(f'{t * 1e3:.1f}' for t in times)} (eager on gloo); "
+            f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+            f"GiB")
+        check(gap <= DP_BF16_TOL and worst <= 1.0,
+              f"(b) {name}: losses {losses} against {want_losses}, "
+              f"parameters at {worst:.3f} of the gate ({worst_name})")
+    del model, step, stack, params, edges
+    release_memory(torch)
+    torch.cuda.reset_peak_memory_stats()
+    return total
+
+
+def zero_counts_fleet() -> None:
+    from paddle_tpu_torch.ops.cuda import adamw
+    from paddle_tpu_torch.ops.cuda import flash_attention as fa
+    from paddle_tpu_torch.ops.cuda import rms_norm as rms
+
+    fa.launches = fa.dq_launches = fa.dkv_launches = rms.launches = 0
+    adamw.launches = rms.bwd_launches = 0
+
+
+def pp_rank_main(out_dir: str) -> int:
+    """One rank of phase 27 (b), started by the launcher; rank 0 writes
+    its launches by layout to ``out_dir/counts.json``."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import gpt, llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_parallel_env()
+    r = dist.get_rank()
+    say = _rank_say(r)
+    t0 = time.perf_counter()
+    asked = os.environ["PADDLE_DISTRI_BACKEND"]
+    check(dist.get_backend() == asked, f"rank {r} runs "
+          f"{dist.get_backend()}, the launch asked for {asked}")
+    ref = torch.load(os.path.join(out_dir, "reference.pt"),
+                     weights_only=False)
+    counts = {}
+    for layout in PP_LAYOUTS:
+        t1 = time.perf_counter()
+        counts[layout[0]] = pp_rank_layout(torch, dist, fleet, llama, gpt,
+                                           layout, ref, say)
+        say(f"(b) {layout[0]} took {time.perf_counter() - t1:.1f} s")
+    if r == 0:
+        with open(os.path.join(out_dir, "counts.json"), "w") as f:
+            json.dump(counts, f)
+    dist.barrier()
+    say(f"ranks' work took {time.perf_counter() - t0:.1f} s")
+    dist.destroy_process_group()
+    return 0
+
+
+def pp_launched_ranks(torch, llama, gpt) -> dict:
+    """(b): two gloo ranks on the card started by the launcher (``python
+    -m paddle_tpu_torch.distributed.launch --nproc_per_node 2`` with
+    ``PADDLE_DISTRI_BACKEND=gloo``) on this script's ``--pipeline-rank``
+    mode, after this process writes one process's references. A rank's
+    failure fails the launcher, and that fails the phase. Returns rank 0's
+    launches by layout."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pp_references(torch, llama, gpt, tmp)
+        print(f"(b) one process's references took "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        env = dict(os.environ, PADDLE_DISTRI_BACKEND="gloo", PYTHONPATH=root)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", str(PP_RANKS), "--log_dir",
+             os.path.join(tmp, "logs"), os.path.abspath(__file__),
+             "--pipeline-rank", tmp],
+            env=env, cwd=root, capture_output=True, text=True, timeout=900)
+        wall = time.perf_counter() - t0
+        for r in range(PP_RANKS):
+            path = os.path.join(tmp, "logs", f"worker.{r}.log")
+            text = open(path, errors="replace").read() if os.path.exists(
+                path) else ""
+            if r == 0 or res.returncode != 0:
+                print(f"---- rank {r} of the launched job:\n"
+                      + text[-12000:].rstrip(), flush=True)
+        print(f"launcher exit {res.returncode} after {wall:.1f} s "
+              f"{res.stderr[-2000:]}", flush=True)
+        check(res.returncode == 0, f"the launched pipeline job failed (exit "
+              f"{res.returncode})")
+        with open(os.path.join(tmp, "counts.json")) as f:
+            return json.load(f)
+
+
+def phase_pipeline_parallel(torch, llama, gpt, bare: dict) -> dict:
+    """Phase 27: (a) a world of one over NCCL in this process, graphed:
+    the pp = 1 stack, recompute on Llama, recompute at dropout on GPT; K1-K3
+    at the pipeline microbatch; (b) two gloo ranks on the card through the
+    launcher, one a stage. Returns the launches of K1-K4 and AdamW on the
+    pipeline-parallel path ((a) 1's replays and rank 0's steps in (b)),
+    on the recompute path ((a) 2's and (a) 3's recomputed replays), and
+    K1-K3's records at the microbatch shape."""
+    import paddle_tpu_torch.distributed as dist
+
+    t0 = time.perf_counter()
+    print(f"== pipeline parallel and recompute [{card_label()}]", flush=True)
+    graphed = pp_graphed(torch, llama, bare)
+    dropout = pp_recompute_dropout(torch, gpt)
+    torch.cuda.synchronize()
+    dist.destroy_process_group()
+    check(not dist.is_initialized(), "the process group outlived (a)")
+    records = pp_microbatch_kernels(torch)
+    ranks = pp_launched_ranks(torch, llama, gpt)
+    print(f"phase 27 took {time.perf_counter() - t0:.1f} s", flush=True)
+    pipeline = {k: graphed["pp_counts"][k] + sum(c[k] for c in
+                                                 ranks.values())
+                for k in FLEET_KEYS}
+    recompute = {k: graphed["rc_counts"][k] + dropout.get(k, 0)
+                 for k in FLEET_KEYS}
+    print(f"phase 27 launches: pipeline parallel {pipeline}; recompute "
+          f"{recompute}", flush=True)
+    return {"pipeline_parallel": pipeline, "recompute": recompute,
+            "records": records}
+
+
+def pp_four_rank(torch, dist, fleet, llama, say) -> None:
+    """llama2_7b at full width over pp = 4 (8 of its 32 layers a stage),
+    ``PP_FOUR_MICRO`` microbatches of 1 x ``PP_FOUR_SEQ``, bf16 O2,
+    graphed (one CUDA graph a step over NCCL, the point-to-point exchanges
+    and the broadcasts inside): under ``"rotation"``, then with the stack
+    run through ``forward_backward_pipeline_1f1b``, ``FOUR_STEPS`` timed
+    replays each: the step p50, the NCCL device ms by kind, the idle share
+    against (p−1)/(m+p−1), the peak memory."""
+    pp_init(fleet, {"pp": 4})
+    layers = int(os.environ.get("PP_FOUR_LAYERS", "32"))
+    cfg = llama.llama2_7b(pipeline_parallel=True, num_hidden_layers=layers,
+                          pp_num_microbatches=PP_FOUR_MICRO)
+    t0 = time.perf_counter()
+    model, step, _ = build_train_step(
+        torch, llama.LlamaForCausalLM, llama.LlamaPretrainingCriterion, cfg,
+        wrap=fleet.distributed_model)
+    stack = model.llama.layers
+    say(f"-- llama2_7b ({layers} layers, {stack.local_layers} a stage) at "
+        f"pp = 4 over NCCL, bf16 O2, TrainStep, AdamW(1e-4), "
+        f"{PP_FOUR_MICRO} microbatches of 1x{PP_FOUR_SEQ}; built in "
+        f"{time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.parameters()) / 1e9:.3f} B "
+        f"parameters on this rank")
+    ids = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (PP_FOUR_MICRO, PP_FOUR_SEQ)).astype(
+            np.int64)).cuda()
+    bubble = 3 / (PP_FOUR_MICRO + 3)
+    for label in ("rotation", "forward_backward_pipeline_1f1b"):
+        if label != "rotation":
+            del step
+            release_memory(torch)
+            _through(fleet, model, label)
+            from paddle_tpu_torch.jit import TrainStep
+
+            step = TrainStep(model=model, optimizer=opt, loss_fn=loss_fn)
+        else:
+            opt, loss_fn = step.optimizer, step.loss_fn
+        torch.cuda.reset_peak_memory_stats()
+        first = [float(step(ids)) for _ in range(GRAPH_WARMUP)]
+        torch.cuda.synchronize()
+        stats = dict(step.stats)
+        times, losses = [], []
+        for _ in range(FOUR_STEPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            losses.append(float(step(ids)))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        ran = {k: step.stats[k] - stats[k] for k in stats}
+        check(ran == {"compiled_steps": FOUR_STEPS, "eager_steps": 0},
+              f"the timed steps {ran} did not all replay")
+        peak = torch.cuda.max_memory_allocated()
+        p50 = float(np.median(times))
+        prof = profile_steps(torch, step, (ids,), p50 * 1e3)
+        print(f"[{card_label()}] rank {dist.get_rank()} stage {stack.stage} "
+              f"llama2_7b pp = 4 {label}: losses {first + losses}; step ms "
+              f"p50 {p50 * 1e3:.3f} (min {min(times) * 1e3:.3f}, max "
+              f"{max(times) * 1e3:.3f}); device busy "
+              f"{prof['device_ms']:.3f} ms, idle "
+              f"{1 - prof['device_ms'] / (p50 * 1e3):.1%} against the "
+              f"bubble (p-1)/(m+p-1) = {bubble:.1%}; K1-K3 "
+              f"{prof['attention_ms']:.3f} ms; launches a step "
+              f"{prof['launches']:.0f}; NCCL by kind (ms, launches a step) "
+              f"{nccl_rows(prof['rows'])}; most chunk inputs held "
+              f"{stack.peak_saved}; peak memory {peak / 2**30:.2f} GiB",
+              flush=True)
+        check(all(math.isfinite(x) for x in first + losses),
+              "non-finite loss")
+    del model, step
+    release_memory(torch)
+
+
+def pp_four_rank_main() -> int:
+    """One NCCL rank of phase 27's four-card run, one card a rank."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_parallel_env()
+    say = _rank_say(dist.get_rank())
+    check(dist.get_backend() == "nccl", "the four-card run takes NCCL")
+    pp_four_rank(torch, dist, fleet, llama, say)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def pipeline_four_cards() -> None:
+    """Phase 27's four-card run on a host of four cards, one NCCL rank a
+    card and a stage: llama2_7b at pp = 4, graphed, under the rotation and
+    1F1B. Every rank's log is printed."""
+    phase_build()
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        res = subprocess.run(
+            [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+             "--nproc_per_node", "4", "--log_dir", os.path.join(tmp, "logs"),
+             os.path.abspath(__file__), "--pipeline-four-rank"],
+            env=dict(os.environ, PYTHONPATH=root), cwd=root,
+            capture_output=True, text=True, timeout=3000)
+        for r in range(4):
+            path = os.path.join(tmp, "logs", f"worker.{r}.log")
+            if os.path.exists(path):
+                print(f"---- rank {r}:\n"
+                      + open(path, errors="replace").read()[-8000:],
+                      flush=True)
+        print(f"launcher exit {res.returncode} {res.stderr[-2000:]}",
+              flush=True)
+        check(res.returncode == 0, "the four-card run failed")
+
+
 def timed(phase, *args):
     """``phase(*args)``, then its wall time printed."""
     t0 = time.perf_counter()
@@ -9567,6 +10283,8 @@ def main() -> int:
                               trained_llama)
         fleet_run = timed(phase_fleet, torch, llama, gpt, bert,
                           trained_llama)
+        pp_run = timed(phase_pipeline_parallel, torch, llama, gpt,
+                       trained_llama)
     except Exception:  # noqa: BLE001 — report the failing phase, exit 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -9602,7 +10320,9 @@ def main() -> int:
                        recurrent["launches"][key],
                    "data_parallel": data_parallel[key],
                    "tensor_parallel": fleet_run["tensor_parallel"][key],
-                   "context_parallel": fleet_run["context_parallel"][key]}
+                   "context_parallel": fleet_run["context_parallel"][key],
+                   "pipeline_parallel": pp_run["pipeline_parallel"][key],
+                   "recompute": pp_run["recompute"][key]}
         f32_by_path = ({"serve": served["launches"],
                         "batch_serve": batch["launches"],
                         "static_llama": static["static"]["launches"]["fwd"],
@@ -9638,6 +10358,9 @@ def main() -> int:
         if key == "fwd":
             entry["serve_shape"] = serve_record
         entry["llama_shape"] = records[(key, "bfloat16", 64)]
+        # B=1 S=2048 H=12 (from 4 KV heads) D=64 bf16: phase 27 (b)'s
+        # Llama microbatch
+        entry["pipeline_microbatch_shape"] = pp_run["records"][key]
         # non-causal, B=32 S=128 H=12 D=64 (phase 17 (b))
         entry["bert_shape"] = {dtype: bert_run["records"][(key, dtype)]
                                for dtype in ("bfloat16", "float32")}
@@ -9663,7 +10386,9 @@ def main() -> int:
                    "optimizer_interception": recurrent["launches"][name],
                    "data_parallel": data_parallel[name],
                    "tensor_parallel": fleet_run["tensor_parallel"][name],
-                   "context_parallel": fleet_run["context_parallel"][name]}
+                   "context_parallel": fleet_run["context_parallel"][name],
+                   "pipeline_parallel": pp_run["pipeline_parallel"][name],
+                   "recompute": pp_run["recompute"][name]}
         f32_by_path = ({"static_llama":
                         static["static"]["launches"]["rms_norm"],
                         "static_llama_loaded":
@@ -9732,7 +10457,9 @@ def main() -> int:
                "optimizer_interception": recurrent["launches"]["adamw"],
                "data_parallel": data_parallel["adamw"],
                "tensor_parallel": fleet_run["tensor_parallel"]["adamw"],
-               "context_parallel": fleet_run["context_parallel"]["adamw"]}
+               "context_parallel": fleet_run["context_parallel"]["adamw"],
+               "pipeline_parallel": pp_run["pipeline_parallel"]["adamw"],
+               "recompute": pp_run["recompute"]["adamw"]}
     kernels.append({
         "name": "adamw", "route": "cuda", "source": source + "adamw.cu",
         "replaces": "paddle_tpu/optimizer/optimizers.py:90",
@@ -9771,4 +10498,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--fleet-four-rank"]:
         # one rank of the four-card run of phase 26
         sys.exit(four_rank_main())
+    if sys.argv[1:2] == ["--pipeline-rank"]:
+        # one rank of phase 27 (b), started by the launcher
+        sys.exit(pp_rank_main(sys.argv[2]))
+    if sys.argv[1:2] == ["--pipeline-four-rank"]:
+        # one rank of the four-card run of phase 27
+        sys.exit(pp_four_rank_main())
     sys.exit(main())

@@ -30,7 +30,8 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from . import amp_lists
 
 __all__ = ["AmpState", "auto_cast", "amp_guard", "cast_inputs", "decorate",
-           "is_auto_cast_enabled", "get_amp_dtype"]
+           "is_auto_cast_enabled", "get_amp_dtype", "current_state",
+           "state_guard"]
 
 _EXEMPT = frozenset({"cast", "assign", "dropout", "getitem", "setitem"})
 _DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -110,6 +111,23 @@ def auto_cast(enable: bool = True, custom_white_list=None,
 
 
 amp_guard = auto_cast
+
+
+def current_state():
+    """The active ``auto_cast`` region's :class:`AmpState` (None outside
+    one): what a block run again later (a recompute, a pipeline unit's
+    backward) must run under to compute what it computed first."""
+    return _STATE.get()
+
+
+@contextlib.contextmanager
+def state_guard(state):
+    """``state`` (from :func:`current_state`) active inside the block."""
+    token = _STATE.set(state)
+    try:
+        yield
+    finally:
+        _STATE.reset(token)
 
 
 def is_auto_cast_enabled() -> bool:

@@ -8,12 +8,14 @@ with ``shard_batch`` and ``replicate_layer``, ``spawn``, the launcher
 rendezvous, the comm watchdog, and the sharded checkpoint
 (``checkpoint.sharded``), and ``fleet``: the tensor-, sequence- and
 context-parallel tier (``fleet.init``, the topology, the ``mpu`` layers,
-``sequence_parallel``, ring and Ulysses attention, ``distributed_model``).
-``TCPStore`` is ``torch.distributed.TCPStore``.
+``sequence_parallel``, ring and Ulysses attention, ``distributed_model``),
+pipeline parallelism (``PipelineLayer``, ``PipelinedStack`` and its
+schedules, one process a stage) and recompute. ``TCPStore`` is
+``torch.distributed.TCPStore``.
 
 Not ported yet (``ROADMAP.md``, queue 7; each raises
-``NotImplementedError`` naming it): fleet's pipeline parallelism and
-recompute (item 7.2) and sharded optimizer (item 7.3); ``auto_parallel`` and its
+``NotImplementedError`` naming it): fleet's sharded optimizer (item 7.3);
+``auto_parallel`` and its
 ``ProcessMesh``/``shard_tensor``/``reshard`` family, ``sharding``, ``ps``,
 ``rpc``, ``auto_tuner``, ``moe_utils`` and ``collective_opt``.
 """

@@ -21,14 +21,18 @@ does for the gradients:
   divided by the ``dp`` degree), upstream's dp_sep group; ``dp > 1``
   alone: averaged over ``dp``;
 - a sequence-parallel model: its marked parameters' gradients all-reduced
-  over ``mp`` (``register_sequence_parallel_allreduce_hooks``).
+  over ``mp`` (``register_sequence_parallel_allreduce_hooks``);
+- ``pp > 1``: nothing more. A pipelined model (``PipelinedStack``,
+  ``PipelineLayer``) keeps its layers' gradients on their stage and the
+  layers around the stack whole and equal on every ``pp`` rank
+  (``pipeline_schedules``); ``dp`` and ``mp`` act as above, ``DataParallel``
+  over ``dp`` covering the stage's layers and the edges alike.
 
-Not ported yet (``ROADMAP.md``, queue 7; each raises
-``NotImplementedError`` naming its item): pipeline parallelism and
-recompute (item 7.2: ``PipelineLayer``, ``LayerDesc``, ``SharedLayerDesc``,
-the ``forward_backward_pipeline_*`` schedules, ``PipelinedStack``,
-``recompute*``, ``no_recompute``) and the sharded optimizer (item 7.3:
-``distributed_optimizer`` with a sharding stage).
+Pipeline parallelism (``pipeline``, ``pipeline_schedules``: one process a
+stage) and activation recompute (``recompute``) are ported. Not ported yet
+(``ROADMAP.md``, queue 7 item 7.3; it raises ``NotImplementedError``
+naming it): the sharded optimizer (``distributed_optimizer`` with a
+sharding stage, a ``sharding_degree`` above 1).
 """
 from __future__ import annotations
 
@@ -39,6 +43,18 @@ from .. import env as env_mod
 from ..parallel import DataParallel
 from . import context_parallel, mpu, sequence_parallel  # noqa: F401
 from .context_parallel import ring_attention, ulysses_attention  # noqa: F401
+from .pipeline import (LayerDesc, PipelineLayer,  # noqa: F401
+                       PipelineParallel, SegmentLayers, SharedLayerDesc)
+from .pipeline_schedules import (  # noqa: F401
+    PipelinedStack,
+    forward_backward_pipeline_1f1b,
+    forward_backward_pipeline_eager_1f1b,
+    forward_backward_pipeline_interleave,
+    forward_backward_pipeline_rotation,
+    forward_backward_pipeline_zero_bubble,
+    schedule_cost_report,
+)
+from .recompute import no_recompute, recompute, recompute_sequential  # noqa: F401
 from .mpu import (ColumnParallelLinear, ParallelCrossEntropy,  # noqa: F401
                   RowParallelLinear, VocabParallelEmbedding,
                   get_rng_state_tracker, model_parallel_random_seed)
@@ -50,24 +66,6 @@ from .topology import (CommunicateTopology,  # noqa: F401
                        set_hybrid_communicate_group)
 
 meta_parallel = mpu  # the fleet.meta_parallel.* layer surface
-
-# JAX fleet names that wait for queue 7 item 7.2 (pipeline and recompute)
-_PIPELINE_NAMES = (
-    "PipelineLayer", "LayerDesc", "SharedLayerDesc", "PipelinedStack",
-    "forward_backward_pipeline_1f1b", "forward_backward_pipeline_eager_1f1b",
-    "forward_backward_pipeline_interleave",
-    "forward_backward_pipeline_rotation",
-    "forward_backward_pipeline_zero_bubble", "schedule_cost_report",
-    "recompute", "recompute_sequential", "no_recompute")
-
-
-def __getattr__(name):
-    if name in _PIPELINE_NAMES:
-        raise NotImplementedError(
-            f"paddle_tpu_torch.distributed.fleet.{name}: pipeline parallelism "
-            f"and recompute are not ported yet (ROADMAP.md, queue 7 item 7.2)")
-    raise AttributeError(f"module 'paddle_tpu_torch.distributed.fleet' has "
-                         f"no attribute {name!r}")
 
 
 class _Fleet:
@@ -124,11 +122,6 @@ class _Fleet:
         if hcg is None:
             self.init()
             hcg = self._hcg
-        if hcg.get_pipe_parallel_world_size() > 1:
-            raise NotImplementedError(
-                "fleet.distributed_model with pp_degree > 1: pipeline "
-                "parallelism is not ported yet (ROADMAP.md, queue 7 item "
-                "7.2)")
         if hcg.get_sharding_parallel_world_size() > 1:
             raise NotImplementedError(
                 "fleet.distributed_model with sharding_degree > 1: the "
@@ -184,4 +177,7 @@ __all__ = [
     "VocabParallelEmbedding",
     "ParallelCrossEntropy",
     "get_rng_state_tracker",
+    "recompute",
+    "PipelineLayer",
+    "LayerDesc",
 ]

@@ -1,12 +1,13 @@
 """The parallel layouts' pieces that GPT, Llama and BERT share: the
 tensor-parallel linear classes of a config, the ``sep`` place of this
 rank and its part of a sequence, the parameters that sequence parallelism
-marks, and the random stream of rank-local tensors. The fleet modules are
-imported when a layout asks for them, so a single-device model never
+marks, the random stream of rank-local tensors, the pipelined stack of a
+config's blocks and the initialization that walks it. The fleet modules
+are imported when a layout asks for them, so a single-device model never
 loads the distributed tier."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 
@@ -97,3 +98,50 @@ def shard_specs(model: torch.nn.Module) -> Dict[str, object]:
     from ..distributed.fleet.mpu import sharded_params
 
     return sharded_params(model)
+
+
+def blocks(config, factory: Callable[[], torch.nn.Module]):
+    """The decoder blocks of ``config``: a ``fleet`` ``PipelinedStack`` of
+    ``factory``'s layers under ``pipeline_parallel`` (its schedule
+    ``config.pp_schedule`` where the config has one, else ``"rotation"``),
+    else a ``ModuleList``."""
+    n = config.num_hidden_layers
+    if not config.pipeline_parallel:
+        return torch.nn.ModuleList([factory() for _ in range(n)])
+    from ..distributed.fleet.pipeline_schedules import PipelinedStack
+
+    return PipelinedStack(
+        factory, num_layers=n, num_chunks=max(config.virtual_pp_degree, 1),
+        num_microbatches=config.pp_num_microbatches or None,
+        schedule=getattr(config, "pp_schedule", "rotation"))
+
+
+def run_blocks(config, blocks_, x):
+    """``x`` through the decoder blocks (:func:`blocks`)."""
+    if config.pipeline_parallel:
+        return blocks_(x)
+    for block in blocks_:
+        x = block(x)
+    return x
+
+
+@torch.no_grad()
+def init_modules(model: torch.nn.Module,
+                 init: Callable[[str, torch.nn.Module], None]) -> None:
+    """``init(name, module)`` on every module of ``model`` in
+    ``named_modules`` order; a pipelined stack's layers are initialized as
+    a serial list's would be, layer by layer with their own module names
+    (``PipelinedStack.init_stacked``), and its template is not visited,
+    so one generator gives a pipelined model the weights of the serial
+    one."""
+    skip = None
+    for name, mod in model.named_modules():
+        if skip is not None and name.startswith(skip):
+            continue
+        stacked = getattr(mod, "init_stacked", None)
+        if stacked is not None:
+            stacked(lambda layer: [init(n, m)
+                                   for n, m in layer.named_modules()])
+            skip = f"{name}.template"
+            continue
+        init(name, mod)

@@ -30,7 +30,15 @@ The parallel layouts of the JAX model, one process a rank
   sequence (divergence), and the criterion shifts the labels over the
   whole sequence before cutting and takes the mean over every ``sep``
   rank's tokens.
-- ``pipeline_parallel`` raises (``ROADMAP.md``, queue 7 item 7.2).
+- ``pipeline_parallel``: the decoder blocks are a ``fleet``
+  ``PipelinedStack`` (``GPTModel.h``) over the ``pp`` ranks, one process a
+  stage, run by ``pp_schedule`` (``"rotation"``, ``"1f1b"``,
+  ``"eager_1f1b"``, ``"zb"``) with ``pp_num_microbatches`` (0: ``2·pp``)
+  and ``virtual_pp_degree`` chunks a stage; the embeddings, ``ln_f`` and
+  the head are whole on every ``pp`` rank, and the stack's output and its
+  input gradient are whole there too. It composes with the other layouts:
+  the template block is built with the mpu layers, so a stacked weight is
+  cut over ``pp`` on its layer dim and over ``mp`` as the block's is.
 
 Randomness is explicit. Weights are random from a ``torch.Generator``
 (normal, std ``initializer_range``, scaled by ``1/sqrt(2·layers)`` for
@@ -106,14 +114,9 @@ class GPTConfig:
 
 
 def check_layout(cfg) -> None:
-    """Raise for a GPT or Llama layout the port does not build: pipeline
-    parallelism (not ported yet), sequence parallelism without tensor
-    parallelism (it rides on the ``mp`` groups), an unknown
-    ``context_parallel``."""
-    if cfg.pipeline_parallel:
-        raise NotImplementedError(
-            "pipeline_parallel: pipeline parallelism is not ported yet "
-            "(ROADMAP.md, queue 7 item 7.2)")
+    """Raise for a GPT or Llama layout the port does not build: sequence
+    parallelism without tensor parallelism (it rides on the ``mp``
+    groups), an unknown ``context_parallel``."""
     if cfg.context_parallel not in ("", "ring", "ulysses"):
         raise ValueError(f"context_parallel {cfg.context_parallel!r}: "
                          f"'ring', 'ulysses' or ''")
@@ -263,9 +266,8 @@ class GPTModel(Layer):
         super().__init__()
         self.config = config
         self.embeddings = GPTEmbeddings(config, generator)
-        self.h = nn.ModuleList(
-            [GPTDecoderLayer(config, generator, local_generator)
-             for _ in range(config.num_hidden_layers)])
+        self.h = _parallel.blocks(config, lambda: GPTDecoderLayer(
+            config, generator, local_generator))
         self.ln_f = LayerNorm(config.hidden_size,
                               eps=config.layer_norm_epsilon)
         _parallel.mark_sequence_parallel(config, self.ln_f)
@@ -285,9 +287,7 @@ class GPTModel(Layer):
             from ..distributed.fleet.sequence_parallel import ScatterOp
 
             x = ScatterOp.apply(x)
-        for block in self.h:
-            x = block(x)
-        return self.ln_f(x)
+        return self.ln_f(_parallel.run_blocks(self.config, self.h, x))
 
 
 def lm_head_input(config, x):
@@ -346,7 +346,8 @@ class GPTForCausalLM(Layer):
         cfg = self.config
         std = cfg.initializer_range
         scaled = std / math.sqrt(2.0 * cfg.num_hidden_layers)
-        for name, mod in self.named_modules():
+
+        def init(name, mod):
             if isinstance(mod, nn.LayerNorm):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
@@ -355,6 +356,8 @@ class GPTForCausalLM(Layer):
                 _parallel.normal_(mod, "weight", s, gen)
                 if getattr(mod, "bias", None) is not None:
                     mod.bias.zero_()
+
+        _parallel.init_modules(self, init)
 
     def forward(self, input_ids, position_ids=None):
         cfg = self.config
@@ -418,8 +421,29 @@ class GPTPretrainingCriterion(Layer):
 
 
 def _linear_weights(model: nn.Module) -> set:
-    return {f"{name}.weight" for name, mod in model.named_modules()
-            if isinstance(mod, nn.Linear)}
+    """The weights kept ``[out, in]`` here and ``[in, out]`` in JAX: every
+    ``Linear``'s, and a pipelined stack's stacked ones (``[L, out, in]``
+    against ``[L, in, out]``)."""
+    out = set()
+    for name, mod in model.named_modules():
+        if isinstance(mod, nn.Linear):
+            out.add(f"{name}.weight" if name else "weight")
+        stacked = getattr(mod, "linear_weights", None)
+        if callable(stacked):
+            out.update(f"{name}.{n}" if name else n for n in stacked())
+    return out
+
+
+def _pp_stacks(model: nn.Module) -> Dict[str, nn.Module]:
+    """The stacked parameters of ``model``'s pipelined stacks (each rank
+    holds its block of the JAX stack's layer dim), by name, to their
+    stack."""
+    out = {}
+    for name, mod in model.named_modules():
+        if getattr(mod, "init_stacked", None) is not None:
+            for sn in mod._stacked_names:
+                out[f"{name}.{sn}" if name else sn] = mod
+    return out
 
 
 def _state_tensors(model: nn.Module) -> Dict[str, torch.Tensor]:
@@ -437,14 +461,17 @@ def port_state_from_jax(model: nn.Module,
     """``state`` (the JAX model's ``state_dict()`` under the JAX names, as
     numpy arrays, bf16 ones included, or tensors) in the port's layout for ``model``: each JAX
     ``Linear`` weight ``[in, out]`` transposed into torch's ``[out, in]``
-    (a view), every other tensor as it is; a parameter that ``model`` cuts
-    over ``mp`` (a tensor-parallel layout) is cut to this rank's part,
+    (a view), every other tensor as it is; a pipelined stack's stacked
+    weight (the JAX global ``[L, ...]``, in ``chunk_permutation`` order)
+    cut to this rank's block of its layer dim; a parameter that ``model``
+    cuts over ``mp`` (a tensor-parallel layout) cut to this rank's part,
     block by block for a packed projection. Every parameter and persistent
     buffer must be given, and nothing else, each at its shape; ``model`` is
     not touched."""
     linear = _linear_weights(model)
     params = _state_tensors(model)
     cut = _parallel.shard_specs(model)
+    stacks = _pp_stacks(model)
     missing = sorted(set(params) - set(state))
     unexpected = sorted(set(state) - set(params))
     if missing or unexpected:
@@ -458,8 +485,11 @@ def port_state_from_jax(model: nn.Module,
             value = (torch.from_numpy(arr.astype(np.float32)).to(
                 torch.bfloat16) if arr.dtype.name == "bfloat16"
                 else torch.tensor(arr))
+        if name in stacks:
+            lo, hi = stacks[name].block
+            value = value[lo:hi]
         if name in linear:
-            value = value.t()
+            value = value.transpose(-1, -2)
         if name in cut:
             from ..distributed.fleet.mpu import shard_of
 
@@ -495,10 +525,13 @@ def jax_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
     ``Linear`` weight as ``[in, out]``. The tensors are views of the
     model's storage (no copy), except the parameters a tensor-parallel
     model cuts over ``mp``, which are all-gathered whole (every ``mp`` rank
-    must call it); a checkpoint written from them (``save_sharded``) is in
-    the reference's layout, whichever package wrote it."""
+    must call it), and a pipelined stack's stacked ones, all-gathered
+    along their layer dim over ``pp`` (every ``pp`` rank must call it); a
+    checkpoint written from them (``save_sharded``) is in the reference's
+    layout, whichever package wrote it."""
     linear = _linear_weights(model)
     cut = _parallel.shard_specs(model)
+    stacks = _pp_stacks(model)
     out = {}
     for name, p in _state_tensors(model).items():
         value = p.detach()
@@ -506,7 +539,12 @@ def jax_state_dict(model: nn.Module) -> Dict[str, torch.Tensor]:
             from ..distributed.fleet.mpu import gather_param
 
             value = gather_param(value, cut[name])
-        out[name] = value.t() if name in linear else value
+        if name in stacks and stacks[name].num_stages > 1:
+            from ..distributed import communication
+
+            value = communication._all_gather(
+                value.contiguous(), stacks[name]._comm).flatten(0, 1)
+        out[name] = value.transpose(-1, -2) if name in linear else value
     return out
 
 

@@ -28,8 +28,10 @@ needs ``num_key_value_heads`` divisible by the ``mp`` degree. The untied
 ``lm_head`` is column-parallel and gathers the whole logits, as the JAX
 model's ``P("dp", None, None)`` does. Under ``context_parallel`` RoPE
 takes the rows of the whole sequence's table at this rank's global
-positions. ``pipeline_parallel`` raises (``ROADMAP.md``, queue 7 item
-7.2).
+positions. Under ``pipeline_parallel`` the decoder blocks are a
+``fleet`` ``PipelinedStack`` (``LlamaModel.layers``), as GPT's; the
+config has no ``pp_schedule``, as the JAX one has none, so the stack runs
+``"rotation"`` unless a ``forward_backward_pipeline_*`` call swaps it.
 """
 from __future__ import annotations
 
@@ -224,9 +226,8 @@ class LlamaModel(Layer):
         else:
             self.embed_tokens = nn.Embedding(config.vocab_size,
                                              config.hidden_size)
-        self.layers = nn.ModuleList(
-            [LlamaDecoderLayer(config, generator, local_generator)
-             for _ in range(config.num_hidden_layers)])
+        self.layers = _parallel.blocks(config, lambda: LlamaDecoderLayer(
+            config, generator, local_generator))
         self.norm = RMSNorm(config.hidden_size, epsilon=config.rms_norm_eps)
         _parallel.mark_sequence_parallel(config, self.norm)
 
@@ -239,9 +240,7 @@ class LlamaModel(Layer):
             from ..distributed.fleet.sequence_parallel import ScatterOp
 
             x = ScatterOp.apply(x)
-        for block in self.layers:
-            x = block(x)
-        return self.norm(x)
+        return self.norm(_parallel.run_blocks(self.config, self.layers, x))
 
 
 class LlamaForCausalLM(Layer):
@@ -289,12 +288,15 @@ class LlamaForCausalLM(Layer):
         cfg = self.config
         std = cfg.initializer_range
         scaled = std / math.sqrt(2.0 * cfg.num_hidden_layers)
-        for name, mod in self.named_modules():
+
+        def init(name, mod):
             if isinstance(mod, RMSNorm):
                 mod.weight.fill_(1.0)
             elif isinstance(mod, (nn.Linear, nn.Embedding)):
                 s = scaled if name.endswith(("out_proj", "down_proj")) else std
                 _parallel.normal_(mod, "weight", s, gen)
+
+        _parallel.init_modules(self, init)
 
     def forward(self, input_ids):
         cfg = self.config

@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from ...amp.auto_cast import cast_inputs
-from ...base import global_state
+from ...base import draws
 from ...ops.cuda.flash_attention import NEG_INF, flash_attention_value
 from .common import dropout as _dropout
 
@@ -36,11 +36,9 @@ __all__ = ["flash_attention", "scaled_dot_product_attention"]
 def _draw_seed(generator: Optional[torch.Generator], device) -> torch.Tensor:
     """A ``(1,)`` int32 dropout seed in [0, 2**31 - 1), drawn on ``device``
     from ``generator`` (the process-wide dropout generator on ``device``
-    when it is None); no host round trip."""
-    if generator is None:
-        generator = global_state.dropout_generator(device)
-    return torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                         device=device, dtype=torch.int32)
+    when it is None), or from the pushed draw source (``base.draws``); no
+    host round trip."""
+    return draws.seed(generator, device)
 
 
 def _xla_attention(q, k, v, causal: bool, scale: float, bias=None,

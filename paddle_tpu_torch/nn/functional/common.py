@@ -47,7 +47,7 @@ import torch
 import torch.nn.functional as TF
 
 from ...amp.auto_cast import cast_inputs
-from ...base import global_state
+from ...base import draws
 from ...ops.manipulation import pad  # noqa: F401  (F.pad, as in JAX)
 
 __all__ = ["alpha_dropout", "bilinear", "channel_shuffle",
@@ -87,10 +87,9 @@ def _keep_mask(x, p, shape, generator):
     """The keep mask of shape ``shape``, drawn from ``generator`` or, when
     it is None, from the process-wide dropout generator on ``x``'s device
     (``base.global_state.dropout_generator``, seeded by ``paddle.seed``),
-    as the layers draw."""
-    if generator is None:
-        generator = global_state.dropout_generator(x.device)
-    return torch.rand(shape, generator=generator, device=x.device) >= p
+    as the layers draw; a pushed draw source (``base.draws``: a recompute's
+    tape, a pipeline unit's stream) answers in their place."""
+    return draws.keep_mask(shape, p, generator, x.device)
 
 
 def dropout(x, p: float = 0.5, axis=None, training: bool = True,

@@ -242,10 +242,14 @@ def test_unported_names_raise_naming_queue_7():
                  "moe_utils", "collective_opt"):
         with pytest.raises(NotImplementedError, match="queue 7"):
             getattr(dist, name)
-    # fleet is ported; its pipeline and recompute names wait for item 7.2
+    # fleet is ported, pipeline and recompute too; its sharded optimizer
+    # waits for item 7.3
     for name in ("PipelineLayer", "LayerDesc", "recompute"):
-        with pytest.raises(NotImplementedError, match="queue 7 item 7.2"):
-            getattr(dist.fleet, name)
+        assert callable(getattr(dist.fleet, name))
+    st = dist.fleet.DistributedStrategy()
+    st.sharding = True
+    with pytest.raises(NotImplementedError, match="queue 7 item 7.3"):
+        dist.fleet.distributed_optimizer(object(), strategy=st)
     with pytest.raises(NotImplementedError, match="queue 7"):
         dist.all_reduce(torch.ones(2), quantized=True)
     assert dist.is_available()

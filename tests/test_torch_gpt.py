@@ -65,14 +65,21 @@ def test_random_init_from_explicit_generator():
 
 
 def test_parallel_layouts_raise():
-    """The tensor- and context-parallel layouts build (here a world of
-    one); sequence parallelism needs tensor parallelism, pipeline
-    parallelism is not ported (queue 7 item 7.2), and the decode engines
-    refuse every parallel layout."""
+    """The tensor-, context- and pipeline-parallel layouts build (here a
+    world of one, where the pipelined model is bit for bit the serial one
+    from the same generator); sequence parallelism needs tensor
+    parallelism, and the decode engines refuse every parallel layout."""
     from paddle_tpu_torch.models.gpt import check_single_device
 
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 512, (2, 8)))
+    pp, serial = (GPTForCausalLM(gpt_tiny(**flags), device="cpu",
+                                 generator=torch.Generator().manual_seed(3))
+                  for flags in ({"pipeline_parallel": True}, {}))
+    assert torch.equal(pp(ids), serial(ids))
+    assert pp.gpt.h.stack_attn__qkv_proj__weight.shape == (2, 192, 64)
     for flags in ({"tensor_parallel": True}, {"context_parallel": "ring"},
-                  {"tensor_parallel": True, "sequence_parallel": True}):
+                  {"tensor_parallel": True, "sequence_parallel": True},
+                  {"pipeline_parallel": True}):
         cfg = gpt_tiny(**flags)
         GPTForCausalLM(cfg, device="cpu")
         with pytest.raises(ValueError, match="single-device"):
@@ -81,5 +88,3 @@ def test_parallel_layouts_raise():
         gpt_tiny(sequence_parallel=True)
     with pytest.raises(ValueError, match="'ring', 'ulysses'"):
         gpt_tiny(context_parallel="zigzag")
-    with pytest.raises(NotImplementedError, match="queue 7 item 7.2"):
-        gpt_tiny(pipeline_parallel=True)

@@ -210,18 +210,23 @@ def test_train_step_matches_jax(o2, monkeypatch):
 
 
 def test_parallel_layouts_raise_and_init_is_seeded():
-    # the tensor- and context-parallel layouts build (a world of one);
-    # sequence parallelism needs tensor parallelism; pipeline parallelism
-    # is not ported (queue 7 item 7.2); a tensor-parallel rank needs whole
-    # KV heads
+    # the tensor-, context- and pipeline-parallel layouts build (a world
+    # of one; the pipelined model draws the serial one's weights from the
+    # same generator); sequence parallelism needs tensor parallelism; a
+    # tensor-parallel rank needs whole KV heads
     for flags in ({"tensor_parallel": True}, {"context_parallel": "ulysses"},
-                  {"tensor_parallel": True, "sequence_parallel": True}):
+                  {"tensor_parallel": True, "sequence_parallel": True},
+                  {"pipeline_parallel": True}):
         LlamaForCausalLM(llama_tiny(**flags), device="cpu")
         LlamaPretrainingCriterion(llama_tiny(**flags))
     with pytest.raises(ValueError, match="tensor_parallel"):
         llama_tiny(sequence_parallel=True)
-    with pytest.raises(NotImplementedError, match="queue 7 item 7.2"):
-        llama_tiny(pipeline_parallel=True)
+    pp = LlamaForCausalLM(llama_tiny(pipeline_parallel=True), device="cpu",
+                          generator=torch.Generator().manual_seed(5))
+    serial = LlamaForCausalLM(llama_tiny(), device="cpu",
+                              generator=torch.Generator().manual_seed(5))
+    ids = torch.arange(16).reshape(2, 8)
+    assert torch.equal(pp(ids), serial(ids))
     cfg = llama_tiny(num_hidden_layers=8)
     a = LlamaForCausalLM(cfg, device="cpu",
                          generator=torch.Generator().manual_seed(5))
